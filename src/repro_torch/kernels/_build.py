@@ -1,0 +1,47 @@
+"""Builds the five CUDA kernels into one PyTorch extension at first use.
+
+``torch.utils.cpp_extension.load`` compiles ``csrc/fcnn_layer.cu``,
+``csrc/softmax_xent.cu`` and ``csrc/bindings.cpp`` in one call for
+``sm_90a`` into ``build/torch_kernels/`` at the repository root (listed
+in ``.gitignore``) and imports the result.  Nothing is built when this
+module is imported: the CPU tests import every module of the package and
+have no CUDA compiler.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from types import ModuleType
+
+__all__ = ["extension", "BUILD_DIR", "SOURCES"]
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = tuple(str(_CSRC / f)
+                for f in ("fcnn_layer.cu", "softmax_xent.cu", "bindings.cpp"))
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+
+_CUDA_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
+               "-Xptxas=-v"]
+
+_loaded: dict[str, ModuleType] = {}
+
+
+def extension(verbose: bool = False) -> ModuleType:
+    """The loaded extension, built on the first call of the process.
+
+    ``verbose=True`` on that first call prints the compiler's output,
+    including ptxas's registers, shared memory and spills per kernel.
+    """
+    if "ext" not in _loaded:
+        from torch.utils.cpp_extension import load
+
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        _loaded["ext"] = load(
+            name="repro_torch_kernels",
+            sources=list(SOURCES),
+            build_directory=str(BUILD_DIR),
+            extra_cflags=["-O2"],
+            extra_cuda_cflags=_CUDA_FLAGS,
+            verbose=verbose,
+        )
+    return _loaded["ext"]

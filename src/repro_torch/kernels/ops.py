@@ -1,0 +1,122 @@
+"""Differentiable FCNN ops over the kernels, and their dispatch.
+
+``fcnn_layer`` and ``softmax_xent`` are what the model calls.  The mode:
+
+  * ``None`` (default) — the fused path: ``_FusedFCNN`` / ``_FusedXent``,
+    whose forward and backward call the kernel wrappers.  A wrapper
+    launches its CUDA kernel for CUDA tensors and runs its plain version
+    for CPU tensors, so the tensors' device picks the path.
+  * ``"cuda"`` — the fused path, and raise unless the tensors are on CUDA.
+  * ``"ref"`` — the plain versions of ``ref.py`` under ordinary autograd,
+    for comparisons only.
+
+No mode falls back to another: a failed build or launch raises.
+
+Autograd wiring (counterpart of the reference's ``jax.custom_vjp``s):
+``_FusedFCNN`` saves ``(x, w, b, y)`` — b only for the db dtype, never a
+pre-activation — and its backward runs the dgrad and wgrad kernels;
+``_FusedXent`` saves ``(logits, labels, lse)``, builds ``scale = g/B`` as
+a device fp32 vector (no host sync) and runs the dlogits kernel; labels
+get no gradient.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.fcnn_layer import (
+    fcnn_layer as _fcnn_fwd,
+    fcnn_layer_dgrad as _fcnn_dgrad,
+    fcnn_layer_wgrad as _fcnn_wgrad,
+)
+from repro_torch.kernels.softmax_xent import (
+    softmax_xent_dlogits as _xent_dlogits,
+    softmax_xent_fwd as _xent_fwd,
+)
+
+__all__ = ["fcnn_layer", "softmax_xent", "KERNELS", "launch_counts",
+           "reset_launches"]
+
+MODES = (None, "cuda", "ref")
+
+# every kernel wrapper of the FCNN path, by the name its launches report
+KERNELS = {
+    "fcnn_layer": _fcnn_fwd,
+    "fcnn_layer_dgrad": _fcnn_dgrad,
+    "fcnn_layer_wgrad": _fcnn_wgrad,
+    "softmax_xent_fwd": _xent_fwd,
+    "softmax_xent_dlogits": _xent_dlogits,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launches() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def _resolve(mode: str | None, *tensors: torch.Tensor) -> str | None:
+    if mode not in MODES:
+        raise ValueError(f"unknown kernel mode {mode!r}; one of {MODES}")
+    if mode == "cuda" and not all(t.is_cuda for t in tensors):
+        raise ValueError("mode='cuda' needs CUDA tensors")
+    return mode
+
+
+class _FusedFCNN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b, activation):
+        y = _fcnn_fwd(x, w, b, activation)
+        ctx.save_for_backward(x, w, b, y)
+        ctx.activation = activation
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, b, y = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = _fcnn_dgrad(dy, y, w, ctx.activation).to(x.dtype)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dw, db = _fcnn_wgrad(x, dy, y, ctx.activation)
+            dw, db = dw.to(w.dtype), db.to(b.dtype)
+        return dx, dw, db, None
+
+
+class _FusedXent(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, labels):
+        nll, lse = _xent_fwd(logits, labels)
+        ctx.save_for_backward(logits, labels, lse)
+        return nll.mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, lse = ctx.saved_tensors
+        b = logits.shape[0]
+        # fold the mean's 1/B and the loss cotangent into one per-row scale
+        scale = (g.to(torch.float32) / b).reshape(1).expand(b).contiguous()
+        dl = _xent_dlogits(logits, labels, lse, scale)
+        return dl.to(logits.dtype), None   # labels: integer, no grad
+
+
+def fcnn_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               activation: str = "sigmoid", *,
+               mode: str | None = None) -> torch.Tensor:
+    """act(x @ w + b), differentiable in x, w and b."""
+    if _resolve(mode, x, w, b) == "ref":
+        return _ref.fcnn_layer_ref(x, w, b, activation)
+    return _FusedFCNN.apply(x, w, b, activation)
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, *,
+                 mode: str | None = None) -> torch.Tensor:
+    """Mean softmax cross-entropy.  logits: (B, C); labels: (B,) int32."""
+    if _resolve(mode, logits, labels) == "ref":
+        return _ref.softmax_xent_fwd_ref(logits, labels)[0].mean()
+    return _FusedXent.apply(logits, labels)

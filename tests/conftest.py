@@ -31,3 +31,9 @@ except ModuleNotFoundError:
 
 settings.register_profile("ci", max_examples=25, deadline=None)
 settings.load_profile("ci")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (the port's kernels); skips where "
+                   "there is none")

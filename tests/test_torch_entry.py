@@ -1,0 +1,90 @@
+"""The port's entry points: device selection without a quiet fallback,
+the trainer at full NN1 width on the CPU, and a package that never
+imports jax or the reference package."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.launch import train_fcnn
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_resolve_device_raises_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cli_fails_without_cuda_unless_cpu_is_asked(no_cuda, capsys):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_fcnn.main(["--steps", "1"])
+    assert train_fcnn.main(["--steps", "1", "--device", "cpu"]) == 0
+    assert "final train accuracy" in capsys.readouterr().out
+
+
+def test_train_runs_full_width_nn1_on_cpu():
+    out = train_fcnn.train(arch="NN1", steps=2, device="cpu",
+                           log=lambda _: None)
+    assert [p.onoc_cores for p in out["plan"].periods][0] == 1000
+    assert len(out["losses"]) == 2
+    assert all(torch.isfinite(torch.tensor(out["losses"])))
+    assert 0.0 <= out["accuracy"] <= 1.0
+    widths = [tuple(lp["w"].shape) for lp in out["params"]["layers"]]
+    assert widths == [(784, 1000), (1000, 500), (500, 10)]
+
+
+def test_port_imports_neither_jax_nor_the_reference_package():
+    """In a fresh interpreter (this one has jax loaded already)."""
+    code = (
+        "import sys, repro_torch, repro_torch.core, repro_torch.configs, "
+        "repro_torch.data, repro_torch.kernels, repro_torch.kernels._build, "
+        "repro_torch.models.fcnn, repro_torch.optim, "
+        "repro_torch.launch.train_fcnn\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_sources_name_no_jax_or_reference_import(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots = [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots = [node.module.split(".")[0]]
+        else:
+            continue
+        assert not {"jax", "jaxlib", "repro"} & set(roots), (
+            f"{path.name}:{node.lineno} imports {roots}")
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    """Without CUDA the smoke script exits non-zero and prints no result."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         cwd=tmp_path, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
