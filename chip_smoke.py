@@ -3,26 +3,45 @@
 
   python3 chip_smoke.py
 
-Builds the five CUDA kernels of the FCNN training step from
-``src/repro_torch/kernels/csrc`` and drives the port's main path, the
-paper's NN1 (784-1000-500-10) trained with Adam, through the port's own
-entry point.  Phases, each printing its own lines; any failure raises and
-the script exits non-zero without a result line:
+Builds the seven CUDA kernels from ``src/repro_torch/kernels/csrc`` and
+drives the port's two main paths through their own entry points: the
+paper's NN1 (784-1000-500-10) trained with Adam, and Zamba2-1.2B served
+at full width in bf16.  Phases, each printing its own lines; any failure
+raises and the script exits non-zero without a result line:
 
   1. device   a CUDA card is required; its name and power limit; TF32 off
   2. build    the extension, with ptxas's per-kernel resource report
-  3. kernels  each kernel against its plain PyTorch version on the card, at
-              the NN1 and NN5 shapes and at edge shapes, with times of the
-              kernel, the plain version and one PyTorch library call
+  3. kernels  each FCNN kernel against its plain PyTorch version on the
+              card, at the NN1 and NN5 shapes and at edge shapes, with
+              times of the kernel, the plain version and one PyTorch
+              library call
   4. autograd gradients of the fused ops on NN1 against autograd of the
               plain versions
   5. train    NN1, 300 steps, batch 64, seed 0, through
               ``repro_torch.launch.train_fcnn.train``; accuracy > 0.8 and
-              every kernel launched (launch counters reset just before);
-              then a profiled window of 50 steps: device busy time per
-              step and the top device operations
+              every FCNN kernel launched (launch counters reset just
+              before); then a profiled window of 50 steps: device busy
+              time per step and the top device operations
   6. nn5      5 steps of NN5 at batch 128, kernel path against plain path
               from the same seed; losses within 1e-4
+  7. lm kernels  flash attention (K6) and the SSD intra-chunk kernel (K7)
+              against their plain versions at the Zamba2 prefill shapes
+              (bf16 and fp32, causal and not, stride-0 B/C; bf16 within
+              about one bf16 ulp) and at edge shapes, with kernel, plain,
+              SDPA and bound times
+  8. serve    Zamba2-1.2B, full width, bf16, random weights: 8 requests
+              of the ``steady`` preset with 512/1024/2048-token prompts on
+              4 slots through ``repro_torch.launch.serve.serve``; every
+              request served, K6 and K7 launched 6 and 38 times per
+              prefill (counters reset just before); TTFT/TPOT, tok/s and
+              peak memory; then a profiled 2048-token prefill and a
+              profiled decode step of 4 slots at depth 2048
+  9. parity   the full-width model's kernel path against its plain path
+              from one set of weights: fp32 prefill logits of a 512-token
+              prompt and 8 greedy decode steps within 1e-3 of the largest
+              logit; bf16 at 2048 tokens within 4e-2 of the largest
+              logit, and the greedy token equal wherever the plain top-2
+              gap exceeds twice the logit difference
 
 The last three lines are a JSON object of per-kernel numbers, the card's
 name and power limit as nvidia-smi reports them, and the result object.
@@ -39,9 +58,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM data-sheet peaks: HBM bandwidth and fp32 outside the tensor cores
+# H100 SXM data-sheet peaks: HBM bandwidth, fp32 outside the tensor cores,
+# dense bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 GEMM_RTOL = 1e-4    # fp32 sums of up to 4000 terms in another order
 XENT_ATOL = 1e-5    # nll, lse, dlogits
@@ -62,7 +83,13 @@ KERNEL_INFO = {
                          "src/repro/kernels/softmax_xent.py:111"),
     "softmax_xent_dlogits": ("src/repro_torch/kernels/csrc/softmax_xent.cu",
                              "src/repro/kernels/softmax_xent.py:172"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:72"),
+    "ssd_chunk": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                  "src/repro/kernels/ssd_scan.py:60"),
 }
+FCNN_KERNELS = tuple(KERNEL_INFO)[:5]
+LM_KERNELS = ("flash_attention", "ssd_chunk")
 
 
 class SmokeFailure(RuntimeError):
@@ -150,11 +177,12 @@ def device_ms(fn, iters: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / (replays * iters)
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    """(ms, what bounds it): the larger of bytes over the HBM rate and fp32
-    operations over the fp32 peak."""
+def bound(nbytes: float, flops: float,
+          flop_rate: float = FP32_FLOP_PER_S) -> tuple[float, str]:
+    """(ms, what bounds it): the larger of bytes over the HBM rate and the
+    operations over the peak rate of their type (fp32 by default)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -260,7 +288,7 @@ def run_kernel_phase(torch, dev) -> dict:
     summary = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                       "library_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
                       "ops_ms": 0.0, "shapes": []}
-               for name in KERNEL_INFO}
+               for name in FCNN_KERNELS}
     for (name, label, kern, plain, lib, nbytes, flops, timed,
          on_path) in kernel_cases(torch, dev, gen):
         out, want = kern(), plain()
@@ -380,6 +408,367 @@ def run_profile_phase(torch, dev) -> None:
               f" calls/step  {key[:100]}")
 
 
+# --------------------------------------------------------------- phase 7
+
+K6_FP32_RTOL = 2e-5    # of the largest output: fp32 sums in another order
+K7_FP32_RTOL = 1e-5
+# A bf16 output is held element-wise to BF16_ULP·|plain| (both sides round
+# their fp32 result to bf16: one ulp apart at most) plus a slack, and as a
+# whole to ||out − plain||_2 <= BF16_ULP·||plain||_2.  K6's slack is
+# BF16_ULP·(softmax @ |v|): the kernel rounds exp(s − running max) to bf16
+# before PV, as the TPU kernel does, where the plain version rounds the
+# normalised softmax, so each probability may differ by one rounding of
+# each.  K7's slack is 1e-3 of the largest output (fp32 sums in another
+# order).
+BF16_ULP = 2.0 ** -7
+K7_BF16_SLACK = 1e-3
+K7_BF16_STATE_RTOL = 1e-3  # fp32 state and decay from bf16 inputs
+# bf16 full-width prefill logits, kernel path against plain path, as a
+# share of the largest logit: 2.0% measured at 2048 tokens (38 layers of
+# bf16 rounding of differently ordered sums, random weights)
+BF16_LOGIT_RTOL = 4e-2
+ARCH = "zamba2-1.2b"
+SERVE_BUCKETS = (512, 1024, 2048)
+PATH_K6 = "(1,32,2048,64) bf16 causal"
+PATH_K7 = "BC=16 (128,64,64,64) bf16 stride-0 b/c"
+
+
+def _close(torch, out, want, fp32_rtol, slack) -> tuple[bool, float, str]:
+    """(ok, max abs error, criterion and margins) for one output against
+    its plain version: relative to the largest value in fp32; for a bf16
+    output, element-wise BF16_ULP·|ref| + ``slack()`` (K7_BF16_SLACK of the
+    largest value where ``slack`` is None) and norm-wise BF16_ULP."""
+    a, r = errors(out, want)
+    if out.dtype != torch.bfloat16:
+        return r <= fp32_rtol, a, f"rel<={fp32_rtol:g}"
+    o, w = out.double(), want.double()
+    extra = (K7_BF16_SLACK * w.abs().max() if slack is None
+             else slack().double())
+    worst = ((o - w).abs() / (BF16_ULP * w.abs() + extra)).max().item()
+    norm = ((o - w).norm() / w.norm()).item()
+    name = "2^-7(|ref|+P|v|)" if slack is not None else "2^-7|ref|+1e-3max"
+    ok = worst <= 1 and norm <= BF16_ULP
+    return ok, a, (f"|d|<={name} at {worst:.3f} of it, ||d||/||ref|| "
+                   f"{norm:.2e}<=2^-7")
+
+
+def lm_kernel_cases(torch, dev, gen):
+    """Yield (kernel, label, kernel call, plain call, bf16 slack or None,
+    library call or None, bytes, flops, flop rate, timed, on the serving
+    path) for phase 7.  K6's bf16 slack is BF16_ULP·(softmax @ |v|).
+    Bytes count each input read once (a stride-0 B/C once per chunk) and
+    each output written once; flops count what these inputs need (causal
+    pairs only, 2 per multiply-add), at the peak of the inputs' type."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_chunk
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def rand(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def flash_case(b, h, s, d, dtype, causal, timed):
+        # the model's layout: (B, S, H, D) projections seen as (B, H, S, D)
+        q, k, v = (rand(b, s, h, d, dtype=dtype).transpose(1, 2)
+                   for _ in range(3))
+        e = q.element_size()
+        pairs = s * (s + 1) // 2 if causal else s * s
+        rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+        label = (f"({b},{h},{s},{d}) {str(dtype)[6:]} "
+                 f"{'causal' if causal else 'full'}")
+        yield ("flash_attention", label,
+               lambda: flash_attention(q, k, v, causal),
+               lambda: ref.flash_attention_ref(q, k, v, causal),
+               lambda: BF16_ULP * ref.flash_attention_ref(
+                   q.float(), k.float(), v.float().abs(), causal),
+               lambda: sdpa(q, k, v, is_causal=causal),
+               4 * b * h * s * d * e, 4 * b * h * pairs * d, rate, timed,
+               (b, h, s, d, dtype, causal) == (1, 32, 2048, 64,
+                                               torch.bfloat16, True))
+
+    def ssd_case(bc, q, h, p, n, dtype, shared_bc, timed):
+        x = rand(bc, q, h, p, dtype=dtype)
+        dt_a = -rand(bc, q, h).abs() * 0.3
+        g = 1 if shared_bc else h
+        b = rand(bc, q, g, n, dtype=dtype).expand(bc, q, h, n)
+        c = rand(bc, q, g, n, dtype=dtype).expand(bc, q, h, n)
+        e = x.element_size()
+        pairs = q * (q + 1) // 2
+        flops = bc * h * (pairs * (2 * n + 2 * p) + 2 * q * p * n)
+        nbytes = (2 * bc * q * h * p * e + 2 * bc * q * g * n * e
+                  + bc * h * p * n * 4 + 2 * bc * q * h * 4)
+        rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+        label = (f"BC={bc} ({q},{h},{p},{n}) {str(dtype)[6:]}"
+                 f"{' stride-0 b/c' if shared_bc else ''}")
+        yield ("ssd_chunk", label,
+               lambda: ssd_chunk(x, dt_a, b, c),
+               lambda: ref.ssd_chunk_ref(x, dt_a, b, c),
+               None, None, nbytes, flops, rate, timed,
+               (bc, dtype, shared_bc) == (16, torch.bfloat16, True))
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for causal in (True, False):
+            for s in (128, 512, 1024, 2048):
+                yield from flash_case(1, 32, s, 64, dtype, causal, True)
+            for shape in ((1, 32, 8, 64), (1, 32, 100, 64), (2, 4, 300, 128),
+                          (1, 2, 128, 32), (2, 4, 256, 64), (1, 1, 64, 128)):
+                yield from flash_case(*shape, dtype, causal, False)
+        for bc in (1, 16):
+            yield from ssd_case(bc, 128, 64, 64, 64, dtype, True, True)
+        for shape in ((2, 16, 8, 8, 4), (1, 32, 4, 16, 8), (3, 8, 16, 8, 16)):
+            yield from ssd_case(*shape, dtype, False, False)
+            yield from ssd_case(*shape, dtype, True, False)
+
+
+def run_lm_kernel_phase(torch, dev) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(7)
+    summary = {name: {"max_abs_err": 0.0, "ms": None, "plain_ms": None,
+                      "library_ms": None, "bound_ms": None, "bound_by": None,
+                      "shapes": []}
+               for name in LM_KERNELS}
+    for (name, label, kern, plain, slack, lib, nbytes, flops, rate, timed,
+         on_path) in lm_kernel_cases(torch, dev, gen):
+        outs, wants = kern(), plain()
+        torch.cuda.synchronize()
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        wants = wants if isinstance(wants, tuple) else (wants,)
+        ok, worst, crit = True, 0.0, ""
+        fp32_rtol = K6_FP32_RTOL if name == "flash_attention" else K7_FP32_RTOL
+        for i, (o, w) in enumerate(zip(outs, wants)):
+            if i > 0 and o.dtype == torch.float32 and outs[0].dtype == torch.bfloat16:
+                a, r = errors(o, w)   # K7's fp32 state/decay from bf16 inputs
+                good, c = r <= K7_BF16_STATE_RTOL, f"rel<={K7_BF16_STATE_RTOL:g}"
+            else:
+                good, a, c = _close(torch, o, w, fp32_rtol, slack)
+            ok, worst = ok and good, max(worst, a)
+            crit = crit or c
+        line = (f"{name:15s} {label:40s} max_abs {worst:.3e} ({crit}) "
+                f"{'ok' if ok else 'FAIL'}")
+        summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"], worst)
+        if timed:
+            ms, plain_ms = device_ms(kern, iters=5), device_ms(plain, iters=5)
+            lib_ms = device_ms(lib, iters=5) if lib is not None else None
+            b_ms, b_by = bound(nbytes, flops, rate)
+            line += (f" | device ms: kernel {ms:.5f} plain {plain_ms:.5f} "
+                     f"library {'none' if lib_ms is None else f'{lib_ms:.5f}'}"
+                     f" bound {b_ms:.5f} ({b_by}) = {100 * b_ms / ms:.1f}% | "
+                     f"{flops / ms / 1e9:.2f} TFLOP/s, "
+                     f"{nbytes / ms / 1e6:.1f} GB/s"
+                     f"{' [serving path]' if on_path else ''}")
+            if on_path:
+                summary[name].update(ms=ms, plain_ms=plain_ms,
+                                     library_ms=lib_ms, bound_ms=b_ms,
+                                     bound_by=b_by, shapes=[label])
+        print(line, flush=True)
+        check(ok, f"{name} {label} disagrees with its plain version")
+    return summary
+
+
+# --------------------------------------------------------------- phase 8
+
+
+def run_serve_phase(torch, dev) -> dict[str, int]:
+    """Serve the full-width model through the port's entry point; return
+    the LM kernels' launch counts of that run."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import report_lines, serve
+    from repro_torch.models.zamba2 import n_shared_invocations
+    from repro_torch.serve import WallClock
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    result = serve(ARCH, scenario="steady", n_requests=8,
+                   prompt_buckets=SERVE_BUCKETS, slots=4, seed=0, device=dev,
+                   clock=WallClock())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    cfg, sc = result.cfg, result.scenario
+    for line in report_lines(result, 0, 4, 1):
+        print(line)
+    n_prefill = result.n_prefills + len(sc.prompt_buckets)   # + warmup
+    per = {"flash_attention": n_shared_invocations(cfg),
+           "ssd_chunk": cfg.n_layers}
+    print(f"prompt buckets {SERVE_BUCKETS}: "
+          f"{result.n_prefills} prefills + {len(sc.prompt_buckets)} warmup, "
+          f"{result.n_decode_steps} decode steps; wall {wall:.2f} s "
+          f"(warmup and weights included)")
+    print(f"launches in the serving run: {launches}")
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+          f" GiB (torch.cuda.max_memory_allocated)")
+    check(result.slo.n_finished == sc.n_requests,
+          f"served {result.slo.n_finished}/{sc.n_requests} requests")
+    for name in LM_KERNELS:
+        check(launches[name] == per[name] * n_prefill > 0,
+              f"{name} launched {launches[name]} times, expected "
+              f"{per[name]} per prefill x {n_prefill}")
+    return {name: launches[name] for name in LM_KERNELS}
+
+
+def run_prefill_profile(torch, dev, model, params, tokens) -> None:
+    """Where a 2048-token prefill's time goes: host ms with the profiler
+    off, then device time of K6, K7 and everything from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = {"tokens": tokens}
+    max_len = tokens.shape[1] + 16
+    reps = 3
+    with torch.inference_mode():
+        model.prefill(params, batch, max_len)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            model.prefill(params, batch, max_len)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / reps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.prefill(params, batch, max_len)
+            torch.cuda.synchronize()
+    print(f"{tokens.shape[1]}-token prefill, profiler off: {host_ms:.3f} ms "
+          f"(mean of {reps})")
+    rows = device_rows(prof)
+    if not rows:
+        print("device time: not measured (the profiler recorded no device "
+              "events)")
+        return
+    busy = sum(us for _, _, us in rows) / 1e3
+    k6 = sum(us for k, _, us in rows if "flash_fwd_kernel" in k) / 1e3
+    k7 = sum(us for k, _, us in rows if "ssd_chunk_kernel" in k) / 1e3
+    print(f"device busy {busy:.3f} ms = {100 * busy / host_ms:.1f}% of the "
+          f"profiler-off prefill; K6 flash_attention {k6:.3f} ms "
+          f"({100 * k6 / busy:.1f}% of busy), K7 ssd_chunk {k7:.3f} ms "
+          f"({100 * k7 / busy:.1f}%)")
+    for key, count, us in sorted(rows, key=lambda r: -r[2])[:12]:
+        print(f"  {us / 1e3:9.4f} ms {count:4d} calls  {key[:100]}")
+
+
+def run_decode_profile(torch, dev, model, params) -> None:
+    """Where a batched decode step's time goes: 4 slots each 2048 tokens
+    deep in a cache sized as the serving run's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    slots, depth, steps = 4, max(SERVE_BUCKETS), 10
+    cache = model.init_cache(slots, depth + 16, dev)
+    cache["len"].fill_(depth)
+    batch = {"tokens": torch.zeros((slots, 1), dtype=torch.int64, device=dev)}
+    with torch.inference_mode():
+        for _ in range(3):
+            model.decode_step(params, cache, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            model.decode_step(params, cache, batch)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / steps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                model.decode_step(params, cache, batch)
+            torch.cuda.synchronize()
+    print(f"decode step, {slots} slots at depth {depth}, profiler off: "
+          f"{host_ms:.3f} ms (mean of {steps})")
+    rows = device_rows(prof)
+    if not rows:
+        print("device time: not measured (the profiler recorded no device "
+              "events)")
+        return
+    busy = sum(us for _, _, us in rows) / 1e3 / steps
+    n_ops = sum(c for _, c, _ in rows) / steps
+    print(f"device busy {busy:.3f} ms/step over {n_ops:.0f} device "
+          f"operations/step = {100 * busy / host_ms:.1f}% of the step "
+          f"(idle {100 - 100 * busy / host_ms:.1f}%)")
+    for key, count, us in sorted(rows, key=lambda r: -r[2])[:8]:
+        print(f"  {us / 1e3 / steps:9.4f} ms/step {count / steps:6.1f} "
+              f"calls/step  {key[:90]}")
+
+
+# --------------------------------------------------------------- phase 9
+
+
+def run_parity_phase(torch, dev, model_bf16, params_bf16, tokens_2048) -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import get_model
+
+    # fp32, full width, 512-token prompt, then 8 greedy steps
+    cfg32 = get_config(ARCH).replace(dtype="float32", param_dtype="float32")
+    m32 = get_model(cfg32)
+    with torch.inference_mode():
+        p32 = m32.init(torch.Generator(device=dev).manual_seed(1), dev)
+        toks = tokens_2048[:, :512]
+        lk, ck = m32.prefill(p32, {"tokens": toks}, 528)
+        lp, cp = m32.prefill(p32, {"tokens": toks}, 528, mode="ref")
+        worst = 0.0
+        for step in range(9):
+            scale = lp.abs().max().item()
+            diff = (lk - lp).abs().max().item()
+            worst = max(worst, diff / scale)
+            print(f"fp32 {'prefill' if step == 0 else f'decode {step}'}: "
+                  f"max |dlogit| {diff:.3e} of max |logit| {scale:.3f} "
+                  f"= {diff / scale:.3e} (<= 1e-3)")
+            check(diff <= 1e-3 * scale,
+                  "fp32 kernel-path logits disagree with the plain path")
+            if step == 8:
+                break
+            tok = torch.argmax(lp[:, -1], dim=-1)[:, None]
+            lk, ck = m32.decode_step(p32, ck, {"tokens": tok})
+            lp, cp = m32.decode_step(p32, cp, {"tokens": tok})
+        for key in ("ssm", "conv", "k", "v"):
+            a, r = errors(ck[key], cp[key])
+            print(f"fp32 cache {key}: max_abs {a:.3e} max_rel {r:.3e}")
+    del p32, ck, cp
+    torch.cuda.empty_cache()
+
+    # bf16, full width, 2048-token prompt
+    with torch.inference_mode():
+        batch = {"tokens": tokens_2048}
+        lk, _ = model_bf16.prefill(params_bf16, batch, 2064)
+        lp, _ = model_bf16.prefill(params_bf16, batch, 2064, mode="ref")
+    diff = (lk - lp).abs().max().item()
+    scale = lp.abs().max().item()
+    top2 = torch.topk(lp[0, -1], 2).values
+    gap = (top2[0] - top2[1]).item()
+    tk, tp = int(torch.argmax(lk[0, -1])), int(torch.argmax(lp[0, -1]))
+    print(f"bf16 2048-token prefill: max |dlogit| {diff:.4e} of max |logit| "
+          f"{scale:.3f} = {diff / scale:.3e} (<= {BF16_LOGIT_RTOL:g}); plain "
+          f"top-2 gap {gap:.4e}; greedy token kernel {tk} plain {tp}")
+    check(diff <= BF16_LOGIT_RTOL * scale,
+          "bf16 kernel-path logits disagree with the plain path")
+    if gap > 2 * diff:
+        check(tk == tp, "bf16 greedy token differs where the top-2 gap "
+                        "exceeds twice the logit difference")
+    else:
+        print("top-2 gap within twice the logit difference: token equality "
+              "not required")
+
+
+def lm_path_phases(torch, dev) -> tuple[dict, dict]:
+    """Phases 7-9; returns (phase-7 summary, phase-8 launch counts)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import get_model
+
+    phase(7, "flash attention (K6) and SSD chunk (K7) against their plain "
+             "versions")
+    summary = run_lm_kernel_phase(torch, dev)
+
+    phase(8, "serve Zamba2-1.2B, full width, bf16, 8 requests on 4 slots")
+    launches = run_serve_phase(torch, dev)
+    cfg = get_config(ARCH)
+    model = get_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.inference_mode():
+        params = model.init(gen, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen,
+                           device=dev)
+    run_prefill_profile(torch, dev, model, params, tokens)
+    run_decode_profile(torch, dev, model, params)
+
+    phase(9, "full-width parity: kernel path against plain path")
+    run_parity_phase(torch, dev, model, params, tokens)
+    return summary, launches
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -429,8 +818,9 @@ def main() -> int:
     print(f"kernel time of one step at the NN1 shapes {per_step:.5f} ms "
           f"= {100 * per_step / out['ms_per_step']:.2f}% of ms/step")
     check(out["accuracy"] > 0.8, "NN1 failed to learn (accuracy <= 0.8)")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was never launched by the training run")
+    for name in FCNN_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was never launched by the training run")
 
     phase("5b", "where the time of an NN1 training step goes")
     run_profile_phase(torch, dev)
@@ -447,8 +837,11 @@ def main() -> int:
     print(f"max |diff| {diff:.3e} (<= 1e-4)")
     check(diff <= 1e-4, "NN5 kernel and plain losses disagree")
 
+    lm_summary, lm_launches = lm_path_phases(torch, dev)
+
     kernels = []
-    for name, (source, replaces) in KERNEL_INFO.items():
+    for name in FCNN_KERNELS:
+        source, replaces = KERNEL_INFO[name]
         s = summary[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -459,9 +852,24 @@ def main() -> int:
             else "operations",
             "library_ms": s["library_ms"],
             "shapes": s["shapes"],
+            "per": "sum over one NN1 training step",
         })
-    print("\nper-kernel numbers: device times summed over the calls of one "
-          "NN1 training step (the [NN1 step] lines of phase 3)")
+    for name in LM_KERNELS:
+        source, replaces = KERNEL_INFO[name]
+        s = lm_summary[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": lm_launches[name],
+            "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+            "bound_by": s["bound_by"], "library_ms": s["library_ms"],
+            "shapes": s["shapes"],
+            "per": "call at the 2048-token prefill shape",
+        })
+    print("\nper-kernel numbers: K1-K5 device times summed over the calls "
+          "of one NN1 training step (the [NN1 step] lines of phase 3); K6/K7 "
+          "per call at the shape of a 2048-token Zamba2 prefill (the "
+          "[serving path] lines of phase 7); launches from phases 5 and 8")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

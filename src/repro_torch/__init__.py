@@ -3,13 +3,15 @@
 The JAX package ``repro`` (beside this one under ``src/``) is the
 reference; this package imports nothing of it and never imports jax.  Its
 layout mirrors the reference's subpackages (``core``, ``configs``,
-``data``, ``kernels``, ``models``, ``optim``, ``launch``) so each module
-has an obvious counterpart.
+``data``, ``kernels``, ``models``, ``optim``, ``serve``, ``launch``) so
+each module has an obvious counterpart.
 
 Entry points run on ``cuda`` unless the caller asks for ``device="cpu"``
 (see ``repro_torch.device.resolve_device``); there is no silent CPU
 fallback.  On CUDA tensors every period of the FCNN training step goes
-through one of five hand-written CUDA kernels (``repro_torch.kernels``).
+through one of five hand-written CUDA kernels, and every Zamba2 prefill
+through two more — flash attention and the SSD intra-chunk term
+(``repro_torch.kernels``).
 """
 
 from repro_torch.device import resolve_device  # noqa: F401

@@ -1,6 +1,17 @@
-"""Configurations of the port: the paper's FCNN benchmarks NN1–NN6."""
+"""Configurations of the port: the paper's FCNN benchmarks NN1–NN6 and
+the LM architectures the port runs (importing this package registers
+them; ``get_config(name)`` / ``smoke_config(name)`` fetch them)."""
 
+from repro_torch.configs.base import (  # noqa: F401
+    ModelConfig,
+    get_config,
+    list_archs,
+    smoke_config,
+)
 from repro_torch.configs.nn_benchmarks import (  # noqa: F401
     BATCH_SIZES,
     NN_BENCHMARKS,
 )
+
+# one import per architecture — registration is a side effect
+from repro_torch.configs import zamba2_1_2b  # noqa: F401,E402

@@ -1,10 +1,11 @@
-// Python bindings of the five FCNN kernels.  The only source that includes
-// PyTorch's headers: the kernels themselves (fcnn_layer.cu, softmax_xent.cu)
-// export plain launchers that take raw pointers and a stream and return the
-// launch's cudaError_t.  The Python wrappers (kernels/fcnn_layer.py,
-// kernels/softmax_xent.py) check device, dtype, shape and contiguity and
-// allocate the outputs; these functions launch on PyTorch's current stream
-// and raise if the launch was refused.
+// Python bindings of the seven kernels.  The only source that includes
+// PyTorch's headers: the kernels themselves (fcnn_layer.cu, softmax_xent.cu,
+// flash_attention.cu, ssd_scan.cu) export plain launchers that take raw
+// pointers, strides and a stream and return the launch's cudaError_t.  The
+// Python wrappers (kernels/fcnn_layer.py, kernels/softmax_xent.py,
+// kernels/flash_attention.py, kernels/ssd_scan.py) check device, dtype,
+// shape and strides and allocate the outputs; these functions launch on
+// PyTorch's current stream and raise if the launch was refused.
 
 #include <torch/extension.h>
 #include <c10/cuda/CUDAGuard.h>
@@ -25,6 +26,15 @@ cudaError_t launch_xent_fwd(const float* logits, const int* labels, float* nll,
 cudaError_t launch_xent_dlogits(const float* logits, const int* labels,
                                 const float* lse, const float* scale, float* dx,
                                 int B, int C, cudaStream_t s);
+cudaError_t launch_flash_attention(const void* q, const void* k, const void* v,
+                                   void* o, const long long* st, int B, int H,
+                                   int S, int D, int causal, int bf16,
+                                   cudaStream_t stream);
+cudaError_t launch_ssd_chunk(const void* x, const float* dt_a, const void* b,
+                             const void* c, void* y, float* state,
+                             float* decay, const long long* st, int BC, int Q,
+                             int H, int P, int N, int bf16,
+                             cudaStream_t stream);
 
 namespace {
 
@@ -90,6 +100,40 @@ void xent_dlogits(const torch::Tensor& logits, const torch::Tensor& labels,
                "softmax_xent_dlogits");
 }
 
+// q, k, v, o (B, H, S, D), read and written through their strides
+void flash_attention(const torch::Tensor& q, const torch::Tensor& k,
+                     const torch::Tensor& v, torch::Tensor o, bool causal) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  long long st[12];
+  const torch::Tensor* ts[4] = {&q, &k, &v, &o};
+  for (int i = 0; i < 4; ++i)
+    for (int d = 0; d < 3; ++d) st[3 * i + d] = ts[i]->stride(d);
+  check_launch(launch_flash_attention(
+                   q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), st,
+                   q.size(0), q.size(1), q.size(2), q.size(3), causal,
+                   q.scalar_type() == at::kBFloat16, stream_of(q)),
+               "flash_attention");
+}
+
+// x (BC, Q, H, P), dt_a (BC, Q, H), b, c (BC, Q, H, N) through their
+// strides -> y (BC, Q, H, P), state (BC, H, P, N), decay (BC, Q, H)
+void ssd_chunk(const torch::Tensor& x, const torch::Tensor& dt_a,
+               const torch::Tensor& b, const torch::Tensor& c, torch::Tensor y,
+               torch::Tensor state, torch::Tensor decay) {
+  const c10::cuda::CUDAGuard guard(x.device());
+  long long st[12];
+  const torch::Tensor* ts[4] = {&x, &dt_a, &b, &c};
+  for (int i = 0; i < 4; ++i)
+    for (int d = 0; d < 3; ++d) st[3 * i + d] = ts[i]->stride(d);
+  check_launch(launch_ssd_chunk(x.data_ptr(), f32(dt_a), b.data_ptr(),
+                                c.data_ptr(), y.data_ptr(), f32(state),
+                                f32(decay), st, x.size(0), x.size(1),
+                                x.size(2), x.size(3), b.size(3),
+                                x.scalar_type() == at::kBFloat16,
+                                stream_of(x)),
+               "ssd_chunk");
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -98,4 +142,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("fcnn_wgrad", &fcnn_wgrad);
   m.def("xent_fwd", &xent_fwd);
   m.def("xent_dlogits", &xent_dlogits);
+  m.def("flash_attention", &flash_attention);
+  m.def("ssd_chunk", &ssd_chunk);
 }

@@ -1,0 +1,78 @@
+"""Wrapper of the flash-attention kernel (``csrc/flash_attention.cu``),
+the LM prefill's self-attention.
+
+  flash_attention  softmax(q kᵀ/√D, causal or not) v   replaces repro/kernels/flash_attention.py:72
+
+Checks device, dtype (fp32 or bf16, the same for q, k and v), shapes and
+strides, then picks by the tensors' device: on CUDA it allocates the
+output in q's memory layout, launches the kernel on the current stream
+and adds one to ``launches``; on the CPU it runs the plain version from
+``ref.py``.  The kernel reads q, k and v through their (batch, head, seq)
+strides, so transposed views of the model's (B, S, H, D) projections go
+in without a copy.  Forward only: the reference kernel has no VJP, so
+inputs that require grad are refused rather than silently detached.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.fcnn_layer import device_type
+
+__all__ = ["flash_attention", "FLOAT_DTYPES", "check_float_args"]
+
+FLOAT_DTYPES = (torch.float32, torch.bfloat16)
+MAX_HEAD_DIM = 128
+_INT32_MAX = 2**31 - 1
+
+
+def check_float_args(kernel: str, **tensors: torch.Tensor) -> torch.dtype:
+    """Raise unless every tensor is fp32 or bf16 (all of one dtype), has a
+    unit last stride and needs no gradient; return the dtype."""
+    dtypes = {t.dtype for t in tensors.values()}
+    for name, t in tensors.items():
+        if t.dtype not in FLOAT_DTYPES:
+            raise TypeError(f"{kernel}: {name} must be float32 or bfloat16, "
+                            f"got {t.dtype}")
+        if t.dim() and t.stride(-1) != 1 and t.shape[-1] != 1:
+            raise ValueError(f"{kernel}: {name} needs a unit stride in its "
+                             f"last dimension, got strides {t.stride()}")
+        if t.requires_grad and torch.is_grad_enabled():
+            raise RuntimeError(f"{kernel} is forward-only (the reference "
+                               f"kernel has no VJP); {name} requires grad")
+        if t.numel() > _INT32_MAX:
+            raise ValueError(f"{kernel}: {name} has {t.numel()} elements; "
+                             f"at most {_INT32_MAX} supported")
+    if len(dtypes) != 1:
+        raise TypeError(f"{kernel}: mixed dtypes {sorted(map(str, dtypes))}")
+    return dtypes.pop()
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """q, k, v: (B, H, S, D), any S >= 1, D <= 128 -> (B, H, S, D) in q's
+    dtype."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dim() != 4:
+            raise ValueError(f"flash_attention: {name} must be (B, H, S, D), "
+                             f"got {t.dim()}-D")
+    if not (q.shape == k.shape == v.shape):
+        raise ValueError(f"flash_attention: q, k, v shapes differ "
+                         f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}"
+                         f" (no GQA, no cross-attention)")
+    b, h, s, d = q.shape
+    if min(b, h, s, d) < 1 or d > MAX_HEAD_DIM or b * h > 65535:
+        raise ValueError(f"flash_attention: shape {tuple(q.shape)} outside "
+                         f"B·H <= 65535, S >= 1, 1 <= D <= {MAX_HEAD_DIM}")
+    check_float_args("flash_attention", q=q, k=k, v=v)
+    if device_type("flash_attention", q, k, v) == "cpu":
+        return _ref.flash_attention_ref(q, k, v, causal)
+    out = torch.empty_like(q)
+    _build.extension().flash_attention(q, k, v, out, bool(causal))
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

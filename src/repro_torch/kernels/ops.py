@@ -1,6 +1,8 @@
-"""Differentiable FCNN ops over the kernels, and their dispatch.
+"""The ops the models call over the kernels, and their dispatch.
 
-``fcnn_layer`` and ``softmax_xent`` are what the model calls.  The mode:
+``fcnn_layer`` and ``softmax_xent`` (differentiable) are what the FCNN
+calls; ``flash_attention`` and ``ssd_chunk`` (forward only: the
+reference kernels have no VJP) are what the LM prefill calls.  The mode:
 
   * ``None`` (default) — the fused path: ``_FusedFCNN`` / ``_FusedXent``,
     whose forward and backward call the kernel wrappers.  A wrapper
@@ -25,6 +27,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.flash_attention import (
+    flash_attention as _flash_attention,
+)
 from repro_torch.kernels.fcnn_layer import (
     fcnn_layer as _fcnn_fwd,
     fcnn_layer_dgrad as _fcnn_dgrad,
@@ -34,19 +39,22 @@ from repro_torch.kernels.softmax_xent import (
     softmax_xent_dlogits as _xent_dlogits,
     softmax_xent_fwd as _xent_fwd,
 )
+from repro_torch.kernels.ssd_scan import ssd_chunk as _ssd_chunk
 
-__all__ = ["fcnn_layer", "softmax_xent", "KERNELS", "launch_counts",
-           "reset_launches"]
+__all__ = ["fcnn_layer", "softmax_xent", "flash_attention", "ssd_chunk",
+           "KERNELS", "launch_counts", "reset_launches"]
 
 MODES = (None, "cuda", "ref")
 
-# every kernel wrapper of the FCNN path, by the name its launches report
+# every kernel wrapper, by the name its launches report
 KERNELS = {
     "fcnn_layer": _fcnn_fwd,
     "fcnn_layer_dgrad": _fcnn_dgrad,
     "fcnn_layer_wgrad": _fcnn_wgrad,
     "softmax_xent_fwd": _xent_fwd,
     "softmax_xent_dlogits": _xent_dlogits,
+    "flash_attention": _flash_attention,
+    "ssd_chunk": _ssd_chunk,
 }
 
 
@@ -120,3 +128,23 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, *,
     if _resolve(mode, logits, labels) == "ref":
         return _ref.softmax_xent_fwd_ref(logits, labels)[0].mean()
     return _FusedXent.apply(logits, labels)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, *,
+                    mode: str | None = None) -> torch.Tensor:
+    """softmax(q kᵀ/√D) v.  q, k, v: (B, H, S, D) -> (B, H, S, D)."""
+    if _resolve(mode, q, k, v) == "ref":
+        return _ref.flash_attention_ref(q, k, v, causal)
+    return _flash_attention(q, k, v, causal)
+
+
+def ssd_chunk(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
+              c: torch.Tensor, *, mode: str | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Intra-chunk SSD over a batch of chunks.  x (BC, Q, H, P), dt_a
+    (BC, Q, H), b, c (BC, Q, H, N) -> (y_diag, state (BC, H, P, N),
+    decay (BC, Q, H))."""
+    if _resolve(mode, x, dt_a, b, c) == "ref":
+        return _ref.ssd_chunk_ref(x, dt_a, b, c)
+    return _ssd_chunk(x, dt_a, b, c)

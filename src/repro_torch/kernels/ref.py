@@ -1,4 +1,6 @@
-"""Plain PyTorch versions of the five FCNN kernels.
+"""Plain PyTorch versions of the seven kernels: the five of the FCNN
+training step and the two of the LM prefill (flash attention, the SSD
+intra-chunk term).
 
 Each function computes what its CUDA kernel computes, with PyTorch ops in
 fp32.  The kernel wrappers run these for tensors on the CPU, ``ops``
@@ -8,6 +10,8 @@ holds each kernel against its plain version on the card.  Counterparts:
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -20,6 +24,8 @@ __all__ = [
     "fcnn_layer_wgrad_ref",
     "softmax_xent_fwd_ref",
     "softmax_xent_dlogits_ref",
+    "flash_attention_ref",
+    "ssd_chunk_ref",
 ]
 
 ACTIVATIONS = ("sigmoid", "relu", "tanh", "none")
@@ -96,3 +102,47 @@ def softmax_xent_dlogits_ref(logits: torch.Tensor, labels: torch.Tensor,
     p = torch.exp(x - lse[:, None])
     onehot = torch.nn.functional.one_hot(labels.long(), x.shape[1]).float()
     return ((p - onehot) * scale[:, None]).to(logits.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """q, k, v: (B, H, S, D) -> (B, H, S, D) in q's dtype; softmax in fp32,
+    probabilities rounded to v's dtype before the PV product."""
+    d = q.shape[-1]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(d)
+    if causal:
+        sq, sk = q.shape[2], k.shape[2]
+        mask = torch.ones((sq, sk), dtype=torch.bool,
+                          device=q.device).tril(sk - sq)
+        s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
+    return o.to(q.dtype)
+
+
+def ssd_chunk_ref(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
+                  c: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Intra-chunk SSD for a batch of chunks (the reference's per-chunk
+    oracle mapped over the leading axis).
+
+    x: (BC, Q, H, P); dt_a: (BC, Q, H); b, c: (BC, Q, H, N) (groups
+    broadcast to heads; stride-0 views are fine).  Returns
+    (y_diag (BC, Q, H, P) in x's dtype, chunk_state (BC, H, P, N) fp32,
+    decay_out (BC, Q, H) fp32):
+      y_diag[t]    = sum_{s<=t} C_t·B_s exp(cs_t − cs_s) x_s
+      chunk_state  = sum_s exp(cs_{Q-1} − cs_s) B_s x_sᵀ
+      decay_out[t] = exp(cs_t),   cs = cumsum(dt_a) in fp32
+    """
+    q = x.shape[1]
+    xf, bf, cf = x.float(), b.float(), c.float()
+    cs = torch.cumsum(dt_a.float(), dim=1)                     # (BC, Q, H)
+    seg = cs[:, :, None, :] - cs[:, None, :, :]                # (BC, Q, Q, H)
+    mask = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    lmat = torch.where(mask[None, :, :, None], torch.exp(seg),
+                       torch.zeros((), device=x.device))
+    scores = torch.einsum("bthn,bshn->btsh", cf, bf)
+    y = torch.einsum("btsh,bshp->bthp", scores * lmat, xf)
+    decay_state = torch.exp(cs[:, -1:, :] - cs)                # (BC, Q, H)
+    state = torch.einsum("bshn,bsh,bshp->bhpn", bf, decay_state, xf)
+    return y.to(x.dtype), state, torch.exp(cs)

@@ -1,0 +1,64 @@
+"""Wrapper of the Mamba2 SSD intra-chunk kernel (``csrc/ssd_scan.cu``).
+
+  ssd_chunk  (y_diag, chunk state, exp(cumsum dt_a)) per chunk   replaces repro/kernels/ssd_scan.py:60
+
+Checks device, dtype (x, b and c fp32 or bf16, of one dtype; dt_a
+fp32), shapes and strides, then picks by the tensors' device: on
+CUDA it allocates the three outputs, launches the kernel on the current
+stream (all chunks and heads in one launch) and adds one to ``launches``;
+on the CPU it runs the plain version from ``ref.py``.  b and c are read
+through their strides, so one group broadcast to every head is an
+``expand``ed view with a head stride of 0 and is never copied.  Forward
+only, as the reference kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.fcnn_layer import device_type
+from repro_torch.kernels.flash_attention import check_float_args
+
+__all__ = ["ssd_chunk"]
+
+MAX_CHUNK = 128
+MAX_DIM = 64    # P and N
+
+
+def ssd_chunk(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
+              c: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x (BC, Q, H, P), dt_a (BC, Q, H), b, c (BC, Q, H, N) ->
+    (y_diag (BC, Q, H, P) in x's dtype, state (BC, H, P, N) fp32,
+    decay (BC, Q, H) fp32)."""
+    if x.dim() != 4 or dt_a.dim() != 3 or b.dim() != 4 or c.dim() != 4:
+        raise ValueError("ssd_chunk: x, b, c must be 4-D and dt_a 3-D")
+    bc, q, h, p = x.shape
+    n = b.shape[-1]
+    if tuple(dt_a.shape) != (bc, q, h):
+        raise ValueError(f"ssd_chunk: dt_a has shape {tuple(dt_a.shape)}, "
+                         f"expected {(bc, q, h)}")
+    for name, t in (("b", b), ("c", c)):
+        if tuple(t.shape) != (bc, q, h, n):
+            raise ValueError(f"ssd_chunk: {name} has shape {tuple(t.shape)}, "
+                             f"expected {(bc, q, h, n)}")
+    if (min(bc, q, h, p, n) < 1 or bc > 65535 or q > MAX_CHUNK
+            or p > MAX_DIM or n > MAX_DIM):
+        raise ValueError(f"ssd_chunk: x {tuple(x.shape)}, N = {n} outside "
+                         f"BC <= 65535, Q <= {MAX_CHUNK}, P, N <= {MAX_DIM}")
+    check_float_args("ssd_chunk", x=x, b=b, c=c)
+    if dt_a.dtype != torch.float32:
+        raise TypeError(f"ssd_chunk: dt_a must be float32, got {dt_a.dtype}")
+    if device_type("ssd_chunk", x, dt_a, b, c) == "cpu":
+        return _ref.ssd_chunk_ref(x, dt_a, b, c)
+    y = torch.empty((bc, q, h, p), device=x.device, dtype=x.dtype)
+    state = torch.empty((bc, h, p, n), device=x.device, dtype=torch.float32)
+    decay = torch.empty((bc, q, h), device=x.device, dtype=torch.float32)
+    _build.extension().ssd_chunk(x, dt_a, b, c, y, state, decay)
+    ssd_chunk.launches += 1
+    return y, state, decay
+
+
+ssd_chunk.launches = 0

@@ -1,0 +1,246 @@
+"""Shared LM primitives in PyTorch, counterpart of the reference
+``repro/models/layers.py`` (the subset the Zamba2 serving path runs).
+
+Conventions, as in the reference:
+  * params are dicts of tensors with the reference's names and layouts,
+    so ``params_from_numpy`` takes its pytree unchanged;
+  * activations run in the config's dtype; products accumulate in fp32 and
+    are rounded to the activation dtype (what ``preferred_element_type``
+    then ``astype`` does in the reference); norms, RoPE and softmax in
+    fp32; logits in fp32.
+  * initializers draw on an explicit ``torch.Generator`` and place the
+    tensors on ``device``.
+
+The causal self-attention of prefill goes through ``ops.flash_attention``
+(the flash kernel, K6) at every length: it computes both the reference's
+masked ``_sdpa`` and its kv-chunked twin ``_sdpa_chunked_causal``.  What
+K6 does not take — GQA, a sliding window shorter than the sequence —
+raises ``NotImplementedError``, and cross-attention (the reference's
+``kv_override``) has no parameter yet; those paths are queued in
+ROADMAP.md with the dense and enc-dec slices.  Decode
+attention (one query against the cache) stays plain PyTorch, as the
+reference computes it outside any kernel.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.kernels import ops
+
+__all__ = [
+    "init_rms_norm", "rms_norm", "dense", "init_embedding",
+    "embed", "unembed", "rope_freqs", "apply_rope", "init_attention",
+    "attention", "prefill_attention_kv", "decode_attention", "init_mlp",
+    "mlp", "normal",
+]
+
+Params = dict[str, Any]
+
+
+def normal(generator: torch.Generator, shape: tuple[int, ...], scale: float,
+           dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """N(0, scale²) drawn in fp32 on ``device`` from ``generator``, then
+    cast to ``dtype`` (the reference's ``normal(key, shape) * s`` then
+    ``astype``)."""
+    w = torch.randn(shape, generator=generator, device=device,
+                    dtype=torch.float32)
+    return (w * scale).to(dtype)
+
+
+# --------------------------------------------------------------------------
+# norms
+# --------------------------------------------------------------------------
+
+def init_rms_norm(d: int, dtype: torch.dtype, device: torch.device) -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * p["scale"].float()).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# dense
+# --------------------------------------------------------------------------
+
+def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
+    y = torch.matmul(x, p["w"].to(x.dtype))
+    if "b" in p:
+        y = (y.float() + p["b"].float()).to(x.dtype)
+    return y
+
+
+# --------------------------------------------------------------------------
+# embeddings
+# --------------------------------------------------------------------------
+
+def init_embedding(generator: torch.Generator, vocab: int, d: int,
+                   dtype: torch.dtype, device: torch.device) -> Params:
+    return {"w": normal(generator, (vocab, d), 0.02, dtype, device)}
+
+
+def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """Row gather.  tokens: (B, L) integer -> (B, L, d)."""
+    return p["w"][tokens.long()]
+
+
+def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """(…, d) -> (…, V) fp32 logits (bf16 operands multiplied in fp32)."""
+    return torch.matmul(x.float(), p["w"].float().t())
+
+
+# --------------------------------------------------------------------------
+# RoPE
+# --------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float,
+               device: torch.device | None = None) -> torch.Tensor:
+    """(head_dim/2,) inverse frequencies, computed in float64 and used in
+    fp32 as the reference's numpy constant is; made on ``device`` (no
+    host-to-device copy, which would wait for the device)."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float64,
+                        device=device) / head_dim
+    return (1.0 / theta ** exps).to(torch.float32)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, L, H, D); positions: (B, L)."""
+    d = x.shape[-1]
+    inv = rope_freqs(d, theta, x.device)
+    ang = positions[..., None].float() * inv           # (B, L, D/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# attention (RoPE, causal; no GQA in this slice)
+# --------------------------------------------------------------------------
+
+def init_attention(generator: torch.Generator, d_model: int, n_heads: int,
+                   n_kv_heads: int, head_dim: int, dtype: torch.dtype,
+                   device: torch.device) -> Params:
+    s_q = 1.0 / math.sqrt(d_model)
+    s_o = 1.0 / math.sqrt(n_heads * head_dim)
+    return {
+        "wq": normal(generator, (d_model, n_heads, head_dim), s_q, dtype, device),
+        "wk": normal(generator, (d_model, n_kv_heads, head_dim), s_q, dtype, device),
+        "wv": normal(generator, (d_model, n_kv_heads, head_dim), s_q, dtype, device),
+        "wo": normal(generator, (n_heads, head_dim, d_model), s_o, dtype, device),
+    }
+
+
+def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bld,dhk->blhk") rounded to x's dtype."""
+    d, h, k = w.shape
+    return torch.matmul(x, w.reshape(d, h * k).to(x.dtype)).unflatten(-1, (h, k))
+
+
+def _project_qkv(p: Params, x: torch.Tensor, positions: torch.Tensor,
+                 theta: float) -> tuple[torch.Tensor, ...]:
+    q = apply_rope(_heads(x, p["wq"]), positions, theta)
+    k = apply_rope(_heads(x, p["wk"]), positions, theta)
+    v = _heads(x, p["wv"])
+    return q, k, v
+
+
+def _out_proj(p: Params, out: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """einsum("blhd,hdm->blm") rounded to ``dtype``."""
+    h, d, m = p["wo"].shape
+    return torch.matmul(out.flatten(-2), p["wo"].reshape(h * d, m).to(dtype))
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          mask: torch.Tensor) -> torch.Tensor:
+    """q: (B, Lq, H, D); k, v: (B, Lk, KV, D); mask broadcast to
+    (B, KV, G, Lq, Lk).  GQA by head grouping; softmax in fp32, weights
+    rounded to v's dtype before the PV product."""
+    b, lq, h, d = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    qg = q.reshape(b, lq, kv, g, d)
+    logits = torch.einsum("blkgd,bmkd->bkglm", qg.float(), k.float())
+    logits = logits / math.sqrt(d)
+    logits = torch.where(mask, logits, torch.full((), -1e30,
+                                                  device=logits.device))
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkglm,bmkd->blkgd", w.to(v.dtype).float(), v.float())
+    return out.reshape(b, lq, h, d).to(q.dtype)
+
+
+def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
+              theta: float, causal: bool = True, window: int = 0,
+              mode: str | None = None) -> torch.Tensor:
+    """Full-sequence (prefill) self-attention through the flash kernel.
+    x: (B, L, d); positions: (B, L)."""
+    q, k, v = _project_qkv(p, x, positions, theta)
+    lk = k.shape[1]
+    if q.shape[2] != k.shape[2]:
+        raise NotImplementedError(
+            "attention with GQA (n_kv_heads < n_heads) is not in the flash "
+            "kernel's contract yet; queued in ROADMAP.md (dense slice)")
+    if causal and 0 < window < lk:
+        raise NotImplementedError(
+            f"prefill of {lk} tokens beyond attn_window={window} needs the "
+            f"windowed mask; queued in ROADMAP.md")
+    # (B, L, H, D) -> (B, H, L, D) views; the kernel reads them strided
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal, mode=mode)
+    return _out_proj(p, out.transpose(1, 2), x.dtype)
+
+
+def prefill_attention_kv(p: Params, x: torch.Tensor, positions: torch.Tensor,
+                         *, theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(k, v) for cache seeding."""
+    _, k, v = _project_qkv(p, x, positions, theta)
+    return k, v
+
+
+def decode_attention(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, cache_len: torch.Tensor,
+                     positions: torch.Tensor, *, theta: float,
+                     write_pos: torch.Tensor):
+    """One decode step.  x: (B, 1, d); cache_k/v: (B, S, KV, D); cache_len,
+    write_pos: (B,), 0 <= write_pos < S.  Writes the new k, v into the
+    caches IN PLACE at ``write_pos`` (no copy of the cache per step) and
+    attends over every position <= ``cache_len``.  Returns (y, cache_k,
+    cache_v)."""
+    q, k, v = _project_qkv(p, x, positions, theta)
+    rows = torch.arange(x.shape[0], device=x.device)
+    wp = write_pos.long()
+    cache_k[rows, wp] = k[:, 0].to(cache_k.dtype)
+    cache_v[rows, wp] = v[:, 0].to(cache_v.dtype)
+    idx = torch.arange(cache_k.shape[1], device=x.device)[None, :]
+    mask = idx <= cache_len[:, None]
+    out = _sdpa(q, cache_k, cache_v, mask[:, None, None, None, :])
+    return _out_proj(p, out, x.dtype), cache_k, cache_v
+
+
+# --------------------------------------------------------------------------
+# MLP (SwiGLU)
+# --------------------------------------------------------------------------
+
+def init_mlp(generator: torch.Generator, d_model: int, d_ff: int,
+             dtype: torch.dtype, device: torch.device) -> Params:
+    s_in, s_out = 1.0 / math.sqrt(d_model), 1.0 / math.sqrt(d_ff)
+    return {
+        "w_gate": normal(generator, (d_model, d_ff), s_in, dtype, device),
+        "w_up": normal(generator, (d_model, d_ff), s_in, dtype, device),
+        "w_down": normal(generator, (d_ff, d_model), s_out, dtype, device),
+    }
+
+
+def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    g = torch.matmul(x, p["w_gate"].to(x.dtype))
+    u = torch.matmul(x, p["w_up"].to(x.dtype))
+    h = (torch.nn.functional.silu(g.float()) * u.float()).to(x.dtype)
+    return torch.matmul(h, p["w_down"].to(x.dtype))

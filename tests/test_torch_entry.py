@@ -1,8 +1,9 @@
 """The port's entry points: device selection without a quiet fallback,
-the trainer at full NN1 width on the CPU, and a package that never
-imports jax or the reference package."""
+the trainer at full NN1 width and the Zamba2 serving CLI on the CPU, and
+a package that never imports jax or the reference package."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.launch import serve as serve_cli
 from repro_torch.launch import train_fcnn
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -39,6 +41,40 @@ def test_cli_fails_without_cuda_unless_cpu_is_asked(no_cuda, capsys):
     assert "final train accuracy" in capsys.readouterr().out
 
 
+def _serve_cli(*args):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "zamba2-1.2b", "--smoke", "--requests", "3", "--slots", "2", *args],
+        env=env, capture_output=True, text=True, timeout=300)
+
+
+def test_serve_cli_fails_without_cuda_unless_cpu_is_asked():
+    res = _serve_cli()
+    assert res.returncode != 0
+    assert "no CUDA device" in res.stderr
+    res = _serve_cli("--device", "cpu")
+    assert res.returncode == 0, res.stderr
+    assert "zamba2-1.2b-smoke · scenario=steady" in res.stdout
+    assert "served 3/3 requests" in res.stdout
+
+
+def test_serve_cli_in_process_writes_the_json_report(no_cuda, tmp_path,
+                                                     capsys):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_cli.main(["--arch", "zamba2-1.2b", "--smoke"])
+    out = tmp_path / "report.json"
+    assert serve_cli.main(["--arch", "zamba2-1.2b", "--smoke", "--device",
+                           "cpu", "--scenario", "device-loss-mid-decode",
+                           "--requests", "6", "--json", str(out)]) == 0
+    text = capsys.readouterr().out
+    assert "replan[device_loss] devices 1->1" in text
+    report = json.loads(out.read_text())
+    assert report["slo"]["n_finished"] == 6
+    assert [r["reason"] for r in report["replans"]] == ["device_loss"]
+
+
 def test_train_runs_full_width_nn1_on_cpu():
     out = train_fcnn.train(arch="NN1", steps=2, device="cpu",
                            log=lambda _: None)
@@ -56,7 +92,9 @@ def test_port_imports_neither_jax_nor_the_reference_package():
         "import sys, repro_torch, repro_torch.core, repro_torch.configs, "
         "repro_torch.data, repro_torch.kernels, repro_torch.kernels._build, "
         "repro_torch.models.fcnn, repro_torch.optim, "
-        "repro_torch.launch.train_fcnn\n"
+        "repro_torch.launch.train_fcnn, repro_torch.models.api, "
+        "repro_torch.models.zamba2, repro_torch.serve, "
+        "repro_torch.launch.serve\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -6,7 +6,8 @@ device; the file imports no jax, so it runs on a machine without it:
 
 Tolerances: 1e-4 relative to the largest output for the GEMMs (fp32 sums
 of up to 4000 terms taken in another order than cuBLAS's), 1e-5 for
-nll/lse/dlogits.
+nll/lse/dlogits; the LM prefill kernels' are stated with their tests
+below.
 """
 
 import numpy as np
@@ -103,10 +104,111 @@ def test_fused_ops_launch_the_kernels_on_card(cuda):
     counts = ops.launch_counts()
     assert counts == {"fcnn_layer": 1, "fcnn_layer_dgrad": 0,
                       "fcnn_layer_wgrad": 1, "softmax_xent_fwd": 1,
-                      "softmax_xent_dlogits": 1}
+                      "softmax_xent_dlogits": 1, "flash_attention": 0,
+                      "ssd_chunk": 0}
     loss_r = ops.softmax_xent(ops.fcnn_layer(x, w, b, "none", mode="ref"), y,
                               mode="ref")
     gw_r, gb_r = torch.autograd.grad(loss_r, [w, b])
     torch.testing.assert_close(loss, loss_r, rtol=1e-5, atol=1e-5)
     _assert_rel(gw, gw_r, 1e-4)
     _assert_rel(gb, gb_r, 1e-4)
+
+
+# ---- LM prefill kernels: flash attention (K6), SSD chunk (K7) ----------
+# Tolerances: fp32 2e-5 (K6) and 1e-5 (K7) of the largest output.  A bf16
+# output is held element-wise to 2^-7 |plain| (one bf16 ulp: both sides
+# round their fp32 result) plus ``slack``, and as a whole to
+# ||out − plain||_2 <= 2^-7 ||plain||_2.  K6's slack is 2^-7 (softmax @ |v|):
+# the kernel rounds exp(s − running max) to bf16 where the plain version
+# rounds the normalised softmax, so each probability may differ by one
+# rounding of each.  K7's is 1e-3 of the largest output (fp32 sums in
+# another order).  K7's fp32 state and decay from bf16 inputs: 1e-3 of the
+# largest value.
+
+LM_DTYPES = [torch.float32, torch.bfloat16]
+BF16_ULP = 2.0 ** -7
+
+
+def _assert_lm(out, want, fp32_rtol, slack=None):
+    if out.dtype == torch.bfloat16:
+        o, w = out.double(), want.double()
+        if slack is None:
+            slack = 1e-3 * w.abs().max()
+        assert bool(((o - w).abs() <= BF16_ULP * w.abs() + slack).all())
+        assert (o - w).norm() <= BF16_ULP * w.norm()
+    else:
+        _assert_rel(out, want, fp32_rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,s,d", [(1, 32, 128, 64), (1, 2, 100, 32),
+                                     (2, 4, 300, 128), (1, 3, 8, 16)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", LM_DTYPES)
+def test_flash_attention_matches_plain_on_card(cuda, b, h, s, d, causal,
+                                               dtype):
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    rng = np.random.default_rng(11)
+    # the model's layout: (B, S, H, D) seen as (B, H, S, D)
+    q, k, v = (_rand(rng, (b, s, h, d), cuda).to(dtype).transpose(1, 2)
+               for _ in range(3))
+    before = ops.launch_counts()["flash_attention"]
+    out = flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    mean_abs_v = ref.flash_attention_ref(q.float(), k.float(),
+                                         v.float().abs(), causal)
+    _assert_lm(out, ref.flash_attention_ref(q, k, v, causal), 2e-5,
+               BF16_ULP * mean_abs_v.double())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bc,q,h,p,n", [(16, 128, 64, 64, 64),
+                                        (2, 16, 8, 8, 4), (1, 32, 4, 16, 8),
+                                        (3, 8, 16, 8, 16)])
+@pytest.mark.parametrize("shared_bc", [True, False])
+@pytest.mark.parametrize("dtype", LM_DTYPES)
+def test_ssd_chunk_matches_plain_on_card(cuda, bc, q, h, p, n, shared_bc,
+                                         dtype):
+    from repro_torch.kernels.ssd_scan import ssd_chunk
+
+    rng = np.random.default_rng(12)
+    g = 1 if shared_bc else h
+    x = _rand(rng, (bc, q, h, p), cuda).to(dtype)
+    dt_a = -_rand(rng, (bc, q, h), cuda).abs() * 0.3
+    b = _rand(rng, (bc, q, g, n), cuda).to(dtype).expand(bc, q, h, n)
+    c = _rand(rng, (bc, q, g, n), cuda).to(dtype).expand(bc, q, h, n)
+    before = ops.launch_counts()["ssd_chunk"]
+    y, st, dec = ssd_chunk(x, dt_a, b, c)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_chunk"] == before + 1
+    y_r, st_r, dec_r = ref.ssd_chunk_ref(x, dt_a, b, c)
+    _assert_lm(y, y_r, 1e-5)
+    state_rtol = 1e-3 if dtype == torch.bfloat16 else 1e-5
+    _assert_rel(st, st_r, state_rtol)
+    _assert_rel(dec, dec_r, state_rtol)
+
+
+@pytest.mark.gpu
+def test_zamba2_prefill_goes_through_the_kernels_on_card(cuda):
+    """The smoke model's prefill on the card: 2 flash and 5 SSD launches,
+    logits and cache within 1e-4 of the plain path (fp32)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.api import get_model
+
+    cfg = smoke_config("zamba2-1.2b")
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 32), device=cuda)
+    ops.reset_launches()
+    logits, cache = model.prefill(params, {"tokens": toks}, 40)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert (counts["flash_attention"], counts["ssd_chunk"]) == (2, 5)
+    logits_r, cache_r = model.prefill(params, {"tokens": toks}, 40,
+                                      mode="ref")
+    _assert_rel(logits, logits_r, 1e-4)
+    for key in ("ssm", "conv", "k", "v"):
+        _assert_rel(cache[key], cache_r[key], 1e-4)

@@ -1,0 +1,193 @@
+"""The port's LM-prefill kernel modules — flash attention (K6) and the
+SSD intra-chunk term (K7) — against the JAX reference.
+
+The same numpy inputs go through the JAX ops (``force="ref"`` and
+``force="pallas_interpret"``, outside any mesh, as tests/test_kernels.py
+runs them) and through the port's wrappers on CPU tensors, which run the
+plain versions.  Tolerances are tests/test_kernels.py's: 2e-5 (fp32) and
+5e-2 (bf16) for attention, 1e-5 for the SSD chunk.  The CUDA kernels are
+held against the plain versions on the card in
+tests/test_torch_kernels_gpu.py and chip_smoke.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssd_scan import ssd_chunk
+
+# tests/test_kernels.py's shapes: (b, h, s, d, block) and (bc, q, h, p, n, bh)
+FLASH_SHAPES = [(1, 2, 128, 32, 64), (2, 4, 256, 64, 128), (1, 1, 64, 128, 32)]
+SSD_SHAPES = [(2, 16, 8, 8, 4, 4), (1, 32, 4, 16, 8, 4), (3, 8, 16, 8, 16, 8)]
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 5e-2)}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny CPU tensors: one intra-op thread beats 8 contending ones."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _np(rng, shape, scale=1.0):
+    return (rng.normal(size=shape) * scale).astype(np.float32)
+
+
+def _close(ours, theirs, tol):
+    np.testing.assert_allclose(ours.float().numpy(),
+                               np.asarray(theirs, np.float32),
+                               rtol=tol, atol=tol)
+
+
+def _qkv(b, h, s, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return [_np(rng, (b, h, s, d)) for _ in range(3)]
+
+
+@pytest.mark.parametrize("b,h,s,d,bq", FLASH_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_attention_plain_matches_reference(b, h, s, d, bq, causal,
+                                                 dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    arrs = _qkv(b, h, s, d)
+    want = jops.flash_attention(*(jnp.asarray(a, jdt) for a in arrs),
+                                causal=causal, force="ref")
+    got = flash_attention(*(torch.from_numpy(a).to(tdt) for a in arrs),
+                          causal)
+    assert got.dtype == tdt and got.shape == (b, h, s, d)
+    _close(got, want, tol)
+
+
+@pytest.mark.parametrize("b,h,s,d,bq", FLASH_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_plain_matches_pallas_kernel(b, h, s, d, bq, causal):
+    jdt, tdt, tol = DTYPES["float32"]
+    arrs = _qkv(b, h, s, d, seed=1)
+    want = jops.flash_attention(*(jnp.asarray(a, jdt) for a in arrs),
+                                causal=causal, force="pallas_interpret",
+                                block_q=bq, block_kv=bq)
+    got = flash_attention(*(torch.from_numpy(a) for a in arrs), causal)
+    _close(got, want, tol)
+
+
+def test_flash_attention_bf16_matches_pallas_kernel():
+    b, h, s, d, bq = FLASH_SHAPES[1]
+    arrs = _qkv(b, h, s, d, seed=2)
+    want = jops.flash_attention(*(jnp.asarray(a, jnp.bfloat16) for a in arrs),
+                                causal=True, force="pallas_interpret",
+                                block_q=bq, block_kv=bq)
+    got = flash_attention(*(torch.from_numpy(a).to(torch.bfloat16)
+                            for a in arrs), True)
+    _close(got, want, 5e-2)
+
+
+def test_flash_attention_reads_transposed_views():
+    """The model passes (B, S, H, D) projections as (B, H, S, D) views."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 3, 40, 16, seed=3))
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
+    assert not views[0].is_contiguous()
+    torch.testing.assert_close(flash_attention(*views, True),
+                               ref.flash_attention_ref(q, k, v, True),
+                               rtol=0, atol=0)
+
+
+def _ssd_inputs(bc, q, h, p, n, seed=0):
+    rng = np.random.default_rng(seed)
+    x = _np(rng, (bc, q, h, p))
+    dt_a = -np.abs(_np(rng, (bc, q, h))) * 0.3
+    return x, dt_a, _np(rng, (bc, q, h, n)), _np(rng, (bc, q, h, n))
+
+
+def _ssd_close(ours, theirs, tol=1e-5):
+    for o, t in zip(ours, theirs):
+        _close(o, t, tol)
+
+
+@pytest.mark.parametrize("bc,q,h,p,n,bh", SSD_SHAPES)
+def test_ssd_chunk_plain_matches_reference_and_pallas_kernel(bc, q, h, p, n,
+                                                             bh):
+    arrs = _ssd_inputs(bc, q, h, p, n)
+    jarrs = [jnp.asarray(a) for a in arrs]
+    got = ssd_chunk(*(torch.from_numpy(a) for a in arrs))
+    assert [t.dtype for t in got] == [torch.float32] * 3
+    assert [tuple(t.shape) for t in got] == [(bc, q, h, p), (bc, h, p, n),
+                                             (bc, q, h)]
+    _ssd_close(got, jops.ssd_chunk(*jarrs, force="ref"))
+    _ssd_close(got, jops.ssd_chunk(*jarrs, force="pallas_interpret",
+                                   block_h=bh))
+
+
+@pytest.mark.parametrize("bc,q,h,p,n,bh", SSD_SHAPES)
+def test_ssd_chunk_takes_stride0_broadcast_groups(bc, q, h, p, n, bh):
+    """One group's B and C broadcast to every head as expanded views (head
+    stride 0), against the reference fed the materialised broadcast."""
+    x, dt_a, b, c = _ssd_inputs(bc, q, h, p, n, seed=4)
+    b1, c1 = b[:, :, :1], c[:, :, :1]
+    tb = torch.from_numpy(b1).expand(bc, q, h, n)
+    tc = torch.from_numpy(c1).expand(bc, q, h, n)
+    assert tb.stride(2) == 0
+    got = ssd_chunk(torch.from_numpy(x), torch.from_numpy(dt_a), tb, tc)
+    want = jops.ssd_chunk(jnp.asarray(x), jnp.asarray(dt_a),
+                          jnp.asarray(np.broadcast_to(b1, b.shape)),
+                          jnp.asarray(np.broadcast_to(c1, c.shape)),
+                          force="ref")
+    _ssd_close(got, want)
+
+
+def test_ops_dispatch_on_cpu_runs_the_plain_versions():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 24, 8, seed=5))
+    x, dt_a, b, c = (torch.from_numpy(a) for a in _ssd_inputs(2, 8, 2, 4, 4))
+    before = ops.launch_counts()
+    assert {"flash_attention", "ssd_chunk"} <= set(ops.KERNELS)
+    for mode in (None, "ref"):
+        torch.testing.assert_close(ops.flash_attention(q, k, v, mode=mode),
+                                   ref.flash_attention_ref(q, k, v))
+        for got, want in zip(ops.ssd_chunk(x, dt_a, b, c, mode=mode),
+                             ref.ssd_chunk_ref(x, dt_a, b, c)):
+            torch.testing.assert_close(got, want)
+    assert ops.launch_counts() == before        # no kernel on CPU tensors
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ops.flash_attention(q, k, v, mode="cuda")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ops.ssd_chunk(x, dt_a, b, c, mode="cuda")
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    q = torch.zeros(1, 2, 8, 16)
+    x, dt_a, b = torch.zeros(1, 8, 2, 4), torch.zeros(1, 8, 2), torch.zeros(1, 8, 2, 4)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ssd_chunk(x.half(), dt_a, b.half(), b.half())
+    with pytest.raises(TypeError, match="mixed dtypes"):
+        flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="no GQA"):
+        flash_attention(q, q[:, :1], q[:, :1])
+    with pytest.raises(ValueError, match="D <= 128"):
+        big = torch.zeros(1, 1, 4, 130)
+        flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="unit stride"):
+        flash_attention(q.transpose(2, 3), q.transpose(2, 3), q.transpose(2, 3))
+    with pytest.raises(RuntimeError, match="forward-only"):
+        flash_attention(q.requires_grad_(True), q, q)
+    with pytest.raises(ValueError, match="dt_a has shape"):
+        ssd_chunk(x, dt_a[:, :4], b, b)
+
+
+@pytest.mark.parametrize("bc,q,h,p,n", [(1, 129, 2, 8, 8), (1, 8, 2, 65, 8),
+                                        (1, 8, 2, 8, 65)])
+def test_ssd_chunk_refuses_shapes_beyond_the_kernel(bc, q, h, p, n):
+    """Q <= 128 and P, N <= 64 (Zamba2's chunk and head sizes), on either
+    device, so the CPU path takes what the kernel takes."""
+    x, dt_a = torch.zeros(bc, q, h, p), torch.zeros(bc, q, h)
+    b = torch.zeros(bc, q, h, n)
+    with pytest.raises(ValueError, match="Q <= 128, P, N <= 64"):
+        ssd_chunk(x, dt_a, b, b)
