@@ -11,10 +11,14 @@ raises and the script exits non-zero without a result line:
 
   1. device   a CUDA card is required; its name and power limit; TF32 off
   2. build    the extension, with ptxas's per-kernel resource report
+              (registers, shared memory and spills of the two redesigned
+              kernels, K2 and bf16 K6, whose spills must be 0) and the
+              count of HGMMA, HMMA and FFMA instructions in each kernel's
+              SASS (cuobjdump); the bf16 K6 kernel must issue HGMMA
   3. kernels  each FCNN kernel against its plain PyTorch version on the
               card, at the NN1 and NN5 shapes and at edge shapes, with
               times of the kernel, the plain version and one PyTorch
-              library call
+              library call; K2 run twice must give bit-identical dX
   4. autograd gradients of the fused ops on NN1 against autograd of the
               plain versions
   5. train    NN1, 300 steps, batch 64, seed 0, through
@@ -28,7 +32,8 @@ raises and the script exits non-zero without a result line:
               against their plain versions at the Zamba2 prefill shapes
               (bf16 and fp32, causal and not, stride-0 B/C; bf16 within
               about one bf16 ulp) and at edge shapes, with kernel, plain,
-              SDPA and bound times
+              SDPA and bound times; each K6 line names the instantiation
+              that ran (tensor-core bf16 or CUDA-core fp32)
   8. serve    Zamba2-1.2B, full width, bf16, random weights: 8 requests
               of the ``steady`` preset with 512/1024/2048-token prompts on
               4 slots through ``repro_torch.launch.serve.serve``; every
@@ -75,7 +80,7 @@ KERNEL_INFO = {
     # name: (source, TPU kernel it replaces)
     "fcnn_layer": ("src/repro_torch/kernels/csrc/fcnn_layer.cu",
                    "src/repro/kernels/fcnn_layer.py:142"),
-    "fcnn_layer_dgrad": ("src/repro_torch/kernels/csrc/fcnn_layer.cu",
+    "fcnn_layer_dgrad": ("src/repro_torch/kernels/csrc/fcnn_dgrad.cu",
                          "src/repro/kernels/fcnn_layer.py:208"),
     "fcnn_layer_wgrad": ("src/repro_torch/kernels/csrc/fcnn_layer.cu",
                          "src/repro/kernels/fcnn_layer.py:292"),
@@ -90,6 +95,11 @@ KERNEL_INFO = {
 }
 FCNN_KERNELS = tuple(KERNEL_INFO)[:5]
 LM_KERNELS = ("flash_attention", "ssd_chunk")
+# the kernels this script holds to 0 spill bytes in ptxas's report, by a
+# substring of their mangled names; and the bf16 K6 kernel, which must run
+# on the tensor cores (HGMMA in its SASS)
+NO_SPILL_KERNELS = ("dgrad_kernel", "flash_fwd_wgmma_kernel")
+K6_BF16_KERNEL = "flash_fwd_wgmma_kernel"
 
 
 class SmokeFailure(RuntimeError):
@@ -191,6 +201,109 @@ def errors(out, ref) -> tuple[float, float]:
     abs_err = (out.double() - ref.double()).abs().max().item()
     scale = ref.double().abs().max().item()
     return abs_err, abs_err / max(scale, 1e-30)
+
+
+# --------------------------------------------------------------- phase 2
+
+
+def build_extension():
+    """Build the extension verbosely, copying the compiler's output
+    (written to file descriptor 1 by the build's subprocess) to a file in
+    the build directory; return (extension, that output)."""
+    from repro_torch.kernels import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    log = _build.BUILD_DIR / "build_output.txt"
+    sys.stdout.flush()
+    saved, ext = os.dup(1), None
+    try:
+        with open(log, "w") as f:
+            os.dup2(f.fileno(), 1)
+            ext = _build.extension(verbose=True)
+            sys.stdout.flush()
+    finally:
+        os.dup2(saved, 1)
+        os.close(saved)
+        if ext is None:   # the build failed: show why before raising
+            print(log.read_text(), flush=True)
+    return ext, log.read_text()
+
+
+def ptxas_report(text: str) -> dict[str, dict]:
+    """{mangled kernel: {registers, smem, spill_stores, spill_loads}} from
+    ``-Xptxas=-v`` output."""
+    import re
+
+    report, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            report[name] = {"registers": None, "smem": 0, "spill_stores": None,
+                            "spill_loads": None}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            report[name]["spill_stores"] = int(m.group(1))
+            report[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[name]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            report[name]["smem"] = int(m.group(1)) if m else 0
+    return report
+
+
+def sass_counts(library: str) -> dict[str, dict[str, int]]:
+    """{mangled kernel: {HGMMA, HMMA, FFMA: instruction count}} from
+    ``cuobjdump -sass`` of the built extension."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    out = subprocess.run([tool, "-sass", library], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = {"HGMMA": 0, "HMMA": 0, "FFMA": 0}
+        elif name is not None and "/*" in line:
+            op = line.split("*/", 1)[-1].strip().split(" ")[0].split(".")[0]
+            if op.startswith("@"):   # predicated: the opcode follows
+                op = line.split("*/", 1)[-1].strip().split(" ")[1].split(".")[0]
+            if op in counts[name]:
+                counts[name][op] += 1
+    return counts
+
+
+def run_build_phase() -> None:
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    ext, text = build_extension()
+    print(text, end="")
+    print(f"build: {time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}",
+          flush=True)
+    report = ptxas_report(text)
+    if not report:
+        print("ptxas report: none (the extension was loaded from an earlier "
+              "build in this directory)")
+    for name, r in report.items():
+        if any(k in name for k in NO_SPILL_KERNELS):
+            print(f"ptxas {name[:90]}: {r['registers']} registers, "
+                  f"{r['smem']} bytes static smem, spill stores "
+                  f"{r['spill_stores']} loads {r['spill_loads']} bytes")
+            check(r["spill_stores"] == 0 and r["spill_loads"] == 0,
+                  f"{name} spills registers")
+    counts = sass_counts(ext.__file__)
+    print("SASS instructions per kernel (HGMMA HMMA FFMA):")
+    for name, c in counts.items():
+        print(f"  {c['HGMMA']:5d} {c['HMMA']:5d} {c['FFMA']:6d}  {name[:100]}")
+    k6 = [c for name, c in counts.items() if K6_BF16_KERNEL in name]
+    check(bool(k6) and all(c["HGMMA"] > 0 for c in k6),
+          "the bf16 flash-attention kernel issues no HGMMA")
 
 
 # --------------------------------------------------------------- phase 3
@@ -301,9 +414,15 @@ def run_kernel_phase(torch, dev) -> dict:
             worst_abs, worst_rel = max(worst_abs, a), max(worst_rel, r)
         gemm = name.startswith("fcnn")
         ok = worst_rel <= GEMM_RTOL if gemm else worst_abs <= XENT_ATOL
+        repeat = ""
+        if name == "fcnn_layer_dgrad":   # split-K sums in a fixed order
+            same = torch.equal(out, kern())
+            repeat = " repeat bit-identical" if same else " repeat DIFFERS"
+            ok = ok and same
         tol = f"rel<={GEMM_RTOL:g}" if gemm else f"abs<={XENT_ATOL:g}"
         line = (f"{name:21s} {label:32s} max_abs {worst_abs:.3e} "
-                f"max_rel {worst_rel:.3e} ({tol}) {'ok' if ok else 'FAIL'}")
+                f"max_rel {worst_rel:.3e} ({tol}){repeat} "
+                f"{'ok' if ok else 'FAIL'}")
         s = summary[name]
         s["max_abs_err"] = max(s["max_abs_err"], worst_abs)
         if timed:
@@ -542,7 +661,10 @@ def run_lm_kernel_phase(torch, dev) -> dict:
                 good, a, c = _close(torch, o, w, fp32_rtol, slack)
             ok, worst = ok and good, max(worst, a)
             crit = crit or c
-        line = (f"{name:15s} {label:40s} max_abs {worst:.3e} ({crit}) "
+        if name == "flash_attention":
+            label += (" [tensor-core bf16]" if outs[0].dtype == torch.bfloat16
+                      else " [CUDA-core fp32]")
+        line = (f"{name:15s} {label:58s} max_abs {worst:.3e} ({crit}) "
                 f"{'ok' if ok else 'FAIL'}")
         summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"], worst)
         if timed:
@@ -634,7 +756,7 @@ def run_prefill_profile(torch, dev, model, params, tokens) -> None:
               "events)")
         return
     busy = sum(us for _, _, us in rows) / 1e3
-    k6 = sum(us for k, _, us in rows if "flash_fwd_kernel" in k) / 1e3
+    k6 = sum(us for k, _, us in rows if "flash_fwd" in k) / 1e3
     k7 = sum(us for k, _, us in rows if "ssd_chunk_kernel" in k) / 1e3
     print(f"device busy {busy:.3f} ms = {100 * busy / host_ms:.1f}% of the "
           f"profiler-off prefill; K6 flash_attention {k6:.3f} ms "
@@ -789,12 +911,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     phase(2, "build")
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import ops
 
-    t0 = time.perf_counter()
-    _build.extension(verbose=True)
-    print(f"build: {time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}",
-          flush=True)
+    run_build_phase()
 
     phase(3, "kernels against their plain versions")
     summary = run_kernel_phase(torch, dev)

@@ -1,8 +1,8 @@
 // Python bindings of the seven kernels.  The only source that includes
-// PyTorch's headers: the kernels themselves (fcnn_layer.cu, softmax_xent.cu,
-// flash_attention.cu, ssd_scan.cu) export plain launchers that take raw
-// pointers, strides and a stream and return the launch's cudaError_t.  The
-// Python wrappers (kernels/fcnn_layer.py, kernels/softmax_xent.py,
+// PyTorch's headers: the kernels themselves (fcnn_layer.cu, fcnn_dgrad.cu,
+// softmax_xent.cu, flash_attention.cu, ssd_scan.cu) export plain launchers
+// that take raw pointers, strides and a stream and return the launch's
+// cudaError_t.  The Python wrappers (kernels/fcnn_layer.py, kernels/softmax_xent.py,
 // kernels/flash_attention.py, kernels/ssd_scan.py) check device, dtype,
 // shape and strides and allocate the outputs; these functions launch on
 // PyTorch's current stream and raise if the launch was refused.
@@ -16,8 +16,8 @@ cudaError_t launch_fcnn_fwd(const float* x, const float* w, const float* b,
                             float* out, int M, int K, int N, int act,
                             cudaStream_t s);
 cudaError_t launch_fcnn_dgrad(const float* dy, const float* y, const float* w,
-                              float* dx, int M, int K, int N, int act,
-                              cudaStream_t s);
+                              float* dx, int M, int K, int N, int act, int split,
+                              int slice, cudaStream_t s);
 cudaError_t launch_fcnn_wgrad(const float* x, const float* dy, const float* y,
                               float* dw, float* db, int M, int K, int N,
                               int act, cudaStream_t s);
@@ -58,12 +58,15 @@ void fcnn_fwd(const torch::Tensor& x, const torch::Tensor& w,
                "fcnn_layer");
 }
 
-// dy, y (M, N), w (K, N) -> dx (M, K)
+// dy, y (M, N), w (K, N) -> dx (M, K); the contraction split over
+// ``split`` blocks of a cluster, in slices of ``slice``
 void fcnn_dgrad(const torch::Tensor& dy, const torch::Tensor& y,
-                const torch::Tensor& w, torch::Tensor dx, int64_t act) {
+                const torch::Tensor& w, torch::Tensor dx, int64_t act,
+                int64_t split, int64_t slice) {
   const c10::cuda::CUDAGuard guard(dy.device());
   check_launch(launch_fcnn_dgrad(f32(dy), f32(y), f32(w), f32(dx), dy.size(0),
-                                 w.size(0), dy.size(1), act, stream_of(dy)),
+                                 w.size(0), dy.size(1), act, split, slice,
+                                 stream_of(dy)),
                "fcnn_layer_dgrad");
 }
 

@@ -1,0 +1,28 @@
+// Activations of the FCNN periods and their derivatives from the output
+// Y, shared by the forward/wgrad GEMM (fcnn_layer.cu) and the dgrad kernel
+// (fcnn_dgrad.cu).  act_deriv mirrors
+// repro_torch/kernels/ref.py::act_deriv_from_output line for line.
+#pragma once
+
+namespace fcnn {
+
+// the codes of repro_torch/kernels/fcnn_layer.py's ACT_CODES
+enum Act : int { kNone = 0, kSigmoid = 1, kRelu = 2, kTanh = 3 };
+
+template <int ACT>
+__device__ __forceinline__ float act_fwd(float z) {
+  if constexpr (ACT == kSigmoid) return 1.f / (1.f + expf(-z));
+  else if constexpr (ACT == kRelu) return fmaxf(z, 0.f);
+  else if constexpr (ACT == kTanh) return tanhf(z);
+  else return z;
+}
+
+template <int ACT>
+__device__ __forceinline__ float act_deriv(float y) {
+  if constexpr (ACT == kSigmoid) return y * (1.f - y);
+  else if constexpr (ACT == kRelu) return y > 0.f ? 1.f : 0.f;
+  else if constexpr (ACT == kTanh) return 1.f - y * y;
+  else return 1.f;
+}
+
+}  // namespace fcnn

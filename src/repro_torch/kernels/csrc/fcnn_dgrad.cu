@@ -1,0 +1,304 @@
+// FCNN backward-data kernel for Hopper (sm_90a): dX = (dY * A'(Y)) @ W^T.
+//
+// Replaces the TPU kernel fcnn_layer_dgrad (_dgrad_kernel) of
+// src/repro/kernels/fcnn_layer.py.  dY, Y are (M, N), W is (K, N) and read
+// in place as W^T (w[k * N + n]); dZ = dY * A'(Y) (act_deriv of
+// fcnn_act.cuh, from the output Y) never exists in device memory.  IEEE
+// fp32 throughout: TF32 keeps about three digits and fails the 1e-4 bar.
+//
+// What bounds it on an H100: at NN1's layer 2 (M = 64, K = 1000, N = 500)
+// the call is 64 MFLOP over 2.3 MB, ~1 µs at the fp32 peak, ~0.7 µs at
+// 3.35 TB/s.  A 64-row batch cut into 64 x 64 tiles gives 16 blocks on 132
+// SMs, each walking the whole contraction with one exposed global-memory
+// round trip per slice: the kernel is bound by latency and occupancy, not
+// by either peak.  The design attacks both:
+//   * smaller tiles (64 x 32, 128 threads, 4 x 4 outputs each) and a
+//     split of the contraction N over the blocks of a thread-block cluster
+//     (at most 8, the portable size), so the grid fills the 132 SMs with
+//     up to two blocks each; the host picks the split and the slice width
+//     (16 or 32) from (M, K, N) (fcnn_layer.py:dgrad_plan);
+//   * a 3-stage cp.async ring of contraction slices, so the loads of later
+//     slices are in flight while the FMAs of the current one run.
+//     cp.async copies raw bytes, so each thread turns the dY elements it
+//     copied into dZ in place once they land, before the block's barrier;
+//   * the partial tiles of a cluster are summed through distributed shared
+//     memory in rank order 0, 1, ..., split - 1: rank r sums and writes
+//     rows [r·64/split, (r+1)·64/split) of the tile.  One launch, no atomics,
+//     no workspace, and repeated calls give bit-identical dX.
+// Rows that are not 16-byte aligned (N % 4 != 0, e.g. N = 10) take 4-byte
+// copies: the VEC template flag, chosen by the host from the shape.
+// Out-of-range rows and columns are zero-filled by the copies (src-size 0),
+// which makes their dZ and W zero.
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "fcnn_act.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+using namespace fcnn;  // Act, act_deriv
+
+constexpr int BM = 64;         // dX tile rows (batch)
+constexpr int BK = 32;         // dX tile columns (rows of W)
+constexpr int STAGES = 3;
+constexpr int THREADS = 128;   // 8 x 16 threads, 4 x 4 outputs each
+constexpr int RED_PITCH = BK + 1;
+constexpr int MAX_SPLIT = 8;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// copy 16 (or 4) bytes, or write zeros when !ok (the source is not read)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Which elements of an R x BN tile the calling thread copies: kCount
+// chunks of kWidth floats at (row(t, i), col(t, i)), i < kCount.
+template <bool VEC, int BN, int R>
+struct Map {
+  static constexpr int kWidth = VEC ? 4 : 1;
+  static constexpr int kCount = R * BN / kWidth / THREADS;
+  static_assert(kCount * kWidth * THREADS == R * BN, "whole chunks per thread");
+  __device__ static int row(int t, int i) {
+    return (t + i * THREADS) / (BN / kWidth);
+  }
+  __device__ static int col(int t, int i) {
+    return kWidth * ((t + i * THREADS) % (BN / kWidth));
+  }
+};
+
+// the ring: STAGES x (dY, then dZ in place | Y | W) slices, BN + 4 floats
+// a row (rows stay 16-byte aligned; the float4 reads are conflict-free)
+template <int BN>
+constexpr int smem_bytes() {
+  return STAGES * (2 * BM + BK) * (BN + 4) * static_cast<int>(sizeof(float));
+}
+
+// grid (split, ceil(K / BK), ceil(M / BM)), clusters of (split, 1, 1);
+// BN: the contraction slice of one stage.  The minimum of one block per SM
+// lets ptxas take the registers it needs: without it, it held the VEC
+// instantiations to 64 registers and spilled in one of them.
+template <int ACT, bool VEC, int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+dgrad_kernel(const float* __restrict__ dy, const float* __restrict__ y,
+             const float* __restrict__ w, float* __restrict__ dx, int M, int K,
+             int N) {
+  constexpr int PITCH = BN + 4;
+  extern __shared__ float4 smem4[];
+  auto Zs = reinterpret_cast<float (*)[BM * PITCH]>(smem4);
+  auto Ys = Zs + STAGES;
+  auto Ws = reinterpret_cast<float (*)[BK * PITCH]>(Ys + STAGES);
+  static_assert(BM * RED_PITCH <= STAGES * BM * PITCH, "partials fit in Zs");
+
+  const int split = gridDim.x;
+  const int rank = blockIdx.x;  // the block's rank in its cluster
+  const int col0 = blockIdx.y * BK;
+  const int row0 = blockIdx.z * BM;
+  const int t = threadIdx.x;
+  const int tx = t % 8;   // columns tx + 8j
+  const int ty = t / 8;   // rows ty + 16i
+
+  // this rank's contraction slices: an even share, possibly none
+  const int n_slices = (N + BN - 1) / BN;
+  const int s_begin = rank * n_slices / split;
+  const int count = (rank + 1) * n_slices / split - s_begin;
+
+  using Z = Map<VEC, BN, BM>;
+  using Wm = Map<VEC, BN, BK>;
+  auto load = [&](int slice, int stage) {
+    const int n0 = (s_begin + slice) * BN;
+#pragma unroll
+    for (int i = 0; i < Z::kCount; ++i) {
+      const int r = Z::row(t, i), c = Z::col(t, i);
+      const int gr = row0 + r, gn = n0 + c;
+      const bool ok = gr < M && gn < N;
+      const size_t off = ok ? static_cast<size_t>(gr) * N + gn : 0;
+      if constexpr (VEC) {
+        cp_async16(&Zs[stage][r * PITCH + c], dy + off, ok);
+        cp_async16(&Ys[stage][r * PITCH + c], y + off, ok);
+      } else {
+        cp_async4(&Zs[stage][r * PITCH + c], dy + off, ok);
+        cp_async4(&Ys[stage][r * PITCH + c], y + off, ok);
+      }
+    }
+    // W tile: BK rows of W (columns of dX) x BN contraction entries
+#pragma unroll
+    for (int i = 0; i < Wm::kCount; ++i) {
+      const int r = Wm::row(t, i), c = Wm::col(t, i);
+      const int gk = col0 + r, gn = n0 + c;
+      const bool ok = gk < K && gn < N;
+      const float* src = w + (ok ? static_cast<size_t>(gk) * N + gn : 0);
+      if constexpr (VEC) cp_async16(&Ws[stage][r * PITCH + c], src, ok);
+      else cp_async4(&Ws[stage][r * PITCH + c], src, ok);
+    }
+  };
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < count) load(s, s);
+    cp_async_commit();
+  }
+  for (int i = 0; i < count; ++i) {
+    const int stage = i % STAGES;
+    cp_async_wait<STAGES - 2>();  // this thread's copies of slice i landed
+#pragma unroll
+    for (int e = 0; e < Z::kCount; ++e) {
+      float* z = &Zs[stage][Z::row(t, e) * PITCH + Z::col(t, e)];
+      const float* yy = &Ys[stage][Z::row(t, e) * PITCH + Z::col(t, e)];
+#pragma unroll
+      for (int c = 0; c < Z::kWidth; ++c) z[c] *= act_deriv<ACT>(yy[c]);
+    }
+    // slice i visible to all; every thread is done with slice i - 1's stage
+    __syncthreads();
+    if (i + STAGES - 1 < count) load(i + STAGES - 1, (i + STAGES - 1) % STAGES);
+    cp_async_commit();
+
+    const float* zs = Zs[stage];
+    const float* ws = Ws[stage];
+#pragma unroll
+    for (int n = 0; n < BN; n += 4) {
+      float4 a[4], b[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        a[r] = *reinterpret_cast<const float4*>(&zs[(ty + 16 * r) * PITCH + n]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        b[j] = *reinterpret_cast<const float4*>(&ws[(tx + 8 * j) * PITCH + n]);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float v = acc[r][j];
+          v = fmaf(a[r].x, b[j].x, v);
+          v = fmaf(a[r].y, b[j].y, v);
+          v = fmaf(a[r].z, b[j].z, v);
+          v = fmaf(a[r].w, b[j].w, v);
+          acc[r][j] = v;
+        }
+    }
+  }
+
+  if (split == 1) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int gr = row0 + ty + 16 * r, gc = col0 + tx + 8 * j;
+        if (gr < M && gc < K) dx[static_cast<size_t>(gr) * K + gc] = acc[r][j];
+      }
+    return;
+  }
+
+  // the partial tile into this block's shared memory (the ring is free)
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = &Zs[0][0];  // BM x RED_PITCH floats, inside Zs
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) red[(ty + 16 * r) * RED_PITCH + tx + 8 * j] = acc[r][j];
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int rows = BM / split;
+  for (int e = t; e < rows * BK; e += THREADS) {
+    const int r = rank * rows + e / BK, c = e % BK;
+    float sum = 0.f;
+    for (int q = 0; q < split; ++q)
+      sum += cluster.map_shared_rank(red, q)[r * RED_PITCH + c];
+    const int gr = row0 + r, gc = col0 + c;
+    if (gr < M && gc < K) dx[static_cast<size_t>(gr) * K + gc] = sum;
+  }
+  cluster.sync();  // every partial stays alive until all ranks have read it
+}
+
+template <int ACT, bool VEC, int BN>
+cudaError_t launch(const float* dy, const float* y, const float* w, float* dx,
+                   int M, int K, int N, int split, cudaStream_t s) {
+  auto kern = dgrad_kernel<ACT, VEC, BN>;
+  // opt in once per instantiation (above 48 KB for BN = 32), outside any
+  // CUDA graph capture that later launches are recorded into
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<BN>());
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split, (K + BK - 1) / BK, (M + BM - 1) / BM);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem_bytes<BN>();
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kern, dy, y, w, dx, M, K, N);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <int ACT>
+cudaError_t dgrad(const float* dy, const float* y, const float* w, float* dx,
+                  int M, int K, int N, int split, int slice, cudaStream_t s) {
+  const bool vec = N % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(dy) | reinterpret_cast<uintptr_t>(y) |
+                     reinterpret_cast<uintptr_t>(w)) % 16) == 0;
+  if (slice == 16)
+    return vec ? launch<ACT, true, 16>(dy, y, w, dx, M, K, N, split, s)
+               : launch<ACT, false, 16>(dy, y, w, dx, M, K, N, split, s);
+  return vec ? launch<ACT, true, 32>(dy, y, w, dx, M, K, N, split, s)
+             : launch<ACT, false, 32>(dy, y, w, dx, M, K, N, split, s);
+}
+
+}  // namespace
+
+// dy, y (M, N), w (K, N) -> dx (M, K); split in {1, 2, 4, 8} blocks of a
+// cluster share the contraction N in slices of `slice` (16 or 32)
+cudaError_t launch_fcnn_dgrad(const float* dy, const float* y, const float* w,
+                              float* dx, int M, int K, int N, int act, int split,
+                              int slice, cudaStream_t s) {
+  if (M < 1 || K < 1 || N < 1 || split < 1 || split > MAX_SPLIT ||
+      (slice != 16 && slice != 32) ||
+      (split & (split - 1)) != 0 || (K + BK - 1) / BK > 65535 ||
+      (M + BM - 1) / BM > 65535)
+    return cudaErrorInvalidValue;
+  switch (act) {
+    case kSigmoid: return dgrad<kSigmoid>(dy, y, w, dx, M, K, N, split, slice, s);
+    case kRelu: return dgrad<kRelu>(dy, y, w, dx, M, K, N, split, slice, s);
+    case kTanh: return dgrad<kTanh>(dy, y, w, dx, M, K, N, split, slice, s);
+    case kNone: return dgrad<kNone>(dy, y, w, dx, M, K, N, split, slice, s);
+    default: return cudaErrorInvalidValue;
+  }
+}

@@ -1,22 +1,20 @@
-// FCNN period kernels for Hopper (sm_90a): forward, dgrad and wgrad.
+// FCNN period kernels for Hopper (sm_90a): forward and wgrad.
 //
 // Replaces the TPU kernels of src/repro/kernels/fcnn_layer.py:
 //   fcnn_layer        (_fwd_kernel)    -> launch_fcnn_fwd    act(x @ w + b)
-//   fcnn_layer_dgrad  (_dgrad_kernel)  -> launch_fcnn_dgrad  dX = (dY * A'(Y)) @ W^T
 //   fcnn_layer_wgrad  (_wgrad_kernel)  -> launch_fcnn_wgrad  dW = X^T @ dZ, db = sum_rows dZ
+// (fcnn_layer_dgrad has a kernel of its own, fcnn_dgrad.cu.)
 //
-// All three are one tiled fp32 GEMM (gemm_kernel) with different operand
+// Both are one tiled fp32 GEMM (gemm_kernel) with different operand
 // loaders and epilogues, so the element-wise work of each period rides
 // along with the product instead of making its own pass over device memory:
 //   * forward: bias add + activation in the epilogue;
-//   * dgrad:   dZ = dY * A'(Y) formed while the dY tile is loaded, W (K, N)
-//              read in place as W^T; dZ never exists in device memory;
-//   * wgrad:   the same dZ recompute; the contraction runs over the batch
-//              inside the block, and the blocks of the first row tile also
-//              sum dZ's columns into db, so every db column is written by
-//              exactly one block (no atomics, deterministic).
-// Activation derivatives come from the output Y (act_deriv below mirrors
-// repro_torch/kernels/ref.py::act_deriv_from_output line for line).
+//   * wgrad:   dZ = dY * A'(Y) formed while the dY tile is loaded (dZ never
+//              exists in device memory); the contraction runs over the
+//              batch inside the block, and the blocks of the first row tile
+//              also sum dZ's columns into db, so every db column is written
+//              by exactly one block (no atomics, deterministic).
+// Activations and their derivatives from the output Y: fcnn_act.cuh.
 //
 // What bounds it on an H100: at the FCNN shapes (batch 64-128, widths
 // 10-4000) each call moves 0.03-17 MB and does 0.6-1000 MFLOP, i.e. a few
@@ -30,6 +28,8 @@
 
 #include <cuda_runtime.h>
 
+#include "fcnn_act.cuh"
+
 namespace {
 
 constexpr int BM = 64;        // output tile rows
@@ -39,23 +39,7 @@ constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
 constexpr int TM = BM / 16;
 constexpr int TN = BN / 16;
 
-enum Act : int { kNone = 0, kSigmoid = 1, kRelu = 2, kTanh = 3 };
-
-template <int ACT>
-__device__ __forceinline__ float act_fwd(float z) {
-  if constexpr (ACT == kSigmoid) return 1.f / (1.f + expf(-z));
-  else if constexpr (ACT == kRelu) return fmaxf(z, 0.f);
-  else if constexpr (ACT == kTanh) return tanhf(z);
-  else return z;
-}
-
-template <int ACT>
-__device__ __forceinline__ float act_deriv(float y) {
-  if constexpr (ACT == kSigmoid) return y * (1.f - y);
-  else if constexpr (ACT == kRelu) return y > 0.f ? 1.f : 0.f;
-  else if constexpr (ACT == kTanh) return 1.f - y * y;
-  else return 1.f;
-}
+using namespace fcnn;  // Act, act_fwd, act_deriv
 
 // Operand loaders: value of logical element (r, c).  kContigSecond says
 // which logical index walks contiguous memory, so the tile load can give
@@ -204,14 +188,6 @@ cudaError_t fwd(const float* x, const float* w, const float* b, float* out,
 }
 
 template <int ACT>
-cudaError_t dgrad(const float* dy, const float* y, const float* w, float* dx,
-                  int M, int K, int N, cudaStream_t s) {
-  // rows M, columns K, contraction N: A = dZ (M, N), B(n, k) = w[k * N + n]
-  return launch_gemm<false>(M, K, N, DzRowMajor<ACT>{dy, y, N},
-                            ColMajor{w, N}, Store{dx, K}, nullptr, s);
-}
-
-template <int ACT>
 cudaError_t wgrad(const float* x, const float* dy, const float* y, float* dw,
                   float* db, int M, int K, int N, cudaStream_t s) {
   // rows K, columns N, contraction M: A(k, m) = x[m * K + k], B = dZ (M, N)
@@ -229,18 +205,6 @@ cudaError_t launch_fcnn_fwd(const float* x, const float* w, const float* b,
     case kRelu: return fwd<kRelu>(x, w, b, out, M, K, N, s);
     case kTanh: return fwd<kTanh>(x, w, b, out, M, K, N, s);
     case kNone: return fwd<kNone>(x, w, b, out, M, K, N, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-cudaError_t launch_fcnn_dgrad(const float* dy, const float* y, const float* w,
-                              float* dx, int M, int K, int N, int act,
-                              cudaStream_t s) {
-  switch (act) {
-    case kSigmoid: return dgrad<kSigmoid>(dy, y, w, dx, M, K, N, s);
-    case kRelu: return dgrad<kRelu>(dy, y, w, dx, M, K, N, s);
-    case kTanh: return dgrad<kTanh>(dy, y, w, dx, M, K, N, s);
-    case kNone: return dgrad<kNone>(dy, y, w, dx, M, K, N, s);
     default: return cudaErrorInvalidValue;
   }
 }

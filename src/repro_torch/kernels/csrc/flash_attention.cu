@@ -6,30 +6,40 @@
 // (batch, head), causal or not, with the online softmax (running max m,
 // sum l and the output accumulator in fp32), masked scores at -1e30 and
 // the probabilities rounded to v's dtype before the PV product, as the
-// TPU kernel and the model's _sdpa do.
+// TPU kernel and the model's _sdpa do.  Two instantiations, chosen by
+// dtype (neither stands in for the other):
 //
-// Design.  The TPU grid walked the kv blocks in sequence and carried m, l
-// and acc in VMEM scratch from one grid step to the next.  Here one thread
-// block of 256 threads owns one (batch·head, 64-row query tile) and the kv
-// loop runs inside it: Q stays in shared memory, each 64-row K and V tile
-// is staged in shared memory (converted to fp32 on load), and m, l and the
-// 64 x D accumulator live in registers (thread (ty, tx) holds rows
-// ty + 16i, i < 4, and columns 4tx + 64g .. +3).  Causal tiles above the
-// diagonal are never loaded; the tiles are walked from the longest causal
-// row first so the heavy blocks start early.  q, k, v and o are read and
-// written through their (batch, head, seq) strides, so the model's
-// (B, S, H, D) projections are passed as transposed views with no copy.
-// Any S >= 1 (ragged tiles are masked in place) and D <= 128 (padded with
-// zeros to 64 or 128 in shared memory); fp32 or bf16.
+//   bf16  flash_fwd_wgmma_kernel (namespace tc): both products on the
+//         tensor cores with wgmma, K/V fed by TMA through a shared-memory
+//         ring (design below, at the kernel).
+//   fp32  flash_fwd_kernel: fp32 FMAs on the CUDA cores.  fp32's parity
+//         bar (2e-5 of the largest output) rules out TF32 and bf16 tensor
+//         cores.
+//
+// Common to both.  The TPU grid walked the kv blocks in sequence and
+// carried m, l and acc in VMEM scratch from one grid step to the next.
+// Here one thread block owns one (batch·head, query tile), the kv loop
+// runs inside it and m, l and the accumulator live in registers.  Causal
+// tiles above the diagonal are never loaded; the query tiles are walked
+// from the longest causal row first so the heavy blocks start early.  q,
+// k, v and o are read and written through their (batch, head, seq)
+// strides, so the model's (B, S, H, D) projections are passed as
+// transposed views with no copy.  Any S >= 1 and D <= 128.
 //
 // What bounds it on an H100: at the serving shapes (1, 32, S, 64) causal
 // the work is 4·S²·D·H/2 operations over 4·S·D·H·2 bytes, ~S/4 operations
-// per byte, far above the ridge.  This first version multiplies in fp32
-// on the CUDA cores (67 TFLOP/s peak, not the 989 of bf16 tensor cores):
-// both products are register-tiled 4 x 4 per thread from float4 shared
-// loads, 8 loads per 64 FMAs for QKᵀ.  Tensor cores (mma/wgmma) and a
-// TMA-fed K/V ring are later work.
+// per byte, far above the ridge: the bound is the tensor cores' 989
+// TFLOP/s in bf16 and the CUDA cores' 67 TFLOP/s in fp32.
+//
+// fp32 kernel: one 256-thread block per 64 query rows; Q stays in shared
+// memory, each 64-row K and V tile is staged in shared memory, thread
+// (ty, tx) holds rows ty + 16i, i < 4, and columns 4tx + 64g .. +3 of the
+// accumulator; both products are register-tiled 4 x 4 per thread from
+// float4 shared loads.  Ragged tiles are masked in place and D is padded
+// with zeros to 64 or 128 in shared memory.
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
+#include <stdint.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -42,19 +52,12 @@ constexpr int kPPitch = kBlockKV + 4;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) {
   return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
 }
 
 // v rounded to T's precision and back (p.astype(v.dtype) in the reference)
@@ -263,6 +266,452 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// bf16: both products on the tensor cores (wgmma), K/V through a TMA ring.
+//
+// One block of 288 threads owns one (batch·head, 128-row query tile): two
+// consumer warpgroups of 64 query rows each and one producer warp.  The
+// producer's lane 0 loads the Q tile once and then 128-row K and V tiles
+// into a two-stage shared-memory ring with cp.async.bulk.tensor (TMA), each
+// stage completing on a "full" mbarrier and handed back on an "empty" one.
+// The tensor maps are 4-D over the (D, S, H, B) view of q, k and v with
+// their own strides, so a tile never crosses into the next head: rows past
+// S and columns past D arrive as zeros (TMA's out-of-bounds fill).  Tiles
+// are 64 columns wide (128 bytes) with the 128-byte swizzle; D = 128 is two
+// such boxes side by side.
+//
+// Per kv tile a consumer warpgroup runs
+//   S = Q·Kᵀ   wgmma m64n128k16, Q and K both K-major in shared memory;
+//   online softmax on the S fragment in registers (row max and sum over the
+//              4 threads that share a row: shfl_xor 1, 2), p = exp(s − m)
+//              in fp32, l summed from the unrounded p, p rounded to bf16;
+//   O += P·V   wgmma m64n(D)k16 with P as the register A operand (the
+//              accumulator fragment of S is, pair by pair, the A fragment
+//              of the next product) and V MN-major in shared memory.
+// Scores are kept in log2 units (s · log2(e)/√D, exp2) — the same
+// function as exp(s/√D − m) up to fp32 rounding.
+namespace tc {
+
+// d (64 x 128, fp32) (+)= A (64 x 16, K-major in shared memory) ·
+// B (16 x 128, K-major in shared memory); scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t desc_a,
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 64, fp32) += A (64 x 16, bf16 register fragments) ·
+// B (16 x 64, MN-major in shared memory, hence the transpose flag)
+__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 128, fp32) += A (64 x 16, bf16 register fragments) ·
+// B (16 x 128, MN-major in shared memory, hence the transpose flag)
+__device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+constexpr int kBlockQ = 128;
+constexpr int kBlockKV = 128;
+constexpr int kStages = 2;
+constexpr int kConsumers = 256;              // two warpgroups
+constexpr int kThreads = kConsumers + 32;    // + the producer warp
+constexpr int kBoxBytes = 128 * 128;         // 128 rows x 64 bf16 columns
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// returns once the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor for a 128-byte-swizzled tile whose
+// 8-row groups are 1024 bytes apart (SBO); LBO is the stride between
+// 64-column atoms of an MN-major operand (unused for K-major).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int kChunks>
+__device__ __forceinline__ void wgmma_pv(float (&o)[32 * kChunks],
+                                         const uint32_t (&a)[4], uint64_t desc);
+template <>
+__device__ __forceinline__ void wgmma_pv<1>(float (&o)[32], const uint32_t (&a)[4],
+                                            uint64_t desc) {
+  wgmma_rs_m64n64k16(o, a, desc);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<2>(float (&o)[64], const uint32_t (&a)[4],
+                                            uint64_t desc) {
+  wgmma_rs_m64n128k16(o, a, desc);
+}
+
+// kChunks 64-column boxes cover D (D <= 64 * kChunks)
+template <int kChunks>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       __nv_bfloat16* __restrict__ o, Strides3 so, int H, int S,
+                       int D, int causal, float scale_log2) {
+  constexpr int kTile = kBoxBytes * kChunks;   // one Q, K or V tile
+  constexpr int kAcc = 32 * kChunks;           // O fragment per thread
+  extern __shared__ uint8_t smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t kv_s = base + kTile;          // stage st: K at +2·st·kTile, V after
+  const uint32_t bars = kv_s + 2 * kStages * kTile;
+  const uint32_t q_full = bars;
+  auto full = [&](int st) { return bars + 8 * (1 + st); };
+  auto empty = [&](int st) { return bars + 8 * (1 + kStages + st); };
+
+  const int n_qt = (S + kBlockQ - 1) / kBlockQ;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * kBlockQ;  // longest rows first
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y % H;
+  const int kv_end = causal ? min(S, q0 + kBlockQ) : S;
+  const int n_kv = (kv_end + kBlockKV - 1) / kBlockKV;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // producer warp: lane 0 keeps the ring full
+    if (tid == kConsumers) {
+      mbar_expect_tx(q_full, kTile);
+      for (int c = 0; c < kChunks; ++c)
+        tma_load_4d(q_s + c * kBoxBytes, &tq, q_full, 64 * c, q0, h, b);
+      for (int n = 0; n < n_kv; ++n) {
+        const int st = n % kStages;
+        if (n >= kStages) mbar_wait(empty(st), ((n / kStages) - 1) & 1);
+        const uint32_t k_s = kv_s + 2 * st * kTile;
+        mbar_expect_tx(full(st), 2 * kTile);
+        for (int c = 0; c < kChunks; ++c) {
+          tma_load_4d(k_s + c * kBoxBytes, &tk, full(st), 64 * c, n * kBlockKV, h, b);
+          tma_load_4d(k_s + kTile + c * kBoxBytes, &tv, full(st), 64 * c,
+                      n * kBlockKV, h, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: query rows q0 + 64·wg + [0, 64)
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int row0 = q0 + 64 * wg + 16 * warp + lane / 4;  // and row0 + 8
+  const int col_in = 2 * (lane % 4);
+
+  float acc[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+
+  mbar_wait(q_full, 0);
+  for (int n = 0; n < n_kv; ++n) {
+    const int st = n % kStages;
+    const uint32_t k_s = kv_s + 2 * st * kTile;
+    const uint32_t v_s = k_s + kTile;
+    mbar_wait(full(st), (n / kStages) & 1);
+
+    // S = Q Kᵀ over D in k16 steps; the step moves 32 bytes inside a box
+    float s[64];
+    fence_regs(s);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * kChunks; ++kk) {
+      const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+      wgmma_ss_m64n128k16(s, desc_sw128(q_s + off + 64 * wg * 128, 16),
+                          desc_sw128(k_s + off, 16), kk > 0);
+    }
+    wg_commit();
+    wg_wait_all();
+    fence_regs(s);
+
+    // mask, online softmax.  s[i]: row row0 + 8·((i/2)%2), column
+    // kv0 + 8·(i/4) + col_in + i%2
+    const int kv0 = n * kBlockKV;
+    const bool masked = kv0 + kBlockKV > S ||
+                        (causal && kv0 + kBlockKV - 1 > q0 + 64 * wg);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      float v = s[i] * scale_log2;
+      if (masked) {
+        const int row = row0 + 8 * ((i / 2) % 2);
+        const int col = kv0 + 8 * (i / 4) + col_in + (i % 2);
+        if (col >= S || (causal && col > row)) v = kNegInf;
+      }
+      s[i] = v;
+      mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], v);
+    }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+    }
+    uint32_t p[8][4];
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int r = (i / 2) % 2;
+      const float p0 = exp2f(s[i] - m[r]);
+      const float p1 = exp2f(s[i + 1] - m[r]);
+      sum[r] += p0 + p1;
+      p[i / 8][(i % 8) / 2] = pack_bf16(p0, p1);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) acc[i] *= alpha[(i / 2) % 2];
+
+    // O += P V over the 128 kv rows in k16 steps of 16 rows (2048 bytes)
+    fence_regs(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBlockKV / 16; ++kk)
+      wgmma_pv<kChunks>(acc, p[kk], desc_sw128(v_s + kk * 2048, kBoxBytes));
+    wg_commit();
+    wg_wait_all();
+    fence_regs(acc);
+    mbar_arrive(empty(st));
+  }
+
+  // o = acc / l in bf16; the 4 threads of a row hold parts of its sum
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  __nv_bfloat16* op = o + b * so.b + h * so.h;
+#pragma unroll
+  for (int i = 0; i < kAcc; i += 2) {
+    const int row = row0 + 8 * ((i / 2) % 2);
+    const int col = 8 * (i / 4) + col_in;
+    if (row >= S || col >= D) continue;
+    const float li = l[(i / 2) % 2];
+    __nv_bfloat16* dst = op + row * so.s + col;
+    if (col + 1 < D) {
+      *reinterpret_cast<__nv_bfloat162*>(dst) =
+          __floats2bfloat162_rn(acc[i] / li, acc[i + 1] / li);
+    } else {
+      *dst = __float2bfloat16(acc[i] / li);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime,
+// so the extension needs no link against libcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// 4-D map over the (D, S, H, B) view with strides st = (b, h, s) in
+// elements, boxes of 64 columns x 128 rows, 128-byte swizzle, zero fill.
+// A dimension of size 1 is never stepped: it gets a stride TMA accepts.
+bool encode_map(CUtensorMap* map, const void* ptr, const long long* st, int B,
+                int H, int S, int D) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  cuuint64_t stride_s = S > 1 ? st[2] * 2 : (D * 2 + 15) / 16 * 16;
+  cuuint64_t stride_h = H > 1 ? st[1] * 2 : stride_s * S;
+  cuuint64_t stride_b = B > 1 ? st[0] * 2 : stride_h * H;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {stride_s, stride_h, stride_b};
+  const cuuint32_t box[4] = {64, kBlockKV, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+             strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int kChunks>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   const long long* st, int B, int H, int S, int D, int causal,
+                   cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!encode_map(&tq, q, st, B, H, S, D) || !encode_map(&tk, k, st + 3, B, H, S, D) ||
+      !encode_map(&tv, v, st + 6, B, H, S, D))
+    return cudaErrorInvalidValue;
+  const int smem = 1024 + (1 + 2 * kStages) * kBoxBytes * kChunks +
+                   8 * (1 + 2 * kStages);
+  auto kern = flash_fwd_wgmma_kernel<kChunks>;
+  // opt in once per instantiation, outside any CUDA graph capture that
+  // later launches are recorded into
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  const dim3 grid((S + kBlockQ - 1) / kBlockQ, B * H);
+  const Strides3 so{st[9], st[10], st[11]};
+  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
+  kern<<<grid, kThreads, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o),
+                                         so, H, S, D, causal, scale_log2);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 // q, k, v, o: (B, H, S, D) with unit D stride; st: the (b, h, s) strides of
 // q, k, v and o in that order, in elements; bf16 != 0 for bfloat16 data.
 cudaError_t launch_flash_attention(const void* q, const void* k, const void* v,
@@ -272,8 +721,12 @@ cudaError_t launch_flash_attention(const void* q, const void* k, const void* v,
   if (D < 1 || D > 128 || S < 1 || B * H < 1 || B * H > 65535)
     return cudaErrorInvalidValue;
   if (bf16) {
-    return D <= 64 ? launch<__nv_bfloat16, 64>(q, k, v, o, st, B, H, S, D, causal, stream)
-                   : launch<__nv_bfloat16, 128>(q, k, v, o, st, B, H, S, D, causal, stream);
+    // TMA: 16-byte aligned base and strides (the wrapper checks them first)
+    if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+         reinterpret_cast<uintptr_t>(v)) % 16)
+      return cudaErrorMisalignedAddress;
+    return D <= 64 ? tc::launch<1>(q, k, v, o, st, B, H, S, D, causal, stream)
+                   : tc::launch<2>(q, k, v, o, st, B, H, S, D, causal, stream);
   }
   return D <= 64 ? launch<float, 64>(q, k, v, o, st, B, H, S, D, causal, stream)
                  : launch<float, 128>(q, k, v, o, st, B, H, S, D, causal, stream);

@@ -1,8 +1,12 @@
-"""Wrappers of the three FCNN period kernels (``csrc/fcnn_layer.cu``).
+"""Wrappers of the three FCNN period kernels.
 
   fcnn_layer        act(x @ w + b)                 replaces repro/kernels/fcnn_layer.py:142
   fcnn_layer_dgrad  dX = (dY ⊙ A'(Y)) @ Wᵀ         replaces repro/kernels/fcnn_layer.py:208
   fcnn_layer_wgrad  (Xᵀ @ dZ, Σ_rows dZ)           replaces repro/kernels/fcnn_layer.py:292
+
+K1 and K3 are ``csrc/fcnn_layer.cu``; K2 is ``csrc/fcnn_dgrad.cu``, whose
+contraction is split over the blocks of a thread-block cluster as
+``dgrad_plan`` picks from the shape.
 
 Each wrapper checks dtype (fp32 only), shape and contiguity, then picks
 by the tensors' device: on CUDA it allocates the outputs, launches the
@@ -19,12 +23,35 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
-__all__ = ["fcnn_layer", "fcnn_layer_dgrad", "fcnn_layer_wgrad"]
+__all__ = ["fcnn_layer", "fcnn_layer_dgrad", "fcnn_layer_wgrad",
+           "dgrad_plan"]
 
-# codes of csrc/fcnn_layer.cu's Act enum
+# codes of csrc/fcnn_act.cuh's Act enum
 ACT_CODES = {"none": 0, "sigmoid": 1, "relu": 2, "tanh": 3}
 
 _INT32_MAX = 2**31 - 1
+
+# csrc/fcnn_dgrad.cu: dX tiles of 64 x 32 and 128 threads, up to two
+# blocks on each of the H100's 132 SMs, at most 8 blocks to a cluster (the
+# portable size), contraction slices of 16 or 32
+DGRAD_TILE = (64, 32)
+DGRAD_MAX_SPLIT = 8
+DGRAD_BLOCK_SLOTS = 2 * 132
+
+
+def dgrad_plan(m: int, k: int, n: int) -> tuple[int, int]:
+    """(split, slice) of K2 for dX (m, k) over the contraction n: slices of
+    32 where n >= 64, else 16; the split is the largest power of two up to
+    8 that keeps the grid within the card's block slots and gives every
+    block of a cluster at least two slices."""
+    slice_ = 32 if n >= 64 else 16
+    tiles = -(-m // DGRAD_TILE[0]) * -(-k // DGRAD_TILE[1])
+    slices = -(-n // slice_)
+    split = 1
+    while (split < DGRAD_MAX_SPLIT and tiles * split * 2 <= DGRAD_BLOCK_SLOTS
+           and slices >= 2 * split * 2):
+        split *= 2
+    return split, slice_
 
 
 def act_code(activation: str) -> int:
@@ -97,7 +124,7 @@ def fcnn_layer_dgrad(dy: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     if device_type("fcnn_layer_dgrad", dy, y, w) == "cpu":
         return _ref.fcnn_layer_dgrad_ref(dy, y, w, activation)
     dx = torch.empty((m, k), device=dy.device, dtype=torch.float32)
-    _build.extension().fcnn_dgrad(dy, y, w, dx, act)
+    _build.extension().fcnn_dgrad(dy, y, w, dx, act, *dgrad_plan(m, k, n))
     fcnn_layer_dgrad.launches += 1
     return dx
 

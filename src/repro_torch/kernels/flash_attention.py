@@ -9,7 +9,10 @@ output in q's memory layout, launches the kernel on the current stream
 and adds one to ``launches``; on the CPU it runs the plain version from
 ``ref.py``.  The kernel reads q, k and v through their (batch, head, seq)
 strides, so transposed views of the model's (B, S, H, D) projections go
-in without a copy.  Forward only: the reference kernel has no VJP, so
+in without a copy.  In bf16 the kernel loads q, k and v with the Tensor
+Memory Accelerator, which needs a 16-byte aligned base and (batch, head,
+seq) strides of a multiple of 16 bytes: other bf16 views are refused on
+either device, before the dispatch, and never rerouted.  Forward only: the reference kernel has no VJP, so
 inputs that require grad are refused rather than silently detached.
 """
 
@@ -21,7 +24,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.fcnn_layer import device_type
 
-__all__ = ["flash_attention", "FLOAT_DTYPES", "check_float_args"]
+__all__ = ["flash_attention", "FLOAT_DTYPES", "check_float_args",
+           "check_tma_aligned"]
 
 FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 128
@@ -50,6 +54,20 @@ def check_float_args(kernel: str, **tensors: torch.Tensor) -> torch.dtype:
     return dtypes.pop()
 
 
+def check_tma_aligned(kernel: str, **tensors: torch.Tensor) -> None:
+    """Raise unless each tensor's base address and its strides in every
+    dimension but the last (of size > 1) are multiples of 16 bytes."""
+    for name, t in tensors.items():
+        e = t.element_size()
+        bad = [d for d in range(t.dim() - 1)
+               if t.shape[d] > 1 and (t.stride(d) * e) % 16]
+        if t.data_ptr() % 16 or bad:
+            raise ValueError(
+                f"{kernel}: {t.dtype} {name} must be 16-byte aligned, with "
+                f"strides of a multiple of 16 bytes (TMA); got address "
+                f"{t.data_ptr() % 16} mod 16 and strides {t.stride()}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """q, k, v: (B, H, S, D), any S >= 1, D <= 128 -> (B, H, S, D) in q's
@@ -66,7 +84,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if min(b, h, s, d) < 1 or d > MAX_HEAD_DIM or b * h > 65535:
         raise ValueError(f"flash_attention: shape {tuple(q.shape)} outside "
                          f"B·H <= 65535, S >= 1, 1 <= D <= {MAX_HEAD_DIM}")
-    check_float_args("flash_attention", q=q, k=k, v=v)
+    if check_float_args("flash_attention", q=q, k=k, v=v) == torch.bfloat16:
+        check_tma_aligned("flash_attention", q=q, k=k, v=v)
     if device_type("flash_attention", q, k, v) == "cpu":
         return _ref.flash_attention_ref(q, k, v, causal)
     out = torch.empty_like(q)

@@ -47,7 +47,7 @@ def act_deriv_from_output(y: torch.Tensor, activation: str) -> torch.Tensor:
     """A'(z) expressed via the activation output y (fp32 in, fp32 out).
 
     The one table of derivatives: the CUDA kernels' ``act_deriv`` in
-    ``csrc/fcnn_layer.cu`` implements the same four lines."""
+    ``csrc/fcnn_act.cuh`` implements the same four lines."""
     if activation == "sigmoid":
         return y * (1.0 - y)
     if activation == "relu":

@@ -183,3 +183,25 @@ def test_cpu_calls_launch_nothing():
                             torch.zeros(4, dtype=torch.int32))
     loss.backward()
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+
+
+@pytest.mark.parametrize("m,k,n,plan", [
+    (64, 1000, 500, (8, 32)),    # NN1 layer 2: 32 tiles x 8 = 256 blocks
+    (64, 500, 10, (1, 16)),      # NN1 layer 3: one contraction slice
+    (1, 784, 10, (1, 16)),
+    (64, 784, 1000, (8, 32)),    # 25 tiles x 8 = 200
+    (128, 1000, 4000, (4, 32)),  # NN5 layer 3: 64 tiles x 4 = 256
+    (128, 4000, 1000, (1, 32)),  # NN5 layer 2: 250 tiles fill the slots
+    (1, 16, 4000, (8, 32)),      # one tile: the portable cluster size caps it
+])
+def test_dgrad_plan_fills_the_card(m, k, n, plan):
+    """K2's cluster split and slice width: slices of 32 where n >= 64; the
+    largest power-of-two split up to 8 that keeps the grid within two
+    blocks per SM of the H100's 132 and every block at >= 2 slices."""
+    from repro_torch.kernels.fcnn_layer import dgrad_plan
+
+    split, slice_ = dgrad_plan(m, k, n)
+    assert (split, slice_) == plan
+    tiles = -(-m // 64) * -(-k // 32)
+    assert tiles * split <= max(tiles, 2 * 132)
+    assert split == 1 or -(-n // slice_) >= 2 * split

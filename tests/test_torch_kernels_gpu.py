@@ -69,6 +69,52 @@ def test_fcnn_kernels_match_plain_on_card(cuda, m, k, n, act):
     _assert_rel(db, db_r, 1e-4)
 
 
+# K2 splits its contraction over the blocks of a cluster (dgrad_plan picks
+# the split and slice width; the extension takes any split of 1, 2, 4, 8
+# and slices of 16 or 32): N = 1000 is 63 slices of 16, not divisible by
+# 8; N = 10 is one slice, shorter than any split; M = 1 is one ragged row.
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,split,slice_", [
+    (64, 1000, 1000, 8, 16), (64, 1000, 1000, 2, 32), (64, 500, 10, 8, 16),
+    (1, 784, 10, 4, 32), (1, 784, 1000, 8, 16), (64, 1000, 500, None, None),
+    (1, 784, 1000, None, None)])
+@pytest.mark.parametrize("act", ACTS)
+def test_fcnn_dgrad_split_edges_on_card(cuda, m, k, n, split, slice_, act):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fcnn_layer import act_code, dgrad_plan
+
+    rng = np.random.default_rng(3)
+    w = _rand(rng, (k, n), cuda, k ** -0.5)
+    y = ref.apply_activation(_rand(rng, (m, n), cuda), act)
+    dy = _rand(rng, (m, n), cuda, 0.01)
+    if split is None:
+        split, slice_ = dgrad_plan(m, k, n)
+        before = ops.launch_counts()["fcnn_layer_dgrad"]
+        dx = fcnn_layer_dgrad(dy, y, w, act)
+        assert ops.launch_counts()["fcnn_layer_dgrad"] == before + 1
+    else:
+        dx = torch.empty(m, k, device=cuda)
+        _build.extension().fcnn_dgrad(dy, y, w, dx, act_code(act), split,
+                                      slice_)
+    torch.cuda.synchronize()
+    assert split > 1
+    _assert_rel(dx, ref.fcnn_layer_dgrad_ref(dy, y, w, act), 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(64, 1000, 500), (128, 1000, 4000)])
+def test_fcnn_dgrad_is_deterministic_on_card(cuda, m, k, n):
+    """The split partials are summed in rank order: repeated calls give
+    bit-identical dX."""
+    rng = np.random.default_rng(4)
+    w = _rand(rng, (k, n), cuda, k ** -0.5)
+    y = torch.sigmoid(_rand(rng, (m, n), cuda))
+    dy = _rand(rng, (m, n), cuda, 0.01)
+    first = fcnn_layer_dgrad(dy, y, w, "sigmoid")
+    for _ in range(3):
+        assert torch.equal(fcnn_layer_dgrad(dy, y, w, "sigmoid"), first)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,c", [(1, 10), (64, 10), (37, 300)])
 def test_softmax_xent_kernels_match_plain_on_card(cuda, b, c):
@@ -162,6 +208,36 @@ def test_flash_attention_matches_plain_on_card(cuda, b, h, s, d, causal,
                                          v.float().abs(), causal)
     _assert_lm(out, ref.flash_attention_ref(q, k, v, causal), 2e-5,
                BF16_ULP * mean_abs_v.double())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1024, 2048])
+def test_flash_attention_bf16_serving_shapes_on_card(cuda, s):
+    """The tensor-core bf16 kernel at the Zamba2 prefill shapes, causal."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    rng = np.random.default_rng(13)
+    q, k, v = (_rand(rng, (1, s, 32, 64), cuda).to(torch.bfloat16)
+               .transpose(1, 2) for _ in range(3))
+    out = flash_attention(q, k, v, True)
+    torch.cuda.synchronize()
+    mean_abs_v = ref.flash_attention_ref(q.float(), k.float(),
+                                         v.float().abs(), True)
+    _assert_lm(out, ref.flash_attention_ref(q, k, v, True), 2e-5,
+               BF16_ULP * mean_abs_v.double())
+
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_misaligned_bf16_on_card(cuda):
+    """A bf16 view whose row stride (66 bytes) TMA cannot take raises,
+    and nothing is launched."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    t = torch.zeros(1, 2, 8, 33, dtype=torch.bfloat16, device=cuda)[..., :32]
+    before = ops.launch_counts()["flash_attention"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(t, t, t)
+    assert ops.launch_counts()["flash_attention"] == before
 
 
 @pytest.mark.gpu

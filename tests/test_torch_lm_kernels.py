@@ -182,6 +182,31 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         ssd_chunk(x, dt_a[:, :4], b, b)
 
 
+def _bf16_views(kind):
+    """(B, H, S, D) bf16 views the TMA-fed kernel cannot load: a row
+    stride of 66 bytes, or a base 2 bytes past a 16-byte boundary."""
+    if kind == "row stride":
+        return torch.zeros(1, 2, 8, 33, dtype=torch.bfloat16)[..., :32]
+    flat = torch.zeros(1 + 2 * 8 * 32, dtype=torch.bfloat16)
+    return flat[1:].view(1, 2, 8, 32)
+
+
+@pytest.mark.parametrize("kind", ["row stride", "base"])
+def test_flash_attention_refuses_misaligned_bf16_views(kind):
+    """In bf16 the wrapper refuses, before its device dispatch, views the
+    kernel's TMA loads cannot take (16-byte aligned base and strides); fp32
+    views of the same layout still run (the fp32 kernel loads by thread)."""
+    t = _bf16_views(kind)
+    assert t.data_ptr() % 16 or t.stride(2) * 2 % 16
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(t, t, t)
+    assert ops.launch_counts()["flash_attention"] == 0
+    f = t.float()
+    torch.testing.assert_close(flash_attention(f, f, f),
+                               ref.flash_attention_ref(f, f, f))
+
+
 @pytest.mark.parametrize("bc,q,h,p,n", [(1, 129, 2, 8, 8), (1, 8, 2, 65, 8),
                                         (1, 8, 2, 8, 65)])
 def test_ssd_chunk_refuses_shapes_beyond_the_kernel(bc, q, h, p, n):
