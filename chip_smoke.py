@@ -11,14 +11,18 @@ raises and the script exits non-zero without a result line:
 
   1. device   a CUDA card is required; its name and power limit; TF32 off
   2. build    the extension, with ptxas's per-kernel resource report
-              (registers, shared memory and spills of the two redesigned
-              kernels, K2 and bf16 K6, whose spills must be 0) and the
-              count of HGMMA, HMMA and FFMA instructions in each kernel's
-              SASS (cuobjdump); the bf16 K6 kernel must issue HGMMA
+              (registers, shared memory and spills of the redesigned
+              kernels, K1, K2, K3 and bf16 K6, whose spills must be 0) and
+              the count of HGMMA, HMMA and FFMA instructions in each
+              kernel's SASS (cuobjdump); the bf16 K6 kernel must issue HGMMA
   3. kernels  each FCNN kernel against its plain PyTorch version on the
               card, at the NN1 and NN5 shapes and at edge shapes, with
               times of the kernel, the plain version and one PyTorch
-              library call; K2 run twice must give bit-identical dX
+              library call; K1 and K2 (cluster split-K) run twice must
+              give bit-identical outputs; each timed K1, K2 and K3 row
+              prints what its host plan picked ((split, slice), or K3's dW
+              tile height) and the device time of every other choice, each
+              held to the plain version
   4. autograd gradients of the fused ops on NN1 against autograd of the
               plain versions
   5. train    NN1, 300 steps, batch 64, seed 0, through
@@ -59,6 +63,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import Callable, NamedTuple
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -78,11 +83,11 @@ ACTS = ("sigmoid", "relu", "tanh", "none")
 
 KERNEL_INFO = {
     # name: (source, TPU kernel it replaces)
-    "fcnn_layer": ("src/repro_torch/kernels/csrc/fcnn_layer.cu",
+    "fcnn_layer": ("src/repro_torch/kernels/csrc/fcnn_fwd.cu",
                    "src/repro/kernels/fcnn_layer.py:142"),
     "fcnn_layer_dgrad": ("src/repro_torch/kernels/csrc/fcnn_dgrad.cu",
                          "src/repro/kernels/fcnn_layer.py:208"),
-    "fcnn_layer_wgrad": ("src/repro_torch/kernels/csrc/fcnn_layer.cu",
+    "fcnn_layer_wgrad": ("src/repro_torch/kernels/csrc/fcnn_wgrad.cu",
                          "src/repro/kernels/fcnn_layer.py:292"),
     "softmax_xent_fwd": ("src/repro_torch/kernels/csrc/softmax_xent.cu",
                          "src/repro/kernels/softmax_xent.py:111"),
@@ -98,7 +103,8 @@ LM_KERNELS = ("flash_attention", "ssd_chunk")
 # the kernels this script holds to 0 spill bytes in ptxas's report, by a
 # substring of their mangled names; and the bf16 K6 kernel, which must run
 # on the tensor cores (HGMMA in its SASS)
-NO_SPILL_KERNELS = ("dgrad_kernel", "flash_fwd_wgmma_kernel")
+NO_SPILL_KERNELS = ("fcnn_fwd_kernel", "dgrad_kernel", "fcnn_wgrad_kernel",
+                    "flash_fwd_wgmma_kernel")
 K6_BF16_KERNEL = "flash_fwd_wgmma_kernel"
 
 
@@ -309,17 +315,46 @@ def run_build_phase() -> None:
 # --------------------------------------------------------------- phase 3
 
 
+class Case(NamedTuple):
+    """One comparison of phase 3.  Bytes count each input read once and
+    each output written once; flops count the product's multiply-adds as 2
+    and each element-wise step as 1.  ``forced(*choice)`` runs a kernel
+    with a host plan at one of the CHOICES of its kind: K1 and K2 at a
+    (split, slice), K3 at a dW tile (rows, columns); ``plan`` is the
+    choice its wrapper makes."""
+    name: str
+    label: str
+    kern: Callable
+    plain: Callable
+    lib: Callable
+    nbytes: int
+    flops: int
+    timed: bool
+    on_path: bool
+    plan: tuple[int, ...] | None = None
+    forced: Callable | None = None
+
+
+# the plans each kernel with a host plan takes: (split, slice) of the
+# cluster split-K kernels, the dW tile (rows, columns) of K3
+CHOICES = {
+    "fcnn_layer": [(s, sl) for s in (1, 2, 4, 8, 16) for sl in (16, 32)],
+    "fcnn_layer_dgrad": [(s, sl) for s in (1, 2, 4, 8) for sl in (16, 32)],
+    "fcnn_layer_wgrad": [(64, 64), (128, 64), (128, 128)],
+}
+
+
 def kernel_cases(torch, dev, gen):
-    """Yield (kernel name, label, kernel call, plain call, library call,
-    bytes, flops, timed, on the NN1 step) for every comparison of phase 3.
-    Bytes count each input read once and each output written once; flops
-    count the product's multiply-adds as 2 and each element-wise step
-    as 1."""
-    from repro_torch.kernels import ref
+    """Yield a Case for every comparison of phase 3."""
+    from repro_torch.kernels import _build, ref
     from repro_torch.kernels.fcnn_layer import (
+        act_code,
+        dgrad_plan,
         fcnn_layer,
         fcnn_layer_dgrad,
         fcnn_layer_wgrad,
+        fwd_plan,
+        wgrad_plan,
     )
     from repro_torch.kernels.softmax_xent import (
         softmax_xent_dlogits,
@@ -335,6 +370,7 @@ def kernel_cases(torch, dev, gen):
     def layer_cases(tag, sizes, batch, acts_for=None, timed=True,
                     on_path=False):
         l = len(sizes) - 1
+        ext = _build.extension()
         for i in range(l):
             k, n = sizes[i], sizes[i + 1]
             acts = acts_for or (("sigmoid",) if i < l - 1 else ("none",))
@@ -345,25 +381,43 @@ def kernel_cases(torch, dev, gen):
                 y = ref.fcnn_layer_ref(x, w, b, act)
                 dz = ref.act_deriv_from_output(y, act) * dy
                 lab = f"{tag} L{i + 1} {m}x{k}x{n} {act}"
+
+                def fwd_forced(split, slice_, x=x, w=w, b=b, a=act):
+                    out = torch.empty(x.shape[0], w.shape[1], device=dev)
+                    ext.fcnn_fwd(x, w, b, out, act_code(a), split, slice_)
+                    return out
+
+                def dgrad_forced(split, slice_, dy=dy, y=y, w=w, a=act):
+                    dx = torch.empty(dy.shape[0], w.shape[0], device=dev)
+                    ext.fcnn_dgrad(dy, y, w, dx, act_code(a), split, slice_)
+                    return dx
+
+                def wgrad_forced(rows, cols, x=x, dy=dy, y=y, a=act):
+                    dw = torch.empty(x.shape[1], dy.shape[1], device=dev)
+                    db = torch.empty(dy.shape[1], device=dev)
+                    ext.fcnn_wgrad(x, dy, y, dw, db, act_code(a), rows, cols)
+                    return dw, db
+
                 # the step skips dgrad of layer 1 (its input needs no grad)
-                yield ("fcnn_layer", lab,
-                       lambda x=x, w=w, b=b, a=act: fcnn_layer(x, w, b, a),
-                       lambda x=x, w=w, b=b, a=act: ref.fcnn_layer_ref(x, w, b, a),
-                       lambda x=x, w=w, b=b, a=act: lib_act[a](torch.addmm(b, x, w)),
-                       4 * (m * k + k * n + n + m * n), 2 * m * k * n + 2 * m * n,
-                       timed, on_path)
-                yield ("fcnn_layer_dgrad", lab,
-                       lambda dy=dy, y=y, w=w, a=act: fcnn_layer_dgrad(dy, y, w, a),
-                       lambda dy=dy, y=y, w=w, a=act: ref.fcnn_layer_dgrad_ref(dy, y, w, a),
-                       lambda dz=dz, w=w: dz @ w.T,
-                       4 * (2 * m * n + k * n + m * k), 2 * m * n * k + 2 * m * n,
-                       timed, on_path and i > 0)
-                yield ("fcnn_layer_wgrad", lab,
-                       lambda x=x, dy=dy, y=y, a=act: fcnn_layer_wgrad(x, dy, y, a),
-                       lambda x=x, dy=dy, y=y, a=act: ref.fcnn_layer_wgrad_ref(x, dy, y, a),
-                       lambda x=x, dz=dz: (x.T @ dz, dz.sum(0)),
-                       4 * (m * k + 2 * m * n + k * n + n), 2 * m * k * n + 3 * m * n,
-                       timed, on_path)
+                yield Case("fcnn_layer", lab,
+                           lambda x=x, w=w, b=b, a=act: fcnn_layer(x, w, b, a),
+                           lambda x=x, w=w, b=b, a=act: ref.fcnn_layer_ref(x, w, b, a),
+                           lambda x=x, w=w, b=b, a=act: lib_act[a](torch.addmm(b, x, w)),
+                           4 * (m * k + k * n + n + m * n), 2 * m * k * n + 2 * m * n,
+                           timed, on_path, fwd_plan(m, k, n), fwd_forced)
+                yield Case("fcnn_layer_dgrad", lab,
+                           lambda dy=dy, y=y, w=w, a=act: fcnn_layer_dgrad(dy, y, w, a),
+                           lambda dy=dy, y=y, w=w, a=act: ref.fcnn_layer_dgrad_ref(dy, y, w, a),
+                           lambda dz=dz, w=w: dz @ w.T,
+                           4 * (2 * m * n + k * n + m * k), 2 * m * n * k + 2 * m * n,
+                           timed, on_path and i > 0, dgrad_plan(m, k, n),
+                           dgrad_forced)
+                yield Case("fcnn_layer_wgrad", lab,
+                           lambda x=x, dy=dy, y=y, a=act: fcnn_layer_wgrad(x, dy, y, a),
+                           lambda x=x, dy=dy, y=y, a=act: ref.fcnn_layer_wgrad_ref(x, dy, y, a),
+                           lambda x=x, dz=dz: (x.T @ dz, dz.sum(0)),
+                           4 * (m * k + 2 * m * n + k * n + n), 2 * m * k * n + 3 * m * n,
+                           timed, on_path, wgrad_plan(k, n), wgrad_forced)
 
     def xent_cases(tag, b, c, timed=True, on_path=False):
         x = rand(b, c, scale=3.0)
@@ -374,16 +428,16 @@ def kernel_cases(torch, dev, gen):
         nll, lse = ref.softmax_xent_fwd_ref(x, lab)
         scale = torch.full((b,), 0.7 / b, device=dev)
         label = f"{tag} {b}x{c}"
-        yield ("softmax_xent_fwd", label,
-               lambda: softmax_xent_fwd(x, lab),
-               lambda: ref.softmax_xent_fwd_ref(x, lab),
-               lambda: F.cross_entropy(x, lab64, reduction="none"),
-               4 * (b * c + 3 * b), 4 * b * c, timed, on_path)
-        yield ("softmax_xent_dlogits", label,
-               lambda: softmax_xent_dlogits(x, lab, lse, scale),
-               lambda: ref.softmax_xent_dlogits_ref(x, lab, lse, scale),
-               lambda: torch.softmax(x, -1) - onehot,
-               4 * (2 * b * c + 3 * b), 4 * b * c, timed, on_path)
+        yield Case("softmax_xent_fwd", label,
+                   lambda: softmax_xent_fwd(x, lab),
+                   lambda: ref.softmax_xent_fwd_ref(x, lab),
+                   lambda: F.cross_entropy(x, lab64, reduction="none"),
+                   4 * (b * c + 3 * b), 4 * b * c, timed, on_path)
+        yield Case("softmax_xent_dlogits", label,
+                   lambda: softmax_xent_dlogits(x, lab, lse, scale),
+                   lambda: ref.softmax_xent_dlogits_ref(x, lab, lse, scale),
+                   lambda: torch.softmax(x, -1) - onehot,
+                   4 * (2 * b * c + 3 * b), 4 * b * c, timed, on_path)
 
     yield from layer_cases("NN1", NN1, 64, on_path=True)
     yield from xent_cases("NN1", 64, 10, on_path=True)
@@ -396,54 +450,91 @@ def kernel_cases(torch, dev, gen):
     yield from xent_cases("edge", 37, 300, timed=False)
 
 
+def worst_errors(out, want) -> tuple[float, float]:
+    """errors() over the outputs of a call (a tensor or a tuple)."""
+    outs = out if isinstance(out, tuple) else (out,)
+    wants = want if isinstance(want, tuple) else (want,)
+    worst_abs = worst_rel = 0.0
+    for o, w in zip(outs, wants):
+        a, r = errors(o, w)
+        worst_abs, worst_rel = max(worst_abs, a), max(worst_rel, r)
+    return worst_abs, worst_rel
+
+
+def sweep_line(torch, case: Case, want) -> str:
+    """Device ms of a kernel with a host plan at every choice it takes,
+    each held to the plain version's output ``want``; the plan's choice
+    and the fastest are named."""
+    times = {}
+    for choice in CHOICES[case.name]:
+        out = case.forced(*choice)
+        torch.cuda.synchronize()
+        rel = worst_errors(out, want)[1]
+        check(rel <= GEMM_RTOL, f"{case.name} {case.label} at "
+                                f"{choice}: max_rel {rel:.3e}")
+        times[choice] = device_ms(lambda c=choice: case.forced(*c))
+    best = min(times, key=times.get)
+    tiles = case.name == "fcnn_layer_wgrad"
+    name = lambda c: "x".join(map(str, c)) if tiles else "/".join(map(str, c))  # noqa: E731
+    cells = " ".join(f"{name(c)} {ms:.5f}" for c, ms in times.items())
+    return (f"    sweep {'tile' if tiles else 'split/slice'} device ms: "
+            f"{cells} | plan {name(case.plan)} {times[case.plan]:.5f}, "
+            f"fastest {name(best)} {times[best]:.5f}")
+
+
 def run_kernel_phase(torch, dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     summary = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                       "library_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
                       "ops_ms": 0.0, "shapes": []}
                for name in FCNN_KERNELS}
-    for (name, label, kern, plain, lib, nbytes, flops, timed,
-         on_path) in kernel_cases(torch, dev, gen):
-        out, want = kern(), plain()
+    for case in kernel_cases(torch, dev, gen):
+        name, label = case.name, case.label
+        out, want = case.kern(), case.plain()
         torch.cuda.synchronize()
-        outs = out if isinstance(out, tuple) else (out,)
-        wants = want if isinstance(want, tuple) else (want,)
-        worst_abs = worst_rel = 0.0
-        for o, w in zip(outs, wants):
-            a, r = errors(o, w)
-            worst_abs, worst_rel = max(worst_abs, a), max(worst_rel, r)
+        worst_abs, worst_rel = worst_errors(out, want)
         gemm = name.startswith("fcnn")
         ok = worst_rel <= GEMM_RTOL if gemm else worst_abs <= XENT_ATOL
-        repeat = ""
-        if name == "fcnn_layer_dgrad":   # split-K sums in a fixed order
-            same = torch.equal(out, kern())
-            repeat = " repeat bit-identical" if same else " repeat DIFFERS"
+        extra = ""
+        if name == "fcnn_layer_wgrad":
+            extra = f" tile {case.plan[0]}x{case.plan[1]}"
+        elif case.plan is not None:  # split-K sums in a fixed order
+            same = torch.equal(out, case.kern())
+            extra = (f" split/slice {case.plan[0]}/{case.plan[1]} repeat "
+                     f"{'bit-identical' if same else 'DIFFERS'}")
             ok = ok and same
         tol = f"rel<={GEMM_RTOL:g}" if gemm else f"abs<={XENT_ATOL:g}"
         line = (f"{name:21s} {label:32s} max_abs {worst_abs:.3e} "
-                f"max_rel {worst_rel:.3e} ({tol}){repeat} "
+                f"max_rel {worst_rel:.3e} ({tol}){extra} "
                 f"{'ok' if ok else 'FAIL'}")
         s = summary[name]
         s["max_abs_err"] = max(s["max_abs_err"], worst_abs)
-        if timed:
-            ms, plain_ms, lib_ms = (device_ms(kern), device_ms(plain),
-                                    device_ms(lib))
-            b_ms, b_by = bound(nbytes, flops)
+        if case.timed:
+            ms, plain_ms, lib_ms = (device_ms(case.kern), device_ms(case.plain),
+                                    device_ms(case.lib))
+            b_ms, b_by = bound(case.nbytes, case.flops)
             line += (f" | device ms: kernel {ms:.5f} plain {plain_ms:.5f} "
                      f"library {lib_ms:.5f} bound {b_ms:.5f} ({b_by}) | "
-                     f"eager ms: kernel {eager_ms(kern):.5f} plain "
-                     f"{eager_ms(plain):.5f}"
-                     f"{' [NN1 step]' if on_path else ''}")
-            if on_path:
+                     f"eager ms: kernel {eager_ms(case.kern):.5f} plain "
+                     f"{eager_ms(case.plain):.5f}"
+                     f"{' [NN1 step]' if case.on_path else ''}")
+            if case.on_path:
                 s["ms"] += ms
                 s["plain_ms"] += plain_ms
                 s["library_ms"] += lib_ms
                 s["bound_ms"] += b_ms
-                s["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
-                s["ops_ms"] += flops / FP32_FLOP_PER_S * 1e3
+                s["bytes_ms"] += case.nbytes / HBM_BYTES_PER_S * 1e3
+                s["ops_ms"] += case.flops / FP32_FLOP_PER_S * 1e3
                 s["shapes"].append(label)
         print(line, flush=True)
         check(ok, f"{name} {label} disagrees with its plain version")
+        if case.timed and case.forced is not None:
+            print(sweep_line(torch, case, want), flush=True)
+    for name in FCNN_KERNELS:
+        s = summary[name]
+        print(f"NN1 step, {name}: kernel {s['ms']:.5f} ms, library "
+              f"{s['library_ms']:.5f} ms, plain {s['plain_ms']:.5f} ms, bound "
+              f"{s['bound_ms']:.5f} ms over {len(s['shapes'])} calls")
     return summary
 
 

@@ -1,9 +1,11 @@
 """Builds the seven CUDA kernels into one PyTorch extension at first use.
 
-``torch.utils.cpp_extension.load`` compiles ``csrc/fcnn_layer.cu``,
-``csrc/fcnn_dgrad.cu``, ``csrc/softmax_xent.cu``, ``csrc/flash_attention.cu``,
-``csrc/ssd_scan.cu`` and ``csrc/bindings.cpp`` (headers ``csrc/fcnn_act.cuh``)
-in one call for ``sm_90a`` into ``build/torch_kernels/`` at the repository root (listed
+``torch.utils.cpp_extension.load`` compiles ``csrc/fcnn_fwd.cu``,
+``csrc/fcnn_dgrad.cu``, ``csrc/fcnn_wgrad.cu``, ``csrc/softmax_xent.cu``,
+``csrc/flash_attention.cu``, ``csrc/ssd_scan.cu`` and ``csrc/bindings.cpp``
+(headers ``csrc/fcnn_act.cuh``, the activations, and ``csrc/fcnn_splitk.cuh``,
+the cp.async copies and the cluster reduction of the FCNN kernels) in one
+call for ``sm_90a`` into ``build/torch_kernels/`` at the repository root (listed
 in ``.gitignore``) and imports the result.  Nothing is built when this
 module is imported: the CPU tests import every module of the package and
 have no CUDA compiler.
@@ -18,8 +20,9 @@ __all__ = ["extension", "BUILD_DIR", "SOURCES"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = tuple(str(_CSRC / f)
-                for f in ("fcnn_layer.cu", "fcnn_dgrad.cu", "softmax_xent.cu",
-                          "flash_attention.cu", "ssd_scan.cu", "bindings.cpp"))
+                for f in ("fcnn_fwd.cu", "fcnn_dgrad.cu", "fcnn_wgrad.cu",
+                          "softmax_xent.cu", "flash_attention.cu", "ssd_scan.cu",
+                          "bindings.cpp"))
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 
 _CUDA_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",

@@ -1,8 +1,8 @@
 // Python bindings of the seven kernels.  The only source that includes
-// PyTorch's headers: the kernels themselves (fcnn_layer.cu, fcnn_dgrad.cu,
-// softmax_xent.cu, flash_attention.cu, ssd_scan.cu) export plain launchers
-// that take raw pointers, strides and a stream and return the launch's
-// cudaError_t.  The Python wrappers (kernels/fcnn_layer.py, kernels/softmax_xent.py,
+// PyTorch's headers: the kernels themselves (fcnn_fwd.cu, fcnn_dgrad.cu,
+// fcnn_wgrad.cu, softmax_xent.cu, flash_attention.cu, ssd_scan.cu) export
+// plain launchers that take raw pointers, strides and a stream and return
+// the launch's cudaError_t.  The Python wrappers (kernels/fcnn_layer.py, kernels/softmax_xent.py,
 // kernels/flash_attention.py, kernels/ssd_scan.py) check device, dtype,
 // shape and strides and allocate the outputs; these functions launch on
 // PyTorch's current stream and raise if the launch was refused.
@@ -13,14 +13,15 @@
 #include <cuda_runtime.h>
 
 cudaError_t launch_fcnn_fwd(const float* x, const float* w, const float* b,
-                            float* out, int M, int K, int N, int act,
-                            cudaStream_t s);
+                            float* out, int M, int K, int N, int act, int split,
+                            int slice, cudaStream_t s);
 cudaError_t launch_fcnn_dgrad(const float* dy, const float* y, const float* w,
                               float* dx, int M, int K, int N, int act, int split,
                               int slice, cudaStream_t s);
 cudaError_t launch_fcnn_wgrad(const float* x, const float* dy, const float* y,
                               float* dw, float* db, int M, int K, int N,
-                              int act, cudaStream_t s);
+                              int act, int tile_rows, int tile_cols,
+                              cudaStream_t s);
 cudaError_t launch_xent_fwd(const float* logits, const int* labels, float* nll,
                             float* lse, int B, int C, cudaStream_t s);
 cudaError_t launch_xent_dlogits(const float* logits, const int* labels,
@@ -49,12 +50,15 @@ cudaStream_t stream_of(const torch::Tensor& t) {
 
 float* f32(const torch::Tensor& t) { return t.data_ptr<float>(); }
 
-// x (M, K), w (K, N), b (N,) -> out (M, N)
+// x (M, K), w (K, N), b (N,) -> out (M, N); the contraction split over
+// ``split`` blocks of a cluster, in slices of ``slice``
 void fcnn_fwd(const torch::Tensor& x, const torch::Tensor& w,
-              const torch::Tensor& b, torch::Tensor out, int64_t act) {
+              const torch::Tensor& b, torch::Tensor out, int64_t act,
+              int64_t split, int64_t slice) {
   const c10::cuda::CUDAGuard guard(x.device());
   check_launch(launch_fcnn_fwd(f32(x), f32(w), f32(b), f32(out), x.size(0),
-                               x.size(1), w.size(1), act, stream_of(x)),
+                               x.size(1), w.size(1), act, split, slice,
+                               stream_of(x)),
                "fcnn_layer");
 }
 
@@ -70,14 +74,15 @@ void fcnn_dgrad(const torch::Tensor& dy, const torch::Tensor& y,
                "fcnn_layer_dgrad");
 }
 
-// x (M, K), dy, y (M, N) -> dw (K, N), db (N,)
+// x (M, K), dy, y (M, N) -> dw (K, N), db (N,); dW in tiles of
+// ``tile_rows`` x ``tile_cols``
 void fcnn_wgrad(const torch::Tensor& x, const torch::Tensor& dy,
                 const torch::Tensor& y, torch::Tensor dw, torch::Tensor db,
-                int64_t act) {
+                int64_t act, int64_t tile_rows, int64_t tile_cols) {
   const c10::cuda::CUDAGuard guard(x.device());
   check_launch(launch_fcnn_wgrad(f32(x), f32(dy), f32(y), f32(dw), f32(db),
                                  x.size(0), x.size(1), dy.size(1), act,
-                                 stream_of(x)),
+                                 tile_rows, tile_cols, stream_of(x)),
                "fcnn_layer_wgrad");
 }
 

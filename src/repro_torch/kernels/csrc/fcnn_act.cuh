@@ -1,6 +1,6 @@
 // Activations of the FCNN periods and their derivatives from the output
-// Y, shared by the forward/wgrad GEMM (fcnn_layer.cu) and the dgrad kernel
-// (fcnn_dgrad.cu).  act_deriv mirrors
+// Y, shared by the forward (fcnn_fwd.cu), dgrad (fcnn_dgrad.cu) and wgrad
+// (fcnn_wgrad.cu) kernels.  act_deriv mirrors
 // repro_torch/kernels/ref.py::act_deriv_from_output line for line.
 #pragma once
 
@@ -23,6 +23,26 @@ __device__ __forceinline__ float act_deriv(float y) {
   else if constexpr (ACT == kRelu) return y > 0.f ? 1.f : 0.f;
   else if constexpr (ACT == kTanh) return 1.f - y * y;
   else return 1.f;
+}
+
+// the same with the activation as a run-time code, for kernels that apply
+// it outside their inner loop (one instantiation serves all four)
+__device__ __forceinline__ float act_fwd(int act, float z) {
+  switch (act) {
+    case kSigmoid: return act_fwd<kSigmoid>(z);
+    case kRelu: return act_fwd<kRelu>(z);
+    case kTanh: return act_fwd<kTanh>(z);
+    default: return z;
+  }
+}
+
+__device__ __forceinline__ float act_deriv(int act, float y) {
+  switch (act) {
+    case kSigmoid: return act_deriv<kSigmoid>(y);
+    case kRelu: return act_deriv<kRelu>(y);
+    case kTanh: return act_deriv<kTanh>(y);
+    default: return 1.f;
+  }
 }
 
 }  // namespace fcnn

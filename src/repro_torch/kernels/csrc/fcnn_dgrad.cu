@@ -30,17 +30,15 @@
 // Out-of-range rows and columns are zero-filled by the copies (src-size 0),
 // which makes their dZ and W zero.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "fcnn_act.cuh"
-
-namespace cg = cooperative_groups;
+#include "fcnn_splitk.cuh"
 
 namespace {
 
-using namespace fcnn;  // Act, act_deriv
+using namespace fcnn;  // Act, act_deriv, cp_async*, Map, cluster_reduce_rows
 
 constexpr int BM = 64;         // dX tile rows (batch)
 constexpr int BK = 32;         // dX tile columns (rows of W)
@@ -48,47 +46,6 @@ constexpr int STAGES = 3;
 constexpr int THREADS = 128;   // 8 x 16 threads, 4 x 4 outputs each
 constexpr int RED_PITCH = BK + 1;
 constexpr int MAX_SPLIT = 8;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// copy 16 (or 4) bytes, or write zeros when !ok (the source is not read)
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-// Which elements of an R x BN tile the calling thread copies: kCount
-// chunks of kWidth floats at (row(t, i), col(t, i)), i < kCount.
-template <bool VEC, int BN, int R>
-struct Map {
-  static constexpr int kWidth = VEC ? 4 : 1;
-  static constexpr int kCount = R * BN / kWidth / THREADS;
-  static_assert(kCount * kWidth * THREADS == R * BN, "whole chunks per thread");
-  __device__ static int row(int t, int i) {
-    return (t + i * THREADS) / (BN / kWidth);
-  }
-  __device__ static int col(int t, int i) {
-    return kWidth * ((t + i * THREADS) % (BN / kWidth));
-  }
-};
 
 // the ring: STAGES x (dY, then dZ in place | Y | W) slices, BN + 4 floats
 // a row (rows stay 16-byte aligned; the float4 reads are conflict-free)
@@ -126,8 +83,8 @@ dgrad_kernel(const float* __restrict__ dy, const float* __restrict__ y,
   const int s_begin = rank * n_slices / split;
   const int count = (rank + 1) * n_slices / split - s_begin;
 
-  using Z = Map<VEC, BN, BM>;
-  using Wm = Map<VEC, BN, BK>;
+  using Z = Map<VEC, BN, BM, THREADS>;
+  using Wm = Map<VEC, BN, BK, THREADS>;
   auto load = [&](int slice, int stage) {
     const int n0 = (s_begin + slice) * BN;
 #pragma unroll
@@ -136,13 +93,8 @@ dgrad_kernel(const float* __restrict__ dy, const float* __restrict__ y,
       const int gr = row0 + r, gn = n0 + c;
       const bool ok = gr < M && gn < N;
       const size_t off = ok ? static_cast<size_t>(gr) * N + gn : 0;
-      if constexpr (VEC) {
-        cp_async16(&Zs[stage][r * PITCH + c], dy + off, ok);
-        cp_async16(&Ys[stage][r * PITCH + c], y + off, ok);
-      } else {
-        cp_async4(&Zs[stage][r * PITCH + c], dy + off, ok);
-        cp_async4(&Ys[stage][r * PITCH + c], y + off, ok);
-      }
+      cp_async<VEC>(&Zs[stage][r * PITCH + c], dy + off, ok);
+      cp_async<VEC>(&Ys[stage][r * PITCH + c], y + off, ok);
     }
     // W tile: BK rows of W (columns of dX) x BN contraction entries
 #pragma unroll
@@ -151,8 +103,7 @@ dgrad_kernel(const float* __restrict__ dy, const float* __restrict__ y,
       const int gk = col0 + r, gn = n0 + c;
       const bool ok = gk < K && gn < N;
       const float* src = w + (ok ? static_cast<size_t>(gk) * N + gn : 0);
-      if constexpr (VEC) cp_async16(&Ws[stage][r * PITCH + c], src, ok);
-      else cp_async4(&Ws[stage][r * PITCH + c], src, ok);
+      cp_async<VEC>(&Ws[stage][r * PITCH + c], src, ok);
     }
   };
 
@@ -226,18 +177,11 @@ dgrad_kernel(const float* __restrict__ dy, const float* __restrict__ y,
   for (int r = 0; r < 4; ++r)
 #pragma unroll
     for (int j = 0; j < 4; ++j) red[(ty + 16 * r) * RED_PITCH + tx + 8 * j] = acc[r][j];
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  const int rows = BM / split;
-  for (int e = t; e < rows * BK; e += THREADS) {
-    const int r = rank * rows + e / BK, c = e % BK;
-    float sum = 0.f;
-    for (int q = 0; q < split; ++q)
-      sum += cluster.map_shared_rank(red, q)[r * RED_PITCH + c];
-    const int gr = row0 + r, gc = col0 + c;
-    if (gr < M && gc < K) dx[static_cast<size_t>(gr) * K + gc] = sum;
-  }
-  cluster.sync();  // every partial stays alive until all ranks have read it
+  cluster_reduce_rows<BM, BK, RED_PITCH, THREADS>(
+      red, split, rank, [&](int r, int c, float sum) {
+        const int gr = row0 + r, gc = col0 + c;
+        if (gr < M && gc < K) dx[static_cast<size_t>(gr) * K + gc] = sum;
+      });
 }
 
 template <int ACT, bool VEC, int BN>

@@ -4,9 +4,11 @@
   fcnn_layer_dgrad  dX = (dY ⊙ A'(Y)) @ Wᵀ         replaces repro/kernels/fcnn_layer.py:208
   fcnn_layer_wgrad  (Xᵀ @ dZ, Σ_rows dZ)           replaces repro/kernels/fcnn_layer.py:292
 
-K1 and K3 are ``csrc/fcnn_layer.cu``; K2 is ``csrc/fcnn_dgrad.cu``, whose
-contraction is split over the blocks of a thread-block cluster as
-``dgrad_plan`` picks from the shape.
+K1 is ``csrc/fcnn_fwd.cu`` and K2 ``csrc/fcnn_dgrad.cu``: each splits its
+contraction over the blocks of a thread-block cluster as ``fwd_plan`` and
+``dgrad_plan`` pick from the shape (one rule, ``splitk_plan``).  K3 is
+``csrc/fcnn_wgrad.cu``, whose contraction is the batch; ``wgrad_plan``
+picks the height of its dW tiles.
 
 Each wrapper checks dtype (fp32 only), shape and contiguity, then picks
 by the tensors' device: on CUDA it allocates the outputs, launches the
@@ -24,34 +26,70 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
 __all__ = ["fcnn_layer", "fcnn_layer_dgrad", "fcnn_layer_wgrad",
-           "dgrad_plan"]
+           "fwd_plan", "dgrad_plan", "wgrad_plan", "splitk_plan"]
 
 # codes of csrc/fcnn_act.cuh's Act enum
 ACT_CODES = {"none": 0, "sigmoid": 1, "relu": 2, "tanh": 3}
 
 _INT32_MAX = 2**31 - 1
 
-# csrc/fcnn_dgrad.cu: dX tiles of 64 x 32 and 128 threads, up to two
-# blocks on each of the H100's 132 SMs, at most 8 blocks to a cluster (the
-# portable size), contraction slices of 16 or 32
-DGRAD_TILE = (64, 32)
-DGRAD_MAX_SPLIT = 8
-DGRAD_BLOCK_SLOTS = 2 * 132
+# csrc/fcnn_fwd.cu and csrc/fcnn_dgrad.cu: output tiles of 64 x 32 and
+# 128 threads, contraction slices of 16 or 32, clusters of up to 16 blocks
+# (above 8, the non-portable size).  Each kernel's limits, as chip_smoke.py
+# phase 3's sweep of (split, slice) chose them on the H100 (132 SMs): the
+# largest split; how many blocks the grid may hold (four to an SM for K1,
+# whose 41.5 KB ring leaves room for them; two for K2, whose 69 KB ring
+# ran slower at three); the fewest contraction slices a block may get.
+SPLITK_TILE = (64, 32)
+FWD_LIMITS = (16, 4 * 132, 1)
+DGRAD_LIMITS = (8, 2 * 132, 2)
+
+
+def splitk_plan(tiles: int, contraction: int,
+                limits: tuple[int, int, int]) -> tuple[int, int]:
+    """(split, slice) of a cluster split-K kernel with ``tiles`` output
+    tiles over ``contraction``: slices of 32 where the contraction is >= 64,
+    else 16; the split is the largest power of two within
+    ``limits = (largest split, block slots, least slices a block)``."""
+    max_split, block_slots, min_slices = limits
+    slice_ = 32 if contraction >= 64 else 16
+    slices = -(-contraction // slice_)
+    split = 1
+    while (split < max_split and tiles * split * 2 <= block_slots
+           and slices >= split * 2 * min_slices):
+        split *= 2
+    return split, slice_
+
+
+def _tiles(rows: int, cols: int) -> int:
+    return -(-rows // SPLITK_TILE[0]) * -(-cols // SPLITK_TILE[1])
+
+
+def fwd_plan(m: int, k: int, n: int) -> tuple[int, int]:
+    """(split, slice) of K1 for out (m, n) over the contraction k."""
+    return splitk_plan(_tiles(m, n), k, FWD_LIMITS)
 
 
 def dgrad_plan(m: int, k: int, n: int) -> tuple[int, int]:
-    """(split, slice) of K2 for dX (m, k) over the contraction n: slices of
-    32 where n >= 64, else 16; the split is the largest power of two up to
-    8 that keeps the grid within the card's block slots and gives every
-    block of a cluster at least two slices."""
-    slice_ = 32 if n >= 64 else 16
-    tiles = -(-m // DGRAD_TILE[0]) * -(-k // DGRAD_TILE[1])
-    slices = -(-n // slice_)
-    split = 1
-    while (split < DGRAD_MAX_SPLIT and tiles * split * 2 <= DGRAD_BLOCK_SLOTS
-           and slices >= 2 * split * 2):
-        split *= 2
-    return split, slice_
+    """(split, slice) of K2 for dX (m, k) over the contraction n."""
+    return splitk_plan(_tiles(m, k), n, DGRAD_LIMITS)
+
+
+# csrc/fcnn_wgrad.cu: dW tiles (rows, columns), the largest first; a tile
+# is taken where its grid keeps at least three in four of the H100's 132
+# SMs busy (chip_smoke.py phase 3's sweep of the three)
+WGRAD_TILES = ((128, 128), (128, 64), (64, 64))
+WGRAD_MIN_BLOCKS = 3 * 132 // 4
+
+
+def wgrad_plan(k: int, n: int) -> tuple[int, int]:
+    """K3's dW tile for dW (k, n): the largest of WGRAD_TILES whose grid
+    holds at least WGRAD_MIN_BLOCKS blocks (a larger tile's blocks read
+    each batch row of x, dY and Y fewer times), else the smallest."""
+    for rows, cols in WGRAD_TILES[:-1]:
+        if -(-k // rows) * -(-n // cols) >= WGRAD_MIN_BLOCKS:
+            return rows, cols
+    return WGRAD_TILES[-1]
 
 
 def act_code(activation: str) -> int:
@@ -107,7 +145,7 @@ def fcnn_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if device_type("fcnn_layer", x, w, b) == "cpu":
         return _ref.fcnn_layer_ref(x, w, b, activation)
     out = torch.empty((m, n), device=x.device, dtype=torch.float32)
-    _build.extension().fcnn_fwd(x, w, b, out, act)
+    _build.extension().fcnn_fwd(x, w, b, out, act, *fwd_plan(m, k, n))
     fcnn_layer.launches += 1
     return out
 
@@ -144,7 +182,7 @@ def fcnn_layer_wgrad(x: torch.Tensor, dy: torch.Tensor, y: torch.Tensor,
         return _ref.fcnn_layer_wgrad_ref(x, dy, y, activation)
     dw = torch.empty((k, n), device=x.device, dtype=torch.float32)
     db = torch.empty((n,), device=x.device, dtype=torch.float32)
-    _build.extension().fcnn_wgrad(x, dy, y, dw, db, act)
+    _build.extension().fcnn_wgrad(x, dy, y, dw, db, act, *wgrad_plan(k, n))
     fcnn_layer_wgrad.launches += 1
     return dw, db
 

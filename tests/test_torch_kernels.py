@@ -205,3 +205,55 @@ def test_dgrad_plan_fills_the_card(m, k, n, plan):
     tiles = -(-m // 64) * -(-k // 32)
     assert tiles * split <= max(tiles, 2 * 132)
     assert split == 1 or -(-n // slice_) >= 2 * split
+
+
+@pytest.mark.parametrize("m,k,n,plan", [
+    (64, 784, 1000, (16, 32)),   # NN1 layer 1: 32 tiles x 16 = 512 blocks
+    (64, 1000, 500, (16, 32)),   # NN1 layer 2: 16 tiles x 16
+    (64, 500, 10, (16, 32)),     # NN1 layer 3: one tile, 16 slices
+    (128, 1024, 4000, (2, 32)),  # NN5 layer 1: 250 tiles x 2 = 500
+    (128, 4000, 1000, (8, 32)),  # NN5 layer 2: 64 tiles x 8 = 512
+    (128, 1000, 4000, (2, 32)),  # NN5 layer 3
+    (128, 4000, 10, (16, 32)),   # NN5 layer 4: 2 tiles
+    (1, 784, 10, (16, 32)),      # batch 1
+    (64, 4000, 32, (16, 32)),    # one tile at K = 4000
+    (64, 40, 10, (2, 16)),       # three slices of 16
+    (256, 40, 4096, (1, 16)),    # 512 tiles fill the slots
+])
+def test_fwd_plan_fills_the_card(m, k, n, plan):
+    """K1's cluster split and slice width (splitk_plan over 64 x 32 tiles
+    of the output (m, n) and the contraction k): the largest power-of-two
+    split up to 16 that keeps the grid within four blocks per SM of the
+    H100's 132 and every block at >= 1 slice."""
+    from repro_torch.kernels.fcnn_layer import (
+        FWD_LIMITS,
+        fwd_plan,
+        splitk_plan,
+    )
+
+    split, slice_ = fwd_plan(m, k, n)
+    assert (split, slice_) == plan
+    tiles = -(-m // 64) * -(-n // 32)
+    assert (split, slice_) == splitk_plan(tiles, k, FWD_LIMITS)
+    assert tiles * split <= max(tiles, 4 * 132)
+    assert split <= -(-k // slice_)
+
+
+@pytest.mark.parametrize("k,n,tile", [
+    (784, 1000, (128, 64)),     # NN1 layer 1: 7 x 16 = 112 tiles of 128 x 64
+    (1000, 500, (64, 64)),      # NN1 layer 2: 8 x 8 = 64 of 128 x 64
+    (500, 10, (64, 64)),        # NN1 layer 3
+    (1024, 4000, (128, 128)),   # NN5 layer 1: 8 x 32 = 256 tiles
+    (4000, 1000, (128, 128)),   # NN5 layer 2
+    (1000, 4000, (128, 128)),   # NN5 layer 3
+    (4000, 10, (64, 64)),       # NN5 layer 4: 32 tiles of 128 x 64
+    (12672, 128, (128, 128)),   # 99 x 1 tiles of 128 x 128
+    (12544, 128, (128, 64)),    # 98 x 1 of 128 x 128, 98 x 2 of 128 x 64
+    (12544, 64, (64, 64)),      # 98 tiles of 128 x 64
+])
+def test_wgrad_plan_fills_the_card(k, n, tile):
+    """K3's dW tile: the largest whose grid holds >= 99 blocks (three in
+    four of the H100's 132 SMs), else 64 x 64."""
+    from repro_torch.kernels.fcnn_layer import wgrad_plan
+
+    assert wgrad_plan(k, n) == tile

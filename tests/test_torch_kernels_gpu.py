@@ -115,6 +115,112 @@ def test_fcnn_dgrad_is_deterministic_on_card(cuda, m, k, n):
         assert torch.equal(fcnn_layer_dgrad(dy, y, w, "sigmoid"), first)
 
 
+# K1 splits its contraction K over the blocks of a cluster (fwd_plan picks
+# the split and slice width; the extension takes splits of 1, 2, 4, 8 and
+# the non-portable 16, slices of 16 or 32).  The bias and activation must
+# run once, on the complete sum: every activation at every split.  K = 784
+# is 49 slices of 16, not divisible by 8; K = 50 and 783 take 4-byte copies
+# of x, N = 10 and 37 of w; M = 1 and 13 are ragged rows.
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,split,slice_", [
+    (64, 784, 1000, 1, 16), (64, 784, 1000, 2, 32), (64, 784, 10, 4, 16),
+    (1, 784, 10, 8, 32), (64, 784, 1000, 8, 16), (13, 50, 10, 2, 16),
+    (1, 783, 37, 8, 32), (128, 4000, 10, 16, 32), (64, 500, 10, 16, 16),
+    (64, 1000, 500, None, None), (128, 4000, 1000, None, None)])
+@pytest.mark.parametrize("act", ACTS)
+def test_fcnn_fwd_split_edges_on_card(cuda, m, k, n, split, slice_, act):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fcnn_layer import act_code, fwd_plan
+
+    rng = np.random.default_rng(6)
+    x, w = _rand(rng, (m, k), cuda), _rand(rng, (k, n), cuda, k ** -0.5)
+    b = _rand(rng, (n,), cuda, 0.5)
+    if split is None:
+        assert fwd_plan(m, k, n)[0] > 1
+        before = ops.launch_counts()["fcnn_layer"]
+        out = fcnn_layer(x, w, b, act)
+        assert ops.launch_counts()["fcnn_layer"] == before + 1
+    else:
+        out = torch.empty(m, n, device=cuda)
+        _build.extension().fcnn_fwd(x, w, b, out, act_code(act), split,
+                                    slice_)
+    torch.cuda.synchronize()
+    _assert_rel(out, ref.fcnn_layer_ref(x, w, b, act), 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(64, 1000, 500), (128, 4000, 1000)])
+def test_fcnn_fwd_is_deterministic_on_card(cuda, m, k, n):
+    """The split partials are summed in rank order: repeated calls give
+    bit-identical outputs."""
+    from repro_torch.kernels.fcnn_layer import fwd_plan
+
+    assert fwd_plan(m, k, n)[0] > 1
+    rng = np.random.default_rng(7)
+    x, w = _rand(rng, (m, k), cuda), _rand(rng, (k, n), cuda, k ** -0.5)
+    b = _rand(rng, (n,), cuda, 0.1)
+    first = fcnn_layer(x, w, b, "sigmoid")
+    for _ in range(3):
+        assert torch.equal(fcnn_layer(x, w, b, "sigmoid"), first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split,slice_", [(3, 32), (32, 32), (2, 8), (0, 16)])
+def test_fcnn_fwd_refuses_bad_plans_on_card(cuda, split, slice_):
+    from repro_torch.kernels import _build
+
+    x, w = torch.ones(4, 8, device=cuda), torch.ones(8, 10, device=cuda)
+    b, out = torch.zeros(10, device=cuda), torch.empty(4, 10, device=cuda)
+    with pytest.raises(RuntimeError, match="fcnn_layer launch failed"):
+        _build.extension().fcnn_fwd(x, w, b, out, 1, split, slice_)
+
+
+# K3 walks the batch in 32-row slices through a ring of cp.async stages
+# (M = 300: 10 slices, the last ragged); M = 1 is one zero-filled slice.
+# N = 10 takes 4-byte copies of dY and Y, K = 50 of x.  Every dW tile
+# (64 x 64 with 4 x 8 outputs a thread, 128 x 64 and 128 x 128 with 8 x 8)
+# at every shape, whatever wgrad_plan picks.
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [
+    (1, 784, 10), (1, 784, 1000), (64, 784, 10), (64, 784, 1000),
+    (128, 500, 10), (128, 500, 1000), (300, 784, 10), (300, 50, 1000)])
+@pytest.mark.parametrize("act", ACTS)
+def test_fcnn_wgrad_batches_on_card(cuda, m, k, n, act):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fcnn_layer import WGRAD_TILES, act_code
+
+    rng = np.random.default_rng(8)
+    x = _rand(rng, (m, k), cuda)
+    y = ref.apply_activation(_rand(rng, (m, n), cuda), act)
+    dy = _rand(rng, (m, n), cuda, 0.01)
+    before = ops.launch_counts()["fcnn_layer_wgrad"]
+    dw, db = fcnn_layer_wgrad(x, dy, y, act)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fcnn_layer_wgrad"] == before + 1
+    dw_r, db_r = ref.fcnn_layer_wgrad_ref(x, dy, y, act)
+    _assert_rel(dw, dw_r, 1e-4)
+    _assert_rel(db, db_r, 1e-4)
+    again = fcnn_layer_wgrad(x, dy, y, act)
+    assert torch.equal(again[0], dw) and torch.equal(again[1], db)
+    for rows, cols in WGRAD_TILES:
+        dw_t, db_t = torch.empty(k, n, device=cuda), torch.empty(n, device=cuda)
+        _build.extension().fcnn_wgrad(x, dy, y, dw_t, db_t, act_code(act),
+                                      rows, cols)
+        torch.cuda.synchronize()
+        _assert_rel(dw_t, dw_r, 1e-4)
+        _assert_rel(db_t, db_r, 1e-4)
+
+
+@pytest.mark.gpu
+def test_fcnn_wgrad_refuses_bad_tiles_on_card(cuda):
+    from repro_torch.kernels import _build
+
+    x, dy = torch.ones(4, 8, device=cuda), torch.ones(4, 10, device=cuda)
+    dw, db = torch.empty(8, 10, device=cuda), torch.empty(10, device=cuda)
+    with pytest.raises(RuntimeError, match="fcnn_layer_wgrad launch failed"):
+        _build.extension().fcnn_wgrad(x, dy, dy, dw, db, 1, 64, 128)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,c", [(1, 10), (64, 10), (37, 300)])
 def test_softmax_xent_kernels_match_plain_on_card(cuda, b, c):
