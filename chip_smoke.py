@@ -12,9 +12,10 @@ raises and the script exits non-zero without a result line:
   1. device   a CUDA card is required; its name and power limit; TF32 off
   2. build    the extension, with ptxas's per-kernel resource report
               (registers, shared memory and spills of the redesigned
-              kernels, K1, K2, K3 and bf16 K6, whose spills must be 0) and
-              the count of HGMMA, HMMA and FFMA instructions in each
-              kernel's SASS (cuobjdump); the bf16 K6 kernel must issue HGMMA
+              kernels, K1, K2, K3 and bf16 K6 and K7, whose spills must be
+              0) and the count of HGMMA, HMMA and FFMA instructions in each
+              kernel's SASS (cuobjdump); the bf16 K6 and K7 kernels must
+              emit HGMMA, and ptxas must not serialize their wgmma
   3. kernels  each FCNN kernel against its plain PyTorch version on the
               card, at the NN1 and NN5 shapes and at edge shapes, with
               times of the kernel, the plain version and one PyTorch
@@ -34,10 +35,14 @@ raises and the script exits non-zero without a result line:
               from the same seed; losses within 1e-4
   7. lm kernels  flash attention (K6) and the SSD intra-chunk kernel (K7)
               against their plain versions at the Zamba2 prefill shapes
-              (bf16 and fp32, causal and not, stride-0 B/C; bf16 within
-              about one bf16 ulp) and at edge shapes, with kernel, plain,
-              SDPA and bound times; each K6 line names the instantiation
-              that ran (tensor-core bf16 or CUDA-core fp32)
+              (bf16 and fp32, causal and not, stride-0 B/C; K7 at 1, 4, 8
+              and 16 chunks; bf16 within about one bf16 ulp) and at edge
+              shapes, with kernel, plain, SDPA and bound times (K7's bound
+              by bytes and by bf16 operations apart); each K6 line names
+              the instantiation that ran (tensor-core bf16 or CUDA-core
+              fp32); each timed bf16 K7 row prints the heads per block its
+              plan picked and the device time of every other choice, each
+              held to the plain version and run twice bit-identical
   8. serve    Zamba2-1.2B, full width, bf16, random weights: 8 requests
               of the ``steady`` preset with 512/1024/2048-token prompts on
               4 slots through ``repro_torch.launch.serve.serve``; every
@@ -101,11 +106,12 @@ KERNEL_INFO = {
 FCNN_KERNELS = tuple(KERNEL_INFO)[:5]
 LM_KERNELS = ("flash_attention", "ssd_chunk")
 # the kernels this script holds to 0 spill bytes in ptxas's report, by a
-# substring of their mangled names; and the bf16 K6 kernel, which must run
-# on the tensor cores (HGMMA in its SASS)
+# substring of their mangled names
 NO_SPILL_KERNELS = ("fcnn_fwd_kernel", "dgrad_kernel", "fcnn_wgrad_kernel",
-                    "flash_fwd_wgmma_kernel")
-K6_BF16_KERNEL = "flash_fwd_wgmma_kernel"
+                    "flash_fwd_wgmma_kernel", "ssd_chunk_wgmma_kernel")
+# the bf16 K6 and K7 kernels, which must run on the tensor cores (HGMMA in
+# their SASS) with no wgmma serialized by ptxas
+TC_KERNELS = ("flash_fwd_wgmma_kernel", "ssd_chunk_wgmma_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -307,9 +313,16 @@ def run_build_phase() -> None:
     print("SASS instructions per kernel (HGMMA HMMA FFMA):")
     for name, c in counts.items():
         print(f"  {c['HGMMA']:5d} {c['HMMA']:5d} {c['FFMA']:6d}  {name[:100]}")
-    k6 = [c for name, c in counts.items() if K6_BF16_KERNEL in name]
-    check(bool(k6) and all(c["HGMMA"] > 0 for c in k6),
-          "the bf16 flash-attention kernel issues no HGMMA")
+    for kernel in TC_KERNELS:
+        found = [c for name, c in counts.items() if kernel in name]
+        check(bool(found) and all(c["HGMMA"] > 0 for c in found),
+              f"{kernel} has no HGMMA in its SASS")
+    serial = [line.strip() for line in text.splitlines()
+              if "wgmma.mma_async instructions are serialized" in line]
+    for line in serial:
+        print(line[:300])
+    check(not any(k in line for line in serial for k in TC_KERNELS),
+          "ptxas serializes the wgmma of a tensor-core kernel")
 
 
 # --------------------------------------------------------------- phase 3
@@ -662,16 +675,34 @@ def _close(torch, out, want, fp32_rtol, slack) -> tuple[bool, float, str]:
                    f"{norm:.2e}<=2^-7")
 
 
+class LMCase(NamedTuple):
+    """One comparison of phase 7.  Bytes count each input read once (a
+    stride-0 B/C once per chunk) and each output written once; flops count
+    what these inputs need (causal pairs only, 2 per multiply-add), at the
+    peak of the inputs' type (``rate``).  ``slack()`` is K6's bf16 slack,
+    BF16_ULP·(softmax @ |v|) (None: K7's); ``forced(heads)`` runs bf16 K7
+    at one of ssd_scan.SSD_HEADS heads per block, ``plan`` being its
+    wrapper's."""
+    name: str
+    label: str
+    kern: Callable
+    plain: Callable
+    slack: Callable | None
+    lib: Callable | None
+    nbytes: int
+    flops: int
+    rate: float
+    timed: bool
+    on_path: bool
+    plan: int | None = None
+    forced: Callable | None = None
+
+
 def lm_kernel_cases(torch, dev, gen):
-    """Yield (kernel, label, kernel call, plain call, bf16 slack or None,
-    library call or None, bytes, flops, flop rate, timed, on the serving
-    path) for phase 7.  K6's bf16 slack is BF16_ULP·(softmax @ |v|).
-    Bytes count each input read once (a stride-0 B/C once per chunk) and
-    each output written once; flops count what these inputs need (causal
-    pairs only, 2 per multiply-add), at the peak of the inputs' type."""
-    from repro_torch.kernels import ref
+    """Yield an LMCase for every comparison of phase 7."""
+    from repro_torch.kernels import _build, ref
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ssd_scan import ssd_chunk
+    from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_plan
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     def rand(*shape, dtype=torch.float32, scale=1.0):
@@ -686,15 +717,16 @@ def lm_kernel_cases(torch, dev, gen):
         rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
         label = (f"({b},{h},{s},{d}) {str(dtype)[6:]} "
                  f"{'causal' if causal else 'full'}")
-        yield ("flash_attention", label,
-               lambda: flash_attention(q, k, v, causal),
-               lambda: ref.flash_attention_ref(q, k, v, causal),
-               lambda: BF16_ULP * ref.flash_attention_ref(
-                   q.float(), k.float(), v.float().abs(), causal),
-               lambda: sdpa(q, k, v, is_causal=causal),
-               4 * b * h * s * d * e, 4 * b * h * pairs * d, rate, timed,
-               (b, h, s, d, dtype, causal) == (1, 32, 2048, 64,
-                                               torch.bfloat16, True))
+        yield LMCase(
+            "flash_attention", label,
+            lambda: flash_attention(q, k, v, causal),
+            lambda: ref.flash_attention_ref(q, k, v, causal),
+            lambda: BF16_ULP * ref.flash_attention_ref(
+                q.float(), k.float(), v.float().abs(), causal),
+            lambda: sdpa(q, k, v, is_causal=causal),
+            4 * b * h * s * d * e, 4 * b * h * pairs * d, rate, timed,
+            (b, h, s, d, dtype, causal) == (1, 32, 2048, 64, torch.bfloat16,
+                                            True))
 
     def ssd_case(bc, q, h, p, n, dtype, shared_bc, timed):
         x = rand(bc, q, h, p, dtype=dtype)
@@ -707,14 +739,26 @@ def lm_kernel_cases(torch, dev, gen):
         flops = bc * h * (pairs * (2 * n + 2 * p) + 2 * q * p * n)
         nbytes = (2 * bc * q * h * p * e + 2 * bc * q * g * n * e
                   + bc * h * p * n * 4 + 2 * bc * q * h * 4)
-        rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+        bf16 = dtype == torch.bfloat16
         label = (f"BC={bc} ({q},{h},{p},{n}) {str(dtype)[6:]}"
                  f"{' stride-0 b/c' if shared_bc else ''}")
-        yield ("ssd_chunk", label,
-               lambda: ssd_chunk(x, dt_a, b, c),
-               lambda: ref.ssd_chunk_ref(x, dt_a, b, c),
-               None, None, nbytes, flops, rate, timed,
-               (bc, dtype, shared_bc) == (16, torch.bfloat16, True))
+
+        def forced(heads):
+            y = torch.empty_like(x)
+            state = torch.empty((bc, h, p, n), device=dev)
+            decay = torch.empty((bc, q, h), device=dev)
+            _build.extension().ssd_chunk(x, dt_a, b, c, y, state, decay, heads)
+            return y, state, decay
+
+        yield LMCase(
+            "ssd_chunk", label,
+            lambda: ssd_chunk(x, dt_a, b, c),
+            lambda: ref.ssd_chunk_ref(x, dt_a, b, c),
+            None, None, nbytes, flops,
+            BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S, timed,
+            (bc, bf16, shared_bc) == (16, True, True),
+            ssd_plan(bc, h, q, shared_bc) if bf16 else None,
+            forced if bf16 and timed else None)
 
     for dtype in (torch.bfloat16, torch.float32):
         for causal in (True, False):
@@ -723,11 +767,53 @@ def lm_kernel_cases(torch, dev, gen):
             for shape in ((1, 32, 8, 64), (1, 32, 100, 64), (2, 4, 300, 128),
                           (1, 2, 128, 32), (2, 4, 256, 64), (1, 1, 64, 128)):
                 yield from flash_case(*shape, dtype, causal, False)
-        for bc in (1, 16):
+        # one 128-token chunk, then the 512/1024/2048-token prompt buckets
+        for bc in (1, 4, 8, 16):
             yield from ssd_case(bc, 128, 64, 64, 64, dtype, True, True)
         for shape in ((2, 16, 8, 8, 4), (1, 32, 4, 16, 8), (3, 8, 16, 8, 16)):
             yield from ssd_case(*shape, dtype, False, False)
             yield from ssd_case(*shape, dtype, True, False)
+
+
+def lm_compare(torch, case: LMCase, outs, wants) -> tuple[bool, float, str]:
+    """(ok, max abs error, criterion) of a call's outputs against its plain
+    version's: _close() for y and o; K7's fp32 state and decay from bf16
+    inputs within K7_BF16_STATE_RTOL of their largest value."""
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    wants = wants if isinstance(wants, tuple) else (wants,)
+    ok, worst, crit = True, 0.0, ""
+    fp32_rtol = K6_FP32_RTOL if case.name == "flash_attention" else K7_FP32_RTOL
+    for i, (o, w) in enumerate(zip(outs, wants)):
+        if i > 0 and o.dtype == torch.float32 and outs[0].dtype == torch.bfloat16:
+            a, r = errors(o, w)
+            good, c = r <= K7_BF16_STATE_RTOL, f"rel<={K7_BF16_STATE_RTOL:g}"
+        else:
+            good, a, c = _close(torch, o, w, fp32_rtol, case.slack)
+        ok, worst = ok and good, max(worst, a)
+        crit = crit or c
+    return ok, worst, crit
+
+
+def k7_sweep_line(torch, case: LMCase, wants) -> str:
+    """Device ms of bf16 K7 at every heads-per-block choice, each held to
+    the plain version's outputs ``wants`` and run twice bit-identical; the
+    plan's choice and the fastest are named."""
+    from repro_torch.kernels.ssd_scan import SSD_HEADS
+
+    times = {}
+    for heads in sorted(SSD_HEADS):
+        out = case.forced(heads)
+        torch.cuda.synchronize()
+        ok, _, crit = lm_compare(torch, case, out, wants)
+        same = all(torch.equal(a, b) for a, b in zip(out, case.forced(heads)))
+        check(ok and same, f"ssd_chunk {case.label} at {heads} heads a block: "
+                           f"{crit}{'' if same else ', repeats differ'}")
+        times[heads] = device_ms(lambda h=heads: case.forced(h), iters=5)
+    best = min(times, key=times.get)
+    cells = " ".join(f"{h} {ms:.5f}" for h, ms in times.items())
+    return (f"    sweep heads/block device ms: {cells} | plan {case.plan} "
+            f"{times[case.plan]:.5f}, fastest {best} {times[best]:.5f}; every "
+            f"choice within the bars, repeats bit-identical")
 
 
 def run_lm_kernel_phase(torch, dev) -> dict:
@@ -736,44 +822,41 @@ def run_lm_kernel_phase(torch, dev) -> dict:
                       "library_ms": None, "bound_ms": None, "bound_by": None,
                       "shapes": []}
                for name in LM_KERNELS}
-    for (name, label, kern, plain, slack, lib, nbytes, flops, rate, timed,
-         on_path) in lm_kernel_cases(torch, dev, gen):
-        outs, wants = kern(), plain()
+    for case in lm_kernel_cases(torch, dev, gen):
+        name, label = case.name, case.label
+        outs, wants = case.kern(), case.plain()
         torch.cuda.synchronize()
-        outs = outs if isinstance(outs, tuple) else (outs,)
-        wants = wants if isinstance(wants, tuple) else (wants,)
-        ok, worst, crit = True, 0.0, ""
-        fp32_rtol = K6_FP32_RTOL if name == "flash_attention" else K7_FP32_RTOL
-        for i, (o, w) in enumerate(zip(outs, wants)):
-            if i > 0 and o.dtype == torch.float32 and outs[0].dtype == torch.bfloat16:
-                a, r = errors(o, w)   # K7's fp32 state/decay from bf16 inputs
-                good, c = r <= K7_BF16_STATE_RTOL, f"rel<={K7_BF16_STATE_RTOL:g}"
-            else:
-                good, a, c = _close(torch, o, w, fp32_rtol, slack)
-            ok, worst = ok and good, max(worst, a)
-            crit = crit or c
+        ok, worst, crit = lm_compare(torch, case, outs, wants)
         if name == "flash_attention":
-            label += (" [tensor-core bf16]" if outs[0].dtype == torch.bfloat16
+            label += (" [tensor-core bf16]" if outs.dtype == torch.bfloat16
                       else " [CUDA-core fp32]")
         line = (f"{name:15s} {label:58s} max_abs {worst:.3e} ({crit}) "
                 f"{'ok' if ok else 'FAIL'}")
         summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"], worst)
-        if timed:
+        if case.timed:
+            kern, plain, lib = case.kern, case.plain, case.lib
             ms, plain_ms = device_ms(kern, iters=5), device_ms(plain, iters=5)
             lib_ms = device_ms(lib, iters=5) if lib is not None else None
-            b_ms, b_by = bound(nbytes, flops, rate)
+            b_ms, b_by = bound(case.nbytes, case.flops, case.rate)
             line += (f" | device ms: kernel {ms:.5f} plain {plain_ms:.5f} "
                      f"library {'none' if lib_ms is None else f'{lib_ms:.5f}'}"
                      f" bound {b_ms:.5f} ({b_by}) = {100 * b_ms / ms:.1f}% | "
-                     f"{flops / ms / 1e9:.2f} TFLOP/s, "
-                     f"{nbytes / ms / 1e6:.1f} GB/s"
-                     f"{' [serving path]' if on_path else ''}")
-            if on_path:
+                     f"{case.flops / ms / 1e9:.2f} TFLOP/s, "
+                     f"{case.nbytes / ms / 1e6:.1f} GB/s"
+                     f"{' [serving path]' if case.on_path else ''}")
+            if case.forced is not None:
+                line += (f" | bound by bytes "
+                         f"{case.nbytes / HBM_BYTES_PER_S * 1e3:.5f}, by bf16 "
+                         f"ops {case.flops / case.rate * 1e3:.5f} | plan "
+                         f"{case.plan} heads/block")
+            if case.on_path:
                 summary[name].update(ms=ms, plain_ms=plain_ms,
                                      library_ms=lib_ms, bound_ms=b_ms,
                                      bound_by=b_by, shapes=[label])
         print(line, flush=True)
         check(ok, f"{name} {label} disagrees with its plain version")
+        if case.forced is not None:
+            print(k7_sweep_line(torch, case, wants), flush=True)
     return summary
 
 
@@ -848,7 +931,7 @@ def run_prefill_profile(torch, dev, model, params, tokens) -> None:
         return
     busy = sum(us for _, _, us in rows) / 1e3
     k6 = sum(us for k, _, us in rows if "flash_fwd" in k) / 1e3
-    k7 = sum(us for k, _, us in rows if "ssd_chunk_kernel" in k) / 1e3
+    k7 = sum(us for k, _, us in rows if "ssd_chunk" in k) / 1e3
     print(f"device busy {busy:.3f} ms = {100 * busy / host_ms:.1f}% of the "
           f"profiler-off prefill; K6 flash_attention {k6:.3f} ms "
           f"({100 * k6 / busy:.1f}% of busy), K7 ssd_chunk {k7:.3f} ms "

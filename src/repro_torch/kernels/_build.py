@@ -3,8 +3,10 @@
 ``torch.utils.cpp_extension.load`` compiles ``csrc/fcnn_fwd.cu``,
 ``csrc/fcnn_dgrad.cu``, ``csrc/fcnn_wgrad.cu``, ``csrc/softmax_xent.cu``,
 ``csrc/flash_attention.cu``, ``csrc/ssd_scan.cu`` and ``csrc/bindings.cpp``
-(headers ``csrc/fcnn_act.cuh``, the activations, and ``csrc/fcnn_splitk.cuh``,
-the cp.async copies and the cluster reduction of the FCNN kernels) in one
+(headers ``csrc/fcnn_act.cuh``, the activations, ``csrc/fcnn_splitk.cuh``,
+the cp.async copies and the cluster reduction of the FCNN kernels, and
+``csrc/hopper_tc.cuh``, the wgmma, descriptor, mbarrier and TMA helpers of
+the tensor-core kernels K6 and K7) in one
 call for ``sm_90a`` into ``build/torch_kernels/`` at the repository root (listed
 in ``.gitignore``) and imports the result.  Nothing is built when this
 module is imported: the CPU tests import every module of the package and

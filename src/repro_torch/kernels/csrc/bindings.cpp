@@ -34,7 +34,7 @@ cudaError_t launch_flash_attention(const void* q, const void* k, const void* v,
 cudaError_t launch_ssd_chunk(const void* x, const float* dt_a, const void* b,
                              const void* c, void* y, float* state,
                              float* decay, const long long* st, int BC, int Q,
-                             int H, int P, int N, int bf16,
+                             int H, int P, int N, int bf16, int heads,
                              cudaStream_t stream);
 
 namespace {
@@ -124,10 +124,11 @@ void flash_attention(const torch::Tensor& q, const torch::Tensor& k,
 }
 
 // x (BC, Q, H, P), dt_a (BC, Q, H), b, c (BC, Q, H, N) through their
-// strides -> y (BC, Q, H, P), state (BC, H, P, N), decay (BC, Q, H)
+// strides -> y (BC, Q, H, P), state (BC, H, P, N), decay (BC, Q, H); bf16
+// blocks walk `heads` consecutive heads of a chunk (1 for fp32)
 void ssd_chunk(const torch::Tensor& x, const torch::Tensor& dt_a,
                const torch::Tensor& b, const torch::Tensor& c, torch::Tensor y,
-               torch::Tensor state, torch::Tensor decay) {
+               torch::Tensor state, torch::Tensor decay, int64_t heads) {
   const c10::cuda::CUDAGuard guard(x.device());
   long long st[12];
   const torch::Tensor* ts[4] = {&x, &dt_a, &b, &c};
@@ -137,7 +138,7 @@ void ssd_chunk(const torch::Tensor& x, const torch::Tensor& dt_a,
                                 c.data_ptr(), y.data_ptr(), f32(state),
                                 f32(decay), st, x.size(0), x.size(1),
                                 x.size(2), x.size(3), b.size(3),
-                                x.scalar_type() == at::kBFloat16,
+                                x.scalar_type() == at::kBFloat16, heads,
                                 stream_of(x)),
                "ssd_chunk");
 }

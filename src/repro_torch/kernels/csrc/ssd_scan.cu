@@ -7,59 +7,68 @@
 //   y_diag[t] = Σ_{s<=t} (C_t·B_s) exp(cs_t − cs_s) x_s     (in x's dtype)
 //   state     = Σ_s exp(cs_{Q-1} − cs_s) B_s x_sᵀ            (P x N, fp32)
 //   decay[t]  = exp(cs_t)                                   (fp32)
+// Nothing of size Q x Q reaches device memory: that fusion is what the TPU
+// kernel exists for.  Q <= 128 and P, N <= 64 cover Zamba2 (Q = 128,
+// P = N = 64) and the smaller test shapes.  x, B and C are read through
+// their (chunk, row, head) strides, so one B/C group broadcast to every
+// head (ssm_groups = 1) is a stride-0 view, never copied.  Two
+// instantiations, chosen by dtype (neither stands in for the other):
 //
-// Design.  One thread block of 256 threads per (head, chunk); the heads of
-// a chunk are neighbours in the grid, so the B and C of a chunk, shared by
-// every head when groups = 1 (passed as stride-0 views, never copied), are
-// read once from device memory and then from L2.  Q <= 128 and P, N <= 64
-// cover Zamba2 (Q = 128, P = N = 64) and the smaller test shapes.  The
-// block stages x, B and C of its chunk in shared memory as fp32 (rows
-// padded to a multiple of 64 and P, N to 64, zero-filled; 120 KB at
-// Q = 128, hence the opt-in above 48 KB), and forms cs with a one-warp
-// scan.  y_diag is never built from a (Q, Q) decay matrix in device
-// memory: for each 64-row output tile and each 64-column source
-// tile up to the diagonal, the block forms the weights (C_t·B_s)·exp(cs_t −
-// cs_s) for s <= t in registers (4 x 4 per thread), parks that one 64 x 64
-// tile in shared memory, and accumulates tile @ x in registers.  The state
-// is a second register-tiled product over the chunk's rows.  This is the
-// fusion the TPU kernel exists for; nothing of size Q x Q reaches device
-// memory.
+//   bf16  ssd_chunk_wgmma_kernel: both products on the tensor cores
+//         (design below).
+//   fp32  ssd_chunk_kernel: fp32 FMAs on the CUDA cores.  fp32's 1e-5 bar
+//         rules out TF32 and bf16 tensor cores.  One 256-thread block per
+//         (head, chunk) stages x, B and C as fp32 in shared memory (120 KB
+//         at Q = 128, one block per SM) and forms, per 64-row output tile
+//         and 64-column source tile up to the diagonal, the weights
+//         (C_t·B_s)·exp(cs_t − cs_s) in 4 x 4 register tiles, parks them in
+//         shared memory and accumulates tile @ x; the state is a second
+//         register-tiled product.
 //
-// What bounds it on an H100: at the serving shapes (16 chunks x 64 heads,
-// Q = 128, P = N = 64, bf16 x) the kernel reads ~17 MB and writes ~34 MB
-// against ~4 GFLOP of fp32 products with full diagonal tiles: bytes bound
-// the ideal kernel (~15 µs) while this first version, on the CUDA cores in
-// fp32 at one 120 KB block per SM, is bound by its operations.  Tensor
-// cores for the two products and smaller staging (bf16 in shared memory,
-// two blocks per SM) are later work.
+// What bounds the bf16 kernel on an H100: bytes.  At the serving shape (16
+// chunks x 64 heads, Q = 128, P = N = 64, stride-0 B/C) it must move ~52 MB
+// (x read, y written and the fp32 state written, 16.8 MB each; the state's
+// fp32 is fixed by the contract) against ~3.2 GFLOP of products, 3.3 µs at
+// the bf16 tensor-core peak: ~15.5 µs of bytes.
+//
+// bf16 design.  One block of 256 threads (two warpgroups) walks
+// heads_per_block consecutive heads of one chunk (the host plan ssd_plan
+// in kernels/ssd_scan.py picks it so that the grid fills the card), at two
+// blocks per SM (101 KB of shared memory each).  x, B and C are staged as
+// bf16 by cp.async (16-byte copies with zero fill, or element by element
+// for ragged shapes) into 128-byte-swizzled tiles of 128 rows; where
+// the B and C head strides are both 0 they are staged once for all the
+// block's heads, and the next head's x is in flight while the current one
+// computes.  One warp per head scans cs and writes decay.  Per head:
+//   S = C·Bᵀ   wgmma m64n64k16 per 64 x 64 tile up to the diagonal, C and
+//              B both K-major in shared memory (warpgroup wg owns rows
+//              64·wg.. and tiles j <= wg);
+//   W = S ∘ exp(cs_t − cs_s) on s <= t, in fp32 on the accumulator
+//              fragment, split into bf16 hi = bf16(W) and lo = bf16(W − hi)
+//              and packed as register A fragments;
+//   y += hi·x + lo·x   wgmma m64n64k16, x MN-major in shared memory;
+//   state = xᵀ·(wB_hi + wB_lo)   wgmma m64n64k16 with both operands
+//              MN-major in shared memory (warpgroup 0), where w_s·B[s][n]
+//              with w_s = exp(cs_{Q-1} − cs_s) is formed by all threads as a
+//              bf16 hi/lo pair.
+// The hi/lo split is what keeps the weights exact enough: W and w·B are
+// fp32 values, and one rounding to bf16 (2^-9 relative) puts y and the
+// state past their bars; hi + lo carries ~16 bits, the products' sums stay
+// in fp32, and C·Bᵀ's products are exact on bf16 inputs.  S is recomputed per
+// head from the staged B and C (4 wgmma a tile): keeping it across heads
+// would take 64 more registers a thread or 48 KB of shared memory, either
+// of which leaves one block per SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "hopper_tc.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 64;
-constexpr int kWPitch = kTile + 4;
 constexpr int kMaxQ = 128;
 constexpr int kMaxDim = 64;  // P and N: one 64-column tile each
-constexpr int kPitch = kMaxDim + 4;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 struct Strides4 {
   long long c, q, h;  // chunk, row, head strides in elements; last is 1
@@ -69,11 +78,46 @@ __host__ __device__ __forceinline__ int round_up(int v, int m) {
   return (v + m - 1) / m * m;
 }
 
-// rows [0, rows) of an (rows, cols) slab into shared memory, fp32, pitch
-// `pitch`; rows in [n_rows, rows) and columns in [n_cols, round_up(cols))
-// are zero.
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
+// cs[t] = Σ_{k<=t} a[k·stride] for t < Q <= 128, by one whole warp: each
+// lane sums a run of up to 4 consecutive rows (loaded together), then the
+// runs' totals are scanned
+__device__ __forceinline__ void chunk_cumsum(float* cs, const float* __restrict__ a,
+                                             long long stride, int Q) {
+  const int lane = threadIdx.x % 32;
+  const int per = (Q + 31) / 32;
+  const int beg = min(lane * per, Q);
+  const int end = min(beg + per, Q);
+  float v[kMaxQ / 32];
+#pragma unroll
+  for (int k = 0; k < kMaxQ / 32; ++k) v[k] = beg + k < end ? a[(beg + k) * stride] : 0.f;
+  float run = 0.f;
+#pragma unroll
+  for (int k = 0; k < kMaxQ / 32; ++k) {
+    run += v[k];
+    if (beg + k < end) cs[beg + k] = run;
+  }
+  float incl = run;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float up = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += up;
+  }
+  const float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane > 0)
+    for (int t = beg; t < end; ++t) cs[t] += excl;
+}
+
+// ---------------------------------------------------------------------------
+// fp32: CUDA cores.
+
+constexpr int kThreads = 256;
+constexpr int kTile = 64;
+constexpr int kWPitch = kTile + 4;
+constexpr int kPitch = kMaxDim + 4;
+
+// rows [0, rows) of an (rows, cols) slab into shared memory, pitch
+// `pitch`; rows in [n_rows, rows) and columns in [n_cols, cols) are zero.
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
                                       long long stride_q, int n_rows,
                                       int rows, int n_cols, int cols,
                                       int pitch) {
@@ -81,16 +125,15 @@ __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
     const int r = idx / cols;
     const int c = idx % cols;
     float v = 0.f;
-    if (r < n_rows && c < n_cols) v = to_f32(src[r * stride_q + c]);
+    if (r < n_rows && c < n_cols) v = src[r * stride_q + c];
     dst[r * pitch + c] = v;
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt_a,
-                 const T* __restrict__ b, const T* __restrict__ c,
-                 T* __restrict__ y, float* __restrict__ state,
+ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt_a,
+                 const float* __restrict__ b, const float* __restrict__ c,
+                 float* __restrict__ y, float* __restrict__ state,
                  float* __restrict__ decay, Strides4 sx, Strides4 sa,
                  Strides4 sb, Strides4 sc, int H, int Q, int P, int N) {
   const int QP = round_up(Q, kTile);
@@ -106,34 +149,12 @@ ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt_a,
   const int ch = blockIdx.y;
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
-  const int lane = threadIdx.x % 32;
 
   stage(Xs, x + ch * sx.c + h * sx.h, sx.q, Q, QP, P, kMaxDim, kPitch);
   stage(Bs, b + ch * sb.c + h * sb.h, sb.q, Q, QP, N, kMaxDim, kPitch);
   stage(Cs, c + ch * sc.c + h * sc.h, sc.q, Q, QP, N, kMaxDim, kPitch);
 
-  // cs = inclusive cumsum of dt_a over the chunk: each lane of warp 0 sums
-  // a run of consecutive rows, then the runs' totals are scanned
-  if (threadIdx.x < 32) {
-    const float* a = dt_a + ch * sa.c + h * sa.h;
-    const int per = (Q + 31) / 32;
-    const int beg = min(lane * per, Q);
-    const int end = min(beg + per, Q);
-    float run = 0.f;
-    for (int t = beg; t < end; ++t) {
-      run += a[t * sa.q];
-      cs[t] = run;
-    }
-    float incl = run;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const float up = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += up;
-    }
-    const float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-    if (lane > 0)
-      for (int t = beg; t < end; ++t) cs[t] += excl;
-  }
+  if (threadIdx.x < 32) chunk_cumsum(cs, dt_a + ch * sa.c + h * sa.h, sa.q, Q);
   __syncthreads();
   for (int t = threadIdx.x; t < QP; t += kThreads) {
     if (t < Q) {
@@ -217,11 +238,11 @@ ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt_a,
     for (int i = 0; i < 4; ++i) {
       const int t = t0 + ty + 16 * i;
       if (t >= Q) continue;
-      T* yr = y + ((static_cast<long long>(ch) * Q + t) * H + h) * P;
+      float* yr = y + ((static_cast<long long>(ch) * Q + t) * H + h) * P;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int p = 4 * tx + e;
-        if (p < P) yr[p] = from_f32<T>(acc[i][e]);
+        if (p < P) yr[p] = acc[i][e];
       }
     }
   }
@@ -263,18 +284,17 @@ int smem_bytes(int Q) {
   return floats * static_cast<int>(sizeof(float));
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const float* dt_a, const void* b,
-                   const void* c, void* y, float* state, float* decay,
-                   const long long* st, int BC, int Q, int H, int P, int N,
-                   cudaStream_t stream) {
-  auto kern = ssd_chunk_kernel<T>;
-  // opt in once per instantiation at the largest chunk the wrapper admits,
-  // so launches of smaller chunks need no further attribute call
+cudaError_t launch_f32(const float* x, const float* dt_a, const float* b,
+                       const float* c, float* y, float* state, float* decay,
+                       const long long* st, int BC, int Q, int H, int P, int N,
+                       cudaStream_t stream) {
+  // opt in once at the largest chunk the wrapper admits, so launches of
+  // smaller chunks need no further attribute call
   static bool opted_in = false;
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(kMaxQ));
+        ssd_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes(kMaxQ));
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
@@ -283,12 +303,314 @@ cudaError_t launch(const void* x, const float* dt_a, const void* b,
   const Strides4 sb{st[6], st[7], st[8]};
   const Strides4 sc{st[9], st[10], st[11]};
   const dim3 grid(H, BC);
-  kern<<<grid, kThreads, smem_bytes(Q), stream>>>(
-      static_cast<const T*>(x), dt_a, static_cast<const T*>(b),
-      static_cast<const T*>(c), static_cast<T*>(y), state, decay, sx, sa, sb,
-      sc, H, Q, P, N);
+  ssd_chunk_kernel<<<grid, kThreads, smem_bytes(Q), stream>>>(
+      x, dt_a, b, c, y, state, decay, sx, sa, sb, sc, H, Q, P, N);
   return cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores.
+namespace ssd_tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 256;               // two warpgroups
+constexpr int kRows = 128;                  // rows of every tile, zero past Q
+constexpr int kTileBytes = kRows * 128;     // 128 rows x 64 bf16 columns
+constexpr int kMaxHeads = 8;                // heads a block walks, at most
+// C, B, x (two buffers), w·B hi and lo; then cs of each head; + alignment
+constexpr int kSmem = 1024 + 6 * kTileBytes + kMaxHeads * kRows * 4;
+
+// byte offset of the 16-byte chunk j (columns 8j..8j+7) of row r in a
+// 128-byte-swizzled tile (the layout TMA's 128-byte swizzle writes)
+__device__ __forceinline__ uint32_t sw128(int r, int j) {
+  return r * 128 + ((j ^ (r & 7)) << 4);
+}
+
+// copy 16 bytes, or write zeros when !ok (the source is not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// kRows x 64 columns of one (chunk, head) slice into the swizzled tile at
+// byte offset `dst` of `smem`; rows >= n_rows and columns >= n_cols are
+// zero.  vec: 16-byte cp.async copies (base and strides 16-byte aligned,
+// n_cols a multiple of 8), else element by element.
+__device__ __forceinline__ void stage(uint8_t* smem, uint32_t dst,
+                                      const bf16* __restrict__ src, long long stride_q,
+                                      int n_rows, int n_cols, bool vec) {
+  if (vec) {
+    const uint32_t base = tc::smem_u32(smem) + dst;
+    for (int idx = threadIdx.x; idx < kRows * 8; idx += kThreads) {
+      const int r = idx >> 3;
+      const int j = idx & 7;
+      const bool ok = r < n_rows && 8 * j < n_cols;
+      cp_async16(base + sw128(r, j), ok ? src + r * stride_q + 8 * j : src, ok);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < kRows * 64; idx += kThreads) {
+      const int r = idx >> 6;
+      const int col = idx & 63;
+      bf16 v = __float2bfloat16(0.f);
+      if (r < n_rows && col < n_cols) v = src[r * stride_q + col];
+      *reinterpret_cast<bf16*>(smem + dst + sw128(r, col >> 3) + 2 * (col & 7)) = v;
+    }
+  }
+}
+
+// v = hi + lo to ~16 bits: hi = bf16(v), lo = bf16(v − hi)
+__device__ __forceinline__ void split(float v, bf16& hi, bf16& lo) {
+  hi = __float2bfloat16(v);
+  lo = __float2bfloat16(v - __bfloat162float(hi));
+}
+
+// exp(d) as exp2(d·log2 e): one ex2 on the special-function unit
+__device__ __forceinline__ float exp_f(float d) {
+  return exp2f(d * 1.4426950408889634f);
+}
+
+__device__ __forceinline__ uint32_t pack(bf16 lo_col, bf16 hi_col) {
+  const __nv_bfloat162 v = __halves2bfloat162(lo_col, hi_col);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+ssd_chunk_wgmma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt_a,
+                       const bf16* __restrict__ b, const bf16* __restrict__ c,
+                       bf16* __restrict__ y, float* __restrict__ state,
+                       float* __restrict__ decay, Strides4 sx, Strides4 sa,
+                       Strides4 sb, Strides4 sc, int H, int Q, int P, int N,
+                       int heads, int vec) {
+  extern __shared__ uint8_t smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  uint8_t* smem = smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sbase = tc::smem_u32(smem);
+  constexpr uint32_t kC = 0, kB = kTileBytes, kX = 2 * kTileBytes,
+                     kWH = 4 * kTileBytes, kWL = 5 * kTileBytes;
+  float* cs_all = reinterpret_cast<float*>(smem + 6 * kTileBytes);  // heads x kRows
+
+  const int ch = blockIdx.y;
+  const int h0 = blockIdx.x * heads;
+  const bool shared_bc = sb.h == 0 && sc.h == 0;
+  const int tid = threadIdx.x;
+  const bf16* xc = x + ch * sx.c;
+  const bf16* bc = b + ch * sb.c;
+  const bf16* cc = c + ch * sc.c;
+
+  stage(smem, kC, cc + h0 * sc.h, sc.q, Q, N, vec);
+  stage(smem, kB, bc + h0 * sb.h, sb.q, Q, N, vec);
+  stage(smem, kX, xc + h0 * sx.h, sx.q, Q, P, vec);
+  cp_async_commit();
+
+  // cs and decay of every head of the block, one warp a head
+  if (tid / 32 < heads) {
+    const int i = tid / 32;
+    float* cs = cs_all + i * kRows;
+    chunk_cumsum(cs, dt_a + ch * sa.c + (h0 + i) * sa.h, sa.q, Q);
+    __syncwarp();
+    for (int t = tid % 32; t < kRows; t += 32) {
+      if (t < Q)
+        decay[(static_cast<long long>(ch) * Q + t) * H + h0 + i] = expf(cs[t]);
+      else
+        cs[t] = 0.f;
+    }
+  }
+
+  // warpgroup g: rows 64g + [0, 64) of y; this thread's fragment rows are
+  // r0 and r0 + 8, its columns 8·(e/4) + cin + e%2 for accumulator e.  g
+  // comes through a shuffle from lane 0 so that the compiler sees it
+  // warp-uniform and does not serialize the products under `if` on it
+  const int g = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int lane = tid % 32;
+  const int r0 = 64 * g + 16 * ((tid % 128) / 32) + lane / 4;
+  const int cin = 2 * (lane % 4);
+  const bool pairs_p = P % 2 == 0;
+  const bool pairs_n = N % 2 == 0;
+
+  for (int i = 0; i < heads; ++i) {
+    const int h = h0 + i;
+    const float* cs = cs_all + i * kRows;
+    const uint32_t xs = kX + (i & 1) * kTileBytes;
+    cp_async_wait_all();
+    tc::fence_proxy_async();
+    __syncthreads();  // head i's x, B and C (and every cs) are in place
+    if (i + 1 < heads) {  // the next head's x, under this head's products
+      stage(smem, kX + ((i + 1) & 1) * kTileBytes, xc + (h + 1) * sx.h, sx.q, Q, P,
+            vec);
+      cp_async_commit();
+    }
+
+    // w_s·B[s][n] as a bf16 hi/lo pair, w_s = exp(cs_{Q-1} − cs_s); rows
+    // past Q are zero already in B
+    const float cs_last = cs[Q - 1];
+    for (int idx = tid; idx < kRows * 8; idx += kThreads) {
+      const int r = idx >> 3;
+      const uint32_t off = sw128(r, idx & 7);
+      const float w = exp_f(cs_last - cs[r]);
+      const uint4 bv = *reinterpret_cast<const uint4*>(smem + kB + off);
+      const bf16* bb = reinterpret_cast<const bf16*>(&bv);
+      uint4 hv, lv;
+      bf16* hh = reinterpret_cast<bf16*>(&hv);
+      bf16* ll = reinterpret_cast<bf16*>(&lv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) split(w * __bfloat162float(bb[e]), hh[e], ll[e]);
+      *reinterpret_cast<uint4*>(smem + kWH + off) = hv;
+      *reinterpret_cast<uint4*>(smem + kWL + off) = lv;
+    }
+    tc::fence_proxy_async();
+    __syncthreads();
+
+    if (64 * g < Q) {
+      float acc[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+      const float cs_t[2] = {cs[r0], cs[r0 + 8]};
+      for (int j = 0; j <= g; ++j) {  // 64-column source tiles up to the diagonal
+        float s[32];
+        tc::fence_regs(s);
+        tc::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          tc::wgmma_ss_m64n64k16<0, 0>(
+              s, tc::desc_sw128(sbase + kC + 64 * g * 128 + kk * 32, 16),
+              tc::desc_sw128(sbase + kB + 64 * j * 128 + kk * 32, 16), kk > 0);
+        tc::wg_commit();
+        tc::wg_wait_all();
+        tc::fence_regs(s);
+
+        // two k16 steps (16 columns each) at a time, to keep the fragments
+        // in flight within the register budget of two blocks per SM
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          uint32_t ahi[2][4], alo[2][4];
+#pragma unroll
+          for (int e = 16 * half; e < 16 * half + 16; e += 2) {
+            const int t = r0 + 8 * ((e / 2) % 2);
+            const int s0 = 64 * j + 8 * (e / 4) + cin;
+            const float2 css = *reinterpret_cast<const float2*>(cs + s0);
+            const float ct = cs_t[(e / 2) % 2];
+            const float w0 = s0 <= t ? s[e] * exp_f(ct - css.x) : 0.f;
+            const float w1 = s0 + 1 <= t ? s[e + 1] * exp_f(ct - css.y) : 0.f;
+            bf16 h0v, l0v, h1v, l1v;
+            split(w0, h0v, l0v);
+            split(w1, h1v, l1v);
+            ahi[(e / 8) % 2][(e % 8) / 2] = pack(h0v, h1v);
+            alo[(e / 8) % 2][(e % 8) / 2] = pack(l0v, l1v);
+          }
+          tc::fence_regs(acc);
+          tc::wg_fence();
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            const int kk = 2 * half + k;
+            const uint64_t dx =
+                tc::desc_sw128(sbase + xs + (4 * j + kk) * 2048, kTileBytes);
+            tc::wgmma_rs_m64n64k16(acc, ahi[k], dx);
+            tc::wgmma_rs_m64n64k16(acc, alo[k], dx);
+          }
+          tc::wg_commit();
+          tc::wg_wait_all();
+          tc::fence_regs(acc);
+        }
+      }
+      // y (BC, Q, H, P), contiguous
+      bf16* yp = y + (static_cast<long long>(ch) * Q * H + h) * P;
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int t = r0 + 8 * ((e / 2) % 2);
+        const int p = 8 * (e / 4) + cin;
+        if (t >= Q || p >= P) continue;
+        bf16* dst = yp + static_cast<long long>(t) * H * P + p;
+        if (pairs_p) {
+          *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(acc[e], acc[e + 1]);
+        } else {
+          dst[0] = __float2bfloat16(acc[e]);
+          if (p + 1 < P) dst[1] = __float2bfloat16(acc[e + 1]);
+        }
+      }
+    }
+
+    if (g == 0) {  // state = xᵀ (w·B), over the chunk's rows in k16 steps
+      float st[32];
+      tc::fence_regs(st);
+      tc::wg_fence();
+      // all 128 rows (zero past Q): a run-time trip count here would make
+      // ptxas serialize the products
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk) {
+        const uint64_t dx = tc::desc_sw128(sbase + xs + kk * 2048, kTileBytes);
+        tc::wgmma_ss_m64n64k16<1, 1>(
+            st, dx, tc::desc_sw128(sbase + kWH + kk * 2048, kTileBytes), kk > 0);
+        tc::wgmma_ss_m64n64k16<1, 1>(
+            st, dx, tc::desc_sw128(sbase + kWL + kk * 2048, kTileBytes), 1);
+      }
+      tc::wg_commit();
+      tc::wg_wait_all();
+      tc::fence_regs(st);
+      // state (BC, H, P, N), contiguous: row p = r0 + 8·((e/2)%2), column n
+      float* sp = state + (static_cast<long long>(ch) * H + h) * P * N;
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int p = r0 + 8 * ((e / 2) % 2);
+        const int n = 8 * (e / 4) + cin;
+        if (p >= P || n >= N) continue;
+        float* dst = sp + p * N + n;
+        if (pairs_n) {
+          *reinterpret_cast<float2*>(dst) = make_float2(st[e], st[e + 1]);
+        } else {
+          dst[0] = st[e];
+          if (n + 1 < N) dst[1] = st[e + 1];
+        }
+      }
+    }
+
+    if (!shared_bc && i + 1 < heads) {  // per-head B and C: the next head's
+      __syncthreads();                  // once this head's products are done
+      stage(smem, kC, cc + (h + 1) * sc.h, sc.q, Q, N, vec);
+      stage(smem, kB, bc + (h + 1) * sb.h, sb.q, Q, N, vec);
+      cp_async_commit();
+    }
+  }
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+cudaError_t launch(const void* x, const float* dt_a, const void* b, const void* c,
+                   void* y, float* state, float* decay, const long long* st, int BC,
+                   int Q, int H, int P, int N, int heads, cudaStream_t stream) {
+  if (heads < 1 || heads > kMaxHeads || H % heads) return cudaErrorInvalidValue;
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ssd_chunk_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  bool vec = P % 8 == 0 && N % 8 == 0 && aligned16(x) && aligned16(b) && aligned16(c);
+  const int strides_of_x_b_c[] = {0, 1, 2, 6, 7, 8, 9, 10, 11};
+  for (int i : strides_of_x_b_c) vec = vec && st[i] % 8 == 0;
+  const Strides4 sx{st[0], st[1], st[2]};
+  const Strides4 sa{st[3], st[4], st[5]};
+  const Strides4 sb{st[6], st[7], st[8]};
+  const Strides4 sc{st[9], st[10], st[11]};
+  const dim3 grid(H / heads, BC);
+  ssd_chunk_wgmma_kernel<<<grid, kThreads, kSmem, stream>>>(
+      static_cast<const bf16*>(x), dt_a, static_cast<const bf16*>(b),
+      static_cast<const bf16*>(c), static_cast<bf16*>(y), state, decay, sx, sa, sb,
+      sc, H, Q, P, N, heads, vec);
+  return cudaGetLastError();
+}
+
+}  // namespace ssd_tc
 
 }  // namespace
 
@@ -296,16 +618,21 @@ cudaError_t launch(const void* x, const float* dt_a, const void* b,
 // stride; st: the (chunk, row, head) strides of x, dt_a, b and c in that
 // order, in elements (a head stride of 0 broadcasts one group to all
 // heads).  y (BC, Q, H, P) in x's dtype, state (BC, H, P, N) and decay
-// (BC, Q, H) fp32, all contiguous.  bf16 != 0 for bfloat16 x, b, c.
+// (BC, Q, H) fp32, all contiguous.  bf16 != 0 for bfloat16 x, b, c, which
+// run the tensor-core kernel with `heads` consecutive heads a block (a
+// divisor of H, at most 8); fp32 takes one head a block and heads = 1.
 cudaError_t launch_ssd_chunk(const void* x, const float* dt_a, const void* b,
                              const void* c, void* y, float* state,
                              float* decay, const long long* st, int BC, int Q,
-                             int H, int P, int N, int bf16,
+                             int H, int P, int N, int bf16, int heads,
                              cudaStream_t stream) {
   if (BC < 1 || BC > 65535 || Q < 1 || Q > kMaxQ || H < 1 || P < 1 ||
       P > kMaxDim || N < 1 || N > kMaxDim)
     return cudaErrorInvalidValue;
   if (bf16)
-    return launch<__nv_bfloat16>(x, dt_a, b, c, y, state, decay, st, BC, Q, H, P, N, stream);
-  return launch<float>(x, dt_a, b, c, y, state, decay, st, BC, Q, H, P, N, stream);
+    return ssd_tc::launch(x, dt_a, b, c, y, state, decay, st, BC, Q, H, P, N, heads, stream);
+  if (heads != 1) return cudaErrorInvalidValue;
+  return launch_f32(static_cast<const float*>(x), dt_a, static_cast<const float*>(b),
+                    static_cast<const float*>(c), static_cast<float*>(y), state, decay,
+                    st, BC, Q, H, P, N, stream);
 }

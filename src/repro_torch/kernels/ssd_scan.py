@@ -8,8 +8,10 @@ CUDA it allocates the three outputs, launches the kernel on the current
 stream (all chunks and heads in one launch) and adds one to ``launches``;
 on the CPU it runs the plain version from ``ref.py``.  b and c are read
 through their strides, so one group broadcast to every head is an
-``expand``ed view with a head stride of 0 and is never copied.  Forward
-only, as the reference kernel.
+``expand``ed view with a head stride of 0 and is never copied.  bf16
+runs the tensor-core kernel, whose blocks each walk ``ssd_plan``'s
+number of consecutive heads of one chunk; fp32 the CUDA-core kernel, one
+head a block.  Forward only, as the reference kernel.
 """
 
 from __future__ import annotations
@@ -21,10 +23,33 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.fcnn_layer import device_type
 from repro_torch.kernels.flash_attention import check_float_args
 
-__all__ = ["ssd_chunk"]
+__all__ = ["ssd_chunk", "ssd_plan"]
 
 MAX_CHUNK = 128
 MAX_DIM = 64    # P and N
+
+# csrc/ssd_scan.cu, bf16: a block walks up to 8 heads of a chunk at two
+# blocks per SM of the H100's 132; the plan keeps the grid at three in four
+# of those 264 slots or more (chip_smoke.py phase 7 sweeps the choices)
+SSD_HEADS = (8, 4, 2, 1)
+SSD_MIN_BLOCKS = 3 * 2 * 132 // 4
+
+
+def ssd_plan(bc: int, h: int, q: int, shared_bc: bool) -> int:
+    """Heads a block of the bf16 kernel walks for ``bc`` chunks of ``q``
+    rows and ``h`` heads.  Where B and C are one group broadcast to every
+    head (``shared_bc``), the block stages them once for all its heads:
+    the largest of SSD_HEADS that divides ``h`` and leaves at least
+    SSD_MIN_BLOCKS blocks.  Per-head B and C are staged per head anyway,
+    so walking heads gains nothing there: 1."""
+    if not 1 <= q <= MAX_CHUNK:
+        raise ValueError(f"ssd_plan: chunk {q} outside 1..{MAX_CHUNK}")
+    if not shared_bc:
+        return 1
+    for heads in SSD_HEADS[:-1]:
+        if h % heads == 0 and bc * (h // heads) >= SSD_MIN_BLOCKS:
+            return heads
+    return 1
 
 
 def ssd_chunk(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
@@ -56,7 +81,9 @@ def ssd_chunk(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
     y = torch.empty((bc, q, h, p), device=x.device, dtype=x.dtype)
     state = torch.empty((bc, h, p, n), device=x.device, dtype=torch.float32)
     decay = torch.empty((bc, q, h), device=x.device, dtype=torch.float32)
-    _build.extension().ssd_chunk(x, dt_a, b, c, y, state, decay)
+    heads = (ssd_plan(bc, h, q, b.stride(2) == 0 and c.stride(2) == 0)
+             if x.dtype == torch.bfloat16 else 1)
+    _build.extension().ssd_chunk(x, dt_a, b, c, y, state, decay, heads)
     ssd_chunk.launches += 1
     return y, state, decay
 

@@ -346,6 +346,15 @@ def test_flash_attention_refuses_misaligned_bf16_on_card(cuda):
     assert ops.launch_counts()["flash_attention"] == before
 
 
+def _ssd_inputs_on_card(rng, dev, bc, q, h, p, n, dtype, shared_bc):
+    g = 1 if shared_bc else h
+    x = _rand(rng, (bc, q, h, p), dev).to(dtype)
+    dt_a = -_rand(rng, (bc, q, h), dev).abs() * 0.3
+    b = _rand(rng, (bc, q, g, n), dev).to(dtype).expand(bc, q, h, n)
+    c = _rand(rng, (bc, q, g, n), dev).to(dtype).expand(bc, q, h, n)
+    return x, dt_a, b, c
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("bc,q,h,p,n", [(16, 128, 64, 64, 64),
                                         (2, 16, 8, 8, 4), (1, 32, 4, 16, 8),
@@ -357,11 +366,8 @@ def test_ssd_chunk_matches_plain_on_card(cuda, bc, q, h, p, n, shared_bc,
     from repro_torch.kernels.ssd_scan import ssd_chunk
 
     rng = np.random.default_rng(12)
-    g = 1 if shared_bc else h
-    x = _rand(rng, (bc, q, h, p), cuda).to(dtype)
-    dt_a = -_rand(rng, (bc, q, h), cuda).abs() * 0.3
-    b = _rand(rng, (bc, q, g, n), cuda).to(dtype).expand(bc, q, h, n)
-    c = _rand(rng, (bc, q, g, n), cuda).to(dtype).expand(bc, q, h, n)
+    x, dt_a, b, c = _ssd_inputs_on_card(rng, cuda, bc, q, h, p, n, dtype,
+                                        shared_bc)
     before = ops.launch_counts()["ssd_chunk"]
     y, st, dec = ssd_chunk(x, dt_a, b, c)
     torch.cuda.synchronize()
@@ -371,6 +377,53 @@ def test_ssd_chunk_matches_plain_on_card(cuda, bc, q, h, p, n, shared_bc,
     state_rtol = 1e-3 if dtype == torch.bfloat16 else 1e-5
     _assert_rel(st, st_r, state_rtol)
     _assert_rel(dec, dec_r, state_rtol)
+
+
+# bf16 K7's blocks walk `heads` consecutive heads of a chunk (ssd_plan picks
+# 1, 2 or 4 at the serving shapes; the kernel takes any divisor of H up to
+# 8), staging a stride-0 B/C once for all of them.
+@pytest.mark.gpu
+@pytest.mark.parametrize("bc", [1, 4, 8, 16])
+@pytest.mark.parametrize("heads", [1, 2, 4, 8])
+@pytest.mark.parametrize("shared_bc", [True, False])
+def test_ssd_chunk_bf16_every_heads_per_block_on_card(cuda, bc, heads,
+                                                      shared_bc):
+    from repro_torch.kernels import _build
+
+    rng = np.random.default_rng(14)
+    x, dt_a, b, c = _ssd_inputs_on_card(rng, cuda, bc, 128, 64, 64, 64,
+                                        torch.bfloat16, shared_bc)
+
+    def run():
+        y = torch.empty_like(x)
+        st = torch.empty((bc, 64, 64, 64), device=cuda)
+        dec = torch.empty((bc, 128, 64), device=cuda)
+        _build.extension().ssd_chunk(x, dt_a, b, c, y, st, dec, heads)
+        return y, st, dec
+
+    y, st, dec = run()
+    torch.cuda.synchronize()
+    y_r, st_r, dec_r = ref.ssd_chunk_ref(x, dt_a, b, c)
+    _assert_lm(y, y_r, 1e-5)
+    _assert_rel(st, st_r, 1e-3)
+    _assert_rel(dec, dec_r, 1e-3)
+    for a, a2 in zip((y, st, dec), run()):
+        assert torch.equal(a, a2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bc", [1, 16])
+def test_ssd_chunk_bf16_repeats_are_bit_identical_on_card(cuda, bc):
+    """Through the wrapper (its plan's heads per block), two calls on the
+    same inputs give the same bits: no atomics, sums in a fixed order."""
+    from repro_torch.kernels.ssd_scan import ssd_chunk
+
+    rng = np.random.default_rng(15)
+    ins = _ssd_inputs_on_card(rng, cuda, bc, 128, 64, 64, 64, torch.bfloat16,
+                              True)
+    first = ssd_chunk(*ins)
+    for a, a2 in zip(first, ssd_chunk(*ins)):
+        assert torch.equal(a, a2)
 
 
 @pytest.mark.gpu

@@ -7,8 +7,13 @@ runs them) and through the port's wrappers on CPU tensors, which run the
 plain versions.  Tolerances are tests/test_kernels.py's: 2e-5 (fp32) and
 5e-2 (bf16) for attention, 1e-5 for the SSD chunk.  The CUDA kernels are
 held against the plain versions on the card in
-tests/test_torch_kernels_gpu.py and chip_smoke.py.
+tests/test_torch_kernels_gpu.py and chip_smoke.py.  The bf16 SSD kernel's
+arithmetic (tensor-core products with the weights split into bf16 hi +
+lo) is emulated here in torch and held to chip_smoke.py's own bars.
 """
+
+import importlib.util
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +23,7 @@ import torch
 from repro.kernels import ops as jops
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.ssd_scan import ssd_chunk
+from repro_torch.kernels.ssd_scan import SSD_MIN_BLOCKS, ssd_chunk, ssd_plan
 
 # tests/test_kernels.py's shapes: (b, h, s, d, block) and (bc, q, h, p, n, bh)
 FLASH_SHAPES = [(1, 2, 128, 32, 64), (2, 4, 256, 64, 128), (1, 1, 64, 128, 32)]
@@ -216,3 +221,109 @@ def test_ssd_chunk_refuses_shapes_beyond_the_kernel(bc, q, h, p, n):
     b = torch.zeros(bc, q, h, n)
     with pytest.raises(ValueError, match="Q <= 128, P, N <= 64"):
         ssd_chunk(x, dt_a, b, b)
+
+
+# ---- the bf16 SSD kernel's host plan and arithmetic ---------------------
+
+_SPEC = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+SMOKE = importlib.util.module_from_spec(_SPEC)
+_SPEC.loader.exec_module(SMOKE)
+
+
+@pytest.mark.parametrize("bc", [1, 4, 8, 16])
+@pytest.mark.parametrize("shared_bc", [True, False])
+def test_ssd_plan_fills_the_card(bc, shared_bc):
+    """Heads a block walks at Zamba2's H = 64, Q = 128 (one chunk and the
+    512/1024/2048-token prompt buckets): a divisor of H of at most 8; with
+    stride-0 B/C the largest whose grid still holds SSD_MIN_BLOCKS (3/4 of
+    two blocks on each of 132 SMs), so twice as many heads would not; with
+    per-head B/C, where nothing is staged once for several heads, one."""
+    h = 64
+    heads = ssd_plan(bc, h, 128, shared_bc)
+    assert heads in (1, 2, 4, 8) and h % heads == 0
+    assert heads == ({1: 1, 4: 1, 8: 2, 16: 4}[bc] if shared_bc else 1)
+    if shared_bc:
+        assert heads == 1 or bc * h // heads >= SSD_MIN_BLOCKS
+        assert bc * h // (2 * heads) < SSD_MIN_BLOCKS
+
+
+def test_ssd_plan_refuses_chunks_beyond_the_kernel():
+    with pytest.raises(ValueError, match="chunk 129"):
+        ssd_plan(16, 64, 129, True)
+
+
+def _k7_bf16_emulation(x, dt_a, b, c, split=True):
+    """csrc/ssd_scan.cu's bf16 arithmetic in torch: S = C·Bᵀ in fp32 from
+    the bf16 inputs (the tensor cores' exact products, fp32 sums); the
+    decay mask W = S ∘ exp(cs_t − cs_s) on s <= t in fp32; W and
+    w∘B (w_s = exp(cs_{Q-1} − cs_s)) as bf16 hi + lo (or one bf16 rounding
+    where ``split`` is False); fp32 sums; y rounded to x's dtype."""
+    xf, bf, cf = x.float(), b.float(), c.float()
+    q = x.shape[1]
+    cs = torch.cumsum(dt_a.float(), dim=1)                       # (BC, Q, H)
+    csh = cs.permute(0, 2, 1)                                    # (BC, H, Q)
+    s = torch.einsum("bthn,bshn->bhts", cf, bf)
+    mask = torch.ones((q, q), dtype=torch.bool).tril()
+    w = torch.where(mask, s * torch.exp(csh[..., :, None] - csh[..., None, :]),
+                    torch.zeros(()))
+
+    def parts(v):
+        hi = v.bfloat16().float()
+        return (hi, (v - hi).bfloat16().float()) if split else (hi,)
+
+    y = sum(torch.einsum("bhts,bshp->bthp", part, xf) for part in parts(w))
+    wb = torch.exp(cs[:, -1:, :] - cs)[..., None] * bf           # (BC, Q, H, N)
+    state = sum(torch.einsum("bshp,bshn->bhpn", xf, part) for part in parts(wb))
+    return y.to(x.dtype), state, torch.exp(cs)
+
+
+def _k7_serving_inputs(seed):
+    """(BC=2, Q=128, H=4, P=N=64) bf16 with one B/C group broadcast to the
+    heads as stride-0 views, dt_a = −0.3·|N(0,1)| as chip_smoke.py's."""
+    bc, q, h, p, n = 2, 128, 4, 64, 64
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(_np(rng, (bc, q, h, p))).bfloat16()
+    dt_a = torch.from_numpy(-np.abs(_np(rng, (bc, q, h))) * 0.3)
+    b1, c1 = (torch.from_numpy(_np(rng, (bc, q, 1, n))).bfloat16()
+              for _ in range(2))
+    return x, dt_a, b1.expand(bc, q, h, n), c1.expand(bc, q, h, n)
+
+
+def _jax_pallas_ssd(x, dt_a, b, c):
+    """The JAX kernel, interpreted, on the same values (B and C broadcast)."""
+    j = [jnp.asarray(t.float().contiguous().numpy(), jnp.bfloat16)
+         for t in (x, b, c)]
+    out = jops.ssd_chunk(j[0], jnp.asarray(dt_a.numpy()), j[1], j[2],
+                         force="pallas_interpret", block_h=x.shape[2])
+    return tuple(torch.from_numpy(np.array(o, np.float32)) for o in out)
+
+
+def _k7_bars(got, want):
+    """chip_smoke.py's bf16 bars: y element-wise 2^-7·|ref| + 1e-3·max|ref|
+    and norm-wise 2^-7; state and decay 1e-3 of the largest value."""
+    ok, _, crit = SMOKE._close(torch, got[0], want[0].bfloat16(),
+                               SMOKE.K7_FP32_RTOL, None)
+    rel = [SMOKE.errors(g, w)[1] for g, w in zip(got[1:], want[1:])]
+    return ok, crit, rel
+
+
+def test_ssd_bf16_kernel_arithmetic_meets_the_card_bars():
+    """The hi/lo emulation against ssd_chunk_ref and the JAX kernel."""
+    ins = _k7_serving_inputs(21)
+    got = _k7_bf16_emulation(*ins)
+    assert got[0].dtype == torch.bfloat16
+    for want in (ref.ssd_chunk_ref(*ins), _jax_pallas_ssd(*ins)):
+        ok, crit, rel = _k7_bars(got, want)
+        assert ok, crit
+        assert max(rel) <= SMOKE.K7_BF16_STATE_RTOL, rel
+
+
+def test_ssd_bf16_single_rounding_misses_the_state_bar():
+    """Why the kernel splits its weights: rounded once to bf16, w∘B puts
+    the state past its 1e-3 bar (and the hi/lo pair does not)."""
+    ins = _k7_serving_inputs(21)
+    want = ref.ssd_chunk_ref(*ins)
+    single = _k7_bars(_k7_bf16_emulation(*ins, split=False), want)[2]
+    split = _k7_bars(_k7_bf16_emulation(*ins), want)[2]
+    assert single[0] > SMOKE.K7_BF16_STATE_RTOL >= split[0], (single, split)

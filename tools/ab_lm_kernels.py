@@ -1,0 +1,132 @@
+#!/usr/bin/env python3
+"""Two checkouts of the port, A and B, on one CUDA card: the LM prefill
+kernels (K6 flash_attention, K7 ssd_chunk) at chip_smoke.py phase 7's
+timed shapes, outputs compared bit for bit and device times taken in
+turns A, B, B, A.
+
+  python3 tools/ab_lm_kernels.py --a OLD_CHECKOUT --b NEW_CHECKOUT
+
+Each checkout's extension is built in its own ``build/torch_kernels`` (the
+two builds run at once), and each run is a process of its own that imports
+``repro_torch`` from that checkout's ``src`` and calls only the public
+wrappers, so two versions whose bindings differ still compare.  Inputs
+come from a CUDA generator seeded per shape, the same in every run.
+Device time per call is chip_smoke.device_ms's CUDA-graph replay.
+Prints one line per shape and the card's name and power limit; exits
+non-zero if a run fails or there is no card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+import tempfile
+
+SHAPES = (
+    # (kernel, dtype, shape, flag): K6 (B, H, S, D) causal or not; K7
+    # (BC, Q, H, P, N) with stride-0 B/C
+    *[("flash_attention", "bfloat16", (1, 32, s, 64), causal)
+      for causal in (True, False) for s in (128, 512, 1024, 2048)],
+    ("flash_attention", "float32", (1, 32, 2048, 64), True),
+    *[("ssd_chunk", "bfloat16", (bc, 128, 64, 64, 64), True)
+      for bc in (1, 4, 8, 16)],
+    ("ssd_chunk", "float32", (16, 128, 64, 64, 64), True),
+)
+
+
+def label(kernel: str, dtype: str, shape: tuple, flag: bool) -> str:
+    if kernel == "flash_attention":
+        return f"K6 {shape} {dtype} {'causal' if flag else 'full'}"
+    return f"K7 BC={shape[0]} {shape[1:]} {dtype} stride-0 b/c"
+
+
+def worker(root: str, save: str | None) -> None:
+    """Build (``save`` None) or run every shape and save outputs and ms."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from chip_smoke import device_ms  # puts this repo's own src on the path
+
+    sys.path.insert(0, os.path.join(root, "src"))   # ahead of it
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_chunk
+
+    assert _build.BUILD_DIR.is_relative_to(os.path.realpath(root)), root
+    _build.extension()
+    if save is None:
+        return
+    dev = torch.device("cuda", 0)
+    results = []
+    for i, (kernel, dtype, shape, flag) in enumerate(SHAPES):
+        gen = torch.Generator(device=dev).manual_seed(100 + i)
+        dt = getattr(torch, dtype)
+
+        def rand(*s, dt=dt):
+            return torch.randn(*s, generator=gen, device=dev).to(dt)
+
+        if kernel == "flash_attention":
+            b, h, s, d = shape
+            q, k, v = (rand(b, s, h, d).transpose(1, 2) for _ in range(3))
+            fn = lambda q=q, k=k, v=v: (flash_attention(q, k, v, flag),)  # noqa: E731
+        else:
+            bc, q, h, p, n = shape
+            x = rand(bc, q, h, p)
+            dt_a = -rand(bc, q, h, dt=torch.float32).abs() * 0.3
+            b_ = rand(bc, q, 1, n).expand(bc, q, h, n)
+            c_ = rand(bc, q, 1, n).expand(bc, q, h, n)
+            fn = lambda x=x, a=dt_a, b=b_, c=c_: ssd_chunk(x, a, b, c)  # noqa: E731
+        outs = [t.cpu() for t in fn()]
+        results.append((outs, device_ms(fn, iters=5)))
+    torch.save(results, save)
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--a", help="checkout A (e.g. the parent commit)")
+    ap.add_argument("--b", help="checkout B (e.g. the change)")
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    ap.add_argument("--save", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.worker:
+        worker(args.worker, args.save)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("ab_lm_kernels: no CUDA card", file=sys.stderr)
+        return 1
+    me = os.path.abspath(__file__)
+    roots = {"A": os.path.abspath(args.a), "B": os.path.abspath(args.b)}
+    builds = [subprocess.Popen([sys.executable, me, "--worker", r])
+              for r in roots.values()]
+    if any(p.wait() != 0 for p in builds):
+        print("ab_lm_kernels: a build failed", file=sys.stderr)
+        return 1
+    runs = {"A": [], "B": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for n, side in enumerate("ABBA"):
+            save = os.path.join(tmp, f"{n}.pt")
+            subprocess.run([sys.executable, me, "--worker", roots[side],
+                            "--save", save], check=True)
+            runs[side].append(torch.load(save))
+    for i, spec in enumerate(SHAPES):
+        (outs_a, ms_a1), (_, ms_a2) = runs["A"][0][i], runs["A"][1][i]
+        (outs_b, ms_b1), (_, ms_b2) = runs["B"][0][i], runs["B"][1][i]
+        same = all(torch.equal(a, b) for a, b in zip(outs_a, outs_b))
+        diff = max((a.double() - b.double()).abs().max().item()
+                   for a, b in zip(outs_a, outs_b))
+        print(f"{label(*spec):48s} device ms A {ms_a1:.5f} {ms_a2:.5f} | "
+              f"B {ms_b1:.5f} {ms_b2:.5f} | outputs "
+              f"{'bit-identical' if same else f'differ, max abs {diff:.3e}'}")
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    print(out.stdout.strip().splitlines()[0])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
