@@ -23,7 +23,12 @@ raises and the script exits non-zero without a result line:
               give bit-identical outputs; each timed K1, K2 and K3 row
               prints what its host plan picked ((split, slice), or K3's dW
               tile height) and the device time of every other choice, each
-              held to the plain version
+              held to the plain version; K4/K5 (softmax_xent) in fp32 and
+              bf16 at NN1 (64, 10), NN5 (128, 10) and the edges (1, 10)
+              and (37, 300), nll, lse, the batch mean and dlogits within
+              1e-5, K4's mean run twice bit-identical; then an empty
+              kernel timed the same way (the launch floor) and one NN1
+              step's forward and backward captured in a CUDA graph
   4. autograd gradients of the fused ops on NN1 against autograd of the
               plain versions
   5. train    NN1, 300 steps, batch 64, seed 0, through
@@ -48,7 +53,9 @@ raises and the script exits non-zero without a result line:
               4 slots through ``repro_torch.launch.serve.serve``; every
               request served, K6 and K7 launched 6 and 38 times per
               prefill (counters reset just before); TTFT/TPOT, tok/s and
-              peak memory; then a profiled 2048-token prefill and a
+              peak memory; then a profiled 2048-token prefill, the
+              SwiGLU MLP's gate/up GEMMs at that shape with bf16 output
+              (the earlier form) and fp32 output (the reference's), and a
               profiled decode step of 4 slots at depth 2048
   9. parity   the full-width model's kernel path against its plain path
               from one set of weights: fp32 prefill logits of a 512-token
@@ -369,10 +376,7 @@ def kernel_cases(torch, dev, gen):
         fwd_plan,
         wgrad_plan,
     )
-    from repro_torch.kernels.softmax_xent import (
-        softmax_xent_dlogits,
-        softmax_xent_fwd,
-    )
+    from repro_torch.kernels.softmax_xent import softmax_xent_dlogits, softmax_xent_fwd
     F = torch.nn.functional
     lib_act = {"sigmoid": torch.sigmoid, "relu": torch.relu,
                "tanh": torch.tanh, "none": lambda z: z}
@@ -432,35 +436,42 @@ def kernel_cases(torch, dev, gen):
                            4 * (m * k + 2 * m * n + k * n + n), 2 * m * k * n + 3 * m * n,
                            timed, on_path, wgrad_plan(k, n), wgrad_forced)
 
-    def xent_cases(tag, b, c, timed=True, on_path=False):
-        x = rand(b, c, scale=3.0)
+    def xent_cases(tag, b, c, dtype=torch.float32, timed=True,
+                   on_path=False):
+        x = rand(b, c, scale=3.0).to(dtype)
         lab = torch.randint(0, c, (b,), generator=gen, device=dev,
                             dtype=torch.int32)
         lab64 = lab.long()
         onehot = F.one_hot(lab64, c).float()
-        nll, lse = ref.softmax_xent_fwd_ref(x, lab)
-        scale = torch.full((b,), 0.7 / b, device=dev)
-        label = f"{tag} {b}x{c}"
+        _, lse, _ = ref.softmax_xent_fwd_ref(x, lab)
+        g = torch.tensor(0.7, device=dev)
+        e = x.element_size()
+        label = f"{tag} {b}x{c} {str(dtype)[6:]}"
+        # K4 writes (nll, lse, mean); K5 takes the loss cotangent g as the
+        # training step hands it over
         yield Case("softmax_xent_fwd", label,
                    lambda: softmax_xent_fwd(x, lab),
                    lambda: ref.softmax_xent_fwd_ref(x, lab),
                    lambda: F.cross_entropy(x, lab64, reduction="none"),
-                   4 * (b * c + 3 * b), 4 * b * c, timed, on_path)
+                   e * b * c + 4 * 3 * b + 4, 4 * b * c + b, timed, on_path)
         yield Case("softmax_xent_dlogits", label,
-                   lambda: softmax_xent_dlogits(x, lab, lse, scale),
-                   lambda: ref.softmax_xent_dlogits_ref(x, lab, lse, scale),
-                   lambda: torch.softmax(x, -1) - onehot,
-                   4 * (2 * b * c + 3 * b), 4 * b * c, timed, on_path)
+                   lambda: softmax_xent_dlogits(x, lab, lse, g=g),
+                   lambda: ref.softmax_xent_dlogits_ref(x, lab, lse, g=g),
+                   lambda: torch.softmax(x.float(), -1) - onehot,
+                   2 * e * b * c + 4 * 2 * b + 4, 4 * b * c, timed, on_path)
 
     yield from layer_cases("NN1", NN1, 64, on_path=True)
     yield from xent_cases("NN1", 64, 10, on_path=True)
+    yield from xent_cases("NN1", 64, 10, torch.bfloat16)
     yield from layer_cases("NN5", NN5, 128)
-    yield from xent_cases("NN5", 128, 10)
+    for dtype in (torch.float32, torch.bfloat16):
+        yield from xent_cases("NN5", 128, 10, dtype)
     # edges: batch 1, N = 10, K = 784, every activation
     yield from layer_cases("edge", [784, 10], 1, acts_for=ACTS, timed=False)
     yield from layer_cases("edge", NN1[:2], 64, acts_for=ACTS, timed=False)
-    yield from xent_cases("edge", 1, 10, timed=False)
-    yield from xent_cases("edge", 37, 300, timed=False)
+    for dtype in (torch.float32, torch.bfloat16):
+        yield from xent_cases("edge", 1, 10, dtype, timed=False)
+        yield from xent_cases("edge", 37, 300, dtype, timed=False)
 
 
 def worst_errors(out, want) -> tuple[float, float]:
@@ -474,25 +485,41 @@ def worst_errors(out, want) -> tuple[float, float]:
     return worst_abs, worst_rel
 
 
+SWEEP_KIND = {"fcnn_layer": "split/slice", "fcnn_layer_dgrad": "split/slice",
+              "fcnn_layer_wgrad": "tile"}
+
+
+def _choice_name(case: Case, choice: tuple[int, ...]) -> str:
+    sep = "x" if case.name == "fcnn_layer_wgrad" else "/"
+    return sep.join(map(str, choice))
+
+
+def _agrees(case: Case, out, want) -> tuple[bool, float]:
+    """(ok, the error the bar is on): GEMMs relative to the largest
+    output, the softmax kernels absolute."""
+    worst_abs, worst_rel = worst_errors(out, want)
+    if case.name.startswith("fcnn"):
+        return worst_rel <= GEMM_RTOL, worst_rel
+    return worst_abs <= XENT_ATOL, worst_abs
+
+
 def sweep_line(torch, case: Case, want) -> str:
     """Device ms of a kernel with a host plan at every choice it takes,
-    each held to the plain version's output ``want``; the plan's choice
-    and the fastest are named."""
+    each held to the plain version's output ``want``; the plan's choice and
+    the fastest are named."""
     times = {}
     for choice in CHOICES[case.name]:
         out = case.forced(*choice)
         torch.cuda.synchronize()
-        rel = worst_errors(out, want)[1]
-        check(rel <= GEMM_RTOL, f"{case.name} {case.label} at "
-                                f"{choice}: max_rel {rel:.3e}")
+        ok, err = _agrees(case, out, want)
+        check(ok, f"{case.name} {case.label} at {choice}: error {err:.3e}")
         times[choice] = device_ms(lambda c=choice: case.forced(*c))
     best = min(times, key=times.get)
-    tiles = case.name == "fcnn_layer_wgrad"
-    name = lambda c: "x".join(map(str, c)) if tiles else "/".join(map(str, c))  # noqa: E731
-    cells = " ".join(f"{name(c)} {ms:.5f}" for c, ms in times.items())
-    return (f"    sweep {'tile' if tiles else 'split/slice'} device ms: "
-            f"{cells} | plan {name(case.plan)} {times[case.plan]:.5f}, "
-            f"fastest {name(best)} {times[best]:.5f}")
+    cells = " ".join(f"{_choice_name(case, c)} {ms:.5f}"
+                     for c, ms in times.items())
+    return (f"    sweep {SWEEP_KIND[case.name]} device ms: {cells} | plan "
+            f"{_choice_name(case, case.plan)} {times[case.plan]:.5f}, fastest "
+            f"{_choice_name(case, best)} {times[best]:.5f}")
 
 
 def run_kernel_phase(torch, dev) -> dict:
@@ -506,16 +533,20 @@ def run_kernel_phase(torch, dev) -> dict:
         out, want = case.kern(), case.plain()
         torch.cuda.synchronize()
         worst_abs, worst_rel = worst_errors(out, want)
-        gemm = name.startswith("fcnn")
-        ok = worst_rel <= GEMM_RTOL if gemm else worst_abs <= XENT_ATOL
+        ok = _agrees(case, out, want)[0]
         extra = ""
         if name == "fcnn_layer_wgrad":
             extra = f" tile {case.plan[0]}x{case.plan[1]}"
-        elif case.plan is not None:  # split-K sums in a fixed order
+        elif name.startswith("fcnn"):  # split-K sums in a fixed order
             same = torch.equal(out, case.kern())
             extra = (f" split/slice {case.plan[0]}/{case.plan[1]} repeat "
                      f"{'bit-identical' if same else 'DIFFERS'}")
             ok = ok and same
+        elif name == "softmax_xent_fwd":  # the mean in a fixed order
+            same = torch.equal(out[2], case.kern()[2])
+            extra = f" mean repeat {'bit-identical' if same else 'DIFFERS'}"
+            ok = ok and same
+        gemm = name.startswith("fcnn")
         tol = f"rel<={GEMM_RTOL:g}" if gemm else f"abs<={XENT_ATOL:g}"
         line = (f"{name:21s} {label:32s} max_abs {worst_abs:.3e} "
                 f"max_rel {worst_rel:.3e} ({tol}){extra} "
@@ -527,7 +558,7 @@ def run_kernel_phase(torch, dev) -> dict:
                                     device_ms(case.lib))
             b_ms, b_by = bound(case.nbytes, case.flops)
             line += (f" | device ms: kernel {ms:.5f} plain {plain_ms:.5f} "
-                     f"library {lib_ms:.5f} bound {b_ms:.5f} ({b_by}) | "
+                     f"library {lib_ms:.5f} bound {b_ms:.7f} ({b_by}) | "
                      f"eager ms: kernel {eager_ms(case.kern):.5f} plain "
                      f"{eager_ms(case.plain):.5f}"
                      f"{' [NN1 step]' if case.on_path else ''}")
@@ -547,8 +578,56 @@ def run_kernel_phase(torch, dev) -> dict:
         s = summary[name]
         print(f"NN1 step, {name}: kernel {s['ms']:.5f} ms, library "
               f"{s['library_ms']:.5f} ms, plain {s['plain_ms']:.5f} ms, bound "
-              f"{s['bound_ms']:.5f} ms over {len(s['shapes'])} calls")
+              f"{s['bound_ms']:.7f} ms over {len(s['shapes'])} calls")
     return summary
+
+
+def nn1_step_parts(torch, dev):
+    """(params, leaves, batch, Adam, its state, step counter) of an NN1
+    training step at batch 64."""
+    from repro_torch.data import fcnn_classification_dataset
+    from repro_torch.launch.train_fcnn import FULL_RUN_STEPS, LR
+    from repro_torch.models import fcnn
+    from repro_torch.optim import adam, linear_warmup_cosine
+
+    params = fcnn.init(NN1, torch.Generator().manual_seed(0), dev)
+    x, y = fcnn_classification_dataset(64, input_dim=NN1[0], seed=0)
+    batch = {"x": torch.from_numpy(x).to(dev), "y": torch.from_numpy(y).to(dev)}
+    opt = adam(linear_warmup_cosine(LR, 20, FULL_RUN_STEPS))
+    return (params, fcnn.parameters(params), batch, opt, opt.init(params),
+            torch.zeros((), device=dev))
+
+
+def run_floor_and_chain(torch, dev, summary) -> None:
+    """K4 and K5 beside an empty kernel timed the same way (the launch
+    floor), and one NN1 step's forward and backward (loss_fn, then
+    autograd.grad: K1 x3, K4, K5, K3 x3, K2 x2 and autograd's own
+    operations) captured in a CUDA graph."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.train_fcnn import train_step
+    from repro_torch.models import fcnn
+
+    ext = _build.extension()
+    floor = device_ms(ext.launch_floor)
+    print(f"launch floor, an empty kernel in the same harness (CUDA-graph "
+          f"replay): {floor:.5f} ms")
+    for name in ("softmax_xent_fwd", "softmax_xent_dlogits"):
+        ms = summary[name]["ms"]
+        print(f"  {name} at NN1 (64x10 fp32): {ms:.5f} ms = "
+              f"{ms / floor:.2f}x the floor")
+    params, leaves, batch, opt, state, step_t = nn1_step_parts(torch, dev)
+
+    def fwd_bwd():
+        return torch.autograd.grad(fcnn.loss_fn(params, batch), leaves)
+
+    def step():
+        train_step(params, opt, state, batch, step_t)
+
+    print(f"NN1 step chain, forward+backward in a CUDA graph: "
+          f"{device_ms(fwd_bwd, iters=10, replays=30):.5f} ms device")
+    print(f"NN1 step as the port runs it: forward+backward eager "
+          f"{eager_ms(fwd_bwd, iters=100):.5f} ms, whole Adam step "
+          f"{eager_ms(step, iters=100):.5f} ms (CUDA events, host included)")
 
 
 # --------------------------------------------------------------- phase 4
@@ -940,6 +1019,53 @@ def run_prefill_profile(torch, dev, model, params, tokens) -> None:
         print(f"  {us / 1e3:9.4f} ms {count:4d} calls  {key[:100]}")
 
 
+def run_mlp_timing(torch, dev, cfg, params, tokens: int) -> None:
+    """The SwiGLU MLP's cost at the prefill shape, before and after it kept
+    its gate and up products in fp32: each (tokens, d_model) x (d_model,
+    d_ff) GEMM with bf16 output (the earlier form) and with fp32 output
+    (``layers.matmul_fp32``), and the whole MLP in both forms; a prefill
+    runs the MLP once per shared-block invocation."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.zamba2 import n_shared_invocations
+
+    p = params["shared"]["mlp"]
+    x = torch.randn((1, tokens, cfg.d_model), device=dev).to(torch.bfloat16)
+    silu = torch.nn.functional.silu
+
+    def mlp_bf16_products():
+        g = torch.matmul(x, p["w_gate"])
+        u = torch.matmul(x, p["w_up"])
+        h = (silu(g.float()) * u.float()).to(x.dtype)
+        return torch.matmul(h, p["w_down"])
+
+    with torch.inference_mode():
+        got = L.matmul_fp32(x, p["w_gate"])
+        want = torch.matmul(x.float(), p["w_gate"].float())
+        check(got.dtype == torch.float32, "matmul_fp32 does not return fp32")
+        rel = errors(got, want)[1]
+        check(rel <= 1e-5, f"bf16 GEMM with fp32 output is {rel:.3e} from "
+                           f"the fp32 product of the upcast operands")
+        gemm = {name: device_ms(fn, iters=3) for name, fn in (
+            ("bf16 out", lambda: torch.matmul(x, p["w_gate"])),
+            ("fp32 out", lambda: L.matmul_fp32(x, p["w_gate"])))}
+        whole = {name: device_ms(fn, iters=3) for name, fn in (
+            ("bf16 products", mlp_bf16_products),
+            ("fp32 products", lambda: L.mlp(p, x)))}
+    calls = n_shared_invocations(cfg)
+    flops = 2 * tokens * cfg.d_model * cfg.d_ff
+    print(f"MLP gate/up GEMM ({tokens}x{cfg.d_model})x({cfg.d_model}x"
+          f"{cfg.d_ff}) bf16 operands: bf16 output {gemm['bf16 out']:.4f} ms, "
+          f"fp32 output {gemm['fp32 out']:.4f} ms "
+          f"({flops / gemm['fp32 out'] / 1e9:.1f} TFLOP/s; {rel:.1e} from "
+          f"the fp32 product); x{2 * calls} a prefill: "
+          f"{2 * calls * gemm['bf16 out']:.3f} -> "
+          f"{2 * calls * gemm['fp32 out']:.3f} ms")
+    print(f"MLP whole: g, u rounded to bf16 {whole['bf16 products']:.4f} ms, "
+          f"kept fp32 {whole['fp32 products']:.4f} ms; x{calls} a prefill: "
+          f"{calls * whole['bf16 products']:.3f} -> "
+          f"{calls * whole['fp32 products']:.3f} ms")
+
+
 def run_decode_profile(torch, dev, model, params) -> None:
     """Where a batched decode step's time goes: 4 slots each 2048 tokens
     deep in a cache sized as the serving run's."""
@@ -1058,6 +1184,7 @@ def lm_path_phases(torch, dev) -> tuple[dict, dict]:
     tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen,
                            device=dev)
     run_prefill_profile(torch, dev, model, params, tokens)
+    run_mlp_timing(torch, dev, cfg, params, tokens.shape[1])
     run_decode_profile(torch, dev, model, params)
 
     phase(9, "full-width parity: kernel path against plain path")
@@ -1091,6 +1218,7 @@ def main() -> int:
 
     phase(3, "kernels against their plain versions")
     summary = run_kernel_phase(torch, dev)
+    run_floor_and_chain(torch, dev, summary)
 
     phase(4, "autograd through the fused ops (NN1)")
     run_autograd_phase(torch, dev)

@@ -22,11 +22,14 @@ cudaError_t launch_fcnn_wgrad(const float* x, const float* dy, const float* y,
                               float* dw, float* db, int M, int K, int N,
                               int act, int tile_rows, int tile_cols,
                               cudaStream_t s);
-cudaError_t launch_xent_fwd(const float* logits, const int* labels, float* nll,
-                            float* lse, int B, int C, cudaStream_t s);
-cudaError_t launch_xent_dlogits(const float* logits, const int* labels,
-                                const float* lse, const float* scale, float* dx,
-                                int B, int C, cudaStream_t s);
+cudaError_t launch_xent_fwd(const void* logits, const int* labels, float* nll,
+                            float* lse, float* mean, int B, int C, int bf16,
+                            cudaStream_t s);
+cudaError_t launch_xent_dlogits(const void* logits, const int* labels,
+                                const float* lse, const float* scale,
+                                int scale_stride, int scale_div, void* dx, int B,
+                                int C, int bf16, cudaStream_t s);
+cudaError_t launch_empty(cudaStream_t s);
 cudaError_t launch_flash_attention(const void* q, const void* k, const void* v,
                                    void* o, const long long* st, int B, int H,
                                    int S, int D, int causal, int bf16,
@@ -86,26 +89,38 @@ void fcnn_wgrad(const torch::Tensor& x, const torch::Tensor& dy,
                "fcnn_layer_wgrad");
 }
 
-// logits (B, C), labels (B,) int32 -> nll, lse (B,)
+// logits (B, C) fp32 or bf16, labels (B,) int32 -> nll, lse (B,), mean (0-d)
 void xent_fwd(const torch::Tensor& logits, const torch::Tensor& labels,
-              torch::Tensor nll, torch::Tensor lse) {
+              torch::Tensor nll, torch::Tensor lse, torch::Tensor mean) {
   const c10::cuda::CUDAGuard guard(logits.device());
-  check_launch(launch_xent_fwd(f32(logits), labels.data_ptr<int>(), f32(nll),
-                               f32(lse), logits.size(0), logits.size(1),
+  check_launch(launch_xent_fwd(logits.data_ptr(), labels.data_ptr<int>(),
+                               f32(nll), f32(lse), f32(mean), logits.size(0),
+                               logits.size(1),
+                               logits.scalar_type() == at::kBFloat16,
                                stream_of(logits)),
                "softmax_xent_fwd");
 }
 
-// logits (B, C), labels, lse, scale (B,) -> dx (B, C)
+// logits (B, C), labels, lse (B,) -> dx (B, C) in the logits' dtype; the
+// row factor is scale[r * scale_stride] / scale_div
 void xent_dlogits(const torch::Tensor& logits, const torch::Tensor& labels,
                   const torch::Tensor& lse, const torch::Tensor& scale,
-                  torch::Tensor dx) {
+                  int64_t scale_stride, int64_t scale_div, torch::Tensor dx) {
   const c10::cuda::CUDAGuard guard(logits.device());
-  check_launch(launch_xent_dlogits(f32(logits), labels.data_ptr<int>(),
-                                   f32(lse), f32(scale), f32(dx),
-                                   logits.size(0), logits.size(1),
+  check_launch(launch_xent_dlogits(logits.data_ptr(), labels.data_ptr<int>(),
+                                   f32(lse), f32(scale), scale_stride,
+                                   scale_div, dx.data_ptr(), logits.size(0),
+                                   logits.size(1),
+                                   logits.scalar_type() == at::kBFloat16,
                                    stream_of(logits)),
                "softmax_xent_dlogits");
+}
+
+// an empty kernel on the current stream: the launch floor that K4 and K5
+// are timed against
+void launch_floor() {
+  check_launch(launch_empty(c10::cuda::getCurrentCUDAStream().stream()),
+               "empty kernel");
 }
 
 // q, k, v, o (B, H, S, D), read and written through their strides
@@ -151,6 +166,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("fcnn_wgrad", &fcnn_wgrad);
   m.def("xent_fwd", &xent_fwd);
   m.def("xent_dlogits", &xent_dlogits);
+  m.def("launch_floor", &launch_floor);
   m.def("flash_attention", &flash_attention);
   m.def("ssd_chunk", &ssd_chunk);
 }

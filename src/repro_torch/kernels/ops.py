@@ -17,9 +17,10 @@ No mode falls back to another: a failed build or launch raises.
 Autograd wiring (counterpart of the reference's ``jax.custom_vjp``s):
 ``_FusedFCNN`` saves ``(x, w, b, y)`` — b only for the db dtype, never a
 pre-activation — and its backward runs the dgrad and wgrad kernels;
-``_FusedXent`` saves ``(logits, labels, lse)``, builds ``scale = g/B`` as
-a device fp32 vector (no host sync) and runs the dlogits kernel; labels
-get no gradient.
+``_FusedXent`` returns K4's batch mean as the loss, saves ``(logits,
+labels, lse)`` and hands the loss cotangent ``g`` to the dlogits kernel,
+which forms g/B itself: no PyTorch operation runs around the two
+kernels.  Labels get no gradient.
 """
 
 from __future__ import annotations
@@ -99,18 +100,15 @@ class _FusedFCNN(torch.autograd.Function):
 class _FusedXent(torch.autograd.Function):
     @staticmethod
     def forward(ctx, logits, labels):
-        nll, lse = _xent_fwd(logits, labels)
+        _, lse, mean = _xent_fwd(logits, labels)
         ctx.save_for_backward(logits, labels, lse)
-        return nll.mean()
+        return mean
 
     @staticmethod
     def backward(ctx, g):
         logits, labels, lse = ctx.saved_tensors
-        b = logits.shape[0]
-        # fold the mean's 1/B and the loss cotangent into one per-row scale
-        scale = (g.to(torch.float32) / b).reshape(1).expand(b).contiguous()
-        dl = _xent_dlogits(logits, labels, lse, scale)
-        return dl.to(logits.dtype), None   # labels: integer, no grad
+        # the mean's 1/B and the cotangent fold into the kernel's g/B
+        return _xent_dlogits(logits, labels, lse, g=g), None  # labels: no grad
 
 
 def fcnn_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -124,9 +122,10 @@ def fcnn_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, *,
                  mode: str | None = None) -> torch.Tensor:
-    """Mean softmax cross-entropy.  logits: (B, C); labels: (B,) int32."""
+    """Mean softmax cross-entropy (fp32).  logits: (B, C) fp32 or bf16;
+    labels: (B,) int32."""
     if _resolve(mode, logits, labels) == "ref":
-        return _ref.softmax_xent_fwd_ref(logits, labels)[0].mean()
+        return _ref.softmax_xent_fwd_ref(logits, labels)[2]
     return _FusedXent.apply(logits, labels)
 
 

@@ -85,23 +85,29 @@ def fcnn_layer_wgrad_ref(x: torch.Tensor, dy: torch.Tensor, y: torch.Tensor,
 
 
 def softmax_xent_fwd_ref(logits: torch.Tensor, labels: torch.Tensor
-                         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-row cross-entropy: (nll, lse), both (B,) fp32, with
-    nll[r] = lse[r] − logits[r, labels[r]]."""
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-row cross-entropy of fp32 or bf16 logits, computed in fp32:
+    (nll, lse), both (B,), with nll[r] = lse[r] − logits[r, labels[r]],
+    and the batch mean of nll (0-d)."""
     x = logits.float()
     lse = torch.logsumexp(x, dim=-1)
     picked = x.gather(1, labels.long()[:, None])[:, 0]
-    return lse - picked, lse
+    nll = lse - picked
+    return nll, lse, nll.mean()
 
 
 def softmax_xent_dlogits_ref(logits: torch.Tensor, labels: torch.Tensor,
-                             lse: torch.Tensor, scale: torch.Tensor
-                             ) -> torch.Tensor:
-    """dlogits = (exp(logits − lse) − onehot(labels)) · scale[:, None]."""
+                             lse: torch.Tensor,
+                             scale: torch.Tensor | None = None, *,
+                             g: torch.Tensor | None = None) -> torch.Tensor:
+    """dlogits = (exp(logits − lse) − onehot(labels)) · s[:, None] in the
+    logits' dtype, with s = ``scale`` (B,) or, for the loss cotangent ``g``
+    (0-d), s = g / B."""
     x = logits.float()
     p = torch.exp(x - lse[:, None])
     onehot = torch.nn.functional.one_hot(labels.long(), x.shape[1]).float()
-    return ((p - onehot) * scale[:, None]).to(logits.dtype)
+    s = scale[:, None] if scale is not None else g.float() / x.shape[0]
+    return ((p - onehot) * s).to(logits.dtype)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

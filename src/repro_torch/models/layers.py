@@ -6,8 +6,10 @@ Conventions, as in the reference:
     so ``params_from_numpy`` takes its pytree unchanged;
   * activations run in the config's dtype; products accumulate in fp32 and
     are rounded to the activation dtype (what ``preferred_element_type``
-    then ``astype`` does in the reference); norms, RoPE and softmax in
-    fp32; logits in fp32.
+    then ``astype`` does in the reference), except SwiGLU's gate and up
+    products, which stay fp32 until silu(g)·u is rounded, as the
+    reference leaves them; norms, RoPE and softmax in fp32; logits in
+    fp32.
   * initializers draw on an explicit ``torch.Generator`` and place the
     tensors on ``device``.
 
@@ -35,7 +37,7 @@ __all__ = [
     "init_rms_norm", "rms_norm", "dense", "init_embedding",
     "embed", "unembed", "rope_freqs", "apply_rope", "init_attention",
     "attention", "prefill_attention_kv", "decode_attention", "init_mlp",
-    "mlp", "normal",
+    "mlp", "matmul_fp32", "normal",
 ]
 
 Params = dict[str, Any]
@@ -239,8 +241,23 @@ def init_mlp(generator: torch.Generator, d_model: int, d_ff: int,
     }
 
 
+def matmul_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w with w in x's dtype, accumulated and returned in fp32 (the
+    reference's ``preferred_element_type=float32`` left unrounded).  On the
+    card a bf16 GEMM writes fp32 directly (``torch.mm``'s ``out_dtype``);
+    on the CPU, which has no such GEMM, the fp32 product of the upcast
+    operands is the same arithmetic: bf16 products are exact in fp32."""
+    w = w.to(x.dtype)
+    if x.dtype == torch.float32 or not x.is_cuda:
+        return torch.matmul(x.float(), w.float())
+    out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+    return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
-    g = torch.matmul(x, p["w_gate"].to(x.dtype))
-    u = torch.matmul(x, p["w_up"].to(x.dtype))
-    h = (torch.nn.functional.silu(g.float()) * u.float()).to(x.dtype)
+    """SwiGLU: the gate and up products stay fp32 until silu(g)·u is
+    rounded to x's dtype, as in the reference."""
+    g = matmul_fp32(x, p["w_gate"])
+    u = matmul_fp32(x, p["w_up"])
+    h = (torch.nn.functional.silu(g) * u).to(x.dtype)
     return torch.matmul(h, p["w_down"].to(x.dtype))

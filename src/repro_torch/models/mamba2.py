@@ -13,7 +13,12 @@ intra-chunk quadratic term, each chunk's final state and the in-chunk
 decays come from ``ops.ssd_chunk`` (the SSD kernel, K7: all chunks and
 heads in one launch); the inter-chunk recurrence on the (B, H, P, N)
 fp32 states is a short loop over chunks, and the state-to-output readout
-one batched product, both in fp32.
+one batched product, both in fp32.  In bf16 this departs from the
+reference's jnp SSD in four roundings: the intra-chunk weights, the
+chunk-state decays and the readout's operands stay fp32 where the
+reference rounds them to bf16, and y_diag is rounded to bf16 where the
+reference keeps it fp32 (K7 returns x's dtype);
+``tests/test_torch_zamba2_bf16.py`` names each with its measured size.
 """
 
 from __future__ import annotations

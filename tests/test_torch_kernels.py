@@ -91,7 +91,7 @@ def test_softmax_xent_plain_versions_match_jax(b, c):
     labels = rng.integers(0, c, size=b).astype(np.int32)
     tl, tlab = torch.from_numpy(logits), torch.from_numpy(labels)
 
-    nll, lse = softmax_xent_fwd(tl, tlab)
+    nll, lse, mean = softmax_xent_fwd(tl, tlab)
     nll_pal, lse_pal = j_xent_fwd(logits, labels, interpret=True)
     logp = np.asarray(jax.nn.log_softmax(logits, axis=-1))
     nll_ref = -np.take_along_axis(logp, labels[:, None], 1)[:, 0]
@@ -99,6 +99,7 @@ def test_softmax_xent_plain_versions_match_jax(b, c):
     _close(nll, nll_pal, 1e-5)
     _close(lse, lse_pal, 1e-5)
     _close(nll.mean(), JR.softmax_xent_ref(logits, labels), 1e-6)
+    _close(mean, JR.softmax_xent_ref(logits, labels), 1e-6)
 
     g = np.float32(0.7)
     scale = np.full((b,), g / b, np.float32)
@@ -106,6 +107,87 @@ def test_softmax_xent_plain_versions_match_jax(b, c):
     _close(dl, JR.softmax_xent_dlogits_ref(logits, labels, g), 1e-5, 1e-6)
     _close(dl, j_dlogits(logits, labels, np.asarray(lse_pal), scale,
                          interpret=True), 1e-5, 1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,c", [(1, 10), (64, 10), (128, 10), (37, 300)])
+def test_softmax_xent_mean_and_cotangent_match_jax(dtype, b, c):
+    """K4's batch mean and K5's cotangent form (s = g/B) and per-row form
+    with a stride-0 scale, in fp32 and bf16 logits, against the reference's
+    kernels in interpret mode and its ``ref`` path.  nll, lse, the mean and
+    fp32 dlogits within 1e-5 (the mean 1e-6); bf16 dlogits, which both
+    sides round from fp32 values whose exps differ in the last bit, within
+    one bf16 ulp (2^-7 of the value) or 1e-6."""
+    rng = np.random.default_rng(6)
+    logits = jnp.asarray(_np(rng, (b, c), 3.0), getattr(jnp, dtype))
+    labels = rng.integers(0, c, size=b).astype(np.int32)
+    tl = torch.from_numpy(np.array(logits, np.float32)).to(
+        getattr(torch, dtype))
+    tlab = torch.from_numpy(labels)
+
+    nll, lse, mean = softmax_xent_fwd(tl, tlab)
+    assert (nll.dtype, lse.dtype, mean.dtype, mean.dim()) == (
+        torch.float32, torch.float32, torch.float32, 0)
+    nll_pal, lse_pal = j_xent_fwd(logits, labels, interpret=True)
+    _close(nll, nll_pal, 1e-5)
+    _close(lse, lse_pal, 1e-5)
+    _close(mean, JR.softmax_xent_ref(logits, labels), 1e-6)
+
+    g = np.float32(0.7)
+    want = j_dlogits(logits, labels, lse_pal, jnp.full((b,), g / b),
+                     interpret=True)
+    bf16_ulp = dict(rtol=2.0 ** -7, atol=1e-6) if dtype == "bfloat16" else {}
+    for dl in (softmax_xent_dlogits(tl, tlab, lse, g=torch.tensor(g)),
+               softmax_xent_dlogits(tl, tlab, lse,
+                                    torch.tensor(g / b).expand(b))):
+        assert dl.dtype == tl.dtype
+        torch.testing.assert_close(
+            dl.float(), torch.from_numpy(np.array(want, np.float32)),
+            **(bf16_ulp or dict(rtol=1e-5, atol=1e-6)))
+        torch.testing.assert_close(
+            dl.float(), torch.from_numpy(np.array(
+                JR.softmax_xent_dlogits_ref(logits, labels, g), np.float32)),
+            **(bf16_ulp or dict(rtol=1e-5, atol=1e-6)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,c", [(1, 10), (37, 300)])
+def test_fused_xent_value_and_grad_match_jax_in_both_dtypes(dtype, b, c):
+    """``ops.softmax_xent`` (K4's mean, K5 from the cotangent) against
+    ``jax.value_and_grad`` of the reference's fused op in interpret mode,
+    fp32 and bf16 logits; tolerances as above."""
+    rng = np.random.default_rng(7)
+    logits = jnp.asarray(_np(rng, (b, c), 3.0), getattr(jnp, dtype))
+    labels = rng.integers(0, c, size=b).astype(np.int32)
+    loss_ref, g_ref = jax.value_and_grad(
+        lambda z: 0.5 * jops.softmax_xent(z, labels,
+                                          force="pallas_interpret"))(logits)
+    tl = torch.from_numpy(np.array(logits, np.float32)).to(
+        getattr(torch, dtype)).requires_grad_(True)
+    loss = ops.softmax_xent(tl, torch.from_numpy(labels))
+    (0.5 * loss).backward()
+    assert loss.dtype == torch.float32 and tl.grad.dtype == tl.dtype
+    _close(0.5 * loss, loss_ref, 1e-6)
+    tol = (dict(rtol=2.0 ** -7, atol=1e-6) if dtype == "bfloat16"
+           else dict(rtol=1e-5, atol=1e-6))
+    torch.testing.assert_close(
+        tl.grad.float(), torch.from_numpy(np.array(g_ref, np.float32)),
+        **tol)
+
+
+def test_softmax_xent_dlogits_checks_its_factor():
+    x, lab = torch.zeros(4, 10), torch.zeros(4, dtype=torch.int32)
+    lse = torch.zeros(4)
+    with pytest.raises(ValueError, match="exactly one"):
+        softmax_xent_dlogits(x, lab, lse)
+    with pytest.raises(ValueError, match="exactly one"):
+        softmax_xent_dlogits(x, lab, lse, torch.ones(4), g=torch.tensor(1.0))
+    with pytest.raises(ValueError, match="0-d"):
+        softmax_xent_dlogits(x, lab, lse, g=torch.ones(1))
+    with pytest.raises(ValueError, match="stride"):
+        softmax_xent_dlogits(x, lab, lse, torch.ones(8)[::2])
+    with pytest.raises(TypeError, match="bfloat16"):
+        softmax_xent_fwd(x.half(), lab)
 
 
 @pytest.mark.parametrize("m,k,n", [(16, 784, 24), (3, 20, 10)])

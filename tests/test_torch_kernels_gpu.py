@@ -10,6 +10,7 @@ nll/lse/dlogits; the LM prefill kernels' are stated with their tests
 below.
 """
 
+
 import numpy as np
 import pytest
 import torch
@@ -221,23 +222,112 @@ def test_fcnn_wgrad_refuses_bad_tiles_on_card(cuda):
         _build.extension().fcnn_wgrad(x, dy, dy, dw, db, 1, 64, 128)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,c", [(1, 10), (64, 10), (37, 300)])
-def test_softmax_xent_kernels_match_plain_on_card(cuda, b, c):
-    rng = np.random.default_rng(5)
-    logits = _rand(rng, (b, c), cuda, 3.0)
+XENT_SHAPES = [(1, 10), (64, 10), (128, 10), (37, 300), (1000, 10),
+               (3000, 33)]
+
+
+def _xent_inputs(rng, b, c, dtype, dev):
+    logits = _rand(rng, (b, c), dev, 3.0).to(dtype)
     labels = torch.from_numpy(
-        rng.integers(0, c, size=b).astype(np.int32)).to(cuda)
+        rng.integers(0, c, size=b).astype(np.int32)).to(dev)
+    return logits, labels
+
+
+def _assert_xent(out, want):
+    for o, w in zip(out, want):
+        assert o.dtype == w.dtype and o.shape == w.shape
+        torch.testing.assert_close(o.float(), w.float(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c", XENT_SHAPES)
+def test_softmax_xent_kernels_match_plain_on_card(cuda, b, c, dtype):
+    """K4's (nll, lse, mean) and K5 in both of its forms, per-row scale
+    (contiguous and stride 0) and the loss cotangent g, within 1e-5."""
+    rng = np.random.default_rng(5)
+    logits, labels = _xent_inputs(rng, b, c, dtype, cuda)
+    before = ops.launch_counts()
+    out = softmax_xent_fwd(logits, labels)
+    lse = out[1]
+    g = torch.tensor(0.7, device=cuda)
     scale = torch.full((b,), 0.7 / b, device=cuda)
-    nll, lse = softmax_xent_fwd(logits, labels)
-    dl = softmax_xent_dlogits(logits, labels, lse, scale)
+    dls = [softmax_xent_dlogits(logits, labels, lse, scale),
+           softmax_xent_dlogits(logits, labels, lse, scale[:1].expand(b)),
+           softmax_xent_dlogits(logits, labels, lse, g=g)]
     torch.cuda.synchronize()
-    nll_r, lse_r = ref.softmax_xent_fwd_ref(logits, labels)
-    torch.testing.assert_close(nll, nll_r, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(lse, lse_r, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(
-        dl, ref.softmax_xent_dlogits_ref(logits, labels, lse, scale),
-        rtol=1e-5, atol=1e-5)
+    after = ops.launch_counts()
+    assert after["softmax_xent_fwd"] - before["softmax_xent_fwd"] == 1
+    assert after["softmax_xent_dlogits"] - before["softmax_xent_dlogits"] == 3
+    _assert_xent(out, ref.softmax_xent_fwd_ref(logits, labels))
+    _assert_xent(dls, [ref.softmax_xent_dlogits_ref(logits, labels, lse, scale)] * 2
+                 + [ref.softmax_xent_dlogits_ref(logits, labels, lse, g=g)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c", XENT_SHAPES)
+def test_softmax_xent_every_block_shape_on_card(cuda, b, c, dtype):
+    """K4 at every shape (one block, a thread a row, where C <= 16 and
+    B <= 256; else one block of warps, a warp a row) and K5; the mean of
+    two runs is bit-identical."""
+    rng = np.random.default_rng(6)
+    logits, labels = _xent_inputs(rng, b, c, dtype, cuda)
+    want = ref.softmax_xent_fwd_ref(logits, labels)
+    g = torch.tensor(0.3, device=cuda)
+    runs = [softmax_xent_fwd(logits, labels) for _ in range(2)]
+    dx = softmax_xent_dlogits(logits, labels, want[1], g=g)
+    torch.cuda.synchronize()
+    _assert_xent(runs[0], want)
+    assert torch.equal(runs[0][2], runs[1][2])
+    _assert_xent([dx], [ref.softmax_xent_dlogits_ref(logits, labels, want[1],
+                                                     g=g)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,c", [(64, 10), (37, 300), (1000, 10)])
+def test_softmax_xent_reads_fresh_inputs_in_a_graph(cuda, b, c):
+    """A CUDA graph of [a kernel that writes the logits -> K4] and [a
+    kernel that writes g -> K5]: every replay reads the values just
+    written, g included, which K5 reads on the card and not at capture."""
+    rng = np.random.default_rng(8)
+    src, labels = _xent_inputs(rng, b, c, torch.float32, cuda)
+    logits = torch.empty_like(src)
+    g_src = torch.tensor(1.0, device=cuda)
+    g = torch.empty((), device=cuda)
+    factor = torch.tensor(2.0, device=cuda)
+
+    def step():
+        torch.mul(src, factor, out=logits)
+        out = softmax_xent_fwd(logits, labels)
+        torch.mul(g_src, factor, out=g)
+        return out, softmax_xent_dlogits(logits, labels, out[1], g=g)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, dl = step()
+    for f in (0.5, -1.5, 3.0, 0.25):
+        factor.fill_(f)
+        graph.replay()
+        torch.cuda.synchronize()
+        x = src * f
+        want = ref.softmax_xent_fwd_ref(x, labels)
+        _assert_xent(out, want)
+        _assert_xent([dl], [ref.softmax_xent_dlogits_ref(
+            x, labels, want[1], g=g_src * f)])
+
+
+@pytest.mark.gpu
+def test_launch_floor_kernel_runs_on_card(cuda):
+    from repro_torch.kernels import _build
+
+    _build.extension().launch_floor()
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
@@ -447,3 +537,28 @@ def test_zamba2_prefill_goes_through_the_kernels_on_card(cuda):
     _assert_rel(logits, logits_r, 1e-4)
     for key in ("ssm", "conv", "k", "v"):
         _assert_rel(cache[key], cache_r[key], 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 16, 64), (1, 300, 2048)])
+def test_swiglu_products_stay_fp32_on_card(cuda, shape):
+    """``layers.matmul_fp32`` on bf16 operands returns fp32, within fp32
+    summation order (1e-5 of the largest) of the fp32 product of the
+    upcast operands, the arithmetic the CPU path runs; the MLP rounds only
+    silu(g)·u and its output."""
+    from repro_torch.models import layers as L
+
+    rng = np.random.default_rng(9)
+    d, f = shape[-1], 4 * shape[-1]
+    x = _rand(rng, shape, cuda).to(torch.bfloat16)
+    p = {k: _rand(rng, s, cuda, s[0] ** -0.5).to(torch.bfloat16)
+         for k, s in (("w_gate", (d, f)), ("w_up", (d, f)),
+                      ("w_down", (f, d)))}
+    g = L.matmul_fp32(x, p["w_gate"])
+    assert g.dtype == torch.float32 and g.shape == (*shape[:-1], f)
+    _assert_rel(g, x.float() @ p["w_gate"].float(), 1e-5)
+    h = (torch.nn.functional.silu(x.float() @ p["w_gate"].float())
+         * (x.float() @ p["w_up"].float())).to(torch.bfloat16)
+    out = L.mlp(p, x)
+    assert out.dtype == torch.bfloat16
+    _assert_rel(out, torch.matmul(h, p["w_down"]), 2.0 ** -7)
