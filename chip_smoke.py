@@ -4,9 +4,10 @@
   python3 chip_smoke.py
 
 Builds the seven CUDA kernels from ``src/repro_torch/kernels/csrc`` and
-drives the port's two main paths through their own entry points: the
-paper's NN1 (784-1000-500-10) trained with Adam, and Zamba2-1.2B served
-at full width in bf16.  Phases, each printing its own lines; any failure
+drives the port's main paths through their own entry points: the
+paper's NN1 (784-1000-500-10) trained with Adam, on one device and as a
+period program on an 8-device ring, and Zamba2-1.2B served at full width
+in bf16.  Phases, each printing its own lines; any failure
 raises and the script exits non-zero without a result line:
 
   1. device   a CUDA card is required; its name and power limit; TF32 off
@@ -63,6 +64,19 @@ raises and the script exits non-zero without a result line:
               logit; bf16 at 2048 tokens within 4e-2 of the largest
               logit, and the greedy token equal wherever the plain top-2
               gap exceeds twice the logit difference
+ 10. program  NN1 through its ORRM period program on an 8-device virtual
+              ring (``repro_torch.exec``): the program's instruction
+              count, degrees and residency peak ratio; K1-K3 at every
+              chunk shape of the NN1, NN2 and NN5 programs against their
+              plain versions (NN1's timed, and summed over one executor
+              step); 300 steps in sharded residency through
+              ``repro_torch.launch.train_fcnn.train_program`` to accuracy
+              > 0.8 with every off-window slot exactly zero; the kernel
+              launches of one executor step (K1 = K3 = 8 + 4 + 2, K2 = 4 +
+              2, K4 = K5 = 1), its device busy time and operations; 5 Adam
+              steps in sharded and replicated residency bit-identical; and
+              the executor's loss and gradients against the single-device
+              path for NN1 and NN5 ORRM and NN2 FM/RRM/ORRM
 
 The last three lines are a JSON object of per-kernel numbers, the card's
 name and power limit as nvidia-smi reports them, and the result object.
@@ -364,8 +378,10 @@ CHOICES = {
 }
 
 
-def kernel_cases(torch, dev, gen):
-    """Yield a Case for every comparison of phase 3."""
+def kernel_cases(torch, dev, gen, shapes=None):
+    """Yield a Case for every comparison of phase 3, or, given ``shapes``
+    (rows of (tag, batch, n_in, n_out, activation, timed)), K1, K2 and K3
+    at each of those shapes."""
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels.fcnn_layer import (
         act_code,
@@ -460,6 +476,11 @@ def kernel_cases(torch, dev, gen):
                    lambda: torch.softmax(x.float(), -1) - onehot,
                    2 * e * b * c + 4 * 2 * b + 4, 4 * b * c, timed, on_path)
 
+    if shapes is not None:
+        for tag, m, k, n, act, timed in shapes:
+            yield from layer_cases(tag, [k, n], m, acts_for=(act,),
+                                   timed=timed)
+        return
     yield from layer_cases("NN1", NN1, 64, on_path=True)
     yield from xent_cases("NN1", 64, 10, on_path=True)
     yield from xent_cases("NN1", 64, 10, torch.bfloat16)
@@ -522,13 +543,16 @@ def sweep_line(torch, case: Case, want) -> str:
             f"{_choice_name(case, best)} {times[best]:.5f}")
 
 
-def run_kernel_phase(torch, dev) -> dict:
+def run_kernel_phase(torch, dev, shapes=None) -> dict:
+    """Phase 3's comparisons (or those of ``kernel_cases``' ``shapes``);
+    returns per-kernel sums over the NN1 step's calls and, in "rows", the
+    device ms (kernel, plain, library, bound) of every timed case."""
     gen = torch.Generator(device=dev).manual_seed(0)
     summary = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                       "library_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
-                      "ops_ms": 0.0, "shapes": []}
+                      "ops_ms": 0.0, "shapes": [], "rows": {}}
                for name in FCNN_KERNELS}
-    for case in kernel_cases(torch, dev, gen):
+    for case in kernel_cases(torch, dev, gen, shapes):
         name, label = case.name, case.label
         out, want = case.kern(), case.plain()
         torch.cuda.synchronize()
@@ -557,6 +581,7 @@ def run_kernel_phase(torch, dev) -> dict:
             ms, plain_ms, lib_ms = (device_ms(case.kern), device_ms(case.plain),
                                     device_ms(case.lib))
             b_ms, b_by = bound(case.nbytes, case.flops)
+            s["rows"][label] = (ms, plain_ms, lib_ms, b_ms)
             line += (f" | device ms: kernel {ms:.5f} plain {plain_ms:.5f} "
                      f"library {lib_ms:.5f} bound {b_ms:.7f} ({b_by}) | "
                      f"eager ms: kernel {eager_ms(case.kern):.5f} plain "
@@ -574,7 +599,7 @@ def run_kernel_phase(torch, dev) -> dict:
         check(ok, f"{name} {label} disagrees with its plain version")
         if case.timed and case.forced is not None:
             print(sweep_line(torch, case, want), flush=True)
-    for name in FCNN_KERNELS:
+    for name in FCNN_KERNELS if shapes is None else ():
         s = summary[name]
         print(f"NN1 step, {name}: kernel {s['ms']:.5f} ms, library "
               f"{s['library_ms']:.5f} ms, plain {s['plain_ms']:.5f} ms, bound "
@@ -664,11 +689,7 @@ PROFILE_STEPS = 50
 
 
 def run_profile_phase(torch, dev) -> None:
-    """Where one NN1 training step's time goes: host ms/step with the
-    profiler off, then device busy time per step and the top device
-    operations from torch.profiler over as many steps."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Where one NN1 training step's time goes (``profile_steps``)."""
     from repro_torch.data import Batcher, fcnn_classification_dataset
     from repro_torch.launch.train_fcnn import FULL_RUN_STEPS, LR, train_step
     from repro_torch.models import fcnn
@@ -680,10 +701,19 @@ def run_profile_phase(torch, dev) -> None:
     x, y = fcnn_classification_dataset(4096, input_dim=NN1[0], seed=0)
     batches = Batcher({"x": x, "y": y}, batch_size=64, device=dev)
     step_t = torch.zeros((), device=dev)
+    profile_steps(torch, lambda: train_step(params, opt, state, next(batches),
+                                            step_t))
+
+
+def profile_steps(torch, step: Callable[[], object]) -> tuple[float, float]:
+    """Host ms/step of ``step`` with the profiler off, then device busy
+    time per step and the top device operations from torch.profiler over
+    as many steps; returns (host ms/step, device operations/step)."""
+    from torch.profiler import ProfilerActivity, profile
 
     def steps(n: int) -> None:
         for _ in range(n):
-            train_step(params, opt, state, next(batches), step_t)
+            step()
         torch.cuda.synchronize()
 
     steps(10)   # warm up
@@ -699,7 +729,7 @@ def run_profile_phase(torch, dev) -> None:
     if not rows:
         print("device time: not measured (the profiler recorded no device "
               "events)")
-        return
+        return host_ms, 0.0
     busy_ms = sum(us for _, _, us in rows) / 1e3 / PROFILE_STEPS
     launches = sum(c for _, c, _ in rows) / PROFILE_STEPS
     print(f"device busy {busy_ms:.5f} ms/step over {launches:.1f} device "
@@ -708,6 +738,7 @@ def run_profile_phase(torch, dev) -> None:
     for key, count, us in sorted(rows, key=lambda r: -r[2])[:15]:
         print(f"  {us / PROFILE_STEPS:9.3f} us/step {count / PROFILE_STEPS:5.1f}"
               f" calls/step  {key[:100]}")
+    return host_ms, launches
 
 
 # --------------------------------------------------------------- phase 7
@@ -1192,6 +1223,205 @@ def lm_path_phases(torch, dev) -> tuple[dict, dict]:
     return summary, launches
 
 
+# -------------------------------------------------------------- phase 10
+
+RING = 8    # logical devices of the executor's ring
+# the programs phase 10 holds to the single-device path: (arch, strategy,
+# batch); NN1's chunk shapes are timed, the others' only checked
+PROGRAM_CHECKS = (("NN1", "orrm", 64), ("NN2", "fm", 64), ("NN2", "rrm", 64),
+                  ("NN2", "orrm", 64), ("NN5", "orrm", 128))
+# the reference executor's bars against the single-device path
+# (tests/test_exec_runtime.py): sums in another order, by column chunk
+EXEC_LOSS_RTOL = 1e-6
+EXEC_GRAD_RTOL, EXEC_GRAD_ATOL = 1e-4, 1e-7
+
+
+def program_of(arch: str, strategy: str, batch: int):
+    from repro_torch.configs.nn_benchmarks import NN_BENCHMARKS
+    from repro_torch.core.onoc_model import FCNNWorkload
+    from repro_torch.exec import compile_fcnn_program
+    from repro_torch.launch.train_fcnn import ONOC
+
+    return compile_fcnn_program(
+        FCNNWorkload(NN_BENCHMARKS[arch], batch_size=batch), ONOC, RING,
+        strategy)
+
+
+def chunk_label(arch: str, run) -> str:
+    """The label run_kernel_phase gives the case of a RUN's chunk shape."""
+    return f"{arch} P{run.layer} x{run.degree}"
+
+
+def program_launches(prog) -> dict[str, int]:
+    """Kernel launches one executor step makes: K1 and K3 once per window
+    device and FP period, K2 at layers 2..l (layer 1's input needs no
+    gradient), K4 and K5 once in the loss period."""
+    degrees = [r.degree for r in prog.runs("fp")]
+    return {"fcnn_layer": sum(degrees), "fcnn_layer_dgrad": sum(degrees[1:]),
+            "fcnn_layer_wgrad": sum(degrees), "softmax_xent_fwd": 1,
+            "softmax_xent_dlogits": 1}
+
+
+def run_chunk_kernels(torch, dev, summary) -> None:
+    """K1-K3 at every chunk shape of PROGRAM_CHECKS' programs, held to
+    their plain versions; NN1's timed, and summed over one executor step
+    beside phase 3's single-device step."""
+    shapes, seen, nn1 = [], set(), None
+    for arch, strategy, batch in PROGRAM_CHECKS:
+        prog = program_of(arch, strategy, batch)
+        nn1 = nn1 or prog
+        for run in prog.runs("fp"):
+            k = prog.layer_sizes[run.layer - 1]
+            key = (batch, k, run.chunk_width, run.activation)
+            if key not in seen:
+                seen.add(key)
+                shapes.append((chunk_label(arch, run), *key,
+                               arch == "NN1"))
+    chunks = run_kernel_phase(torch, dev, shapes)
+    for name in FCNN_KERNELS[:3]:
+        total, calls = 0.0, 0
+        for run in nn1.runs("fp"):
+            if name == "fcnn_layer_dgrad" and run.layer == 1:
+                continue
+            k = nn1.layer_sizes[run.layer - 1]
+            label = (f"{chunk_label('NN1', run)} L1 64x{k}x"
+                     f"{run.chunk_width} {run.activation}")
+            total += chunks[name]["rows"][label][0] * run.degree
+            calls += run.degree
+        print(f"NN1 ORRM executor step, {name}: kernel {total:.5f} ms over "
+              f"{calls} chunk calls (single-device step, phase 3: "
+              f"{summary[name]['ms']:.5f} ms over "
+              f"{len(summary[name]['shapes'])} calls)")
+
+
+def off_window_zero(exe, params) -> bool:
+    return all(not lp[k][s].any()
+               for lay, lp in zip(exe.executor._layout, params["layers"])
+               for s, c in enumerate(lay.owner_chunk) if c is None
+               for k in ("w", "b"))
+
+
+def run_program_phase(torch, dev, summary) -> None:
+    """Phase 10 (see the module docstring); ``summary`` is phase 3's."""
+    from repro_torch import exec as pexec
+    from repro_torch.configs.nn_benchmarks import NN_BENCHMARKS
+    from repro_torch.core.onoc_model import FCNNWorkload
+    from repro_torch.data import Batcher, fcnn_classification_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train_fcnn import (
+        FULL_RUN_STEPS,
+        LR,
+        ONOC,
+        train_program,
+    )
+    from repro_torch.models import fcnn
+    from repro_torch.optim import adam, linear_warmup_cosine
+
+    workload = FCNNWorkload(NN1, batch_size=64)
+    exe = pexec.compile(workload, ONOC, RING, strategy="orrm",
+                        residency="sharded", analyze="full", device=dev)
+    prog = exe.program
+    print(f"NN1 ORRM program on {RING} devices, analyzed at 'full': "
+          f"{len(prog.instructions)} instructions, degrees "
+          f"{list(prog.degrees)}, chunk widths "
+          f"{[r.chunk_width for r in prog.runs('fp')]}, residency peak "
+          f"ratio {exe.tracker.peak_ratio():.4f}")
+    check(prog.degrees == (8, 4, 2), f"NN1 ORRM degrees {prog.degrees}")
+    want = program_launches(prog)
+
+    run_chunk_kernels(torch, dev, summary)
+
+    print("train NN1 through the program, 300 steps, sharded, seed 0:")
+    ops.reset_launches()
+    out = train_program(arch="NN1", n_devices=RING, strategy="orrm",
+                        residency="sharded", steps=FULL_RUN_STEPS, batch=64,
+                        device=dev, seed=0)
+    launches = ops.launch_counts()
+    print(f"ms/step {out['ms_per_step']:.4f}  final train accuracy "
+          f"{out['accuracy']:.4f}; launches in the run: {launches}")
+    check(out["accuracy"] > 0.8, "the NN1 program failed to learn")
+    for name in FCNN_KERNELS:
+        check(launches[name] > 0, f"{name} was never launched by the program")
+    check(off_window_zero(out["executable"], out["state"]["params"]),
+          "an off-window slot is not zero after 300 steps")
+    print("off-window slots after 300 steps: all exactly zero")
+
+    opt = adam(linear_warmup_cosine(LR, 20, FULL_RUN_STEPS))
+    x, y = fcnn_classification_dataset(4096, input_dim=NN1[0], seed=0)
+
+    def stepper(e):
+        state = e.init_state(torch.Generator().manual_seed(0), opt)
+        step, batches = e.train_step(opt), Batcher({"x": x, "y": y}, 64, dev)
+        return state, lambda: step(state, next(batches))[1]["loss"]
+
+    _, step = stepper(exe)
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    for _ in range(20):
+        step()
+    torch.cuda.synchronize()
+    per_step = {k: v / 20 for k, v in ops.launch_counts().items()
+                if k in FCNN_KERNELS}
+    print("launches per executor step: " + ", ".join(
+        f"{k} {v:g} (expected {want[k]})" for k, v in per_step.items()))
+    check(per_step == want, "executor launches per step differ")
+    host_ms, device_ops = profile_steps(torch, step)
+    print(f"executor step: {device_ops:.1f} device operations/step, host "
+          f"{host_ms:.4f} ms/step")
+
+    # sharded against replicated, 5 Adam steps from the same weights
+    e_s, e_r = (pexec.compile(workload, ONOC, RING, strategy="orrm",
+                              residency=r, analyze="off", device=dev)
+                for r in ("sharded", "replicated"))
+    (s_s, step_s), (s_r, step_r) = stepper(e_s), stepper(e_r)
+    l_s = torch.stack([step_s() for _ in range(5)])
+    l_r = torch.stack([step_r() for _ in range(5)])
+    same = torch.equal(l_s, l_r) and all(
+        torch.equal(a, b) for a, b in zip(
+            fcnn.parameters(e_s.gather_params(s_s["params"])),
+            fcnn.parameters(s_r["params"])))
+    print(f"5 Adam steps, sharded vs replicated: losses "
+          f"{' '.join(f'{v:.7f}' for v in l_s.tolist())}; losses and "
+          f"gathered parameters {'bit-identical' if same else 'DIFFER'}")
+    check(same, "sharded and replicated runs differ")
+    check(off_window_zero(e_s, s_s["params"]),
+          "an off-window slot is not zero")
+
+    for arch, strategy, batch in PROGRAM_CHECKS:
+        sizes = NN_BENCHMARKS[arch]
+        e = pexec.compile(FCNNWorkload(sizes, batch_size=batch), ONOC, RING,
+                          strategy=strategy, residency="sharded", device=dev)
+        params = fcnn.init(sizes, torch.Generator().manual_seed(0), dev)
+        xb, yb = fcnn_classification_dataset(batch, input_dim=sizes[0],
+                                             seed=3)
+        b = {"x": torch.from_numpy(xb).to(dev),
+             "y": torch.from_numpy(yb).to(dev)}
+        loss_1 = fcnn.loss_fn(params, b)
+        g_1 = torch.autograd.grad(loss_1, fcnn.parameters(params))
+        sp = e.shard_params(params)
+        loss_e = e.loss_fn(sp, b)
+        gs = iter(torch.autograd.grad(loss_e, fcnn.parameters(sp)))
+        g_e = fcnn.parameters(e.gather_params(
+            {"layers": [{"w": next(gs), "b": next(gs)} for _ in sizes[1:]]}))
+        d_loss = abs(loss_e.item() - loss_1.item()) / abs(loss_1.item())
+        ok = d_loss <= EXEC_LOSS_RTOL and bool(torch.isfinite(loss_e))
+        worst = 0.0
+        for a, w in zip(g_e, g_1):
+            excess = ((a - w).abs() / (EXEC_GRAD_ATOL + EXEC_GRAD_RTOL
+                                       * w.abs())).max().item()
+            worst = max(worst, excess)
+        ok = ok and worst <= 1.0
+        print(f"{arch} {strategy.upper()} batch {batch}, executor vs single "
+              f"device: loss {loss_e.item():.7f} rel diff {d_loss:.3e} (<= "
+              f"{EXEC_LOSS_RTOL:g}); gradients' worst |diff| / (atol + rtol"
+              f"*|single|) {worst:.3f} (<= 1, rtol {EXEC_GRAD_RTOL:g}, atol "
+              f"{EXEC_GRAD_ATOL:g}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"{arch} {strategy} executor disagrees with the single "
+                  f"device path")
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -1259,6 +1489,10 @@ def main() -> int:
     check(diff <= 1e-4, "NN5 kernel and plain losses disagree")
 
     lm_summary, lm_launches = lm_path_phases(torch, dev)
+
+    phase(10, "NN1 through its ORRM period program on an 8-device virtual "
+              "ring")
+    run_program_phase(torch, dev, summary)
 
     kernels = []
     for name in FCNN_KERNELS:

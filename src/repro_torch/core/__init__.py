@@ -1,5 +1,5 @@
-"""The paper's ONoC cost model, core mapping and planner (numpy-free,
-framework-free copies of the reference's ``repro.core`` modules)."""
+"""The paper's ONoC cost model, core mapping, planner and epoch simulator
+(framework-free copies of the reference's ``repro.core`` modules)."""
 
 from .onoc_model import (  # noqa: F401
     FCNNWorkload,
@@ -15,4 +15,11 @@ from .planner import (  # noqa: F401
     feasible_degrees,
     plan_fcnn,
     ring_mesh_axes,
+)
+from .simulator import (  # noqa: F401
+    ENoCBackend,
+    ENoCConfig,
+    EpochTrace,
+    ONoCBackend,
+    simulate_epoch,
 )

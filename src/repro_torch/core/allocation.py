@@ -1,6 +1,7 @@
 """Core allocation on the ONoC ring (the paper's Section 4), copied from
 the reference ``repro/core/allocation.py`` and cut to the mapping that
-``plan_fcnn`` builds.
+``plan_fcnn`` builds and the period windows the simulator and the program
+compiler read.
 
   FM   (Fixed Mapping):           period i gets cores [1 .. m_i*]
   RRM  (Round-Robin Mapping):     period i starts after period i-1's last core
@@ -46,6 +47,15 @@ class Mapping:
     @property
     def l(self) -> int:  # noqa: E743
         return len(self.windows)
+
+    def window(self, period: int) -> tuple[int, ...]:
+        """Ring core ids for any period 1..2l (Eq. 11 ties BP to FP)."""
+        l = self.l
+        if 1 <= period <= l:
+            return self.windows[period - 1]
+        if l + 1 <= period <= 2 * l:
+            return self.windows[2 * l - period]
+        raise ValueError(f"period out of range: {period}")
 
 
 def expected_reuse(cores_per_period: Sequence[int], m: int) -> float:

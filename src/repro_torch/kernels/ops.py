@@ -43,7 +43,8 @@ from repro_torch.kernels.softmax_xent import (
 from repro_torch.kernels.ssd_scan import ssd_chunk as _ssd_chunk
 
 __all__ = ["fcnn_layer", "softmax_xent", "flash_attention", "ssd_chunk",
-           "KERNELS", "launch_counts", "reset_launches"]
+           "KERNELS", "MODES", "launch_counts", "reset_launches",
+           "resolve_mode"]
 
 MODES = (None, "cuda", "ref")
 
@@ -68,7 +69,9 @@ def reset_launches() -> None:
         fn.launches = 0
 
 
-def _resolve(mode: str | None, *tensors: torch.Tensor) -> str | None:
+def resolve_mode(mode: str | None, *tensors: torch.Tensor) -> str | None:
+    """``mode`` after checking it is one of MODES and, for ``"cuda"``,
+    that every tensor lies on a CUDA device."""
     if mode not in MODES:
         raise ValueError(f"unknown kernel mode {mode!r}; one of {MODES}")
     if mode == "cuda" and not all(t.is_cuda for t in tensors):
@@ -115,7 +118,7 @@ def fcnn_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                activation: str = "sigmoid", *,
                mode: str | None = None) -> torch.Tensor:
     """act(x @ w + b), differentiable in x, w and b."""
-    if _resolve(mode, x, w, b) == "ref":
+    if resolve_mode(mode, x, w, b) == "ref":
         return _ref.fcnn_layer_ref(x, w, b, activation)
     return _FusedFCNN.apply(x, w, b, activation)
 
@@ -124,7 +127,7 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, *,
                  mode: str | None = None) -> torch.Tensor:
     """Mean softmax cross-entropy (fp32).  logits: (B, C) fp32 or bf16;
     labels: (B,) int32."""
-    if _resolve(mode, logits, labels) == "ref":
+    if resolve_mode(mode, logits, labels) == "ref":
         return _ref.softmax_xent_fwd_ref(logits, labels)[2]
     return _FusedXent.apply(logits, labels)
 
@@ -133,7 +136,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, *,
                     mode: str | None = None) -> torch.Tensor:
     """softmax(q kᵀ/√D) v.  q, k, v: (B, H, S, D) -> (B, H, S, D)."""
-    if _resolve(mode, q, k, v) == "ref":
+    if resolve_mode(mode, q, k, v) == "ref":
         return _ref.flash_attention_ref(q, k, v, causal)
     return _flash_attention(q, k, v, causal)
 
@@ -144,6 +147,6 @@ def ssd_chunk(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
     """Intra-chunk SSD over a batch of chunks.  x (BC, Q, H, P), dt_a
     (BC, Q, H), b, c (BC, Q, H, N) -> (y_diag, state (BC, H, P, N),
     decay (BC, Q, H))."""
-    if _resolve(mode, x, dt_a, b, c) == "ref":
+    if resolve_mode(mode, x, dt_a, b, c) == "ref":
         return _ref.ssd_chunk_ref(x, dt_a, b, c)
     return _ssd_chunk(x, dt_a, b, c)

@@ -3,7 +3,7 @@
 (params, state)``, fp32 moments, bias correction at step+1, and eps
 outside ``sqrt(v·vhat)``.  The schedule and the bias corrections are
 computed in fp32 on the parameters' device, so a step never syncs with
-the host.
+the host; nor do ``global_norm`` and ``clip_by_global_norm``.
 
 Unlike the reference, whose arrays are immutable, ``update`` writes the
 new moments and parameters in place (under ``torch.no_grad``) and
@@ -38,12 +38,17 @@ def _leaves(tree) -> list[torch.Tensor]:
     raise TypeError(f"unsupported parameter tree node {type(tree)}")
 
 
-def _zeros_like_tree(tree):
+def _map_tree(fn, tree):
     if isinstance(tree, torch.Tensor):
-        return torch.zeros(tree.shape, dtype=torch.float32, device=tree.device)
+        return fn(tree)
     if isinstance(tree, dict):
-        return {k: _zeros_like_tree(v) for k, v in tree.items()}
-    return [_zeros_like_tree(v) for v in tree]
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return [_map_tree(fn, v) for v in tree]
+
+
+def _zeros_like_tree(tree):
+    return _map_tree(lambda t: torch.zeros(t.shape, dtype=torch.float32,
+                                           device=t.device), tree)
 
 
 def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8
@@ -71,3 +76,22 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8
         return params, state
 
     return Optimizer(init, update)
+
+
+@torch.no_grad()
+def global_norm(tree) -> torch.Tensor:
+    """sqrt(Σ g²) over every leaf, in fp32: a 0-d tensor on the leaves'
+    device."""
+    norms = [torch.linalg.vector_norm(g, dtype=torch.float32)
+             for g in _leaves(tree)]
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads, max_norm: float):
+    """(grads scaled by min(1, max_norm / (norm + 1e-12)), norm), as the
+    reference's ``clip_by_global_norm``; each leaf keeps its dtype."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / (norm + 1e-12), max=1.0)
+    return _map_tree(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
+                     grads), norm

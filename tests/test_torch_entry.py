@@ -41,6 +41,39 @@ def test_cli_fails_without_cuda_unless_cpu_is_asked(no_cuda, capsys):
     assert "final train accuracy" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("strategy,residency", [("orrm", "sharded"),
+                                                ("fm", "replicated")])
+def test_program_mode_runs_on_cpu(strategy, residency, capsys):
+    assert train_fcnn.main(["--program", "8", "--device", "cpu", "--steps",
+                            "3", "--strategy", strategy, "--residency",
+                            residency]) == 0
+    out = capsys.readouterr().out
+    assert (f"compiled {strategy.upper()} program (schema v2, {residency} "
+            f"residency)") in out
+    assert "cost contract: 6 RUN and 4 SEND costs equal simulate_epoch's" \
+        in out
+    assert f"residency ({residency}): peak" in out
+    assert "final train accuracy" in out
+
+
+def test_program_mode_fails_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_fcnn.main(["--program", "8", "--steps", "1"])
+
+
+def test_train_program_learns_like_the_single_device_trainer():
+    quiet = lambda _: None  # noqa: E731
+    out = train_fcnn.train_program(arch=[64, 32, 10], steps=20, batch=16,
+                                   device="cpu", n_samples=256, log=quiet)
+    single = train_fcnn.train(arch=[64, 32, 10], steps=20, batch=16,
+                              device="cpu", n_samples=256, log=quiet)
+    assert out["executable"].program.n_devices == 8
+    assert len(out["losses"]) == 20
+    for a, b in zip(out["losses"], single["losses"]):
+        assert a == pytest.approx(b, rel=1e-5)
+    assert out["accuracy"] == pytest.approx(single["accuracy"], abs=1e-6)
+
+
 def _serve_cli(*args):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="")
@@ -93,6 +126,7 @@ def test_port_imports_neither_jax_nor_the_reference_package():
         "repro_torch.data, repro_torch.kernels, repro_torch.kernels._build, "
         "repro_torch.models.fcnn, repro_torch.optim, "
         "repro_torch.launch.train_fcnn, repro_torch.models.api, "
+        "repro_torch.exec, repro_torch.core.simulator, "
         "repro_torch.models.zamba2, repro_torch.serve, "
         "repro_torch.launch.serve\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"

@@ -165,6 +165,37 @@ def test_fcnn_fwd_is_deterministic_on_card(cuda, m, k, n):
         assert torch.equal(fcnn_layer(x, w, b, "sigmoid"), first)
 
 
+# The column chunks of the period programs on an 8-device ring
+# (repro_torch.exec): NN1 ORRM widths 125/125/5 and NN2 375/98/125/125/5
+# at batch 64, NN5 500/125/500/5 at batch 128.  Widths 125, 375, 98 and 5
+# take K1's 4-byte copies of w; K2's contraction is 5 at the output layer,
+# under one 16-wide slice.
+CHUNK_SHAPES = [(64, 784, 125, "sigmoid"), (64, 1000, 125, "sigmoid"),
+                (64, 500, 5, "none"), (64, 784, 375, "sigmoid"),
+                (64, 1500, 98, "sigmoid"), (128, 1024, 500, "sigmoid"),
+                (128, 4000, 125, "sigmoid"), (128, 1000, 500, "sigmoid"),
+                (128, 4000, 5, "none")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,act", CHUNK_SHAPES)
+def test_fcnn_kernels_at_program_chunk_shapes_on_card(cuda, m, k, n, act):
+    rng = np.random.default_rng(8)
+    x, w = _rand(rng, (m, k), cuda), _rand(rng, (k, n), cuda, k ** -0.5)
+    b, dy = _rand(rng, (n,), cuda, 0.1), _rand(rng, (m, n), cuda, 0.01)
+    y = fcnn_layer(x, w, b, act)
+    dx = fcnn_layer_dgrad(dy, y, w, act)
+    dw, db = fcnn_layer_wgrad(x, dy, y, act)
+    torch.cuda.synchronize()
+    _assert_rel(y, ref.fcnn_layer_ref(x, w, b, act), 1e-4)
+    _assert_rel(dx, ref.fcnn_layer_dgrad_ref(dy, y, w, act), 1e-4)
+    dw_r, db_r = ref.fcnn_layer_wgrad_ref(x, dy, y, act)
+    _assert_rel(dw, dw_r, 1e-4)
+    _assert_rel(db, db_r, 1e-4)
+    assert torch.equal(fcnn_layer(x, w, b, act), y)
+    assert torch.equal(fcnn_layer_dgrad(dy, y, w, act), dx)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("split,slice_", [(3, 32), (32, 32), (2, 8), (0, 16)])
 def test_fcnn_fwd_refuses_bad_plans_on_card(cuda, split, slice_):
