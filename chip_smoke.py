@@ -6,8 +6,9 @@
 Builds the seven CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 drives the port's main paths through their own entry points: the
 paper's NN1 (784-1000-500-10) trained with Adam, on one device and as a
-period program on an 8-device ring, and Zamba2-1.2B served at full width
-in bf16.  Phases, each printing its own lines; any failure
+period program on an 8-device ring, that program again losing two of its
+devices and resuming from a checkpoint on the six left, and Zamba2-1.2B
+served at full width in bf16.  Phases, each printing its own lines; any failure
 raises and the script exits non-zero without a result line:
 
   1. device   a CUDA card is required; its name and power limit; TF32 off
@@ -77,6 +78,27 @@ raises and the script exits non-zero without a result line:
               steps in sharded and replicated residency bit-identical; and
               the executor's loss and gradients against the single-device
               path for NN1 and NN5 ORRM and NN2 FM/RRM/ORRM
+ 11. recovery the fault layer (``repro_torch.runtime``) through
+              ``repro_torch.launch.elastic_restart``: a crash and restart,
+              the replanning oracle at m = 1000/500/100, then NN1 (300
+              steps, batch 64, seed 0, phase 10's data and schedule) through
+              ``DegradedModeRunner`` on 8 devices, sharded, an async
+              checkpoint every 50 steps, under ``seeded_device_loss(0,
+              n_lost=2)`` (step 185) and a transient RUN fault failing
+              twice at step 10: one replan 8 -> 6 (degrees 2/2/2), resumed
+              from the checkpoint of step 149, 2 retries, no kernel
+              fallback, the launches per step on each ring equal to its
+              program's, accuracy > 0.8; the run matches a from-scratch
+              6-device run (losses rtol 1e-4 / atol 1e-6, params rtol 1e-3
+              / atol 5e-4), and the replicated run of the same schedule is
+              bit-identical; prints the seconds from the fault to the first
+              resumed step, the checkpoint's size and save time, and
+              ms/step on each ring beside phase 10's; holds K1-K3 at every
+              chunk shape of the 6-device program against their plain
+              versions; times the recovery over 5 more device losses (a
+              40-step run each); then profiles runs of fresh runners on 6
+              and on 8 devices with no faults (device operations, host
+              ms/step) beside phase 10's executor step
 
 The last three lines are a JSON object of per-kernel numbers, the card's
 name and power limit as nvidia-smi reports them, and the result object.
@@ -706,15 +728,21 @@ def run_profile_phase(torch, dev) -> None:
 
 
 def profile_steps(torch, step: Callable[[], object]) -> tuple[float, float]:
-    """Host ms/step of ``step`` with the profiler off, then device busy
-    time per step and the top device operations from torch.profiler over
-    as many steps; returns (host ms/step, device operations/step)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """profile_runs of ``step`` called over and over."""
     def steps(n: int) -> None:
         for _ in range(n):
             step()
         torch.cuda.synchronize()
+
+    return profile_runs(torch, steps)
+
+
+def profile_runs(torch, steps: Callable[[int], None]) -> tuple[float, float]:
+    """Host ms/step of ``steps(n)`` (which runs n steps and waits for the
+    device) with the profiler off, then device busy time per step and the
+    top device operations from torch.profiler over as many steps; returns
+    (host ms/step, device operations/step)."""
+    from torch.profiler import ProfilerActivity, profile
 
     steps(10)   # warm up
     t0 = time.perf_counter()
@@ -1262,6 +1290,20 @@ def program_launches(prog) -> dict[str, int]:
             "softmax_xent_dlogits": 1}
 
 
+def chunk_shapes(prog, arch: str, batch: int, timed: bool,
+                 seen: set) -> list[tuple]:
+    """kernel_cases' rows for the chunk shapes of ``prog``'s RUNs that are
+    not in ``seen`` (which they join)."""
+    shapes = []
+    for run in prog.runs("fp"):
+        key = (batch, prog.layer_sizes[run.layer - 1], run.chunk_width,
+               run.activation)
+        if key not in seen:
+            seen.add(key)
+            shapes.append((chunk_label(arch, run), *key, timed))
+    return shapes
+
+
 def run_chunk_kernels(torch, dev, summary) -> None:
     """K1-K3 at every chunk shape of PROGRAM_CHECKS' programs, held to
     their plain versions; NN1's timed, and summed over one executor step
@@ -1270,13 +1312,7 @@ def run_chunk_kernels(torch, dev, summary) -> None:
     for arch, strategy, batch in PROGRAM_CHECKS:
         prog = program_of(arch, strategy, batch)
         nn1 = nn1 or prog
-        for run in prog.runs("fp"):
-            k = prog.layer_sizes[run.layer - 1]
-            key = (batch, k, run.chunk_width, run.activation)
-            if key not in seen:
-                seen.add(key)
-                shapes.append((chunk_label(arch, run), *key,
-                               arch == "NN1"))
+        shapes += chunk_shapes(prog, arch, batch, arch == "NN1", seen)
     chunks = run_kernel_phase(torch, dev, shapes)
     for name in FCNN_KERNELS[:3]:
         total, calls = 0.0, 0
@@ -1370,6 +1406,8 @@ def run_program_phase(torch, dev, summary) -> None:
     host_ms, device_ops = profile_steps(torch, step)
     print(f"executor step: {device_ops:.1f} device operations/step, host "
           f"{host_ms:.4f} ms/step")
+    executor = {"ms": out["ms_per_step"], "host_ms": host_ms,
+                "ops": device_ops}
 
     # sharded against replicated, 5 Adam steps from the same weights
     e_s, e_r = (pexec.compile(workload, ONOC, RING, strategy="orrm",
@@ -1420,6 +1458,156 @@ def run_program_phase(torch, dev, summary) -> None:
               f"{EXEC_GRAD_ATOL:g}) {'ok' if ok else 'FAIL'}")
         check(ok, f"{arch} {strategy} executor disagrees with the single "
                   f"device path")
+    return executor
+
+
+# -------------------------------------------------------------- phase 11
+
+
+# the repeated recovery: device losses, a run each, of RECOVERY_STEPS steps
+# with a checkpoint every 10, losing devices 6 and 7 at step 25
+RECOVERY_REPEATS, RECOVERY_STEPS = 5, 40
+
+
+def run_recovery_phase(torch, dev, executor: dict, smi: str) -> None:
+    """Phase 11 (see the module docstring); ``executor`` holds phase 10's
+    numbers of the same program without the runner: ms/step over the
+    300-step run, and the profiled step's host ms and device operations."""
+    import statistics
+    import tempfile
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core.onoc_model import FCNNWorkload
+    from repro_torch.launch import elastic_restart as er
+    from repro_torch.models import fcnn
+    from repro_torch.optim import adam, linear_warmup_cosine
+    from repro_torch.runtime import (
+        DegradedModeRunner,
+        FaultEvent,
+        FaultKind,
+        FaultSchedule,
+    )
+
+    print("scenario 1, crash and restart:")
+    er.crash_restart(dev)
+    print("scenario 2, elastic replanning:")
+    er.elastic_shrink()
+    sc = er.NN1_SCENARIO
+    print(f"scenario 3: NN1 {list(sc.sizes)}, batch {er.BATCH}, "
+          f"{sc.n_steps} steps, seed 0, ORRM on {er.N_DEVICES} devices, "
+          f"sharded, a checkpoint every {sc.checkpoint_every} steps (async)")
+    out = er.device_loss_replan_resume(sc, dev)
+    faulted = out["faulted"]
+    report, runner = faulted["report"], faulted["runner"]
+    check(len(report.replans) == 1, f"replans {report.replans}")
+    rp = report.replans[0]
+    check((rp["from_devices"], rp["to_devices"]) == (8, 6),
+          f"replan {rp['from_devices']} -> {rp['to_devices']}")
+    check(runner.program.degrees == (2, 2, 2),
+          f"survivor degrees {runner.program.degrees}")
+    check(report.retries == 2, f"retries {report.retries}")
+    check(report.kernel_fallbacks == 0,
+          f"{report.kernel_fallbacks} kernel fallbacks")
+    before, after = out["segments"]
+    for seg, prog in ((before, program_of("NN1", "orrm", er.BATCH)),
+                      (after, runner.program)):
+        want = program_launches(prog)
+        print(f"launches per step on {seg['devices']} devices: " + ", ".join(
+            f"{k} {v:g} (expected {want[k]})"
+            for k, v in seg["launches"].items()))
+        check(seg["launches"] == want,
+              f"launches per step on {seg['devices']} devices differ")
+        check(all(v > 0 for v in seg["launches"].values()),
+              f"a kernel was not launched on {seg['devices']} devices")
+    check(faulted["accuracy"] > 0.8, "the recovered run failed to learn")
+
+    repl = er.recovery_run(sc, out["schedule"], er.N_DEVICES, "replicated",
+                           dev)
+    same = repl["runner"].losses == runner.losses and all(
+        torch.equal(a, b) for a, b in zip(
+            fcnn.parameters(repl["state"]["params"]),
+            fcnn.parameters(faulted["state"]["params"])))
+    print(f"replicated residency, same schedule: losses and final params "
+          f"{'bit-identical' if same else 'DIFFER'} to the sharded run")
+    check(same, "sharded and replicated recovery differ")
+    check(repl["report"].to_dict() == report.to_dict(),
+          "sharded and replicated fault reports differ")
+
+    # K1-K3 at the survivor program's chunk shapes, which phase 10's
+    # 8-device programs do not give them, held to their plain versions
+    print(f"K1-K3 at the chunk shapes of the {rp['to_devices']}-device "
+          f"program (degrees {list(runner.program.degrees)}):")
+    run_kernel_phase(torch, dev, chunk_shapes(runner.program, "NN1",
+                                              er.BATCH, True, set()))
+
+    # the recovery's spread: more device losses of 2 of 8, a run each
+    lose = FaultSchedule(events=tuple(
+        FaultEvent(kind=FaultKind.DEVICE_LOSS, step=25, period=2, device=d)
+        for d in (6, 7)))
+    short = er.Scenario(n_steps=RECOVERY_STEPS, checkpoint_every=10)
+    recovery_s = out["recovery_s"][:1]
+    for _ in range(RECOVERY_REPEATS):
+        again = er.recovery_run(short, lose, er.N_DEVICES, "sharded", dev)
+        check(again["report"].resumed_from == [19] and
+              again["report"].kernel_fallbacks == 0,
+              f"repeated recovery: {again['report'].to_dict()}")
+        recovery_s += er.recovery_seconds(again["clock"])
+    print(f"recovery over {len(recovery_s)} device losses (the 300-step "
+          f"run's first): " + " ".join(f"{v:.4f}" for v in recovery_s)
+          + f" s; median {statistics.median(recovery_s):.4f}, min "
+          f"{min(recovery_s):.4f}, max {max(recovery_s):.4f} (host clock "
+          f"from the draw of the faulted step to that of the first "
+          f"resumed step)")
+
+    print(f"recovery on {smi}: {out['recovery_s'][0]:.4f} s from the fault "
+          f"to the first resumed step (replan, validate and analyze, "
+          f"rebuild, restore), median {statistics.median(recovery_s):.4f} s "
+          f"over {len(recovery_s)} losses; checkpoint "
+          f"{faulted['checkpoint_bytes']} bytes, save "
+          f"{1e3 * faulted['snapshot_s']:.3f} ms snapshot + "
+          f"{1e3 * faulted['write_s']:.3f} ms write; runner ms/step "
+          f"{before['ms']:.4f} on 8 devices, {after['ms']:.4f} on 6 "
+          f"(phase 10's executor step without the runner: "
+          f"{executor['ms']:.4f}); final train accuracy "
+          f"{faulted['accuracy']:.4f}; resumed run against the from-scratch "
+          f"run: losses {out['loss_excess']:.4f}, params "
+          f"{out['param_excess']:.4f} of the bars")
+
+    # where a runner's step time goes on each ring, beside phase 10's
+    # executor step: fresh runners with no faults, each run() of
+    # PROFILE_STEPS steps from the same weights (its build and one
+    # checkpoint save included)
+    params0 = fcnn.init(list(sc.sizes), torch.Generator().manual_seed(0),
+                        dev)
+    opt = adam(linear_warmup_cosine(er.LR, er.WARMUP, sc.n_steps))
+    batches = er.synthetic_batches(list(sc.sizes), 4096, er.BATCH, dev)
+    for n in (6, 8):
+        def steps(k: int, n=n) -> None:
+            with tempfile.TemporaryDirectory(prefix="repro_torch_ckpt_") as d:
+                DegradedModeRunner(
+                    workload=FCNNWorkload(list(sc.sizes), batch_size=er.BATCH),
+                    base_cfg=er.ONOC, schedule=FaultSchedule(),
+                    checkpointer=Checkpointer(d), optimizer=opt,
+                    n_devices=n, residency="sharded",
+                    checkpoint_every=sc.checkpoint_every, backoff_s=0.0,
+                    device=dev).run(params0, opt.init(params0), batches, k)
+            torch.cuda.synchronize()
+
+        print(f"runner.run() on {n} devices, no faults:")
+        host_ms, device_ops = profile_runs(torch, steps)
+        builds = []
+        for _ in range(3):   # a run() of no step: its build and set-up
+            t0 = time.perf_counter()
+            steps(0)
+            builds.append(time.perf_counter() - t0)
+        build_s = statistics.median(builds)
+        print(f"runner.run() on {n} devices: {device_ops:.1f} device "
+              f"operations/step, host {host_ms:.4f} ms/step, "
+              f"{host_ms - 1e3 * build_s / PROFILE_STEPS:.4f} without the "
+              f"build of each run() ({build_s:.4f} s, median of 3 run()s of "
+              f"0 steps: replan, validate and analyze, executor, copies of "
+              f"the state) (phase 10's executor step on 8: "
+              f"{executor['ops']:.1f}, {executor['host_ms']:.4f} ms/step)")
 
 
 # ------------------------------------------------------------------ main
@@ -1492,7 +1680,11 @@ def main() -> int:
 
     phase(10, "NN1 through its ORRM period program on an 8-device virtual "
               "ring")
-    run_program_phase(torch, dev, summary)
+    executor = run_program_phase(torch, dev, summary)
+
+    phase(11, "NN1's ORRM program loses 2 of its 8 devices: replan to 6 "
+              "and resume from a checkpoint")
+    run_recovery_phase(torch, dev, executor, smi)
 
     kernels = []
     for name in FCNN_KERNELS:

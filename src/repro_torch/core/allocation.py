@@ -57,6 +57,12 @@ class Mapping:
             return self.windows[2 * l - period]
         raise ValueError(f"period out of range: {period}")
 
+    def active_cores(self) -> set[int]:
+        out: set[int] = set()
+        for w in self.windows:
+            out.update(w)
+        return out
+
 
 def expected_reuse(cores_per_period: Sequence[int], m: int) -> float:
     """E[r], Eq. (16)."""

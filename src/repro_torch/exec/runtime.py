@@ -152,6 +152,22 @@ class _PeriodRun(torch.autograd.Function):
         return dh, gw, gb, None, None, None
 
 
+class _ShardSlice(torch.autograd.Function):
+    """One leaf from the full layout to the stacked one inside autograd:
+    the forward is ``shard_params``'s slice and the backward its gather
+    (column block j of the full gradient is slot window[j]'s)."""
+
+    @staticmethod
+    def forward(ctx, a, lay):
+        ctx.lay = lay
+        return _slots([a[..., c * lay.width:(c + 1) * lay.width]
+                       for c in range(len(lay.window))], lay)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.cat([g[d] for d in ctx.lay.window], dim=-1), None
+
+
 def _slots(chunks, lay: _PeriodLayout):
     """A layer's d chunks (tensors or numpy arrays) in the stacked (n, ...)
     layout: chunk ``owner_chunk[s]`` in slot s, exact zeros in the slots
@@ -270,6 +286,18 @@ class ProgramExecutor:
                          for c in range(len(lay.window))], lay))
             layers.append(out)
         return {"layers": layers}
+
+    def slice_params(self, params: Params) -> Params:
+        """``shard_params`` inside autograd: full layout -> stacked layout,
+        with the gather as the backward.  ``torch.autograd.grad`` of the
+        sharded loss with respect to the full leaves then gives the
+        full-layout gradients, bit-identical to the replicated executor's.
+        This keeps a training state in the layout every ring shares (the
+        degraded-mode runner's), at a copy of the model each way a step."""
+        self._check_params(params, layout="full")
+        return {"layers": [
+            {k: _ShardSlice.apply(lp[k], lay) for k in ("w", "b")}
+            for lay, lp in zip(self._layout, params["layers"])]}
 
     def gather_params(self, sparams: Params) -> Params:
         """Stacked residency layout -> full layout (chunk j of layer i

@@ -40,7 +40,8 @@ from repro_torch.exec.residency import replicated_model_bytes
 from repro_torch.models import fcnn
 from repro_torch.optim import Optimizer, adam, linear_warmup_cosine
 
-__all__ = ["train", "train_step", "train_program", "cost_contract", "main"]
+__all__ = ["train", "train_step", "train_program", "cost_contract",
+           "synthetic_batches", "main"]
 
 FULL_RUN_STEPS = 300
 ACCURACY_BAR = 0.8
@@ -94,7 +95,7 @@ def train(arch: str | Sequence[int] = "NN1", steps: int = FULL_RUN_STEPS,
         params = fcnn.params_from_numpy(params, dev)
     opt = adam(linear_warmup_cosine(LR, warmup, steps))
     opt_state = opt.init(params)
-    batches = _batches(sizes, n_samples, batch, dev)
+    batches = synthetic_batches(sizes, n_samples, batch, dev)
     x_eval, y_eval = batches.data["x"], batches.data["y"]
     step_t = torch.zeros((), dtype=torch.float32, device=dev)
 
@@ -185,7 +186,7 @@ def train_program(arch: str | Sequence[int] = "NN1", n_devices: int = 8,
     state = exe.init_state(torch.Generator().manual_seed(seed), opt,
                            params=params)
     step = exe.train_step(opt)
-    batches = _batches(sizes, n_samples, batch, dev)
+    batches = synthetic_batches(sizes, n_samples, batch, dev)
 
     def report(i, loss):
         log(f"step {i:4d}  loss {float(loss):.4f}")
@@ -213,8 +214,8 @@ def _sizes(arch: str | Sequence[int]) -> list[int]:
     return list(NN_BENCHMARKS[arch] if isinstance(arch, str) else arch)
 
 
-def _batches(sizes: Sequence[int], n_samples: int, batch: int,
-             dev: torch.device) -> Batcher:
+def synthetic_batches(sizes: Sequence[int], n_samples: int, batch: int,
+                      dev: torch.device) -> Batcher:
     """The dataset ``fcnn_classification_dataset(n_samples, seed=0)`` on
     ``dev``, batched as the reference's ``Batcher`` batches it."""
     x, y = fcnn_classification_dataset(n_samples, input_dim=sizes[0], seed=0)
