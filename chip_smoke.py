@@ -7,9 +7,10 @@ Builds the seven CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 drives the port's main paths through their own entry points: the
 paper's NN1 (784-1000-500-10) trained with Adam, on one device and as a
 period program on an 8-device ring, that program again losing two of its
-devices and resuming from a checkpoint on the six left, and Zamba2-1.2B
-served at full width in bf16.  Phases, each printing its own lines; any failure
-raises and the script exits non-zero without a result line:
+devices and resuming from a checkpoint on the six left, and Zamba2-1.2B,
+qwen3-14b and qwen2-moe-a2.7b served at full width in bf16.  Phases, each
+printing its own lines; any failure raises and the script exits non-zero
+without a result line:
 
   1. device   a CUDA card is required; its name and power limit; TF32 off
   2. build    the extension, with ptxas's per-kernel resource report
@@ -44,7 +45,11 @@ raises and the script exits non-zero without a result line:
               against their plain versions at the Zamba2 prefill shapes
               (bf16 and fp32, causal and not, stride-0 B/C; K7 at 1, 4, 8
               and 16 chunks; bf16 within about one bf16 ulp) and at edge
-              shapes, with kernel, plain, SDPA and bound times (K7's bound
+              shapes; K6 with grouped-query attention at qwen3-14b's
+              prefill shapes (1, 40, S, 128) on 8 KV heads, S = 512, 1024,
+              2048, and at groups of 1, 4 and 5 with S = 1, 100, 300 and
+              D = 64, 128; with kernel, plain, SDPA (``enable_gqa``) and
+              bound times (K7's bound
               by bytes and by bf16 operations apart); each K6 line names
               the instantiation that ran (tensor-core bf16 or CUDA-core
               fp32); each timed bf16 K7 row prints the heads per block its
@@ -99,6 +104,26 @@ raises and the script exits non-zero without a result line:
               40-step run each); then profiles runs of fresh runners on 6
               and on 8 devices with no faults (device operations, host
               ms/step) beside phase 10's executor step
+ 12. dense    qwen3-14b (GQA 40/8, qk-norm, 40 layers, 14.77 B
+              parameters), full width, bf16, random weights drawn layer by
+              layer into stacked tensors: 8 requests of the ``steady``
+              preset with 512/1024/2048-token prompts on 4 slots through
+              ``repro_torch.launch.serve.serve``; every request served, K6
+              launched 40 times per prefill (counters reset just before),
+              peak memory < 80 GB; TTFT/TPOT, tok/s; then a profiled
+              2048-token prefill and a profiled decode step of 4 slots at
+              depth 2048
+ 13. parity   qwen3-14b's kernel path against its plain path: fp32 at full
+              width cut to 4 layers, a 512-token prompt and 8 greedy steps
+              within 1e-3 of the largest logit; bf16 at full depth, 2048
+              tokens, phase 9's logit bar and greedy-token rule
+ 14. moe      qwen2-moe-a2.7b (60 experts top 4 and 4 shared, QKV bias,
+              24 layers), full width, bf16: 4 requests on 4 slots, K6
+              launched 24 times per prefill, peak memory < 80 GB; then a
+              512-token prefill, kernel path against plain path: the
+              expert choices that differ between the paths are counted and
+              the greedy-token rule held; with the kernel path's choices
+              replayed in the plain path, the logits within phase 9's bar
 
 The last three lines are a JSON object of per-kernel numbers, the card's
 name and power limit as nvidia-smi reports them, and the result object.
@@ -789,9 +814,12 @@ K7_BF16_STATE_RTOL = 1e-3  # fp32 state and decay from bf16 inputs
 # bf16 rounding of differently ordered sums, random weights)
 BF16_LOGIT_RTOL = 4e-2
 ARCH = "zamba2-1.2b"
+DENSE_ARCH = "qwen3-14b"
+MOE_ARCH = "qwen2-moe-a2.7b"
 SERVE_BUCKETS = (512, 1024, 2048)
-PATH_K6 = "(1,32,2048,64) bf16 causal"
-PATH_K7 = "BC=16 (128,64,64,64) bf16 stride-0 b/c"
+# the K6 shape of each serving path's 2048-token prefill: (B, H, KV, S, D)
+K6_PATHS = {ARCH: (1, 32, 32, 2048, 64), DENSE_ARCH: (1, 40, 8, 2048, 128),
+            MOE_ARCH: (1, 16, 16, 2048, 128)}
 
 
 def _close(torch, out, want, fp32_rtol, slack) -> tuple[bool, float, str]:
@@ -815,12 +843,13 @@ def _close(torch, out, want, fp32_rtol, slack) -> tuple[bool, float, str]:
 
 class LMCase(NamedTuple):
     """One comparison of phase 7.  Bytes count each input read once (a
-    stride-0 B/C once per chunk) and each output written once; flops count
-    what these inputs need (causal pairs only, 2 per multiply-add), at the
-    peak of the inputs' type (``rate``).  ``slack()`` is K6's bf16 slack,
-    BF16_ULP·(softmax @ |v|) (None: K7's); ``forced(heads)`` runs bf16 K7
-    at one of ssd_scan.SSD_HEADS heads per block, ``plan`` being its
-    wrapper's."""
+    stride-0 B/C once per chunk, K and V once per KV head) and each output
+    written once; flops count what these inputs need (causal pairs only, 2
+    per multiply-add), at the peak of the inputs' type (``rate``).
+    ``slack()`` is K6's bf16 slack, BF16_ULP·(softmax @ |v|) (None: K7's);
+    ``forced(heads)`` runs bf16 K7 at one of ssd_scan.SSD_HEADS heads per
+    block, ``plan`` being its wrapper's; ``on_path`` names the serving path
+    whose prefill runs this shape ("" for none)."""
     name: str
     label: str
     kern: Callable
@@ -831,7 +860,7 @@ class LMCase(NamedTuple):
     flops: int
     rate: float
     timed: bool
-    on_path: bool
+    on_path: str
     plan: int | None = None
     forced: Callable | None = None
 
@@ -846,25 +875,30 @@ def lm_kernel_cases(torch, dev, gen):
     def rand(*shape, dtype=torch.float32, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
 
-    def flash_case(b, h, s, d, dtype, causal, timed):
-        # the model's layout: (B, S, H, D) projections seen as (B, H, S, D)
-        q, k, v = (rand(b, s, h, d, dtype=dtype).transpose(1, 2)
-                   for _ in range(3))
+    def flash_case(b, h, s, d, dtype, causal, timed, kv=None):
+        # the model's layout: (B, S, H, D) projections seen as (B, H, S, D);
+        # k and v with kv heads (GQA, h // kv query heads a group)
+        kv = kv or h
+        q = rand(b, s, h, d, dtype=dtype).transpose(1, 2)
+        k, v = (rand(b, s, kv, d, dtype=dtype).transpose(1, 2)
+                for _ in range(2))
         e = q.element_size()
         pairs = s * (s + 1) // 2 if causal else s * s
         rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
-        label = (f"({b},{h},{s},{d}) {str(dtype)[6:]} "
-                 f"{'causal' if causal else 'full'}")
+        label = (f"({b},{h},{s},{d}){f' kv {kv}' if kv != h else ''} "
+                 f"{str(dtype)[6:]} {'causal' if causal else 'full'}")
+        path = [a for a, shape in K6_PATHS.items()
+                if (b, h, kv, s, d) == shape and dtype == torch.bfloat16
+                and causal]
         yield LMCase(
             "flash_attention", label,
             lambda: flash_attention(q, k, v, causal),
             lambda: ref.flash_attention_ref(q, k, v, causal),
             lambda: BF16_ULP * ref.flash_attention_ref(
                 q.float(), k.float(), v.float().abs(), causal),
-            lambda: sdpa(q, k, v, is_causal=causal),
-            4 * b * h * s * d * e, 4 * b * h * pairs * d, rate, timed,
-            (b, h, s, d, dtype, causal) == (1, 32, 2048, 64, torch.bfloat16,
-                                            True))
+            lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=kv != h),
+            2 * b * (h + kv) * s * d * e, 4 * b * h * pairs * d, rate, timed,
+            path[0] if path else "")
 
     def ssd_case(bc, q, h, p, n, dtype, shared_bc, timed):
         x = rand(bc, q, h, p, dtype=dtype)
@@ -894,7 +928,7 @@ def lm_kernel_cases(torch, dev, gen):
             lambda: ref.ssd_chunk_ref(x, dt_a, b, c),
             None, None, nbytes, flops,
             BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S, timed,
-            (bc, bf16, shared_bc) == (16, True, True),
+            ARCH if (bc, bf16, shared_bc) == (16, True, True) else "",
             ssd_plan(bc, h, q, shared_bc) if bf16 else None,
             forced if bf16 and timed else None)
 
@@ -905,6 +939,19 @@ def lm_kernel_cases(torch, dev, gen):
             for shape in ((1, 32, 8, 64), (1, 32, 100, 64), (2, 4, 300, 128),
                           (1, 2, 128, 32), (2, 4, 256, 64), (1, 1, 64, 128)):
                 yield from flash_case(*shape, dtype, causal, False)
+        # GQA: qwen3-14b's prefill (40 query heads on 8 KV heads, D 128),
+        # then groups of 1, 4 and 5 at the edges of S and D
+        for s in (512, 1024, 2048):
+            yield from flash_case(1, 40, s, 128, dtype, True, True, kv=8)
+        # qwen2-moe-a2.7b's prefill: 16 heads, D 128, no GQA
+        for s in (512, 1024, 2048):
+            yield from flash_case(1, 16, s, 128, dtype, True, True)
+        for causal in (True, False):
+            for b, h, kv, s, d in ((1, 8, 8, 100, 128), (2, 8, 2, 300, 64),
+                                   (1, 10, 2, 1, 128), (1, 10, 2, 300, 128),
+                                   (2, 4, 1, 100, 64), (1, 5, 1, 1, 64),
+                                   (1, 20, 4, 300, 64), (1, 40, 8, 100, 128)):
+                yield from flash_case(b, h, s, d, dtype, causal, False, kv)
         # one 128-token chunk, then the 512/1024/2048-token prompt buckets
         for bc in (1, 4, 8, 16):
             yield from ssd_case(bc, 128, 64, 64, 64, dtype, True, True)
@@ -958,7 +1005,7 @@ def run_lm_kernel_phase(torch, dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(7)
     summary = {name: {"max_abs_err": 0.0, "ms": None, "plain_ms": None,
                       "library_ms": None, "bound_ms": None, "bound_by": None,
-                      "shapes": []}
+                      "shapes": [], "paths": {}}
                for name in LM_KERNELS}
     for case in lm_kernel_cases(torch, dev, gen):
         name, label = case.name, case.label
@@ -981,16 +1028,18 @@ def run_lm_kernel_phase(torch, dev) -> dict:
                      f" bound {b_ms:.5f} ({b_by}) = {100 * b_ms / ms:.1f}% | "
                      f"{case.flops / ms / 1e9:.2f} TFLOP/s, "
                      f"{case.nbytes / ms / 1e6:.1f} GB/s"
-                     f"{' [serving path]' if case.on_path else ''}")
+                     f"{f' [{case.on_path} serving path]' if case.on_path else ''}")
             if case.forced is not None:
                 line += (f" | bound by bytes "
                          f"{case.nbytes / HBM_BYTES_PER_S * 1e3:.5f}, by bf16 "
                          f"ops {case.flops / case.rate * 1e3:.5f} | plan "
                          f"{case.plan} heads/block")
             if case.on_path:
-                summary[name].update(ms=ms, plain_ms=plain_ms,
-                                     library_ms=lib_ms, bound_ms=b_ms,
-                                     bound_by=b_by, shapes=[label])
+                row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=b_ms, bound_by=b_by, shapes=[label])
+                summary[name]["paths"][case.on_path] = row
+                if case.on_path == ARCH:
+                    summary[name].update(row)
         print(line, flush=True)
         check(ok, f"{name} {label} disagrees with its plain version")
         if case.forced is not None:
@@ -1001,18 +1050,39 @@ def run_lm_kernel_phase(torch, dev) -> dict:
 # --------------------------------------------------------------- phase 8
 
 
-def run_serve_phase(torch, dev) -> dict[str, int]:
-    """Serve the full-width model through the port's entry point; return
-    the LM kernels' launch counts of that run."""
+def launches_per_prefill(cfg) -> dict[str, int]:
+    """K6 and K7 launches of one prefill: the hybrid's shared-attention
+    invocations and Mamba layers; one K6 per layer of a dense or MoE
+    stack."""
+    from repro_torch.models.zamba2 import n_shared_invocations
+
+    if cfg.family == "hybrid":
+        return {"flash_attention": n_shared_invocations(cfg),
+                "ssd_chunk": cfg.n_layers}
+    return {"flash_attention": cfg.n_layers, "ssd_chunk": 0}
+
+
+def free_device_memory(torch) -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_serve_phase(torch, dev, arch: str = ARCH,
+                    n_requests: int = 8) -> dict[str, int]:
+    """Serve ``arch`` at full width through the port's entry point; return
+    the LM kernels' launch counts of that run (counters reset just
+    before)."""
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import report_lines, serve
-    from repro_torch.models.zamba2 import n_shared_invocations
     from repro_torch.serve import WallClock
 
+    free_device_memory(torch)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
-    result = serve(ARCH, scenario="steady", n_requests=8,
+    result = serve(arch, scenario="steady", n_requests=n_requests,
                    prompt_buckets=SERVE_BUCKETS, slots=4, seed=0, device=dev,
                    clock=WallClock())
     torch.cuda.synchronize()
@@ -1022,21 +1092,23 @@ def run_serve_phase(torch, dev) -> dict[str, int]:
     for line in report_lines(result, 0, 4, 1):
         print(line)
     n_prefill = result.n_prefills + len(sc.prompt_buckets)   # + warmup
-    per = {"flash_attention": n_shared_invocations(cfg),
-           "ssd_chunk": cfg.n_layers}
+    per = launches_per_prefill(cfg)
     print(f"prompt buckets {SERVE_BUCKETS}: "
           f"{result.n_prefills} prefills + {len(sc.prompt_buckets)} warmup, "
           f"{result.n_decode_steps} decode steps; wall {wall:.2f} s "
           f"(warmup and weights included)")
     print(f"launches in the serving run: {launches}")
-    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f}"
-          f" GiB (torch.cuda.max_memory_allocated)")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"peak device memory {peak / 2**30:.3f} GiB = {peak / 1e9:.3f} GB "
+          f"(torch.cuda.max_memory_allocated; < 80 GB)")
+    check(peak < 80e9, f"peak device memory {peak / 1e9:.3f} GB >= 80 GB")
     check(result.slo.n_finished == sc.n_requests,
           f"served {result.slo.n_finished}/{sc.n_requests} requests")
     for name in LM_KERNELS:
-        check(launches[name] == per[name] * n_prefill > 0,
+        check(launches[name] == per[name] * n_prefill,
               f"{name} launched {launches[name]} times, expected "
               f"{per[name]} per prefill x {n_prefill}")
+    check(launches["flash_attention"] > 0, "flash_attention never launched")
     return {name: launches[name] for name in LM_KERNELS}
 
 
@@ -1168,12 +1240,21 @@ def run_decode_profile(torch, dev, model, params) -> None:
 # --------------------------------------------------------------- phase 9
 
 
-def run_parity_phase(torch, dev, model_bf16, params_bf16, tokens_2048) -> None:
+def run_parity_phase(torch, dev, model_bf16, params_bf16, tokens_2048,
+                     arch: str = ARCH, fp32_layers: int | None = None) -> None:
+    """``arch``'s kernel path against its plain path: fp32 at full width
+    (cut to ``fp32_layers`` layers where given), then bf16 at full depth
+    from ``params_bf16``."""
     from repro_torch.configs import get_config
     from repro_torch.models.api import get_model
 
     # fp32, full width, 512-token prompt, then 8 greedy steps
-    cfg32 = get_config(ARCH).replace(dtype="float32", param_dtype="float32")
+    cfg32 = get_config(arch).replace(dtype="float32", param_dtype="float32")
+    if fp32_layers is not None:
+        cfg32 = cfg32.replace(n_layers=fp32_layers)
+        print(f"fp32 at full width, cut to {fp32_layers} of "
+              f"{get_config(arch).n_layers} layers (weights in fp32 would "
+              f"not fit beside the bf16 model)")
     m32 = get_model(cfg32)
     with torch.inference_mode():
         p32 = m32.init(torch.Generator(device=dev).manual_seed(1), dev)
@@ -1195,23 +1276,31 @@ def run_parity_phase(torch, dev, model_bf16, params_bf16, tokens_2048) -> None:
             tok = torch.argmax(lp[:, -1], dim=-1)[:, None]
             lk, ck = m32.decode_step(p32, ck, {"tokens": tok})
             lp, cp = m32.decode_step(p32, cp, {"tokens": tok})
-        for key in ("ssm", "conv", "k", "v"):
+        for key in sorted(set(ck) - {"len"}):
             a, r = errors(ck[key], cp[key])
             print(f"fp32 cache {key}: max_abs {a:.3e} max_rel {r:.3e}")
     del p32, ck, cp
-    torch.cuda.empty_cache()
+    free_device_memory(torch)
 
     # bf16, full width, 2048-token prompt
     with torch.inference_mode():
         batch = {"tokens": tokens_2048}
         lk, _ = model_bf16.prefill(params_bf16, batch, 2064)
         lp, _ = model_bf16.prefill(params_bf16, batch, 2064, mode="ref")
+    bf16_logit_check(torch, lk, lp, f"bf16 {tokens_2048.shape[1]}-token "
+                                    f"prefill")
+
+
+def bf16_logit_check(torch, lk, lp, what: str) -> None:
+    """bf16 kernel-path logits ``lk`` against plain-path ``lp``: within
+    BF16_LOGIT_RTOL of the largest logit, and the greedy token equal where
+    the plain top-2 gap exceeds twice the logit difference."""
     diff = (lk - lp).abs().max().item()
     scale = lp.abs().max().item()
     top2 = torch.topk(lp[0, -1], 2).values
     gap = (top2[0] - top2[1]).item()
     tk, tp = int(torch.argmax(lk[0, -1])), int(torch.argmax(lp[0, -1]))
-    print(f"bf16 2048-token prefill: max |dlogit| {diff:.4e} of max |logit| "
+    print(f"{what}: max |dlogit| {diff:.4e} of max |logit| "
           f"{scale:.3f} = {diff / scale:.3e} (<= {BF16_LOGIT_RTOL:g}); plain "
           f"top-2 gap {gap:.4e}; greedy token kernel {tk} plain {tp}")
     check(diff <= BF16_LOGIT_RTOL * scale,
@@ -1249,6 +1338,147 @@ def lm_path_phases(torch, dev) -> tuple[dict, dict]:
     phase(9, "full-width parity: kernel path against plain path")
     run_parity_phase(torch, dev, model, params, tokens)
     return summary, launches
+
+
+# ------------------------------------------------------- phases 12-14
+
+# the fp32 parity of phase 13 runs qwen3-14b at full width cut to this many
+# layers: 40 fp32 layers (53 GB) would not fit beside the bf16 model
+DENSE_FP32_LAYERS = 4
+MOE_PARITY_TOKENS = 512
+# the fp32 witness of phase 14 runs qwen2-moe-a2.7b at full width cut to
+# this many layers (57 GB in fp32 at full depth)
+MOE_FP32_LAYERS = 8
+
+
+def dense_path_phases(torch, dev) -> dict[str, dict[str, int]]:
+    """Phases 12-14: qwen3-14b served at full width, its kernel path
+    against its plain path, then qwen2-moe-a2.7b served and held the same
+    way; returns each serving run's K6/K7 launch counts by arch."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import get_model
+
+    phase(12, f"serve {DENSE_ARCH}, full width, bf16, 8 requests on 4 slots")
+    launches = {DENSE_ARCH: run_serve_phase(torch, dev, DENSE_ARCH, 8)}
+    free_device_memory(torch)
+    cfg = get_config(DENSE_ARCH)
+    model = get_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.inference_mode():
+        params = model.init(gen, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen,
+                           device=dev)
+    run_prefill_profile(torch, dev, model, params, tokens)
+    run_decode_profile(torch, dev, model, params)
+
+    phase(13, f"{DENSE_ARCH} parity: kernel path against plain path")
+    run_parity_phase(torch, dev, model, params, tokens, arch=DENSE_ARCH,
+                     fp32_layers=DENSE_FP32_LAYERS)
+    del params
+    free_device_memory(torch)
+
+    phase(14, f"serve {MOE_ARCH}, full width, bf16, 4 requests on 4 slots; "
+              f"kernel path against plain path")
+    launches[MOE_ARCH] = run_serve_phase(torch, dev, MOE_ARCH, 4)
+    free_device_memory(torch)
+    cfg = get_config(MOE_ARCH)
+    run_moe_parity(torch, dev, cfg.replace(dtype="float32",
+                                           param_dtype="float32",
+                                           n_layers=MOE_FP32_LAYERS))
+    run_moe_parity(torch, dev, cfg)
+    return launches
+
+
+def moe_prefills(torch, model, params, batch, max_len: int):
+    """Prefill logits of the kernel path, the plain path, and the plain path
+    replaying the kernel path's expert choices (gates from its own
+    probabilities); and the experts each free-running path chose, a
+    (G, T, k) tensor per layer."""
+    from repro_torch.models import moe
+
+    top_k = moe.top_k
+    runs: dict[str, list] = {"kernel": [], "plain": []}
+
+    def recording(into):
+        def pick(probs, k):
+            gate, expert = top_k(probs, k)
+            into.append(expert)
+            return gate, expert
+        return pick
+
+    def replaying(choices):
+        it = iter(choices)
+
+        def pick(probs, k):
+            expert = next(it)
+            return probs.gather(-1, expert), expert
+        return pick
+
+    try:
+        moe.top_k = recording(runs["kernel"])
+        lk, _ = model.prefill(params, batch, max_len)
+        moe.top_k = recording(runs["plain"])
+        lp, _ = model.prefill(params, batch, max_len, mode="ref")
+        moe.top_k = replaying(runs["kernel"])
+        lpin, _ = model.prefill(params, batch, max_len, mode="ref")
+    finally:
+        moe.top_k = top_k
+    return lk, lp, lpin, runs["kernel"], runs["plain"]
+
+
+def flip_shares(kernel: list, plain: list) -> list[float]:
+    """Per layer, the share of tokens whose set of k experts differs
+    between the two paths."""
+    return [float((a.sort(-1).values != b.sort(-1).values).any(-1)
+                  .float().mean()) for a, b in zip(kernel, plain)]
+
+
+def run_moe_parity(torch, dev, cfg) -> None:
+    """The MoE's kernel path against its plain path at MOE_PARITY_TOKENS
+    tokens.  Where a token's router probabilities sit within the paths'
+    difference at the k-th place, its experts flip and its output moves by
+    whole experts; later layers see the moved hidden state, so flips
+    cascade.  Printed: the share of tokens whose experts flip, per layer
+    (layer 0's differ only through attention, before any flip).  fp32:
+    the paths differ by K6's fp32 roundings, so free-running logits are
+    held within 1e-3 of the largest.  bf16: the free-running logits and
+    greedy token are printed only; the plain path then replays the kernel
+    path's choices, which leaves only the roundings, held to the bf16
+    logit bar and greedy-token rule."""
+    from repro_torch.models.api import get_model
+
+    model = get_model(cfg)
+    what = (f"{MOE_ARCH} {cfg.dtype} {MOE_PARITY_TOKENS}-token prefill, "
+            f"{cfg.n_layers} layers")
+    with torch.inference_mode():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = model.init(gen, dev)
+        toks = torch.randint(0, cfg.vocab_size, (1, MOE_PARITY_TOKENS),
+                             generator=gen, device=dev)
+        lk, lp, lpin, ck, cp = moe_prefills(
+            torch, model, params, {"tokens": toks}, MOE_PARITY_TOKENS + 16)
+    del params
+    free_device_memory(torch)
+    shares = flip_shares(ck, cp)
+    total = sum(shares) / len(shares)
+    print(f"{what}, expert choices that differ between the paths, % of "
+          f"tokens by layer: " + " ".join(f"{100 * f:.2f}" for f in shares)
+          + f"; all layers {100 * total:.2f}%")
+    diff = (lk - lp).abs().max().item()
+    scale = lp.abs().max().item()
+    tk, tp = int(torch.argmax(lk[0, -1])), int(torch.argmax(lp[0, -1]))
+    if cfg.dtype == "float32":
+        print(f"{what}, free-running: max |dlogit| {diff:.3e} of max |logit| "
+              f"{scale:.3f} = {diff / scale:.3e} (<= 1e-3); greedy token "
+              f"kernel {tk} plain {tp}")
+        check(diff <= 1e-3 * scale,
+              "fp32 MoE kernel-path logits disagree with the plain path")
+        return
+    print(f"{what}, free-running (printed, not held: the flips): max "
+          f"|dlogit| {diff:.4e} of max |logit| {scale:.3f} = "
+          f"{diff / scale:.3e}; greedy token kernel {tk} plain {tp}")
+    bf16_logit_check(torch, lk, lpin, f"{what}, the kernel path's expert "
+                                      f"choices replayed")
 
 
 # -------------------------------------------------------------- phase 10
@@ -1686,6 +1916,8 @@ def main() -> int:
               "and resume from a checkpoint")
     run_recovery_phase(torch, dev, executor, smi)
 
+    dense_launches = dense_path_phases(torch, dev)
+
     kernels = []
     for name in FCNN_KERNELS:
         source, replaces = KERNEL_INFO[name]
@@ -1704,6 +1936,10 @@ def main() -> int:
     for name in LM_KERNELS:
         source, replaces = KERNEL_INFO[name]
         s = lm_summary[name]
+        paths = s["paths"]
+        for arch, counts in ((ARCH, lm_launches), *dense_launches.items()):
+            if counts[name]:
+                paths.setdefault(arch, {})["launches"] = counts[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": lm_launches[name],
@@ -1712,11 +1948,15 @@ def main() -> int:
             "bound_by": s["bound_by"], "library_ms": s["library_ms"],
             "shapes": s["shapes"],
             "per": "call at the 2048-token prefill shape",
+            "paths": paths,
         })
     print("\nper-kernel numbers: K1-K5 device times summed over the calls "
           "of one NN1 training step (the [NN1 step] lines of phase 3); K6/K7 "
           "per call at the shape of a 2048-token Zamba2 prefill (the "
-          "[serving path] lines of phase 7); launches from phases 5 and 8")
+          "[zamba2-1.2b serving path] lines of phase 7), launches from "
+          "phases 5 and 8; under \"paths\", K6 at each serving path's "
+          "2048-token prefill shape (phase 7) and its launches in that "
+          "path's serving run (phases 8, 12 and 14)")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,9 +9,9 @@ each module has an obvious counterpart.
 Entry points run on ``cuda`` unless the caller asks for ``device="cpu"``
 (see ``repro_torch.device.resolve_device``); there is no silent CPU
 fallback.  On CUDA tensors every period of the FCNN training step goes
-through one of five hand-written CUDA kernels, and every Zamba2 prefill
-through two more — flash attention and the SSD intra-chunk term
-(``repro_torch.kernels``).
+through one of five hand-written CUDA kernels, and every LM prefill
+through two more — flash attention (every dense, MoE and Zamba2 prefill)
+and the SSD intra-chunk term (Zamba2) (``repro_torch.kernels``).
 """
 
 from repro_torch.device import resolve_device  # noqa: F401

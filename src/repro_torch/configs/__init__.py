@@ -14,4 +14,12 @@ from repro_torch.configs.nn_benchmarks import (  # noqa: F401
 )
 
 # one import per architecture — registration is a side effect
-from repro_torch.configs import zamba2_1_2b  # noqa: F401,E402
+from repro_torch.configs import (  # noqa: F401,E402
+    granite_3_2b,
+    granite_moe_1b,
+    qwen1_5_110b,
+    qwen2_5_14b,
+    qwen2_moe_a2_7b,
+    qwen3_14b,
+    zamba2_1_2b,
+)

@@ -1,7 +1,10 @@
 """The model configuration dataclass and the architecture registry,
 copied from the reference ``repro/configs/base.py`` (``ModelConfig`` with
 every field, and the registry functions).  Only the architectures the
-port runs register here: ``zamba2-1.2b`` (``configs/zamba2_1_2b.py``).
+port runs register here (``configs/__init__.py``): the hybrid
+``zamba2-1.2b``, the dense ``granite-3-2b``, ``qwen3-14b``,
+``qwen2.5-14b`` and ``qwen1.5-110b``, and the MoE
+``granite-moe-1b-a400m`` and ``qwen2-moe-a2.7b``.
 """
 
 from __future__ import annotations

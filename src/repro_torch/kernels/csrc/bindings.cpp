@@ -32,7 +32,7 @@ cudaError_t launch_xent_dlogits(const void* logits, const int* labels,
 cudaError_t launch_empty(cudaStream_t s);
 cudaError_t launch_flash_attention(const void* q, const void* k, const void* v,
                                    void* o, const long long* st, int B, int H,
-                                   int S, int D, int causal, int bf16,
+                                   int KV, int S, int D, int causal, int bf16,
                                    cudaStream_t stream);
 cudaError_t launch_ssd_chunk(const void* x, const float* dt_a, const void* b,
                              const void* c, void* y, float* state,
@@ -123,7 +123,8 @@ void launch_floor() {
                "empty kernel");
 }
 
-// q, k, v, o (B, H, S, D), read and written through their strides
+// q, o (B, H, S, D) and k, v (B, KV, S, D), H a multiple of KV (GQA), read
+// and written through their strides
 void flash_attention(const torch::Tensor& q, const torch::Tensor& k,
                      const torch::Tensor& v, torch::Tensor o, bool causal) {
   const c10::cuda::CUDAGuard guard(q.device());
@@ -133,7 +134,7 @@ void flash_attention(const torch::Tensor& q, const torch::Tensor& k,
     for (int d = 0; d < 3; ++d) st[3 * i + d] = ts[i]->stride(d);
   check_launch(launch_flash_attention(
                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), st,
-                   q.size(0), q.size(1), q.size(2), q.size(3), causal,
+                   q.size(0), q.size(1), k.size(1), q.size(2), q.size(3), causal,
                    q.scalar_type() == at::kBFloat16, stream_of(q)),
                "flash_attention");
 }

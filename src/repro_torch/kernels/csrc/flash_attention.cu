@@ -6,7 +6,11 @@
 // (batch, head), causal or not, with the online softmax (running max m,
 // sum l and the output accumulator in fp32), masked scores at -1e30 and
 // the probabilities rounded to v's dtype before the PV product, as the
-// TPU kernel and the model's _sdpa do.  Two instantiations, chosen by
+// TPU kernel and the model's _sdpa do.  k and v may have fewer heads than q
+// (grouped-query attention, the model's _sdpa contract): q is (B, H, S, D),
+// k and v (B, KV, S, D) with H a multiple of KV, and query head h reads KV
+// head h / (H / KV) in place, with no copy of K or V per group; the TPU
+// kernel itself took equal heads.  Two instantiations, chosen by
 // dtype (neither stands in for the other):
 //
 //   bf16  flash_fwd_wgmma_kernel (namespace tc): both products on the
@@ -105,8 +109,8 @@ template <typename T, int kDPad>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, Strides3 sq,
-                 Strides3 sk, Strides3 sv, Strides3 so, int H, int S, int D,
-                 int causal, float scale) {
+                 Strides3 sk, Strides3 sv, Strides3 so, int H, int G, int S,
+                 int D, int causal, float scale) {
   constexpr int kPitch = kDPad + 4;
   constexpr int kCols = kDPad / 16;  // accumulator columns per thread
   extern __shared__ float4 smem4[];
@@ -119,9 +123,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * kBlockQ;
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
+  const int hk = h / G;  // the KV head of query head h's group
   const T* qp = q + b * sq.b + h * sq.h;
-  const T* kp = k + b * sk.b + h * sk.h;
-  const T* vp = v + b * sv.b + h * sv.h;
+  const T* kp = k + b * sk.b + hk * sk.h;
+  const T* vp = v + b * sv.b + hk * sv.h;
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
 
@@ -238,7 +243,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int kDPad>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const long long* st, int B, int H, int S, int D,
+                   const long long* st, int B, int H, int KV, int S, int D,
                    int causal, cudaStream_t stream) {
   constexpr int kPitch = kDPad + 4;
   const int smem = static_cast<int>(sizeof(float)) *
@@ -261,8 +266,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, sv, so, H, S, D,
-      causal, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, sv, so, H, H / KV,
+      S, D, causal, scale);
   return cudaGetLastError();
 }
 
@@ -276,8 +281,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // producer's lane 0 loads the Q tile once and then 128-row K and V tiles
 // into a two-stage shared-memory ring with cp.async.bulk.tensor (TMA), each
 // stage completing on a "full" mbarrier and handed back on an "empty" one.
-// The tensor maps are 4-D over the (D, S, H, B) view of q, k and v with
-// their own strides, so a tile never crosses into the next head: rows past
+// The tensor maps are 4-D over the (D, S, heads, B) view of q, k and v with
+// their own strides and head counts (H for q, KV for k and v; a block of
+// query head h loads K/V head h / (H / KV)), so a tile never crosses into
+// the next head: rows past
 // S and columns past D arrive as zeros (TMA's out-of-bounds fill).  Tiles
 // are 64 columns wide (128 bytes) with the 128-byte swizzle; D = 128 is two
 // such boxes side by side.
@@ -321,8 +328,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
-                       __nv_bfloat16* __restrict__ o, Strides3 so, int H, int S,
-                       int D, int causal, float scale_log2) {
+                       __nv_bfloat16* __restrict__ o, Strides3 so, int H, int G,
+                       int S, int D, int causal, float scale_log2) {
   constexpr int kTile = kBoxBytes * kChunks;   // one Q, K or V tile
   constexpr int kAcc = 32 * kChunks;           // O fragment per thread
   extern __shared__ uint8_t smem_raw[];
@@ -340,6 +347,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * kBlockQ;  // longest rows first
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
+  const int hk = h / G;  // the KV head of query head h's group
   const int kv_end = causal ? min(S, q0 + kBlockQ) : S;
   const int n_kv = (kv_end + kBlockKV - 1) / kBlockKV;
   const int tid = threadIdx.x;
@@ -366,9 +374,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const uint32_t k_s = kv_s + 2 * st * kTile;
         mbar_expect_tx(full(st), 2 * kTile);
         for (int c = 0; c < kChunks; ++c) {
-          tma_load_4d(k_s + c * kBoxBytes, &tk, full(st), 64 * c, n * kBlockKV, h, b);
+          tma_load_4d(k_s + c * kBoxBytes, &tk, full(st), 64 * c, n * kBlockKV, hk, b);
           tma_load_4d(k_s + kTile + c * kBoxBytes, &tv, full(st), 64 * c,
-                      n * kBlockKV, h, b);
+                      n * kBlockKV, hk, b);
         }
       }
     }
@@ -528,11 +536,12 @@ bool encode_map(CUtensorMap* map, const void* ptr, const long long* st, int B,
 
 template <int kChunks>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const long long* st, int B, int H, int S, int D, int causal,
-                   cudaStream_t stream) {
+                   const long long* st, int B, int H, int KV, int S, int D,
+                   int causal, cudaStream_t stream) {
+  // q's map spans its H heads, k's and v's their KV heads
   CUtensorMap tq, tk, tv;
-  if (!encode_map(&tq, q, st, B, H, S, D) || !encode_map(&tk, k, st + 3, B, H, S, D) ||
-      !encode_map(&tv, v, st + 6, B, H, S, D))
+  if (!encode_map(&tq, q, st, B, H, S, D) || !encode_map(&tk, k, st + 3, B, KV, S, D) ||
+      !encode_map(&tv, v, st + 6, B, KV, S, D))
     return cudaErrorInvalidValue;
   const int smem = 1024 + (1 + 2 * kStages) * kBoxBytes * kChunks +
                    8 * (1 + 2 * kStages);
@@ -550,28 +559,31 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const Strides3 so{st[9], st[10], st[11]};
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
   kern<<<grid, kThreads, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o),
-                                         so, H, S, D, causal, scale_log2);
+                                         so, H, H / KV, S, D, causal, scale_log2);
   return cudaGetLastError();
 }
 
 }  // namespace tc
 
-// q, k, v, o: (B, H, S, D) with unit D stride; st: the (b, h, s) strides of
-// q, k, v and o in that order, in elements; bf16 != 0 for bfloat16 data.
+// q, o: (B, H, S, D) and k, v: (B, KV, S, D), H a multiple of KV, with unit
+// D stride; st: the (b, h, s) strides of q, k, v and o in that order, in
+// elements; bf16 != 0 for bfloat16 data.  Query head h attends with KV head
+// h / (H / KV) (grouped-query attention; KV = H is multi-head).
 cudaError_t launch_flash_attention(const void* q, const void* k, const void* v,
                                    void* o, const long long* st, int B, int H,
-                                   int S, int D, int causal, int bf16,
+                                   int KV, int S, int D, int causal, int bf16,
                                    cudaStream_t stream) {
-  if (D < 1 || D > 128 || S < 1 || B * H < 1 || B * H > 65535)
+  if (D < 1 || D > 128 || S < 1 || B * H < 1 || B * H > 65535 || KV < 1 ||
+      H % KV != 0)
     return cudaErrorInvalidValue;
   if (bf16) {
     // TMA: 16-byte aligned base and strides (the wrapper checks them first)
     if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
          reinterpret_cast<uintptr_t>(v)) % 16)
       return cudaErrorMisalignedAddress;
-    return D <= 64 ? tc::launch<1>(q, k, v, o, st, B, H, S, D, causal, stream)
-                   : tc::launch<2>(q, k, v, o, st, B, H, S, D, causal, stream);
+    return D <= 64 ? tc::launch<1>(q, k, v, o, st, B, H, KV, S, D, causal, stream)
+                   : tc::launch<2>(q, k, v, o, st, B, H, KV, S, D, causal, stream);
   }
-  return D <= 64 ? launch<float, 64>(q, k, v, o, st, B, H, S, D, causal, stream)
-                 : launch<float, 128>(q, k, v, o, st, B, H, S, D, causal, stream);
+  return D <= 64 ? launch<float, 64>(q, k, v, o, st, B, H, KV, S, D, causal, stream)
+                 : launch<float, 128>(q, k, v, o, st, B, H, KV, S, D, causal, stream);
 }

@@ -112,18 +112,21 @@ def softmax_xent_dlogits_ref(logits: torch.Tensor, labels: torch.Tensor,
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True) -> torch.Tensor:
-    """q, k, v: (B, H, S, D) -> (B, H, S, D) in q's dtype; softmax in fp32,
-    probabilities rounded to v's dtype before the PV product."""
-    d = q.shape[-1]
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(d)
+    """q: (B, H, S, D), k, v: (B, KV, S, D) with H % KV == 0 -> (B, H, S, D)
+    in q's dtype; query head h reads KV head h // (H // KV) (GQA by head
+    grouping, K and V not repeated); softmax in fp32, probabilities rounded
+    to v's dtype before the PV product."""
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, kv, h // kv, sq, d)
+    s = torch.einsum("bkgqd,bkmd->bkgqm", qg, k.float()) / math.sqrt(d)
     if causal:
-        sq, sk = q.shape[2], k.shape[2]
         mask = torch.ones((sq, sk), dtype=torch.bool,
                           device=q.device).tril(sk - sq)
         s = s.masked_fill(~mask, float("-inf"))
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
-    return o.to(q.dtype)
+    o = torch.einsum("bkgqm,bkmd->bkgqd", p.to(v.dtype).float(), v.float())
+    return o.reshape(b, h, sq, d).to(q.dtype)
 
 
 def ssd_chunk_ref(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,

@@ -1,2 +1,4 @@
-"""Models of the port: the paper's FCNN, and the Zamba2 hybrid LM
-(``layers``, ``mamba2``, ``zamba2``) behind ``api.get_model``."""
+"""Models of the port: the paper's FCNN, and the LMs behind
+``api.get_model``: the dense transformer (``transformer``), the MoE
+transformer (``moe``) and the Zamba2 hybrid (``mamba2``, ``zamba2``),
+over ``layers`` and ``tree``."""

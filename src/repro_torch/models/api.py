@@ -3,8 +3,10 @@
 functions close over the config only — parameters, caches and batches
 are explicit dicts of tensors.
 
-Family ``"hybrid"`` (Zamba2) is ported; every other family raises
-``NotImplementedError`` until its slice lands (ROADMAP.md, queue 1).
+Families ``"dense"`` (``transformer.py``), ``"moe"`` (``moe.py``) and
+``"hybrid"`` (Zamba2, ``zamba2.py``) are ported; ``"ssm"``, ``"encdec"``
+and ``"vlm"`` raise ``NotImplementedError`` until their slices land
+(ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import Any, Callable
 
 from repro_torch.configs.base import ModelConfig
 
-__all__ = ["Model", "get_model"]
+__all__ = ["Model", "get_model", "PORTED_FAMILIES"]
 
 Params = dict[str, Any]
 
@@ -31,12 +33,20 @@ class Model:
     decode_step: Callable[..., tuple]        # (params, cache, batch)
 
 
+PORTED_FAMILIES = ("dense", "moe", "hybrid")
+
+
 def get_model(cfg: ModelConfig) -> Model:
-    if cfg.family != "hybrid":
+    if cfg.family == "dense":
+        from repro_torch.models import transformer as mod
+    elif cfg.family == "moe":
+        from repro_torch.models import moe as mod
+    elif cfg.family == "hybrid":
+        from repro_torch.models import zamba2 as mod
+    else:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (the port runs "
-            f"'hybrid'); see ROADMAP.md, queue 1")
-    from repro_torch.models import zamba2 as mod
+            f"{', '.join(PORTED_FAMILIES)}); see ROADMAP.md, queue 1")
 
     return Model(
         cfg=cfg,

@@ -1,5 +1,6 @@
 """Shared LM primitives in PyTorch, counterpart of the reference
-``repro/models/layers.py`` (the subset the Zamba2 serving path runs).
+``repro/models/layers.py`` (the subset the dense, MoE and Zamba2 serving
+paths run).
 
 Conventions, as in the reference:
   * params are dicts of tensors with the reference's names and layouts,
@@ -13,15 +14,18 @@ Conventions, as in the reference:
   * initializers draw on an explicit ``torch.Generator`` and place the
     tensors on ``device``.
 
-The causal self-attention of prefill goes through ``ops.flash_attention``
-(the flash kernel, K6) at every length: it computes both the reference's
-masked ``_sdpa`` and its kv-chunked twin ``_sdpa_chunked_causal``.  What
-K6 does not take — GQA, a sliding window shorter than the sequence —
-raises ``NotImplementedError``, and cross-attention (the reference's
-``kv_override``) has no parameter yet; those paths are queued in
-ROADMAP.md with the dense and enc-dec slices.  Decode
-attention (one query against the cache) stays plain PyTorch, as the
-reference computes it outside any kernel.
+Attention follows the reference's contract: grouped-query attention
+(``n_kv_heads`` dividing ``n_heads``), optional QKV bias (added after the
+projection is rounded to x's dtype) and optional qk-norm (RMS over
+head_dim, then RoPE).  The causal self-attention of prefill goes through
+``ops.flash_attention`` (the flash kernel, K6, which groups the query
+heads itself) at every length: it computes both the reference's masked
+``_sdpa`` and its kv-chunked twin ``_sdpa_chunked_causal``.  A sliding
+window shorter than the sequence raises ``NotImplementedError`` (K6 has
+no windowed mask yet), and cross-attention (the reference's
+``kv_override``) and M-RoPE have no parameter yet; those paths are queued
+in ROADMAP.md.  Decode attention (one query against the cache) stays
+plain PyTorch, as the reference computes it outside any kernel.
 """
 
 from __future__ import annotations
@@ -36,8 +40,8 @@ from repro_torch.kernels import ops
 __all__ = [
     "init_rms_norm", "rms_norm", "dense", "init_embedding",
     "embed", "unembed", "rope_freqs", "apply_rope", "init_attention",
-    "attention", "prefill_attention_kv", "decode_attention", "init_mlp",
-    "mlp", "matmul_fp32", "normal",
+    "attention", "decode_attention", "init_mlp",
+    "mlp", "matmul_fp32", "bmm_fp32", "normal",
 ]
 
 Params = dict[str, Any]
@@ -94,8 +98,9 @@ def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """(…, d) -> (…, V) fp32 logits (bf16 operands multiplied in fp32)."""
-    return torch.matmul(x.float(), p["w"].float().t())
+    """(…, d) -> (…, V) fp32 logits (bf16 operands multiplied in fp32,
+    with no fp32 copy of the table)."""
+    return matmul_fp32(x, p["w"].t())
 
 
 # --------------------------------------------------------------------------
@@ -125,20 +130,29 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# attention (RoPE, causal; no GQA in this slice)
+# attention (GQA, RoPE, optional QKV bias and qk-norm; causal prefill)
 # --------------------------------------------------------------------------
 
 def init_attention(generator: torch.Generator, d_model: int, n_heads: int,
                    n_kv_heads: int, head_dim: int, dtype: torch.dtype,
-                   device: torch.device) -> Params:
+                   device: torch.device, qkv_bias: bool = False,
+                   qk_norm: bool = False) -> Params:
     s_q = 1.0 / math.sqrt(d_model)
     s_o = 1.0 / math.sqrt(n_heads * head_dim)
-    return {
+    p: Params = {
         "wq": normal(generator, (d_model, n_heads, head_dim), s_q, dtype, device),
         "wk": normal(generator, (d_model, n_kv_heads, head_dim), s_q, dtype, device),
         "wv": normal(generator, (d_model, n_kv_heads, head_dim), s_q, dtype, device),
         "wo": normal(generator, (n_heads, head_dim, d_model), s_o, dtype, device),
     }
+    if qkv_bias:
+        for name, heads in (("bq", n_heads), ("bk", n_kv_heads),
+                            ("bv", n_kv_heads)):
+            p[name] = torch.zeros((heads, head_dim), dtype=dtype, device=device)
+    if qk_norm:
+        p["q_norm"] = init_rms_norm(head_dim, dtype, device)
+        p["k_norm"] = init_rms_norm(head_dim, dtype, device)
+    return p
 
 
 def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -148,11 +162,17 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _project_qkv(p: Params, x: torch.Tensor, positions: torch.Tensor,
-                 theta: float) -> tuple[torch.Tensor, ...]:
-    q = apply_rope(_heads(x, p["wq"]), positions, theta)
-    k = apply_rope(_heads(x, p["wk"]), positions, theta)
-    v = _heads(x, p["wv"])
-    return q, k, v
+                 theta: float, qk_norm: bool = False,
+                 eps: float = 1e-6) -> tuple[torch.Tensor, ...]:
+    """q (B, L, H, D), k, v (B, L, KV, D), in the reference's order: the
+    projections rounded to x's dtype, the bias added, qk-norm, RoPE."""
+    q, k, v = _heads(x, p["wq"]), _heads(x, p["wk"]), _heads(x, p["wv"])
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if qk_norm:
+        q = rms_norm(p["q_norm"], q, eps)
+        k = rms_norm(p["k_norm"], k, eps)
+    return apply_rope(q, positions, theta), apply_rope(k, positions, theta), v
 
 
 def _out_proj(p: Params, out: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -180,49 +200,56 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
-              theta: float, causal: bool = True, window: int = 0,
-              mode: str | None = None) -> torch.Tensor:
+              theta: float, qk_norm: bool = False, eps: float = 1e-6,
+              causal: bool = True, window: int = 0, mode: str | None = None):
     """Full-sequence (prefill) self-attention through the flash kernel.
-    x: (B, L, d); positions: (B, L)."""
-    q, k, v = _project_qkv(p, x, positions, theta)
+    x: (B, L, d); positions: (B, L).  Returns (y (B, L, d), (k, v)): the
+    keys and values (B, L, KV, D) a cache holds, what the reference's
+    ``prefill_attention_kv`` computes with a second projection."""
+    q, k, v = _project_qkv(p, x, positions, theta, qk_norm, eps)
     lk = k.shape[1]
-    if q.shape[2] != k.shape[2]:
-        raise NotImplementedError(
-            "attention with GQA (n_kv_heads < n_heads) is not in the flash "
-            "kernel's contract yet; queued in ROADMAP.md (dense slice)")
     if causal and 0 < window < lk:
         raise NotImplementedError(
             f"prefill of {lk} tokens beyond attn_window={window} needs the "
             f"windowed mask; queued in ROADMAP.md")
-    # (B, L, H, D) -> (B, H, L, D) views; the kernel reads them strided
+    # (B, L, H, D) -> (B, H, L, D) views; the kernel reads them strided and
+    # maps each query head to its KV head itself
     out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal, mode=mode)
-    return _out_proj(p, out.transpose(1, 2), x.dtype)
-
-
-def prefill_attention_kv(p: Params, x: torch.Tensor, positions: torch.Tensor,
-                         *, theta: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """(k, v) for cache seeding."""
-    _, k, v = _project_qkv(p, x, positions, theta)
-    return k, v
+    y = _out_proj(p, out.transpose(1, 2), x.dtype)
+    return y, (k, v)
 
 
 def decode_attention(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, cache_len: torch.Tensor,
                      positions: torch.Tensor, *, theta: float,
-                     write_pos: torch.Tensor):
-    """One decode step.  x: (B, 1, d); cache_k/v: (B, S, KV, D); cache_len,
-    write_pos: (B,), 0 <= write_pos < S.  Writes the new k, v into the
-    caches IN PLACE at ``write_pos`` (no copy of the cache per step) and
-    attends over every position <= ``cache_len``.  Returns (y, cache_k,
-    cache_v)."""
-    q, k, v = _project_qkv(p, x, positions, theta)
+                     qk_norm: bool = False, eps: float = 1e-6,
+                     window: int = 0, write_pos: torch.Tensor | None = None):
+    """One decode step.  x: (B, 1, d); cache_k/v: (B, S, KV, D); cache_len:
+    (B,).  Writes the new k, v into the caches IN PLACE at ``write_pos``
+    (default ``cache_len``; no copy of the cache per step).  A ring
+    buffer's ``write_pos`` lies in the cache; at ``cache_len`` >= S a row
+    writes nothing, as the reference's ``mode="drop"`` scatter.  Attends
+    over every position <= ``cache_len`` (and > ``cache_len - window`` when
+    ``window``).  Returns (y, cache_k, cache_v)."""
+    q, k, v = _project_qkv(p, x, positions, theta, qk_norm, eps)
+    s = cache_k.shape[1]
     rows = torch.arange(x.shape[0], device=x.device)
-    wp = write_pos.long()
-    cache_k[rows, wp] = k[:, 0].to(cache_k.dtype)
-    cache_v[rows, wp] = v[:, 0].to(cache_v.dtype)
-    idx = torch.arange(cache_k.shape[1], device=x.device)[None, :]
+    if write_pos is not None:
+        slot = write_pos.long()
+        cache_k[rows, slot] = k[:, 0].to(cache_k.dtype)
+        cache_v[rows, slot] = v[:, 0].to(cache_v.dtype)
+    else:
+        # a dropped row rewrites its clamped slot's old value: no host sync
+        keep = (cache_len < s)[:, None, None]
+        slot = cache_len.long().clamp(max=s - 1)
+        for cache, new in ((cache_k, k), (cache_v, v)):
+            cache[rows, slot] = torch.where(keep, new[:, 0].to(cache.dtype),
+                                            cache[rows, slot])
+    idx = torch.arange(s, device=x.device)[None, :]
     mask = idx <= cache_len[:, None]
+    if window > 0:
+        mask &= idx > cache_len[:, None] - window
     out = _sdpa(q, cache_k, cache_v, mask[:, None, None, None, :])
     return _out_proj(p, out, x.dtype), cache_k, cache_v
 
@@ -252,6 +279,16 @@ def matmul_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return torch.matmul(x.float(), w.float())
     out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
     return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def bmm_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Batched ``matmul_fp32``: (E, M, K) @ (E, K, N) with w in x's dtype,
+    accumulated and returned in fp32 (``torch.bmm``'s ``out_dtype`` on the
+    card, the upcast operands on the CPU)."""
+    w = w.to(x.dtype)
+    if x.dtype == torch.float32 or not x.is_cuda:
+        return torch.bmm(x.float(), w.float())
+    return torch.bmm(x, w, out_dtype=torch.float32)
 
 
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:

@@ -23,12 +23,14 @@ from __future__ import annotations
 import math
 from typing import Any
 
-import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
+from repro_torch.models.tree import init_stacked, params_from_numpy
+from repro_torch.models.tree import layer as _layer
+from repro_torch.models.tree import tree_map as _tree_map
 
 __all__ = ["init", "params_from_numpy", "forward", "init_cache",
            "cache_axes", "prefill", "decode_step", "n_shared_invocations"]
@@ -47,17 +49,6 @@ def _segments(cfg: ModelConfig) -> list[int]:
 def n_shared_invocations(cfg: ModelConfig) -> int:
     every = cfg.shared_attn_every or cfg.n_layers
     return cfg.n_layers // every
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def _layer(stacked: Params, i: int) -> Params:
-    """Layer ``i``'s parameters: views into the stacked leaves."""
-    return _tree_map(lambda t: t[i], stacked)
 
 
 # --------------------------------------------------------------------------
@@ -93,12 +84,14 @@ def _shared_out(p: Params, h: torch.Tensor, x: torch.Tensor, a: torch.Tensor,
 
 def shared_block_apply(p: Params, h: torch.Tensor, h0: torch.Tensor,
                        positions: torch.Tensor, cfg: ModelConfig, *,
-                       mode: str | None = None) -> torch.Tensor:
+                       mode: str | None = None):
+    """The shared block on a whole sequence: (h, (k, v)), the keys and
+    values its KV cache holds."""
     x = _shared_in(p, h, h0)
-    a = L.attention(p["attn"], L.rms_norm(p["ln1"], x, cfg.norm_eps),
-                    positions, theta=cfg.rope_theta, causal=True,
-                    window=cfg.attn_window, mode=mode)
-    return _shared_out(p, h, x, a, cfg)
+    a, kv = L.attention(p["attn"], L.rms_norm(p["ln1"], x, cfg.norm_eps),
+                        positions, theta=cfg.rope_theta, causal=True,
+                        window=cfg.attn_window, mode=mode)
+    return _shared_out(p, h, x, a, cfg), kv
 
 
 def shared_block_decode(p: Params, h: torch.Tensor, h0: torch.Tensor,
@@ -116,14 +109,6 @@ def shared_block_decode(p: Params, h: torch.Tensor, h0: torch.Tensor,
     return _shared_out(p, h, x, a, cfg), ck, cv
 
 
-def shared_block_kv(p: Params, h: torch.Tensor, h0: torch.Tensor,
-                    positions: torch.Tensor, cfg: ModelConfig):
-    x = _shared_in(p, h, h0)
-    return L.prefill_attention_kv(p["attn"],
-                                  L.rms_norm(p["ln1"], x, cfg.norm_eps),
-                                  positions, theta=cfg.rope_theta)
-
-
 # --------------------------------------------------------------------------
 # assembly
 # --------------------------------------------------------------------------
@@ -137,10 +122,10 @@ def init(generator: torch.Generator, cfg: ModelConfig,
     dtype = getattr(torch, cfg.param_dtype)
     emb = L.init_embedding(generator, cfg.padded_vocab, cfg.d_model, dtype,
                            device)
-    blocks = [M.init_block(generator, cfg, device) for _ in range(cfg.n_layers)]
     p: Params = {
         "embedding": emb,
-        "mamba": _stack(blocks),
+        "mamba": init_stacked(cfg.n_layers,
+                              lambda: M.init_block(generator, cfg, device)),
         "shared": init_shared_block(generator, cfg, device),
         "final_norm": L.init_rms_norm(cfg.d_model, dtype, device),
     }
@@ -148,27 +133,6 @@ def init(generator: torch.Generator, cfg: ModelConfig,
         p["unembed"] = L.init_embedding(generator, cfg.padded_vocab,
                                         cfg.d_model, dtype, device)
     return p
-
-
-def _stack(blocks: list[Params]) -> Params:
-    first = blocks[0]
-    if isinstance(first, dict):
-        return {k: _stack([b[k] for b in blocks]) for k in first}
-    return torch.stack(blocks)
-
-
-def params_from_numpy(tree: Params, device: torch.device | str) -> Params:
-    """The reference's parameter pytree (numpy leaves, e.g. from
-    ``jax.tree.map(np.asarray, params)``) as the port's tensors on
-    ``device``: the same nesting, dtypes kept (bfloat16 leaves arrive as
-    ml_dtypes arrays and are converted exactly through fp32)."""
-    def leaf(a) -> torch.Tensor:
-        a = np.asarray(a)
-        if a.dtype.name == "bfloat16":
-            return torch.from_numpy(a.astype(np.float32)).to(
-                device=device, dtype=torch.bfloat16)
-        return torch.from_numpy(np.array(a)).to(device)
-    return _tree_map(leaf, tree)
 
 
 def _positions(bsz: int, s: int, device: torch.device) -> torch.Tensor:
@@ -191,7 +155,8 @@ def forward(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
             h = M.block_apply(_layer(params["mamba"], i), h, cfg)
         off += seg
         if _is_full(seg, cfg):
-            h = shared_block_apply(params["shared"], h, h0, positions, cfg)
+            h, _ = shared_block_apply(params["shared"], h, h0, positions,
+                                      cfg)
     h = L.rms_norm(params["final_norm"], h, cfg.norm_eps)
     emb = params["embedding"] if cfg.tie_embeddings else params["unembed"]
     return L.unembed(emb, h)
@@ -253,7 +218,8 @@ def prefill(params: Params, batch: dict, cfg: ModelConfig, max_len: int, *,
             conv_tails.append(tail)
         off += seg
         if _is_full(seg, cfg):
-            k, v = shared_block_kv(params["shared"], h, h0, positions, cfg)
+            h, (k, v) = shared_block_apply(params["shared"], h, h0,
+                                           positions, cfg, mode=mode)
             pad = cache_len - k.shape[1]
             if pad >= 0:
                 k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
@@ -262,8 +228,6 @@ def prefill(params: Params, batch: dict, cfg: ModelConfig, max_len: int, *,
                 k, v = k[:, -cache_len:], v[:, -cache_len:]
             ks.append(k)
             vs.append(v)
-            h = shared_block_apply(params["shared"], h, h0, positions, cfg,
-                                   mode=mode)
 
     h = L.rms_norm(params["final_norm"], h, cfg.norm_eps)
     emb = params["embedding"] if cfg.tie_embeddings else params["unembed"]

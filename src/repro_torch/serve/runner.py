@@ -3,7 +3,8 @@ reference ``repro/serve/runner.py``.
 
   * prefill runs batch-1 at the request's own (bucketed) prompt length —
     the prompt lengths come from the traffic generator's small bucket
-    list, snapped to the SSM chunk by ``snap_prompt_buckets``;
+    list, snapped to the SSM chunk by ``snap_prompt_buckets`` for the
+    hybrid (dense and MoE buckets pass through);
   * admission merges the batch-1 prefill cache into the batch cache at the
     target slot only: for each leaf, the rows of ``slot`` along the leaf's
     ``cache_batch`` axis (``model.cache_axes()``) are overwritten in place
@@ -14,8 +15,8 @@ reference ``repro/serve/runner.py``.
 Per-slot ``len`` rows make in-flight sequences independent, and greedy
 argmax decode is row-wise deterministic, so a request's stream is a pure
 function of its prompt.  Everything runs eagerly under
-``torch.inference_mode``; on CUDA every prefill goes through the SSD and
-flash kernels.
+``torch.inference_mode``; on CUDA every prefill goes through the flash
+kernel (and, for the hybrid, the SSD kernel).
 
 ``rebuild`` is the elastic path: on one card the device count stays 1,
 the cache is rebuilt for the new slot count, and the engine restarts

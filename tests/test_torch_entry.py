@@ -129,7 +129,9 @@ def test_port_imports_neither_jax_nor_the_reference_package():
         "repro_torch.exec, repro_torch.core.simulator, "
         "repro_torch.models.zamba2, repro_torch.serve, "
         "repro_torch.launch.serve, repro_torch.checkpoint, "
-        "repro_torch.runtime, repro_torch.launch.elastic_restart\n"
+        "repro_torch.runtime, repro_torch.launch.elastic_restart, "
+        "repro_torch.models.transformer, repro_torch.models.moe, "
+        "repro_torch.models.tree\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

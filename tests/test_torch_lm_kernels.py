@@ -174,8 +174,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         ssd_chunk(x.half(), dt_a, b.half(), b.half())
     with pytest.raises(TypeError, match="mixed dtypes"):
         flash_attention(q, q.bfloat16(), q)
-    with pytest.raises(ValueError, match="no GQA"):
-        flash_attention(q, q[:, :1], q[:, :1])
+    # GQA takes KV dividing H (tests/test_torch_gqa.py); 3 heads do not
+    # divide 2, and keys of another length are cross-attention
+    with pytest.raises(ValueError, match="H % KV == 0"):
+        flash_attention(torch.zeros(1, 3, 8, 16), q, q)
+    with pytest.raises(ValueError, match="no cross-attention"):
+        flash_attention(q, q[:, :, :4], q[:, :, :4])
     with pytest.raises(ValueError, match="D <= 128"):
         big = torch.zeros(1, 1, 4, 130)
         flash_attention(big, big, big)

@@ -97,9 +97,9 @@ def test_attention_matches_reference(cfgs, params):
     want = JL.attention(jp["shared"]["attn"], jnp.asarray(x), jnp.asarray(pos),
                         theta=cfg.rope_theta, causal=True,
                         window=cfg.attn_window)
-    got = L.attention(tp["shared"]["attn"], torch.from_numpy(x),
-                      torch.from_numpy(pos.copy()), theta=cfg.rope_theta,
-                      causal=True, window=cfg.attn_window)
+    got, _ = L.attention(tp["shared"]["attn"], torch.from_numpy(x),
+                         torch.from_numpy(pos.copy()), theta=cfg.rope_theta,
+                         causal=True, window=cfg.attn_window)
     _close(got, want, LAYER_TOL)
 
 
@@ -191,14 +191,17 @@ def test_prefill_cache_and_decode_through_the_ring_wrap(cfgs, params):
 def test_unported_paths_raise(cfgs, params):
     cfg = cfgs[0]
     tp = params[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(cfg.replace(family="dense"))
+    for family in ("ssm", "encdec", "vlm"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_model(cfg.replace(family=family))
     x = torch.zeros(1, cfg.attn_window + 8, cfg.d_model)
     pos = torch.arange(x.shape[1])[None]
     with pytest.raises(NotImplementedError, match="attn_window"):
         L.attention(tp["shared"]["attn"], x, pos, theta=cfg.rope_theta,
                     window=cfg.attn_window)
-    gqa = {k: (v[:, :2] if k in ("wk", "wv") else v)
+    # GQA is ported (tests/test_torch_dense.py); KV heads that do not
+    # divide the query heads are refused by the flash kernel's wrapper
+    gqa = {k: (v[:, :3] if k in ("wk", "wv") else v)
            for k, v in tp["shared"]["attn"].items()}
-    with pytest.raises(NotImplementedError, match="GQA"):
+    with pytest.raises(ValueError, match="H % KV == 0"):
         L.attention(gqa, x[:, :8], pos[:, :8], theta=cfg.rope_theta)

@@ -203,9 +203,9 @@ def test_attention_matches_reference(cfgs, params):
     want = JL.attention(jp["shared"]["attn"], _bf(x), jnp.asarray(pos),
                         theta=cfg.rope_theta, causal=True,
                         window=cfg.attn_window)
-    got = L.attention(tp["shared"]["attn"], _t(_bf(x)),
-                      torch.from_numpy(pos.copy()), theta=cfg.rope_theta,
-                      causal=True, window=cfg.attn_window)
+    got, _ = L.attention(tp["shared"]["attn"], _t(_bf(x)),
+                         torch.from_numpy(pos.copy()), theta=cfg.rope_theta,
+                         causal=True, window=cfg.attn_window)
     assert got.dtype == torch.bfloat16
     _same_but_flips(got, want)
 
