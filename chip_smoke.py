@@ -7,8 +7,10 @@ Builds the seven CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 drives the port's main paths through their own entry points: the
 paper's NN1 (784-1000-500-10) trained with Adam, on one device and as a
 period program on an 8-device ring, that program again losing two of its
-devices and resuming from a checkpoint on the six left, and Zamba2-1.2B,
-qwen3-14b and qwen2-moe-a2.7b served at full width in bf16.  Phases, each
+devices and resuming from a checkpoint on the six left, Zamba2-1.2B,
+qwen3-14b, qwen2-moe-a2.7b and mamba2-2.7b served at full width in bf16,
+and seamless-m4t-large-v2 (full width) and qwen2-vl-72b (full width, cut
+in depth) through their prefill and decode steps.  Phases, each
 printing its own lines; any failure raises and the script exits non-zero
 without a result line:
 
@@ -45,8 +47,12 @@ without a result line:
               against their plain versions at the Zamba2 prefill shapes
               (bf16 and fp32, causal and not, stride-0 B/C; K7 at 1, 4, 8
               and 16 chunks; bf16 within about one bf16 ulp) and at edge
-              shapes; K6 with grouped-query attention at qwen3-14b's
-              prefill shapes (1, 40, S, 128) on 8 KV heads, S = 512, 1024,
+              shapes; K7 at mamba2-2.7b's (16 chunks, 80 heads, N = 128)
+              and at N = 72-128 edges; K6 cross-attention (1, 16, Sq, 64)
+              over 1024 keys, Sq = 128, 512, 2048, with Sq != Sk edges
+              (Sq = 1, 77 over 203, Sq > Sk); K6 at qwen2-vl-72b's
+              (1, 64, 2048, 128) on 8 KV heads; K6 with grouped-query
+              attention at qwen3-14b's prefill shapes (1, 40, S, 128) on 8 KV heads, S = 512, 1024,
               2048, and at groups of 1, 4 and 5 with S = 1, 100, 300 and
               D = 64, 128; with kernel, plain, SDPA (``enable_gqa``) and
               bound times (K7's bound
@@ -124,6 +130,34 @@ without a result line:
               expert choices that differ between the paths are counted and
               the greedy-token rule held; with the kernel path's choices
               replayed in the plain path, the logits within phase 9's bar
+
+ 15. ssm      mamba2-2.7b (64 attention-free Mamba2 layers, d_model 2560,
+              80 heads of 64, state 128, tied embeddings; 2.7 B
+              parameters), full width and depth, bf16: 8 requests of
+              Zamba2's traffic on 4 slots, K7 launched 64 times and K6 never
+              per prefill; a profiled 2048-token prefill and decode step;
+              the kernel path against the plain path: fp32 at full depth,
+              512 tokens and 8 greedy steps, 1e-3; bf16 at 2048 tokens,
+              each layer fed the plain path's input within phase 9's bar,
+              the free-running logits within the larger of that bar and
+              twice the plain path's own drift with its SSD sum reordered,
+              and the greedy-token rule
+ 16. encdec   seamless-m4t-large-v2 (24 encoder + 24 decoder layers, 16
+              heads of 64, d_ff 8192, vocab 256206; 2.0 B parameters), full
+              width and depth, bf16, through ``get_model(cfg).prefill`` and
+              ``decode_step`` (the serving runner refuses it, as the
+              reference's): 1024 random frame embeddings and a 512-token
+              prompt, K6 launched 72 times (24 encoder, 24 causal decoder,
+              24 cross-attention of 512 queries over 1024 frames), 16
+              greedy steps; profiled prefill and decode step; peak memory;
+              the kernel path against the plain path: bf16 at 1024/512,
+              fp32 at 512/256 with 8 greedy steps
+ 17. vlm      qwen2-vl-72b (64 heads on 8 KV heads of 128, d_ff 29568,
+              M-RoPE 16/24/24), full width cut to 8 of 80 layers (9.5 B
+              parameters, 19 GB in bf16): a 32 x 64 image grid's
+              embeddings at their M-RoPE positions (2048), K6 launched 8
+              times, 8 greedy steps; profiled prefill and decode step; the
+              bf16 kernel path against the plain path
 
 The last three lines are a JSON object of per-kernel numbers, the card's
 name and power limit as nvidia-smi reports them, and the result object.
@@ -816,10 +850,21 @@ BF16_LOGIT_RTOL = 4e-2
 ARCH = "zamba2-1.2b"
 DENSE_ARCH = "qwen3-14b"
 MOE_ARCH = "qwen2-moe-a2.7b"
+SSM_ARCH = "mamba2-2.7b"
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+VLM_ARCH = "qwen2-vl-72b"
 SERVE_BUCKETS = (512, 1024, 2048)
-# the K6 shape of each serving path's 2048-token prefill: (B, H, KV, S, D)
-K6_PATHS = {ARCH: (1, 32, 32, 2048, 64), DENSE_ARCH: (1, 40, 8, 2048, 128),
-            MOE_ARCH: (1, 16, 16, 2048, 128)}
+# the K6 shape of each path's prefill: (B, H, KV, Sq, D, Sk, causal); the
+# encoder-decoder's is its cross-attention (512 decoder tokens over 1024
+# encoder frames, phase 16)
+K6_PATHS = {ARCH: (1, 32, 32, 2048, 64, 2048, True),
+            DENSE_ARCH: (1, 40, 8, 2048, 128, 2048, True),
+            MOE_ARCH: (1, 16, 16, 2048, 128, 2048, True),
+            ENCDEC_ARCH: (1, 16, 16, 512, 64, 1024, False),
+            VLM_ARCH: (1, 64, 8, 2048, 128, 2048, True)}
+# the K7 shape of each path's 2048-token prefill: (BC, Q, H, P, N), one
+# B/C group broadcast to the heads (stride 0)
+K7_PATHS = {ARCH: (16, 128, 64, 64, 64), SSM_ARCH: (16, 128, 80, 64, 128)}
 
 
 def _close(torch, out, want, fp32_rtol, slack) -> tuple[bool, float, str]:
@@ -875,21 +920,23 @@ def lm_kernel_cases(torch, dev, gen):
     def rand(*shape, dtype=torch.float32, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
 
-    def flash_case(b, h, s, d, dtype, causal, timed, kv=None):
+    def flash_case(b, h, s, d, dtype, causal, timed, kv=None, sk=None):
         # the model's layout: (B, S, H, D) projections seen as (B, H, S, D);
-        # k and v with kv heads (GQA, h // kv query heads a group)
-        kv = kv or h
+        # k and v with kv heads (GQA, h // kv query heads a group) and sk
+        # rows (cross-attention where sk != s)
+        kv, sk = kv or h, sk or s
         q = rand(b, s, h, d, dtype=dtype).transpose(1, 2)
-        k, v = (rand(b, s, kv, d, dtype=dtype).transpose(1, 2)
+        k, v = (rand(b, sk, kv, d, dtype=dtype).transpose(1, 2)
                 for _ in range(2))
         e = q.element_size()
-        pairs = s * (s + 1) // 2 if causal else s * s
+        pairs = s * (s + 1) // 2 if causal else s * sk
         rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
-        label = (f"({b},{h},{s},{d}){f' kv {kv}' if kv != h else ''} "
+        label = (f"({b},{h},{s},{d}){f' kv {kv}' if kv != h else ''}"
+                 f"{f' over Sk {sk}' if sk != s else ''} "
                  f"{str(dtype)[6:]} {'causal' if causal else 'full'}")
         path = [a for a, shape in K6_PATHS.items()
-                if (b, h, kv, s, d) == shape and dtype == torch.bfloat16
-                and causal]
+                if (b, h, kv, s, d, sk, causal) == shape
+                and dtype == torch.bfloat16]
         yield LMCase(
             "flash_attention", label,
             lambda: flash_attention(q, k, v, causal),
@@ -897,8 +944,8 @@ def lm_kernel_cases(torch, dev, gen):
             lambda: BF16_ULP * ref.flash_attention_ref(
                 q.float(), k.float(), v.float().abs(), causal),
             lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=kv != h),
-            2 * b * (h + kv) * s * d * e, 4 * b * h * pairs * d, rate, timed,
-            path[0] if path else "")
+            2 * b * (h * s + kv * sk) * d * e, 4 * b * h * pairs * d, rate,
+            timed, path[0] if path else "")
 
     def ssd_case(bc, q, h, p, n, dtype, shared_bc, timed):
         x = rand(bc, q, h, p, dtype=dtype)
@@ -922,14 +969,16 @@ def lm_kernel_cases(torch, dev, gen):
             _build.extension().ssd_chunk(x, dt_a, b, c, y, state, decay, heads)
             return y, state, decay
 
+        path = [a for a, shape in K7_PATHS.items()
+                if (bc, q, h, p, n) == shape and bf16 and shared_bc]
         yield LMCase(
             "ssd_chunk", label,
             lambda: ssd_chunk(x, dt_a, b, c),
             lambda: ref.ssd_chunk_ref(x, dt_a, b, c),
             None, None, nbytes, flops,
             BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S, timed,
-            ARCH if (bc, bf16, shared_bc) == (16, True, True) else "",
-            ssd_plan(bc, h, q, shared_bc) if bf16 else None,
+            path[0] if path else "",
+            ssd_plan(bc, h, q, shared_bc, n) if bf16 else None,
             forced if bf16 and timed else None)
 
     for dtype in (torch.bfloat16, torch.float32):
@@ -952,10 +1001,33 @@ def lm_kernel_cases(torch, dev, gen):
                                    (2, 4, 1, 100, 64), (1, 5, 1, 1, 64),
                                    (1, 20, 4, 300, 64), (1, 40, 8, 100, 128)):
                 yield from flash_case(b, h, s, d, dtype, causal, False, kv)
+        # cross-attention (seamless-m4t-large-v2: 16 heads of 64 over 1024
+        # encoder frames, not causal), then Sq != Sk at the edges: one
+        # query, ragged lengths, more queries than keys, GQA, D = 128
+        for s in (128, 512, 2048):
+            yield from flash_case(1, 16, s, 64, dtype, False, True, sk=1024)
+        for b, h, kv, s, d, sk in ((1, 16, 16, 1, 64, 1024),
+                                   (1, 4, 4, 77, 64, 203),
+                                   (2, 4, 4, 300, 64, 100),
+                                   (1, 8, 2, 77, 128, 203),
+                                   (2, 6, 3, 129, 32, 1),
+                                   (1, 4, 4, 1, 128, 1)):
+            yield from flash_case(b, h, s, d, dtype, False, False, kv, sk)
+        # qwen2-vl-72b's prefill: 64 query heads on 8 KV heads of 128 (G = 8)
+        yield from flash_case(1, 64, 2048, 128, dtype, True, True, kv=8)
         # one 128-token chunk, then the 512/1024/2048-token prompt buckets
         for bc in (1, 4, 8, 16):
             yield from ssd_case(bc, 128, 64, 64, 64, dtype, True, True)
+        # mamba2-2.7b's 512/1024/2048-token prefills: 80 heads, N = 128
+        for bc in (4, 8, 16):
+            yield from ssd_case(bc, 128, 80, 64, 128, dtype, True, True)
         for shape in ((2, 16, 8, 8, 4), (1, 32, 4, 16, 8), (3, 8, 16, 8, 16)):
+            yield from ssd_case(*shape, dtype, False, False)
+            yield from ssd_case(*shape, dtype, True, False)
+        # N > 64 at the edges: ragged chunk, N = 96, per-head B/C, P < 64
+        for shape in ((2, 100, 8, 64, 128), (3, 128, 4, 64, 96),
+                      (2, 77, 6, 32, 128), (1, 128, 3, 64, 72),
+                      (1, 64, 2, 30, 90)):
             yield from ssd_case(*shape, dtype, False, False)
             yield from ssd_case(*shape, dtype, True, False)
 
@@ -1052,13 +1124,20 @@ def run_lm_kernel_phase(torch, dev) -> dict:
 
 def launches_per_prefill(cfg) -> dict[str, int]:
     """K6 and K7 launches of one prefill: the hybrid's shared-attention
-    invocations and Mamba layers; one K6 per layer of a dense or MoE
-    stack."""
+    invocations and Mamba layers; one K7 per layer of the Mamba2 LM; one K6
+    per encoder layer and two per decoder layer (self- and
+    cross-attention) of the encoder-decoder; one K6 per layer of a dense,
+    MoE or VLM stack."""
     from repro_torch.models.zamba2 import n_shared_invocations
 
     if cfg.family == "hybrid":
         return {"flash_attention": n_shared_invocations(cfg),
                 "ssd_chunk": cfg.n_layers}
+    if cfg.family == "ssm":
+        return {"flash_attention": 0, "ssd_chunk": cfg.n_layers}
+    if cfg.family == "encdec":
+        return {"flash_attention": cfg.n_encoder_layers + 2 * cfg.n_layers,
+                "ssd_chunk": 0}
     return {"flash_attention": cfg.n_layers, "ssd_chunk": 0}
 
 
@@ -1108,17 +1187,22 @@ def run_serve_phase(torch, dev, arch: str = ARCH,
         check(launches[name] == per[name] * n_prefill,
               f"{name} launched {launches[name]} times, expected "
               f"{per[name]} per prefill x {n_prefill}")
-    check(launches["flash_attention"] > 0, "flash_attention never launched")
+        if per[name]:
+            check(launches[name] > 0, f"{name} never launched")
     return {name: launches[name] for name in LM_KERNELS}
 
 
-def run_prefill_profile(torch, dev, model, params, tokens) -> None:
+def run_prefill_profile(torch, dev, model, params, tokens, batch=None,
+                        max_len=None, what=None) -> None:
     """Where a 2048-token prefill's time goes: host ms with the profiler
-    off, then device time of K6, K7 and everything from torch.profiler."""
+    off, then device time of K6, K7 and everything from torch.profiler.
+    ``batch``, ``max_len`` and ``what`` replace the token prompt's batch,
+    cache depth and name (the encoder-decoder's and VLM's inputs)."""
     from torch.profiler import ProfilerActivity, profile
 
-    batch = {"tokens": tokens}
-    max_len = tokens.shape[1] + 16
+    batch = batch or {"tokens": tokens}
+    max_len = max_len or tokens.shape[1] + 16
+    what = what or f"{tokens.shape[1]}-token prefill"
     reps = 3
     with torch.inference_mode():
         model.prefill(params, batch, max_len)
@@ -1132,8 +1216,7 @@ def run_prefill_profile(torch, dev, model, params, tokens) -> None:
                                  ProfilerActivity.CUDA]) as prof:
             model.prefill(params, batch, max_len)
             torch.cuda.synchronize()
-    print(f"{tokens.shape[1]}-token prefill, profiler off: {host_ms:.3f} ms "
-          f"(mean of {reps})")
+    print(f"{what}, profiler off: {host_ms:.3f} ms (mean of {reps})")
     rows = device_rows(prof)
     if not rows:
         print("device time: not measured (the profiler recorded no device "
@@ -1197,14 +1280,17 @@ def run_mlp_timing(torch, dev, cfg, params, tokens: int) -> None:
           f"{calls * whole['fp32 products']:.3f} ms")
 
 
-def run_decode_profile(torch, dev, model, params) -> None:
+def run_decode_profile(torch, dev, model, params, cache=None) -> None:
     """Where a batched decode step's time goes: 4 slots each 2048 tokens
-    deep in a cache sized as the serving run's."""
+    deep in a cache sized as the serving run's, or the rows of ``cache``
+    (a prefill's) at their depth."""
     from torch.profiler import ProfilerActivity, profile
 
     slots, depth, steps = 4, max(SERVE_BUCKETS), 10
-    cache = model.init_cache(slots, depth + 16, dev)
-    cache["len"].fill_(depth)
+    if cache is None:
+        cache = model.init_cache(slots, depth + 16, dev)
+        cache["len"].fill_(depth)
+    slots, depth = cache["len"].shape[0], int(cache["len"][0])
     batch = {"tokens": torch.zeros((slots, 1), dtype=torch.int64, device=dev)}
     with torch.inference_mode():
         for _ in range(3):
@@ -1245,6 +1331,21 @@ def run_parity_phase(torch, dev, model_bf16, params_bf16, tokens_2048,
     """``arch``'s kernel path against its plain path: fp32 at full width
     (cut to ``fp32_layers`` layers where given), then bf16 at full depth
     from ``params_bf16``."""
+    run_fp32_parity(torch, dev, tokens_2048, arch, fp32_layers)
+    # bf16, full width, 2048-token prompt
+    with torch.inference_mode():
+        batch = {"tokens": tokens_2048}
+        lk, _ = model_bf16.prefill(params_bf16, batch, 2064)
+        lp, _ = model_bf16.prefill(params_bf16, batch, 2064, mode="ref")
+    bf16_logit_check(torch, lk, lp, f"bf16 {tokens_2048.shape[1]}-token "
+                                    f"prefill")
+
+
+def run_fp32_parity(torch, dev, tokens_2048, arch: str,
+                    fp32_layers: int | None = None) -> None:
+    """``arch`` in fp32 at full width (cut to ``fp32_layers`` layers where
+    given): a 512-token prefill and 8 greedy steps, kernel path against
+    plain path within 1e-3 of the largest logit."""
     from repro_torch.configs import get_config
     from repro_torch.models.api import get_model
 
@@ -1281,14 +1382,6 @@ def run_parity_phase(torch, dev, model_bf16, params_bf16, tokens_2048,
             print(f"fp32 cache {key}: max_abs {a:.3e} max_rel {r:.3e}")
     del p32, ck, cp
     free_device_memory(torch)
-
-    # bf16, full width, 2048-token prompt
-    with torch.inference_mode():
-        batch = {"tokens": tokens_2048}
-        lk, _ = model_bf16.prefill(params_bf16, batch, 2064)
-        lp, _ = model_bf16.prefill(params_bf16, batch, 2064, mode="ref")
-    bf16_logit_check(torch, lk, lp, f"bf16 {tokens_2048.shape[1]}-token "
-                                    f"prefill")
 
 
 def bf16_logit_check(torch, lk, lp, what: str) -> None:
@@ -1479,6 +1572,327 @@ def run_moe_parity(torch, dev, cfg) -> None:
           f"{diff / scale:.3e}; greedy token kernel {tk} plain {tp}")
     bf16_logit_check(torch, lk, lpin, f"{what}, the kernel path's expert "
                                       f"choices replayed")
+
+
+# ------------------------------------------------------- phases 15-17
+
+# phase 16's prompt: encoder frames and decoder tokens, bf16; its fp32
+# parity halves both
+ENCDEC_FRAMES, ENCDEC_TOKENS, ENCDEC_STEPS = 1024, 512, 16
+# phase 17 runs qwen2-vl-72b at full width cut to this many of its 80
+# layers: the 8 layers and the two 152064 x 8192 tables are 9.5 B
+# parameters (19 GB in bf16); all 80 layers would need ~144 GB
+VLM_LAYERS = 8
+VLM_GRID = (1, 32, 64)      # (t, h, w) patches: 2048 positions
+VLM_STEPS = 8
+
+
+def run_prefill_path(torch, dev, cfg, model, params, batch, max_len: int,
+                     steps: int, what: str) -> dict[str, int]:
+    """One model through ``get_model(cfg)``'s prefill and decode steps: a
+    timed prefill (after a warm-up) whose K6/K7 launches must equal
+    ``launches_per_prefill(cfg)`` (counters reset just before), ``steps``
+    greedy decode steps, the peak memory, a profiled prefill and decode
+    step, and the bf16 kernel path against the plain path (the logit bar
+    and greedy-token rule).  Returns the prefill's launch counts."""
+    from repro_torch.kernels import ops
+
+    with torch.inference_mode():
+        model.prefill(params, batch, max_len)      # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, batch, max_len)
+        torch.cuda.synchronize()
+        ttft = (time.perf_counter() - t0) * 1e3
+        launches = {n: ops.launch_counts()[n] for n in LM_KERNELS}
+        t0 = time.perf_counter()
+        toks = _greedy(torch, model, params, logits, cache, steps)
+        torch.cuda.synchronize()
+        tpot = (time.perf_counter() - t0) * 1e3 / steps
+    per = launches_per_prefill(cfg)
+    n_params = sum(t.numel() for t in _leaves(params))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{what}: {n_params / 1e9:.3f} B parameters; prefill {ttft:.3f} "
+          f"ms, then {steps} greedy decode steps at {tpot:.3f} ms each (host "
+          f"clock); tokens {toks[:8]}; launches {launches} (expected {per})")
+    print(f"peak device memory {peak / 1e9:.3f} GB (< 80 GB)")
+    check(launches == per, f"{what}: launches {launches}, expected {per}")
+    check(peak < 80e9, f"peak device memory {peak / 1e9:.3f} GB >= 80 GB")
+    run_prefill_profile(torch, dev, model, params, None, batch=batch,
+                        max_len=max_len, what=f"{what} prefill")
+    with torch.inference_mode():
+        _, cache = model.prefill(params, batch, max_len)
+    run_decode_profile(torch, dev, model, params, cache)
+    del cache
+    with torch.inference_mode():
+        lk, _ = model.prefill(params, batch, max_len)
+        lp, _ = model.prefill(params, batch, max_len, mode="ref")
+    bf16_logit_check(torch, lk, lp, f"{what} bf16 prefill")
+    return launches
+
+
+def ssm_path_phase(torch, dev) -> dict[str, int]:
+    """Phase 15: mamba2-2.7b served at full width and depth, a profiled
+    2048-token prefill and decode step, and its kernel path against its
+    plain path (fp32 at 512 tokens, bf16 at 2048); returns the serving
+    run's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import get_model
+
+    launches = run_serve_phase(torch, dev, SSM_ARCH, 8)
+    free_device_memory(torch)
+    cfg = get_config(SSM_ARCH)
+    model = get_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.inference_mode():
+        params = model.init(gen, dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"{SSM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.ssm_heads} heads of {cfg.ssm_headdim}, N {cfg.ssm_state}, "
+          f"{n_params / 1e9:.3f} B parameters")
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen,
+                           device=dev)
+    run_prefill_profile(torch, dev, model, params, tokens)
+    run_decode_profile(torch, dev, model, params)
+    run_fp32_parity(torch, dev, tokens, SSM_ARCH)
+    run_ssm_bf16_parity(torch, cfg, model, params, tokens)
+    del params
+    free_device_memory(torch)
+    return launches
+
+
+# how far the free-running bf16 kernel path may drift from the plain path,
+# as a multiple of the plain path's own drift when its intra-chunk sum runs
+# in another fp32 order (the noise floor of the model's bf16 roundings)
+SSM_DRIFT_FACTOR = 2.0
+
+
+def reordered_ssd_chunk_ref(x, dt_a, b, c):
+    """The plain version of K7 (``ref.ssd_chunk_ref``) with its y sum over
+    the chunk's source rows taken in two halves and then added: the same
+    function, equally exact in fp32, rounded elsewhere."""
+    import torch
+
+    q = x.shape[1]
+    xf, bf = x.float(), b.float()
+    cs = torch.cumsum(dt_a.float(), dim=1)
+    seg = cs[:, :, None, :] - cs[:, None, :, :]
+    mask = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    lmat = torch.where(mask[None, :, :, None], torch.exp(seg),
+                       torch.zeros((), device=x.device))
+    w = torch.einsum("bthn,bshn->btsh", c.float(), bf) * lmat
+    half = q // 2
+    y = (torch.einsum("btsh,bshp->bthp", w[:, :, half:], xf[:, half:])
+         + torch.einsum("btsh,bshp->bthp", w[:, :, :half], xf[:, :half]))
+    state = torch.einsum("bshn,bsh,bshp->bhpn", bf,
+                         torch.exp(cs[:, -1:, :] - cs), xf)
+    return y.to(x.dtype), state, torch.exp(cs)
+
+
+def run_ssm_bf16_parity(torch, cfg, model, params, tokens) -> None:
+    """The Mamba2 LM's bf16 kernel path against its plain path at 2048
+    tokens.  Free-running, a one-ulp flip of a bf16 rounding in one layer
+    moves every later layer's input, and 64 layers of random weights
+    amplify it: the plain path with its own intra-chunk sum reordered
+    (``reordered_ssd_chunk_ref``) drifts about as far as the kernel path.
+    So the free-running logits are held to the greedy-token rule and to
+    BF16_LOGIT_RTOL of the largest logit or, where the noise floor is above
+    half that, to SSM_DRIFT_FACTOR times the floor; and BF16_LOGIT_RTOL
+    holds layer by layer: each layer of the kernel path, fed the plain
+    path's hidden state, within it of the plain layer's largest output."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba2 as M
+    from repro_torch.models.tree import layer
+
+    what = f"{SSM_ARCH} bf16 {tokens.shape[1]}-token prefill"
+    batch, max_len = {"tokens": tokens}, tokens.shape[1] + 16
+    plain_ssd = ref.ssd_chunk_ref
+    with torch.inference_mode():
+        lk, _ = model.prefill(params, batch, max_len)
+        lp, _ = model.prefill(params, batch, max_len, mode="ref")
+        try:
+            ref.ssd_chunk_ref = reordered_ssd_chunk_ref
+            lo, _ = model.prefill(params, batch, max_len, mode="ref")
+        finally:
+            ref.ssd_chunk_ref = plain_ssd
+        h = L.embed(params["embedding"], tokens)
+        per_layer = []
+        for i in range(cfg.n_layers):
+            lp_i = layer(params["layers"], i)
+            hk = M.block_apply(lp_i, h, cfg)
+            h = M.block_apply(lp_i, h, cfg, mode="ref")
+            per_layer.append(((hk.float() - h.float()).abs().max()
+                              / h.float().abs().max()).item())
+    scale = lp.abs().max().item()
+    drift = (lk - lp).abs().max().item()
+    floor = (lo - lp).abs().max().item()
+    top2 = torch.topk(lp[0, -1], 2).values
+    gap = (top2[0] - top2[1]).item()
+    tk, tp = int(torch.argmax(lk[0, -1])), int(torch.argmax(lp[0, -1]))
+    bar = max(BF16_LOGIT_RTOL * scale, SSM_DRIFT_FACTOR * floor)
+    print(f"{what}, free-running: max |dlogit| {drift:.4e} of max |logit| "
+          f"{scale:.3f} = {drift / scale:.3e}; the plain path with its "
+          f"intra-chunk sum reordered: {floor / scale:.3e} (noise floor), "
+          f"the kernel path at {drift / max(floor, 1e-30):.2f} times it; "
+          f"held to {bar / scale:.3e} (the larger of {BF16_LOGIT_RTOL:g} and "
+          f"{SSM_DRIFT_FACTOR:g} x the floor); plain top-2 gap {gap:.4e}; "
+          f"greedy token kernel {tk} plain {tp}")
+    check(drift <= bar, "bf16 kernel-path logits drift past the larger of "
+                        "the logit bar and twice the noise floor")
+    if gap > 2 * drift:
+        check(tk == tp, "bf16 greedy token differs where the top-2 gap "
+                        "exceeds twice the logit difference")
+    worst = max(per_layer)
+    print(f"{what}, layer by layer (each kernel-path layer fed the plain "
+          f"path's hidden state), max |dh| / max |h| by layer: "
+          + " ".join(f"{r:.1e}" for r in per_layer[::8])
+          + f"; worst {worst:.3e} (<= {BF16_LOGIT_RTOL:g})")
+    check(worst <= BF16_LOGIT_RTOL,
+          "a bf16 kernel-path layer disagrees with the plain path")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _greedy(torch, model, params, logits, cache, steps: int) -> list[int]:
+    """``steps`` greedy decode steps from a prefill's logits and cache; the
+    tokens chosen (of row 0)."""
+    out = []
+    for _ in range(steps):
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        out.append(int(tok[0, 0]))
+        logits, cache = model.decode_step(params, cache, {"tokens": tok})
+    return out
+
+
+def encdec_batch(torch, dev, cfg, gen, frames: int, tokens: int) -> dict:
+    """Random frame embeddings (the front end's stub, at the scale of the
+    token embeddings) and decoder tokens."""
+    emb = torch.randn((1, frames, cfg.d_model), generator=gen, device=dev)
+    return {"enc_embeds": (emb * 0.02).to(getattr(torch, cfg.dtype)),
+            "dec_tokens": torch.randint(0, cfg.vocab_size, (1, tokens),
+                                        generator=gen, device=dev)}
+
+
+def encdec_path_phase(torch, dev) -> dict[str, int]:
+    """Phase 16: seamless-m4t-large-v2 at full width and depth through
+    ``get_model(cfg).prefill``/``decode_step`` (the serving runner refuses
+    the encoder-decoder, as the reference's does), then in fp32 at full
+    width and depth on half the frames and tokens; returns the launch
+    counts of the measured prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import get_model
+
+    cfg = get_config(ENCDEC_ARCH)
+    model = get_model(cfg)
+    print(f"{ENCDEC_ARCH}: {cfg.n_encoder_layers} + {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.resolved_head_dim}; {ENCDEC_FRAMES} frames, "
+          f"{ENCDEC_TOKENS} tokens")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    free_device_memory(torch)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        params = model.init(gen, dev)
+        batch = encdec_batch(torch, dev, cfg, gen, ENCDEC_FRAMES,
+                             ENCDEC_TOKENS)
+    launches = run_prefill_path(torch, dev, cfg, model, params, batch,
+                                ENCDEC_TOKENS + 32, ENCDEC_STEPS,
+                                f"{ENCDEC_ARCH} {ENCDEC_FRAMES}-frame, "
+                                f"{ENCDEC_TOKENS}-token")
+    del params
+    free_device_memory(torch)
+    # fp32 at full width and depth: 512 frames / 256 tokens, 8 greedy steps
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    m32 = get_model(cfg32)
+    with torch.inference_mode():
+        gen = torch.Generator(device=dev).manual_seed(1)
+        p32 = m32.init(gen, dev)
+        b32 = encdec_batch(torch, dev, cfg32, gen, ENCDEC_FRAMES // 2,
+                           ENCDEC_TOKENS // 2)
+        lk, ck = m32.prefill(p32, b32, ENCDEC_TOKENS // 2 + 16)
+        lp, cp = m32.prefill(p32, b32, ENCDEC_TOKENS // 2 + 16, mode="ref")
+        for step in range(9):
+            diff = (lk - lp).abs().max().item()
+            scale = lp.abs().max().item()
+            print(f"{ENCDEC_ARCH} fp32 {ENCDEC_FRAMES // 2} frames, "
+                  f"{ENCDEC_TOKENS // 2} tokens, "
+                  f"{'prefill' if step == 0 else f'decode {step}'}: max "
+                  f"|dlogit| {diff:.3e} of max |logit| {scale:.3f} = "
+                  f"{diff / scale:.3e} (<= 1e-3)")
+            check(diff <= 1e-3 * scale, "fp32 encoder-decoder kernel-path "
+                                        "logits disagree with the plain path")
+            if step == 8:
+                break
+            tok = torch.argmax(lp[:, -1], dim=-1)[:, None]
+            lk, ck = m32.decode_step(p32, ck, {"tokens": tok})
+            lp, cp = m32.decode_step(p32, cp, {"tokens": tok})
+        for key in ("k", "v", "mem_k", "mem_v"):
+            a, r = errors(ck[key], cp[key])
+            print(f"fp32 cache {key}: max_abs {a:.3e} max_rel {r:.3e}")
+    del p32, ck, cp
+    free_device_memory(torch)
+    return launches
+
+
+def vlm_path_phase(torch, dev) -> dict[str, int]:
+    """Phase 17: qwen2-vl-72b at full width cut to VLM_LAYERS layers, a
+    prefill of an image grid's embeddings at their M-RoPE positions and
+    greedy decode steps, its bf16 kernel path against its plain path;
+    returns the launch counts of the measured prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import vlm
+    from repro_torch.models.api import get_model
+
+    full = get_config(VLM_ARCH)
+    cfg = full.replace(n_layers=VLM_LAYERS)
+    print(f"{VLM_ARCH} at full width (d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads on {cfg.n_kv_heads} KV heads of {cfg.resolved_head_dim}, "
+          f"d_ff {cfg.d_ff}, M-RoPE {cfg.mrope_sections}), cut to "
+          f"{VLM_LAYERS} of {full.n_layers} layers: all of them would need "
+          f"~144 GB in bf16")
+    model = get_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    free_device_memory(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t, h, w = VLM_GRID
+    with torch.inference_mode():
+        params = model.init(gen, dev)
+        emb = torch.randn((1, t * h * w, cfg.d_model), generator=gen,
+                          device=dev)
+        batch = {"embeds": (emb * 0.02).to(torch.bfloat16),
+                 "positions": vlm.make_image_positions(1, t, h, w, dev)}
+    launches = run_prefill_path(torch, dev, cfg, model, params, batch,
+                                t * h * w + 16, VLM_STEPS,
+                                f"{VLM_ARCH} ({VLM_LAYERS} layers) "
+                                f"{t}x{h}x{w}-patch grid")
+    del params
+    free_device_memory(torch)
+    return launches
+
+
+def family_path_phases(torch, dev) -> dict[str, dict[str, int]]:
+    """Phases 15-17; returns each path's K6/K7 launch counts by arch (the
+    serving run's for mamba2-2.7b, one prefill's for the others)."""
+    phase(15, f"serve {SSM_ARCH}, full width, bf16, 8 requests on 4 slots; "
+              f"kernel path against plain path")
+    launches = {SSM_ARCH: ssm_path_phase(torch, dev)}
+    phase(16, f"{ENCDEC_ARCH}, full width, bf16: prefill of "
+              f"{ENCDEC_FRAMES} frames and {ENCDEC_TOKENS} tokens, "
+              f"{ENCDEC_STEPS} decode steps; kernel path against plain path")
+    launches[ENCDEC_ARCH] = encdec_path_phase(torch, dev)
+    phase(17, f"{VLM_ARCH}, full width cut to {VLM_LAYERS} layers, bf16: "
+              f"image-grid prefill, {VLM_STEPS} decode steps; kernel path "
+              f"against plain path")
+    launches[VLM_ARCH] = vlm_path_phase(torch, dev)
+    return launches
 
 
 # -------------------------------------------------------------- phase 10
@@ -1917,6 +2331,7 @@ def main() -> int:
     run_recovery_phase(torch, dev, executor, smi)
 
     dense_launches = dense_path_phases(torch, dev)
+    family_launches = family_path_phases(torch, dev)
 
     kernels = []
     for name in FCNN_KERNELS:
@@ -1937,7 +2352,8 @@ def main() -> int:
         source, replaces = KERNEL_INFO[name]
         s = lm_summary[name]
         paths = s["paths"]
-        for arch, counts in ((ARCH, lm_launches), *dense_launches.items()):
+        for arch, counts in ((ARCH, lm_launches), *dense_launches.items(),
+                             *family_launches.items()):
             if counts[name]:
                 paths.setdefault(arch, {})["launches"] = counts[name]
         kernels.append({
@@ -1954,9 +2370,10 @@ def main() -> int:
           "of one NN1 training step (the [NN1 step] lines of phase 3); K6/K7 "
           "per call at the shape of a 2048-token Zamba2 prefill (the "
           "[zamba2-1.2b serving path] lines of phase 7), launches from "
-          "phases 5 and 8; under \"paths\", K6 at each serving path's "
-          "2048-token prefill shape (phase 7) and its launches in that "
-          "path's serving run (phases 8, 12 and 14)")
+          "phases 5 and 8; under \"paths\", K6 and K7 at each path's "
+          "prefill shape (phase 7; seamless-m4t-large-v2: its "
+          "cross-attention) and their launches in that path's serving run "
+          "(phases 8, 12, 14 and 15) or one prefill (phases 16 and 17)")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -17,9 +17,12 @@ from repro_torch.configs.nn_benchmarks import (  # noqa: F401
 from repro_torch.configs import (  # noqa: F401,E402
     granite_3_2b,
     granite_moe_1b,
+    mamba2_2_7b,
     qwen1_5_110b,
     qwen2_5_14b,
     qwen2_moe_a2_7b,
+    qwen2_vl_72b,
     qwen3_14b,
+    seamless_m4t_large_v2,
     zamba2_1_2b,
 )

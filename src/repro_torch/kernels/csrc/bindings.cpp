@@ -32,8 +32,8 @@ cudaError_t launch_xent_dlogits(const void* logits, const int* labels,
 cudaError_t launch_empty(cudaStream_t s);
 cudaError_t launch_flash_attention(const void* q, const void* k, const void* v,
                                    void* o, const long long* st, int B, int H,
-                                   int KV, int S, int D, int causal, int bf16,
-                                   cudaStream_t stream);
+                                   int KV, int Sq, int Sk, int D, int causal,
+                                   int bf16, cudaStream_t stream);
 cudaError_t launch_ssd_chunk(const void* x, const float* dt_a, const void* b,
                              const void* c, void* y, float* state,
                              float* decay, const long long* st, int BC, int Q,
@@ -123,8 +123,8 @@ void launch_floor() {
                "empty kernel");
 }
 
-// q, o (B, H, S, D) and k, v (B, KV, S, D), H a multiple of KV (GQA), read
-// and written through their strides
+// q, o (B, H, Sq, D) and k, v (B, KV, Sk, D), H a multiple of KV (GQA),
+// Sk = Sq where causal; read and written through their strides
 void flash_attention(const torch::Tensor& q, const torch::Tensor& k,
                      const torch::Tensor& v, torch::Tensor o, bool causal) {
   const c10::cuda::CUDAGuard guard(q.device());
@@ -134,8 +134,9 @@ void flash_attention(const torch::Tensor& q, const torch::Tensor& k,
     for (int d = 0; d < 3; ++d) st[3 * i + d] = ts[i]->stride(d);
   check_launch(launch_flash_attention(
                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), st,
-                   q.size(0), q.size(1), k.size(1), q.size(2), q.size(3), causal,
-                   q.scalar_type() == at::kBFloat16, stream_of(q)),
+                   q.size(0), q.size(1), k.size(1), q.size(2), k.size(2),
+                   q.size(3), causal, q.scalar_type() == at::kBFloat16,
+                   stream_of(q)),
                "flash_attention");
 }
 

@@ -7,10 +7,13 @@
 // sum l and the output accumulator in fp32), masked scores at -1e30 and
 // the probabilities rounded to v's dtype before the PV product, as the
 // TPU kernel and the model's _sdpa do.  k and v may have fewer heads than q
-// (grouped-query attention, the model's _sdpa contract): q is (B, H, S, D),
-// k and v (B, KV, S, D) with H a multiple of KV, and query head h reads KV
+// (grouped-query attention, the model's _sdpa contract): q is (B, H, Sq, D),
+// k and v (B, KV, Sk, D) with H a multiple of KV, and query head h reads KV
 // head h / (H / KV) in place, with no copy of K or V per group; the TPU
-// kernel itself took equal heads.  Two instantiations, chosen by
+// kernel itself took equal heads.  Sk may differ from Sq when the
+// attention is not causal (the encoder-decoder's cross-attention: the
+// decoder's queries over the encoder's frames); causal attention needs
+// Sq = Sk, and the launcher refuses anything else.  Two instantiations, chosen by
 // dtype (neither stands in for the other):
 //
 //   bf16  flash_fwd_wgmma_kernel (namespace tc): both products on the
@@ -28,7 +31,7 @@
 // from the longest causal row first so the heavy blocks start early.  q,
 // k, v and o are read and written through their (batch, head, seq)
 // strides, so the model's (B, S, H, D) projections are passed as
-// transposed views with no copy.  Any S >= 1 and D <= 128.
+// transposed views with no copy.  Any Sq, Sk >= 1 and D <= 128.
 //
 // What bounds it on an H100: at the serving shapes (1, 32, S, 64) causal
 // the work is 4·S²·D·H/2 operations over 4·S·D·H·2 bytes, ~S/4 operations
@@ -109,8 +112,8 @@ template <typename T, int kDPad>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, Strides3 sq,
-                 Strides3 sk, Strides3 sv, Strides3 so, int H, int G, int S,
-                 int D, int causal, float scale) {
+                 Strides3 sk, Strides3 sv, Strides3 so, int H, int G, int Sq,
+                 int Sk, int D, int causal, float scale) {
   constexpr int kPitch = kDPad + 4;
   constexpr int kCols = kDPad / 16;  // accumulator columns per thread
   extern __shared__ float4 smem4[];
@@ -119,7 +122,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Vs = Ks + kBlockKV * kPitch;           // kBlockKV x kPitch
   float* Ps = Vs + kBlockKV * kPitch;           // kBlockQ x kPPitch
 
-  const int n_qt = (S + kBlockQ - 1) / kBlockQ;
+  const int n_qt = (Sq + kBlockQ - 1) / kBlockQ;
   const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * kBlockQ;
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
@@ -130,7 +133,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
 
-  load_tile<T, kDPad>(Qs, qp, sq.s, q0, S, D);
+  load_tile<T, kDPad>(Qs, qp, sq.s, q0, Sq, D);
 
   float m[4], l[4], acc[4][kCols];
 #pragma unroll
@@ -141,11 +144,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
   }
 
-  const int kv_end = causal ? min(S, q0 + kBlockQ) : S;
+  const int kv_end = causal ? min(Sk, q0 + kBlockQ) : Sk;
   for (int kv0 = 0; kv0 < kv_end; kv0 += kBlockKV) {
     __syncthreads();  // the previous tile's K, V and P are consumed
-    load_tile<T, kDPad>(Ks, kp, sk.s, kv0, S, D);
-    load_tile<T, kDPad>(Vs, vp, sv.s, kv0, S, D);
+    load_tile<T, kDPad>(Ks, kp, sk.s, kv0, Sk, D);
+    load_tile<T, kDPad>(Vs, vp, sv.s, kv0, Sk, D);
     __syncthreads();
 
     // scores: rows ty + 16i, keys tx + 16j
@@ -181,7 +184,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = kv0 + tx + 16 * j;
-        const bool keep = col < S && (!causal || col <= row);
+        const bool keep = col < Sk && (!causal || col <= row);
         s[i][j] = keep ? s[i][j] * scale : kNegInf;
         rmax = fmaxf(rmax, s[i][j]);
       }
@@ -230,7 +233,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
-    if (row >= S) continue;
+    if (row >= Sq) continue;
 #pragma unroll
     for (int g = 0; g < kDPad / 64; ++g)
 #pragma unroll
@@ -243,8 +246,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int kDPad>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const long long* st, int B, int H, int KV, int S, int D,
-                   int causal, cudaStream_t stream) {
+                   const long long* st, int B, int H, int KV, int Sq, int Sk,
+                   int D, int causal, cudaStream_t stream) {
   constexpr int kPitch = kDPad + 4;
   const int smem = static_cast<int>(sizeof(float)) *
                    (kBlockQ * kPitch + 2 * kBlockKV * kPitch + kBlockQ * kPPitch);
@@ -258,7 +261,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
-  const dim3 grid((S + kBlockQ - 1) / kBlockQ, B * H);
+  const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, B * H);
   const Strides3 sq{st[0], st[1], st[2]};
   const Strides3 sk{st[3], st[4], st[5]};
   const Strides3 sv{st[6], st[7], st[8]};
@@ -267,7 +270,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), sq, sk, sv, so, H, H / KV,
-      S, D, causal, scale);
+      Sq, Sk, D, causal, scale);
   return cudaGetLastError();
 }
 
@@ -282,10 +285,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // into a two-stage shared-memory ring with cp.async.bulk.tensor (TMA), each
 // stage completing on a "full" mbarrier and handed back on an "empty" one.
 // The tensor maps are 4-D over the (D, S, heads, B) view of q, k and v with
-// their own strides and head counts (H for q, KV for k and v; a block of
-// query head h loads K/V head h / (H / KV)), so a tile never crosses into
-// the next head: rows past
-// S and columns past D arrive as zeros (TMA's out-of-bounds fill).  Tiles
+// their own strides, lengths and head counts (Sq and H for q, Sk and KV for
+// k and v; a block of query head h loads K/V head h / (H / KV)), so a tile
+// never crosses into the next head: rows past the length and columns past
+// D arrive as zeros (TMA's out-of-bounds fill).  Tiles
 // are 64 columns wide (128 bytes) with the 128-byte swizzle; D = 128 is two
 // such boxes side by side.
 //
@@ -329,7 +332,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
                        __nv_bfloat16* __restrict__ o, Strides3 so, int H, int G,
-                       int S, int D, int causal, float scale_log2) {
+                       int Sq, int Sk, int D, int causal, float scale_log2) {
   constexpr int kTile = kBoxBytes * kChunks;   // one Q, K or V tile
   constexpr int kAcc = 32 * kChunks;           // O fragment per thread
   extern __shared__ uint8_t smem_raw[];
@@ -343,12 +346,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   auto full = [&](int st) { return bars + 8 * (1 + st); };
   auto empty = [&](int st) { return bars + 8 * (1 + kStages + st); };
 
-  const int n_qt = (S + kBlockQ - 1) / kBlockQ;
+  const int n_qt = (Sq + kBlockQ - 1) / kBlockQ;
   const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * kBlockQ;  // longest rows first
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
   const int hk = h / G;  // the KV head of query head h's group
-  const int kv_end = causal ? min(S, q0 + kBlockQ) : S;
+  const int kv_end = causal ? min(Sk, q0 + kBlockQ) : Sk;
   const int n_kv = (kv_end + kBlockKV - 1) / kBlockKV;
   const int tid = threadIdx.x;
 
@@ -420,7 +423,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // mask, online softmax.  s[i]: row row0 + 8·((i/2)%2), column
     // kv0 + 8·(i/4) + col_in + i%2
     const int kv0 = n * kBlockKV;
-    const bool masked = kv0 + kBlockKV > S ||
+    const bool masked = kv0 + kBlockKV > Sk ||
                         (causal && kv0 + kBlockKV - 1 > q0 + 64 * wg);
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
@@ -429,7 +432,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       if (masked) {
         const int row = row0 + 8 * ((i / 2) % 2);
         const int col = kv0 + 8 * (i / 4) + col_in + (i % 2);
-        if (col >= S || (causal && col > row)) v = kNegInf;
+        if (col >= Sk || (causal && col > row)) v = kNegInf;
       }
       s[i] = v;
       mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], v);
@@ -480,7 +483,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   for (int i = 0; i < kAcc; i += 2) {
     const int row = row0 + 8 * ((i / 2) % 2);
     const int col = 8 * (i / 4) + col_in;
-    if (row >= S || col >= D) continue;
+    if (row >= Sq || col >= D) continue;
     const float li = l[(i / 2) % 2];
     __nv_bfloat16* dst = op + row * so.s + col;
     if (col + 1 < D) {
@@ -536,12 +539,14 @@ bool encode_map(CUtensorMap* map, const void* ptr, const long long* st, int B,
 
 template <int kChunks>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const long long* st, int B, int H, int KV, int S, int D,
-                   int causal, cudaStream_t stream) {
-  // q's map spans its H heads, k's and v's their KV heads
+                   const long long* st, int B, int H, int KV, int Sq, int Sk,
+                   int D, int causal, cudaStream_t stream) {
+  // q's map spans its H heads and Sq rows, k's and v's their KV heads and
+  // Sk rows
   CUtensorMap tq, tk, tv;
-  if (!encode_map(&tq, q, st, B, H, S, D) || !encode_map(&tk, k, st + 3, B, KV, S, D) ||
-      !encode_map(&tv, v, st + 6, B, KV, S, D))
+  if (!encode_map(&tq, q, st, B, H, Sq, D) ||
+      !encode_map(&tk, k, st + 3, B, KV, Sk, D) ||
+      !encode_map(&tv, v, st + 6, B, KV, Sk, D))
     return cudaErrorInvalidValue;
   const int smem = 1024 + (1 + 2 * kStages) * kBoxBytes * kChunks +
                    8 * (1 + 2 * kStages);
@@ -555,35 +560,37 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
-  const dim3 grid((S + kBlockQ - 1) / kBlockQ, B * H);
+  const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, B * H);
   const Strides3 so{st[9], st[10], st[11]};
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
   kern<<<grid, kThreads, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o),
-                                         so, H, H / KV, S, D, causal, scale_log2);
+                                         so, H, H / KV, Sq, Sk, D, causal, scale_log2);
   return cudaGetLastError();
 }
 
 }  // namespace tc
 
-// q, o: (B, H, S, D) and k, v: (B, KV, S, D), H a multiple of KV, with unit
-// D stride; st: the (b, h, s) strides of q, k, v and o in that order, in
-// elements; bf16 != 0 for bfloat16 data.  Query head h attends with KV head
-// h / (H / KV) (grouped-query attention; KV = H is multi-head).
+// q, o: (B, H, Sq, D) and k, v: (B, KV, Sk, D), H a multiple of KV, with
+// unit D stride; st: the (b, h, s) strides of q, k, v and o in that order,
+// in elements; bf16 != 0 for bfloat16 data.  Query head h attends with KV
+// head h / (H / KV) (grouped-query attention; KV = H is multi-head).
+// Causal attention needs Sq = Sk.
 cudaError_t launch_flash_attention(const void* q, const void* k, const void* v,
                                    void* o, const long long* st, int B, int H,
-                                   int KV, int S, int D, int causal, int bf16,
-                                   cudaStream_t stream) {
-  if (D < 1 || D > 128 || S < 1 || B * H < 1 || B * H > 65535 || KV < 1 ||
-      H % KV != 0)
+                                   int KV, int Sq, int Sk, int D, int causal,
+                                   int bf16, cudaStream_t stream) {
+  if (D < 1 || D > 128 || Sq < 1 || Sk < 1 || (causal && Sq != Sk) || B * H < 1 ||
+      B * H > 65535 || KV < 1 || H % KV != 0)
     return cudaErrorInvalidValue;
   if (bf16) {
     // TMA: 16-byte aligned base and strides (the wrapper checks them first)
     if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
          reinterpret_cast<uintptr_t>(v)) % 16)
       return cudaErrorMisalignedAddress;
-    return D <= 64 ? tc::launch<1>(q, k, v, o, st, B, H, KV, S, D, causal, stream)
-                   : tc::launch<2>(q, k, v, o, st, B, H, KV, S, D, causal, stream);
+    return D <= 64 ? tc::launch<1>(q, k, v, o, st, B, H, KV, Sq, Sk, D, causal, stream)
+                   : tc::launch<2>(q, k, v, o, st, B, H, KV, Sq, Sk, D, causal, stream);
   }
-  return D <= 64 ? launch<float, 64>(q, k, v, o, st, B, H, KV, S, D, causal, stream)
-                 : launch<float, 128>(q, k, v, o, st, B, H, KV, S, D, causal, stream);
+  return D <= 64
+             ? launch<float, 64>(q, k, v, o, st, B, H, KV, Sq, Sk, D, causal, stream)
+             : launch<float, 128>(q, k, v, o, st, B, H, KV, Sq, Sk, D, causal, stream);
 }

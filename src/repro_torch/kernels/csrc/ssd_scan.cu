@@ -8,8 +8,10 @@
 //   state     = Σ_s exp(cs_{Q-1} − cs_s) B_s x_sᵀ            (P x N, fp32)
 //   decay[t]  = exp(cs_t)                                   (fp32)
 // Nothing of size Q x Q reaches device memory: that fusion is what the TPU
-// kernel exists for.  Q <= 128 and P, N <= 64 cover Zamba2 (Q = 128,
-// P = N = 64) and the smaller test shapes.  x, B and C are read through
+// kernel exists for.  Q <= 128, P <= 64 and N <= 128 cover Zamba2 (Q = 128,
+// P = N = 64), Mamba2-2.7B (Q = 128, P = 64, N = 128) and the smaller test
+// shapes.  N reaches both kernels as a template parameter (64 or 128
+// columns), never as a run-time loop bound.  x, B and C are read through
 // their (chunk, row, head) strides, so one B/C group broadcast to every
 // head (ssm_groups = 1) is a stride-0 view, never copied.  Two
 // instantiations, chosen by dtype (neither stands in for the other):
@@ -19,11 +21,12 @@
 //   fp32  ssd_chunk_kernel: fp32 FMAs on the CUDA cores.  fp32's 1e-5 bar
 //         rules out TF32 and bf16 tensor cores.  One 256-thread block per
 //         (head, chunk) stages x, B and C as fp32 in shared memory (120 KB
-//         at Q = 128, one block per SM) and forms, per 64-row output tile
-//         and 64-column source tile up to the diagonal, the weights
+//         at Q = 128 and N <= 64, 188 KB at N = 128, one block per SM) and
+//         forms, per 64-row output tile and 64-column source tile up to
+//         the diagonal, the weights
 //         (C_t·B_s)·exp(cs_t − cs_s) in 4 x 4 register tiles, parks them in
 //         shared memory and accumulates tile @ x; the state is a second
-//         register-tiled product.
+//         register-tiled product, one 64-column half of N at a time.
 //
 // What bounds the bf16 kernel on an H100: bytes.  At the serving shape (16
 // chunks x 64 heads, Q = 128, P = N = 64, stride-0 B/C) it must move ~52 MB
@@ -31,23 +34,36 @@
 // fp32 is fixed by the contract) against ~3.2 GFLOP of products, 3.3 µs at
 // the bf16 tensor-core peak: ~15.5 µs of bytes.
 //
+// At Mamba2-2.7B's prefill shape (16 chunks x 80 heads, Q = 128, P = 64,
+// N = 128, stride-0 B/C) it moves ~86 MB (x and y 21 MB each, the fp32
+// state 42 MB) against ~11 GFLOP with the hi/lo split: ~26 µs of bytes,
+// ~11 µs of bf16 operations.
+//
 // bf16 design.  One block of 256 threads (two warpgroups) walks
 // heads_per_block consecutive heads of one chunk (the host plan ssd_plan
-// in kernels/ssd_scan.py picks it so that the grid fills the card), at two
-// blocks per SM (101 KB of shared memory each).  x, B and C are staged as
+// in kernels/ssd_scan.py picks it so that the grid fills the card).  At
+// N <= 64 a block holds 6 tiles (101 KB: two blocks per SM); at N = 128
+// C, B and the w·B hi/lo tiles are two 64-column tiles each and all 10
+// tiles stay resident (165 KB: one block per SM).  That layout was chosen
+// over building w·B and the state one 64-column half of N at a time (8
+// tiles, 133 KB): 133 KB still leaves one block per SM, so the split
+// would buy no occupancy and would add a barrier and a second pass over
+// x per head.  With all tiles resident, S = C·Bᵀ takes 8 k16 steps in
+// place of 4 and the state one m64n128 product in place of m64n64; the
+// rest of the kernel is N's size-free.  x, B and C are staged as
 // bf16 by cp.async (16-byte copies with zero fill, or element by element
 // for ragged shapes) into 128-byte-swizzled tiles of 128 rows; where
 // the B and C head strides are both 0 they are staged once for all the
 // block's heads, and the next head's x is in flight while the current one
 // computes.  One warp per head scans cs and writes decay.  Per head:
-//   S = C·Bᵀ   wgmma m64n64k16 per 64 x 64 tile up to the diagonal, C and
-//              B both K-major in shared memory (warpgroup wg owns rows
-//              64·wg.. and tiles j <= wg);
+//   S = C·Bᵀ   wgmma m64n64k16 per 64 x 64 tile up to the diagonal, over
+//              N in k16 steps, C and B both K-major in shared memory
+//              (warpgroup wg owns rows 64·wg.. and tiles j <= wg);
 //   W = S ∘ exp(cs_t − cs_s) on s <= t, in fp32 on the accumulator
 //              fragment, split into bf16 hi = bf16(W) and lo = bf16(W − hi)
 //              and packed as register A fragments;
 //   y += hi·x + lo·x   wgmma m64n64k16, x MN-major in shared memory;
-//   state = xᵀ·(wB_hi + wB_lo)   wgmma m64n64k16 with both operands
+//   state = xᵀ·(wB_hi + wB_lo)   wgmma m64n(N)k16 with both operands
 //              MN-major in shared memory (warpgroup 0), where w_s·B[s][n]
 //              with w_s = exp(cs_{Q-1} − cs_s) is formed by all threads as a
 //              bf16 hi/lo pair.
@@ -68,7 +84,10 @@
 namespace {
 
 constexpr int kMaxQ = 128;
-constexpr int kMaxDim = 64;  // P and N: one 64-column tile each
+constexpr int kMaxP = 64;    // P: one 64-column tile
+constexpr int kMaxN = 128;   // N: one or two 64-column tiles, a template
+                             // parameter of both kernels (never a run-time
+                             // trip count around a wgmma)
 
 struct Strides4 {
   long long c, q, h;  // chunk, row, head strides in elements; last is 1
@@ -113,7 +132,7 @@ __device__ __forceinline__ void chunk_cumsum(float* cs, const float* __restrict_
 constexpr int kThreads = 256;
 constexpr int kTile = 64;
 constexpr int kWPitch = kTile + 4;
-constexpr int kPitch = kMaxDim + 4;
+constexpr int kXPitch = kMaxP + 4;
 
 // rows [0, rows) of an (rows, cols) slab into shared memory, pitch
 // `pitch`; rows in [n_rows, rows) and columns in [n_cols, cols) are zero.
@@ -130,16 +149,19 @@ __device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
   }
 }
 
+// kN: N padded to 64 or 128 columns (B and C rows of pitch kN + 4)
+template <int kN>
 __global__ void __launch_bounds__(kThreads)
 ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt_a,
                  const float* __restrict__ b, const float* __restrict__ c,
                  float* __restrict__ y, float* __restrict__ state,
                  float* __restrict__ decay, Strides4 sx, Strides4 sa,
                  Strides4 sb, Strides4 sc, int H, int Q, int P, int N) {
+  constexpr int kPitch = kN + 4;
   const int QP = round_up(Q, kTile);
   extern __shared__ float4 smem4[];
-  float* Xs = reinterpret_cast<float*>(smem4);  // QP x kPitch
-  float* Bs = Xs + QP * kPitch;                 // QP x kPitch
+  float* Xs = reinterpret_cast<float*>(smem4);  // QP x kXPitch
+  float* Bs = Xs + QP * kXPitch;                // QP x kPitch
   float* Cs = Bs + QP * kPitch;                 // QP x kPitch
   float* Ws = Cs + QP * kPitch;                 // kTile x kWPitch
   float* cs = Ws + kTile * kWPitch;             // QP
@@ -150,9 +172,9 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt_a,
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
 
-  stage(Xs, x + ch * sx.c + h * sx.h, sx.q, Q, QP, P, kMaxDim, kPitch);
-  stage(Bs, b + ch * sb.c + h * sb.h, sb.q, Q, QP, N, kMaxDim, kPitch);
-  stage(Cs, c + ch * sc.c + h * sc.h, sc.q, Q, QP, N, kMaxDim, kPitch);
+  stage(Xs, x + ch * sx.c + h * sx.h, sx.q, Q, QP, P, kMaxP, kXPitch);
+  stage(Bs, b + ch * sb.c + h * sb.h, sb.q, Q, QP, N, kN, kPitch);
+  stage(Cs, c + ch * sc.c + h * sc.h, sc.q, Q, QP, N, kN, kPitch);
 
   if (threadIdx.x < 32) chunk_cumsum(cs, dt_a + ch * sa.c + h * sa.h, sa.q, Q);
   __syncthreads();
@@ -182,7 +204,7 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt_a,
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) w[i][j] = 0.f;
-      for (int n = 0; n < kMaxDim; n += 4) {
+      for (int n = 0; n < kN; n += 4) {
         float4 cf[4], bf[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -218,11 +240,11 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt_a,
 #pragma unroll
         for (int i = 0; i < 4; ++i)
           wf[i] = *reinterpret_cast<const float4*>(&Ws[(ty + 16 * i) * kWPitch + s]);
-        const float* xr = &Xs[(s0 + s) * kPitch + 4 * tx];
+        const float* xr = &Xs[(s0 + s) * kXPitch + 4 * tx];
         const float4 x0 = *reinterpret_cast<const float4*>(xr);
-        const float4 x1 = *reinterpret_cast<const float4*>(xr + kPitch);
-        const float4 x2 = *reinterpret_cast<const float4*>(xr + 2 * kPitch);
-        const float4 x3 = *reinterpret_cast<const float4*>(xr + 3 * kPitch);
+        const float4 x1 = *reinterpret_cast<const float4*>(xr + kXPitch);
+        const float4 x2 = *reinterpret_cast<const float4*>(xr + 2 * kXPitch);
+        const float4 x3 = *reinterpret_cast<const float4*>(xr + 3 * kXPitch);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           float* a = acc[i];
@@ -247,54 +269,63 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt_a,
     }
   }
 
-  // state[p][n] = Σ_s wst[s] x[s][p] B[s][n]: p = 4ty + e, n = 4tx + f;
-  // state (BC, H, P, N), contiguous
+  // state[p][n] = Σ_s wst[s] x[s][p] B[s][n], one 64-column half of N at
+  // a time: p = 4ty + e, n = 64·half + 4tx + f; state (BC, H, P, N),
+  // contiguous
   float* st = state + (static_cast<long long>(ch) * H + h) * P * N;
-  float a[4][4];
 #pragma unroll
-  for (int e = 0; e < 4; ++e)
-#pragma unroll
-    for (int f = 0; f < 4; ++f) a[e][f] = 0.f;
-  for (int s = 0; s < Q; ++s) {
-    const float ws = wst[s];
-    const float4 xv = *reinterpret_cast<const float4*>(&Xs[s * kPitch + 4 * ty]);
-    const float4 bv = *reinterpret_cast<const float4*>(&Bs[s * kPitch + 4 * tx]);
-    const float xs[4] = {xv.x * ws, xv.y * ws, xv.z * ws, xv.w * ws};
-    const float bs[4] = {bv.x, bv.y, bv.z, bv.w};
+  for (int half = 0; half < kN / 64; ++half) {
+    float a[4][4];
 #pragma unroll
     for (int e = 0; e < 4; ++e)
 #pragma unroll
-      for (int f = 0; f < 4; ++f) a[e][f] = fmaf(xs[e], bs[f], a[e][f]);
-  }
+      for (int f = 0; f < 4; ++f) a[e][f] = 0.f;
+    for (int s = 0; s < Q; ++s) {
+      const float ws = wst[s];
+      const float4 xv = *reinterpret_cast<const float4*>(&Xs[s * kXPitch + 4 * ty]);
+      const float4 bv =
+          *reinterpret_cast<const float4*>(&Bs[s * kPitch + 64 * half + 4 * tx]);
+      const float xs[4] = {xv.x * ws, xv.y * ws, xv.z * ws, xv.w * ws};
+      const float bs[4] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int p = 4 * ty + e;
-    if (p >= P) continue;
+      for (int e = 0; e < 4; ++e)
 #pragma unroll
-    for (int f = 0; f < 4; ++f) {
-      const int n = 4 * tx + f;
-      if (n < N) st[p * N + n] = a[e][f];
+        for (int f = 0; f < 4; ++f) a[e][f] = fmaf(xs[e], bs[f], a[e][f]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int p = 4 * ty + e;
+      if (p >= P) continue;
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const int n = 64 * half + 4 * tx + f;
+        if (n < N) st[p * N + n] = a[e][f];
+      }
     }
   }
 }
 
+// 120 KB at Q = 128, N <= 64; 188 KB at N = 128 (a block may opt into 227)
+template <int kN>
 int smem_bytes(int Q) {
   const int QP = round_up(Q, kTile);
-  const int floats = 3 * QP * kPitch + kTile * kWPitch + 2 * QP;
+  const int floats = QP * kXPitch + 2 * QP * (kN + 4) + kTile * kWPitch + 2 * QP;
   return floats * static_cast<int>(sizeof(float));
 }
 
+template <int kN>
 cudaError_t launch_f32(const float* x, const float* dt_a, const float* b,
                        const float* c, float* y, float* state, float* decay,
                        const long long* st, int BC, int Q, int H, int P, int N,
                        cudaStream_t stream) {
-  // opt in once at the largest chunk the wrapper admits, so launches of
-  // smaller chunks need no further attribute call
+  // opt in once per instantiation at the largest chunk the wrapper admits,
+  // so launches of smaller chunks need no further attribute call (the first
+  // launch must come outside any CUDA graph capture)
   static bool opted_in = false;
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ssd_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes(kMaxQ));
+        ssd_chunk_kernel<kN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes<kN>(kMaxQ));
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
@@ -303,7 +334,7 @@ cudaError_t launch_f32(const float* x, const float* dt_a, const float* b,
   const Strides4 sb{st[6], st[7], st[8]};
   const Strides4 sc{st[9], st[10], st[11]};
   const dim3 grid(H, BC);
-  ssd_chunk_kernel<<<grid, kThreads, smem_bytes(Q), stream>>>(
+  ssd_chunk_kernel<kN><<<grid, kThreads, smem_bytes<kN>(Q), stream>>>(
       x, dt_a, b, c, y, state, decay, sx, sa, sb, sc, H, Q, P, N);
   return cudaGetLastError();
 }
@@ -318,8 +349,22 @@ constexpr int kThreads = 256;               // two warpgroups
 constexpr int kRows = 128;                  // rows of every tile, zero past Q
 constexpr int kTileBytes = kRows * 128;     // 128 rows x 64 bf16 columns
 constexpr int kMaxHeads = 8;                // heads a block walks, at most
-// C, B, x (two buffers), w·B hi and lo; then cs of each head; + alignment
-constexpr int kSmem = 1024 + 6 * kTileBytes + kMaxHeads * kRows * 4;
+
+// Shared memory of the kernel for N in kNT 64-column tiles: C and B (kNT
+// tiles each), x (two buffers of one tile), w·B hi and lo (kNT tiles
+// each), then cs of each head; + alignment.  kNT = 1: 101 KB, two blocks
+// an SM; kNT = 2: 165 KB, one.
+template <int kNT>
+struct Layout {
+  static constexpr uint32_t kC = 0;
+  static constexpr uint32_t kB = kNT * kTileBytes;
+  static constexpr uint32_t kX = 2 * kNT * kTileBytes;
+  static constexpr uint32_t kWH = (2 * kNT + 2) * kTileBytes;
+  static constexpr uint32_t kWL = (3 * kNT + 2) * kTileBytes;
+  static constexpr uint32_t kCs = (4 * kNT + 2) * kTileBytes;
+  static constexpr int kSmem = 1024 + kCs + kMaxHeads * kRows * 4;
+  static constexpr int kBlocksPerSM = kNT == 1 ? 2 : 1;
+};
 
 // byte offset of the 16-byte chunk j (columns 8j..8j+7) of row r in a
 // 128-byte-swizzled tile (the layout TMA's 128-byte swizzle writes)
@@ -368,6 +413,17 @@ __device__ __forceinline__ void stage(uint8_t* smem, uint32_t dst,
   }
 }
 
+// kNT 64-column tiles of B or C (columns 64t.. of the slice into tile t)
+template <int kNT>
+__device__ __forceinline__ void stage_n(uint8_t* smem, uint32_t dst,
+                                        const bf16* __restrict__ src, long long stride_q,
+                                        int n_rows, int n_cols, bool vec) {
+#pragma unroll
+  for (int t = 0; t < kNT; ++t)
+    stage(smem, dst + t * kTileBytes, src + 64 * t, stride_q, n_rows, n_cols - 64 * t,
+          vec);
+}
+
 // v = hi + lo to ~16 bits: hi = bf16(v), lo = bf16(v − hi)
 __device__ __forceinline__ void split(float v, bf16& hi, bf16& lo) {
   hi = __float2bfloat16(v);
@@ -384,20 +440,23 @@ __device__ __forceinline__ uint32_t pack(bf16 lo_col, bf16 hi_col) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
+// kNT: N in 64-column tiles (1 for N <= 64, 2 for N <= 128)
+template <int kNT>
+__global__ void __launch_bounds__(kThreads, Layout<kNT>::kBlocksPerSM)
 ssd_chunk_wgmma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt_a,
                        const bf16* __restrict__ b, const bf16* __restrict__ c,
                        bf16* __restrict__ y, float* __restrict__ state,
                        float* __restrict__ decay, Strides4 sx, Strides4 sa,
                        Strides4 sb, Strides4 sc, int H, int Q, int P, int N,
                        int heads, int vec) {
+  using Lay = Layout<kNT>;
   extern __shared__ uint8_t smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
   uint8_t* smem = smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t sbase = tc::smem_u32(smem);
-  constexpr uint32_t kC = 0, kB = kTileBytes, kX = 2 * kTileBytes,
-                     kWH = 4 * kTileBytes, kWL = 5 * kTileBytes;
-  float* cs_all = reinterpret_cast<float*>(smem + 6 * kTileBytes);  // heads x kRows
+  constexpr uint32_t kC = Lay::kC, kB = Lay::kB, kX = Lay::kX, kWH = Lay::kWH,
+                     kWL = Lay::kWL;
+  float* cs_all = reinterpret_cast<float*>(smem + Lay::kCs);  // heads x kRows
 
   const int ch = blockIdx.y;
   const int h0 = blockIdx.x * heads;
@@ -407,8 +466,8 @@ ssd_chunk_wgmma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt_
   const bf16* bc = b + ch * sb.c;
   const bf16* cc = c + ch * sc.c;
 
-  stage(smem, kC, cc + h0 * sc.h, sc.q, Q, N, vec);
-  stage(smem, kB, bc + h0 * sb.h, sb.q, Q, N, vec);
+  stage_n<kNT>(smem, kC, cc + h0 * sc.h, sc.q, Q, N, vec);
+  stage_n<kNT>(smem, kB, bc + h0 * sb.h, sb.q, Q, N, vec);
   stage(smem, kX, xc + h0 * sx.h, sx.q, Q, P, vec);
   cp_async_commit();
 
@@ -453,9 +512,9 @@ ssd_chunk_wgmma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt_
     // w_s·B[s][n] as a bf16 hi/lo pair, w_s = exp(cs_{Q-1} − cs_s); rows
     // past Q are zero already in B
     const float cs_last = cs[Q - 1];
-    for (int idx = tid; idx < kRows * 8; idx += kThreads) {
-      const int r = idx >> 3;
-      const uint32_t off = sw128(r, idx & 7);
+    for (int idx = tid; idx < kNT * kRows * 8; idx += kThreads) {
+      const int r = (idx >> 3) % kRows;
+      const uint32_t off = (idx / (kRows * 8)) * kTileBytes + sw128(r, idx & 7);
       const float w = exp_f(cs_last - cs[r]);
       const uint4 bv = *reinterpret_cast<const uint4*>(smem + kB + off);
       const bf16* bb = reinterpret_cast<const bf16*>(&bv);
@@ -480,10 +539,12 @@ ssd_chunk_wgmma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt_
         tc::fence_regs(s);
         tc::wg_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
+        for (int kk = 0; kk < 4 * kNT; ++kk) {  // over N: tile kk / 4, k16 step kk % 4
+          const uint32_t off = (kk / 4) * kTileBytes + (kk % 4) * 32;
           tc::wgmma_ss_m64n64k16<0, 0>(
-              s, tc::desc_sw128(sbase + kC + 64 * g * 128 + kk * 32, 16),
-              tc::desc_sw128(sbase + kB + 64 * j * 128 + kk * 32, 16), kk > 0);
+              s, tc::desc_sw128(sbase + kC + off + 64 * g * 128, 16),
+              tc::desc_sw128(sbase + kB + off + 64 * j * 128, 16), kk > 0);
+        }
         tc::wg_commit();
         tc::wg_wait_all();
         tc::fence_regs(s);
@@ -540,18 +601,24 @@ ssd_chunk_wgmma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt_
     }
 
     if (g == 0) {  // state = xᵀ (w·B), over the chunk's rows in k16 steps
-      float st[32];
+      float st[32 * kNT];
       tc::fence_regs(st);
       tc::wg_fence();
       // all 128 rows (zero past Q): a run-time trip count here would make
-      // ptxas serialize the products
+      // ptxas serialize the products.  N = 128 is one m64n128 product whose
+      // second 64-column atom of w·B is the next tile (LBO = kTileBytes)
 #pragma unroll
       for (int kk = 0; kk < kRows / 16; ++kk) {
         const uint64_t dx = tc::desc_sw128(sbase + xs + kk * 2048, kTileBytes);
-        tc::wgmma_ss_m64n64k16<1, 1>(
-            st, dx, tc::desc_sw128(sbase + kWH + kk * 2048, kTileBytes), kk > 0);
-        tc::wgmma_ss_m64n64k16<1, 1>(
-            st, dx, tc::desc_sw128(sbase + kWL + kk * 2048, kTileBytes), 1);
+        const uint64_t dh = tc::desc_sw128(sbase + kWH + kk * 2048, kTileBytes);
+        const uint64_t dl = tc::desc_sw128(sbase + kWL + kk * 2048, kTileBytes);
+        if constexpr (kNT == 1) {
+          tc::wgmma_ss_m64n64k16<1, 1>(st, dx, dh, kk > 0);
+          tc::wgmma_ss_m64n64k16<1, 1>(st, dx, dl, 1);
+        } else {
+          tc::wgmma_ss_m64n128k16<1, 1>(st, dx, dh, kk > 0);
+          tc::wgmma_ss_m64n128k16<1, 1>(st, dx, dl, 1);
+        }
       }
       tc::wg_commit();
       tc::wg_wait_all();
@@ -559,7 +626,7 @@ ssd_chunk_wgmma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt_
       // state (BC, H, P, N), contiguous: row p = r0 + 8·((e/2)%2), column n
       float* sp = state + (static_cast<long long>(ch) * H + h) * P * N;
 #pragma unroll
-      for (int e = 0; e < 32; e += 2) {
+      for (int e = 0; e < 32 * kNT; e += 2) {
         const int p = r0 + 8 * ((e / 2) % 2);
         const int n = 8 * (e / 4) + cin;
         if (p >= P || n >= N) continue;
@@ -575,8 +642,8 @@ ssd_chunk_wgmma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt_
 
     if (!shared_bc && i + 1 < heads) {  // per-head B and C: the next head's
       __syncthreads();                  // once this head's products are done
-      stage(smem, kC, cc + (h + 1) * sc.h, sc.q, Q, N, vec);
-      stage(smem, kB, bc + (h + 1) * sb.h, sb.q, Q, N, vec);
+      stage_n<kNT>(smem, kC, cc + (h + 1) * sc.h, sc.q, Q, N, vec);
+      stage_n<kNT>(smem, kB, bc + (h + 1) * sb.h, sb.q, Q, N, vec);
       cp_async_commit();
     }
   }
@@ -584,14 +651,18 @@ ssd_chunk_wgmma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt_
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+template <int kNT>
 cudaError_t launch(const void* x, const float* dt_a, const void* b, const void* c,
                    void* y, float* state, float* decay, const long long* st, int BC,
                    int Q, int H, int P, int N, int heads, cudaStream_t stream) {
   if (heads < 1 || heads > kMaxHeads || H % heads) return cudaErrorInvalidValue;
+  // opt in once per instantiation (the first launch must come outside any
+  // CUDA graph capture)
   static bool opted_in = false;
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ssd_chunk_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+        ssd_chunk_wgmma_kernel<kNT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Layout<kNT>::kSmem);
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
@@ -603,7 +674,7 @@ cudaError_t launch(const void* x, const float* dt_a, const void* b, const void* 
   const Strides4 sb{st[6], st[7], st[8]};
   const Strides4 sc{st[9], st[10], st[11]};
   const dim3 grid(H / heads, BC);
-  ssd_chunk_wgmma_kernel<<<grid, kThreads, kSmem, stream>>>(
+  ssd_chunk_wgmma_kernel<kNT><<<grid, kThreads, Layout<kNT>::kSmem, stream>>>(
       static_cast<const bf16*>(x), dt_a, static_cast<const bf16*>(b),
       static_cast<const bf16*>(c), static_cast<bf16*>(y), state, decay, sx, sa, sb,
       sc, H, Q, P, N, heads, vec);
@@ -627,12 +698,20 @@ cudaError_t launch_ssd_chunk(const void* x, const float* dt_a, const void* b,
                              int H, int P, int N, int bf16, int heads,
                              cudaStream_t stream) {
   if (BC < 1 || BC > 65535 || Q < 1 || Q > kMaxQ || H < 1 || P < 1 ||
-      P > kMaxDim || N < 1 || N > kMaxDim)
+      P > kMaxP || N < 1 || N > kMaxN)
     return cudaErrorInvalidValue;
   if (bf16)
-    return ssd_tc::launch(x, dt_a, b, c, y, state, decay, st, BC, Q, H, P, N, heads, stream);
+    return N <= 64 ? ssd_tc::launch<1>(x, dt_a, b, c, y, state, decay, st, BC, Q, H, P,
+                                       N, heads, stream)
+                   : ssd_tc::launch<2>(x, dt_a, b, c, y, state, decay, st, BC, Q, H, P,
+                                       N, heads, stream);
   if (heads != 1) return cudaErrorInvalidValue;
-  return launch_f32(static_cast<const float*>(x), dt_a, static_cast<const float*>(b),
-                    static_cast<const float*>(c), static_cast<float*>(y), state, decay,
-                    st, BC, Q, H, P, N, stream);
+  const auto* xf = static_cast<const float*>(x);
+  const auto* bf = static_cast<const float*>(b);
+  const auto* cf = static_cast<const float*>(c);
+  auto* yf = static_cast<float*>(y);
+  return N <= 64 ? launch_f32<64>(xf, dt_a, bf, cf, yf, state, decay, st, BC, Q, H, P,
+                                  N, stream)
+                 : launch_f32<128>(xf, dt_a, bf, cf, yf, state, decay, st, BC, Q, H, P,
+                                   N, stream);
 }

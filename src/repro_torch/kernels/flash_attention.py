@@ -3,11 +3,15 @@ the LM prefill's self-attention.
 
   flash_attention  softmax(q kᵀ/√D, causal or not) v   replaces repro/kernels/flash_attention.py:72
 
-q is (B, H, S, D) and k, v are (B, KV, S, D) with H a multiple of KV:
+q is (B, H, Sq, D) and k, v are (B, KV, Sk, D) with H a multiple of KV:
 grouped-query attention, query head h reading KV head h // (H // KV), as
 the model's ``_sdpa`` groups them (KV = H is multi-head attention).  The
 kernel indexes the KV head itself, so K and V are never repeated or
-copied per group.  Checks device, dtype (fp32 or bf16, the same for q, k
+copied per group.  Keys of another length than the queries are
+cross-attention (the encoder-decoder's decoder over the encoder's
+frames), which is not causal: causal attention with Sq != Sk has no
+caller in the reference and is refused on either device, the plain
+version included (``ref.check_causal_lengths``).  Checks device, dtype (fp32 or bf16, the same for q, k
 and v), shapes and strides, then picks by the tensors' device: on CUDA it allocates the
 output in q's memory layout, launches the kernel on the current stream
 and adds one to ``launches``; on the CPU it runs the plain version from
@@ -74,23 +78,24 @@ def check_tma_aligned(kernel: str, **tensors: torch.Tensor) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
-    """q: (B, H, S, D), k, v: (B, KV, S, D), H % KV == 0, any S >= 1,
-    D <= 128 -> (B, H, S, D) in q's dtype."""
+    """q: (B, H, Sq, D), k, v: (B, KV, Sk, D), H % KV == 0, any Sq, Sk >= 1
+    (Sk = Sq where causal), D <= 128 -> (B, H, Sq, D) in q's dtype."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4:
             raise ValueError(f"flash_attention: {name} must be (B, H, S, D), "
                              f"got {t.dim()}-D")
     b, h, s, d = q.shape
-    kv = k.shape[1]
-    if (k.shape != v.shape or (k.shape[0], k.shape[2], k.shape[3]) != (b, s, d)
+    kv, sk = k.shape[1], k.shape[2]
+    if (k.shape != v.shape or (k.shape[0], k.shape[3]) != (b, d)
             or kv < 1 or h % kv):
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}: k and v must "
-                         f"be (B, KV, S, D) with H % KV == 0 (GQA; no "
-                         f"cross-attention)")
-    if min(b, h, s, d) < 1 or d > MAX_HEAD_DIM or b * h > 65535:
-        raise ValueError(f"flash_attention: shape {tuple(q.shape)} outside "
-                         f"B·H <= 65535, S >= 1, 1 <= D <= {MAX_HEAD_DIM}")
+                         f"be (B, KV, Sk, D) with H % KV == 0 (GQA)")
+    if min(b, h, s, sk, d) < 1 or d > MAX_HEAD_DIM or b * h > 65535:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)} outside B·H <= 65535, Sq, Sk >= 1, "
+                         f"1 <= D <= {MAX_HEAD_DIM}")
+    _ref.check_causal_lengths(s, sk, causal)
     if check_float_args("flash_attention", q=q, k=k, v=v) == torch.bfloat16:
         check_tma_aligned("flash_attention", q=q, k=k, v=v)
     if device_type("flash_attention", q, k, v) == "cpu":

@@ -135,8 +135,8 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, *,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, *,
                     mode: str | None = None) -> torch.Tensor:
-    """softmax(q kᵀ/√D) v.  q: (B, H, S, D), k, v: (B, KV, S, D) with
-    H % KV == 0 (GQA) -> (B, H, S, D)."""
+    """softmax(q kᵀ/√D) v.  q: (B, H, Sq, D), k, v: (B, KV, Sk, D) with
+    H % KV == 0 (GQA) and Sk = Sq where causal -> (B, H, Sq, D)."""
     if resolve_mode(mode, q, k, v) == "ref":
         return _ref.flash_attention_ref(q, k, v, causal)
     return _flash_attention(q, k, v, causal)

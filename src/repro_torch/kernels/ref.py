@@ -25,6 +25,7 @@ __all__ = [
     "softmax_xent_fwd_ref",
     "softmax_xent_dlogits_ref",
     "flash_attention_ref",
+    "check_causal_lengths",
     "ssd_chunk_ref",
 ]
 
@@ -110,19 +111,29 @@ def softmax_xent_dlogits_ref(logits: torch.Tensor, labels: torch.Tensor,
     return ((p - onehot) * s).to(logits.dtype)
 
 
+def check_causal_lengths(sq: int, sk: int, causal: bool) -> None:
+    """Causal attention needs as many keys as queries: the reference asks
+    for no other causal case (its cross-attention is not causal), and the
+    kernel takes none."""
+    if causal and sq != sk:
+        raise ValueError(f"flash_attention: causal attention needs Sq == Sk, "
+                         f"got Sq = {sq}, Sk = {sk} (cross-attention is not "
+                         f"causal)")
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True) -> torch.Tensor:
-    """q: (B, H, S, D), k, v: (B, KV, S, D) with H % KV == 0 -> (B, H, S, D)
-    in q's dtype; query head h reads KV head h // (H // KV) (GQA by head
-    grouping, K and V not repeated); softmax in fp32, probabilities rounded
-    to v's dtype before the PV product."""
+    """q: (B, H, Sq, D), k, v: (B, KV, Sk, D) with H % KV == 0 (Sk = Sq
+    where causal) -> (B, H, Sq, D) in q's dtype; query head h reads KV head
+    h // (H // KV) (GQA by head grouping, K and V not repeated); softmax in
+    fp32, probabilities rounded to v's dtype before the PV product."""
     b, h, sq, d = q.shape
     kv, sk = k.shape[1], k.shape[2]
+    check_causal_lengths(sq, sk, causal)
     qg = q.float().reshape(b, kv, h // kv, sq, d)
     s = torch.einsum("bkgqd,bkmd->bkgqm", qg, k.float()) / math.sqrt(d)
     if causal:
-        mask = torch.ones((sq, sk), dtype=torch.bool,
-                          device=q.device).tril(sk - sq)
+        mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device).tril()
         s = s.masked_fill(~mask, float("-inf"))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqm,bkmd->bkgqd", p.to(v.dtype).float(), v.float())

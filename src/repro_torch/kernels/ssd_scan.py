@@ -11,7 +11,9 @@ through their strides, so one group broadcast to every head is an
 ``expand``ed view with a head stride of 0 and is never copied.  bf16
 runs the tensor-core kernel, whose blocks each walk ``ssd_plan``'s
 number of consecutive heads of one chunk; fp32 the CUDA-core kernel, one
-head a block.  Forward only, as the reference kernel.
+head a block.  Q <= 128, P <= 64 and N <= 128 on either device (Zamba2's
+N = 64 and Mamba2-2.7B's N = 128; the kernels take N as 64 or 128
+columns).  Forward only, as the reference kernel.
 """
 
 from __future__ import annotations
@@ -26,28 +28,43 @@ from repro_torch.kernels.flash_attention import check_float_args
 __all__ = ["ssd_chunk", "ssd_plan"]
 
 MAX_CHUNK = 128
-MAX_DIM = 64    # P and N
+MAX_P = 64      # head dim: one 64-column tile
+MAX_N = 128     # state size: one or two 64-column tiles
 
-# csrc/ssd_scan.cu, bf16: a block walks up to 8 heads of a chunk at two
-# blocks per SM of the H100's 132; the plan keeps the grid at three in four
-# of those 264 slots or more (chip_smoke.py phase 7 sweeps the choices)
+# csrc/ssd_scan.cu, bf16: a block walks up to 8 heads of a chunk.  Where
+# N <= 64 (101 KB of shared memory a block) two blocks share an SM of the
+# H100's 132, and the plan keeps the grid at three in four of those 264
+# slots or more.  Where N > 64 (165 KB) an SM holds one block, so nothing
+# overlaps a block's serial phases but the next wave: the plan keeps four
+# waves (chip_smoke.py phase 7 sweeps the choices; at mamba2-2.7b's 16
+# chunks x 80 heads, 2 heads a block ran fastest, 8 slowest)
 SSD_HEADS = (8, 4, 2, 1)
-SSD_MIN_BLOCKS = 3 * 2 * 132 // 4
+SM_COUNT = 132
 
 
-def ssd_plan(bc: int, h: int, q: int, shared_bc: bool) -> int:
+def ssd_min_blocks(n: int) -> int:
+    """The fewest blocks a plan leaves at state size ``n``."""
+    return 3 * 2 * SM_COUNT // 4 if n <= 64 else 4 * SM_COUNT
+
+
+SSD_MIN_BLOCKS = ssd_min_blocks(64)
+
+
+def ssd_plan(bc: int, h: int, q: int, shared_bc: bool, n: int = 64) -> int:
     """Heads a block of the bf16 kernel walks for ``bc`` chunks of ``q``
-    rows and ``h`` heads.  Where B and C are one group broadcast to every
-    head (``shared_bc``), the block stages them once for all its heads:
-    the largest of SSD_HEADS that divides ``h`` and leaves at least
-    SSD_MIN_BLOCKS blocks.  Per-head B and C are staged per head anyway,
-    so walking heads gains nothing there: 1."""
+    rows, ``h`` heads and state size ``n``.  Where B and C are one group
+    broadcast to every head (``shared_bc``), the block stages them once for
+    all its heads: the largest of SSD_HEADS that divides ``h`` and leaves
+    at least ``ssd_min_blocks(n)`` blocks.  Per-head B and C are staged per
+    head anyway, so walking heads gains nothing there: 1."""
     if not 1 <= q <= MAX_CHUNK:
         raise ValueError(f"ssd_plan: chunk {q} outside 1..{MAX_CHUNK}")
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"ssd_plan: state size {n} outside 1..{MAX_N}")
     if not shared_bc:
         return 1
     for heads in SSD_HEADS[:-1]:
-        if h % heads == 0 and bc * (h // heads) >= SSD_MIN_BLOCKS:
+        if h % heads == 0 and bc * (h // heads) >= ssd_min_blocks(n):
             return heads
     return 1
 
@@ -70,9 +87,10 @@ def ssd_chunk(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
             raise ValueError(f"ssd_chunk: {name} has shape {tuple(t.shape)}, "
                              f"expected {(bc, q, h, n)}")
     if (min(bc, q, h, p, n) < 1 or bc > 65535 or q > MAX_CHUNK
-            or p > MAX_DIM or n > MAX_DIM):
+            or p > MAX_P or n > MAX_N):
         raise ValueError(f"ssd_chunk: x {tuple(x.shape)}, N = {n} outside "
-                         f"BC <= 65535, Q <= {MAX_CHUNK}, P, N <= {MAX_DIM}")
+                         f"BC <= 65535, Q <= {MAX_CHUNK}, P <= {MAX_P}, "
+                         f"N <= {MAX_N}")
     check_float_args("ssd_chunk", x=x, b=b, c=c)
     if dt_a.dtype != torch.float32:
         raise TypeError(f"ssd_chunk: dt_a must be float32, got {dt_a.dtype}")
@@ -81,7 +99,7 @@ def ssd_chunk(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
     y = torch.empty((bc, q, h, p), device=x.device, dtype=x.dtype)
     state = torch.empty((bc, h, p, n), device=x.device, dtype=torch.float32)
     decay = torch.empty((bc, q, h), device=x.device, dtype=torch.float32)
-    heads = (ssd_plan(bc, h, q, b.stride(2) == 0 and c.stride(2) == 0)
+    heads = (ssd_plan(bc, h, q, b.stride(2) == 0 and c.stride(2) == 0, n)
              if x.dtype == torch.bfloat16 else 1)
     _build.extension().ssd_chunk(x, dt_a, b, c, y, state, decay, heads)
     ssd_chunk.launches += 1

@@ -6,14 +6,17 @@ continuous-batching engine on one card and prints the SLO report.
       [--smoke] [--scenario steady] [--requests 8] [--seed 0] [--slots 4] \
       [--device cuda] [--json PATH]
 
-``--arch`` is any registered LM of the hybrid, dense or MoE family
-(``zamba2-1.2b``, ``qwen3-14b``, ``qwen2.5-14b``, ``granite-3-2b``,
-``qwen2-moe-a2.7b``, ``granite-moe-1b-a400m``; ``qwen1.5-110b`` only with
-``--smoke``, its full width does not fit one card).  The full-width model
-is drawn at random in bf16 (no weights are needed); on the card every
-prefill runs its attention through the flash kernel (K6, grouped-query
-heads in the kernel) and, for the hybrid, its SSD intra-chunk terms
-through the SSD kernel (K7).  There is no autoscaler yet:
+``--arch`` is any registered token LM: of the hybrid, SSM, dense or MoE
+family (``zamba2-1.2b``, ``mamba2-2.7b``, ``qwen3-14b``, ``qwen2.5-14b``,
+``granite-3-2b``, ``qwen2-moe-a2.7b``, ``granite-moe-1b-a400m``;
+``qwen1.5-110b`` only with ``--smoke``, its full width does not fit one
+card).  The encoder-decoder and VLM archs are refused, as the reference's
+runner refuses them: they run through ``get_model(cfg).prefill`` and
+``decode_step``.  The full-width model is drawn at random in bf16 (no
+weights are needed); on the card every prefill runs its attention through
+the flash kernel (K6, grouped-query heads in the kernel) and, for the
+hybrid and the Mamba2 LM, its SSD intra-chunk terms through the SSD kernel
+(K7).  There is no autoscaler yet:
 a scheduled device loss takes the engine's own replan (one card stays one
 card; in-flight requests restart from their prompts).  Without a GPU it
 exits with an error unless ``--device cpu``.

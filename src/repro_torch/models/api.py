@@ -3,10 +3,12 @@
 functions close over the config only — parameters, caches and batches
 are explicit dicts of tensors.
 
-Families ``"dense"`` (``transformer.py``), ``"moe"`` (``moe.py``) and
-``"hybrid"`` (Zamba2, ``zamba2.py``) are ported; ``"ssm"``, ``"encdec"``
-and ``"vlm"`` raise ``NotImplementedError`` until their slices land
-(ROADMAP.md, queue 1).
+All six families of the reference are ported: ``"dense"``
+(``transformer.py``), ``"moe"`` (``moe.py``), ``"ssm"`` (the Mamba2 LM,
+``mamba2.py``), ``"hybrid"`` (Zamba2, ``zamba2.py``), ``"encdec"``
+(``encdec.py``) and ``"vlm"`` (``vlm.py``).  ``init_cache`` of an
+encoder-decoder takes ``enc_len``, the memory's length (default
+``max_len``), as the reference's does.
 """
 
 from __future__ import annotations
@@ -27,34 +29,44 @@ class Model:
     init: Callable[..., Params]              # (generator, device)
     params_from_numpy: Callable[..., Params]  # (numpy pytree, device)
     forward: Callable[..., Any]              # (params, batch)
-    init_cache: Callable[..., Params]        # (batch, max_len, device)
+    init_cache: Callable[..., Params]        # (batch, max_len, device, **kw)
     cache_axes: Callable[[], Params]
     prefill: Callable[..., tuple]            # (params, batch, max_len, *, mode=None)
     decode_step: Callable[..., tuple]        # (params, cache, batch)
 
 
-PORTED_FAMILIES = ("dense", "moe", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def get_model(cfg: ModelConfig) -> Model:
-    if cfg.family == "dense":
+    fam = cfg.family
+    if fam == "dense":
         from repro_torch.models import transformer as mod
-    elif cfg.family == "moe":
+    elif fam == "moe":
         from repro_torch.models import moe as mod
-    elif cfg.family == "hybrid":
+    elif fam == "ssm":
+        from repro_torch.models import mamba2 as mod
+    elif fam == "hybrid":
         from repro_torch.models import zamba2 as mod
+    elif fam == "encdec":
+        from repro_torch.models import encdec as mod
+    elif fam == "vlm":
+        from repro_torch.models import vlm as mod
     else:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (the port runs "
-            f"{', '.join(PORTED_FAMILIES)}); see ROADMAP.md, queue 1")
+        raise ValueError(f"unknown family {fam!r}")
+
+    def init_cache(batch: int, max_len: int, device, **kw) -> Params:
+        if fam == "encdec":
+            return mod.init_cache(cfg, batch, max_len, device,
+                                  kw.get("enc_len", max_len))
+        return mod.init_cache(cfg, batch, max_len, device)
 
     return Model(
         cfg=cfg,
         init=lambda generator, device: mod.init(generator, cfg, device),
         params_from_numpy=mod.params_from_numpy,
         forward=lambda p, b: mod.forward(p, b, cfg),
-        init_cache=lambda batch, max_len, device: mod.init_cache(
-            cfg, batch, max_len, device),
+        init_cache=init_cache,
         cache_axes=lambda: mod.cache_axes(cfg),
         prefill=lambda p, b, max_len, *, mode=None: mod.prefill(
             p, b, cfg, max_len, mode=mode),

@@ -1,6 +1,6 @@
 """Shared LM primitives in PyTorch, counterpart of the reference
-``repro/models/layers.py`` (the subset the dense, MoE and Zamba2 serving
-paths run).
+``repro/models/layers.py`` (the subset the serving paths of the six LM
+families run).
 
 Conventions, as in the reference:
   * params are dicts of tensors with the reference's names and layouts,
@@ -16,16 +16,21 @@ Conventions, as in the reference:
 
 Attention follows the reference's contract: grouped-query attention
 (``n_kv_heads`` dividing ``n_heads``), optional QKV bias (added after the
-projection is rounded to x's dtype) and optional qk-norm (RMS over
-head_dim, then RoPE).  The causal self-attention of prefill goes through
-``ops.flash_attention`` (the flash kernel, K6, which groups the query
-heads itself) at every length: it computes both the reference's masked
-``_sdpa`` and its kv-chunked twin ``_sdpa_chunked_causal``.  A sliding
-window shorter than the sequence raises ``NotImplementedError`` (K6 has
-no windowed mask yet), and cross-attention (the reference's
-``kv_override``) and M-RoPE have no parameter yet; those paths are queued
-in ROADMAP.md.  Decode attention (one query against the cache) stays
-plain PyTorch, as the reference computes it outside any kernel.
+projection is rounded to x's dtype), optional qk-norm (RMS over
+head_dim, then RoPE) and, where ``mrope_sections`` is given, Qwen2-VL's
+multimodal RoPE over (3, B, L) positions.  The attention of a whole
+sequence goes through ``ops.flash_attention`` (the flash kernel, K6,
+which groups the query heads itself) at every length: causal
+self-attention (the reference's masked ``_sdpa`` and its kv-chunked twin
+``_sdpa_chunked_causal``), the encoder's full self-attention, and
+cross-attention (``kv_override``: the queries rotated by their own
+positions over keys and values computed elsewhere, as
+``prefill_attention_kv`` computes them for the encoder's memory, never
+causal).  A sliding window shorter than the sequence raises
+``NotImplementedError`` (K6 has no windowed mask yet; queued in
+ROADMAP.md).  Decode attention (one query against the cache, or against
+the encoder's memory) stays plain PyTorch, as the reference computes it
+outside any kernel.
 """
 
 from __future__ import annotations
@@ -39,8 +44,9 @@ from repro_torch.kernels import ops
 
 __all__ = [
     "init_rms_norm", "rms_norm", "dense", "init_embedding",
-    "embed", "unembed", "rope_freqs", "apply_rope", "init_attention",
-    "attention", "decode_attention", "init_mlp",
+    "embed", "unembed", "rope_freqs", "apply_rope", "apply_mrope",
+    "init_attention", "attention", "prefill_attention_kv",
+    "decode_attention", "decode_cross_attention", "init_mlp",
     "mlp", "matmul_fp32", "bmm_fp32", "normal",
 ]
 
@@ -129,8 +135,37 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: tuple[int, ...]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  x: (B, L, H, D); positions: (3, B, L),
+    the temporal, height and width streams; ``sections`` splits the D/2
+    frequency slots among the streams in order (e.g. (16, 24, 24) for
+    D = 128): slot i turns with the position of its stream."""
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"mrope sections {sections} must sum to {d // 2}")
+    inv = rope_freqs(d, theta, x.device)                        # (D/2,)
+    parts, start = [], 0
+    for i, n in enumerate(sections):      # stream i drives n slots in turn
+        parts.append(positions[i][..., None].float() * inv[start:start + n])
+        start += n
+    ang = torch.cat(parts, dim=-1)                              # (B, L, D/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+          mrope_sections: tuple[int, ...]) -> torch.Tensor:
+    if mrope_sections:
+        return apply_mrope(x, positions, theta, mrope_sections)
+    return apply_rope(x, positions, theta)
+
+
 # --------------------------------------------------------------------------
-# attention (GQA, RoPE, optional QKV bias and qk-norm; causal prefill)
+# attention (GQA, RoPE or M-RoPE, optional QKV bias and qk-norm; causal or
+# full self-attention, cross-attention)
 # --------------------------------------------------------------------------
 
 def init_attention(generator: torch.Generator, d_model: int, n_heads: int,
@@ -161,18 +196,43 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w.reshape(d, h * k).to(x.dtype)).unflatten(-1, (h, k))
 
 
-def _project_qkv(p: Params, x: torch.Tensor, positions: torch.Tensor,
-                 theta: float, qk_norm: bool = False,
-                 eps: float = 1e-6) -> tuple[torch.Tensor, ...]:
-    """q (B, L, H, D), k, v (B, L, KV, D), in the reference's order: the
-    projections rounded to x's dtype, the bias added, qk-norm, RoPE."""
-    q, k, v = _heads(x, p["wq"]), _heads(x, p["wk"]), _heads(x, p["wv"])
+def _project_q(p: Params, x: torch.Tensor, positions: torch.Tensor,
+               theta: float, qk_norm: bool = False, eps: float = 1e-6,
+               mrope_sections: tuple[int, ...] = ()) -> torch.Tensor:
+    """q (B, L, H, D) in the reference's order: the projection rounded to
+    x's dtype, the bias added, qk-norm, RoPE (or M-RoPE)."""
+    q = _heads(x, p["wq"])
     if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q = q + p["bq"]
     if qk_norm:
         q = rms_norm(p["q_norm"], q, eps)
+    return _rope(q, positions, theta, mrope_sections)
+
+
+def prefill_attention_kv(p: Params, x: torch.Tensor, positions: torch.Tensor,
+                         *, theta: float, qk_norm: bool = False,
+                         eps: float = 1e-6,
+                         mrope_sections: tuple[int, ...] = ()
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """k, v (B, L, KV, D) of ``x`` at ``positions``, k rotated: what a cache
+    holds, and the encoder memory's keys and values for cross-attention."""
+    k, v = _heads(x, p["wk"]), _heads(x, p["wv"])
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    if qk_norm:
         k = rms_norm(p["k_norm"], k, eps)
-    return apply_rope(q, positions, theta), apply_rope(k, positions, theta), v
+    return _rope(k, positions, theta, mrope_sections), v
+
+
+def _project_qkv(p: Params, x: torch.Tensor, positions: torch.Tensor,
+                 theta: float, qk_norm: bool = False, eps: float = 1e-6,
+                 mrope_sections: tuple[int, ...] = ()
+                 ) -> tuple[torch.Tensor, ...]:
+    """q (B, L, H, D), k, v (B, L, KV, D)."""
+    q = _project_q(p, x, positions, theta, qk_norm, eps, mrope_sections)
+    k, v = prefill_attention_kv(p, x, positions, theta=theta, qk_norm=qk_norm,
+                                eps=eps, mrope_sections=mrope_sections)
+    return q, k, v
 
 
 def _out_proj(p: Params, out: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -201,17 +261,28 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
               theta: float, qk_norm: bool = False, eps: float = 1e-6,
+              mrope_sections: tuple[int, ...] = (),
+              kv_override: tuple[torch.Tensor, torch.Tensor] | None = None,
               causal: bool = True, window: int = 0, mode: str | None = None):
-    """Full-sequence (prefill) self-attention through the flash kernel.
-    x: (B, L, d); positions: (B, L).  Returns (y (B, L, d), (k, v)): the
-    keys and values (B, L, KV, D) a cache holds, what the reference's
-    ``prefill_attention_kv`` computes with a second projection."""
-    q, k, v = _project_qkv(p, x, positions, theta, qk_norm, eps)
-    lk = k.shape[1]
-    if causal and 0 < window < lk:
-        raise NotImplementedError(
-            f"prefill of {lk} tokens beyond attn_window={window} needs the "
-            f"windowed mask; queued in ROADMAP.md")
+    """Full-sequence (prefill) attention through the flash kernel.  x:
+    (B, L, d); positions: (B, L), or (3, B, L) with ``mrope_sections``.
+    Returns (y (B, L, d), (k, v)): the keys and values (B, Lk, KV, D)
+    attended, which for self-attention are what a cache holds (the
+    reference's ``prefill_attention_kv`` computes them with a second
+    projection).  With ``kv_override`` = (k, v) it is cross-attention: only
+    the queries are projected, and the mask is all-true whatever
+    ``causal`` says, as the reference's."""
+    if kv_override is None:
+        q, k, v = _project_qkv(p, x, positions, theta, qk_norm, eps,
+                               mrope_sections)
+        lk = k.shape[1]
+        if causal and 0 < window < lk:
+            raise NotImplementedError(
+                f"prefill of {lk} tokens beyond attn_window={window} needs "
+                f"the windowed mask; queued in ROADMAP.md")
+    else:
+        q = _project_q(p, x, positions, theta, qk_norm, eps, mrope_sections)
+        (k, v), causal = kv_override, False
     # (B, L, H, D) -> (B, H, L, D) views; the kernel reads them strided and
     # maps each query head to its KV head itself
     out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
@@ -224,6 +295,7 @@ def decode_attention(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, cache_len: torch.Tensor,
                      positions: torch.Tensor, *, theta: float,
                      qk_norm: bool = False, eps: float = 1e-6,
+                     mrope_sections: tuple[int, ...] = (),
                      window: int = 0, write_pos: torch.Tensor | None = None):
     """One decode step.  x: (B, 1, d); cache_k/v: (B, S, KV, D); cache_len:
     (B,).  Writes the new k, v into the caches IN PLACE at ``write_pos``
@@ -232,7 +304,8 @@ def decode_attention(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     writes nothing, as the reference's ``mode="drop"`` scatter.  Attends
     over every position <= ``cache_len`` (and > ``cache_len - window`` when
     ``window``).  Returns (y, cache_k, cache_v)."""
-    q, k, v = _project_qkv(p, x, positions, theta, qk_norm, eps)
+    q, k, v = _project_qkv(p, x, positions, theta, qk_norm, eps,
+                           mrope_sections)
     s = cache_k.shape[1]
     rows = torch.arange(x.shape[0], device=x.device)
     if write_pos is not None:
@@ -252,6 +325,21 @@ def decode_attention(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
         mask &= idx > cache_len[:, None] - window
     out = _sdpa(q, cache_k, cache_v, mask[:, None, None, None, :])
     return _out_proj(p, out, x.dtype), cache_k, cache_v
+
+
+def decode_cross_attention(p: Params, x: torch.Tensor, mem_k: torch.Tensor,
+                           mem_v: torch.Tensor, positions: torch.Tensor, *,
+                           theta: float, qk_norm: bool = False,
+                           eps: float = 1e-6) -> torch.Tensor:
+    """One decode step's cross-attention.  x: (B, 1, d) rotated by
+    ``positions`` (B, 1); mem_k, mem_v: (B, Sm, KV, D), the encoder
+    memory's keys and values computed at prefill.  Every memory position is
+    attended (the reference's ``attention(..., kv_override=...)`` on one
+    token, in plain PyTorch)."""
+    q = _project_q(p, x, positions, theta, qk_norm, eps)
+    mask = torch.ones((1, 1, 1, 1, mem_k.shape[1]), dtype=torch.bool,
+                      device=x.device)
+    return _out_proj(p, _sdpa(q, mem_k, mem_v, mask), x.dtype)
 
 
 # --------------------------------------------------------------------------

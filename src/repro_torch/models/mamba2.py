@@ -1,7 +1,7 @@
 """Mamba2 (SSD — state-space duality, arXiv:2405.21060) in PyTorch,
-counterpart of the reference ``repro/models/mamba2.py`` (the chunked SSD,
-its one-token recurrence and the Mamba2 block; the attention-free LM
-waits).
+counterpart of the reference ``repro/models/mamba2.py``: the chunked SSD,
+its one-token recurrence, the Mamba2 block, and the attention-free Mamba2
+LM (family ``"ssm"``, e.g. mamba2-2.7b) built on them.
 
 Per head h with state size N and head dim P:
 
@@ -18,7 +18,16 @@ reference's jnp SSD in four roundings: the intra-chunk weights, the
 chunk-state decays and the readout's operands stay fp32 where the
 reference rounds them to bf16, and y_diag is rounded to bf16 where the
 reference keeps it fp32 (K7 returns x's dtype);
-``tests/test_torch_zamba2_bf16.py`` names each with its measured size.
+``tests/test_torch_zamba2_bf16.py`` and ``tests/test_torch_mamba2_lm.py``
+name each with its measured size.
+
+The LM's parameters keep the reference's pytree (the blocks' leaves
+stacked on a leading layer axis, drawn layer by layer by
+``tree.init_stacked``), tied embeddings unembed through ``embedding``,
+and its cache is the recurrent state alone, of constant size: ``ssm``
+(n_layers, B, H, P, N) fp32, ``conv`` (n_layers, B, K-1, conv_dim) and
+``len``.  Every prefill runs one K7 launch per layer; ``decode_step``
+updates the cache in place.
 """
 
 from __future__ import annotations
@@ -32,9 +41,11 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models.tree import init_stacked, layer, params_from_numpy
 
 __all__ = ["ssd_chunked", "ssd_decode_step", "init_block", "block_apply",
-           "block_decode"]
+           "block_decode", "init", "params_from_numpy", "forward",
+           "init_cache", "cache_axes", "prefill", "decode_step"]
 
 Params = dict[str, Any]
 
@@ -236,3 +247,97 @@ def block_decode(p: Params, hidden: torch.Tensor, ssm_state: torch.Tensor,
     y = y + xs * p["d_skip"][None, :, None].to(xs.dtype)
     out = _gate_and_project(p, y.reshape(bsz, 1, d_in), z, hidden, cfg)
     return out, new_state, tail
+
+
+# --------------------------------------------------------------------------
+# whole LM (attention-free)
+# --------------------------------------------------------------------------
+
+def init(generator: torch.Generator, cfg: ModelConfig,
+         device: torch.device | str) -> Params:
+    """Random parameters in ``cfg.param_dtype``, drawn on ``device`` from
+    ``generator`` (which must live there), the layers straight into their
+    stacked tensors."""
+    device = torch.device(device)
+    dtype = getattr(torch, cfg.param_dtype)
+    p: Params = {
+        "embedding": L.init_embedding(generator, cfg.padded_vocab,
+                                      cfg.d_model, dtype, device),
+        "layers": init_stacked(cfg.n_layers,
+                               lambda: init_block(generator, cfg, device)),
+        "final_norm": L.init_rms_norm(cfg.d_model, dtype, device),
+    }
+    if not cfg.tie_embeddings:
+        p["unembed"] = L.init_embedding(generator, cfg.padded_vocab,
+                                        cfg.d_model, dtype, device)
+    return p
+
+
+def _logits(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = L.rms_norm(params["final_norm"], h, cfg.norm_eps)
+    emb = params["embedding"] if cfg.tie_embeddings else params["unembed"]
+    return L.unembed(emb, h)
+
+
+def forward(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Logits (B, S, V) fp32 of the whole sequence (S a multiple of
+    ``ssm_chunk``)."""
+    h = L.embed(params["embedding"], batch["tokens"])
+    for i in range(cfg.n_layers):
+        h = block_apply(layer(params["layers"], i), h, cfg)
+    return _logits(params, h, cfg)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: torch.device | str) -> Params:
+    """The recurrent state: its size does not depend on ``max_len``."""
+    del max_len
+    d_in, g, n, h, conv_dim = _dims(cfg)
+    return {
+        "ssm": torch.zeros((cfg.n_layers, batch, h, d_in // h, n),
+                           dtype=torch.float32, device=device),
+        "conv": torch.zeros((cfg.n_layers, batch, cfg.conv_kernel - 1,
+                             conv_dim), dtype=getattr(torch, cfg.dtype),
+                            device=device),
+        "len": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def cache_axes(cfg: ModelConfig) -> Params:
+    return {
+        "ssm": ("layers", "cache_batch", "activation_heads", None, None),
+        "conv": ("layers", "cache_batch", None, "activation_mlp"),
+        "len": ("cache_batch",),
+    }
+
+
+def prefill(params: Params, batch: dict, cfg: ModelConfig, max_len: int, *,
+            mode: str | None = None) -> tuple[torch.Tensor, Params]:
+    """Run the prompt (a multiple of ``ssm_chunk`` tokens); return
+    (last-position logits (B, 1, V) fp32, a fresh cache holding every
+    layer's final SSM state and conv tail)."""
+    h = L.embed(params["embedding"], batch["tokens"])
+    bsz, s = batch["tokens"].shape
+    cache = init_cache(cfg, bsz, max_len, h.device)
+    for i in range(cfg.n_layers):
+        h, (st, tail) = block_apply(layer(params["layers"], i), h, cfg,
+                                    return_states=True, mode=mode)
+        cache["ssm"][i].copy_(st)
+        cache["conv"][i].copy_(tail)
+    cache["len"].fill_(s)
+    return _logits(params, h[:, -1:, :], cfg), cache
+
+
+def decode_step(params: Params, cache: Params, batch: dict,
+                cfg: ModelConfig) -> tuple[torch.Tensor, Params]:
+    """One token per row.  batch["tokens"]: (B, 1).  Updates ``cache`` in
+    place and returns (logits (B, 1, V) fp32, cache)."""
+    h = L.embed(params["embedding"], batch["tokens"])
+    for i in range(cfg.n_layers):
+        h, st, tail = block_decode(layer(params["layers"], i), h,
+                                   cache["ssm"][i], cache["conv"][i], cfg)
+        cache["ssm"][i].copy_(st)
+        cache["conv"][i].copy_(tail)
+    logits = _logits(params, h, cfg)
+    cache["len"] += 1
+    return logits, cache

@@ -1,6 +1,13 @@
 """Dense decoder-only transformer LM in PyTorch (qwen2.5 / qwen1.5 / qwen3
-/ granite flavours: GQA, optional QKV bias, optional qk-norm), counterpart
-of the reference ``repro/models/transformer.py``.
+/ granite flavours: GQA, optional QKV bias, optional qk-norm; Qwen2-VL's
+M-RoPE where ``cfg.mrope_sections`` is set), counterpart of the reference
+``repro/models/transformer.py``.
+
+A batch carries ``tokens`` (B, S), or the modality front end's stub
+``embeds`` (B, S, d_model) in their place, and optionally ``positions``:
+(B, S), or (3, B, S) for M-RoPE (``vlm.make_image_positions``); without
+them the positions are 0..S-1, broadcast to the three streams for M-RoPE.
+Decode takes tokens and rotates by the cache length (on every stream).
 
 Parameters keep the reference's pytree: the blocks' leaves stacked on a
 leading "layers" axis, so ``params_from_numpy`` maps the reference's
@@ -65,7 +72,8 @@ def attend(p: Params, h: torch.Tensor, positions: torch.Tensor,
     """(h + attention(ln1(h)), the layer's (k, v))."""
     a, kv = L.attention(p["attn"], L.rms_norm(p["ln1"], h, cfg.norm_eps),
                         positions, theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
-                        eps=cfg.norm_eps, causal=True, mode=mode)
+                        eps=cfg.norm_eps, mrope_sections=cfg.mrope_sections,
+                        causal=True, mode=mode)
     return h + a, kv
 
 
@@ -76,7 +84,8 @@ def attend_decode(p: Params, h: torch.Tensor, ck: torch.Tensor,
     a, _, _ = L.decode_attention(
         p["attn"], L.rms_norm(p["ln1"], h, cfg.norm_eps), ck, cv, cache_len,
         positions, theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
-        eps=cfg.norm_eps, window=cfg.attn_window)
+        eps=cfg.norm_eps, mrope_sections=cfg.mrope_sections,
+        window=cfg.attn_window)
     return h + a
 
 
@@ -124,6 +133,24 @@ def _positions(bsz: int, s: int, device: torch.device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device).expand(bsz, s)
 
 
+def _embed_in(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """(B, S, d): ``embeds`` in the activation dtype (the vlm front end's
+    stub), else the tokens' embeddings."""
+    if "embeds" in batch:
+        return batch["embeds"].to(getattr(torch, cfg.dtype))
+    return L.embed(params["embedding"], batch["tokens"])
+
+
+def _positions_of(batch: dict, cfg: ModelConfig,
+                  h: torch.Tensor) -> torch.Tensor:
+    """``batch["positions"]``, else 0..S-1: (B, S), or (3, B, S) for
+    M-RoPE."""
+    if "positions" in batch:
+        return batch["positions"]
+    pos = _positions(h.shape[0], h.shape[1], h.device)
+    return pos.expand(3, *pos.shape) if cfg.mrope_sections else pos
+
+
 def _logits(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = L.rms_norm(params["final_norm"], h, cfg.norm_eps)
     emb = params["embedding"] if cfg.tie_embeddings else params["unembed"]
@@ -133,9 +160,8 @@ def _logits(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def forward(params: Params, batch: dict, cfg: ModelConfig,
             apply_one: Callable = block_apply) -> torch.Tensor:
     """Logits (B, S, V) fp32 of the whole sequence."""
-    h = L.embed(params["embedding"], batch["tokens"])
-    bsz, s = batch["tokens"].shape
-    positions = _positions(bsz, s, h.device)
+    h = _embed_in(params, batch, cfg)
+    positions = _positions_of(batch, cfg, h)
     for i in range(cfg.n_layers):
         h, _ = apply_one(layer(params["layers"], i), h, positions, cfg)
     return _logits(params, h, cfg)
@@ -168,11 +194,11 @@ def prefill(params: Params, batch: dict, cfg: ModelConfig, max_len: int,
             mode: str | None = None) -> tuple[torch.Tensor, Params]:
     """Run the prompt; return (last-position logits (B, 1, V) fp32, a fresh
     cache sized for ``max_len`` holding the prompt's keys and values)."""
-    h = L.embed(params["embedding"], batch["tokens"])
-    bsz, s = batch["tokens"].shape
+    h = _embed_in(params, batch, cfg)
+    bsz, s = h.shape[0], h.shape[1]
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len={max_len}")
-    positions = _positions(bsz, s, h.device)
+    positions = _positions_of(batch, cfg, h)
     cache = init_cache(cfg, bsz, max_len, h.device)
     for i in range(cfg.n_layers):
         h, (k, v) = apply_one(layer(params["layers"], i), h, positions, cfg,
@@ -189,9 +215,11 @@ def decode_step(params: Params, cache: Params, batch: dict, cfg: ModelConfig,
     """One token per row.  batch["tokens"]: (B, 1).  Updates ``cache`` in
     place (no copy of the KV cache per step) and returns (logits (B, 1, V)
     fp32, cache)."""
-    h = L.embed(params["embedding"], batch["tokens"])
+    h = _embed_in(params, batch, cfg)
     cache_len = cache["len"]
     pos = cache_len[:, None]
+    if cfg.mrope_sections:
+        pos = pos.expand(3, *pos.shape)
     for i in range(cfg.n_layers):
         h = decode_one(layer(params["layers"], i), h, cache["k"][i],
                        cache["v"][i], cache_len, pos, cfg)

@@ -1,0 +1,421 @@
+"""The port's encoder-decoder (``models/encdec.py``, family ``"encdec"``)
+and its cross-attention (``layers.attention(..., kv_override=...)``,
+``prefill_attention_kv``, ``decode_cross_attention``) against the JAX
+reference on seamless-m4t-large-v2-smoke (2 encoder + 2 decoder layers,
+d_model 64, 4 heads of 16), from the reference's own parameters
+(``get_model(cfg).init(PRNGKey(0))`` as numpy) with its unit norm scales
+replaced by random values, so that every term shows; the reference runs
+outside any mesh, and on the CPU ``ops.flash_attention`` runs its plain
+version.
+
+fp32: layers within 1e-5, the model's logits and every cache leaf within
+1e-4, through the prefill and decode steps past the self-attention
+cache's end (the reference drops those writes).  Cross-attention rotates
+its queries by the decoder's positions and the memory's keys by the
+memory's positions, as the reference does; the tests show both rotations
+matter.
+
+bf16 (``dtype`` and ``param_dtype`` bfloat16) is held to the reference
+run op by op (``jax.disable_jit``) and jitted.  The port departs from the
+reference nowhere on purpose: an encoder block, a decoder block and the
+memory's keys and values equal the op-by-op run but for single-ulp flips
+of a bf16 rounding (XLA and PyTorch sum an RMS norm's squares in another
+fp32 order).  A flip moves the next layer's inputs, so the whole model is
+held to a measured bar: on this config the logits of forward, prefill and
+4 decode steps are within 4.4e-3 of the largest logit of the op-by-op
+run, the self-attention caches within 2.0e-3, the memory caches
+bit-identical; the jitted reference (XLA fuses bf16 chains and rounds
+elsewhere) is 1.1e-2 from its own op-by-op run and from the port, which
+is held to it at 3e-2.
+
+The serving runner refuses the encoder-decoder and the VLM, as the
+reference's does; they run through ``get_model(cfg).prefill`` and
+``decode_step``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import smoke_config as j_smoke_config
+from repro.models import encdec as JE
+from repro.models import layers as JL
+from repro.models.api import get_model as j_get_model
+from repro.serve.runner import JaxModelRunner
+from repro_torch.configs import smoke_config
+from repro_torch.models import encdec as E
+from repro_torch.models import layers as L
+from repro_torch.models.api import get_model
+from repro_torch.models.tree import layer, params_from_numpy, tree_map
+from repro_torch.serve import TorchModelRunner
+
+ARCH = "seamless-m4t-large-v2"
+LAYER_TOL = 1e-5
+MODEL_TOL = 1e-4
+# bf16, as shares of the largest value (measured in the docstring): a
+# single-ulp flip propagated through the model; against the jitted
+# reference
+BF16_FLIP_RTOL = 1e-2
+BF16_JIT_RTOL = 3e-2
+FLIP_SHARE = 5e-3
+FLIP_RTOL = 1e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _randomised(tree, seed):
+    """The reference's init with its unit norm scales drawn at random."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, a):
+        a = np.asarray(a)
+        if "'scale'" not in jax.tree_util.keystr(path):
+            return a
+        r = 1.0 + rng.normal(size=a.shape) * 0.2
+        return r.astype(np.float32).astype(a.dtype)
+    return jax.tree_util.tree_map_with_path(leaf, tree)
+
+
+_PARAMS: dict = {}
+
+
+def _params(dtype="float32"):
+    """(port cfg, reference cfg, reference params (jax), port params)."""
+    if dtype not in _PARAMS:
+        over = {"dtype": dtype, "param_dtype": dtype}
+        cfg = smoke_config(ARCH).replace(**over)
+        jcfg = j_smoke_config(ARCH).replace(**over)
+        host = _randomised(jax.jit(j_get_model(jcfg).init)(
+            jax.random.PRNGKey(0)), seed=1)
+        _PARAMS[dtype] = (cfg, jcfg, jax.tree.map(jnp.asarray, host),
+                          params_from_numpy(host, "cpu"))
+    return _PARAMS[dtype]
+
+
+def _np32(a):
+    if isinstance(a, torch.Tensor):
+        return a.detach().float().numpy()
+    return np.asarray(a).astype(np.float32)
+
+
+def _close(ours, theirs, tol):
+    np.testing.assert_allclose(_np32(ours), _np32(theirs), rtol=tol, atol=tol)
+
+
+def _rel(ours, theirs):
+    g, w = _np32(ours), _np32(theirs)
+    assert g.shape == w.shape
+    return float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+
+
+def _same_but_flips(got, want):
+    """Equal but for flips of a bf16 rounding on a few elements."""
+    g, w = _np32(got), _np32(want)
+    d = np.abs(g - w)
+    mag = np.maximum(np.abs(g), np.abs(w))
+    ulp = np.exp2(np.floor(np.log2(np.where(mag > 0, mag, 1.0))) - 7)
+    bar = np.maximum(ulp, FLIP_RTOL * np.abs(w).max())
+    assert np.all(d <= bar), float(np.max(d / bar))
+    assert np.mean(d > 0) <= FLIP_SHARE, np.mean(d > 0)
+
+
+def _hidden(shape, seed, scale=1.0):
+    return (np.random.default_rng(seed).normal(size=shape) * scale).astype(
+        np.float32)
+
+
+def _pos(b, s, start=0):
+    return np.broadcast_to(np.arange(start, start + s, dtype=np.int32),
+                           (b, s)).copy()
+
+
+def _jlayer(tree, i):
+    return jax.tree.map(lambda a: a[i], tree)
+
+
+def _batch(cfg, b, frames, tokens, seed=0, dtype=np.float32):
+    """(numpy frame embeddings, numpy decoder tokens)."""
+    rng = np.random.default_rng(seed)
+    emb = rng.normal(size=(b, frames, cfg.d_model)).astype(np.float32)
+    toks = rng.integers(0, cfg.vocab_size, size=(b, tokens), dtype=np.int32)
+    return emb, toks
+
+
+def _jbatch(emb, toks, jdtype=jnp.float32):
+    return {"enc_embeds": jnp.asarray(emb, jdtype),
+            "dec_tokens": jnp.asarray(toks)}
+
+
+def _tbatch(emb, toks, tdtype=torch.float32):
+    return {"enc_embeds": torch.from_numpy(emb).to(tdtype),
+            "dec_tokens": torch.from_numpy(toks)}
+
+
+# ---- fp32 ----------------------------------------------------------------
+
+def test_params_from_numpy_keeps_the_pytree():
+    cfg, _, jp, tp = _params()
+    for path, leaf in jax.tree_util.tree_flatten_with_path(jp)[0]:
+        t = tp
+        for key in path:
+            t = t[key.key]
+        assert tuple(t.shape) == leaf.shape, path
+        assert str(t.dtype).split(".")[-1] == str(leaf.dtype), path
+    assert tp["encoder"]["attn"]["wq"].shape[0] == cfg.n_encoder_layers
+    assert tp["decoder"]["cross_attn"]["wk"].shape[0] == cfg.n_layers
+    own = get_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    assert jax.tree.map(lambda a: a.shape, jp) == tree_map(
+        lambda t: tuple(t.shape), own)
+
+
+def test_cross_attention_matches_reference():
+    """Decoder queries (7 tokens at positions 3..9) over memory keys and
+    values of 11 frames from ``prefill_attention_kv`` at the memory's
+    positions, through the flash kernel's plain version."""
+    cfg, _, jp, tp = _params()
+    ja = _jlayer(jp["decoder"], 1)["cross_attn"]
+    ta = layer(tp["decoder"], 1)["cross_attn"]
+    x, mem = _hidden((2, 7, cfg.d_model), 2), _hidden((2, 11, cfg.d_model), 3)
+    pos, pos_mem = _pos(2, 7, start=3), _pos(2, 11)
+    kw = dict(theta=cfg.rope_theta, eps=cfg.norm_eps)
+    jk, jv = JL.prefill_attention_kv(ja, jnp.asarray(mem), jnp.asarray(pos_mem),
+                                     **kw)
+    tk, tv = L.prefill_attention_kv(ta, torch.from_numpy(mem),
+                                    torch.from_numpy(pos_mem), **kw)
+    _close(tk, jk, LAYER_TOL)
+    _close(tv, jv, LAYER_TOL)
+    want = JL.attention(ja, jnp.asarray(x), jnp.asarray(pos), causal=False,
+                        kv_override=(jk, jv), **kw)
+    for causal in (False, True):   # the override's mask is all-true
+        got, kv = L.attention(ta, torch.from_numpy(x), torch.from_numpy(pos),
+                              causal=causal, kv_override=(tk, tv), **kw)
+        _close(got, want, LAYER_TOL)
+        assert kv[0] is tk and kv[1] is tv
+    # one decode token at position 9 over the same memory, plain PyTorch
+    want1 = JL.attention(ja, jnp.asarray(x[:, -1:]), jnp.asarray(pos[:, -1:]),
+                         causal=False, kv_override=(jk, jv), **kw)
+    got1 = L.decode_cross_attention(ta, torch.from_numpy(x[:, -1:]), tk, tv,
+                                    torch.from_numpy(pos[:, -1:]), **kw)
+    _close(got1, want1, LAYER_TOL)
+
+
+def test_cross_attention_rotates_queries_and_memory_keys_apart():
+    """RoPE in cross-attention: the queries turn with the decoder's
+    positions and the memory's keys with the memory's; shifting either
+    moves the output, and the reference moves with it."""
+    cfg, _, jp, tp = _params()
+    ja = _jlayer(jp["decoder"], 0)["cross_attn"]
+    ta = layer(tp["decoder"], 0)["cross_attn"]
+    x, mem = _hidden((1, 5, cfg.d_model), 4), _hidden((1, 9, cfg.d_model), 5)
+    kw = dict(theta=cfg.rope_theta, eps=cfg.norm_eps)
+    outs = []
+    for q0, m0 in ((0, 0), (4, 0), (0, 4)):
+        pos, pos_mem = _pos(1, 5, q0), _pos(1, 9, m0)
+        jkv = JL.prefill_attention_kv(ja, jnp.asarray(mem),
+                                      jnp.asarray(pos_mem), **kw)
+        tkv = L.prefill_attention_kv(ta, torch.from_numpy(mem),
+                                     torch.from_numpy(pos_mem), **kw)
+        want = JL.attention(ja, jnp.asarray(x), jnp.asarray(pos),
+                            causal=False, kv_override=jkv, **kw)
+        got, _ = L.attention(ta, torch.from_numpy(x), torch.from_numpy(pos),
+                             causal=False, kv_override=tkv, **kw)
+        _close(got, want, LAYER_TOL)
+        outs.append(_np32(got))
+    assert np.abs(outs[1] - outs[0]).max() > 1e-3
+    assert np.abs(outs[2] - outs[0]).max() > 1e-3
+
+
+def test_encoder_and_decoder_blocks_match_reference():
+    cfg, jcfg, jp, tp = _params()
+    h, mem = _hidden((2, 12, cfg.d_model), 6), _hidden((2, 9, cfg.d_model), 7)
+    pos, pos_mem = _pos(2, 12), _pos(2, 9)
+    je, te = _jlayer(jp["encoder"], 1), layer(tp["encoder"], 1)
+    want = JE.enc_block_apply(je, jnp.asarray(h), jnp.asarray(pos), jcfg)
+    got = E.enc_block_apply(te, torch.from_numpy(h), torch.from_numpy(pos),
+                            cfg)
+    _close(got, want, LAYER_TOL)
+    jd, td = _jlayer(jp["decoder"], 1), layer(tp["decoder"], 1)
+    kw = dict(theta=cfg.rope_theta, eps=cfg.norm_eps)
+    jkv = JL.prefill_attention_kv(jd["cross_attn"], jnp.asarray(mem),
+                                  jnp.asarray(pos_mem), **kw)
+    tkv = L.prefill_attention_kv(td["cross_attn"], torch.from_numpy(mem),
+                                 torch.from_numpy(pos_mem), **kw)
+    want = JE.dec_block_apply(jd, jnp.asarray(h), jkv, jnp.asarray(pos), jcfg)
+    got, (k, v) = E.dec_block_apply(td, torch.from_numpy(h), tkv,
+                                    torch.from_numpy(pos), cfg)
+    _close(got, want, LAYER_TOL)
+    jk, jv = JL.prefill_attention_kv(
+        jd["self_attn"], JL.rms_norm(jd["ln1"], jnp.asarray(h), cfg.norm_eps),
+        jnp.asarray(pos), **kw)
+    _close(k, jk, LAYER_TOL)
+    _close(v, jv, LAYER_TOL)
+
+
+def test_forward_matches_reference():
+    cfg, jcfg, jp, tp = _params()
+    emb, toks = _batch(cfg, 2, 13, 10)
+    want = jax.jit(j_get_model(jcfg).forward)(jp, _jbatch(emb, toks))
+    got = get_model(cfg).forward(tp, _tbatch(emb, toks))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    _close(got, want, MODEL_TOL)
+
+
+def test_prefill_cache_and_decode_past_the_end_match_reference():
+    """13 frames and a 10-token prompt into a 12-deep cache, then 5 decode
+    steps: the second writes the cache's last row, the last three write past
+    it (dropped).  Logits and every cache leaf (self-attention k, v; the
+    memory's mem_k, mem_v of enc_len 13; len) after each call."""
+    cfg, jcfg, jp, tp = _params()
+    jm, tm = j_get_model(jcfg), get_model(cfg)
+    emb, toks = _batch(cfg, 2, 13, 15, seed=1)
+    lj, cj = jax.jit(jm.prefill, static_argnums=2)(
+        jp, _jbatch(emb, toks[:, :10]), 12)
+    lt, ct = tm.prefill(tp, _tbatch(emb, toks[:, :10]), 12)
+    _close(lt, lj, MODEL_TOL)
+    assert set(ct) == set(cj) == set(tm.cache_axes())
+    for key in cj:
+        assert tuple(ct[key].shape) == cj[key].shape, key
+        assert str(ct[key].dtype).split(".")[-1] == str(cj[key].dtype), key
+        _close(ct[key], cj[key], MODEL_TOL)
+    j_decode = jax.jit(jm.decode_step)
+    for step in range(5):
+        tok = toks[:, 10 + step:11 + step]
+        lj, cj = j_decode(jp, cj, {"tokens": jnp.asarray(tok)})
+        k_cache = ct["k"]
+        lt, ct = tm.decode_step(tp, ct, {"tokens": torch.from_numpy(tok)})
+        assert ct["k"] is k_cache                  # written in place
+        _close(lt, lj, MODEL_TOL)
+        for key in cj:
+            _close(ct[key], cj[key], MODEL_TOL)
+    assert ct["len"].tolist() == [15, 15]
+
+
+def test_init_cache_takes_the_memory_length():
+    cfg, jcfg, _, _ = _params()
+    tm, jm = get_model(cfg), j_get_model(jcfg)
+    for kw in ({}, {"enc_len": 7}):
+        ours = tm.init_cache(2, 16, "cpu", **kw)
+        theirs = jm.init_cache(2, 16, **kw)
+        assert {k: tuple(v.shape) for k, v in ours.items()} == {
+            k: v.shape for k, v in theirs.items()}
+
+
+def test_prefill_launches_flash_attention_three_times_a_decoder_layer(
+        monkeypatch):
+    """One K6 call per encoder layer, two per decoder layer (causal self-
+    and cross-attention), with the lengths each takes."""
+    from repro_torch.kernels import ops
+
+    cfg, _, _, tp = _params()
+    calls = []
+
+    def counted(q, k, v, causal=True, *, mode=None, _fn=ops.flash_attention):
+        calls.append((q.shape[2], k.shape[2], causal))
+        return _fn(q, k, v, causal, mode=mode)
+    monkeypatch.setattr(ops, "flash_attention", counted)
+    emb, toks = _batch(cfg, 1, 11, 6)
+    get_model(cfg).prefill(tp, _tbatch(emb, toks), 8)
+    assert calls == ([(11, 11, False)] * cfg.n_encoder_layers
+                     + [(6, 6, True), (6, 11, False)] * cfg.n_layers)
+
+
+def test_serving_runners_refuse_the_encoder_decoder_and_the_vlm():
+    for arch in (ARCH, "qwen2-vl-72b"):
+        with pytest.raises(ValueError, match="token-LM"):
+            TorchModelRunner(smoke_config(arch), n_slots=1, max_len=8,
+                             device="cpu")
+        with pytest.raises(ValueError, match="token-LM"):
+            JaxModelRunner(j_smoke_config(arch), n_slots=1, max_len=8,
+                           devices=jax.devices()[:1])
+
+
+# ---- bf16 ----------------------------------------------------------------
+
+def _bf16_emb(emb):
+    """The frame embeddings as the reference's bf16 values."""
+    return np.asarray(jnp.asarray(emb, jnp.bfloat16), np.float32)
+
+
+def test_bf16_blocks_equal_reference_but_for_flips():
+    """An encoder and a decoder block (with its cross-attention) on the same
+    bf16 inputs: equal to the op-by-op reference but for single-ulp flips."""
+    cfg, jcfg, jp, tp = _params("bfloat16")
+    h = _bf16_emb(_hidden((2, 12, cfg.d_model), 8))
+    mem = _bf16_emb(_hidden((2, 9, cfg.d_model), 9))
+    pos, pos_mem = _pos(2, 12), _pos(2, 9)
+    kw = dict(theta=cfg.rope_theta, eps=cfg.norm_eps)
+    je, te = _jlayer(jp["encoder"], 0), layer(tp["encoder"], 0)
+    jd, td = _jlayer(jp["decoder"], 1), layer(tp["decoder"], 1)
+    th, tm = (torch.from_numpy(a).bfloat16() for a in (h, mem))
+    jh, jm = (jnp.asarray(a, jnp.bfloat16) for a in (h, mem))
+    with jax.disable_jit():
+        want_e = JE.enc_block_apply(je, jh, jnp.asarray(pos), jcfg)
+        jkv = JL.prefill_attention_kv(jd["cross_attn"], jm,
+                                      jnp.asarray(pos_mem), **kw)
+        want_d = JE.dec_block_apply(jd, jh, jkv, jnp.asarray(pos), jcfg)
+    tkv = L.prefill_attention_kv(td["cross_attn"], tm,
+                                 torch.from_numpy(pos_mem), **kw)
+    got_e = E.enc_block_apply(te, th, torch.from_numpy(pos), cfg)
+    got_d, _ = E.dec_block_apply(td, th, tkv, torch.from_numpy(pos), cfg)
+    for got, want in ((got_e, want_e), (tkv[0], jkv[0]), (tkv[1], jkv[1]),
+                      (got_d, want_d)):
+        assert got.dtype == torch.bfloat16
+        _same_but_flips(got, want)
+
+
+@pytest.fixture(scope="module")
+def bf16_reference():
+    """Op-by-op reference in bf16: forward; prefill (13 frames, 10 tokens,
+    a 16-deep cache) and 4 decode steps, (logits, cache) after each; the
+    jitted forward."""
+    cfg, jcfg, jp, _ = _params("bfloat16")
+    jm = j_get_model(jcfg)
+    emb, toks = _batch(cfg, 2, 13, 14, seed=2)
+    full = _jbatch(emb, toks[:, :10], jnp.bfloat16)
+    serving = []
+    with jax.disable_jit():
+        eager = jm.forward(jp, full)
+        logits, cache = jm.prefill(jp, full, 16)
+        serving.append((logits, cache))
+        for step in range(4):
+            tok = jnp.asarray(toks[:, 10 + step:11 + step])
+            logits, cache = jm.decode_step(jp, cache, {"tokens": tok})
+            serving.append((logits, cache))
+    return emb, toks, eager, jax.jit(jm.forward)(jp, full), serving
+
+
+def test_bf16_forward_matches_reference(bf16_reference):
+    emb, toks, eager, jitted, _ = bf16_reference
+    cfg, _, _, tp = _params("bfloat16")
+    got = get_model(cfg).forward(
+        tp, _tbatch(_bf16_emb(emb), toks[:, :10], torch.bfloat16))
+    assert got.dtype == torch.float32
+    assert _rel(got, eager) <= BF16_FLIP_RTOL
+    assert _rel(got, jitted) <= BF16_JIT_RTOL
+
+
+def test_bf16_prefill_and_decode_match_reference(bf16_reference):
+    emb, toks, _, _, want = bf16_reference
+    cfg, _, _, tp = _params("bfloat16")
+    tm = get_model(cfg)
+    logits, cache = tm.prefill(
+        tp, _tbatch(_bf16_emb(emb), toks[:, :10], torch.bfloat16), 16)
+    got = [(logits, {k: v.clone() for k, v in cache.items()})]
+    for step in range(4):
+        tok = torch.from_numpy(toks[:, 10 + step:11 + step])
+        logits, cache = tm.decode_step(tp, cache, {"tokens": tok})
+        got.append((logits, {k: v.clone() for k, v in cache.items()}))
+    for (lt, ct), (lj, cj) in zip(got, want):
+        assert _rel(lt, lj) <= BF16_FLIP_RTOL
+        for key in ("k", "v", "mem_k", "mem_v"):
+            assert ct[key].dtype == torch.bfloat16
+            assert _rel(ct[key], cj[key]) <= BF16_FLIP_RTOL, key
+        np.testing.assert_array_equal(ct["len"].numpy(), np.asarray(cj["len"]))

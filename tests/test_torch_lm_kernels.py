@@ -7,7 +7,9 @@ runs them) and through the port's wrappers on CPU tensors, which run the
 plain versions.  Tolerances are tests/test_kernels.py's: 2e-5 (fp32) and
 5e-2 (bf16) for attention, 1e-5 for the SSD chunk.  The CUDA kernels are
 held against the plain versions on the card in
-tests/test_torch_kernels_gpu.py and chip_smoke.py.  The bf16 SSD kernel's
+tests/test_torch_kernels_gpu.py, the ``gpu`` cases at the end of this
+file (K7 at N = 72-128, K6 with Sq != Sk, the Mamba2 LM, encoder-decoder
+and VLM smoke models) and chip_smoke.py.  The bf16 SSD kernel's
 arithmetic (tensor-core products with the weights split into bf16 hi +
 lo) is emulated here in torch and held to chip_smoke.py's own bars.
 """
@@ -15,12 +17,14 @@ lo) is emulated here in torch and held to chip_smoke.py's own bars.
 import importlib.util
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.models import layers as JL
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ssd_scan import SSD_MIN_BLOCKS, ssd_chunk, ssd_plan
@@ -175,11 +179,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(TypeError, match="mixed dtypes"):
         flash_attention(q, q.bfloat16(), q)
     # GQA takes KV dividing H (tests/test_torch_gqa.py); 3 heads do not
-    # divide 2, and keys of another length are cross-attention
+    # divide 2; keys of another length are cross-attention, which is not
+    # causal (tests/test_torch_encdec.py), and k and v must agree
     with pytest.raises(ValueError, match="H % KV == 0"):
         flash_attention(torch.zeros(1, 3, 8, 16), q, q)
-    with pytest.raises(ValueError, match="no cross-attention"):
+    with pytest.raises(ValueError, match="causal attention needs Sq == Sk"):
         flash_attention(q, q[:, :, :4], q[:, :, :4])
+    with pytest.raises(ValueError, match="k and v must"):
+        flash_attention(q, q[:, :, :4], q, causal=False)
     with pytest.raises(ValueError, match="D <= 128"):
         big = torch.zeros(1, 1, 4, 130)
         flash_attention(big, big, big)
@@ -217,13 +224,14 @@ def test_flash_attention_refuses_misaligned_bf16_views(kind):
 
 
 @pytest.mark.parametrize("bc,q,h,p,n", [(1, 129, 2, 8, 8), (1, 8, 2, 65, 8),
-                                        (1, 8, 2, 8, 65)])
+                                        (1, 8, 2, 8, 129)])
 def test_ssd_chunk_refuses_shapes_beyond_the_kernel(bc, q, h, p, n):
-    """Q <= 128 and P, N <= 64 (Zamba2's chunk and head sizes), on either
-    device, so the CPU path takes what the kernel takes."""
+    """Q <= 128, P <= 64 and N <= 128 (the chunk and head sizes of Zamba2
+    and Mamba2-2.7B), on either device, so the CPU path takes what the
+    kernel takes."""
     x, dt_a = torch.zeros(bc, q, h, p), torch.zeros(bc, q, h)
     b = torch.zeros(bc, q, h, n)
-    with pytest.raises(ValueError, match="Q <= 128, P, N <= 64"):
+    with pytest.raises(ValueError, match="Q <= 128, P <= 64, N <= 128"):
         ssd_chunk(x, dt_a, b, b)
 
 
@@ -331,3 +339,231 @@ def test_ssd_bf16_single_rounding_misses_the_state_bar():
     single = _k7_bars(_k7_bf16_emulation(*ins, split=False), want)[2]
     split = _k7_bars(_k7_bf16_emulation(*ins), want)[2]
     assert single[0] > SMOKE.K7_BF16_STATE_RTOL >= split[0], (single, split)
+
+
+# ---- K7 at N <= 128 and K6 with Sq != Sk --------------------------------
+
+# (bc, q, h, p, n, block_h): mamba2-2.7b's N = 128 at small Q, N = 96 and
+# a ragged chunk
+SSD_WIDE_SHAPES = [(2, 16, 4, 16, 128, 4), (1, 24, 2, 8, 96, 2),
+                   (3, 8, 4, 8, 128, 2)]
+
+
+@pytest.mark.parametrize("bc,q,h,p,n,bh", SSD_WIDE_SHAPES)
+def test_ssd_chunk_plain_at_wide_states_matches_reference(bc, q, h, p, n, bh):
+    """The plain version at N > 64 (the kernels take N <= 128) against the
+    reference's ``ssd_chunk`` run as its jnp oracle and as its Pallas
+    kernel interpreted; and with one B/C group broadcast (stride 0).  Sums
+    of 128 products reach ~30, where fp32 order alone moves an element by
+    ~1e-5: the bar is chip_smoke.py's, 1e-5 of each output's largest
+    value."""
+    def close(ours, theirs):
+        for o, t in zip(ours, theirs):
+            t = np.asarray(t, np.float32)
+            d = np.abs(o.float().numpy() - t).max()
+            assert d <= SMOKE.K7_FP32_RTOL * np.abs(t).max(), d
+
+    arrs = _ssd_inputs(bc, q, h, p, n, seed=6)
+    jarrs = [jnp.asarray(a) for a in arrs]
+    got = ssd_chunk(*(torch.from_numpy(a) for a in arrs))
+    assert tuple(got[1].shape) == (bc, h, p, n)
+    close(got, jops.ssd_chunk(*jarrs, force="ref"))
+    close(got, jops.ssd_chunk(*jarrs, force="pallas_interpret", block_h=bh))
+    x, dt_a, b, c = arrs
+    b1, c1 = b[:, :, :1], c[:, :, :1]
+    got = ssd_chunk(torch.from_numpy(x), torch.from_numpy(dt_a),
+                    torch.from_numpy(b1).expand(bc, q, h, n),
+                    torch.from_numpy(c1).expand(bc, q, h, n))
+    close(got, jops.ssd_chunk(
+        jnp.asarray(x), jnp.asarray(dt_a),
+        jnp.asarray(np.broadcast_to(b1, b.shape)),
+        jnp.asarray(np.broadcast_to(c1, c.shape)), force="ref"))
+
+
+def test_ssd_plan_at_n128_keeps_four_waves():
+    """N > 64 holds one block an SM (165 KB of tiles), so the plan keeps
+    four waves of the 132 SMs: at mamba2-2.7b's 16 chunks x 80 heads, 2
+    heads a block (640 blocks; the fastest in chip_smoke.py's sweep); N <=
+    64 keeps its three-in-four rule (test_ssd_plan_fills_the_card)."""
+    from repro_torch.kernels.ssd_scan import SM_COUNT, ssd_min_blocks
+
+    assert ssd_min_blocks(64) == SSD_MIN_BLOCKS == 3 * 2 * SM_COUNT // 4
+    assert ssd_min_blocks(128) == 4 * SM_COUNT
+    assert ssd_plan(16, 80, 128, True, 128) == 2
+    assert ssd_plan(16, 80, 128, True, 64) == 4
+    assert ssd_plan(4, 80, 128, True, 128) == 1
+    assert ssd_plan(16, 80, 128, False, 128) == 1
+    with pytest.raises(ValueError, match="state size 129"):
+        ssd_plan(16, 80, 128, True, 129)
+
+
+def _cross_qkv(b, h, kv, sq, sk, d, seed):
+    """q (B, Sq, H, D), k, v (B, Sk, KV, D): the model's layout."""
+    rng = np.random.default_rng(seed)
+    return (_np(rng, (b, sq, h, d)), _np(rng, (b, sk, kv, d)),
+            _np(rng, (b, sk, kv, d)))
+
+
+@pytest.mark.parametrize("b,h,kv,sq,sk,d", [(1, 4, 4, 7, 20, 16),
+                                            (2, 4, 2, 1, 33, 32),
+                                            (1, 6, 3, 40, 9, 16),
+                                            (1, 2, 2, 5, 1, 128)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_attention_plain_cross_matches_reference_sdpa(b, h, kv, sq, sk,
+                                                            d, dtype):
+    """Sq != Sk, not causal (cross-attention; GQA too): the plain version
+    against the reference model's ``_sdpa`` with an all-true mask."""
+    jdt, tdt, tol = DTYPES[dtype]
+    q, k, v = _cross_qkv(b, h, kv, sq, sk, d, seed=7)
+    mask = jnp.ones((1, 1, 1, sq, sk), dtype=bool)
+    with jax.disable_jit():
+        want = JL._sdpa(*(jnp.asarray(a, jdt) for a in (q, k, v)), mask)
+    views = [torch.from_numpy(a).to(tdt).transpose(1, 2) for a in (q, k, v)]
+    got = flash_attention(*views, False).transpose(1, 2)
+    assert got.dtype == tdt and got.shape == (b, sq, h, d)
+    _close(got, want, tol)
+    torch.testing.assert_close(
+        ops.flash_attention(*views, False, mode="ref").transpose(1, 2), got)
+
+
+def test_flash_attention_refuses_causal_with_unequal_lengths():
+    """The choice for causal attention with Sq != Sk (which the reference
+    never asks for): refused on either device, the plain version and
+    ``ops``' ref mode included, before anything is launched."""
+    q = torch.zeros(1, 2, 8, 16)
+    kv = torch.zeros(1, 2, 12, 16)
+    ops.reset_launches()
+    for call in (lambda: flash_attention(q, kv, kv, True),
+                 lambda: ops.flash_attention(q, kv, kv, True, mode="ref"),
+                 lambda: ref.flash_attention_ref(q, kv, kv, True)):
+        with pytest.raises(ValueError, match="causal attention needs Sq == Sk"):
+            call()
+    assert ops.launch_counts()["flash_attention"] == 0
+    assert flash_attention(q, kv, kv, False).shape == q.shape
+
+
+def test_ssd_bf16_kernel_arithmetic_at_n128_meets_the_card_bars():
+    """The hi/lo emulation of the bf16 kernel at N = 128 (mamba2-2.7b's
+    state, one B/C group broadcast) against ssd_chunk_ref, at
+    chip_smoke.py's bars."""
+    bc, q, h, p, n = 2, 128, 4, 64, 128
+    rng = np.random.default_rng(22)
+    x = torch.from_numpy(_np(rng, (bc, q, h, p))).bfloat16()
+    dt_a = torch.from_numpy(-np.abs(_np(rng, (bc, q, h))) * 0.3)
+    b1, c1 = (torch.from_numpy(_np(rng, (bc, q, 1, n))).bfloat16()
+              for _ in range(2))
+    ins = (x, dt_a, b1.expand(bc, q, h, n), c1.expand(bc, q, h, n))
+    ok, crit, rel = _k7_bars(_k7_bf16_emulation(*ins), ref.ssd_chunk_ref(*ins))
+    assert ok, crit
+    assert max(rel) <= SMOKE.K7_BF16_STATE_RTOL, rel
+
+
+# ---- on the card -----------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _held(out, want, fp32_rtol, slack=None):
+    ok, _, crit = SMOKE._close(torch, out, want, fp32_rtol, slack)
+    assert ok, crit
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bc,q,h,p,n", [(16, 128, 80, 64, 128),
+                                        (2, 100, 8, 64, 128),
+                                        (3, 128, 4, 64, 96),
+                                        (1, 64, 2, 30, 90)])
+@pytest.mark.parametrize("shared_bc", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_at_wide_states_matches_plain_on_card(cuda, bc, q, h, p, n,
+                                                        shared_bc, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    g = 1 if shared_bc else h
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda)
+    x = rand(bc, q, h, p).to(dtype)
+    dt_a = -rand(bc, q, h).abs() * 0.3
+    b, c = (rand(bc, q, g, n).to(dtype).expand(bc, q, h, n) for _ in range(2))
+    before = ops.launch_counts()["ssd_chunk"]
+    out = ssd_chunk(x, dt_a, b, c)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_chunk"] == before + 1
+    want = ref.ssd_chunk_ref(x, dt_a, b, c)
+    _held(out[0], want[0], SMOKE.K7_FP32_RTOL)
+    rtol = (SMOKE.K7_BF16_STATE_RTOL if dtype == torch.bfloat16
+            else SMOKE.K7_FP32_RTOL)
+    for o, w in zip(out[1:], want[1:]):
+        assert SMOKE.errors(o, w)[1] <= rtol
+    for a, a2 in zip(out, ssd_chunk(x, dt_a, b, c)):
+        assert torch.equal(a, a2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,kv,sq,sk,d", [(1, 16, 16, 512, 1024, 64),
+                                            (1, 16, 16, 1, 1024, 64),
+                                            (1, 4, 4, 77, 203, 64),
+                                            (2, 4, 4, 300, 100, 64),
+                                            (1, 8, 2, 77, 203, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_cross_matches_plain_on_card(cuda, b, h, kv, sq, sk,
+                                                     d, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn(b, sq, h, d, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(b, sk, kv, d, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    before = ops.launch_counts()["flash_attention"]
+    out = flash_attention(q, k, v, False)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    _held(out, ref.flash_attention_ref(q, k, v, False), SMOKE.K6_FP32_RTOL,
+          lambda: SMOKE.BF16_ULP * ref.flash_attention_ref(
+              q.float(), k.float(), v.float().abs(), False))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "seamless-m4t-large-v2",
+                                  "qwen2-vl-72b"])
+def test_new_family_kernel_path_matches_plain_path_on_card(cuda, arch):
+    """fp32 smoke model on the card: the prefill through K6/K7 against the
+    plain path, logits and caches within 1e-4; the launches of one
+    prefill as chip_smoke.py counts them."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import vlm
+    from repro_torch.models.api import get_model
+
+    cfg = smoke_config(arch)
+    model = get_model(cfg)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    with torch.inference_mode():
+        params = model.init(gen, cuda)
+        toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen,
+                             device=cuda)
+        if cfg.family == "encdec":
+            batch = {"enc_embeds": torch.randn(2, 50, cfg.d_model,
+                                               generator=gen, device=cuda),
+                     "dec_tokens": toks}
+        elif cfg.family == "vlm":
+            batch = {"embeds": torch.randn(2, 40, cfg.d_model, generator=gen,
+                                           device=cuda),
+                     "positions": vlm.make_image_positions(2, 2, 4, 5, cuda)}
+        else:
+            batch = {"tokens": toks}
+        before = ops.launch_counts()
+        lk, ck = model.prefill(params, batch, 48)
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        lp, cp = model.prefill(params, batch, 48, mode="ref")
+    per = SMOKE.launches_per_prefill(cfg)
+    for name in ("flash_attention", "ssd_chunk"):
+        assert after[name] - before[name] == per[name]
+    for key in ck:
+        if key != "len":
+            assert SMOKE.errors(ck[key], cp[key])[1] <= 1e-4, key
+    assert SMOKE.errors(lk, lp)[1] <= 1e-4
