@@ -10,7 +10,8 @@ period program on an 8-device ring, that program again losing two of its
 devices and resuming from a checkpoint on the six left, Zamba2-1.2B,
 qwen3-14b, qwen2-moe-a2.7b and mamba2-2.7b served at full width in bf16,
 and seamless-m4t-large-v2 (full width) and qwen2-vl-72b (full width, cut
-in depth) through their prefill and decode steps.  Phases, each
+in depth) through their prefill and decode steps, and granite-3-2b and
+Zamba2-1.2B trained at full width by the LM train step.  Phases, each
 printing its own lines; any failure raises and the script exits non-zero
 without a result line:
 
@@ -30,10 +31,16 @@ without a result line:
               tile height) and the device time of every other choice, each
               held to the plain version; K4/K5 (softmax_xent) in fp32 and
               bf16 at NN1 (64, 10), NN5 (128, 10) and the edges (1, 10)
-              and (37, 300), nll, lse, the batch mean and dlogits within
-              1e-5, K4's mean run twice bit-identical; then an empty
-              kernel timed the same way (the launch floor) and one NN1
-              step's forward and backward captured in a CUDA graph
+              and (37, 300), and at LM loss shapes (2048, 49408) fp32 and
+              bf16, (4096, 32000), (37, 49408) and (2048, 1000), each K4/K5
+              row naming the launch its host plan picked (K4: the
+              one-block lane kernel, or the rows kernel's warps a row;
+              both: 16-byte vectors or not), nll, lse and the batch mean
+              within 1e-5, dlogits element-wise within 1e-5 of its size
+              (bf16: one bf16 ulp) plus 1e-6 of its row's largest, K4's
+              mean run twice bit-identical; then an empty kernel timed the same way (the
+              launch floor) and one NN1 step's forward and backward
+              captured in a CUDA graph
   4. autograd gradients of the fused ops on NN1 against autograd of the
               plain versions
   5. train    NN1, 300 steps, batch 64, seed 0, through
@@ -158,6 +165,24 @@ without a result line:
               embeddings at their M-RoPE positions (2048), K6 launched 8
               times, 8 greedy steps; profiled prefill and decode step; the
               bf16 kernel path against the plain path
+ 18. train    the LM train step (``repro_torch.launch.steps``):
+              granite-3-2b (40 layers, d_model 2048, 32 heads on 8 KV
+              heads of 64, d_ff 8192, vocab 49155 padded to 49408, tied;
+              2.53 B parameters) at full width and depth, bf16 parameters,
+              fp32 AdamW moments, remat, random weights and one batch of
+              2 x 2048 seeded token ids in 2 microbatches: 5 steps, every
+              loss finite and the last below the first, K4 and K5 launched
+              2 times a step and K6/K7 never (counters reset before each
+              step), host ms/step, peak memory < 80 GB beside the
+              reckoned, a profiled step (device busy, top operations, K4/K5
+              and the plain attention's share, the latter timed alone and
+              multiplied out); the kernel path against the plain path on
+              step 1 from the same weights (loss 1e-5, gradient norm 1e-2
+              relative); 3 steps with int8 error feedback, the same checks;
+              then Zamba2-1.2B at full width and depth, bf16, batch 1 x
+              2048, 3 steps (the loss falls, K4/K5 once a step) and a
+              profiled step with the plain SSD's and the shared attention's
+              shares of device busy time
 
 The last three lines are a JSON object of per-kernel numbers, the card's
 name and power limit as nvidia-smi reports them, and the result object.
@@ -182,7 +207,15 @@ FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
 
 GEMM_RTOL = 1e-4    # fp32 sums of up to 4000 terms in another order
-XENT_ATOL = 1e-5    # nll, lse, dlogits
+XENT_ATOL = 1e-5    # nll, lse and the mean (values of the order of log C)
+# dlogits = (p − onehot)·s is held element-wise relative to its size: s is
+# g/B (3.4e-4 at the LM's 2048 rows, with p below 1e-4 nearly everywhere),
+# so an absolute bar would pass any p.  fp32 within DLOGITS_RTOL of |plain|,
+# bf16 within one bf16 ulp (both sides round an fp32 value to bf16), each
+# plus DLOGITS_ROW_FLOOR of its row's largest |plain| (p underflows far
+# below the row's largest logit)
+DLOGITS_RTOL = 1e-5
+DLOGITS_ROW_FLOOR = 1e-6
 
 NN1 = [784, 1000, 500, 10]
 NN5 = [1024, 4000, 1000, 4000, 10]
@@ -206,6 +239,16 @@ KERNEL_INFO = {
                   "src/repro/kernels/ssd_scan.py:60"),
 }
 FCNN_KERNELS = tuple(KERNEL_INFO)[:5]
+XENT_KERNELS = ("softmax_xent_fwd", "softmax_xent_dlogits")
+# K4/K5 at LM loss shapes (B·L, padded vocabulary): granite-3-2b's
+# microbatch of 2048 tokens (the train path, phase 18), Zamba2's vocabulary
+# at 4096 tokens, a ragged batch, a narrow vocabulary, and bf16 logits
+LM_XENT_SHAPES = (("2048x49408", 2048, 49408, "float32"),
+                  ("4096x32000", 4096, 32000, "float32"),
+                  ("37x49408", 37, 49408, "float32"),
+                  ("2048x1000", 2048, 1000, "float32"),
+                  ("2048x49408", 2048, 49408, "bfloat16"))
+LM_XENT_LABEL = "LM 2048x49408 float32"
 LM_KERNELS = ("flash_attention", "ssd_chunk")
 # the kernels this script holds to 0 spill bytes in ptxas's report, by a
 # substring of their mangled names
@@ -308,6 +351,18 @@ def bound(nbytes: float, flops: float,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def dlogits_error(out, want) -> float:
+    """K5's worst element as a share of its bar (<= 1 passes): |out − want|
+    over rtol·|want| + DLOGITS_ROW_FLOOR·(its row's largest |want|), rtol
+    DLOGITS_RTOL for fp32 and BF16_ULP for bf16.  Where the bar is 0 (a
+    row whose factor is 0) the two must be equal."""
+    o, w = out.double(), want.double()
+    rtol = BF16_ULP if out.element_size() == 2 else DLOGITS_RTOL
+    bar = rtol * w.abs() + DLOGITS_ROW_FLOOR * w.abs().amax(-1, keepdim=True)
+    tiny = 2.2250738585072014e-308
+    return ((o - w).abs() / bar.clamp_min(tiny)).max().item()
 
 
 def errors(out, ref) -> tuple[float, float]:
@@ -446,7 +501,7 @@ class Case(NamedTuple):
     flops: int
     timed: bool
     on_path: bool
-    plan: tuple[int, ...] | None = None
+    plan: tuple | str | None = None
     forced: Callable | None = None
 
 
@@ -473,7 +528,10 @@ def kernel_cases(torch, dev, gen, shapes=None):
         fwd_plan,
         wgrad_plan,
     )
-    from repro_torch.kernels.softmax_xent import softmax_xent_dlogits, softmax_xent_fwd
+    from repro_torch.kernels.softmax_xent import (softmax_xent_dlogits,
+                                                  softmax_xent_fwd,
+                                                  vector_loads)
+    from repro_torch.kernels.softmax_xent import fwd_plan as xent_fwd_plan
     F = torch.nn.functional
     lib_act = {"sigmoid": torch.sigmoid, "relu": torch.relu,
                "tanh": torch.tanh, "none": lambda z: z}
@@ -544,18 +602,22 @@ def kernel_cases(torch, dev, gen, shapes=None):
         g = torch.tensor(0.7, device=dev)
         e = x.element_size()
         label = f"{tag} {b}x{c} {str(dtype)[6:]}"
+        aligned = x.data_ptr() % 16 == 0
         # K4 writes (nll, lse, mean); K5 takes the loss cotangent g as the
-        # training step hands it over
+        # training step hands it over; each with the launch its host plan
+        # picked
         yield Case("softmax_xent_fwd", label,
                    lambda: softmax_xent_fwd(x, lab),
                    lambda: ref.softmax_xent_fwd_ref(x, lab),
                    lambda: F.cross_entropy(x, lab64, reduction="none"),
-                   e * b * c + 4 * 3 * b + 4, 4 * b * c + b, timed, on_path)
+                   e * b * c + 4 * 3 * b + 4, 4 * b * c + b, timed, on_path,
+                   xent_fwd_plan(b, c, e, aligned))
         yield Case("softmax_xent_dlogits", label,
                    lambda: softmax_xent_dlogits(x, lab, lse, g=g),
                    lambda: ref.softmax_xent_dlogits_ref(x, lab, lse, g=g),
                    lambda: torch.softmax(x.float(), -1) - onehot,
-                   2 * e * b * c + 4 * 2 * b + 4, 4 * b * c, timed, on_path)
+                   2 * e * b * c + 4 * 2 * b + 4, 4 * b * c, timed, on_path,
+                   f"vec={vector_loads(c, e, aligned)}")
 
     if shapes is not None:
         for tag, m, k, n, act, timed in shapes:
@@ -574,6 +636,8 @@ def kernel_cases(torch, dev, gen, shapes=None):
     for dtype in (torch.float32, torch.bfloat16):
         yield from xent_cases("edge", 1, 10, dtype, timed=False)
         yield from xent_cases("edge", 37, 300, dtype, timed=False)
+    for _, b, c, dtype in LM_XENT_SHAPES:
+        yield from xent_cases("LM", b, c, getattr(torch, dtype))
 
 
 def worst_errors(out, want) -> tuple[float, float]:
@@ -596,13 +660,19 @@ def _choice_name(case: Case, choice: tuple[int, ...]) -> str:
     return sep.join(map(str, choice))
 
 
-def _agrees(case: Case, out, want) -> tuple[bool, float]:
-    """(ok, the error the bar is on): GEMMs relative to the largest
-    output, the softmax kernels absolute."""
+def _agrees(case: Case, out, want) -> tuple[bool, float, str]:
+    """(ok, the error the bar is on, the bar): GEMMs relative to the
+    largest output, K4 absolute, K5 element-wise (``dlogits_error``, in
+    units of its bar)."""
     worst_abs, worst_rel = worst_errors(out, want)
     if case.name.startswith("fcnn"):
-        return worst_rel <= GEMM_RTOL, worst_rel
-    return worst_abs <= XENT_ATOL, worst_abs
+        return worst_rel <= GEMM_RTOL, worst_rel, f"rel<={GEMM_RTOL:g}"
+    if case.name == "softmax_xent_dlogits":
+        err = dlogits_error(out, want)
+        rtol = "2^-7" if out.element_size() == 2 else f"{DLOGITS_RTOL:g}"
+        return err <= 1, err, (f"|d|<={rtol}|ref|+{DLOGITS_ROW_FLOOR:g}"
+                               f"*rowmax at {err:.3f} of it")
+    return worst_abs <= XENT_ATOL, worst_abs, f"abs<={XENT_ATOL:g}"
 
 
 def sweep_line(torch, case: Case, want) -> str:
@@ -613,7 +683,7 @@ def sweep_line(torch, case: Case, want) -> str:
     for choice in CHOICES[case.name]:
         out = case.forced(*choice)
         torch.cuda.synchronize()
-        ok, err = _agrees(case, out, want)
+        ok, err, _ = _agrees(case, out, want)
         check(ok, f"{case.name} {case.label} at {choice}: error {err:.3e}")
         times[choice] = device_ms(lambda c=choice: case.forced(*c))
     best = min(times, key=times.get)
@@ -638,7 +708,7 @@ def run_kernel_phase(torch, dev, shapes=None) -> dict:
         out, want = case.kern(), case.plain()
         torch.cuda.synchronize()
         worst_abs, worst_rel = worst_errors(out, want)
-        ok = _agrees(case, out, want)[0]
+        ok, _, tol = _agrees(case, out, want)
         extra = ""
         if name == "fcnn_layer_wgrad":
             extra = f" tile {case.plan[0]}x{case.plan[1]}"
@@ -649,10 +719,11 @@ def run_kernel_phase(torch, dev, shapes=None) -> dict:
             ok = ok and same
         elif name == "softmax_xent_fwd":  # the mean in a fixed order
             same = torch.equal(out[2], case.kern()[2])
-            extra = f" mean repeat {'bit-identical' if same else 'DIFFERS'}"
+            extra = (f" mean repeat {'bit-identical' if same else 'DIFFERS'}"
+                     f" {case.plan}")
             ok = ok and same
-        gemm = name.startswith("fcnn")
-        tol = f"rel<={GEMM_RTOL:g}" if gemm else f"abs<={XENT_ATOL:g}"
+        else:
+            extra = f" {case.plan}"
         line = (f"{name:21s} {label:32s} max_abs {worst_abs:.3e} "
                 f"max_rel {worst_rel:.3e} ({tol}){extra} "
                 f"{'ok' if ok else 'FAIL'}")
@@ -1895,6 +1966,395 @@ def family_path_phases(torch, dev) -> dict[str, dict[str, int]]:
     return launches
 
 
+# -------------------------------------------------------------- phase 18
+
+TRAIN_ARCH = "granite-3-2b"
+TRAIN_HYBRID_ARCH = "zamba2-1.2b"
+TRAIN_SEQ = 2048
+TRAIN_STEPS = 5           # AdamW steps of granite-3-2b, microbatches 2
+TRAIN_INT8_STEPS = 3      # then with int8 error feedback
+TRAIN_HYBRID_STEPS = 3    # Zamba2-1.2B, batch 1
+# the kernel path against the plain path (the loss's K4/K5 against their
+# plain versions) on granite's first step: the loss (fp32 sums of 49408
+# classes in another order) and the global gradient norm (the fp32
+# dlogits, a few ulps apart, become bf16 gradients of the hidden states,
+# whose roundings then differ through 40 layers: 2.8e-4 measured)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GNORM_RTOL = 1e-2
+
+
+def gemm_f32_backward_ms(torch, dev, m: int, k: int, n: int
+                         ) -> tuple[float, float]:
+    """Device ms of the backward of a bf16 (m, k) @ (k, n) product written
+    in fp32, for an fp32 cotangent: as the port runs it
+    (``layers.gemm_f32_grads``: the cotangent split into bf16 hi + lo, two
+    GEMMs a product) and with the cotangent rounded once to bf16 (one GEMM
+    a product)."""
+    from repro_torch.models.layers import gemm_f32_grads
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
+    w = torch.randn(k, n, generator=gen, device=dev).bfloat16()
+    g = torch.randn(m, n, generator=gen, device=dev)
+
+    def once():
+        gb = g.bfloat16()
+        return torch.mm(gb, w.t()), torch.mm(x.t(), gb)
+
+    return (device_ms(lambda: gemm_f32_grads(x, w, g, torch.mm), iters=5,
+                      replays=5),
+            device_ms(once, iters=5, replays=5))
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def train_batch(torch, dev, cfg, batch: int, gen):
+    """``batch`` rows of TRAIN_SEQ + 1 seeded token ids: tokens and their
+    next-token labels."""
+    tok = torch.randint(0, cfg.vocab_size, (batch, TRAIN_SEQ + 1),
+                        generator=gen, device=dev, dtype=torch.int32)
+    return {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+
+
+def run_train(torch, model, settings, state, batch, steps: int,
+              k45_per_step: int, what: str, mode=None):
+    """``steps`` steps of ``launch.steps.build_train_step``: per step the
+    loss, the gradient norm, host ms (synchronised) and the launches
+    (counters reset just before the step, read just after); K4 and K5
+    must launch ``k45_per_step`` times a step (0 on the plain path), K6 and
+    K7 never (they have no backward: attention and the SSD train on their
+    plain versions).  Returns (the state after the steps, the rows)."""
+    import math
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_train_step
+
+    step = build_train_step(model, settings, mode=mode)
+    out = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = ops.launch_counts()
+        row = {"loss": metrics["loss"].item(),
+               "grad_norm": metrics["grad_norm"].item(), "ms": ms,
+               "launches": launches}
+        out.append(row)
+        print(f"{what} step {i + 1}: loss {row['loss']:.6f} grad_norm "
+              f"{row['grad_norm']:.6f} host {ms:.1f} ms; K4 "
+              f"{launches['softmax_xent_fwd']} K5 "
+              f"{launches['softmax_xent_dlogits']} K6 "
+              f"{launches['flash_attention']} K7 {launches['ssd_chunk']}",
+              flush=True)
+        check(math.isfinite(row["loss"]) and math.isfinite(row["grad_norm"]),
+              f"{what}: step {i + 1} is not finite")
+        check(launches["softmax_xent_fwd"] == k45_per_step
+              and launches["softmax_xent_dlogits"] == k45_per_step,
+              f"{what}: K4/K5 launched {launches['softmax_xent_fwd']}/"
+              f"{launches['softmax_xent_dlogits']} times in a step, expected "
+              f"{k45_per_step}")
+        check(launches["flash_attention"] == 0 and launches["ssd_chunk"] == 0,
+              f"{what}: K6/K7 launched in a train step")
+    if steps > 1:
+        check(out[-1]["loss"] < out[0]["loss"],
+              f"{what}: the loss did not fall ({out[0]['loss']:.6f} -> "
+              f"{out[-1]['loss']:.6f})")
+    return state, out
+
+
+def profile_train_step(torch, step) -> tuple[float, list]:
+    """Device busy ms of one train step from torch.profiler, and its
+    device operations (name, count, us), largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    rows = sorted(device_rows(prof), key=lambda r: -r[2])
+    busy = sum(us for _, _, us in rows) / 1e3
+    return busy or float("nan"), rows
+
+
+def fwd_bwd_ms(torch, fn, inputs, reps: int = 5) -> tuple[float, float]:
+    """(forward ms, forward + backward ms) of ``fn(*inputs)`` under
+    autograd, CUDA events over ``reps`` calls after a warm-up."""
+    leaves = [t.detach().requires_grad_(t.is_floating_point()) for t in inputs]
+
+    def fwd():
+        return fn(*leaves)
+
+    def both():
+        out = fn(*leaves)
+        out = out[0] if isinstance(out, tuple) else out
+        out.float().sum().backward()
+
+    times = []
+    for f in (fwd, both):
+        f()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            f()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return times[0], times[1]
+
+
+def print_profile(what: str, busy: float, host_ms: float, rows) -> None:
+    if not rows:
+        print(f"{what}: device time not measured (the profiler recorded no "
+              f"device events)")
+        return
+    print(f"{what}: device busy {busy:.3f} ms of {host_ms:.3f} ms host "
+          f"({100 * busy / host_ms:.1f}%; idle "
+          f"{100 - 100 * busy / host_ms:.1f}%), "
+          f"{sum(c for _, c, _ in rows)} device operations")
+    for key, count, us in rows[:12]:
+        print(f"  {us / 1e3:9.3f} ms {count:5d} calls  {key[:100]}")
+
+
+def granite_train_phase(torch, dev, smi: str) -> dict:
+    """Phase 18a: granite-3-2b at full width and depth trained by
+    ``build_train_step``; returns K4/K5's launches and numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import (TrainSettings, build_train_step,
+                                          init_train_state)
+    from repro_torch.models import layers as L
+    from repro_torch.models.api import get_model
+
+    cfg = get_config(TRAIN_ARCH)
+    model = get_model(cfg)
+    settings = TrainSettings(microbatches=2)
+    free_device_memory(torch)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(model, settings,
+                             torch.Generator(device=dev).manual_seed(0), dev)
+    n_params = sum(t.numel() for t in _leaves(state["params"]))
+    batch = train_batch(torch, dev, cfg, 2,
+                        torch.Generator(device=dev).manual_seed(1))
+    print(f"{TRAIN_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads on {cfg.n_kv_heads} KV heads of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} "
+          f"padded to {cfg.padded_vocab}, tied; {n_params / 1e9:.3f} B "
+          f"parameters in {cfg.param_dtype}, fp32 moments, remat "
+          f"{cfg.remat} ({cfg.remat_policy}); batch 2 x {TRAIN_SEQ}, "
+          f"microbatches 2 (K4 at ({TRAIN_SEQ}, {cfg.padded_vocab}) each)")
+    state, rows = run_train(torch, model, settings, state, batch,
+                            TRAIN_STEPS, 2, TRAIN_ARCH)
+    peak = torch.cuda.max_memory_allocated()
+    gb = 1e9
+    p_bytes = _tree_bytes(state["params"])
+    m_bytes = _tree_bytes(state["opt"])
+    logits = 2 * TRAIN_SEQ * cfg.padded_vocab * 4
+    print(f"memory reckoned: parameters {p_bytes / gb:.2f} GB, gradients "
+          f"{p_bytes / gb:.2f}, moments {m_bytes / gb:.2f}, fp32 logits and "
+          f"dlogits of a microbatch {logits / gb:.2f}, plus one layer's "
+          f"recompute = {(2 * p_bytes + m_bytes + logits) / gb:.2f} GB and "
+          f"up; measured peak {peak / gb:.3f} GB "
+          f"(torch.cuda.max_memory_allocated; < 80 GB)")
+    check(peak < 80e9, f"{TRAIN_ARCH} train peak {peak / gb:.3f} GB >= 80 GB")
+    host = sorted(r["ms"] for r in rows[1:])
+    host_ms = host[len(host) // 2]
+    step = build_train_step(model, settings)
+
+    def one_step():
+        nonlocal state
+        state, _ = step(state, batch)
+
+    busy, prof_rows = profile_train_step(torch, one_step)
+    print_profile(f"{TRAIN_ARCH} train step (profiled, one step; host ms the "
+                  f"median of steps 2-{TRAIN_STEPS})", busy, host_ms,
+                  prof_rows)
+    # the plain attention of one layer at the step's shape, forward and
+    # forward + backward, alone: x n_layers x 2 microbatches, its forward
+    # twice (the remat recomputes it)
+    hd, h, kv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    gen = torch.Generator(device=dev).manual_seed(2)
+    dt = getattr(torch, cfg.dtype)
+    q = torch.randn(1, h, TRAIN_SEQ, hd, generator=gen, device=dev).to(dt)
+    k = torch.randn(1, kv, TRAIN_SEQ, hd, generator=gen, device=dev).to(dt)
+    v = torch.randn(1, kv, TRAIN_SEQ, hd, generator=gen, device=dev).to(dt)
+    from repro_torch.kernels import ops
+
+    f_ms, fb_ms = fwd_bwd_ms(torch, lambda q, k, v: ops.flash_attention(
+        q, k, v, True, mode="ref"), (q, k, v))
+    attn = cfg.n_layers * 2 * (2 * f_ms + (fb_ms - f_ms))
+    print(f"plain attention of one layer at (1, {h}, {TRAIN_SEQ}, {hd}) on "
+          f"{kv} KV heads, alone: forward {f_ms:.3f} ms, forward+backward "
+          f"{fb_ms:.3f} ms; x {cfg.n_layers} layers x 2 microbatches with "
+          f"the recompute = {attn:.1f} ms = {100 * attn / busy:.1f}% of the "
+          f"step's device busy time")
+    del q, k, v
+    xent = {n: sum(us for key, _, us in prof_rows if tag in key) / 1e3
+            for n, tag in (("K4", "xent_fwd"), ("K4 mean", "xent_mean"),
+                           ("K5", "xent_dlogits"))}
+    print(f"K4/K5 in the profiled step: " + ", ".join(
+        f"{n} {ms:.4f} ms" for n, ms in xent.items())
+        + f" = {100 * sum(xent.values()) / busy:.2f}% of device busy")
+
+    # kernel path against plain path, first step from the same weights
+    del state, step
+    free_device_memory(torch)
+    state = init_train_state(model, settings,
+                             torch.Generator(device=dev).manual_seed(0), dev)
+    state, (plain,) = run_train(torch, model, settings, state, batch, 1, 0,
+                                f"{TRAIN_ARCH} plain path", mode="ref")
+    loss_rel = abs(rows[0]["loss"] - plain["loss"]) / abs(plain["loss"])
+    gn_rel = (abs(rows[0]["grad_norm"] - plain["grad_norm"])
+              / abs(plain["grad_norm"]))
+    print(f"kernel path against plain path, step 1: loss "
+          f"{rows[0]['loss']:.7f} vs {plain['loss']:.7f} (rel {loss_rel:.3e}"
+          f" <= {TRAIN_LOSS_RTOL:g}); grad_norm {rows[0]['grad_norm']:.6f} "
+          f"vs {plain['grad_norm']:.6f} (rel {gn_rel:.3e} <= "
+          f"{TRAIN_GNORM_RTOL:g})")
+    check(loss_rel <= TRAIN_LOSS_RTOL, "granite kernel/plain losses differ")
+    check(gn_rel <= TRAIN_GNORM_RTOL, "granite kernel/plain grad norms differ")
+    del state
+    free_device_memory(torch)
+
+    # int8 error feedback
+    settings8 = TrainSettings(microbatches=2, grad_compression="int8")
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(model, settings8,
+                             torch.Generator(device=dev).manual_seed(0), dev)
+    state, rows8 = run_train(torch, model, settings8, state, batch,
+                             TRAIN_INT8_STEPS, 2, f"{TRAIN_ARCH} int8")
+    peak8 = torch.cuda.max_memory_allocated()
+    r_bytes = _tree_bytes(state["residual"])
+    print(f"int8: residual {r_bytes / gb:.2f} GB (fp32), dequantized fp32 "
+          f"grads {2 * p_bytes / gb:.2f} GB; measured peak {peak8 / gb:.3f} "
+          f"GB (< 80 GB)")
+    check(peak8 < 80e9, f"{TRAIN_ARCH} int8 peak {peak8 / gb:.3f} GB")
+    del state
+    free_device_memory(torch)
+    # what the split cotangent costs: the gate and up products of each
+    # layer and the unembedding, per microbatch
+    t, d = TRAIN_SEQ, cfg.d_model
+    mlp = gemm_f32_backward_ms(torch, dev, t, d, cfg.d_ff)
+    emb = gemm_f32_backward_ms(torch, dev, t, d, cfg.padded_vocab)
+    split_cost = 2 * (2 * cfg.n_layers * (mlp[0] - mlp[1]) + emb[0] - emb[1])
+    print(f"backward of a bf16 product written in fp32, the cotangent split "
+          f"(hi + lo) vs rounded once: gate/up ({t}, {d}) @ ({d}, "
+          f"{cfg.d_ff}) {mlp[0]:.4f} vs {mlp[1]:.4f} ms, unembedding ({t}, "
+          f"{d}) @ ({d}, {cfg.padded_vocab}) {emb[0]:.4f} vs {emb[1]:.4f} "
+          f"ms; x (2 x {cfg.n_layers} layers + 1) x 2 microbatches = "
+          f"{split_cost:.1f} ms a step ({100 * split_cost / busy:.1f}% of "
+          f"device busy)")
+    free_device_memory(torch)
+    ms8 = sorted(r["ms"] for r in rows8[1:])
+    print(f"{TRAIN_ARCH} train on {smi}: {host_ms:.1f} ms/step (batch 2 x "
+          f"{TRAIN_SEQ}, 2 microbatches), device busy {busy:.1f} ms, peak "
+          f"{peak / gb:.3f} GB; int8 {ms8[len(ms8) // 2]:.1f} ms/step, peak "
+          f"{peak8 / gb:.3f} GB; loss {rows[0]['loss']:.4f} -> "
+          f"{rows[-1]['loss']:.4f} over {TRAIN_STEPS} steps; plain attention "
+          f"{100 * attn / busy:.1f}% of device busy")
+    return {"launches": sum(r["launches"]["softmax_xent_fwd"] for r in rows),
+            "steps": TRAIN_STEPS, "ms_per_step": host_ms, "busy_ms": busy,
+            "attention_share": attn / busy}
+
+
+def hybrid_train_phase(torch, dev, smi: str) -> None:
+    """Phase 18b: Zamba2-1.2B at full width and depth, bf16, batch 1 x
+    TRAIN_SEQ, TRAIN_HYBRID_STEPS steps; where a step's time goes, with the
+    plain SSD's and the shared attention's shares."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import (TrainSettings, build_train_step,
+                                          init_train_state)
+    from repro_torch.models import mamba2 as M
+    from repro_torch.models import zamba2 as Z
+    from repro_torch.models.api import get_model
+
+    cfg = get_config(TRAIN_HYBRID_ARCH)
+    model = get_model(cfg)
+    settings = TrainSettings()
+    free_device_memory(torch)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(model, settings,
+                             torch.Generator(device=dev).manual_seed(0), dev)
+    batch = train_batch(torch, dev, cfg, 1,
+                        torch.Generator(device=dev).manual_seed(1))
+    n_params = sum(t.numel() for t in _leaves(state["params"]))
+    print(f"{TRAIN_HYBRID_ARCH}: {cfg.n_layers} Mamba2 layers and "
+          f"{Z.n_shared_invocations(cfg)} shared-attention invocations, "
+          f"{n_params / 1e9:.3f} B parameters, bf16, batch 1 x {TRAIN_SEQ}")
+    state, rows = run_train(torch, model, settings, state, batch,
+                            TRAIN_HYBRID_STEPS, 1, TRAIN_HYBRID_ARCH)
+    peak = torch.cuda.max_memory_allocated()
+    host = sorted(r["ms"] for r in rows[1:])
+    host_ms = host[len(host) // 2]
+    step = build_train_step(model, settings)
+
+    def one_step():
+        nonlocal state
+        state, _ = step(state, batch)
+
+    busy, prof_rows = profile_train_step(torch, one_step)
+    print_profile(f"{TRAIN_HYBRID_ARCH} train step (profiled)", busy,
+                  host_ms, prof_rows)
+    del state, step
+    free_device_memory(torch)
+    # the plain SSD of one Mamba2 layer and the shared block's plain
+    # attention at the step's shapes, alone, each forward and backward;
+    # the Mamba layers recompute their forward (remat), the shared block
+    # does not
+    gen = torch.Generator(device=dev).manual_seed(2)
+    dt = getattr(torch, cfg.dtype)
+    h, p, n = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    x = torch.randn(1, TRAIN_SEQ, h, p, generator=gen, device=dev).to(dt)
+    dt_a = -torch.rand(1, TRAIN_SEQ, h, generator=gen, device=dev) * 0.1
+    b = torch.randn(1, TRAIN_SEQ, 1, n, generator=gen, device=dev).to(dt)
+    c = torch.randn(1, TRAIN_SEQ, 1, n, generator=gen, device=dev).to(dt)
+    f_ms, fb_ms = fwd_bwd_ms(torch, lambda x, a, b, c: M.ssd_chunked(
+        x, a, b, c, cfg.ssm_chunk, mode="ref"), (x, dt_a, b, c))
+    ssd = cfg.n_layers * (2 * f_ms + (fb_ms - f_ms))
+    hd = cfg.resolved_head_dim
+    q = torch.randn(1, cfg.n_heads, TRAIN_SEQ, hd, generator=gen,
+                    device=dev).to(dt)
+    k = torch.randn(1, cfg.n_kv_heads, TRAIN_SEQ, hd, generator=gen,
+                    device=dev).to(dt)
+    af_ms, afb_ms = fwd_bwd_ms(torch, lambda q, k, v: ops.flash_attention(
+        q, k, v, True, mode="ref"), (q, k, k.clone()))
+    attn = Z.n_shared_invocations(cfg) * afb_ms
+    print(f"plain SSD (ssd_chunked) of one layer at ({TRAIN_SEQ} tokens, {h} "
+          f"heads of {p}, state {n}), alone: forward {f_ms:.3f} ms, "
+          f"forward+backward {fb_ms:.3f} ms; x {cfg.n_layers} layers with "
+          f"the recompute = {ssd:.1f} ms = {100 * ssd / busy:.1f}% of the "
+          f"step's device busy time")
+    print(f"plain attention of the shared block at (1, {cfg.n_heads}, "
+          f"{TRAIN_SEQ}, {hd}), alone: forward {af_ms:.3f} ms, "
+          f"forward+backward {afb_ms:.3f} ms; x "
+          f"{Z.n_shared_invocations(cfg)} invocations = {attn:.1f} ms = "
+          f"{100 * attn / busy:.1f}% of device busy")
+    print(f"{TRAIN_HYBRID_ARCH} train on {smi}: {host_ms:.1f} ms/step "
+          f"(batch 1 x {TRAIN_SEQ}), device busy {busy:.1f} ms, peak "
+          f"{peak / 1e9:.3f} GB; loss {rows[0]['loss']:.4f} -> "
+          f"{rows[-1]['loss']:.4f} over {TRAIN_HYBRID_STEPS} steps; plain SSD "
+          f"{100 * ssd / busy:.1f}%, shared attention {100 * attn / busy:.1f}%"
+          f" of device busy")
+    check(peak < 80e9, f"{TRAIN_HYBRID_ARCH} train peak {peak / 1e9:.3f} GB")
+
+
+def train_path_phase(torch, dev, smi: str) -> dict:
+    """Phase 18; returns K4/K5's launches and numbers on the train path."""
+    phase(18, f"lm train: {TRAIN_ARCH} full width, {TRAIN_STEPS} AdamW steps "
+              f"(2 microbatches of {TRAIN_SEQ} tokens), {TRAIN_INT8_STEPS} "
+              f"with int8 error feedback, kernel path against plain path; "
+              f"{TRAIN_HYBRID_ARCH} full width, {TRAIN_HYBRID_STEPS} steps")
+    out = granite_train_phase(torch, dev, smi)
+    hybrid_train_phase(torch, dev, smi)
+    return out
+
+
 # -------------------------------------------------------------- phase 10
 
 RING = 8    # logical devices of the executor's ring
@@ -2332,11 +2792,19 @@ def main() -> int:
 
     dense_launches = dense_path_phases(torch, dev)
     family_launches = family_path_phases(torch, dev)
+    train = train_path_phase(torch, dev, smi)
 
     kernels = []
     for name in FCNN_KERNELS:
         source, replaces = KERNEL_INFO[name]
         s = summary[name]
+        extra = {}
+        if name in XENT_KERNELS:
+            ms, plain_ms, lib_ms, b_ms = s["rows"][LM_XENT_LABEL]
+            extra["paths"] = {f"{TRAIN_ARCH} train": {
+                "launches": train["launches"], "steps": train["steps"],
+                "shape": LM_XENT_LABEL, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": "bytes"}}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
@@ -2347,6 +2815,7 @@ def main() -> int:
             "library_ms": s["library_ms"],
             "shapes": s["shapes"],
             "per": "sum over one NN1 training step",
+            **extra,
         })
     for name in LM_KERNELS:
         source, replaces = KERNEL_INFO[name]
@@ -2373,7 +2842,9 @@ def main() -> int:
           "phases 5 and 8; under \"paths\", K6 and K7 at each path's "
           "prefill shape (phase 7; seamless-m4t-large-v2: its "
           "cross-attention) and their launches in that path's serving run "
-          "(phases 8, 12, 14 and 15) or one prefill (phases 16 and 17)")
+          "(phases 8, 12, 14 and 15) or one prefill (phases 16 and 17); "
+          "under K4/K5's \"paths\", their call at the LM loss's shape "
+          "(phase 3) and their launches in phase 18's granite-3-2b steps")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,7 @@
-"""The paper's FCNN benchmarks (Table 6) and batch sizes (§5), copied
+"""The paper's FCNN benchmarks (Table 6) and evaluation grid (§5), copied
 from the reference ``repro/configs/nn_benchmarks.py``."""
+
+from repro_torch.core.onoc_model import FCNNWorkload, ONoCConfig
 
 NN_BENCHMARKS: dict[str, list[int]] = {
     "NN1": [784, 1000, 500, 10],
@@ -11,4 +13,14 @@ NN_BENCHMARKS: dict[str, list[int]] = {
 }
 
 BATCH_SIZES = (1, 8, 32, 64, 128)
+WAVELENGTHS = (8, 64)
+FNP_FIXED_CORES = 200                       # paper §5.3
+ENOC_CORE_SWEEP = (40, 65, 90, 150, 250, 350)  # paper §5.4 / Fig. 10
 
+
+def workload(name: str, batch_size: int = 1) -> FCNNWorkload:
+    return FCNNWorkload(NN_BENCHMARKS[name], batch_size=batch_size)
+
+
+def onoc_config(lambda_max: int = 64, m: int = 1000) -> ONoCConfig:
+    return ONoCConfig(m=m, lambda_max=lambda_max)

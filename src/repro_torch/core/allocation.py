@@ -1,12 +1,19 @@
-"""Core allocation on the ONoC ring (the paper's Section 4), copied from
-the reference ``repro/core/allocation.py`` and cut to the mapping that
-``plan_fcnn`` builds and the period windows the simulator and the program
-compiler read.
+"""Core allocation on the ONoC ring — the paper's Section 4.
+
+Copied from the reference ``repro/core/allocation.py``, unchanged.
+
+Three mapping strategies place the m_i* cores of each period on the ring:
 
   FM   (Fixed Mapping):           period i gets cores [1 .. m_i*]
   RRM  (Round-Robin Mapping):     period i starts after period i-1's last core
   ORRM (Overlapped Round-Robin):  RRM but reusing r_i cores between adjacent
                                   periods (Algorithm 1, Eqs. 16-18)
+
+A mapping is represented two ways:
+  * ``windows``: per FP period, the ordered list of ring core ids (0-based),
+  * ``M``: the paper's mapping matrix — M[i][j] = core id of the j-th neuron
+    of layer i (a dict of arrays; the paper's 0/1 tensor M(i,j,k) is sparse
+    one-hot over k, we store the argmax).
 
 BP periods reuse the FP windows via the data-locality constraint (Eq. 11).
 """
@@ -17,6 +24,8 @@ import dataclasses
 import enum
 from typing import Sequence
 
+import numpy as np
+
 from .onoc_model import FCNNWorkload, ONoCConfig, optimal_cores
 
 __all__ = [
@@ -25,6 +34,7 @@ __all__ = [
     "expected_reuse",
     "reuse_counts",
     "map_cores",
+    "neuron_assignment",
 ]
 
 
@@ -56,6 +66,11 @@ class Mapping:
         if l + 1 <= period <= 2 * l:
             return self.windows[2 * l - period]
         raise ValueError(f"period out of range: {period}")
+
+    def neuron_core(self, layer: int, j: int) -> int:
+        """Core id of neuron j (0-based) of layer ``layer`` (1-based)."""
+        w = self.windows[layer - 1]
+        return w[j % len(w)]
 
     def active_cores(self) -> set[int]:
         out: set[int] = set()
@@ -115,6 +130,9 @@ def map_cores(
         reuse = [0] * l
         for m_i in cores_per_period:
             windows.append(tuple(range(m_i)))
+        # FM's reuse between adjacent periods is min(m_i, m_{i+1}) by
+        # construction; the ``reuse`` field reports the ORRM-style r_i
+        # (planned extra reuse), which FM does not use.
     elif strategy is MappingStrategy.RRM:
         reuse = [0] * l
         nxt = 0
@@ -137,3 +155,18 @@ def map_cores(
         windows=tuple(windows),
         reuse=tuple(reuse),
     )
+
+
+def neuron_assignment(workload: FCNNWorkload, mapping: Mapping) -> dict[int, np.ndarray]:
+    """The paper's mapping matrix M, densified: layer -> array of core ids.
+
+    Neurons are mapped evenly: neuron j of layer i goes to window[j mod m_i]
+    (Algorithm 1 lines 3 & 8 distribute evenly; round-robin over the window
+    yields |count_k - count_k'| <= 1 for all cores k, k' in the window).
+    """
+    out: dict[int, np.ndarray] = {}
+    for layer in range(1, workload.l + 1):
+        w = np.asarray(mapping.windows[layer - 1], dtype=np.int64)
+        n_i = workload.n(layer)
+        out[layer] = w[np.arange(n_i) % len(w)]
+    return out

@@ -24,11 +24,11 @@ cudaError_t launch_fcnn_wgrad(const float* x, const float* dy, const float* y,
                               cudaStream_t s);
 cudaError_t launch_xent_fwd(const void* logits, const int* labels, float* nll,
                             float* lse, float* mean, int B, int C, int bf16,
-                            cudaStream_t s);
+                            int warps_per_row, int vec, cudaStream_t s);
 cudaError_t launch_xent_dlogits(const void* logits, const int* labels,
                                 const float* lse, const float* scale,
                                 int scale_stride, int scale_div, void* dx, int B,
-                                int C, int bf16, cudaStream_t s);
+                                int C, int bf16, int vec, cudaStream_t s);
 cudaError_t launch_empty(cudaStream_t s);
 cudaError_t launch_flash_attention(const void* q, const void* k, const void* v,
                                    void* o, const long long* st, int B, int H,
@@ -89,30 +89,35 @@ void fcnn_wgrad(const torch::Tensor& x, const torch::Tensor& dy,
                "fcnn_layer_wgrad");
 }
 
-// logits (B, C) fp32 or bf16, labels (B,) int32 -> nll, lse (B,), mean (0-d)
+// logits (B, C) fp32 or bf16, labels (B,) int32 -> nll, lse (B,), mean (0-d);
+// warps_per_row 0 is the one-block lane kernel, else the rows kernel with
+// that many warps a row (16-byte loads with vec), as fwd_plan picks
 void xent_fwd(const torch::Tensor& logits, const torch::Tensor& labels,
-              torch::Tensor nll, torch::Tensor lse, torch::Tensor mean) {
+              torch::Tensor nll, torch::Tensor lse, torch::Tensor mean,
+              int64_t warps_per_row, int64_t vec) {
   const c10::cuda::CUDAGuard guard(logits.device());
   check_launch(launch_xent_fwd(logits.data_ptr(), labels.data_ptr<int>(),
                                f32(nll), f32(lse), f32(mean), logits.size(0),
                                logits.size(1),
                                logits.scalar_type() == at::kBFloat16,
-                               stream_of(logits)),
+                               warps_per_row, vec, stream_of(logits)),
                "softmax_xent_fwd");
 }
 
 // logits (B, C), labels, lse (B,) -> dx (B, C) in the logits' dtype; the
-// row factor is scale[r * scale_stride] / scale_div
+// row factor is scale[r * scale_stride] / scale_div; 16-byte vectors with
+// vec, as softmax_xent.vector_loads picks
 void xent_dlogits(const torch::Tensor& logits, const torch::Tensor& labels,
                   const torch::Tensor& lse, const torch::Tensor& scale,
-                  int64_t scale_stride, int64_t scale_div, torch::Tensor dx) {
+                  int64_t scale_stride, int64_t scale_div, torch::Tensor dx,
+                  int64_t vec) {
   const c10::cuda::CUDAGuard guard(logits.device());
   check_launch(launch_xent_dlogits(logits.data_ptr(), labels.data_ptr<int>(),
                                    f32(lse), f32(scale), scale_stride,
                                    scale_div, dx.data_ptr(), logits.size(0),
                                    logits.size(1),
                                    logits.scalar_type() == at::kBFloat16,
-                                   stream_of(logits)),
+                                   vec, stream_of(logits)),
                "softmax_xent_dlogits");
 }
 

@@ -1,8 +1,9 @@
 """The ops the models call over the kernels, and their dispatch.
 
 ``fcnn_layer`` and ``softmax_xent`` (differentiable) are what the FCNN
-calls; ``flash_attention`` and ``ssd_chunk`` (forward only: the
-reference kernels have no VJP) are what the LM prefill calls.  The mode:
+calls, and ``softmax_xent`` the LM loss too; ``flash_attention`` and
+``ssd_chunk`` (forward only: the reference kernels have no VJP) are what
+the LM prefill calls.  The mode:
 
   * ``None`` (default) — the fused path: ``_FusedFCNN`` / ``_FusedXent``,
     whose forward and backward call the kernel wrappers.  A wrapper
@@ -20,7 +21,10 @@ pre-activation — and its backward runs the dgrad and wgrad kernels;
 ``_FusedXent`` returns K4's batch mean as the loss, saves ``(logits,
 labels, lse)`` and hands the loss cotangent ``g`` to the dlogits kernel,
 which forms g/B itself: no PyTorch operation runs around the two
-kernels.  Labels get no gradient.
+kernels.  ``_MaskedXent`` (the LM loss with a token mask) takes the
+masked mean Σ nll·mask / max(Σ mask, 1) of K4's per-row nll and hands
+K5 the per-row factor g·mask / max(Σ mask, 1).  Labels and masks get no
+gradient.
 """
 
 from __future__ import annotations
@@ -114,6 +118,21 @@ class _FusedXent(torch.autograd.Function):
         return _xent_dlogits(logits, labels, lse, g=g), None  # labels: no grad
 
 
+class _MaskedXent(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, labels, mask):
+        nll, lse, _ = _xent_fwd(logits, labels)
+        mask = mask.float()
+        den = torch.clamp(mask.sum(), min=1.0)
+        ctx.save_for_backward(logits, labels, lse, mask / den)
+        return (nll * mask).sum() / den
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, lse, weight = ctx.saved_tensors
+        return (_xent_dlogits(logits, labels, lse, g * weight), None, None)
+
+
 def fcnn_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                activation: str = "sigmoid", *,
                mode: str | None = None) -> torch.Tensor:
@@ -123,13 +142,21 @@ def fcnn_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return _FusedFCNN.apply(x, w, b, activation)
 
 
-def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, *,
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor | None = None, *,
                  mode: str | None = None) -> torch.Tensor:
     """Mean softmax cross-entropy (fp32).  logits: (B, C) fp32 or bf16;
-    labels: (B,) int32."""
+    labels: (B,) int32; with ``mask`` (B,) (bool or float), the masked
+    mean Σ nll·mask / max(Σ mask, 1)."""
     if resolve_mode(mode, logits, labels) == "ref":
-        return _ref.softmax_xent_fwd_ref(logits, labels)[2]
-    return _FusedXent.apply(logits, labels)
+        nll, _, mean = _ref.softmax_xent_fwd_ref(logits, labels)
+        if mask is None:
+            return mean
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    if mask is None:
+        return _FusedXent.apply(logits, labels)
+    return _MaskedXent.apply(logits, labels, mask)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -158,9 +158,11 @@ def ssd_chunk_ref(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
     xf, bf, cf = x.float(), b.float(), c.float()
     cs = torch.cumsum(dt_a.float(), dim=1)                     # (BC, Q, H)
     seg = cs[:, :, None, :] - cs[:, None, :, :]                # (BC, Q, Q, H)
+    # exp of the segment sums masked to -inf above the diagonal (0 there):
+    # unmasked, exp(seg) there can overflow, and its gradient would be
+    # 0·inf under autograd, as the reference's segsum avoids
     mask = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
-    lmat = torch.where(mask[None, :, :, None], torch.exp(seg),
-                       torch.zeros((), device=x.device))
+    lmat = torch.exp(seg.masked_fill(~mask[None, :, :, None], float("-inf")))
     scores = torch.einsum("bthn,bshn->btsh", cf, bf)
     y = torch.einsum("btsh,bshp->bthp", scores * lmat, xf)
     decay_state = torch.exp(cs[:, -1:, :] - cs)                # (BC, Q, H)

@@ -1,5 +1,6 @@
 """Wrappers of the two softmax cross-entropy kernels
-(``csrc/softmax_xent.cu``), the FCNN output period.
+(``csrc/softmax_xent.cu``): the FCNN output period and the LM's token
+loss at (B·L, padded vocabulary).
 
   softmax_xent_fwd      (nll, lse) per row and their   replaces repro/kernels/softmax_xent.py:111
                         batch mean
@@ -13,10 +14,14 @@ K4's mean is the loss and K5 takes the loss cotangent ``g`` itself.
 
 Same discipline as ``fcnn_layer.py``: checks, then the kernel on CUDA
 tensors (counted in ``launches``) or the plain version on CPU tensors.
-The launchers size both kernels from (B, C) (see the CUDA source).
+``fwd_plan`` picks K4's kernel and ``vector_loads`` both kernels'
+vector width from (B, C) and the logits' alignment; the CUDA launchers
+size the grids from those flags (see the CUDA source).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -24,9 +29,42 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.fcnn_layer import check_arg, device_type
 
-__all__ = ["softmax_xent_fwd", "softmax_xent_dlogits"]
+__all__ = ["softmax_xent_fwd", "softmax_xent_dlogits", "fwd_plan",
+           "vector_loads", "XentPlan"]
 
 LOGIT_DTYPES = (torch.float32, torch.bfloat16)
+
+# csrc/softmax_xent.cu: the lane kernel's largest (C, B), the rows
+# kernel's warps a block and the C from which a row takes a whole block
+LANE_MAX_C, LANE_MAX_B = 16, 256
+ROW_WARPS = 8
+BLOCK_ROW_MIN_C = 4096
+
+
+class XentPlan(NamedTuple):
+    """K4's launch flags: ``warps_per_row`` 0 is the one-block lane kernel
+    (a thread a row, the mean in the same block); 1 or 8 the rows kernel
+    (a warp or a block a row, 16-byte loads where ``vec``) on a grid, then
+    the one-block mean kernel."""
+    warps_per_row: int
+    vec: bool
+
+
+def vector_loads(c: int, element_size: int = 4, aligned: bool = True) -> bool:
+    """Whether K4's rows kernel and K5 move (B, C) logits of
+    ``element_size`` bytes in 16-byte vectors: where C is a multiple of
+    the vector and the data is ``aligned`` to 16 bytes."""
+    return aligned and c % (16 // element_size) == 0
+
+
+def fwd_plan(b: int, c: int, element_size: int = 4,
+             aligned: bool = True) -> XentPlan:
+    """K4's kernel for (B, C) logits of ``element_size`` bytes, ``aligned``
+    if their data starts on a 16-byte boundary."""
+    if c <= LANE_MAX_C and b <= LANE_MAX_B:
+        return XentPlan(0, False)
+    return XentPlan(ROW_WARPS if c >= BLOCK_ROW_MIN_C else 1,
+                    vector_loads(c, element_size, aligned))
 
 
 def _logits(kernel: str, logits: torch.Tensor) -> tuple[int, int]:
@@ -52,7 +90,9 @@ def softmax_xent_fwd(logits: torch.Tensor, labels: torch.Tensor
     nll = torch.empty((b,), device=logits.device, dtype=torch.float32)
     lse = torch.empty((b,), device=logits.device, dtype=torch.float32)
     mean = torch.empty((), device=logits.device, dtype=torch.float32)
-    _build.extension().xent_fwd(logits, labels, nll, lse, mean)
+    plan = fwd_plan(b, c, logits.element_size(), logits.data_ptr() % 16 == 0)
+    _build.extension().xent_fwd(logits, labels, nll, lse, mean,
+                                plan.warps_per_row, int(plan.vec))
     softmax_xent_fwd.launches += 1
     return nll, lse, mean
 
@@ -86,8 +126,9 @@ def softmax_xent_dlogits(logits: torch.Tensor, labels: torch.Tensor,
     if device_type(kernel, logits, labels, lse, factor) == "cpu":
         return _ref.softmax_xent_dlogits_ref(logits, labels, lse, scale, g=g)
     dx = torch.empty((b, c), device=logits.device, dtype=logits.dtype)
+    vec = vector_loads(c, logits.element_size(), logits.data_ptr() % 16 == 0)
     _build.extension().xent_dlogits(logits, labels, lse, factor, stride, div,
-                                    dx)
+                                    dx, int(vec))
     softmax_xent_dlogits.launches += 1
     return dx
 

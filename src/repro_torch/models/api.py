@@ -8,7 +8,9 @@ All six families of the reference are ported: ``"dense"``
 ``mamba2.py``), ``"hybrid"`` (Zamba2, ``zamba2.py``), ``"encdec"``
 (``encdec.py``) and ``"vlm"`` (``vlm.py``).  ``init_cache`` of an
 encoder-decoder takes ``enc_len``, the memory's length (default
-``max_len``), as the reference's does.
+``max_len``), as the reference's does.  ``loss_fn`` is the training loss
+(``mode`` selects the loss kernels' path, as ``prefill``'s selects the
+attention and SSD kernels').
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ class Model:
     init: Callable[..., Params]              # (generator, device)
     params_from_numpy: Callable[..., Params]  # (numpy pytree, device)
     forward: Callable[..., Any]              # (params, batch)
+    loss_fn: Callable[..., Any]              # (params, batch, *, mode=None)
     init_cache: Callable[..., Params]        # (batch, max_len, device, **kw)
     cache_axes: Callable[[], Params]
     prefill: Callable[..., tuple]            # (params, batch, max_len, *, mode=None)
@@ -66,6 +69,7 @@ def get_model(cfg: ModelConfig) -> Model:
         init=lambda generator, device: mod.init(generator, cfg, device),
         params_from_numpy=mod.params_from_numpy,
         forward=lambda p, b: mod.forward(p, b, cfg),
+        loss_fn=lambda p, b, *, mode=None: mod.loss_fn(p, b, cfg, mode=mode),
         init_cache=init_cache,
         cache_axes=lambda: mod.cache_axes(cfg),
         prefill=lambda p, b, max_len, *, mode=None: mod.prefill(

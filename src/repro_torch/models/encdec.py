@@ -23,6 +23,13 @@ the reference rotates them (``prefill_attention_kv`` on the memory).
 them in the cache (``mem_k``, ``mem_v``) beside the self-attention cache;
 ``decode_step`` runs plain PyTorch, updates the cache in place and drops
 a self-attention write past ``max_len``, as the reference does.
+
+``loss_fn`` trains the model on the decoder's labels: every attention on
+its plain version (``mode="ref"``; the reference trains through its jnp
+attention and K6 has no backward), each encoder and decoder layer under
+``layers.remat_wrap`` (the memory's cross-attention keys and values are
+computed outside it, as the reference computes them before its decoder
+scan), the token loss through K4/K5.
 """
 
 from __future__ import annotations
@@ -33,11 +40,17 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.tree import init_stacked, layer, params_from_numpy
+from repro_torch.models.tree import (
+    init_stacked,
+    layer,
+    params_from_numpy,
+    unstack,
+)
 
 __all__ = ["init_enc_block", "init_dec_block", "enc_block_apply",
            "dec_block_apply", "init", "params_from_numpy", "encode",
-           "forward", "init_cache", "cache_axes", "prefill", "decode_step"]
+           "forward", "loss_fn", "init_cache", "cache_axes", "prefill",
+           "decode_step"]
 
 Params = dict[str, Any]
 
@@ -167,6 +180,38 @@ def forward(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
         h, _ = dec_block_apply(lp, h, _memory_kv(lp, memory, cfg), positions,
                                cfg)
     return _logits(params, h, cfg)
+
+
+def loss_fn(params: Params, batch: dict, cfg: ModelConfig, *,
+            mode: str | None = None) -> torch.Tensor:
+    """Mean token cross-entropy (0-d fp32) of ``batch["labels"]`` (B,
+    S_dec), masked by ``batch["mask"]`` where given.  ``mode`` is the loss
+    kernels' (K4/K5)."""
+    h = batch["enc_embeds"].to(getattr(torch, cfg.dtype))
+    enc_pos = _positions(h.shape[0], h.shape[1], h.device)
+
+    def enc(h: torch.Tensor, lp: Params) -> torch.Tensor:
+        return enc_block_apply(lp, h, enc_pos, cfg, mode="ref")
+
+    enc = L.remat_wrap(cfg, enc)
+    for lp in unstack(params["encoder"], cfg.n_encoder_layers):
+        h = enc(h, lp)
+    memory = L.rms_norm(params["enc_norm"], h, cfg.norm_eps)
+    decoder = unstack(params["decoder"], cfg.n_layers)
+    mem_kv = [_memory_kv(lp, memory, cfg) for lp in decoder]
+
+    h = L.embed(params["embedding"], batch["dec_tokens"])
+    positions = _positions(h.shape[0], h.shape[1], h.device)
+
+    def dec(h: torch.Tensor, lp: Params, mk: torch.Tensor,
+            mv: torch.Tensor) -> torch.Tensor:
+        return dec_block_apply(lp, h, (mk, mv), positions, cfg, mode="ref")[0]
+
+    dec = L.remat_wrap(cfg, dec)
+    for lp, kv in zip(decoder, mem_kv):
+        h = dec(h, lp, *kv)
+    return L.cross_entropy_loss(_logits(params, h, cfg), batch["labels"],
+                                batch.get("mask"), mode=mode)
 
 
 # --------------------------------------------------------------------------

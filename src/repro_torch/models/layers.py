@@ -1,6 +1,7 @@
 """Shared LM primitives in PyTorch, counterpart of the reference
-``repro/models/layers.py`` (the subset the serving paths of the six LM
-families run).
+``repro/models/layers.py``: what the six LM families run to serve and to
+train (the loss, its fused unembedding and the activation-checkpoint
+wrapper).
 
 Conventions, as in the reference:
   * params are dicts of tensors with the reference's names and layouts,
@@ -31,14 +32,35 @@ causal).  A sliding window shorter than the sequence raises
 ROADMAP.md).  Decode attention (one query against the cache, or against
 the encoder's memory) stays plain PyTorch, as the reference computes it
 outside any kernel.
+
+The token loss (``cross_entropy_loss``, ``fused_unembed_ce``) goes
+through ``ops.softmax_xent``: the softmax cross-entropy kernels K4/K5 on
+the card, their plain versions on the CPU.  ``remat_wrap`` is the
+reference's scan-body checkpoint policy as ``torch.utils.checkpoint``.
+
+On the card a bf16 product with fp32 output (``matmul_fp32``,
+``bmm_fp32``) is one GEMM writing fp32; PyTorch has no derivative for
+that form, so it runs as an autograd function (``_GemmF32``).  JAX's
+transpose multiplies the fp32 cotangent by the upcast operand; the
+backward here splits the cotangent into two bf16 halves, hi + lo, and
+runs each product as two bf16 GEMMs summed in fp32 and rounded once to
+bf16 (``gemm_f32_grads``): ~16 of the cotangent's bits instead of the 8
+of one rounding, at twice the GEMMs.  On the CPU the product runs on the
+upcast operands and autograd gives exactly JAX's transpose.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any
+from typing import Any, Callable
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.kernels import ops
 
@@ -47,7 +69,8 @@ __all__ = [
     "embed", "unembed", "rope_freqs", "apply_rope", "apply_mrope",
     "init_attention", "attention", "prefill_attention_kv",
     "decode_attention", "decode_cross_attention", "init_mlp",
-    "mlp", "matmul_fp32", "bmm_fp32", "normal",
+    "mlp", "matmul_fp32", "bmm_fp32", "normal", "cross_entropy_loss",
+    "fused_unembed_ce", "remat_wrap", "gemm_f32_grads",
 ]
 
 Params = dict[str, Any]
@@ -356,27 +379,62 @@ def init_mlp(generator: torch.Generator, d_model: int, d_ff: int,
     }
 
 
+def gemm_f32_grads(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, op,
+                   need_x: bool = True, need_w: bool = True):
+    """(dx, dw) of ``op(x, w)`` (torch.mm or torch.bmm, bf16 operands) for
+    its fp32 cotangent ``g``, in the operands' dtype: ``g`` split into
+    bf16 hi + lo, each product two bf16 GEMMs with fp32 output, summed
+    and rounded once."""
+    hi = g.to(x.dtype)
+    lo = (g - hi.float()).to(x.dtype)
+
+    def prod(a, b, c, d):
+        return (op(a, b, out_dtype=torch.float32)
+                + op(c, d, out_dtype=torch.float32)).to(x.dtype)
+
+    wt, xt = w.transpose(-1, -2), x.transpose(-1, -2)
+    return (prod(hi, wt, lo, wt) if need_x else None,
+            prod(xt, hi, xt, lo) if need_w else None)
+
+
+class _GemmF32(torch.autograd.Function):
+    """``op`` (torch.mm or torch.bmm) of two bf16 operands written in fp32
+    by one GEMM; backward: ``gemm_f32_grads``."""
+
+    @staticmethod
+    def forward(ctx, x, w, op):
+        ctx.save_for_backward(x, w)
+        ctx.op = op
+        return op(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx, gw = gemm_f32_grads(x, w, g, ctx.op, *ctx.needs_input_grad[:2])
+        return gx, gw, None
+
+
 def matmul_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w with w in x's dtype, accumulated and returned in fp32 (the
     reference's ``preferred_element_type=float32`` left unrounded).  On the
-    card a bf16 GEMM writes fp32 directly (``torch.mm``'s ``out_dtype``);
-    on the CPU, which has no such GEMM, the fp32 product of the upcast
-    operands is the same arithmetic: bf16 products are exact in fp32."""
+    card a bf16 GEMM writes fp32 directly (``_GemmF32``); on the CPU, which
+    has no such GEMM, the fp32 product of the upcast operands is the same
+    arithmetic: bf16 products are exact in fp32."""
     w = w.to(x.dtype)
     if x.dtype == torch.float32 or not x.is_cuda:
         return torch.matmul(x.float(), w.float())
-    out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+    out = _GemmF32.apply(x.reshape(-1, x.shape[-1]), w, torch.mm)
     return out.reshape(*x.shape[:-1], w.shape[-1])
 
 
 def bmm_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Batched ``matmul_fp32``: (E, M, K) @ (E, K, N) with w in x's dtype,
-    accumulated and returned in fp32 (``torch.bmm``'s ``out_dtype`` on the
+    accumulated and returned in fp32 (``_GemmF32`` of ``torch.bmm`` on the
     card, the upcast operands on the CPU)."""
     w = w.to(x.dtype)
     if x.dtype == torch.float32 or not x.is_cuda:
         return torch.bmm(x.float(), w.float())
-    return torch.bmm(x, w, out_dtype=torch.float32)
+    return _GemmF32.apply(x, w, torch.bmm)
 
 
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -386,3 +444,84 @@ def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     u = matmul_fp32(x, p["w_up"])
     h = (torch.nn.functional.silu(g) * u).to(x.dtype)
     return torch.matmul(h, p["w_down"].to(x.dtype))
+
+
+# --------------------------------------------------------------------------
+# loss
+# --------------------------------------------------------------------------
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: torch.Tensor | None = None, *,
+                       mode: str | None = None) -> torch.Tensor:
+    """Mean token cross-entropy in fp32 (0-d).  logits (B, L, V) fp32 or
+    bf16, labels (B, L); with ``mask`` (B, L), the masked mean
+    Σ nll·mask / max(Σ mask, 1).  The (B·L, V) rows go through
+    ``ops.softmax_xent`` (K4 forward, K5 backward on the card)."""
+    v = logits.shape[-1]
+    return ops.softmax_xent(
+        logits.reshape(-1, v), labels.reshape(-1).to(torch.int32),
+        None if mask is None else mask.reshape(-1), mode=mode)
+
+
+def fused_unembed_ce(emb: Params, h: torch.Tensor, labels: torch.Tensor,
+                     chunk: int = 512, *,
+                     mode: str | None = None) -> torch.Tensor:
+    """Unembedding and cross-entropy chunked over length, so no (B, L, V)
+    logits tensor is held: each (B, chunk, V) slab is computed, reduced to
+    its summed nll and dropped, under ``torch.utils.checkpoint`` so that
+    the backward recomputes it (the reference's scan over chunks, the
+    Megatron fused-loss pattern).  Falls back to the plain loss when the
+    length is not a multiple of ``chunk``, as the reference does."""
+    b, l, _ = h.shape
+    if l % chunk:
+        return cross_entropy_loss(unembed(emb, h), labels, mode=mode)
+
+    def chunk_sum(h_c: torch.Tensor, lab_c: torch.Tensor) -> torch.Tensor:
+        rows = lab_c.numel()
+        return cross_entropy_loss(unembed(emb, h_c), lab_c, mode=mode) * rows
+
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for j in range(0, l, chunk):
+        total = total + checkpoint(chunk_sum, h[:, j:j + chunk],
+                                   labels[:, j:j + chunk],
+                                   use_reentrant=False)
+    return total / (b * l)
+
+
+# --------------------------------------------------------------------------
+# activation checkpointing
+# --------------------------------------------------------------------------
+
+# products without batch dimensions (what jax's
+# ``dots_with_no_batch_dims_saveable`` keeps): a 2-D GEMM, whatever the
+# overload (fp32 output included); a bmm has a batch dimension
+_NO_BATCH_DOTS = (torch.ops.aten.mm, torch.ops.aten.addmm)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    if getattr(op, "_overloadpacket", op) in _NO_BATCH_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_wrap(cfg, body: Callable) -> Callable:
+    """The configured activation-checkpoint policy around ``body`` (a
+    layer), as the reference wraps its scan body: ``cfg.remat`` off,
+    ``body`` itself; policy ``"full"``, nothing of the body saved for the
+    backward (its inputs aside), everything recomputed; ``"dots"``, the
+    outputs of products without batch dimensions saved, the rest
+    recomputed."""
+    if not cfg.remat:
+        return body
+    if getattr(cfg, "remat_policy", "full") == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       _save_dots)
+    else:
+        context_fn = None
+
+    def wrapped(*args, **kwargs):
+        if context_fn is None:
+            return checkpoint(body, *args, use_reentrant=False, **kwargs)
+        return checkpoint(body, *args, use_reentrant=False,
+                          context_fn=context_fn, **kwargs)
+    return wrapped

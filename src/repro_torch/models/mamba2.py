@@ -27,7 +27,10 @@ stacked on a leading layer axis, drawn layer by layer by
 and its cache is the recurrent state alone, of constant size: ``ssm``
 (n_layers, B, H, P, N) fp32, ``conv`` (n_layers, B, K-1, conv_dim) and
 ``len``.  Every prefill runs one K7 launch per layer; ``decode_step``
-updates the cache in place.
+updates the cache in place.  ``loss_fn`` trains the LM: the SSD on its
+plain version (``mode="ref"``; the reference trains through its jnp SSD
+and K7 has no backward), each layer under ``layers.remat_wrap``, the
+token loss through K4/K5.
 """
 
 from __future__ import annotations
@@ -41,10 +44,15 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.tree import init_stacked, layer, params_from_numpy
+from repro_torch.models.tree import (
+    init_stacked,
+    layer,
+    params_from_numpy,
+    unstack,
+)
 
 __all__ = ["ssd_chunked", "ssd_decode_step", "init_block", "block_apply",
-           "block_decode", "init", "params_from_numpy", "forward",
+           "block_decode", "init", "params_from_numpy", "forward", "loss_fn",
            "init_cache", "cache_axes", "prefill", "decode_step"]
 
 Params = dict[str, Any]
@@ -286,6 +294,23 @@ def forward(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     for i in range(cfg.n_layers):
         h = block_apply(layer(params["layers"], i), h, cfg)
     return _logits(params, h, cfg)
+
+
+def loss_fn(params: Params, batch: dict, cfg: ModelConfig, *,
+            mode: str | None = None) -> torch.Tensor:
+    """Mean token cross-entropy (0-d fp32), masked by ``batch["mask"]``
+    where given.  ``mode`` is the loss kernels' (K4/K5); the SSD trains on
+    its plain version whatever ``mode`` says."""
+    h = L.embed(params["embedding"], batch["tokens"])
+
+    def body(h: torch.Tensor, lp: Params) -> torch.Tensor:
+        return block_apply(lp, h, cfg, mode="ref")
+
+    body = L.remat_wrap(cfg, body)
+    for lp in unstack(params["layers"], cfg.n_layers):
+        h = body(h, lp)
+    return L.cross_entropy_loss(_logits(params, h, cfg), batch["labels"],
+                                batch.get("mask"), mode=mode)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -16,8 +16,11 @@ GEMMs over (E, G·C) rows — gate and up accumulated and kept in fp32
 until silu(g)·u is rounded, the down product rounded to x's dtype, as the
 reference's einsums — and each token sums its kept experts' outputs
 weighted by its gates rounded to x's dtype, in fp32, rounded once.
-Shared experts are added after.  The router's load-balance loss waits for
-training (ROADMAP.md, item 14).
+Shared experts are added after.  ``moe_mlp`` also returns the router's
+Switch-style load-balance loss, E·mean over groups of Σ_e (share of the
+group's valid tokens choosing e)·(mean router probability of e), which
+``loss_fn`` adds as ``router_aux_coef · Σ_layers aux / n_layers``;
+serving ignores it.
 
 The block, the stack, the cache and serving are ``transformer.py``'s with
 this block's ``apply_one``/``decode_one``.
@@ -33,12 +36,12 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.models.tree import params_from_numpy
+from repro_torch.models.tree import params_from_numpy, unstack
 
 __all__ = ["init_moe_mlp", "capacity", "top_k", "route", "moe_mlp",
-           "init_block", "block_apply", "block_decode", "init",
-           "params_from_numpy", "forward", "init_cache", "cache_axes",
-           "prefill", "decode_step"]
+           "init_block", "block_apply", "block_apply_aux", "block_decode",
+           "init", "params_from_numpy", "forward", "loss_fn", "init_cache",
+           "cache_axes", "prefill", "decode_step"]
 
 Params = dict[str, Any]
 
@@ -75,13 +78,10 @@ def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return gate[..., :k], expert[..., :k]
 
 
-def route(router: torch.Tensor, tokens: torch.Tensor, valid: torch.Tensor,
-          cfg: ModelConfig):
-    """Routing of grouped tokens (G, T, d) with ``valid`` (G, T) bool.
-    Returns (expert (G, T, k) int64, gate (G, T, k) fp32, slot (G, T, k)
-    int64, kept (G, T, k) bool): the k experts of each token in descending
-    probability (ties: lower index first), their renormalised gates, the
-    token's queue position at each, and whether it fits the capacity."""
+def _route(router: torch.Tensor, tokens: torch.Tensor, valid: torch.Tensor,
+           cfg: ModelConfig):
+    """``route``'s results after the router's softmax (G, T, E) fp32 and
+    the 0/1 choices (G, T, E) of the valid tokens."""
     probs = torch.softmax(tokens.float() @ router.float(), dim=-1)
     gate, expert = top_k(probs, cfg.experts_per_token)
     gate = gate / gate.sum(dim=-1, keepdim=True)
@@ -90,11 +90,23 @@ def route(router: torch.Tensor, tokens: torch.Tensor, valid: torch.Tensor,
     pos = torch.cumsum(sel, dim=1) - 1                      # (G, T, E)
     slot = pos.gather(-1, expert)
     kept = valid[..., None] & (slot < capacity(cfg, tokens.shape[1]))
-    return expert, gate, slot, kept
+    return probs, sel, expert, gate, slot, kept
 
 
-def moe_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d) in x's dtype."""
+def route(router: torch.Tensor, tokens: torch.Tensor, valid: torch.Tensor,
+          cfg: ModelConfig):
+    """Routing of grouped tokens (G, T, d) with ``valid`` (G, T) bool.
+    Returns (expert (G, T, k) int64, gate (G, T, k) fp32, slot (G, T, k)
+    int64, kept (G, T, k) bool): the k experts of each token in descending
+    probability (ties: lower index first), their renormalised gates, the
+    token's queue position at each, and whether it fits the capacity."""
+    return _route(router, tokens, valid, cfg)[2:]
+
+
+def moe_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (y (B, S, d) in x's dtype, the load-balance loss
+    (0-d fp32))."""
     b, s, d = x.shape
     e = cfg.n_experts
     n = b * s
@@ -107,7 +119,12 @@ def moe_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     rows[:n] = x.reshape(n, d)
     tokens = rows[:padded].view(n_groups, g_size, d)
     valid = (torch.arange(padded, device=x.device) < n).view(n_groups, g_size)
-    expert, gate, slot, kept = route(p["router"], tokens, valid, cfg)
+    probs, sel, expert, gate, slot, kept = _route(p["router"], tokens,
+                                                  valid, cfg)
+    # Switch-style load balance: the share of each group's tokens choosing
+    # each expert (padding chooses none) against its mean probability
+    aux = ((sel.float().mean(dim=1) * probs.mean(dim=1)).sum(dim=-1).mean()
+           * e)
 
     # dispatch: slot (e, g, c) <- its token's row; kept (token, expert)
     # pairs fill distinct slots, the rest point at a spare slot
@@ -135,7 +152,7 @@ def moe_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     y = y.reshape(padded, d)[:n].reshape(b, s, d)
     if "shared" in p:
         y = y + L.mlp(p["shared"], x)
-    return y
+    return y, aux
 
 
 # ------------------------- block + assembly -------------------------------
@@ -154,18 +171,27 @@ def init_block(generator: torch.Generator, cfg: ModelConfig,
     }
 
 
+def block_apply_aux(p: Params, h: torch.Tensor, positions: torch.Tensor,
+                    cfg: ModelConfig, *, mode: str | None = None):
+    """One block on a whole sequence: (h, the block's load-balance loss)."""
+    h, _ = T.attend(p, h, positions, cfg, mode)
+    y, aux = moe_mlp(p["moe"], L.rms_norm(p["ln2"], h, cfg.norm_eps), cfg)
+    return h + y, aux
+
+
 def block_apply(p: Params, h: torch.Tensor, positions: torch.Tensor,
                 cfg: ModelConfig, *, mode: str | None = None):
     h, kv = T.attend(p, h, positions, cfg, mode)
-    h = h + moe_mlp(p["moe"], L.rms_norm(p["ln2"], h, cfg.norm_eps), cfg)
-    return h, kv
+    y, _ = moe_mlp(p["moe"], L.rms_norm(p["ln2"], h, cfg.norm_eps), cfg)
+    return h + y, kv
 
 
 def block_decode(p: Params, h: torch.Tensor, ck: torch.Tensor,
                  cv: torch.Tensor, cache_len: torch.Tensor,
                  positions: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = T.attend_decode(p, h, ck, cv, cache_len, positions, cfg)
-    return h + moe_mlp(p["moe"], L.rms_norm(p["ln2"], h, cfg.norm_eps), cfg)
+    y, _ = moe_mlp(p["moe"], L.rms_norm(p["ln2"], h, cfg.norm_eps), cfg)
+    return h + y
 
 
 def init(generator: torch.Generator, cfg: ModelConfig,
@@ -175,6 +201,30 @@ def init(generator: torch.Generator, cfg: ModelConfig,
 
 def forward(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     return T.forward(params, batch, cfg, apply_one=block_apply)
+
+
+def loss_fn(params: Params, batch: dict, cfg: ModelConfig, *,
+            mode: str | None = None) -> torch.Tensor:
+    """Token cross-entropy plus ``router_aux_coef`` times the layers'
+    mean load-balance loss, the aux carried through the layer loop as the
+    reference carries it through its scan.  ``mode`` is the loss kernels'
+    (K4/K5); attention trains on its plain version (K6 has no backward)."""
+    h = T._embed_in(params, batch, cfg)
+    positions = T._positions_of(batch, cfg, h)
+
+    def body(h: torch.Tensor, lp: Params):
+        return block_apply_aux(lp, h, positions, cfg, mode="ref")
+
+    body = L.remat_wrap(cfg, body)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for lp in unstack(params["layers"], cfg.n_layers):
+        h, a = body(h, lp)
+        aux = aux + a
+    h = L.rms_norm(params["final_norm"], h, cfg.norm_eps)
+    logits = L.unembed(T._unembedding(params, cfg), h)
+    loss = L.cross_entropy_loss(logits, batch["labels"], batch.get("mask"),
+                                mode=mode)
+    return loss + cfg.router_aux_coef * aux / cfg.n_layers
 
 
 init_cache = T.init_cache

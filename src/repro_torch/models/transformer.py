@@ -28,8 +28,14 @@ place and returns it, dropping a write past ``max_len`` as the reference
 does.
 
 The stack machinery (``block_apply``/``block_decode`` taken as
-``apply_one``/``decode_one``) is shared with ``moe.py``.  Training
-(``loss_fn``) waits for the LM train step (ROADMAP.md, item 14).
+``apply_one``/``decode_one``) is shared with ``moe.py``.
+
+``loss_fn`` is the training loss: the token cross-entropy through the
+softmax cross-entropy kernels (K4/K5; ``mode`` selects them as it does
+for attention elsewhere), each layer under ``layers.remat_wrap`` where
+the reference checkpoints its scan body.  Attention in training takes
+its plain version (``mode="ref"``): the reference trains through its jnp
+attention, and the flash kernel K6 has no backward.
 """
 
 from __future__ import annotations
@@ -40,11 +46,16 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.tree import init_stacked, layer, params_from_numpy
+from repro_torch.models.tree import (
+    init_stacked,
+    layer,
+    params_from_numpy,
+    unstack,
+)
 
 __all__ = ["init_block", "block_apply", "block_decode", "init",
-           "params_from_numpy", "forward", "init_cache", "cache_axes",
-           "prefill", "decode_step"]
+           "params_from_numpy", "forward", "loss_fn", "init_cache",
+           "cache_axes", "prefill", "decode_step"]
 
 Params = dict[str, Any]
 
@@ -151,10 +162,13 @@ def _positions_of(batch: dict, cfg: ModelConfig,
     return pos.expand(3, *pos.shape) if cfg.mrope_sections else pos
 
 
+def _unembedding(params: Params, cfg: ModelConfig) -> Params:
+    return params["embedding"] if cfg.tie_embeddings else params["unembed"]
+
+
 def _logits(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = L.rms_norm(params["final_norm"], h, cfg.norm_eps)
-    emb = params["embedding"] if cfg.tie_embeddings else params["unembed"]
-    return L.unembed(emb, h)
+    return L.unembed(_unembedding(params, cfg), h)
 
 
 def forward(params: Params, batch: dict, cfg: ModelConfig,
@@ -165,6 +179,38 @@ def forward(params: Params, batch: dict, cfg: ModelConfig,
     for i in range(cfg.n_layers):
         h, _ = apply_one(layer(params["layers"], i), h, positions, cfg)
     return _logits(params, h, cfg)
+
+
+def train_stack(params: Params, batch: dict, cfg: ModelConfig,
+                apply_one: Callable = block_apply) -> torch.Tensor:
+    """The final-normed hidden states (B, S, d) of the training forward:
+    every layer under ``remat_wrap``, attention on its plain version."""
+    h = _embed_in(params, batch, cfg)
+    positions = _positions_of(batch, cfg, h)
+
+    def body(h: torch.Tensor, lp: Params) -> torch.Tensor:
+        return apply_one(lp, h, positions, cfg, mode="ref")[0]
+
+    body = L.remat_wrap(cfg, body)
+    for lp in unstack(params["layers"], cfg.n_layers):
+        h = body(h, lp)
+    return L.rms_norm(params["final_norm"], h, cfg.norm_eps)
+
+
+def loss_fn(params: Params, batch: dict, cfg: ModelConfig,
+            apply_one: Callable = block_apply, *,
+            mode: str | None = None) -> torch.Tensor:
+    """Mean token cross-entropy (0-d fp32) of ``batch["labels"]`` (B, S),
+    masked by ``batch["mask"]`` where given; with ``cfg.fused_ce`` and no
+    mask, the unembedding and the loss are fused over length chunks
+    (``layers.fused_unembed_ce``).  ``mode`` is the loss kernels' (K4/K5);
+    attention trains on its plain version whatever ``mode`` says."""
+    h = train_stack(params, batch, cfg, apply_one)
+    emb = _unembedding(params, cfg)
+    if cfg.fused_ce and "mask" not in batch:
+        return L.fused_unembed_ce(emb, h, batch["labels"], mode=mode)
+    return L.cross_entropy_loss(L.unembed(emb, h), batch["labels"],
+                                batch.get("mask"), mode=mode)
 
 
 # --------------------------------------------------------------------------

@@ -16,20 +16,33 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-__all__ = ["tree_map", "layer", "init_stacked", "params_from_numpy"]
+__all__ = ["tree_map", "layer", "unstack", "init_stacked",
+           "params_from_numpy"]
 
 Params = dict[str, Any]
 
 
-def tree_map(fn, tree):
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (nested dicts), and of ``rest``,
+    trees of the same structure, leaf by leaf."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def layer(stacked: Params, i: int) -> Params:
     """Layer ``i``'s parameters: views into the stacked leaves."""
     return tree_map(lambda t: t[i], stacked)
+
+
+def unstack(stacked: Params, n_layers: int) -> list[Params]:
+    """Every layer's parameters (views), made by one ``torch.unbind`` per
+    leaf: under autograd the layers' gradients gather into the stacked
+    leaf's in one pass, where ``layer(stacked, i)`` for each layer would
+    add a zero-filled gradient of the whole stack per layer."""
+    parts = tree_map(lambda t: t.unbind(0), stacked)
+    return [tree_map(lambda p: p[i], parts) for i in range(n_layers)]
 
 
 def init_stacked(n_layers: int, init_one: Callable[[], Params]) -> Params:

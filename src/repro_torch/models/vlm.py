@@ -16,13 +16,14 @@ import torch
 
 from repro_torch.models import transformer as T
 
-__all__ = ["init", "params_from_numpy", "forward", "init_cache",
+__all__ = ["init", "params_from_numpy", "forward", "loss_fn", "init_cache",
            "cache_axes", "prefill", "decode_step", "make_text_positions",
            "make_image_positions"]
 
 init = T.init
 params_from_numpy = T.params_from_numpy
 forward = T.forward
+loss_fn = T.loss_fn
 init_cache = T.init_cache
 cache_axes = T.cache_axes
 prefill = T.prefill

@@ -16,6 +16,12 @@ attention through ``ops.flash_attention`` (K6); ``mode`` threads down to
 both (``"ref"`` selects the plain versions, for comparisons).  The cache
 has the reference's leaves and layouts (``cache_axes``); ``decode_step``
 updates it in place and returns it.
+
+``loss_fn`` trains the model: the SSD and the shared attention on their
+plain versions (``mode="ref"``; the reference trains through its jnp
+paths, and K6/K7 have no backward), each Mamba layer under
+``layers.remat_wrap`` as the reference checkpoints its Mamba scan body
+(the shared block is not), the token loss through K4/K5.
 """
 
 from __future__ import annotations
@@ -28,11 +34,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
-from repro_torch.models.tree import init_stacked, params_from_numpy
+from repro_torch.models.tree import init_stacked, params_from_numpy, unstack
 from repro_torch.models.tree import layer as _layer
 from repro_torch.models.tree import tree_map as _tree_map
 
-__all__ = ["init", "params_from_numpy", "forward", "init_cache",
+__all__ = ["init", "params_from_numpy", "forward", "loss_fn", "init_cache",
            "cache_axes", "prefill", "decode_step", "n_shared_invocations"]
 
 Params = dict[str, Any]
@@ -160,6 +166,34 @@ def forward(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     h = L.rms_norm(params["final_norm"], h, cfg.norm_eps)
     emb = params["embedding"] if cfg.tie_embeddings else params["unembed"]
     return L.unembed(emb, h)
+
+
+def loss_fn(params: Params, batch: dict, cfg: ModelConfig, *,
+            mode: str | None = None) -> torch.Tensor:
+    """Mean token cross-entropy (0-d fp32), masked by ``batch["mask"]``
+    where given.  ``mode`` is the loss kernels' (K4/K5)."""
+    h = L.embed(params["embedding"], batch["tokens"])
+    h0 = h
+    bsz, s = batch["tokens"].shape
+    positions = _positions(bsz, s, h.device)
+
+    def mamba(h: torch.Tensor, lp: Params) -> torch.Tensor:
+        return M.block_apply(lp, h, cfg, mode="ref")
+
+    mamba = L.remat_wrap(cfg, mamba)
+    layers = unstack(params["mamba"], cfg.n_layers)
+    off = 0
+    for seg in _segments(cfg):
+        for i in range(off, off + seg):
+            h = mamba(h, layers[i])
+        off += seg
+        if _is_full(seg, cfg):
+            h, _ = shared_block_apply(params["shared"], h, h0, positions, cfg,
+                                      mode="ref")
+    h = L.rms_norm(params["final_norm"], h, cfg.norm_eps)
+    emb = params["embedding"] if cfg.tie_embeddings else params["unembed"]
+    return L.cross_entropy_loss(L.unembed(emb, h), batch["labels"],
+                                batch.get("mask"), mode=mode)
 
 
 def _cache_len(cfg: ModelConfig, max_len: int) -> int:

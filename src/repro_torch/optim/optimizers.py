@@ -1,9 +1,13 @@
-"""Adam with the reference's contract (``repro/optim/optimizers.py``):
-``init(params) -> state`` and ``update(grads, state, params, step) ->
-(params, state)``, fp32 moments, bias correction at step+1, and eps
-outside ``sqrt(v·vhat)``.  The schedule and the bias corrections are
-computed in fp32 on the parameters' device, so a step never syncs with
-the host; nor do ``global_norm`` and ``clip_by_global_norm``.
+"""SGD, momentum (plain and Nesterov), Adam and AdamW with the reference's
+contract (``repro/optim/optimizers.py``): ``init(params) -> state`` and
+``update(grads, state, params, step) -> (params, state)``, moments in
+fp32 whatever the parameters' dtype, each new parameter computed in fp32
+and rounded once to its dtype; Adam and AdamW share one core (bias
+correction at step+1, eps outside ``sqrt(v·vhat)``, AdamW's decay added
+to the update ``u`` and scaled by the rate with it).  The schedule and
+the bias corrections are computed in fp32 on the parameters' device, so
+a step never syncs with the host; nor do ``global_norm`` and
+``clip_by_global_norm``.
 
 Unlike the reference, whose arrays are immutable, ``update`` writes the
 new moments and parameters in place (under ``torch.no_grad``) and
@@ -51,10 +55,59 @@ def _zeros_like_tree(tree):
                                            device=t.device), tree)
 
 
-def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8
-         ) -> Optimizer:
-    lr_fn = lr if callable(lr) else (lambda _: _f32(lr))
+def _rate(lr) -> Callable:
+    return lr if callable(lr) else (lambda _: _f32(lr))
 
+
+def _apply(p: torch.Tensor, eta: torch.Tensor, u: torch.Tensor) -> None:
+    """p <- (p - eta·u) in fp32, rounded once to p's dtype, in place (for
+    an fp32 ``p`` that is ``p.sub_(eta * u)``, bit for bit)."""
+    u.mul_(eta)
+    if p.dtype == torch.float32:
+        p.sub_(u)
+    else:
+        p.copy_(p.float().sub_(u))
+
+
+def sgd(lr) -> Optimizer:
+    lr_fn = _rate(lr)
+
+    def init(params):
+        return {}
+
+    @torch.no_grad()
+    def update(grads, state, params, step):
+        p_leaves = _leaves(params)
+        eta = lr_fn(_f32(step).to(p_leaves[0].device))
+        for p, g in zip(p_leaves, _leaves(grads)):
+            _apply(p, eta, g.to(torch.float32, copy=True))
+        return params, state
+
+    return Optimizer(init, update)
+
+
+def momentum(lr, beta: float = 0.9, nesterov: bool = False) -> Optimizer:
+    lr_fn = _rate(lr)
+
+    def init(params):
+        return {"m": _zeros_like_tree(params)}
+
+    @torch.no_grad()
+    def update(grads, state, params, step):
+        p_leaves = _leaves(params)
+        eta = lr_fn(_f32(step).to(p_leaves[0].device))
+        for p, g, m in zip(p_leaves, _leaves(grads), _leaves(state["m"])):
+            g = g.to(torch.float32)
+            m.mul_(beta).add_(g)
+            u = m * beta + g if nesterov else m.clone()
+            _apply(p, eta, u)
+        return params, state
+
+    return Optimizer(init, update)
+
+
+def _adam_core(lr_fn, b1: float, b2: float, eps: float,
+               weight_decay: float) -> Optimizer:
     def init(params):
         return {"m": _zeros_like_tree(params), "v": _zeros_like_tree(params)}
 
@@ -71,11 +124,26 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8
             g = g.to(torch.float32)
             m.mul_(b1).add_((1 - b1) * g)
             v.mul_(b2).add_((1 - b2) * g.square())
-            u = (m * mhat_scale) / (torch.sqrt(v * vhat_scale) + eps)
-            p.sub_((eta * u).to(p.dtype))
+            del g
+            # u = (m·mhat) / (sqrt(v·vhat) + eps) [+ wd·p], in place
+            u = m * mhat_scale
+            u.div_(torch.sqrt_(v * vhat_scale).add_(eps))
+            if weight_decay:
+                u.add_(weight_decay * p.float())
+            _apply(p, eta, u)
         return params, state
 
     return Optimizer(init, update)
+
+
+def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8
+         ) -> Optimizer:
+    return _adam_core(_rate(lr), b1, b2, eps, 0.0)
+
+
+def adamw(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+          weight_decay: float = 0.01) -> Optimizer:
+    return _adam_core(_rate(lr), b1, b2, eps, weight_decay)
 
 
 @torch.no_grad()

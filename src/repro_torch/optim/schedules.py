@@ -15,6 +15,10 @@ def _f32(step) -> torch.Tensor:
     return torch.as_tensor(step, dtype=torch.float32)
 
 
+def constant(lr: float):
+    return lambda step: torch.full_like(_f32(step), lr)
+
+
 def cosine_decay(lr: float, steps: int, final_frac: float = 0.1):
     def fn(step):
         t = torch.clamp(_f32(step) / steps, 0.0, 1.0)

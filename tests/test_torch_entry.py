@@ -132,7 +132,9 @@ def test_port_imports_neither_jax_nor_the_reference_package():
         "repro_torch.runtime, repro_torch.launch.elastic_restart, "
         "repro_torch.models.transformer, repro_torch.models.moe, "
         "repro_torch.models.tree, repro_torch.models.mamba2, "
-        "repro_torch.models.encdec, repro_torch.models.vlm\n"
+        "repro_torch.models.encdec, repro_torch.models.vlm, "
+        "repro_torch.parallel.gradsync, repro_torch.launch.steps, "
+        "repro_torch.configs.nn_benchmarks\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

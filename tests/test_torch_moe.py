@@ -156,7 +156,7 @@ def _moe_pair(arch, kind, dtype):
 def test_moe_mlp_matches_reference_fp32(arch, kind):
     cfg, jcfg, jparams, jx, tparams, tx = _moe_pair(arch, kind, "float32")
     want, _ = jax.jit(lambda p, x: JMOE.moe_mlp(p, x, jcfg))(jparams, jx)
-    got = moe.moe_mlp(tparams, tx, cfg)
+    got, _ = moe.moe_mlp(tparams, tx, cfg)
     assert got.dtype == torch.float32 and got.shape == tx.shape
     _close(got, want, LAYER_TOL)
 
@@ -185,7 +185,7 @@ def test_moe_mlp_matches_reference_bf16(arch, kind, monkeypatch):
     with jax.disable_jit():
         want, _ = JMOE.moe_mlp(jparams, jx, jcfg)
     jitted, _ = jax.jit(lambda p, x: JMOE.moe_mlp(p, x, jcfg))(jparams, jx)
-    got = moe.moe_mlp(tparams, tx, cfg)
+    got, _ = moe.moe_mlp(tparams, tx, cfg)
     assert got.dtype == torch.bfloat16
     _same_but_flips(got, want)
     assert _rel(got, jitted) <= BF16_JIT_RTOL
