@@ -10,8 +10,11 @@ period program on an 8-device ring, that program again losing two of its
 devices and resuming from a checkpoint on the six left, Zamba2-1.2B,
 qwen3-14b, qwen2-moe-a2.7b and mamba2-2.7b served at full width in bf16,
 and seamless-m4t-large-v2 (full width) and qwen2-vl-72b (full width, cut
-in depth) through their prefill and decode steps, and granite-3-2b and
-Zamba2-1.2B trained at full width by the LM train step.  Phases, each
+in depth) through their prefill and decode steps, granite-3-2b and
+Zamba2-1.2B trained at full width by the LM train step, Zamba2-1.2B
+served on a ring of 8 logical devices losing 2 under the Lemma-1
+autoscaler and prefilled past its attention window, and granite-3-2b
+trained by the LM training driver through a crash and a resume.  Phases, each
 printing its own lines; any failure raises and the script exits non-zero
 without a result line:
 
@@ -67,7 +70,13 @@ without a result line:
               the instantiation that ran (tensor-core bf16 or CUDA-core
               fp32); each timed bf16 K7 row prints the heads per block its
               plan picked and the device time of every other choice, each
-              held to the plain version and run twice bit-identical
+              held to the plain version and run twice bit-identical;
+              K6 with a sliding causal window at Zamba2's (1, 32, S, 64)
+              and qwen3-14b's (1, 40, S, 128) on 8 KV heads, S = 2048 and
+              4096, windows 1, 63, 64, 65, 127, 128, 129 and 1000, in bf16
+              and fp32, at the same bars (window 1 returns v bit for bit),
+              timed beside SDPA with the same boolean mask and the bound
+              of the kept pairs only
   8. serve    Zamba2-1.2B, full width, bf16, random weights: 8 requests
               of the ``steady`` preset with 512/1024/2048-token prompts on
               4 slots through ``repro_torch.launch.serve.serve``; every
@@ -183,6 +192,46 @@ without a result line:
               2048, 3 steps (the loss falls, K4/K5 once a step) and a
               profiled step with the plain SSD's and the shared attention's
               shares of device busy time
+ 19. elastic  Zamba2-1.2B, full width, bf16: 8 requests of the
+              ``device-loss-mid-decode`` preset (2 devices lost at decode
+              step 4) with 512/1024/2048-token prompts on 4 slots, the
+              runner a ring of 8 logical devices under
+              ``ServeAutoscaler(8, 4)`` through
+              ``repro_torch.launch.serve.serve``, and the same trace with
+              no fault: every request served, K6 and K7 launched 6 and 38
+              times per prefill, restarts included; the decision (8 -> 6
+              devices, its slots, epoch_s and Lemma-1 cores) equal to the
+              autoscaler's; TTFT/TPOT p50/p99, restarts, peak memory; a
+              stream that differs from the no-fault run (the decode batch
+              changes with the slots) is replayed at both batches and held
+              to phase 9's greedy-token rule at its first differing token
+ 20. window   Zamba2-1.2B, full width, bf16: a 33,792-token prompt
+              (attn_window 32,768 + 1,024, 264 SSM chunks); the first
+              33,664 tokens prefilled through the serving runner's model
+              (K6 windowed, 6 launches; K7 38), 16 tokens decoded
+              teacher-forced through the KV ring, each step's logits
+              (and the prefill's) held to ``forward`` over the whole prompt
+              at that position within 4e-2 of the largest logit and the
+              greedy-token rule (``forward`` runs the same windowed K6);
+              K6 itself on the inputs of the prefill's first call, (1, 32,
+              33664, 64) window 32,768, held to its plain version at phase
+              7's bf16 bars on every query row, by 128-row slices that
+              read only the keys in their window; prefill ms, a profiled
+              prefill, K6 ms a call against its bound, peak memory
+ 21. driver   the LM training driver (``repro_torch.launch.train.train``):
+              granite-3-2b at full width and depth, bf16, 2 x 2048 tokens
+              in 2 microbatches, the reference's ``TrainSettings``: (a) a
+              6-step run dies right after its checkpoint of step index 2;
+              (b) a 6-step run in the same directory resumes at step 3;
+              (c) runs 6 steps uninterrupted; only (a) checkpoints; (b)'s
+              steps 3-5 equal (c)'s bit for bit, or else a second
+              uninterrupted run (d) witnesses the step's run-to-run spread:
+              where (c) and (d) agree bit for bit the resume fails, else
+              it is held within max(2 x their spread, 1e-5 relative);
+              K4/K5 twice a step; ms/step, checkpoint bytes,
+              snapshot, write and restore ms; the checkpoint goes under
+              ``build/``, which must hold 1.5 times it (else Zamba2-1.2B
+              is driven), and is removed afterwards
 
 The last three lines are a JSON object of per-kernel numbers, the card's
 name and power limit as nvidia-smi reports them, and the result object.
@@ -949,7 +998,10 @@ def _close(torch, out, want, fp32_rtol, slack) -> tuple[bool, float, str]:
     o, w = out.double(), want.double()
     extra = (K7_BF16_SLACK * w.abs().max() if slack is None
              else slack().double())
-    worst = ((o - w).abs() / (BF16_ULP * w.abs() + extra)).max().item()
+    # where the bar is 0 (K6 with window 1 over a v element that is 0)
+    # the two must be equal
+    bar = (BF16_ULP * w.abs() + extra).clamp_min(2.2250738585072014e-308)
+    worst = ((o - w).abs() / bar).max().item()
     norm = ((o - w).norm() / w.norm()).item()
     name = "2^-7(|ref|+P|v|)" if slack is not None else "2^-7|ref|+1e-3max"
     ok = worst <= 1 and norm <= BF16_ULP
@@ -965,7 +1017,9 @@ class LMCase(NamedTuple):
     ``slack()`` is K6's bf16 slack, BF16_ULP·(softmax @ |v|) (None: K7's);
     ``forced(heads)`` runs bf16 K7 at one of ssd_scan.SSD_HEADS heads per
     block, ``plan`` being its wrapper's; ``on_path`` names the serving path
-    whose prefill runs this shape ("" for none)."""
+    whose prefill runs this shape ("" for none); ``window`` is K6's sliding
+    window (0: none), and ``exact()``, where given, the output the kernel
+    must return bit for bit (window 1: v itself)."""
     name: str
     label: str
     kern: Callable
@@ -979,6 +1033,24 @@ class LMCase(NamedTuple):
     on_path: str
     plan: int | None = None
     forced: Callable | None = None
+    window: int = 0
+    exact: Callable | None = None
+
+
+# K6 with a sliding causal window: Zamba2's shared attention (1, 32, S, 64)
+# and qwen3-14b's GQA (1, 40, S, 128) on 8 KV heads, windows inside one
+# tile, at the fp32 (64-row) and bf16 (128-row) tile edges, and wider
+K6_WINDOW_SHAPES = ((1, 32, 32, 64), (1, 40, 8, 128))   # (B, H, KV, D)
+K6_WINDOW_SEQS = (2048, 4096)
+K6_WINDOWS = (1, 63, 64, 65, 127, 128, 129, 1000)
+
+
+def kept_pairs(s: int, window: int) -> int:
+    """(query, key) pairs a causal mask over ``s`` tokens keeps, with a
+    sliding ``window`` (0: none): q + 1 keys for q < window, then window."""
+    if window == 0 or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
 
 
 def lm_kernel_cases(torch, dev, gen):
@@ -991,32 +1063,43 @@ def lm_kernel_cases(torch, dev, gen):
     def rand(*shape, dtype=torch.float32, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
 
-    def flash_case(b, h, s, d, dtype, causal, timed, kv=None, sk=None):
+    def flash_case(b, h, s, d, dtype, causal, timed, kv=None, sk=None,
+                   window=0):
         # the model's layout: (B, S, H, D) projections seen as (B, H, S, D);
         # k and v with kv heads (GQA, h // kv query heads a group) and sk
-        # rows (cross-attention where sk != s)
+        # rows (cross-attention where sk != s); a causal window keeps the
+        # ``window`` most recent keys of each query
         kv, sk = kv or h, sk or s
         q = rand(b, s, h, d, dtype=dtype).transpose(1, 2)
         k, v = (rand(b, sk, kv, d, dtype=dtype).transpose(1, 2)
                 for _ in range(2))
         e = q.element_size()
-        pairs = s * (s + 1) // 2 if causal else s * sk
+        pairs = kept_pairs(s, window) if causal else s * sk
         rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
         label = (f"({b},{h},{s},{d}){f' kv {kv}' if kv != h else ''}"
                  f"{f' over Sk {sk}' if sk != s else ''} "
-                 f"{str(dtype)[6:]} {'causal' if causal else 'full'}")
+                 f"{str(dtype)[6:]} {'causal' if causal else 'full'}"
+                 f"{f' window {window}' if window else ''}")
         path = [a for a, shape in K6_PATHS.items()
                 if (b, h, kv, s, d, sk, causal) == shape
-                and dtype == torch.bfloat16]
+                and dtype == torch.bfloat16 and not window]
+        if window:      # SDPA with the same boolean mask
+            mask = ref.attention_mask(s, s, window, dev)
+            lib = lambda: sdpa(q, k, v, attn_mask=mask,  # noqa: E731
+                               enable_gqa=kv != h)
+        else:
+            lib = lambda: sdpa(q, k, v, is_causal=causal,  # noqa: E731
+                               enable_gqa=kv != h)
+        exact = (lambda: v.repeat_interleave(h // kv, dim=1)) if window == 1 \
+            else None
         yield LMCase(
             "flash_attention", label,
-            lambda: flash_attention(q, k, v, causal),
-            lambda: ref.flash_attention_ref(q, k, v, causal),
+            lambda: flash_attention(q, k, v, causal, window),
+            lambda: ref.flash_attention_ref(q, k, v, causal, window),
             lambda: BF16_ULP * ref.flash_attention_ref(
-                q.float(), k.float(), v.float().abs(), causal),
-            lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=kv != h),
-            2 * b * (h * s + kv * sk) * d * e, 4 * b * h * pairs * d, rate,
-            timed, path[0] if path else "")
+                q.float(), k.float(), v.float().abs(), causal, window),
+            lib, 2 * b * (h * s + kv * sk) * d * e, 4 * b * h * pairs * d,
+            rate, timed, path[0] if path else "", window=window, exact=exact)
 
     def ssd_case(bc, q, h, p, n, dtype, shared_bc, timed):
         x = rand(bc, q, h, p, dtype=dtype)
@@ -1086,6 +1169,12 @@ def lm_kernel_cases(torch, dev, gen):
             yield from flash_case(b, h, s, d, dtype, False, False, kv, sk)
         # qwen2-vl-72b's prefill: 64 query heads on 8 KV heads of 128 (G = 8)
         yield from flash_case(1, 64, 2048, 128, dtype, True, True, kv=8)
+        # sliding windows (Zamba2's prefill past attn_window)
+        for b, h, kv, d in K6_WINDOW_SHAPES:
+            for s in K6_WINDOW_SEQS:
+                for w in K6_WINDOWS:
+                    yield from flash_case(b, h, s, d, dtype, True, True, kv,
+                                          window=w)
         # one 128-token chunk, then the 512/1024/2048-token prompt buckets
         for bc in (1, 4, 8, 16):
             yield from ssd_case(bc, 128, 64, 64, 64, dtype, True, True)
@@ -1150,11 +1239,15 @@ def run_lm_kernel_phase(torch, dev) -> dict:
                       "library_ms": None, "bound_ms": None, "bound_by": None,
                       "shapes": [], "paths": {}}
                for name in LM_KERNELS}
+    summary["flash_attention"]["windowed"] = []
     for case in lm_kernel_cases(torch, dev, gen):
         name, label = case.name, case.label
         outs, wants = case.kern(), case.plain()
         torch.cuda.synchronize()
         ok, worst, crit = lm_compare(torch, case, outs, wants)
+        if case.exact is not None:
+            same = torch.equal(outs, case.exact())
+            ok, crit = ok and same, crit + (", = v" if same else ", != v")
         if name == "flash_attention":
             label += (" [tensor-core bf16]" if outs.dtype == torch.bfloat16
                       else " [CUDA-core fp32]")
@@ -1177,6 +1270,10 @@ def run_lm_kernel_phase(torch, dev) -> dict:
                          f"{case.nbytes / HBM_BYTES_PER_S * 1e3:.5f}, by bf16 "
                          f"ops {case.flops / case.rate * 1e3:.5f} | plan "
                          f"{case.plan} heads/block")
+            if case.window:
+                summary[name]["windowed"].append(dict(
+                    shape=label, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=b_ms, bound_by=b_by, max_abs_err=worst))
             if case.on_path:
                 row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                            bound_ms=b_ms, bound_by=b_by, shapes=[label])
@@ -1239,7 +1336,7 @@ def run_serve_phase(torch, dev, arch: str = ARCH,
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
     cfg, sc = result.cfg, result.scenario
-    for line in report_lines(result, 0, 4, 1):
+    for line in report_lines(result, 0, 4):
         print(line)
     n_prefill = result.n_prefills + len(sc.prompt_buckets)   # + warmup
     per = launches_per_prefill(cfg)
@@ -1455,20 +1552,23 @@ def run_fp32_parity(torch, dev, tokens_2048, arch: str,
     free_device_memory(torch)
 
 
-def bf16_logit_check(torch, lk, lp, what: str) -> None:
-    """bf16 kernel-path logits ``lk`` against plain-path ``lp``: within
-    BF16_LOGIT_RTOL of the largest logit, and the greedy token equal where
-    the plain top-2 gap exceeds twice the logit difference."""
+def bf16_logit_check(torch, lk, lp, what: str, ref_name: str = "plain"
+                     ) -> None:
+    """bf16 logits ``lk`` of the path under test against reference logits
+    ``lp`` (the plain path's, named ``ref_name``): within BF16_LOGIT_RTOL
+    of the largest logit, and the greedy token equal where the
+    reference's top-2 gap exceeds twice the logit difference."""
     diff = (lk - lp).abs().max().item()
     scale = lp.abs().max().item()
     top2 = torch.topk(lp[0, -1], 2).values
     gap = (top2[0] - top2[1]).item()
     tk, tp = int(torch.argmax(lk[0, -1])), int(torch.argmax(lp[0, -1]))
     print(f"{what}: max |dlogit| {diff:.4e} of max |logit| "
-          f"{scale:.3f} = {diff / scale:.3e} (<= {BF16_LOGIT_RTOL:g}); plain "
-          f"top-2 gap {gap:.4e}; greedy token kernel {tk} plain {tp}")
+          f"{scale:.3f} = {diff / scale:.3e} (<= {BF16_LOGIT_RTOL:g}); "
+          f"{ref_name} top-2 gap {gap:.4e}; greedy token kernel {tk} "
+          f"{ref_name} {tp}")
     check(diff <= BF16_LOGIT_RTOL * scale,
-          "bf16 kernel-path logits disagree with the plain path")
+          f"bf16 kernel-path logits disagree with the {ref_name} path")
     if gap > 2 * diff:
         check(tk == tp, "bf16 greedy token differs where the top-2 gap "
                         "exceeds twice the logit difference")
@@ -2259,7 +2359,7 @@ def granite_train_phase(torch, dev, smi: str) -> dict:
           f"{100 * attn / busy:.1f}% of device busy")
     return {"launches": sum(r["launches"]["softmax_xent_fwd"] for r in rows),
             "steps": TRAIN_STEPS, "ms_per_step": host_ms, "busy_ms": busy,
-            "attention_share": attn / busy}
+            "attention_share": attn / busy, "n_params": n_params}
 
 
 def hybrid_train_phase(torch, dev, smi: str) -> None:
@@ -2353,6 +2453,545 @@ def train_path_phase(torch, dev, smi: str) -> dict:
     out = granite_train_phase(torch, dev, smi)
     hybrid_train_phase(torch, dev, smi)
     return out
+
+
+# ------------------------------------------------------- phases 19-21
+
+ELASTIC_DEVICES = 8     # the serving runner's logical ring (phase 19)
+# phase 20: a prompt past Zamba2-1.2B's attn_window (32,768) by 1,024
+# tokens, 264 SSM chunks of 128; all but its last LONG_TAIL tokens (263
+# chunks) are prefilled, then LONG_DECODE tokens decoded teacher-forced
+# through the KV ring
+LONG_PROMPT = 33_792
+LONG_TAIL = 128
+LONG_DECODE = 16
+# phase 21: the training driver's runs of 6 steps, a checkpoint every 3
+DRIVER_STEPS = 6
+DRIVER_CKPT_EVERY = 3
+DRIVER_LOSS_RTOL = 1e-5
+
+
+def replay_logits(torch, runner, slot: int, prompt, tokens) -> list:
+    """The fp32 logits row of ``slot`` at each generated position of a
+    stream: ``prompt`` prefilled into ``slot`` of ``runner``'s fresh cache,
+    then ``tokens`` (all but the last) decoded teacher-forced with every
+    other slot idle, at the runner's batch (its slot count)."""
+    rows = []
+    with torch.inference_mode():
+        logits, one = runner.model.prefill(
+            runner.params, {"tokens": runner._tokens(prompt)[None, :]},
+            runner.max_len)
+        runner._merge(one, slot)
+        rows.append(logits[0, -1].float())
+        for t in tokens[:-1]:
+            last = torch.zeros((runner.n_slots, 1), dtype=torch.int64,
+                               device=runner.device)
+            last[slot, 0] = int(t)
+            logits, runner.cache = runner.model.decode_step(
+                runner.params, runner.cache, {"tokens": last})
+            rows.append(logits[slot, -1].float())
+    return rows
+
+
+def elastic_serve_phase(torch, dev, smi: str) -> dict[str, int]:
+    """Phase 19: Zamba2-1.2B served at full width under the
+    ``device-loss-mid-decode`` preset (2 of ELASTIC_DEVICES logical devices
+    lost at decode step 4) through ``launch.serve.serve`` and its
+    ServeAutoscaler, and the same trace with no fault; returns the fault
+    run's K6/K7 launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import report_lines, serve
+    from repro_torch.serve import ServeAutoscaler, WallClock
+
+    runs = {}
+    for name, over in (("fault", {}), ("no fault", {"device_loss": None})):
+        free_device_memory(torch)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        result = serve(ARCH, scenario="device-loss-mid-decode", n_requests=8,
+                       prompt_buckets=SERVE_BUCKETS, slots=4, seed=0,
+                       device=dev, clock=WallClock(),
+                       n_devices=ELASTIC_DEVICES, **over)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        sc, slo = result.scenario, result.slo
+        print(f"[{name}]")
+        for line in report_lines(result, 0, 4):
+            print(line)
+        n_prefill = result.n_prefills + len(sc.prompt_buckets)  # + warmup
+        per = launches_per_prefill(result.cfg)
+        print(f"  {result.n_prefills} prefills ({slo.n_restarts} restarted) "
+              f"+ {len(sc.prompt_buckets)} warmup, {result.n_decode_steps} "
+              f"decode steps; launches {launches}; wall {wall:.2f} s; peak "
+              f"device memory {peak / 1e9:.3f} GB")
+        check(slo.n_finished == sc.n_requests,
+              f"{name}: served {slo.n_finished}/{sc.n_requests} requests")
+        check(peak < 80e9, f"{name}: peak {peak / 1e9:.3f} GB >= 80 GB")
+        for k in LM_KERNELS:
+            check(launches[k] == per[k] * n_prefill,
+                  f"{name}: {k} launched {launches[k]} times, expected "
+                  f"{per[k]} per prefill x {n_prefill}")
+        runs[name] = (result, launches)
+    fault, clean = runs["fault"][0], runs["no fault"][0]
+    check(len(fault.replans) == 1 and not clean.replans,
+          f"replans: {len(fault.replans)} under the fault, "
+          f"{len(clean.replans)} without")
+    rp = fault.replans[0]
+    want = ServeAutoscaler(ELASTIC_DEVICES, 4).on_device_loss(2, rp.at_s)
+    print(f"decision: {rp.reason} devices {rp.from_devices} -> "
+          f"{rp.to_devices}, slots {rp.from_slots} -> {rp.to_slots}, "
+          f"epoch_s {rp.epoch_s!r}, lemma1_cores {rp.lemma1_cores}; "
+          f"restarts {fault.slo.n_restarts}")
+    check(rp == want and (rp.from_devices, rp.to_devices) == (8, 6)
+          and fault.n_devices == 6,
+          f"the decision {rp} differs from the autoscaler's {want}")
+    check(fault.slo.n_restarts >= 1, "the device loss restarted no request")
+    check(set(fault.streams) == set(clean.streams), "the rids differ")
+    for name, res in (("fault", fault), ("no fault", clean)):
+        s = res.slo
+        print(f"{name}: TTFT p50/p99 {s.p50_ttft_s * 1e3:.1f}/"
+              f"{s.p99_ttft_s * 1e3:.1f} ms, TPOT p50/p99 "
+              f"{s.p50_tpot_s * 1e3:.2f}/{s.p99_tpot_s * 1e3:.2f} ms, "
+              f"{s.throughput_tok_s:.1f} tok/s on {smi}")
+    # the slots change (4 -> to_slots), so the decode GEMMs' batch does, and
+    # bf16 may round a row otherwise: a stream that differs is held to
+    # phase 9's greedy-token rule at its first differing token, from the
+    # logits of both batches replayed
+    check_differing_streams(torch, dev, fault, clean)
+    return dict(runs["fault"][1])
+
+
+def check_differing_streams(torch, dev, fault, clean) -> None:
+    """Phase 19's streams under the fault against the no-fault run's: each
+    one that differs is replayed at both decode batches (4 slots, and the
+    replan's) from its prompt and the common prefix, and at its first
+    differing token the top-2 gap of the no-fault logits must not exceed
+    twice the two batches' logit difference."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import (TorchModelRunner, make_traffic,
+                                   prompt_tokens)
+
+    rp = fault.replans[0]
+    differ = sorted(r for r in clean.streams
+                    if fault.streams[r] != clean.streams[r])
+    print(f"streams differing from the no-fault run: {len(differ)} of "
+          f"{len(clean.streams)}")
+    if differ:
+        cfg = get_config(ARCH)
+        trace = make_traffic(fault.scenario, 0)
+        events = {ev.rid: ev for ev in trace.events}
+        runners = {m: TorchModelRunner(cfg, n_slots=m,
+                                       max_len=fault.scenario.max_len,
+                                       device=dev)
+                   for m in (4, rp.to_slots)}
+        for rid in differ:
+            a, b = clean.streams[rid], fault.streams[rid]
+            j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+            prompt = prompt_tokens(trace.seed, events[rid], cfg.vocab_size)
+            runners[4]._build(4)
+            runners[rp.to_slots]._build(rp.to_slots)
+            lc = replay_logits(torch, runners[4], 0, prompt, a[:j + 1])[j]
+            lf = replay_logits(torch, runners[rp.to_slots], 0, prompt,
+                               b[:j + 1])[j]
+            diff = (lc - lf).abs().max().item()
+            top2 = torch.topk(lc, 2).values
+            gap = (top2[0] - top2[1]).item()
+            print(f"  request {rid}: first difference at token {j} ({a[j]} "
+                  f"vs {b[j]}); replayed at 4 and {rp.to_slots} slots: "
+                  f"tokens {int(lc.argmax())} and {int(lf.argmax())}, max "
+                  f"|dlogit| {diff:.4e}, top-2 gap {gap:.4e}")
+            check(gap <= 2 * diff,
+                  f"request {rid}: the streams differ where the top-2 gap "
+                  f"{gap:.4e} exceeds twice the logit difference {diff:.4e}")
+        del runners
+        free_device_memory(torch)
+
+
+LONG_K6_ROWS = 128      # query rows a slice of phase 20's K6 check: a bf16 tile
+
+
+def windowed_rows_ref(torch, q, k, v, q0: int, q1: int, window: int):
+    """Query rows [q0, q1) of ``ref.flash_attention_ref(q, k, v, True,
+    window)`` in its arithmetic (fp32 scores and softmax, probabilities
+    rounded to v's dtype before the PV product, GQA by head grouping),
+    reading only the keys [q0 - window + 1, q1) that the window keeps: the
+    plain version at a length whose whole score matrix does not fit."""
+    lo = max(0, q0 - window + 1)
+    b, h, _, d = q.shape
+    kv = k.shape[1]
+    qg = q[:, :, q0:q1].float().reshape(b, kv, h // kv, q1 - q0, d)
+    ks, vs = k[:, :, lo:q1], v[:, :, lo:q1]
+    s = torch.einsum("bkgqd,bkmd->bkgqm", qg, ks.float()) / d ** 0.5
+    iq = torch.arange(q0, q1, device=q.device)[:, None]
+    ik = torch.arange(lo, q1, device=q.device)[None, :]
+    s = s.masked_fill(~((ik <= iq) & (ik > iq - window)), float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqm,bkmd->bkgqd", p.to(vs.dtype).float(), vs.float())
+    return o.reshape(b, h, q1 - q0, d).to(q.dtype)
+
+
+def check_long_k6(torch, dev, q, k, v, window: int) -> tuple[float, float]:
+    """K6 at phase 20's inputs against its plain version on every query
+    row, a LONG_K6_ROWS-row slice at a time (windowed_rows_ref, first held
+    to the whole ``flash_attention_ref`` at a small shape), at phase 7's
+    bf16 bars.  Returns (max abs error, host ms of the plain slices)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    small = [torch.randn(1, 32, 1024, 64, generator=gen, device=dev)
+             for _ in range(3)]
+    for w in (1, 129, 1000):
+        whole = ref.flash_attention_ref(*small, True, w)
+        rows = torch.cat([windowed_rows_ref(torch, *small, q0, q0 + 128, w)
+                          for q0 in range(0, 1024, 128)], dim=2)
+        a, r = errors(rows, whole)
+        check(r <= 1e-6, f"sliced plain K6 against the whole one at window "
+                         f"{w}: {r:.3e} of the largest output > 1e-6")
+    print("sliced plain K6 = flash_attention_ref within 1e-6 of the largest "
+          "output (fp32 (1, 32, 1024, 64), windows 1, 129, 1000)")
+    del small, whole, rows
+    out = flash_attention(q, k, v, True, window)
+    n = q.shape[2]
+    worst, plain_s = 0.0, 0.0
+    shown = {0, window - LONG_K6_ROWS, window, window + LONG_K6_ROWS,
+             (n - 1) // LONG_K6_ROWS * LONG_K6_ROWS}
+    qf, kf, va = q.float(), k.float(), v.float().abs()    # for the slack
+    with torch.inference_mode():
+        for q0 in range(0, n, LONG_K6_ROWS):
+            q1 = min(n, q0 + LONG_K6_ROWS)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = windowed_rows_ref(torch, q, k, v, q0, q1, window)
+            torch.cuda.synchronize()
+            plain_s += time.perf_counter() - t0
+            ok, a, crit = _close(
+                torch, out[:, :, q0:q1], want, K6_FP32_RTOL,
+                lambda: BF16_ULP * windowed_rows_ref(
+                    torch, qf, kf, va, q0, q1, window))
+            worst = max(worst, a)
+            if q0 in shown or not ok:
+                print(f"  rows {q0}-{q1 - 1} (keys from "
+                      f"{max(0, q0 - window + 1)}): max abs {a:.3e}, {crit}")
+            check(ok, f"K6 at the long prefill's rows {q0}-{q1 - 1}: {crit}")
+    print(f"K6 at the long prefill's inputs: all {n} query rows within phase "
+          f"7's bf16 bars in {-(-n // LONG_K6_ROWS)} slices, max abs error "
+          f"{worst:.3e}; the plain slices {plain_s * 1e3:.1f} ms")
+    del out, qf, kf, va
+    return worst, plain_s * 1e3
+
+
+def long_prefill_phase(torch, dev, smi: str) -> tuple[dict[str, int], dict]:
+    """Phase 20: Zamba2-1.2B (bf16, full width) prefills LONG_PROMPT -
+    LONG_TAIL tokens, past its attn_window, through the serving runner's
+    model (K6 windowed), then decodes LONG_DECODE tokens teacher-forced
+    through the KV ring; each step's logits are held to ``forward`` over
+    the whole prompt at that position, and K6 to its plain version on the
+    prefill's own inputs.  Returns the prefill's launches and K6's numbers
+    at its shape."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.serve import TorchModelRunner
+
+    cfg = get_config(ARCH)
+    n_pre = LONG_PROMPT - LONG_TAIL
+    check(LONG_PROMPT == cfg.attn_window + 1024
+          and LONG_PROMPT % cfg.ssm_chunk == n_pre % cfg.ssm_chunk == 0,
+          f"{LONG_PROMPT} and {n_pre} are not attn_window + 1024 and the "
+          f"prefill in whole SSM chunks")
+    free_device_memory(torch)
+    torch.cuda.reset_peak_memory_stats()
+    runner = TorchModelRunner(cfg, n_slots=1, max_len=LONG_PROMPT + 1,
+                              device=dev)
+    model, params = runner.model, runner.params
+    gen = torch.Generator(device=dev).manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (1, LONG_PROMPT), generator=gen,
+                           device=dev)
+    batch = {"tokens": tokens[:, :n_pre]}
+    # the warm prefill keeps the inputs of its first K6 call, strides and all
+    captured = []
+    kernel_call = ops.flash_attention
+
+    def keep_first(q, k, v, *args, **kw):
+        if not captured:
+            captured.append((q.clone(), k.clone(), v.clone(), kw))
+        return kernel_call(q, k, v, *args, **kw)
+
+    with torch.inference_mode():
+        ops.flash_attention = keep_first
+        try:
+            model.prefill(params, batch, runner.max_len)       # warm
+        finally:
+            ops.flash_attention = kernel_call
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, batch, runner.max_len)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        launches = ops.launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.prefill(params, batch, runner.max_len)
+            torch.cuda.synchronize()
+    per = launches_per_prefill(cfg)
+    print(f"{ARCH}: a {n_pre}-token prefill ({n_pre // cfg.ssm_chunk} "
+          f"chunks) past attn_window {cfg.attn_window}: {prefill_ms:.1f} ms "
+          f"host (profiler off); launches {launches}")
+    for k in LM_KERNELS:
+        check(launches[k] == per[k], f"{k} launched {launches[k]} times in "
+                                     f"the long prefill, expected {per[k]}")
+    check(tuple(cache["k"].shape[2:3]) == (cfg.attn_window,)
+          and cache["len"].tolist() == [n_pre],
+          f"the ring holds {tuple(cache['k'].shape)}, len "
+          f"{cache['len'].tolist()}")
+    rows = device_rows(prof)
+    if rows:
+        busy = sum(us for _, _, us in rows) / 1e3
+        k6 = sum(us for k, _, us in rows if "flash_fwd" in k) / 1e3
+        k7 = sum(us for k, _, us in rows if "ssd_chunk" in k) / 1e3
+        print(f"device busy {busy:.3f} ms ({100 * busy / prefill_ms:.1f}% of "
+              f"the profiler-off prefill); K6 {k6:.3f} ms in "
+              f"{per['flash_attention']} calls ({100 * k6 / busy:.1f}%), K7 "
+              f"{k7:.3f} ms ({100 * k7 / busy:.1f}%)")
+        for key, count, us in sorted(rows, key=lambda r: -r[2])[:12]:
+            print(f"  {us / 1e3:9.4f} ms {count:4d} calls  {key[:100]}")
+    else:
+        print("device time: not measured (the profiler recorded no device "
+              "events)")
+    # K6 alone on the prefill's first call's inputs: its time against its
+    # bound (the kept pairs), and every row against its plain version
+    h, kv, hd, w = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+                    cfg.attn_window)
+    q, k, v, kw = captured[0]
+    check(kw.get("causal") is True and kw.get("window") == w
+          and tuple(q.shape) == (1, h, n_pre, hd)
+          and tuple(k.shape) == tuple(v.shape) == (1, kv, n_pre, hd)
+          and q.dtype == torch.bfloat16,
+          f"the prefill's first K6 call: q {tuple(q.shape)} {q.dtype}, "
+          f"k {tuple(k.shape)}, {kw}")
+    k6_ms = device_ms(lambda: flash_attention(q, k, v, True, w),
+                      iters=2, replays=3)
+    flops = 4 * h * kept_pairs(n_pre, w) * hd
+    nbytes = 2 * (h + kv) * n_pre * hd * 2
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+    print(f"K6 at (1, {h}, {n_pre}, {hd}) bf16 window {w}: "
+          f"{k6_ms:.4f} ms a call, bound {b_ms:.4f} ({b_by}) = "
+          f"{100 * b_ms / k6_ms:.1f}%, {flops / k6_ms / 1e9:.1f} TFLOP/s")
+    k6_err, plain_ms = check_long_k6(torch, dev, q, k, v, w)
+    del q, k, v, captured
+    free_device_memory(torch)
+    # teacher-forced decode through the ring against forward (which runs
+    # the same windowed K6, held above to its plain version)
+    with torch.inference_mode():
+        steps = [logits[0, -1]]
+        for i in range(LONG_DECODE):
+            tok = tokens[:, n_pre + i:n_pre + i + 1]
+            lg, cache = model.decode_step(params, cache, {"tokens": tok})
+            steps.append(lg[0, -1])
+        del cache
+        free_device_memory(torch)
+        full = model.forward(params, {"tokens": tokens})
+        want = full[0, n_pre - 1:n_pre + LONG_DECODE].clone()
+        del full
+    peak = torch.cuda.max_memory_allocated()
+    for i, got in enumerate(steps):
+        pos = n_pre - 1 + i
+        bf16_logit_check(torch, got[None, None], want[i][None, None],
+                         f"position {pos} ({'prefill' if i == 0 else f'decode {i}'}"
+                         f" vs forward)", ref_name="forward")
+    print(f"long prefill on {smi}: {n_pre} tokens {prefill_ms:.1f} ms, K6 "
+          f"{k6_ms:.4f} ms a call, peak {peak / 1e9:.3f} GB")
+    check(peak < 80e9, f"long prefill peak {peak / 1e9:.3f} GB >= 80 GB")
+    del runner, model, params, steps, want
+    free_device_memory(torch)
+    return ({k: launches[k] for k in LM_KERNELS},
+            {"shape": f"(1,{h},{n_pre},{hd}) bf16 causal window {w}",
+             "ms": k6_ms, "max_abs_err": k6_err,
+             "plain_ms": plain_ms,
+             "plain": f"{LONG_K6_ROWS}-row slices, host clock",
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+
+
+def driver_run(torch, train, arch: str, name: str, ck, kw: dict) -> tuple:
+    """One uninterrupted or resumed run of phase 21 through ``ck`` (no
+    checkpoints written): (run, launches, median ms/step, ck)."""
+    from repro_torch.kernels import ops
+
+    free_device_memory(torch)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    run = train(arch, checkpoint_every=0, checkpoint_dir=ck.directory,
+                checkpointer=ck, **kw)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n = len(run.history)
+    ms = sorted(h["seconds"] * 1e3 for h in run.history[1:])
+    print(f"({name}) resumed from {run.resumed_from}, steps "
+          f"{[h['step'] for h in run.history]}, losses "
+          + " ".join(f"{h['loss']:.7f}" for h in run.history)
+          + f"; {ms[len(ms) // 2]:.1f} ms/step (median of steps "
+          f"2-{n}), {run.seconds:.1f} s in all; stragglers "
+          f"{run.straggler_steps}; K4/K5 {launches['softmax_xent_fwd']}"
+          f"/{launches['softmax_xent_dlogits']}; peak "
+          f"{peak / 1e9:.3f} GB; checkpointer {ck.times}")
+    check(launches["softmax_xent_fwd"] == 2 * n
+          and launches["softmax_xent_dlogits"] == 2 * n,
+          f"({name}) K4/K5 launched {launches['softmax_xent_fwd']}/"
+          f"{launches['softmax_xent_dlogits']} in {n} steps")
+    check(peak < 80e9, f"({name}) peak {peak / 1e9:.3f} GB")
+    return run, launches, ms[len(ms) // 2], ck
+
+
+def driver_phase(torch, dev, smi: str, n_params: int) -> dict:
+    """Phase 21: the LM training driver (``launch.train.train``) at full
+    width and depth, bf16, 2 x TRAIN_SEQ tokens in 2 microbatches: (a) a
+    run of DRIVER_STEPS dies right after its checkpoint of step index 2;
+    (b) a second run in the same directory resumes at step 3; (c) runs
+    the steps uninterrupted.  Only (a) checkpoints, so the phase writes
+    one checkpoint (25.3 GB for granite-3-2b) to the disk.  Steps 3-5 of
+    (b) equal (c)'s bit for bit; where they do not, a second uninterrupted
+    run (d) witnesses the step's run-to-run spread: if (c) and (d) agree
+    bit for bit the step is deterministic and the resume fails, else it
+    is held within max(2 x their spread, 1e-5 relative).  Returns K4's
+    launches and numbers."""
+    import shutil
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.launch.train import train
+
+    class Crash(Exception):
+        pass
+
+    class TimedCheckpointer(Checkpointer):
+        """Times the snapshot (the host copy) and, waited on at once, the
+        write of each save, the bytes written, and each restore; with
+        ``crash`` it dies right after its first write, as a process would."""
+
+        def __init__(self, directory, crash=False):
+            super().__init__(directory)
+            self.crash = crash
+            self.times = []
+
+        def save(self, step, state, blocking=True, extra_meta=None):
+            t0 = time.perf_counter()
+            super().save(step, state, blocking=False, extra_meta=extra_meta)
+            t1 = time.perf_counter()
+            self.wait()
+            t2 = time.perf_counter()
+            d = os.path.join(self.directory, f"step_{step}")
+            nbytes = sum(os.path.getsize(os.path.join(d, f))
+                         for f in os.listdir(d))
+            self.times.append(("save", step, (t1 - t0) * 1e3,
+                               (t2 - t1) * 1e3, nbytes))
+            if self.crash:
+                raise Crash(step)
+
+        def restore(self, step, like):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super().restore(step, like)
+            torch.cuda.synchronize()
+            self.times.append(("restore", step,
+                               (time.perf_counter() - t0) * 1e3))
+            return out
+
+    root = os.path.join(ROOT, "build", "driver_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    need = n_params * (2 + 4 + 4)       # bf16 params, fp32 moments
+    free = shutil.disk_usage(root).free
+    arch = TRAIN_ARCH if free > 1.5 * need else TRAIN_HYBRID_ARCH
+    print(f"checkpoint directory {root}: {free / 1e9:.1f} GB free, a "
+          f"{TRAIN_ARCH} checkpoint needs ~{need / 1e9:.1f} GB: driving "
+          f"{arch}")
+    kw = dict(steps=DRIVER_STEPS, batch=2, seq=TRAIN_SEQ, microbatches=2,
+              device=dev)
+    runs = {}
+    try:
+        free_device_memory(torch)
+        ck_a = TimedCheckpointer(os.path.join(root, "ck"), crash=True)
+        try:
+            train(arch, checkpoint_every=DRIVER_CKPT_EVERY,
+                  checkpoint_dir=ck_a.directory, checkpointer=ck_a, **kw)
+            check(False, "(a) did not die at its checkpoint")
+        except Crash as e:
+            print(f"(a) died right after the checkpoint of step {e}: "
+                  f"{ck_a.times}")
+        check(sorted(os.listdir(ck_a.directory)) == ["step_2"],
+              f"(a) left {os.listdir(ck_a.directory)}")
+        for name, sub in (("b", "ck"), ("c", "c")):
+            runs[name] = driver_run(torch, train, arch, name,
+                                    TimedCheckpointer(os.path.join(root, sub)),
+                                    kw)
+        b, c = runs["b"][0], runs["c"][0]
+        check(b.resumed_from == 2
+              and [h["step"] for h in b.history] == [3, 4, 5],
+              f"(b) resumed from {b.resumed_from}")
+        check(c.history[-1]["loss"] < c.history[0]["loss"],
+              "(c): loss did not fall")
+        pairs = [(x["loss"], y["loss"])
+                 for x, y in zip(b.history, c.history[3:])]
+        gn = [(x["grad_norm"], y["grad_norm"])
+              for x, y in zip(b.history, c.history[3:])]
+        gap = max(abs(x - y) / abs(y) for x, y in pairs)
+        if all(x == y for x, y in pairs + gn):
+            print(f"resumed steps 3-5 bit-identical to (c) (losses and "
+                  f"gradient norms): max relative gap {gap:.3e}")
+        else:
+            runs["d"] = driver_run(
+                torch, train, arch, "d",
+                TimedCheckpointer(os.path.join(root, "d")), kw)
+            d = runs["d"][0]
+            same_cd = all(x["loss"] == y["loss"]
+                          and x["grad_norm"] == y["grad_norm"]
+                          for x, y in zip(c.history, d.history))
+            check(not same_cd, f"(c) and (d) are bit-identical (the step is "
+                               f"deterministic) but the resume is not: max "
+                               f"relative gap {gap:.3e}")
+            spread = max(abs(x["loss"] - y["loss"]) / abs(y["loss"])
+                         for x, y in zip(c.history[3:], d.history[3:]))
+            bar = max(2 * spread, DRIVER_LOSS_RTOL)
+            print(f"the resume differs from (c); (c) and (d) differ too "
+                  f"(relative loss spread {spread:.3e} on steps 3-5): "
+                  f"resumed steps against (c) {gap:.3e} <= {bar:.3e}")
+            check(gap <= bar, "the resumed losses are outside the bar")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    restores = [t for t in runs["b"][3].times if t[0] == "restore"]
+    snap, write = ck_a.times[0][2], ck_a.times[0][3]
+    nbytes = ck_a.times[0][4]
+    print(f"{arch} driver on {smi}: {runs['c'][2]:.1f} ms/step (batch 2 x "
+          f"{TRAIN_SEQ}, 2 microbatches); checkpoint {nbytes} bytes "
+          f"({nbytes / 1e9:.3f} GB), snapshot {snap:.1f} ms, write "
+          f"{write:.1f} ms (step 2); restore {restores[0][2]:.1f} ms; "
+          f"resume gap {gap:.3e}")
+    return {"arch": arch, "launches": runs["b"][1]["softmax_xent_fwd"]
+            + runs["c"][1]["softmax_xent_fwd"], "steps": 3 + DRIVER_STEPS,
+            "ms_per_step": runs["c"][2]}
+
+
+def later_path_phases(torch, dev, smi: str, n_params: int) -> dict:
+    """Phases 19-21; returns the K6/K7 launches of phases 19 and 20, K6's
+    numbers at phase 20's shape and phase 21's numbers."""
+    phase(19, f"elastic serving: {ARCH} full width on a ring of "
+              f"{ELASTIC_DEVICES} logical devices, 2 lost at decode step 4")
+    elastic = elastic_serve_phase(torch, dev, smi)
+    phase(20, f"{ARCH}: a {LONG_PROMPT}-token prompt past attn_window, "
+              f"its last {LONG_DECODE} tokens decoded through the ring, "
+              f"against forward")
+    long, long_k6 = long_prefill_phase(torch, dev, smi)
+    phase(21, f"the LM training driver: {TRAIN_ARCH} full width, crash, "
+              f"resume and uninterrupted runs of {DRIVER_STEPS} steps")
+    driver = driver_phase(torch, dev, smi, n_params)
+    return {"elastic": elastic, "long": long, "long_k6": long_k6,
+            "driver": driver}
 
 
 # -------------------------------------------------------------- phase 10
@@ -2793,6 +3432,7 @@ def main() -> int:
     dense_launches = dense_path_phases(torch, dev)
     family_launches = family_path_phases(torch, dev)
     train = train_path_phase(torch, dev, smi)
+    later = later_path_phases(torch, dev, smi, train["n_params"])
 
     kernels = []
     for name in FCNN_KERNELS:
@@ -2804,7 +3444,10 @@ def main() -> int:
             extra["paths"] = {f"{TRAIN_ARCH} train": {
                 "launches": train["launches"], "steps": train["steps"],
                 "shape": LM_XENT_LABEL, "ms": ms, "plain_ms": plain_ms,
-                "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": "bytes"}}
+                "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": "bytes"},
+                f"{later['driver']['arch']} training driver": {
+                "launches": later["driver"]["launches"],
+                "steps": later["driver"]["steps"]}}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
@@ -2822,9 +3465,18 @@ def main() -> int:
         s = lm_summary[name]
         paths = s["paths"]
         for arch, counts in ((ARCH, lm_launches), *dense_launches.items(),
-                             *family_launches.items()):
+                             *family_launches.items(),
+                             (f"{ARCH} elastic serving", later["elastic"]),
+                             (f"{ARCH} {LONG_PROMPT - LONG_TAIL}-token "
+                              f"prefill",
+                              later["long"])):
             if counts[name]:
                 paths.setdefault(arch, {})["launches"] = counts[name]
+        if name == "flash_attention":
+            paths[f"{ARCH} {LONG_PROMPT - LONG_TAIL}-token prefill"].update(
+                later["long_k6"])
+        extra = ({"windowed": s["windowed"]} if name == "flash_attention"
+                 else {})
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": lm_launches[name],
@@ -2834,6 +3486,7 @@ def main() -> int:
             "shapes": s["shapes"],
             "per": "call at the 2048-token prefill shape",
             "paths": paths,
+            **extra,
         })
     print("\nper-kernel numbers: K1-K5 device times summed over the calls "
           "of one NN1 training step (the [NN1 step] lines of phase 3); K6/K7 "
@@ -2844,7 +3497,10 @@ def main() -> int:
           "cross-attention) and their launches in that path's serving run "
           "(phases 8, 12, 14 and 15) or one prefill (phases 16 and 17); "
           "under K4/K5's \"paths\", their call at the LM loss's shape "
-          "(phase 3) and their launches in phase 18's granite-3-2b steps")
+          "(phase 3) and their launches in phase 18's granite-3-2b steps "
+          "and phase 21's driver runs (b) and (c); phases 19 and 20's "
+          "launches under K6/K7's \"paths\"; K6's sliding-window cases of "
+          "phase 7 under \"windowed\"")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

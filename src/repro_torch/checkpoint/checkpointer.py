@@ -28,8 +28,14 @@ A tree is nested dicts, lists and tuples whose leaves are tensors (a
 ``restore(step, like)`` rebuilds ``like``'s structure and puts each leaf
 on ``like``'s device with ``like``'s dtype (and its ``requires_grad``);
 it takes the place of the reference's ``shardings`` argument, since the
-port's logical ring lives on one device.  Leaf dtypes are numpy's: a
-bfloat16 tensor cannot be saved.
+port's logical ring lives on one device.
+
+A bfloat16 leaf is written as the reference writes one (``np.save`` of
+an ``ml_dtypes.bfloat16`` array): a ``.npy`` of descr ``'<V2'`` holding
+the raw two bytes of each value.  numpy has no bfloat16 and the port does
+not need ``ml_dtypes``, so the leaf goes out through an int16 view, under
+that header; a two-byte void array read back is viewed as int16 and then
+as ``torch.bfloat16`` before it takes the target leaf's dtype.
 """
 
 from __future__ import annotations
@@ -88,15 +94,38 @@ def _skeleton(tree: Any) -> Any:
     return None if tree is None else "*"
 
 
+_BF16 = np.dtype("V2")        # a bfloat16 leaf's raw bytes in numpy
+
+
 def _to_host(leaf: torch.Tensor) -> np.ndarray:
     """A copy of ``leaf`` in host memory, which later in-place updates of
-    the leaf cannot reach."""
-    return leaf.detach().to("cpu", copy=True).numpy()
+    the leaf cannot reach; a bfloat16 leaf as its raw bytes (``_BF16``)."""
+    host = leaf.detach().to("cpu", copy=True)
+    if host.dtype == torch.bfloat16:
+        return host.view(torch.int16).numpy().view(_BF16)
+    return host.numpy()
+
+
+def _save(path: str, arr: np.ndarray) -> None:
+    """``np.save``; raw bfloat16 bytes under the header ``np.save`` of an
+    ``ml_dtypes.bfloat16`` array writes (descr ``'<V2'``)."""
+    if arr.dtype != _BF16:
+        np.save(path, arr)
+        return
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": "<V2", "fortran_order": False, "shape": arr.shape})
+        np.ascontiguousarray(arr).view(np.int16).tofile(f)
 
 
 def _like(arr: np.ndarray, leaf: torch.Tensor) -> torch.Tensor:
-    """``arr`` on ``leaf``'s device with its dtype and ``requires_grad``."""
-    t = torch.from_numpy(arr).to(device=leaf.device, dtype=leaf.dtype)
+    """``arr`` on ``leaf``'s device with its dtype and ``requires_grad``;
+    two-byte void data is bfloat16."""
+    if arr.dtype == _BF16:
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    t = t.to(device=leaf.device, dtype=leaf.dtype)
     return t.requires_grad_(leaf.requires_grad)
 
 
@@ -133,7 +162,7 @@ class Checkpointer:
             shutil.rmtree(tmp, ignore_errors=True)
             os.makedirs(tmp)
             for k, v in host.items():
-                np.save(os.path.join(tmp, _fname(k)), v)
+                _save(os.path.join(tmp, _fname(k)), v)
             with open(os.path.join(tmp, "manifest.json"), "w") as f:
                 json.dump(meta, f)
             shutil.rmtree(final, ignore_errors=True)

@@ -1,1 +1,1 @@
-from .pipeline import Batcher, fcnn_classification_dataset  # noqa: F401
+from .pipeline import Batcher, fcnn_classification_dataset, token_stream  # noqa: F401

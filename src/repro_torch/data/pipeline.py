@@ -1,8 +1,8 @@
 """Deterministic synthetic dataset and a resumable batcher.
 
-``fcnn_classification_dataset`` is a copy of the reference's numpy
-generator (``repro/data/pipeline.py``) and yields bit-identical arrays
-for the same arguments.  ``Batcher`` yields the same batches as the
+``fcnn_classification_dataset`` and ``token_stream`` are copies of the
+reference's numpy generators (``repro/data/pipeline.py``) and yield
+bit-identical arrays for the same arguments.  ``Batcher`` yields the same batches as the
 reference's: batch ``s`` holds rows ``(s·B + arange(B)) mod n``.  It
 moves the dataset to the device once, at construction, and cuts each
 batch there, so a training step copies nothing from the host.
@@ -15,7 +15,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
-__all__ = ["fcnn_classification_dataset", "Batcher"]
+__all__ = ["fcnn_classification_dataset", "token_stream", "Batcher"]
 
 
 def fcnn_classification_dataset(
@@ -30,6 +30,19 @@ def fcnn_classification_dataset(
     y = rng.integers(0, n_classes, size=n_samples)
     x = centers[y] + rng.normal(size=(n_samples, input_dim)).astype(np.float32)
     return x.astype(np.float32), y.astype(np.int32)
+
+
+def token_stream(
+    n_tokens: int, vocab: int, seed: int = 0, zipf_a: float = 1.2,
+) -> np.ndarray:
+    """Zipf unigrams + deterministic bigram structure (v -> (v*7+3) % vocab
+    with prob .5) so an LM can reduce loss: (n_tokens,) int32."""
+    rng = np.random.default_rng(seed)
+    base = rng.zipf(zipf_a, size=n_tokens).astype(np.int64) % vocab
+    out = base.copy()
+    follow = rng.random(n_tokens) < 0.5
+    out[1:][follow[1:]] = (out[:-1][follow[1:]] * 7 + 3) % vocab
+    return out.astype(np.int32)
 
 
 class Batcher:

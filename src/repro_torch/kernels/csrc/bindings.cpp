@@ -33,7 +33,7 @@ cudaError_t launch_empty(cudaStream_t s);
 cudaError_t launch_flash_attention(const void* q, const void* k, const void* v,
                                    void* o, const long long* st, int B, int H,
                                    int KV, int Sq, int Sk, int D, int causal,
-                                   int bf16, cudaStream_t stream);
+                                   int window, int bf16, cudaStream_t stream);
 cudaError_t launch_ssd_chunk(const void* x, const float* dt_a, const void* b,
                              const void* c, void* y, float* state,
                              float* decay, const long long* st, int BC, int Q,
@@ -129,9 +129,11 @@ void launch_floor() {
 }
 
 // q, o (B, H, Sq, D) and k, v (B, KV, Sk, D), H a multiple of KV (GQA),
-// Sk = Sq where causal; read and written through their strides
+// Sk = Sq where causal; read and written through their strides; a causal
+// call with window > 0 keeps key k for query q where q - window < k <= q
 void flash_attention(const torch::Tensor& q, const torch::Tensor& k,
-                     const torch::Tensor& v, torch::Tensor o, bool causal) {
+                     const torch::Tensor& v, torch::Tensor o, bool causal,
+                     int64_t window) {
   const c10::cuda::CUDAGuard guard(q.device());
   long long st[12];
   const torch::Tensor* ts[4] = {&q, &k, &v, &o};
@@ -140,8 +142,8 @@ void flash_attention(const torch::Tensor& q, const torch::Tensor& k,
   check_launch(launch_flash_attention(
                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), st,
                    q.size(0), q.size(1), k.size(1), q.size(2), k.size(2),
-                   q.size(3), causal, q.scalar_type() == at::kBFloat16,
-                   stream_of(q)),
+                   q.size(3), causal, static_cast<int>(window),
+                   q.scalar_type() == at::kBFloat16, stream_of(q)),
                "flash_attention");
 }
 

@@ -13,8 +13,12 @@
 // kernel itself took equal heads.  Sk may differ from Sq when the
 // attention is not causal (the encoder-decoder's cross-attention: the
 // decoder's queries over the encoder's frames); causal attention needs
-// Sq = Sk, and the launcher refuses anything else.  Two instantiations, chosen by
-// dtype (neither stands in for the other):
+// Sq = Sk, and the launcher refuses anything else.  A causal call may
+// take a sliding window (window > 0): key k is kept for query q where
+// q - window < k <= q, the reference model's mask for a prefill longer
+// than its attn_window (src/repro/models/layers.py, attention); window 0
+// is none.  Two instantiations, chosen by dtype (neither stands in for the
+// other):
 //
 //   bf16  flash_fwd_wgmma_kernel (namespace tc): both products on the
 //         tensor cores with wgmma, K/V fed by TMA through a shared-memory
@@ -27,8 +31,15 @@
 // carried m, l and acc in VMEM scratch from one grid step to the next.
 // Here one thread block owns one (batch·head, query tile), the kv loop
 // runs inside it and m, l and the accumulator live in registers.  Causal
-// tiles above the diagonal are never loaded; the query tiles are walked
-// from the longest causal row first so the heavy blocks start early.  q,
+// tiles above the diagonal are never loaded, and with a window neither
+// are the tiles wholly below it: the kv loop starts at the tile that holds
+// key q0 - window + 1 of the block's first row q0, so a windowed prefill
+// costs O(S·window), not O(S²).  Every row keeps its diagonal key, so no
+// row is fully masked; a row whose keys all lie in a later tile than the
+// first one the block loads sees that tile as scores of -1e30 (p = 1
+// against a running max of -1e30), and the first kept key's max clears
+// them (alpha = 0).  The query tiles are walked from the longest causal
+// row first so the heavy blocks start early.  q,
 // k, v and o are read and written through their (batch, head, seq)
 // strides, so the model's (B, S, H, D) projections are passed as
 // transposed views with no copy.  Any Sq, Sk >= 1 and D <= 128.
@@ -113,7 +124,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, Strides3 sq,
                  Strides3 sk, Strides3 sv, Strides3 so, int H, int G, int Sq,
-                 int Sk, int D, int causal, float scale) {
+                 int Sk, int D, int causal, int window, float scale) {
   constexpr int kPitch = kDPad + 4;
   constexpr int kCols = kDPad / 16;  // accumulator columns per thread
   extern __shared__ float4 smem4[];
@@ -145,7 +156,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   const int kv_end = causal ? min(Sk, q0 + kBlockQ) : Sk;
-  for (int kv0 = 0; kv0 < kv_end; kv0 += kBlockKV) {
+  // the first tile that holds a key in row q0's window
+  const int kv_begin = window > 0 ? max(0, q0 - window + 1) / kBlockKV * kBlockKV : 0;
+  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += kBlockKV) {
     __syncthreads();  // the previous tile's K, V and P are consumed
     load_tile<T, kDPad>(Ks, kp, sk.s, kv0, Sk, D);
     load_tile<T, kDPad>(Vs, vp, sv.s, kv0, Sk, D);
@@ -184,7 +197,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = kv0 + tx + 16 * j;
-        const bool keep = col < Sk && (!causal || col <= row);
+        const bool keep = col < Sk && (!causal || col <= row) &&
+                          (window == 0 || col > row - window);
         s[i][j] = keep ? s[i][j] * scale : kNegInf;
         rmax = fmaxf(rmax, s[i][j]);
       }
@@ -247,7 +261,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int kDPad>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    const long long* st, int B, int H, int KV, int Sq, int Sk,
-                   int D, int causal, cudaStream_t stream) {
+                   int D, int causal, int window, cudaStream_t stream) {
   constexpr int kPitch = kDPad + 4;
   const int smem = static_cast<int>(sizeof(float)) *
                    (kBlockQ * kPitch + 2 * kBlockKV * kPitch + kBlockQ * kPPitch);
@@ -270,7 +284,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), sq, sk, sv, so, H, H / KV,
-      Sq, Sk, D, causal, scale);
+      Sq, Sk, D, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -332,7 +346,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
                        __nv_bfloat16* __restrict__ o, Strides3 so, int H, int G,
-                       int Sq, int Sk, int D, int causal, float scale_log2) {
+                       int Sq, int Sk, int D, int causal, int window,
+                       float scale_log2) {
   constexpr int kTile = kBoxBytes * kChunks;   // one Q, K or V tile
   constexpr int kAcc = 32 * kChunks;           // O fragment per thread
   extern __shared__ uint8_t smem_raw[];
@@ -353,6 +368,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int hk = h / G;  // the KV head of query head h's group
   const int kv_end = causal ? min(Sk, q0 + kBlockQ) : Sk;
   const int n_kv = (kv_end + kBlockKV - 1) / kBlockKV;
+  // the first tile that holds a key in row q0's window; the producer and
+  // the consumers count ring stages and parities from it
+  const int n_begin = window > 0 ? max(0, q0 - window + 1) / kBlockKV : 0;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -371,9 +389,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_expect_tx(q_full, kTile);
       for (int c = 0; c < kChunks; ++c)
         tma_load_4d(q_s + c * kBoxBytes, &tq, q_full, 64 * c, q0, h, b);
-      for (int n = 0; n < n_kv; ++n) {
-        const int st = n % kStages;
-        if (n >= kStages) mbar_wait(empty(st), ((n / kStages) - 1) & 1);
+      for (int n = n_begin; n < n_kv; ++n) {
+        const int i = n - n_begin;
+        const int st = i % kStages;
+        if (i >= kStages) mbar_wait(empty(st), ((i / kStages) - 1) & 1);
         const uint32_t k_s = kv_s + 2 * st * kTile;
         mbar_expect_tx(full(st), 2 * kTile);
         for (int c = 0; c < kChunks; ++c) {
@@ -400,11 +419,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   float l[2] = {0.f, 0.f};
 
   mbar_wait(q_full, 0);
-  for (int n = 0; n < n_kv; ++n) {
-    const int st = n % kStages;
+  for (int n = n_begin; n < n_kv; ++n) {
+    const int i = n - n_begin;
+    const int st = i % kStages;
     const uint32_t k_s = kv_s + 2 * st * kTile;
     const uint32_t v_s = k_s + kTile;
-    mbar_wait(full(st), (n / kStages) & 1);
+    mbar_wait(full(st), (i / kStages) & 1);
 
     // S = Q Kᵀ over D in k16 steps; the step moves 32 bytes inside a box
     float s[64];
@@ -421,10 +441,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     fence_regs(s);
 
     // mask, online softmax.  s[i]: row row0 + 8·((i/2)%2), column
-    // kv0 + 8·(i/4) + col_in + i%2
+    // kv0 + 8·(i/4) + col_in + i%2.  A tile is masked where it runs past
+    // Sk, crosses the diagonal of this warpgroup's first row, or (window)
+    // reaches below the window of its last row q0 + 64·wg + 63
     const int kv0 = n * kBlockKV;
     const bool masked = kv0 + kBlockKV > Sk ||
-                        (causal && kv0 + kBlockKV - 1 > q0 + 64 * wg);
+                        (causal && kv0 + kBlockKV - 1 > q0 + 64 * wg) ||
+                        (window > 0 && kv0 <= q0 + 64 * wg + 63 - window);
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int i = 0; i < 64; ++i) {
@@ -432,7 +455,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       if (masked) {
         const int row = row0 + 8 * ((i / 2) % 2);
         const int col = kv0 + 8 * (i / 4) + col_in + (i % 2);
-        if (col >= Sk || (causal && col > row)) v = kNegInf;
+        if (col >= Sk || (causal && col > row) ||
+            (window > 0 && col <= row - window))
+          v = kNegInf;
       }
       s[i] = v;
       mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], v);
@@ -540,7 +565,7 @@ bool encode_map(CUtensorMap* map, const void* ptr, const long long* st, int B,
 template <int kChunks>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    const long long* st, int B, int H, int KV, int Sq, int Sk,
-                   int D, int causal, cudaStream_t stream) {
+                   int D, int causal, int window, cudaStream_t stream) {
   // q's map spans its H heads and Sq rows, k's and v's their KV heads and
   // Sk rows
   CUtensorMap tq, tk, tv;
@@ -564,7 +589,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const Strides3 so{st[9], st[10], st[11]};
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
   kern<<<grid, kThreads, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o),
-                                         so, H, H / KV, Sq, Sk, D, causal, scale_log2);
+                                         so, H, H / KV, Sq, Sk, D, causal, window,
+                                         scale_log2);
   return cudaGetLastError();
 }
 
@@ -574,23 +600,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // unit D stride; st: the (b, h, s) strides of q, k, v and o in that order,
 // in elements; bf16 != 0 for bfloat16 data.  Query head h attends with KV
 // head h / (H / KV) (grouped-query attention; KV = H is multi-head).
-// Causal attention needs Sq = Sk.
+// Causal attention needs Sq = Sk; window > 0 (a sliding window) needs a
+// causal call.
 cudaError_t launch_flash_attention(const void* q, const void* k, const void* v,
                                    void* o, const long long* st, int B, int H,
                                    int KV, int Sq, int Sk, int D, int causal,
-                                   int bf16, cudaStream_t stream) {
+                                   int window, int bf16, cudaStream_t stream) {
   if (D < 1 || D > 128 || Sq < 1 || Sk < 1 || (causal && Sq != Sk) || B * H < 1 ||
-      B * H > 65535 || KV < 1 || H % KV != 0)
+      B * H > 65535 || KV < 1 || H % KV != 0 || window < 0 || (window > 0 && !causal))
     return cudaErrorInvalidValue;
   if (bf16) {
     // TMA: 16-byte aligned base and strides (the wrapper checks them first)
     if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
          reinterpret_cast<uintptr_t>(v)) % 16)
       return cudaErrorMisalignedAddress;
-    return D <= 64 ? tc::launch<1>(q, k, v, o, st, B, H, KV, Sq, Sk, D, causal, stream)
-                   : tc::launch<2>(q, k, v, o, st, B, H, KV, Sq, Sk, D, causal, stream);
+    return D <= 64
+               ? tc::launch<1>(q, k, v, o, st, B, H, KV, Sq, Sk, D, causal, window, stream)
+               : tc::launch<2>(q, k, v, o, st, B, H, KV, Sq, Sk, D, causal, window, stream);
   }
   return D <= 64
-             ? launch<float, 64>(q, k, v, o, st, B, H, KV, Sq, Sk, D, causal, stream)
-             : launch<float, 128>(q, k, v, o, st, B, H, KV, Sq, Sk, D, causal, stream);
+             ? launch<float, 64>(q, k, v, o, st, B, H, KV, Sq, Sk, D, causal, window, stream)
+             : launch<float, 128>(q, k, v, o, st, B, H, KV, Sq, Sk, D, causal, window,
+                                  stream);
 }

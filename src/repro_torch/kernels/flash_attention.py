@@ -3,6 +3,12 @@ the LM prefill's self-attention.
 
   flash_attention  softmax(q kᵀ/√D, causal or not) v   replaces repro/kernels/flash_attention.py:72
 
+A causal call may take a sliding window: ``window`` > 0 keeps key k for
+query q where q - window < k <= q, the reference model's mask for a
+prefill longer than ``attn_window`` (``repro/models/layers.py``
+``attention``); the kernel skips the key tiles below the window, so a
+windowed prefill costs O(S·window).  0 is no window.
+
 q is (B, H, Sq, D) and k, v are (B, KV, Sk, D) with H a multiple of KV:
 grouped-query attention, query head h reading KV head h // (H // KV), as
 the model's ``_sdpa`` groups them (KV = H is multi-head attention).  The
@@ -77,9 +83,10 @@ def check_tma_aligned(kernel: str, **tensors: torch.Tensor) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: (B, H, Sq, D), k, v: (B, KV, Sk, D), H % KV == 0, any Sq, Sk >= 1
-    (Sk = Sq where causal), D <= 128 -> (B, H, Sq, D) in q's dtype."""
+    (Sk = Sq where causal), D <= 128 -> (B, H, Sq, D) in q's dtype;
+    ``window`` >= 0, and > 0 only where causal."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4:
             raise ValueError(f"flash_attention: {name} must be (B, H, S, D), "
@@ -95,13 +102,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)} outside B·H <= 65535, Sq, Sk >= 1, "
                          f"1 <= D <= {MAX_HEAD_DIM}")
-    _ref.check_causal_lengths(s, sk, causal)
+    window = int(window)
+    if window > _INT32_MAX:
+        raise ValueError(f"flash_attention: window {window} > {_INT32_MAX}")
+    _ref.check_causal_lengths(s, sk, causal, window)
     if check_float_args("flash_attention", q=q, k=k, v=v) == torch.bfloat16:
         check_tma_aligned("flash_attention", q=q, k=k, v=v)
     if device_type("flash_attention", q, k, v) == "cpu":
-        return _ref.flash_attention_ref(q, k, v, causal)
+        return _ref.flash_attention_ref(q, k, v, causal, window)
     out = torch.empty_like(q)
-    _build.extension().flash_attention(q, k, v, out, bool(causal))
+    _build.extension().flash_attention(q, k, v, out, bool(causal), window)
     flash_attention.launches += 1
     return out
 

@@ -160,13 +160,15 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, *,
+                    causal: bool = True, *, window: int = 0,
                     mode: str | None = None) -> torch.Tensor:
     """softmax(q kᵀ/√D) v.  q: (B, H, Sq, D), k, v: (B, KV, Sk, D) with
-    H % KV == 0 (GQA) and Sk = Sq where causal -> (B, H, Sq, D)."""
+    H % KV == 0 (GQA) and Sk = Sq where causal -> (B, H, Sq, D); a causal
+    call with ``window`` > 0 keeps key k for query q where
+    q - window < k <= q."""
     if resolve_mode(mode, q, k, v) == "ref":
-        return _ref.flash_attention_ref(q, k, v, causal)
-    return _flash_attention(q, k, v, causal)
+        return _ref.flash_attention_ref(q, k, v, causal, window)
+    return _flash_attention(q, k, v, causal, window)
 
 
 def ssd_chunk(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,

@@ -25,6 +25,7 @@ __all__ = [
     "softmax_xent_fwd_ref",
     "softmax_xent_dlogits_ref",
     "flash_attention_ref",
+    "attention_mask",
     "check_causal_lengths",
     "ssd_chunk_ref",
 ]
@@ -111,29 +112,49 @@ def softmax_xent_dlogits_ref(logits: torch.Tensor, labels: torch.Tensor,
     return ((p - onehot) * s).to(logits.dtype)
 
 
-def check_causal_lengths(sq: int, sk: int, causal: bool) -> None:
+def check_causal_lengths(sq: int, sk: int, causal: bool,
+                         window: int = 0) -> None:
     """Causal attention needs as many keys as queries: the reference asks
     for no other causal case (its cross-attention is not causal), and the
-    kernel takes none."""
+    kernel takes none.  A sliding window (``window`` > 0) is a causal
+    mask's: ``window`` >= 0, and > 0 only where causal."""
     if causal and sq != sk:
         raise ValueError(f"flash_attention: causal attention needs Sq == Sk, "
                          f"got Sq = {sq}, Sk = {sk} (cross-attention is not "
                          f"causal)")
+    if window < 0 or (window and not causal):
+        raise ValueError(f"flash_attention: window = {window}: needs "
+                         f"window >= 0, and a window only where causal")
+
+
+def attention_mask(sq: int, sk: int, window: int,
+                   device: torch.device) -> torch.Tensor:
+    """(Sq, Sk) bool, the causal mask: key k kept for query q where
+    k <= q, and q - window < k where ``window`` > 0 (the reference's
+    ``attention`` mask)."""
+    iq = torch.arange(sq, device=device)[:, None]
+    ik = torch.arange(sk, device=device)[None, :]
+    mask = ik <= iq
+    if window > 0:
+        mask &= ik > iq - window
+    return mask
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True) -> torch.Tensor:
+                        causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: (B, H, Sq, D), k, v: (B, KV, Sk, D) with H % KV == 0 (Sk = Sq
     where causal) -> (B, H, Sq, D) in q's dtype; query head h reads KV head
     h // (H // KV) (GQA by head grouping, K and V not repeated); softmax in
-    fp32, probabilities rounded to v's dtype before the PV product."""
+    fp32, probabilities rounded to v's dtype before the PV product.  Where
+    causal, ``window`` > 0 keeps only the ``window`` most recent keys of
+    each query (``attention_mask``)."""
     b, h, sq, d = q.shape
     kv, sk = k.shape[1], k.shape[2]
-    check_causal_lengths(sq, sk, causal)
+    check_causal_lengths(sq, sk, causal, window)
     qg = q.float().reshape(b, kv, h // kv, sq, d)
     s = torch.einsum("bkgqd,bkmd->bkgqm", qg, k.float()) / math.sqrt(d)
     if causal:
-        mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device).tril()
+        mask = attention_mask(sq, sk, window, q.device)
         s = s.masked_fill(~mask, float("-inf"))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqm,bkmd->bkgqd", p.to(v.dtype).float(), v.float())

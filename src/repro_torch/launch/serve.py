@@ -16,10 +16,13 @@ runner refuses them: they run through ``get_model(cfg).prefill`` and
 weights are needed); on the card every prefill runs its attention through
 the flash kernel (K6, grouped-query heads in the kernel) and, for the
 hybrid and the Mamba2 LM, its SSD intra-chunk terms through the SSD kernel
-(K7).  There is no autoscaler yet:
-a scheduled device loss takes the engine's own replan (one card stays one
-card; in-flight requests restart from their prompts).  Without a GPU it
-exits with an error unless ``--device cpu``.
+(K7).  The engine consults the Lemma-1 ``ServeAutoscaler`` over the
+runner's logical ring (``serve.elastic``), as the reference's CLI does: a
+scheduled device loss replans the ring on the survivors and rescales the
+slots, and in-flight requests restart from their prompts.  The ring is
+one device, as ``jax.devices()`` is for the reference on a one-card host;
+``serve(..., n_devices=8)`` starts it wider.  Without a GPU it exits with
+an error unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from repro_torch.serve import (
     SCENARIO_NAMES,
     EngineResult,
     Scenario,
+    ServeAutoscaler,
     ServingEngine,
     TorchModelRunner,
     make_traffic,
@@ -50,40 +54,44 @@ __all__ = ["ServeResult", "serve", "report_lines", "main"]
 @dataclasses.dataclass
 class ServeResult(EngineResult):
     """The engine's result with the config and the scenario (prompt buckets
-    snapped to the SSM chunk) that produced it."""
+    snapped to the SSM chunk) that produced it, and the runner's device
+    count at the end."""
     cfg: ModelConfig
     scenario: Scenario
+    n_devices: int
 
 
 def serve(arch: str, *, smoke: bool = False, scenario: str = "steady",
           seed: int = 0, slots: int = 4,
           device: str | torch.device | None = None, clock=None,
-          **scenario_overrides) -> ServeResult:
+          n_devices: int = 1, **scenario_overrides) -> ServeResult:
     """Serve ``scenario``'s seeded traffic with ``arch`` (random weights
     from seed 0, as the reference's runner) on ``device`` (default the
-    card); ``scenario_overrides`` replace preset fields (``n_requests``,
-    ``prompt_buckets``, ...)."""
+    card), the runner a logical ring of ``n_devices`` under the Lemma-1
+    autoscaler; ``scenario_overrides`` replace preset fields
+    (``n_requests``, ``prompt_buckets``, ...)."""
     cfg = smoke_config(arch) if smoke else get_config(arch)
     sc = scenario_preset(scenario, **scenario_overrides)
     sc = sc.replace(prompt_buckets=snap_prompt_buckets(cfg, sc.prompt_buckets))
     trace = make_traffic(sc, seed)
     runner = TorchModelRunner(cfg, n_slots=slots, max_len=sc.max_len,
-                              device=device)
+                              device=device, n_devices=n_devices)
     runner.warmup(sc.prompt_buckets)
-    engine = ServingEngine(runner, n_slots=slots, clock=clock)
+    autoscaler = ServeAutoscaler(runner.n_devices, slots)
+    engine = ServingEngine(runner, n_slots=slots, clock=clock,
+                           autoscaler=autoscaler)
     result = engine.run(trace, sc)
     return ServeResult(**{f.name: getattr(result, f.name)
                           for f in dataclasses.fields(result)},
-                       cfg=cfg, scenario=sc)
+                       cfg=cfg, scenario=sc, n_devices=runner.n_devices)
 
 
-def report_lines(result: ServeResult, seed: int, slots: int,
-                 n_devices: int) -> list[str]:
+def report_lines(result: ServeResult, seed: int, slots: int) -> list[str]:
     """The reference CLI's report."""
     cfg, sc, slo = result.cfg, result.scenario, result.slo
     lines = [
         f"{cfg.name} · scenario={sc.name} seed={seed} slots={slots} "
-        f"devices={n_devices}",
+        f"devices={result.n_devices}",
         f"  served {slo.n_finished}/{slo.n_submitted} requests "
         f"({result.n_prefills} prefills, {result.n_decode_steps} decode "
         f"steps, {slo.n_restarts} restarts, {len(result.replans)} "
@@ -98,7 +106,8 @@ def report_lines(result: ServeResult, seed: int, slots: int,
     ]
     for rp in result.replans:
         lines.append(f"  replan[{rp.reason}] devices {rp.from_devices}->"
-                     f"{rp.to_devices} slots {rp.from_slots}->{rp.to_slots}")
+                     f"{rp.to_devices} slots {rp.from_slots}->{rp.to_slots} "
+                     f"(Lemma-1 cores {rp.lemma1_cores}, epoch {rp.epoch_s})")
     for rid in sorted(result.streams)[:3]:
         lines.append(f"  req {rid}: {result.streams[rid][:8]}...")
     return lines
@@ -107,8 +116,8 @@ def report_lines(result: ServeResult, seed: int, slots: int,
 def main(argv: Sequence[str] | None = None) -> int:
     ap = argparse.ArgumentParser(
         description="Serve a seeded traffic scenario on one card through "
-                    "the continuous-batching engine.  No autoscaler yet: a "
-                    "scheduled device loss takes the engine's own replan.")
+                    "the continuous-batching engine and the Lemma-1 "
+                    "autoscaler.")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--scenario", default="steady", choices=SCENARIO_NAMES)
@@ -131,7 +140,7 @@ def main(argv: Sequence[str] | None = None) -> int:
     result = serve(args.arch, smoke=args.smoke, scenario=args.scenario,
                    seed=args.seed, slots=args.slots, device=args.device,
                    **overrides)
-    for line in report_lines(result, args.seed, args.slots, 1):
+    for line in report_lines(result, args.seed, args.slots):
         print(line)
     if args.json:
         payload = {

@@ -27,9 +27,10 @@ self-attention (the reference's masked ``_sdpa`` and its kv-chunked twin
 cross-attention (``kv_override``: the queries rotated by their own
 positions over keys and values computed elsewhere, as
 ``prefill_attention_kv`` computes them for the encoder's memory, never
-causal).  A sliding window shorter than the sequence raises
-``NotImplementedError`` (K6 has no windowed mask yet; queued in
-ROADMAP.md).  Decode attention (one query against the cache, or against
+causal), and causal self-attention with a sliding window (``window``:
+key k kept for query q where q - window < k <= q, the reference's mask
+for a prefill longer than ``attn_window``), which the kernel computes in
+O(L·window) by skipping the key tiles below the window.  Decode attention (one query against the cache, or against
 the encoder's memory) stays plain PyTorch, as the reference computes it
 outside any kernel.
 
@@ -292,24 +293,22 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
     Returns (y (B, L, d), (k, v)): the keys and values (B, Lk, KV, D)
     attended, which for self-attention are what a cache holds (the
     reference's ``prefill_attention_kv`` computes them with a second
-    projection).  With ``kv_override`` = (k, v) it is cross-attention: only
-    the queries are projected, and the mask is all-true whatever
-    ``causal`` says, as the reference's."""
+    projection).  A causal self-attention with ``window`` > 0 keeps key k
+    for query q where q - window < k <= q.  With ``kv_override`` = (k, v)
+    it is cross-attention: only the queries are projected, and the mask is
+    all-true whatever ``causal`` and ``window`` say, as the reference's."""
     if kv_override is None:
         q, k, v = _project_qkv(p, x, positions, theta, qk_norm, eps,
                                mrope_sections)
-        lk = k.shape[1]
-        if causal and 0 < window < lk:
-            raise NotImplementedError(
-                f"prefill of {lk} tokens beyond attn_window={window} needs "
-                f"the windowed mask; queued in ROADMAP.md")
+        window = window if causal else 0
     else:
         q = _project_q(p, x, positions, theta, qk_norm, eps, mrope_sections)
-        (k, v), causal = kv_override, False
+        (k, v), causal, window = kv_override, False, 0
     # (B, L, H, D) -> (B, H, L, D) views; the kernel reads them strided and
     # maps each query head to its KV head itself
     out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=causal, mode=mode)
+                              v.transpose(1, 2), causal=causal, window=window,
+                              mode=mode)
     y = _out_proj(p, out.transpose(1, 2), x.dtype)
     return y, (k, v)
 

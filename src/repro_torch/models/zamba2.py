@@ -235,7 +235,16 @@ def cache_axes(cfg: ModelConfig) -> Params:
 def prefill(params: Params, batch: dict, cfg: ModelConfig, max_len: int, *,
             mode: str | None = None) -> tuple[torch.Tensor, Params]:
     """Run the prompt; return (last-position logits (B, 1, V) fp32, a
-    fresh cache sized for ``max_len``)."""
+    fresh cache sized for ``max_len``).
+
+    A prompt longer than the KV ring (``attn_window``) leaves its last
+    ``cache_len`` keys and values in the ring, position p at slot
+    p % cache_len, and ``len`` = the prompt's length, so decode goes on at
+    the true RoPE position and overwrites the oldest key.  The reference
+    sets ``len`` to the ring's size and keeps the keys in order, so its
+    decode after such a prompt restarts RoPE at ``attn_window``
+    (ROADMAP.md, queue 3); for a prompt within the ring the two caches are
+    the same."""
     h = L.embed(params["embedding"], batch["tokens"])
     h0 = h
     bsz, s = batch["tokens"].shape
@@ -258,8 +267,11 @@ def prefill(params: Params, batch: dict, cfg: ModelConfig, max_len: int, *,
             if pad >= 0:
                 k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
                 v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-            else:  # windowed: keep the most recent ``cache_len`` entries
-                k, v = k[:, -cache_len:], v[:, -cache_len:]
+            else:  # windowed: keep the most recent ``cache_len`` entries,
+                # position p at ring slot p % cache_len, where decode
+                # writes it
+                k, v = (t[:, -cache_len:].roll(s % cache_len, 1)
+                        for t in (k, v))
             ks.append(k)
             vs.append(v)
 
@@ -274,8 +286,7 @@ def prefill(params: Params, batch: dict, cfg: ModelConfig, max_len: int, *,
         "conv": torch.stack(conv_tails),
         "k": torch.stack(ks) if ks else empty,
         "v": torch.stack(vs) if vs else empty,
-        "len": torch.full((bsz,), min(s, cache_len), dtype=torch.int32,
-                          device=h.device),
+        "len": torch.full((bsz,), s, dtype=torch.int32, device=h.device),
     }
     return logits, cache
 

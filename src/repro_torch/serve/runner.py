@@ -18,9 +18,14 @@ function of its prompt.  Everything runs eagerly under
 ``torch.inference_mode``; on CUDA every prefill goes through the flash
 kernel (and, for the hybrid, the SSD kernel).
 
-``rebuild`` is the elastic path: on one card the device count stays 1,
-the cache is rebuilt for the new slot count, and the engine restarts
-in-flight requests from their prompts.
+The runner holds a logical ring of ``n_devices`` devices on one card, as
+the executor's virtual ring does (``exec/runtime.py``): the count is what
+the autoscaler prices (``serve.elastic``), and the parameters and the
+cache live on the one card whatever it is.  The default is 1, what the
+reference's ``jax.devices()`` gives on a one-card host.  ``rebuild`` is
+the elastic path: it sets the new device count, keeps the parameters where
+they are, rebuilds the cache (all cache state discarded) for the new slot
+count, and the engine restarts in-flight requests from their prompts.
 """
 
 from __future__ import annotations
@@ -48,8 +53,15 @@ def snap_prompt_buckets(cfg: ModelConfig,
     return tuple(sorted(set(buckets)))
 
 
+def _check_devices(n_devices: int) -> None:
+    if n_devices < 1:
+        raise ValueError(f"the ring needs at least one device, got "
+                         f"{n_devices}")
+
+
 class TorchModelRunner:
-    """``ModelRunner`` over the port's model on one device.
+    """``ModelRunner`` over the port's model on one card, as a logical ring
+    of ``n_devices`` devices.
 
     ``params``, when given, is the reference's parameter pytree as numpy
     arrays (``params_from_numpy``); otherwise the parameters are drawn from
@@ -57,7 +69,8 @@ class TorchModelRunner:
 
     def __init__(self, cfg: ModelConfig, n_slots: int, max_len: int,
                  device: str | torch.device | None = None, seed: int = 0,
-                 params: dict[str, Any] | None = None):
+                 params: dict[str, Any] | None = None, n_devices: int = 1):
+        _check_devices(n_devices)
         if cfg.family in ("vlm", "encdec"):
             raise ValueError("the serving runner drives token-LM archs "
                              f"(got family {cfg.family!r})")
@@ -72,7 +85,7 @@ class TorchModelRunner:
             else:
                 gen = torch.Generator(device=self.device).manual_seed(seed)
                 self.params = self.model.init(gen, self.device)
-        self.n_devices = 1
+        self.n_devices = n_devices
         self._build(n_slots)
 
     def _build(self, n_slots: int) -> None:
@@ -81,11 +94,12 @@ class TorchModelRunner:
 
     def rebuild(self, n_devices: int | None = None,
                 n_slots: int | None = None) -> None:
-        """Elastic transition on one card: the device count stays 1 and the
+        """Elastic transition: the ring becomes ``n_devices`` logical
+        devices (the survivors), the parameters stay on the card, and the
         cache is rebuilt (all cache state discarded) for ``n_slots``."""
-        if n_devices is not None and n_devices != 1:
-            raise ValueError(f"one card serves; cannot rebuild onto "
-                             f"{n_devices} devices")
+        if n_devices is not None:
+            _check_devices(n_devices)
+            self.n_devices = n_devices
         self._build(n_slots if n_slots is not None else self.n_slots)
 
     # -- serving steps -------------------------------------------------------

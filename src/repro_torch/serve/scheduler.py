@@ -1,7 +1,5 @@
 """Admission + continuous-batching scheduler, copied from the reference
-``repro/serve/scheduler.py`` (with ``ReplanDecision`` from
-``repro/serve/elastic.py``; the Lemma-1 ``ServeAutoscaler`` is not ported
-yet, ROADMAP.md).
+``repro/serve/scheduler.py``.
 
 Admission is per-slot: a newly admitted request is prefilled alone
 (batch-1, shape-bucketed) and its cache rows are merged into the batch
@@ -15,13 +13,15 @@ implementation lives in ``serve.runner``; tests substitute a fake) and a
 ``Clock`` (wall clock for real serving, ``TickClock`` for deterministic
 virtual-time tests).
 
-Elasticity: a device-loss event (scenario-scheduled) consults the
-autoscaler when one is given; without one the engine takes its own
-``ReplanDecision`` (the survivors, at least one device, same slots).  The
-runner is rebuilt and every in-flight request is restarted from its
-prompt: greedy decode is a pure function of the prompt, so the replayed
-stream is identical and the fault costs latency, never tokens.  Queued
-and restarted requests are re-admitted in arrival order (FIFO fairness).
+Elasticity: a device-loss event (scenario-scheduled) or a sustained SLO
+violation consults the autoscaler (``serve.elastic.ServeAutoscaler`` —
+Lemma 1 on the survivors) when one is given; without one a device loss
+takes the engine's own ``ReplanDecision`` (the survivors, at least one
+device, same slots).  The runner is rebuilt for the new device count and
+slot count, and every in-flight request is restarted from its prompt:
+greedy decode is a pure function of the prompt, so the replayed stream is
+identical and the fault costs latency, never tokens.  Queued and
+restarted requests are re-admitted in arrival order (FIFO fairness).
 """
 
 from __future__ import annotations
@@ -33,11 +33,11 @@ from typing import Protocol
 
 import numpy as np
 
+from repro_torch.serve.elastic import ReplanDecision
 from repro_torch.serve.metrics import ServeMetrics, SLOReport
 from repro_torch.serve.traffic import Scenario, TrafficTrace, prompt_tokens
 
 __all__ = [
-    "ReplanDecision",
     "Request",
     "SlotManager",
     "ModelRunner",
@@ -46,31 +46,6 @@ __all__ = [
     "ServingEngine",
     "EngineResult",
 ]
-
-
-@dataclasses.dataclass(frozen=True)
-class ReplanDecision:
-    """One autoscaling action: why, when, and the device/slot transition.
-
-    ``epoch_s`` is the Lemma-1-replanned epoch price on ``to_devices``
-    cores; ``lemma1_cores`` the per-stage optimal allocation that produced
-    it (both unset when the engine decides without an autoscaler).
-    """
-
-    reason: str                       # "device_loss" | "slo_violation"
-    at_s: float
-    from_devices: int
-    to_devices: int
-    from_slots: int
-    to_slots: int
-    epoch_s: float | None = None
-    lemma1_cores: tuple[int, ...] | None = None
-
-    def to_dict(self) -> dict:
-        d = dataclasses.asdict(self)
-        if self.lemma1_cores is not None:
-            d["lemma1_cores"] = list(self.lemma1_cores)
-        return d
 
 
 @dataclasses.dataclass

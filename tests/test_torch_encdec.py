@@ -317,9 +317,11 @@ def test_prefill_launches_flash_attention_three_times_a_decoder_layer(
     cfg, _, _, tp = _params()
     calls = []
 
-    def counted(q, k, v, causal=True, *, mode=None, _fn=ops.flash_attention):
+    def counted(q, k, v, causal=True, *, window=0, mode=None,
+                _fn=ops.flash_attention):
+        assert window == 0
         calls.append((q.shape[2], k.shape[2], causal))
-        return _fn(q, k, v, causal, mode=mode)
+        return _fn(q, k, v, causal, window=window, mode=mode)
     monkeypatch.setattr(ops, "flash_attention", counted)
     emb, toks = _batch(cfg, 1, 11, 6)
     get_model(cfg).prefill(tp, _tbatch(emb, toks), 8)

@@ -102,7 +102,7 @@ def test_serve_cli_in_process_writes_the_json_report(no_cuda, tmp_path,
                            "cpu", "--scenario", "device-loss-mid-decode",
                            "--requests", "6", "--json", str(out)]) == 0
     text = capsys.readouterr().out
-    assert "replan[device_loss] devices 1->1" in text
+    assert "replan[device_loss] devices 1->1 slots 4->4 (Lemma-1 cores (" in text
     report = json.loads(out.read_text())
     assert report["slo"]["n_finished"] == 6
     assert [r["reason"] for r in report["replans"]] == ["device_loss"]
@@ -134,7 +134,8 @@ def test_port_imports_neither_jax_nor_the_reference_package():
         "repro_torch.models.tree, repro_torch.models.mamba2, "
         "repro_torch.models.encdec, repro_torch.models.vlm, "
         "repro_torch.parallel.gradsync, repro_torch.launch.steps, "
-        "repro_torch.configs.nn_benchmarks\n"
+        "repro_torch.configs.nn_benchmarks, repro_torch.serve.elastic, "
+        "repro_torch.launch.train\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -137,8 +137,8 @@ def test_wrapper_hands_kv_to_the_kernel_without_a_copy(monkeypatch):
     seen = {}
 
     class FakeExtension:
-        def flash_attention(self, q, k, v, out, causal):
-            seen.update(q=q, k=k, v=v, out=out, causal=causal)
+        def flash_attention(self, q, k, v, out, causal, window):
+            seen.update(q=q, k=k, v=v, out=out, causal=causal, window=window)
 
     monkeypatch.setattr(fa_mod, "device_type", lambda *_: "cuda")
     monkeypatch.setattr(fa_mod._build, "extension", lambda: FakeExtension())
@@ -152,6 +152,7 @@ def test_wrapper_hands_kv_to_the_kernel_without_a_copy(monkeypatch):
     assert seen["k"].data_ptr() == base.data_ptr()
     assert tuple(seen["k"].shape) == (2, 8, 40, 128)
     assert tuple(seen["out"].shape) == (2, 40, 40, 128)
+    assert seen["causal"] is True and seen["window"] == 0
 
 
 # ---- on the card -------------------------------------------------------

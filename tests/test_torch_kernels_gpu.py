@@ -474,6 +474,35 @@ def test_flash_attention_bf16_serving_shapes_on_card(cuda, s):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,h,kv,s,d", [(1, 4, 4, 300, 64), (1, 8, 2, 520, 128),
+                                        (2, 4, 4, 129, 32), (1, 2, 1, 1, 64)])
+@pytest.mark.parametrize("window", [1, 63, 64, 65, 127, 128, 129, 1000])
+@pytest.mark.parametrize("dtype", LM_DTYPES)
+def test_flash_attention_window_matches_plain_on_card(cuda, b, h, kv, s, d,
+                                                      window, dtype):
+    """A causal sliding window (key k kept for query q where q - window <
+    k <= q): windows inside one tile, at the 64-row fp32 and 128-row bf16
+    tile edges, and past the sequence; window 1 returns v itself."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    rng = np.random.default_rng(17)
+    q = _rand(rng, (b, s, h, d), cuda).to(dtype).transpose(1, 2)
+    k, v = (_rand(rng, (b, s, kv, d), cuda).to(dtype).transpose(1, 2)
+            for _ in range(2))
+    before = ops.launch_counts()["flash_attention"]
+    out = flash_attention(q, k, v, True, window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    mean_abs_v = ref.flash_attention_ref(q.float(), k.float(),
+                                         v.float().abs(), True, window)
+    _assert_lm(out, ref.flash_attention_ref(q, k, v, True, window), 2e-5,
+               BF16_ULP * mean_abs_v.double())
+    if window == 1:
+        want = v.repeat_interleave(h // kv, dim=1)
+        assert torch.equal(out, want.to(out.dtype))
+
+
+@pytest.mark.gpu
 def test_flash_attention_refuses_misaligned_bf16_on_card(cuda):
     """A bf16 view whose row stride (66 bytes) TMA cannot take raises,
     and nothing is launched."""

@@ -567,3 +567,21 @@ def test_new_family_kernel_path_matches_plain_path_on_card(cuda, arch):
         if key != "len":
             assert SMOKE.errors(ck[key], cp[key])[1] <= 1e-4, key
     assert SMOKE.errors(lk, lp)[1] <= 1e-4
+
+
+@pytest.mark.parametrize("window", [1, 5, 64, 129, 1000])
+@pytest.mark.parametrize("h,kv", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chip_smoke_window_slices_equal_the_plain_version(window, h, kv,
+                                                          dtype):
+    """chip_smoke.py's phase 20 holds K6 at a length whose whole score
+    matrix does not fit by query-row slices that read only their window's
+    keys; the slices put together are the plain version bit for bit."""
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn(1, h, 300, 16, generator=g).to(dtype)
+    k, v = (torch.randn(1, kv, 300, 16, generator=g).to(dtype)
+            for _ in range(2))
+    rows = torch.cat([SMOKE.windowed_rows_ref(torch, q, k, v, q0,
+                                              min(300, q0 + 64), window)
+                      for q0 in range(0, 300, 64)], dim=2)
+    assert torch.equal(rows, ref.flash_attention_ref(q, k, v, True, window))

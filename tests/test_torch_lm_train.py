@@ -468,7 +468,8 @@ SETTINGS = {
 
 def oracle_trajectory(jm, jp, jb, settings: TrainSettings, steps: int):
     """The reference's ``build_train_step`` body, off-mesh and unjitted
-    around jitted pieces: losses and gradient norms of ``steps`` steps."""
+    around jitted pieces: losses and gradient norms of ``steps`` steps on
+    the batch ``jb``, or on ``jb[i]`` at step i where ``jb`` is a list."""
     opt = JO.adamw(settings.learning_rate,
                    weight_decay=settings.weight_decay)
     state = {"params": jp, "opt": opt.init(jp), "step": jnp.int32(0)}
@@ -476,14 +477,17 @@ def oracle_trajectory(jm, jp, jb, settings: TrainSettings, steps: int):
         state["residual"] = JG.init_residual(jp)
     n = settings.microbatches
     if n > 1:
-        mb = jax.tree.map(lambda x: x.reshape((n, x.shape[0] // n)
-                                              + x.shape[1:]), jb)
-        grad_fn = jax.jit(lambda p: JG.accumulate_grads(jm.loss_fn, p, mb))
+        def split(b):
+            return jax.tree.map(lambda x: x.reshape((n, x.shape[0] // n)
+                                                    + x.shape[1:]), b)
+        grad_fn = jax.jit(lambda p, b: JG.accumulate_grads(jm.loss_fn, p,
+                                                           split(b)))
     else:
-        grad_fn = jax.jit(lambda p: jax.value_and_grad(jm.loss_fn)(p, jb))
+        grad_fn = jax.jit(lambda p, b: jax.value_and_grad(jm.loss_fn)(p, b))
+    batches = jb if isinstance(jb, list) else [jb] * steps
     out = []
-    for _ in range(steps):
-        loss, grads = grad_fn(state["params"])
+    for i in range(steps):
+        loss, grads = grad_fn(state["params"], batches[i])
         grads, gnorm = JO.clip_by_global_norm(grads, settings.grad_clip)
         if settings.grad_compression == "int8":
             grads, state["residual"] = JG.compress_grads_ef(

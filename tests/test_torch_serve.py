@@ -31,6 +31,7 @@ from repro.serve.scheduler import TickClock as JTickClock
 from repro_torch.configs import smoke_config
 from repro_torch.serve import (
     SCENARIO_NAMES,
+    ServeAutoscaler,
     ServeMetrics,
     ServingEngine,
     TickClock,
@@ -184,17 +185,20 @@ def test_runner_guards(cfg):
         runner.prefill(5, _prompt(0, 8, cfg.vocab_size))
     with pytest.raises(ValueError, match="max_len"):
         runner.prefill(0, _prompt(0, 24, cfg.vocab_size))
-    with pytest.raises(ValueError, match="one card"):
-        runner.rebuild(n_devices=2)
+    with pytest.raises(ValueError, match="at least one device"):
+        runner.rebuild(n_devices=0)
     with pytest.raises(ValueError, match="token-LM"):
         TorchModelRunner(cfg.replace(family="vlm"), 2, 24, device="cpu")
     runner.rebuild(n_devices=1, n_slots=3)
     assert runner.n_slots == 3 and runner.cache["len"].shape == (3,)
+    assert runner.n_devices == 1
 
 
 def test_device_loss_mid_decode_streams_match_no_fault_run(cfg):
     """One trace served under the ``device-loss-mid-decode`` preset (the
-    loss fires at decode step 2) and under ``steady``: the same streams."""
+    loss fires at decode step 2) and under ``steady``, through the Lemma-1
+    autoscaler of a one-device ring, as the serve CLI runs it: the same
+    streams."""
     overrides = dict(n_requests=6, prompt_buckets=(8,), gen_buckets=(4, 8))
     lossy = scenario_preset("device-loss-mid-decode", device_loss=(2, 2),
                             **overrides)
@@ -206,13 +210,19 @@ def test_device_loss_mid_decode_streams_match_no_fault_run(cfg):
     def serve(run_sc):
         runner = TorchModelRunner(cfg, n_slots=3, max_len=steady.max_len,
                                   device="cpu", params=numpy_params)
-        return ServingEngine(runner, n_slots=3,
-                             clock=TickClock(0.01)).run(trace, run_sc)
+        return ServingEngine(runner, n_slots=3, clock=TickClock(0.01),
+                             autoscaler=ServeAutoscaler(1, 3)).run(trace,
+                                                                   run_sc)
 
     faulted, clean = serve(lossy), serve(steady)
     assert [r.reason for r in faulted.replans] == ["device_loss"]
-    assert (faulted.replans[0].from_devices,
-            faulted.replans[0].to_devices) == (1, 1)
+    # a one-device ring losing 2 keeps one device: the same epoch price,
+    # so the same slots
+    rp = faulted.replans[0]
+    assert (rp.from_devices, rp.to_devices, rp.from_slots,
+            rp.to_slots) == (1, 1, 3, 3)
+    assert rp.epoch_s == ServeAutoscaler(1, 3)._base_epoch_s
+    assert len(rp.lemma1_cores) > 0
     assert faulted.slo.n_restarts >= 1
     assert not clean.replans and clean.slo.n_restarts == 0
     assert faulted.streams == clean.streams

@@ -278,9 +278,11 @@ def test_prefill_launches_flash_attention_once_a_layer(monkeypatch):
     cfg, _, _, tp = _params()
     calls = []
 
-    def counted(q, k, v, causal=True, *, mode=None, _fn=ops.flash_attention):
+    def counted(q, k, v, causal=True, *, window=0, mode=None,
+                _fn=ops.flash_attention):
+        assert window == 0
         calls.append((q.shape[1], k.shape[1], causal))
-        return _fn(q, k, v, causal, mode=mode)
+        return _fn(q, k, v, causal, window=window, mode=mode)
     monkeypatch.setattr(ops, "flash_attention", counted)
     get_model(cfg).prefill(tp, _embeds_batch(cfg)[1], 30)
     assert calls == [(cfg.n_heads, cfg.n_kv_heads, True)] * cfg.n_layers

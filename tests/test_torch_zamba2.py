@@ -9,7 +9,17 @@ there); the port runs on the CPU, where ``ops.flash_attention`` and
 ``ops.ssd_chunk`` use their plain versions.  Tolerances: 1e-5 at layer
 level, 1e-4 for the model's logits and cache leaves (tighter than the
 reference's own 2e-4 bar for decode against forward,
-tests/test_models_smoke.py).
+tests/test_models_smoke.py); 1e-6 for the plain windowed attention
+against the reference's masked ``_sdpa``.
+
+A prompt longer than ``attn_window`` (the windowed prefill): the plain
+flash attention with a window against the reference's mask, the shared
+attention past the window, and a 96-token prefill with 4 decode steps
+through the ring.  The port's prefill equals the reference's (logits, and
+the ring's keys and values up to their slots); its decode steps equal the
+reference's ``forward`` at those positions, where the reference's own
+decode, which restarts RoPE at ``attn_window``, does not (ROADMAP.md,
+queue 3).
 """
 
 import jax
@@ -197,12 +207,105 @@ def test_unported_paths_raise(cfgs, params):
         get_model(cfg.replace(family="rnn"))
     x = torch.zeros(1, cfg.attn_window + 8, cfg.d_model)
     pos = torch.arange(x.shape[1])[None]
-    with pytest.raises(NotImplementedError, match="attn_window"):
-        L.attention(tp["shared"]["attn"], x, pos, theta=cfg.rope_theta,
-                    window=cfg.attn_window)
+    # a prefill past attn_window is ported (the windowed tests below)
     # GQA is ported (tests/test_torch_dense.py); KV heads that do not
     # divide the query heads are refused by the flash kernel's wrapper
     gqa = {k: (v[:, :3] if k in ("wk", "wv") else v)
            for k, v in tp["shared"]["attn"].items()}
     with pytest.raises(ValueError, match="H % KV == 0"):
         L.attention(gqa, x[:, :8], pos[:, :8], theta=cfg.rope_theta)
+
+
+WINDOW_TOL = 1e-6
+
+
+@pytest.mark.parametrize("window", [1, 5, 64])
+@pytest.mark.parametrize("kv", [4, 2])
+def test_flash_attention_ref_window_matches_reference_sdpa(window, kv):
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    b, lq, h, d = 2, 80, 4, 16
+    rng = np.random.default_rng(window)
+    q = rng.normal(size=(b, lq, h, d)).astype(np.float32)
+    k, v = (rng.normal(size=(b, lq, kv, d)).astype(np.float32)
+            for _ in range(2))
+    iq, ik = np.arange(lq)[:, None], np.arange(lq)[None, :]
+    mask = (ik <= iq) & (ik > iq - window)
+    want = JL._sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                    jnp.asarray(mask[None, None, None]))
+    tq, tk, tv = (torch.from_numpy(a).transpose(1, 2) for a in (q, k, v))
+    got = flash_attention_ref(tq, tk, tv, True, window).transpose(1, 2)
+    _close(got, want, WINDOW_TOL)
+    if window == 1:                  # only the diagonal key: v itself
+        np.testing.assert_allclose(
+            got.numpy(), np.repeat(v, h // kv, axis=2), rtol=0, atol=1e-7)
+
+
+def test_flash_attention_refuses_bad_windows():
+    from repro_torch.kernels import ops
+
+    q = torch.zeros(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention(q, q, q, causal=True, window=-1)
+    with pytest.raises(ValueError, match="only where causal"):
+        ops.flash_attention(q, q, q, causal=False, window=4)
+    assert torch.equal(ops.flash_attention(q, q, q, window=0),
+                       ops.flash_attention(q, q, q))
+
+
+def test_windowed_attention_matches_reference(cfgs, params):
+    """The shared attention over 80 tokens, window 64: lk > window."""
+    cfg = cfgs[0]
+    jp, tp = params
+    rng = np.random.default_rng(6)
+    lk = cfg.attn_window + 16
+    x = rng.normal(size=(2, lk, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(lk, dtype=np.int32), (2, lk))
+    want = JL.attention(jp["shared"]["attn"], jnp.asarray(x), jnp.asarray(pos),
+                        theta=cfg.rope_theta, causal=True,
+                        window=cfg.attn_window)
+    got, (k, _) = L.attention(tp["shared"]["attn"], torch.from_numpy(x),
+                              torch.from_numpy(pos.copy()),
+                              theta=cfg.rope_theta, causal=True,
+                              window=cfg.attn_window)
+    _close(got, want, LAYER_TOL)
+    assert k.shape[1] == lk
+    # the window matters at this length: the full causal mask differs
+    full, _ = L.attention(tp["shared"]["attn"], torch.from_numpy(x),
+                          torch.from_numpy(pos.copy()), theta=cfg.rope_theta)
+    assert (full - got).abs().max() > 100 * LAYER_TOL
+
+
+def test_windowed_prefill_and_decode_through_the_ring(cfgs, params):
+    """A 96-token prompt (window 64) into a 128-deep cache, then 4 decode
+    steps: the shared block's ring holds the last 64 keys, and each step
+    overwrites the oldest."""
+    cfg = cfgs[0]
+    jp, tp = params
+    jm, tm = j_get_model(cfgs[1]), get_model(cfg)
+    toks = _tokens((2, 104), cfg.vocab_size, seed=5)
+    s, max_len, w = 96, 128, cfg.attn_window
+    lj, cj = jax.jit(jm.prefill, static_argnums=2)(
+        jp, {"tokens": jnp.asarray(toks[:, :s])}, max_len)
+    lt, ct = tm.prefill(tp, {"tokens": torch.from_numpy(toks[:, :s])},
+                        max_len)
+    _close(lt, lj, MODEL_TOL)
+    assert ct["k"].shape[2] == w
+    for key in ("ssm", "conv"):
+        _close(ct[key], cj[key], MODEL_TOL)
+    for key in ("k", "v"):           # position p at slot p % w
+        _close(ct[key].roll(-(s % w), 2), cj[key], MODEL_TOL)
+    assert ct["len"].tolist() == [s, s] and np.asarray(cj["len"]).tolist() == [w, w]
+    want = jax.jit(jm.forward)(jp, {"tokens": jnp.asarray(toks)})
+    j_decode = jax.jit(jm.decode_step)
+    ref_gap = 0.0
+    for step in range(4):
+        tok = toks[:, s + step:s + step + 1]
+        lt, ct = tm.decode_step(tp, ct, {"tokens": torch.from_numpy(tok)})
+        lj, cj = j_decode(jp, cj, {"tokens": jnp.asarray(tok)})
+        _close(lt[:, 0], want[:, s + step], MODEL_TOL)
+        ref_gap = max(ref_gap, float(jnp.abs(lj[:, 0] - want[:, s + step]).max()))
+    assert ct["len"].tolist() == [s + 4, s + 4]
+    # the reference's decode after this prompt runs at RoPE positions 64..67
+    print(f"reference decode against its forward: max |dlogit| {ref_gap:.3e}")
+    assert ref_gap > 100 * MODEL_TOL
