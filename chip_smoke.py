@@ -232,6 +232,33 @@ without a result line:
               snapshot, write and restore ms; the checkpoint goes under
               ``build/``, which must hold 1.5 times it (else Zamba2-1.2B
               is driven), and is removed afterwards
+ 22. dryrun   the port's dry-runs on the meta device, started after phase
+              1 in a process of its own that sees no card
+              (``chip_smoke.py --predict DIR``, into ``build/dryrun/``):
+              (a) ``launch.dryrun --all`` (10 archs x 4 shapes: each cell
+              ok, skipped as the reference skips it, or refused at a
+              kernel wrapper's limit) and ``launch.dryrun_fcnn``, a line a
+              cell (peak against the card's 80 GB, compute and memory ms,
+              bottleneck, seconds); (b) the cells earlier phases run:
+              granite-3-2b train 2 x 2048 in 2 microbatches, Zamba2-1.2B
+              train 1 x 2048, the 2048-token batch-1 prefill and the
+              4-slot decode step at depth 2048 of Zamba2-1.2B, qwen3-14b
+              and mamba2-2.7b, NN1-NN6's executor step at batch 128 on 8
+              logical devices; (c) granite-3-2b at 1 x 4096, the baseline
+              and hillclimb's pure_fsdp+fce+oh+chunk config (fused CE,
+              one-hot embedding, chunked attention past 2048²) from the
+              same weights, bf16 at full width (loss 2e-2, gradient norm
+              5e-2 relative) and fp32 cut to 4 layers (1e-5, 1e-4).  Each
+              cell of (b) and (c) runs one profiled step on the card from
+              ``reset_peak_memory_stats``, its state allocated after it:
+              the predicted K1-K7 launches equal the card's, the predicted
+              peak within 10% of the card's (FCNN: or 64 MiB), the cell's
+              (the state made after the reset) and the step's own, the
+              roofline bound no more than the device busy time; the card
+              orders the knob variant's and the baseline's step peaks as
+              the dry-run does (lower where it predicts lower by > 10%,
+              else within 10%: at full width AdamW's fp32 temporaries of
+              the largest leaf set both)
 
 The last three lines are a JSON object of per-kernel numbers, the card's
 name and power limit as nvidia-smi reports them, and the result object.
@@ -249,11 +276,6 @@ from typing import Callable, NamedTuple
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM data-sheet peaks: HBM bandwidth, fp32 outside the tensor cores,
-# dense bf16 on the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-BF16_FLOP_PER_S = 989e12
 
 GEMM_RTOL = 1e-4    # fp32 sums of up to 4000 terms in another order
 XENT_ATOL = 1e-5    # nll, lse and the mean (values of the order of log C)
@@ -393,12 +415,23 @@ def device_ms(fn, iters: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / (replays * iters)
 
 
-def bound(nbytes: float, flops: float,
-          flop_rate: float = FP32_FLOP_PER_S) -> tuple[float, str]:
-    """(ms, what bounds it): the larger of bytes over the HBM rate and the
-    operations over the peak rate of their type (fp32 by default)."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / flop_rate * 1e3
+def h100():
+    """The H100 SXM data-sheet peaks the dry-run prices with
+    (``core.planner.H100Target``: HBM bandwidth, fp32 outside the tensor
+    cores, dense bf16 on them).  Imported on use, as every module of the
+    port here: ``tools/ab_*.py`` import this script before they pick whose
+    ``src`` to load."""
+    from repro_torch.core.planner import H100Target
+
+    return H100Target()
+
+
+def bound(cost) -> tuple[float, str]:
+    """(ms, what bounds it) of a launch's ``kernels.cost.Cost`` (every
+    bound here counts a kernel's work as the dry-run does): the larger of
+    its bytes over the HBM rate and its operations over the peak rate of
+    their type."""
+    t_ops, t_bytes = (t * 1e3 for t in cost.seconds(h100()))
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -535,9 +568,10 @@ def run_build_phase() -> None:
 
 
 class Case(NamedTuple):
-    """One comparison of phase 3.  Bytes count each input read once and
-    each output written once; flops count the product's multiply-adds as 2
-    and each element-wise step as 1.  ``forced(*choice)`` runs a kernel
+    """One comparison of phase 3.  ``cost`` is the launch's work
+    (``kernels.cost``: each input read once and each output written once;
+    a multiply-add is 2 operations, each element-wise step 1).
+    ``forced(*choice)`` runs a kernel
     with a host plan at one of the CHOICES of its kind: K1 and K2 at a
     (split, slice), K3 at a dW tile (rows, columns); ``plan`` is the
     choice its wrapper makes."""
@@ -546,8 +580,7 @@ class Case(NamedTuple):
     kern: Callable
     plain: Callable
     lib: Callable
-    nbytes: int
-    flops: int
+    cost: object
     timed: bool
     on_path: bool
     plan: tuple | str | None = None
@@ -568,6 +601,7 @@ def kernel_cases(torch, dev, gen, shapes=None):
     (rows of (tag, batch, n_in, n_out, activation, timed)), K1, K2 and K3
     at each of those shapes."""
     from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels.fcnn_layer import (
         act_code,
         dgrad_plan,
@@ -624,21 +658,20 @@ def kernel_cases(torch, dev, gen, shapes=None):
                            lambda x=x, w=w, b=b, a=act: fcnn_layer(x, w, b, a),
                            lambda x=x, w=w, b=b, a=act: ref.fcnn_layer_ref(x, w, b, a),
                            lambda x=x, w=w, b=b, a=act: lib_act[a](torch.addmm(b, x, w)),
-                           4 * (m * k + k * n + n + m * n), 2 * m * k * n + 2 * m * n,
-                           timed, on_path, fwd_plan(m, k, n), fwd_forced)
+                           kcost.fcnn_fwd(m, k, n), timed, on_path,
+                           fwd_plan(m, k, n), fwd_forced)
                 yield Case("fcnn_layer_dgrad", lab,
                            lambda dy=dy, y=y, w=w, a=act: fcnn_layer_dgrad(dy, y, w, a),
                            lambda dy=dy, y=y, w=w, a=act: ref.fcnn_layer_dgrad_ref(dy, y, w, a),
                            lambda dz=dz, w=w: dz @ w.T,
-                           4 * (2 * m * n + k * n + m * k), 2 * m * n * k + 2 * m * n,
-                           timed, on_path and i > 0, dgrad_plan(m, k, n),
-                           dgrad_forced)
+                           kcost.fcnn_dgrad(m, k, n), timed, on_path and i > 0,
+                           dgrad_plan(m, k, n), dgrad_forced)
                 yield Case("fcnn_layer_wgrad", lab,
                            lambda x=x, dy=dy, y=y, a=act: fcnn_layer_wgrad(x, dy, y, a),
                            lambda x=x, dy=dy, y=y, a=act: ref.fcnn_layer_wgrad_ref(x, dy, y, a),
                            lambda x=x, dz=dz: (x.T @ dz, dz.sum(0)),
-                           4 * (m * k + 2 * m * n + k * n + n), 2 * m * k * n + 3 * m * n,
-                           timed, on_path, wgrad_plan(k, n), wgrad_forced)
+                           kcost.fcnn_wgrad(m, k, n), timed, on_path,
+                           wgrad_plan(k, n), wgrad_forced)
 
     def xent_cases(tag, b, c, dtype=torch.float32, timed=True,
                    on_path=False):
@@ -659,13 +692,13 @@ def kernel_cases(torch, dev, gen, shapes=None):
                    lambda: softmax_xent_fwd(x, lab),
                    lambda: ref.softmax_xent_fwd_ref(x, lab),
                    lambda: F.cross_entropy(x, lab64, reduction="none"),
-                   e * b * c + 4 * 3 * b + 4, 4 * b * c + b, timed, on_path,
+                   kcost.xent_fwd(b, c, e), timed, on_path,
                    xent_fwd_plan(b, c, e, aligned))
         yield Case("softmax_xent_dlogits", label,
                    lambda: softmax_xent_dlogits(x, lab, lse, g=g),
                    lambda: ref.softmax_xent_dlogits_ref(x, lab, lse, g=g),
                    lambda: torch.softmax(x.float(), -1) - onehot,
-                   2 * e * b * c + 4 * 2 * b + 4, 4 * b * c, timed, on_path,
+                   kcost.xent_dlogits(b, c, e), timed, on_path,
                    f"vec={vector_loads(c, e, aligned)}")
 
     if shapes is not None:
@@ -781,7 +814,7 @@ def run_kernel_phase(torch, dev, shapes=None) -> dict:
         if case.timed:
             ms, plain_ms, lib_ms = (device_ms(case.kern), device_ms(case.plain),
                                     device_ms(case.lib))
-            b_ms, b_by = bound(case.nbytes, case.flops)
+            b_ms, b_by = bound(case.cost)
             s["rows"][label] = (ms, plain_ms, lib_ms, b_ms)
             line += (f" | device ms: kernel {ms:.5f} plain {plain_ms:.5f} "
                      f"library {lib_ms:.5f} bound {b_ms:.7f} ({b_by}) | "
@@ -793,8 +826,9 @@ def run_kernel_phase(torch, dev, shapes=None) -> dict:
                 s["plain_ms"] += plain_ms
                 s["library_ms"] += lib_ms
                 s["bound_ms"] += b_ms
-                s["bytes_ms"] += case.nbytes / HBM_BYTES_PER_S * 1e3
-                s["ops_ms"] += case.flops / FP32_FLOP_PER_S * 1e3
+                ops_s, bytes_s = case.cost.seconds(h100())
+                s["bytes_ms"] += bytes_s * 1e3
+                s["ops_ms"] += ops_s * 1e3
                 s["shapes"].append(label)
         print(line, flush=True)
         check(ok, f"{name} {label} disagrees with its plain version")
@@ -1010,10 +1044,11 @@ def _close(torch, out, want, fp32_rtol, slack) -> tuple[bool, float, str]:
 
 
 class LMCase(NamedTuple):
-    """One comparison of phase 7.  Bytes count each input read once (a
-    stride-0 B/C once per chunk, K and V once per KV head) and each output
-    written once; flops count what these inputs need (causal pairs only, 2
-    per multiply-add), at the peak of the inputs' type (``rate``).
+    """One comparison of phase 7.  ``cost`` is the launch's work
+    (``kernels.cost``): each input read once (a stride-0 B/C once per
+    chunk, K and V once per KV head) and each output written once; the
+    operations these inputs need (kept pairs only, 2 per multiply-add), at
+    the peak of the inputs' type.
     ``slack()`` is K6's bf16 slack, BF16_ULP·(softmax @ |v|) (None: K7's);
     ``forced(heads)`` runs bf16 K7 at one of ssd_scan.SSD_HEADS heads per
     block, ``plan`` being its wrapper's; ``on_path`` names the serving path
@@ -1026,9 +1061,7 @@ class LMCase(NamedTuple):
     plain: Callable
     slack: Callable | None
     lib: Callable | None
-    nbytes: int
-    flops: int
-    rate: float
+    cost: object
     timed: bool
     on_path: str
     plan: int | None = None
@@ -1045,17 +1078,10 @@ K6_WINDOW_SEQS = (2048, 4096)
 K6_WINDOWS = (1, 63, 64, 65, 127, 128, 129, 1000)
 
 
-def kept_pairs(s: int, window: int) -> int:
-    """(query, key) pairs a causal mask over ``s`` tokens keeps, with a
-    sliding ``window`` (0: none): q + 1 keys for q < window, then window."""
-    if window == 0 or window >= s:
-        return s * (s + 1) // 2
-    return window * (window + 1) // 2 + (s - window) * window
-
-
 def lm_kernel_cases(torch, dev, gen):
     """Yield an LMCase for every comparison of phase 7."""
     from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_plan
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1074,8 +1100,6 @@ def lm_kernel_cases(torch, dev, gen):
         k, v = (rand(b, sk, kv, d, dtype=dtype).transpose(1, 2)
                 for _ in range(2))
         e = q.element_size()
-        pairs = kept_pairs(s, window) if causal else s * sk
-        rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
         label = (f"({b},{h},{s},{d}){f' kv {kv}' if kv != h else ''}"
                  f"{f' over Sk {sk}' if sk != s else ''} "
                  f"{str(dtype)[6:]} {'causal' if causal else 'full'}"
@@ -1098,8 +1122,8 @@ def lm_kernel_cases(torch, dev, gen):
             lambda: ref.flash_attention_ref(q, k, v, causal, window),
             lambda: BF16_ULP * ref.flash_attention_ref(
                 q.float(), k.float(), v.float().abs(), causal, window),
-            lib, 2 * b * (h * s + kv * sk) * d * e, 4 * b * h * pairs * d,
-            rate, timed, path[0] if path else "", window=window, exact=exact)
+            lib, kcost.flash_attention(b, h, kv, s, sk, d, e, causal, window),
+            timed, path[0] if path else "", window=window, exact=exact)
 
     def ssd_case(bc, q, h, p, n, dtype, shared_bc, timed):
         x = rand(bc, q, h, p, dtype=dtype)
@@ -1108,10 +1132,6 @@ def lm_kernel_cases(torch, dev, gen):
         b = rand(bc, q, g, n, dtype=dtype).expand(bc, q, h, n)
         c = rand(bc, q, g, n, dtype=dtype).expand(bc, q, h, n)
         e = x.element_size()
-        pairs = q * (q + 1) // 2
-        flops = bc * h * (pairs * (2 * n + 2 * p) + 2 * q * p * n)
-        nbytes = (2 * bc * q * h * p * e + 2 * bc * q * g * n * e
-                  + bc * h * p * n * 4 + 2 * bc * q * h * 4)
         bf16 = dtype == torch.bfloat16
         label = (f"BC={bc} ({q},{h},{p},{n}) {str(dtype)[6:]}"
                  f"{' stride-0 b/c' if shared_bc else ''}")
@@ -1129,8 +1149,7 @@ def lm_kernel_cases(torch, dev, gen):
             "ssd_chunk", label,
             lambda: ssd_chunk(x, dt_a, b, c),
             lambda: ref.ssd_chunk_ref(x, dt_a, b, c),
-            None, None, nbytes, flops,
-            BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S, timed,
+            None, None, kcost.ssd_chunk(bc, q, h, p, n, g, e), timed,
             path[0] if path else "",
             ssd_plan(bc, h, q, shared_bc, n) if bf16 else None,
             forced if bf16 and timed else None)
@@ -1258,18 +1277,19 @@ def run_lm_kernel_phase(torch, dev) -> dict:
             kern, plain, lib = case.kern, case.plain, case.lib
             ms, plain_ms = device_ms(kern, iters=5), device_ms(plain, iters=5)
             lib_ms = device_ms(lib, iters=5) if lib is not None else None
-            b_ms, b_by = bound(case.nbytes, case.flops, case.rate)
+            b_ms, b_by = bound(case.cost)
+            flops = sum(case.cost.flops.values())
             line += (f" | device ms: kernel {ms:.5f} plain {plain_ms:.5f} "
                      f"library {'none' if lib_ms is None else f'{lib_ms:.5f}'}"
                      f" bound {b_ms:.5f} ({b_by}) = {100 * b_ms / ms:.1f}% | "
-                     f"{case.flops / ms / 1e9:.2f} TFLOP/s, "
-                     f"{case.nbytes / ms / 1e6:.1f} GB/s"
+                     f"{flops / ms / 1e9:.2f} TFLOP/s, "
+                     f"{case.cost.nbytes / ms / 1e6:.1f} GB/s"
                      f"{f' [{case.on_path} serving path]' if case.on_path else ''}")
             if case.forced is not None:
-                line += (f" | bound by bytes "
-                         f"{case.nbytes / HBM_BYTES_PER_S * 1e3:.5f}, by bf16 "
-                         f"ops {case.flops / case.rate * 1e3:.5f} | plan "
-                         f"{case.plan} heads/block")
+                ops_s, bytes_s = case.cost.seconds(h100())
+                line += (f" | bound by bytes {bytes_s * 1e3:.5f}, by bf16 "
+                         f"ops {ops_s * 1e3:.5f} | plan {case.plan} "
+                         f"heads/block")
             if case.window:
                 summary[name]["windowed"].append(dict(
                     shape=label, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -2778,12 +2798,14 @@ def long_prefill_phase(torch, dev, smi: str) -> tuple[dict[str, int], dict]:
           f"k {tuple(k.shape)}, {kw}")
     k6_ms = device_ms(lambda: flash_attention(q, k, v, True, w),
                       iters=2, replays=3)
-    flops = 4 * h * kept_pairs(n_pre, w) * hd
-    nbytes = 2 * (h + kv) * n_pre * hd * 2
-    b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+    from repro_torch.kernels.cost import flash_attention as k6_work
+
+    k6_cost = k6_work(1, h, kv, n_pre, n_pre, hd, 2, True, w)
+    b_ms, b_by = bound(k6_cost)
     print(f"K6 at (1, {h}, {n_pre}, {hd}) bf16 window {w}: "
           f"{k6_ms:.4f} ms a call, bound {b_ms:.4f} ({b_by}) = "
-          f"{100 * b_ms / k6_ms:.1f}%, {flops / k6_ms / 1e9:.1f} TFLOP/s")
+          f"{100 * b_ms / k6_ms:.1f}%, "
+          f"{k6_cost.flops['bfloat16'] / k6_ms / 1e9:.1f} TFLOP/s")
     k6_err, plain_ms = check_long_k6(torch, dev, q, k, v, w)
     del q, k, v, captured
     free_device_memory(torch)
@@ -2992,6 +3014,387 @@ def later_path_phases(torch, dev, smi: str, n_params: int) -> dict:
     driver = driver_phase(torch, dev, smi, n_params)
     return {"elastic": elastic, "long": long, "long_k6": long_k6,
             "driver": driver}
+
+
+# -------------------------------------------------------------- phase 22
+
+# the dry-run held to the card: a cell's predicted peak within
+# DRY_PEAK_RTOL of what the card allocates (the FCNN cells, whose steps
+# allocate a few hundred MiB, or within DRY_FCNN_SLACK)
+DRY_PEAK_RTOL = 0.10
+DRY_FCNN_SLACK = 64 * 2**20
+DRY_FCNN_BATCH = 128
+DRY_SWEEP_CELLS = 40        # dryrun --all: 10 archs x 4 shapes
+# (c): the cfg part of hillclimb's variant (fused CE, one-hot embedding,
+# chunked attention past 2048²) at train_4k's length, where 4096² crosses
+# the threshold; the bf16 bars of PERF.md §2 at full width, fp32 order
+# with the depth cut
+KNOB_VARIANT = "pure_fsdp+fce+oh+chunk"
+KNOB_SEQ = 4096
+KNOB_FP32_LAYERS = 4
+KNOB_BF16_RTOL = (2e-2, 5e-2)     # (loss, global gradient norm)
+KNOB_FP32_RTOL = (1e-5, 1e-4)
+PREDICT_TIMEOUT = 900
+PREDICT_DIR = os.path.join(ROOT, "build", "dryrun")
+
+
+class DryCell(NamedTuple):
+    """A cell phase 22 runs on the meta device and on the card: an LM step
+    of ``arch`` at ``shape`` (a ``ShapeSpec``) with the train step's
+    ``settings``, its config ``cfg`` (None: the registered one) with
+    ``overrides``, or, where ``shape`` is None, one executor step of the
+    FCNN ``arch`` (NN1-NN6) at DRY_FCNN_BATCH on the RING; ``part`` is (b)
+    or (c) of the module docstring's phase 22."""
+    label: str
+    part: str
+    arch: str
+    shape: object = None
+    settings: object = None
+    overrides: tuple = ()
+    cfg: object = None
+
+
+def cell_config(cell: DryCell):
+    from repro_torch.configs import get_config
+
+    return (cell.cfg or get_config(cell.arch)).replace(**dict(cell.overrides))
+
+
+def dry_cells() -> list[DryCell]:
+    """(b): the cells earlier phases run (phase 18's train steps, phase
+    8/12/15's 2048-token prefill and 4-slot decode step, phase 10's
+    executor step at batch 128 for NN1-NN6); (c): granite-3-2b at
+    1 x KNOB_SEQ, baseline and KNOB_VARIANT, bf16 at full width and fp32
+    cut to KNOB_FP32_LAYERS layers."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.configs.nn_benchmarks import NN_BENCHMARKS
+    from repro_torch.launch.hillclimb import VARIANTS
+    from repro_torch.launch.steps import TrainSettings
+
+    serve = max(SERVE_BUCKETS)
+    cells = [DryCell(f"{TRAIN_ARCH} train 2x{TRAIN_SEQ}", "b", TRAIN_ARCH,
+                     ShapeSpec("train", TRAIN_SEQ, 2, "train"),
+                     TrainSettings(microbatches=2)),
+             DryCell(f"{TRAIN_HYBRID_ARCH} train 1x{TRAIN_SEQ}", "b",
+                     TRAIN_HYBRID_ARCH,
+                     ShapeSpec("train", TRAIN_SEQ, 1, "train"),
+                     TrainSettings())]
+    for arch in (ARCH, DENSE_ARCH, SSM_ARCH):
+        cells += [DryCell(f"{arch} prefill 1x{serve}", "b", arch,
+                          ShapeSpec("prefill", serve, 1, "prefill")),
+                  DryCell(f"{arch} decode 4x{serve}", "b", arch,
+                          ShapeSpec("decode", serve, 4, "decode"))]
+    cells += [DryCell(f"{nn} ORRM {RING} devices b{DRY_FCNN_BATCH}", "b", nn)
+              for nn in sorted(NN_BENCHMARKS)]
+    knobs = tuple(sorted(VARIANTS[KNOB_VARIANT][1].items()))
+    fp32 = (("dtype", "float32"), ("n_layers", KNOB_FP32_LAYERS),
+            ("param_dtype", "float32"))
+    for tag, base in (("bf16", ()), (f"fp32 {KNOB_FP32_LAYERS} layers", fp32)):
+        for name, over in (("baseline", base), (KNOB_VARIANT, base + knobs)):
+            cells.append(DryCell(
+                f"{TRAIN_ARCH} train 1x{KNOB_SEQ} {tag} {name}", "c",
+                TRAIN_ARCH, ShapeSpec("train", KNOB_SEQ, 1, "train"),
+                TrainSettings(), over))
+    return cells
+
+
+def predict_cell(cell: DryCell) -> dict:
+    """The dry-run of ``cell`` on the meta device."""
+    from repro_torch.launch import dryrun, dryrun_fcnn
+
+    if cell.shape is None:
+        return dryrun_fcnn.run_nn(cell.arch, DRY_FCNN_BATCH, RING)
+    return dryrun.run_cell(cell.arch, cell.shape, cfg=cell_config(cell),
+                           settings=cell.settings)
+
+
+def predict(out_dir: str) -> int:
+    """``python3 chip_smoke.py --predict DIR``: phase 22's dry-runs, on the
+    meta device only (no card): ``dryrun --all`` and ``dryrun_fcnn`` into
+    DIR's JSON files, then every ``dry_cells`` cell into DIR/cells.json.
+    ``main`` runs it in a process of its own beside phases 2-21."""
+    from repro_torch.launch import dryrun, dryrun_fcnn
+
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    dryrun.main(["--all", "--out", os.path.join(out_dir, "dryrun.json")])
+    t1 = time.perf_counter()
+    dryrun_fcnn.main(["--out", os.path.join(out_dir, "dryrun_fcnn.json")])
+    t2 = time.perf_counter()
+    cells = {cell.label: predict_cell(cell) for cell in dry_cells()}
+    out = {"sweep_s": t1 - t0, "fcnn_s": t2 - t1,
+           "cells_s": time.perf_counter() - t2, "cells": cells}
+    with open(os.path.join(out_dir, "cells.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return 0
+
+
+def start_predictions(out_dir: str):
+    """Start ``predict`` in a child process that sees no card; its output
+    goes to DIR/predict.log."""
+    import shutil
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    log = open(os.path.join(out_dir, "predict.log"), "w")
+    try:
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--predict", out_dir],
+            stdout=log, stderr=subprocess.STDOUT,
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    finally:
+        log.close()
+
+
+def card_step(torch, dev, cell: DryCell):
+    """(setup, run) of ``cell``'s step on ``dev``, as the dry-run builds it
+    on meta: ``setup()`` allocates the state and inputs (seeded: the same
+    weights and batch for every cell of an arch), ``run(inputs)`` is the
+    step."""
+    from repro_torch.launch.steps import build_train_step, init_train_state
+    from repro_torch.models.api import get_model
+
+    gen = torch.Generator(device=dev)
+    if cell.shape is None:
+        from repro_torch import exec as pexec
+        from repro_torch.configs.nn_benchmarks import NN_BENCHMARKS
+        from repro_torch.core.onoc_model import FCNNWorkload
+        from repro_torch.launch.train_fcnn import ONOC
+        from repro_torch.optim import adam
+
+        sizes = NN_BENCHMARKS[cell.arch]
+        exe = pexec.compile(FCNNWorkload(sizes, batch_size=DRY_FCNN_BATCH),
+                            ONOC, RING, strategy="orrm",
+                            residency="sharded", device=dev)
+        opt = adam(1e-3)
+        step = exe.train_step(opt)
+
+        def setup():
+            gen.manual_seed(0)
+            return (exe.init_state(torch.Generator().manual_seed(0), opt),
+                    {"x": torch.randn((DRY_FCNN_BATCH, sizes[0]),
+                                      generator=gen, device=dev),
+                     "y": torch.randint(0, sizes[-1], (DRY_FCNN_BATCH,),
+                                        generator=gen, device=dev,
+                                        dtype=torch.int32)})
+
+        return setup, lambda args: step(*args)
+
+    cfg = cell_config(cell)
+    model, shape = get_model(cfg), cell.shape
+
+    def tokens():        # the cells' batches are token ids (and labels)
+        return {k: torch.randint(0, cfg.vocab_size, tuple(v.shape),
+                                 generator=gen, device=dev, dtype=v.dtype)
+                for k, v in model.input_specs(shape).items()}
+
+    if shape.kind == "train":
+        step = build_train_step(model, cell.settings)
+
+        def setup():
+            gen.manual_seed(0)
+            return init_train_state(model, cell.settings, gen, dev), tokens()
+
+        return setup, lambda args: step(*args)
+
+    def setup():
+        gen.manual_seed(0)
+        params = model.init(gen, dev)
+        if shape.kind == "prefill":
+            return params, tokens()
+        return (params, model.init_cache(shape.global_batch, shape.seq_len,
+                                         dev), tokens())
+
+    def run(args):
+        with torch.inference_mode():
+            if shape.kind == "prefill":
+                return model.prefill(*args, shape.seq_len)
+            return model.decode_step(*args)
+
+    return setup, run
+
+
+def card_cell(torch, dev, cell: DryCell) -> dict:
+    """One real step of ``cell`` on the card, profiled: from
+    ``reset_peak_memory_stats``, with the state and inputs allocated after
+    it.  Returns the peak above what was allocated before (earlier phases'
+    leftovers, cuBLAS's workspace), and the step's own (the peak counter
+    reset again once the state is made), the launches, the device busy ms
+    and, for a train step, its loss and global gradient norm."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import use_accum_dtype
+
+    setup, run = card_step(torch, dev, cell)
+    accum = "float32" if cell.shape is None else cell_config(cell).accum_dtype
+    free_device_memory(torch)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with use_accum_dtype(accum):
+        inputs = setup()
+        torch.cuda.synchronize()
+        setup_peak = torch.cuda.max_memory_allocated() - before
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = run(inputs)
+            torch.cuda.synchronize()
+    step_peak = torch.cuda.max_memory_allocated() - before
+    launches = ops.launch_counts()
+    rows = device_rows(prof)
+    got = {"peak": max(setup_peak, step_peak), "step_peak": step_peak,
+           "before": before, "launches": launches,
+           "busy_ms": sum(us for _, _, us in rows) / 1e3 if rows else None,
+           "ops": sum(c for _, c, _ in rows)}
+    if cell.shape is None or cell.shape.kind == "train":
+        metrics = out[1]
+        got.update(loss=float(metrics["loss"]),
+                   grad_norm=float(metrics["grad_norm"]))
+    del inputs, out
+    free_device_memory(torch)
+    return got
+
+
+def hold_cell(cell: DryCell, pred: dict, got: dict) -> tuple[bool, str]:
+    """Phase 22's three holds of a cell, and its table line: predicted
+    launches = the card's, kernel by kernel; predicted peak within
+    DRY_PEAK_RTOL of the card's (FCNN: or DRY_FCNN_SLACK), the cell's
+    (state made from the reset) and the step's own; the roofline bound
+    max(compute_s, memory_s) no more than the device busy time."""
+    def within(predicted, measured):
+        gap = abs(predicted - measured)
+        return gap <= DRY_PEAK_RTOL * measured or (
+            cell.shape is None and gap <= DRY_FCNN_SLACK)
+
+    p_peak, m_peak = pred["peak_memory_per_device"], got["peak"]
+    gap = p_peak - m_peak
+    p_step, m_step = pred["step_peak_bytes"], got["step_peak"]
+    peak_ok = within(p_peak, m_peak) and within(p_step, m_step)
+    launches_ok = pred["kernel_launches"] == got["launches"]
+    bound_ms = max(pred["compute_s"], pred["memory_s"]) * 1e3
+    busy = got["busy_ms"]
+    bound_ok = busy is not None and bound_ms <= busy
+    launched = {k: v for k, v in got["launches"].items() if v}
+    predicted = "" if launches_ok else \
+        f" (predicted {pred['kernel_launches']})"
+    busy_text = "not measured" if busy is None else f"{busy:.3f} ms"
+    line = (f"{cell.label:48s} peak predicted {p_peak / 1e9:9.4f} GB, card "
+            f"{m_peak / 1e9:9.4f} GB, gap {gap / 2**20:+10.2f} MiB "
+            f"({100 * gap / max(m_peak, 1):+6.2f}%), step's "
+            f"{p_step / 1e9:.4f} / {m_step / 1e9:.4f} GB "
+            f"({100 * (p_step - m_step) / max(m_step, 1):+6.2f}%) "
+            f"{'ok' if peak_ok else 'FAIL'} | launches "
+            f"{'=' if launches_ok else '!='} {launched}{predicted} | bound "
+            f"{bound_ms:.3f} ms ({pred['bottleneck']}) vs busy {busy_text} "
+            f"{'ok' if bound_ok else 'FAIL'}")
+    return peak_ok and launches_ok and bound_ok, line
+
+
+def dryrun_phase(torch, dev, predictor, out_dir: str) -> None:
+    """Phase 22 (see the module docstring): (a) the meta sweep's results,
+    each cell ``ok``, the reference's skip or refused at a kernel's limit;
+    (b) and (c) every ``dry_cells`` cell's prediction held to a real step
+    on the card; (c) the knob variant's loss and gradient norm held to the
+    baseline's, and the two steps' peaks ordered on the card as the
+    dry-run orders them."""
+    from repro_torch.launch.dryrun import cell_line
+
+    t0 = time.perf_counter()
+    try:
+        rc = predictor.wait(timeout=PREDICT_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        rc = None
+    waited = time.perf_counter() - t0
+    log = os.path.join(out_dir, "predict.log")
+    if rc != 0:
+        with open(log) as f:
+            print(f.read()[-4000:])
+    check(rc == 0, f"the dry-runs' process ended with {rc} (log: {log})")
+
+    def load(name):
+        with open(os.path.join(out_dir, name)) as f:
+            return json.load(f)
+
+    out, sweep, fcnn = (load(n) for n in ("cells.json", "dryrun.json",
+                                          "dryrun_fcnn.json"))
+    print(f"(a) the dry-runs ran on the meta device in a process that sees "
+          f"no card, beside phases 2-21 (this phase waited {waited:.1f} s "
+          f"for them): dryrun --all {out['sweep_s']:.1f} s, dryrun_fcnn "
+          f"{out['fcnn_s']:.1f} s, the cells of (b) and (c) "
+          f"{out['cells_s']:.1f} s")
+    h = h100()
+    for key, res in sweep.items():
+        print(f"  {key:40s} {cell_line(res, h)}")
+    ran = [r for r in sweep.values() if r.get("ok") and not r.get("skipped")]
+    skipped = [r for r in sweep.values() if r.get("skipped")]
+    limits = [r for r in sweep.values() if r.get("limit")]
+    bad = [k for k, r in sweep.items() if not (r.get("ok") or r.get("limit"))]
+    print(f"  {len(sweep)} cells: {len(ran)} ok ({sum(r['fits'] for r in ran)}"
+          f" within {h.hbm_bytes / 1e9:.0f} GB), {len(skipped)} skipped as "
+          f"the reference skips them, {len(limits)} refused at a kernel "
+          f"wrapper's limit")
+    check(len(sweep) == DRY_SWEEP_CELLS and not bad,
+          f"dry-run cells neither ok, skipped nor at a kernel's limit: {bad}")
+    for key, res in fcnn.items():
+        print(f"  {key:32s} "
+              + ("ok: degrees {degrees} (m* {onoc_cores}), ring degrees "
+                 "{program_degrees}, peak {peak_memory_per_device:.0f} B, "
+                 "temp {temp_gb:.4f} GB, SEND {collective_bytes:.0f} B, "
+                 "compute {compute_s:.3e} s, memory {memory_s:.3e} s "
+                 "({seconds} s)".format(**res) if res.get("ok")
+                 else f"FAIL: {res.get('error')}"))
+    check(all(r.get("ok") for r in fcnn.values()), "a dryrun_fcnn cell failed")
+
+    got, lines = {}, []
+    for cell in dry_cells():
+        pred = out["cells"][cell.label]
+        check(pred.get("ok"), f"{cell.label}: the dry-run ended {pred}")
+        got[cell.label] = card_cell(torch, dev, cell)
+        ok, line = hold_cell(cell, pred, got[cell.label])
+        lines.append((ok, f"({cell.part}) {line}"))
+        print(lines[-1][1], flush=True)
+
+    knob_lines = []
+    for tag, (loss_rtol, gnorm_rtol) in (
+            ("bf16", KNOB_BF16_RTOL),
+            (f"fp32 {KNOB_FP32_LAYERS} layers", KNOB_FP32_RTOL)):
+        base_label = f"{TRAIN_ARCH} train 1x{KNOB_SEQ} {tag} baseline"
+        var_label = f"{TRAIN_ARCH} train 1x{KNOB_SEQ} {tag} {KNOB_VARIANT}"
+        base, var = got[base_label], got[var_label]
+        d_loss = abs(var["loss"] - base["loss"]) / abs(base["loss"])
+        d_gnorm = abs(var["grad_norm"] - base["grad_norm"]) / base["grad_norm"]
+        p_base = out["cells"][base_label]["step_peak_bytes"]
+        p_var = out["cells"][var_label]["step_peak_bytes"]
+        # the card orders the two steps' peaks as the dry-run does: lower
+        # where the dry-run's is lower by more than DRY_PEAK_RTOL, else
+        # within DRY_PEAK_RTOL of each other
+        if p_var < (1 - DRY_PEAK_RTOL) * p_base:
+            order_ok = var["step_peak"] < base["step_peak"]
+        else:
+            order_ok = (p_var <= (1 + DRY_PEAK_RTOL) * p_base
+                        and abs(var["step_peak"] - base["step_peak"])
+                        <= DRY_PEAK_RTOL * base["step_peak"])
+        ok = d_loss <= loss_rtol and d_gnorm <= gnorm_rtol and order_ok
+        knob_lines.append((ok, (
+            f"(c) {tag}: {KNOB_VARIANT} against the baseline from the same "
+            f"weights: loss {var['loss']:.6f} vs {base['loss']:.6f} "
+            f"({d_loss:.3e} <= {loss_rtol:g}), gradient norm "
+            f"{var['grad_norm']:.6f} vs {base['grad_norm']:.6f} "
+            f"({d_gnorm:.3e} <= {gnorm_rtol:g}); the step's peak predicted "
+            f"{p_var / 1e9:.4f} vs {p_base / 1e9:.4f} GB, card "
+            f"{var['step_peak'] / 1e9:.4f} vs "
+            f"{base['step_peak'] / 1e9:.4f} GB "
+            f"{'ok' if ok else 'FAIL'}")))
+        print(knob_lines[-1][1], flush=True)
+    print("\nphase 22 cells (the dry-run on meta against one step on the "
+          "card):")
+    for _, line in lines + knob_lines:
+        print(f"  {line}")
+    failed = [line for ok, line in lines + knob_lines if not ok]
+    check(not failed, f"{len(failed)} phase 22 holds failed: {failed}")
 
 
 # -------------------------------------------------------------- phase 10
@@ -3371,7 +3774,18 @@ def main() -> int:
     print(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn {torch.backends.cudnn.allow_tf32}")
     dev = torch.device("cuda", 0)
+    predictor = start_predictions(PREDICT_DIR)
+    try:
+        return run_phases(torch, dev, smi, predictor)
+    finally:
+        if predictor.poll() is None:
+            predictor.kill()
+            predictor.wait()
 
+
+def run_phases(torch, dev, smi: str, predictor) -> int:
+    """Phases 2-22 and the last three lines; ``predictor`` is phase 22's
+    dry-run process, started by ``main`` after phase 1."""
     phase(2, "build")
     from repro_torch.kernels import ops
 
@@ -3433,6 +3847,10 @@ def main() -> int:
     family_launches = family_path_phases(torch, dev)
     train = train_path_phase(torch, dev, smi)
     later = later_path_phases(torch, dev, smi, train["n_params"])
+    phase(22, "dry-runs on the meta device (dryrun --all, dryrun_fcnn, the "
+              "cells earlier phases run and the knobs at 4096 tokens) held "
+              "to one step of each on the card")
+    dryrun_phase(torch, dev, predictor, PREDICT_DIR)
 
     kernels = []
     for name in FCNN_KERNELS:
@@ -3510,4 +3928,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(predict(sys.argv[2]) if sys.argv[1:2] == ["--predict"]
+             else main())

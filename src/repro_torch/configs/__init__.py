@@ -3,9 +3,13 @@ the LM architectures the port runs (importing this package registers
 them; ``get_config(name)`` / ``smoke_config(name)`` fetch them)."""
 
 from repro_torch.configs.base import (  # noqa: F401
+    LONG_CONTEXT_FAMILIES,
+    SHAPES,
     ModelConfig,
+    ShapeSpec,
     get_config,
     list_archs,
+    shape_cells,
     smoke_config,
 )
 from repro_torch.configs.nn_benchmarks import (  # noqa: F401

@@ -1,7 +1,9 @@
-"""The model configuration dataclass and the architecture registry,
-copied from the reference ``repro/configs/base.py`` (``ModelConfig`` with
-every field, and the registry functions).  Only the architectures the
-port runs register here (``configs/__init__.py``): the hybrid
+"""The model configuration dataclass, the dry-run's input shapes and the
+architecture registry, copied from the reference ``repro/configs/base.py``
+(``ModelConfig`` with every field, ``ShapeSpec``, ``SHAPES``,
+``LONG_CONTEXT_FAMILIES``, ``shape_cells`` and the registry functions).
+Only the architectures the port runs register here
+(``configs/__init__.py``): the hybrid
 ``zamba2-1.2b``, the dense ``granite-3-2b``, ``qwen3-14b``,
 ``qwen2.5-14b`` and ``qwen1.5-110b``, and the MoE
 ``granite-moe-1b-a400m`` and ``qwen2-moe-a2.7b``.
@@ -12,7 +14,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
-__all__ = ["ModelConfig", "register", "get_config", "list_archs",
+__all__ = ["ModelConfig", "ShapeSpec", "SHAPES", "LONG_CONTEXT_FAMILIES",
+           "shape_cells", "register", "get_config", "list_archs",
            "smoke_config"]
 
 
@@ -88,6 +91,41 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # "train" | "prefill" | "decode"
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+# long_500k needs sub-quadratic attention: only SSM/hybrid run it.
+LONG_CONTEXT_FAMILIES = ("ssm", "hybrid")
+
+
+def shape_cells(cfg: "ModelConfig") -> list[tuple[str, bool, str]]:
+    """All four shape cells for an arch: (shape_name, runnable, reason)."""
+    out = []
+    for s in SHAPES.values():
+        if s.name == "long_500k" and cfg.family not in LONG_CONTEXT_FAMILIES:
+            out.append((s.name, False, "full-attention arch: 500k KV cache "
+                        "out of HBM budget; skip sanctioned by assignment"))
+        else:
+            out.append((s.name, True, ""))
+    return out
 
 
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}

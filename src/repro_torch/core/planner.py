@@ -2,9 +2,11 @@
 reference ``repro/core/planner.py`` (``feasible_degrees``,
 ``ring_mesh_axes``, ``plan_fcnn``): per-period Lemma-1 core counts
 snapped to mesh-feasible sharding degrees, with the chosen mapping
-strategy determining the ring order.  The reference's TPU hardware
-constants and its transformer GEMM planner are not part of the FCNN
-slice and are not copied.
+strategy determining the ring order.  ``H100Target`` is the port's
+counterpart of the reference's ``TPUTarget``: the data-sheet figures of
+the one card the dry-run (``launch/dryrun.py``) prices.  ``TPUTarget``
+and the transformer GEMM planner ``plan_gemm_period`` price a TPU mesh
+and are not copied.
 """
 
 from __future__ import annotations
@@ -22,8 +24,28 @@ from .onoc_model import (
     optimal_cores,
 )
 
-__all__ = ["PeriodPlan", "FCNNPlan", "plan_fcnn", "feasible_degrees",
-           "ring_mesh_axes"]
+__all__ = ["H100Target", "PeriodPlan", "FCNNPlan", "plan_fcnn",
+           "feasible_degrees", "ring_mesh_axes"]
+
+
+@dataclasses.dataclass(frozen=True)
+class H100Target:
+    """NVIDIA H100 SXM data-sheet figures (dense rates, 700 W): HBM
+    bandwidth, bf16 on the tensor cores, fp32 outside them (the port runs
+    with TF32 off), and HBM capacity."""
+
+    hbm_bw: float = 3.35e12           # bytes/s
+    peak_flops: float = 989e12        # bf16
+    fp32_flops: float = 67e12
+    hbm_bytes: float = 80e9
+
+    def flop_rate(self, dtype: str) -> float:
+        """Peak FLOP/s of products whose operands are ``dtype``."""
+        rates = {"bfloat16": self.peak_flops, "float32": self.fp32_flops}
+        if dtype not in rates:
+            raise ValueError(f"no H100 peak for {dtype} operations; "
+                             f"known: {sorted(rates)}")
+        return rates[dtype]
 
 
 @dataclasses.dataclass(frozen=True)

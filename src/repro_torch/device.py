@@ -14,13 +14,14 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     ``None`` means ``cuda``.  Asking for ``cuda`` (explicitly or by
     default) on a machine without a usable GPU raises ``RuntimeError``;
     only an explicit ``"cpu"`` runs on the host, with the kernels' plain
-    PyTorch versions.
+    PyTorch versions, and only an explicit ``"meta"`` runs shapes alone
+    (the dry-run, ``launch/dryrun.py``).
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions on the host")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev

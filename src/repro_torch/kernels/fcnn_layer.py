@@ -13,25 +13,34 @@ picks the height of its dW tiles.
 Each wrapper checks dtype (fp32 only), shape and contiguity, then picks
 by the tensors' device: on CUDA it allocates the outputs, launches the
 kernel on the current stream and adds one to its ``launches`` counter;
-on the CPU it runs the plain version from ``ref.py``.  There is no other
-path: a CUDA tensor never reaches the plain version, and a failed build
-or launch raises.
+on the CPU it runs the plain version from ``ref.py``; on the meta device
+(the dry-run) it returns the empty outputs and reports the launch and its
+``cost`` to the active recorders (``cost.report``), leaving ``launches``
+to the card.  There is no other path: a CUDA tensor never reaches the
+plain version, and a failed build or launch raises.  A size beyond what
+a kernel indexes raises ``KernelLimitError`` on every device.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels import ref as _ref
 
 __all__ = ["fcnn_layer", "fcnn_layer_dgrad", "fcnn_layer_wgrad",
-           "fwd_plan", "dgrad_plan", "wgrad_plan", "splitk_plan"]
+           "fwd_plan", "dgrad_plan", "wgrad_plan", "splitk_plan",
+           "KernelLimitError"]
 
 # codes of csrc/fcnn_act.cuh's Act enum
 ACT_CODES = {"none": 0, "sigmoid": 1, "relu": 2, "tanh": 3}
 
 _INT32_MAX = 2**31 - 1
+
+
+class KernelLimitError(ValueError):
+    """A size beyond what a kernel indexes or tiles (its elements past
+    2**31 - 1, a head dimension past 128, ...), refused on every device."""
 
 # csrc/fcnn_fwd.cu and csrc/fcnn_dgrad.cu: output tiles of 64 x 32 and
 # 128 threads, contraction slices of 16 or 32, clusters of up to 16 blocks
@@ -100,13 +109,14 @@ def act_code(activation: str) -> int:
 
 
 def device_type(kernel: str, *tensors: torch.Tensor) -> str:
-    """``"cuda"`` or ``"cpu"``: where a kernel call's tensors all lie."""
+    """``"cuda"``, ``"cpu"`` or ``"meta"``: where a kernel call's tensors
+    all lie."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{kernel}: tensors lie on several devices "
                          f"{sorted(str(d) for d in devices)}")
     dev = devices.pop()
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"{kernel}: unsupported device {dev}")
     return dev.type
 
@@ -123,8 +133,9 @@ def check_arg(kernel: str, name: str, t: torch.Tensor, shape: tuple,
     if not t.is_contiguous():
         raise ValueError(f"{kernel}: {name} must be contiguous")
     if t.numel() == 0 or t.numel() > _INT32_MAX:
-        raise ValueError(f"{kernel}: {name} has {t.numel()} elements; "
-                         f"1..{_INT32_MAX} supported")
+        error = KernelLimitError if t.numel() else ValueError
+        raise error(f"{kernel}: {name} has {t.numel()} elements; "
+                    f"1..{_INT32_MAX} supported")
 
 
 def _matrix(kernel: str, name: str, t: torch.Tensor) -> tuple[int, int]:
@@ -142,9 +153,13 @@ def fcnn_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     check_arg("fcnn_layer", "x", x, (m, k))
     check_arg("fcnn_layer", "w", w, (k, n))
     check_arg("fcnn_layer", "b", b, (n,))
-    if device_type("fcnn_layer", x, w, b) == "cpu":
+    dev = device_type("fcnn_layer", x, w, b)
+    if dev == "cpu":
         return _ref.fcnn_layer_ref(x, w, b, activation)
     out = torch.empty((m, n), device=x.device, dtype=torch.float32)
+    if dev == "meta":
+        cost.report("fcnn_layer", cost.fcnn_fwd(m, k, n))
+        return out
     _build.extension().fcnn_fwd(x, w, b, out, act, *fwd_plan(m, k, n))
     fcnn_layer.launches += 1
     return out
@@ -159,9 +174,13 @@ def fcnn_layer_dgrad(dy: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     check_arg("fcnn_layer_dgrad", "dy", dy, (m, n))
     check_arg("fcnn_layer_dgrad", "y", y, (m, n))
     check_arg("fcnn_layer_dgrad", "w", w, (k, n))
-    if device_type("fcnn_layer_dgrad", dy, y, w) == "cpu":
+    dev = device_type("fcnn_layer_dgrad", dy, y, w)
+    if dev == "cpu":
         return _ref.fcnn_layer_dgrad_ref(dy, y, w, activation)
     dx = torch.empty((m, k), device=dy.device, dtype=torch.float32)
+    if dev == "meta":
+        cost.report("fcnn_layer_dgrad", cost.fcnn_dgrad(m, k, n))
+        return dx
     _build.extension().fcnn_dgrad(dy, y, w, dx, act, *dgrad_plan(m, k, n))
     fcnn_layer_dgrad.launches += 1
     return dx
@@ -178,10 +197,14 @@ def fcnn_layer_wgrad(x: torch.Tensor, dy: torch.Tensor, y: torch.Tensor,
     check_arg("fcnn_layer_wgrad", "x", x, (m, k))
     check_arg("fcnn_layer_wgrad", "dy", dy, (m, n))
     check_arg("fcnn_layer_wgrad", "y", y, (m, n))
-    if device_type("fcnn_layer_wgrad", x, dy, y) == "cpu":
+    dev = device_type("fcnn_layer_wgrad", x, dy, y)
+    if dev == "cpu":
         return _ref.fcnn_layer_wgrad_ref(x, dy, y, activation)
     dw = torch.empty((k, n), device=x.device, dtype=torch.float32)
     db = torch.empty((n,), device=x.device, dtype=torch.float32)
+    if dev == "meta":
+        cost.report("fcnn_layer_wgrad", cost.fcnn_wgrad(m, k, n))
+        return dw, db
     _build.extension().fcnn_wgrad(x, dy, y, dw, db, act, *wgrad_plan(k, n))
     fcnn_layer_wgrad.launches += 1
     return dw, db

@@ -21,8 +21,9 @@ version included (``ref.check_causal_lengths``).  Checks device, dtype (fp32 or 
 and v), shapes and strides, then picks by the tensors' device: on CUDA it allocates the
 output in q's memory layout, launches the kernel on the current stream
 and adds one to ``launches``; on the CPU it runs the plain version from
-``ref.py``.  The kernel reads q, k and v through their (batch, head, seq)
-strides, so transposed views of the model's (B, S, H, D) projections go
+``ref.py``; on the meta device it returns the empty output and reports
+the launch to the dry-run (``cost.report``).  The kernel reads q, k and
+v through their (batch, head, seq) strides, so transposed views of the model's (B, S, H, D) projections go
 in without a copy.  In bf16 the kernel loads q, k and v with the Tensor
 Memory Accelerator, which needs a 16-byte aligned base and (batch, head,
 seq) strides of a multiple of 16 bytes: other bf16 views are refused on
@@ -34,9 +35,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.fcnn_layer import device_type
+from repro_torch.kernels.fcnn_layer import KernelLimitError, device_type
 
 __all__ = ["flash_attention", "FLOAT_DTYPES", "check_float_args",
            "check_tma_aligned"]
@@ -61,8 +62,9 @@ def check_float_args(kernel: str, **tensors: torch.Tensor) -> torch.dtype:
             raise RuntimeError(f"{kernel} is forward-only (the reference "
                                f"kernel has no VJP); {name} requires grad")
         if t.numel() > _INT32_MAX:
-            raise ValueError(f"{kernel}: {name} has {t.numel()} elements; "
-                             f"at most {_INT32_MAX} supported")
+            raise KernelLimitError(f"{kernel}: {name} has {t.numel()} "
+                                   f"elements; at most {_INT32_MAX} "
+                                   f"supported")
     if len(dtypes) != 1:
         raise TypeError(f"{kernel}: mixed dtypes {sorted(map(str, dtypes))}")
     return dtypes.pop()
@@ -70,12 +72,13 @@ def check_float_args(kernel: str, **tensors: torch.Tensor) -> torch.dtype:
 
 def check_tma_aligned(kernel: str, **tensors: torch.Tensor) -> None:
     """Raise unless each tensor's base address and its strides in every
-    dimension but the last (of size > 1) are multiples of 16 bytes."""
+    dimension but the last (of size > 1) are multiples of 16 bytes (a meta
+    tensor has no address: its strides alone are checked)."""
     for name, t in tensors.items():
         e = t.element_size()
         bad = [d for d in range(t.dim() - 1)
                if t.shape[d] > 1 and (t.stride(d) * e) % 16]
-        if t.data_ptr() % 16 or bad:
+        if (not t.is_meta and t.data_ptr() % 16) or bad:
             raise ValueError(
                 f"{kernel}: {t.dtype} {name} must be 16-byte aligned, with "
                 f"strides of a multiple of 16 bytes (TMA); got address "
@@ -99,18 +102,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(k.shape)}, v {tuple(v.shape)}: k and v must "
                          f"be (B, KV, Sk, D) with H % KV == 0 (GQA)")
     if min(b, h, s, sk, d) < 1 or d > MAX_HEAD_DIM or b * h > 65535:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)} outside B·H <= 65535, Sq, Sk >= 1, "
-                         f"1 <= D <= {MAX_HEAD_DIM}")
+        error = ValueError if min(b, h, s, sk, d) < 1 else KernelLimitError
+        raise error(f"flash_attention: q {tuple(q.shape)}, k "
+                    f"{tuple(k.shape)} outside B·H <= 65535, Sq, Sk >= 1, "
+                    f"1 <= D <= {MAX_HEAD_DIM}")
     window = int(window)
     if window > _INT32_MAX:
-        raise ValueError(f"flash_attention: window {window} > {_INT32_MAX}")
+        raise KernelLimitError(f"flash_attention: window {window} > "
+                               f"{_INT32_MAX}")
     _ref.check_causal_lengths(s, sk, causal, window)
     if check_float_args("flash_attention", q=q, k=k, v=v) == torch.bfloat16:
         check_tma_aligned("flash_attention", q=q, k=k, v=v)
-    if device_type("flash_attention", q, k, v) == "cpu":
+    dev = device_type("flash_attention", q, k, v)
+    if dev == "cpu":
         return _ref.flash_attention_ref(q, k, v, causal, window)
     out = torch.empty_like(q)
+    if dev == "meta":
+        cost.report("flash_attention", cost.flash_attention(
+            b, h, kv, s, sk, d, q.element_size(), causal, window))
+        return out
     _build.extension().flash_attention(q, k, v, out, bool(causal), window)
     flash_attention.launches += 1
     return out

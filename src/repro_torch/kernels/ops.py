@@ -9,7 +9,8 @@ the LM prefill calls.  The mode:
     whose forward and backward call the kernel wrappers.  A wrapper
     launches its CUDA kernel for CUDA tensors and runs its plain version
     for CPU tensors, so the tensors' device picks the path.
-  * ``"cuda"`` — the fused path, and raise unless the tensors are on CUDA.
+  * ``"cuda"`` — the fused path, and raise unless the tensors are on CUDA
+    (or on the meta device, where the dry-run follows the card's path).
   * ``"ref"`` — the plain versions of ``ref.py`` under ordinary autograd,
     for comparisons only.
 
@@ -75,10 +76,10 @@ def reset_launches() -> None:
 
 def resolve_mode(mode: str | None, *tensors: torch.Tensor) -> str | None:
     """``mode`` after checking it is one of MODES and, for ``"cuda"``,
-    that every tensor lies on a CUDA device."""
+    that every tensor lies on a CUDA device (or on meta)."""
     if mode not in MODES:
         raise ValueError(f"unknown kernel mode {mode!r}; one of {MODES}")
-    if mode == "cuda" and not all(t.is_cuda for t in tensors):
+    if mode == "cuda" and not all(t.is_cuda or t.is_meta for t in tensors):
         raise ValueError("mode='cuda' needs CUDA tensors")
     return mode
 

@@ -13,7 +13,9 @@ dataset gives them.  The training step needs nothing around the kernels:
 K4's mean is the loss and K5 takes the loss cotangent ``g`` itself.
 
 Same discipline as ``fcnn_layer.py``: checks, then the kernel on CUDA
-tensors (counted in ``launches``) or the plain version on CPU tensors.
+tensors (counted in ``launches``), the plain version on CPU tensors, or,
+on meta tensors, the empty outputs and the launch reported to the
+dry-run (``cost.report``).
 ``fwd_plan`` picks K4's kernel and ``vector_loads`` both kernels'
 vector width from (B, C) and the logits' alignment; the CUDA launchers
 size the grids from those flags (see the CUDA source).
@@ -25,7 +27,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.fcnn_layer import check_arg, device_type
 
@@ -85,11 +87,16 @@ def softmax_xent_fwd(logits: torch.Tensor, labels: torch.Tensor
     lse, both (B,) fp32, and the mean of nll, a 0-d fp32 tensor."""
     b, c = _logits("softmax_xent_fwd", logits)
     check_arg("softmax_xent_fwd", "labels", labels, (b,), torch.int32)
-    if device_type("softmax_xent_fwd", logits, labels) == "cpu":
+    dev = device_type("softmax_xent_fwd", logits, labels)
+    if dev == "cpu":
         return _ref.softmax_xent_fwd_ref(logits, labels)
     nll = torch.empty((b,), device=logits.device, dtype=torch.float32)
     lse = torch.empty((b,), device=logits.device, dtype=torch.float32)
     mean = torch.empty((), device=logits.device, dtype=torch.float32)
+    if dev == "meta":
+        cost.report("softmax_xent_fwd",
+                    cost.xent_fwd(b, c, logits.element_size()))
+        return nll, lse, mean
     plan = fwd_plan(b, c, logits.element_size(), logits.data_ptr() % 16 == 0)
     _build.extension().xent_fwd(logits, labels, nll, lse, mean,
                                 plan.warps_per_row, int(plan.vec))
@@ -123,9 +130,14 @@ def softmax_xent_dlogits(logits: torch.Tensor, labels: torch.Tensor,
             raise ValueError(f"{kernel}: g must be a 0-d float32 tensor, got "
                              f"{tuple(g.shape)} {g.dtype}")
         factor, stride, div = g, 0, b
-    if device_type(kernel, logits, labels, lse, factor) == "cpu":
+    dev = device_type(kernel, logits, labels, lse, factor)
+    if dev == "cpu":
         return _ref.softmax_xent_dlogits_ref(logits, labels, lse, scale, g=g)
     dx = torch.empty((b, c), device=logits.device, dtype=logits.dtype)
+    if dev == "meta":
+        cost.report(kernel, cost.xent_dlogits(b, c, logits.element_size(),
+                                              per_row=scale is not None))
+        return dx
     vec = vector_loads(c, logits.element_size(), logits.data_ptr() % 16 == 0)
     _build.extension().xent_dlogits(logits, labels, lse, factor, stride, div,
                                     dx, int(vec))

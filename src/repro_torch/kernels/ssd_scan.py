@@ -6,7 +6,9 @@ Checks device, dtype (x, b and c fp32 or bf16, of one dtype; dt_a
 fp32), shapes and strides, then picks by the tensors' device: on
 CUDA it allocates the three outputs, launches the kernel on the current
 stream (all chunks and heads in one launch) and adds one to ``launches``;
-on the CPU it runs the plain version from ``ref.py``.  b and c are read
+on the CPU it runs the plain version from ``ref.py``; on the meta
+device it returns the empty outputs and reports the launch to the
+dry-run (``cost.report``).  b and c are read
 through their strides, so one group broadcast to every head is an
 ``expand``ed view with a head stride of 0 and is never copied.  bf16
 runs the tensor-core kernel, whose blocks each walk ``ssd_plan``'s
@@ -20,9 +22,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.fcnn_layer import device_type
+from repro_torch.kernels.fcnn_layer import KernelLimitError, device_type
 from repro_torch.kernels.flash_attention import check_float_args
 
 __all__ = ["ssd_chunk", "ssd_plan"]
@@ -88,19 +90,26 @@ def ssd_chunk(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
                              f"expected {(bc, q, h, n)}")
     if (min(bc, q, h, p, n) < 1 or bc > 65535 or q > MAX_CHUNK
             or p > MAX_P or n > MAX_N):
-        raise ValueError(f"ssd_chunk: x {tuple(x.shape)}, N = {n} outside "
-                         f"BC <= 65535, Q <= {MAX_CHUNK}, P <= {MAX_P}, "
-                         f"N <= {MAX_N}")
+        error = ValueError if min(bc, q, h, p, n) < 1 else KernelLimitError
+        raise error(f"ssd_chunk: x {tuple(x.shape)}, N = {n} outside "
+                    f"BC <= 65535, Q <= {MAX_CHUNK}, P <= {MAX_P}, "
+                    f"N <= {MAX_N}")
     check_float_args("ssd_chunk", x=x, b=b, c=c)
     if dt_a.dtype != torch.float32:
         raise TypeError(f"ssd_chunk: dt_a must be float32, got {dt_a.dtype}")
-    if device_type("ssd_chunk", x, dt_a, b, c) == "cpu":
+    dev = device_type("ssd_chunk", x, dt_a, b, c)
+    if dev == "cpu":
         return _ref.ssd_chunk_ref(x, dt_a, b, c)
     y = torch.empty((bc, q, h, p), device=x.device, dtype=x.dtype)
     state = torch.empty((bc, h, p, n), device=x.device, dtype=torch.float32)
     decay = torch.empty((bc, q, h), device=x.device, dtype=torch.float32)
-    heads = (ssd_plan(bc, h, q, b.stride(2) == 0 and c.stride(2) == 0, n)
-             if x.dtype == torch.bfloat16 else 1)
+    shared_bc = b.stride(2) == 0 and c.stride(2) == 0
+    if dev == "meta":
+        cost.report("ssd_chunk", cost.ssd_chunk(
+            bc, q, h, p, n, 1 if shared_bc else h, x.element_size()))
+        return y, state, decay
+    heads = ssd_plan(bc, h, q, shared_bc, n) if x.dtype == torch.bfloat16 \
+        else 1
     _build.extension().ssd_chunk(x, dt_a, b, c, y, state, decay, heads)
     ssd_chunk.launches += 1
     return y, state, decay

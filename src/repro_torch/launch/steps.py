@@ -1,9 +1,12 @@
 """The LM train step, counterpart of the train half of the reference
 ``repro/launch/steps.py`` without its mesh and shardings.
 
-``build_train_step(model, settings)`` returns ``step(state, batch) ->
-(state, {"loss", "grad_norm"})`` in the reference's order: the loss and
-its gradients (over ``settings.microbatches`` microbatches through
+``train_state_spec(model, settings)`` is the state on the meta device
+(the reference's ``jax.eval_shape`` of ``init_train_state``: shapes and
+dtypes, no storage).  ``build_train_step(model, settings)`` returns
+``step(state, batch) -> (state, {"loss", "grad_norm"})`` in the
+reference's order: the loss and its gradients (over
+``settings.microbatches`` microbatches through
 ``gradsync.accumulate_grads`` where there are several), clipping by the
 global norm, int8 error-feedback compression where asked, the AdamW
 update, then ``step + 1``.  The state is a dict of tensors: ``params``,
@@ -29,7 +32,8 @@ from repro_torch.models.api import Model
 from repro_torch.optim import adamw, clip_by_global_norm
 from repro_torch.parallel import gradsync
 
-__all__ = ["TrainSettings", "init_train_state", "build_train_step"]
+__all__ = ["TrainSettings", "init_train_state", "train_state_spec",
+           "build_train_step"]
 
 Params = dict[str, Any]
 
@@ -62,6 +66,12 @@ def init_train_state(model: Model, settings: TrainSettings,
     if settings.grad_compression == "int8":
         state["residual"] = gradsync.init_residual(params)
     return state
+
+
+def train_state_spec(model: Model, settings: TrainSettings) -> Params:
+    """``init_train_state`` on the meta device: every leaf's shape and
+    dtype, nothing allocated."""
+    return init_train_state(model, settings, torch.Generator(), "meta")
 
 
 def build_train_step(model: Model, settings: TrainSettings = TrainSettings(),

@@ -10,7 +10,9 @@ All six families of the reference are ported: ``"dense"``
 encoder-decoder takes ``enc_len``, the memory's length (default
 ``max_len``), as the reference's does.  ``loss_fn`` is the training loss
 (``mode`` selects the loss kernels' path, as ``prefill``'s selects the
-attention and SSD kernels').
+attention and SSD kernels').  ``input_specs(shape)`` is the batch of a
+``ShapeSpec`` as meta tensors, with the reference's keys, shapes and
+dtypes: what the dry-run feeds a step.
 """
 
 from __future__ import annotations
@@ -18,7 +20,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
-from repro_torch.configs.base import ModelConfig
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeSpec
 
 __all__ = ["Model", "get_model", "PORTED_FAMILIES"]
 
@@ -36,9 +40,39 @@ class Model:
     cache_axes: Callable[[], Params]
     prefill: Callable[..., tuple]            # (params, batch, max_len, *, mode=None)
     decode_step: Callable[..., tuple]        # (params, cache, batch)
+    input_specs: Callable[[ShapeSpec], Params]
 
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+
+
+def _meta(shape: tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Params:
+    """The batch of ``shape`` for ``cfg``'s family as meta tensors: tokens
+    (and labels to train); the VLM's front-end stub ``embeds`` (B, S, d)
+    and M-RoPE ``positions`` (3, B, S); the encoder-decoder's ``enc_embeds``
+    over S // 2 frames and ``dec_tokens`` over the rest.  Decode is one
+    token a row, against a cache ``seq_len`` deep."""
+    b, s, i32 = shape.global_batch, shape.seq_len, torch.int32
+    if shape.kind == "decode":
+        return {"tokens": _meta((b, 1), i32)}
+    dt = getattr(torch, cfg.dtype)
+    if cfg.family == "vlm":
+        out = {"embeds": _meta((b, s, cfg.d_model), dt),
+               "positions": _meta((3, b, s), i32)}
+    elif cfg.family == "encdec":
+        enc_len = s // 2
+        s = s - enc_len
+        out = {"enc_embeds": _meta((b, enc_len, cfg.d_model), dt),
+               "dec_tokens": _meta((b, s), i32)}
+    else:
+        out = {"tokens": _meta((b, s), i32)}
+    if shape.kind == "train":
+        out["labels"] = _meta((b, s), i32)
+    return out
 
 
 def get_model(cfg: ModelConfig) -> Model:
@@ -75,4 +109,5 @@ def get_model(cfg: ModelConfig) -> Model:
         prefill=lambda p, b, max_len, *, mode=None: mod.prefill(
             p, b, cfg, max_len, mode=mode),
         decode_step=lambda p, c, b: mod.decode_step(p, c, b, cfg),
+        input_specs=lambda shape: input_specs(cfg, shape),
     )

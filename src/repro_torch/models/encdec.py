@@ -108,7 +108,8 @@ def dec_block_apply(p: Params, h: torch.Tensor,
     (k, v), what the cache holds)."""
     a, kv = L.attention(p["self_attn"], L.rms_norm(p["ln1"], h, cfg.norm_eps),
                         positions, theta=cfg.rope_theta, eps=cfg.norm_eps,
-                        causal=True, mode=mode)
+                        causal=True, mode=mode,
+                        chunk_threshold=cfg.attn_chunk_threshold)
     h = h + a
     x, _ = L.attention(p["cross_attn"], L.rms_norm(p["ln_x"], h, cfg.norm_eps),
                        positions, theta=cfg.rope_theta, eps=cfg.norm_eps,
@@ -173,7 +174,8 @@ def _logits(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def forward(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     """Logits (B, S_dec, V) fp32 of the decoder's whole sequence."""
     memory = encode(params, batch["enc_embeds"], cfg)
-    h = L.embed(params["embedding"], batch["dec_tokens"])
+    h = L.embed(params["embedding"], batch["dec_tokens"],
+                onehot=cfg.embed_onehot)
     positions = _positions(h.shape[0], h.shape[1], h.device)
     for i in range(cfg.n_layers):
         lp = layer(params["decoder"], i)
@@ -200,7 +202,8 @@ def loss_fn(params: Params, batch: dict, cfg: ModelConfig, *,
     decoder = unstack(params["decoder"], cfg.n_layers)
     mem_kv = [_memory_kv(lp, memory, cfg) for lp in decoder]
 
-    h = L.embed(params["embedding"], batch["dec_tokens"])
+    h = L.embed(params["embedding"], batch["dec_tokens"],
+                onehot=cfg.embed_onehot)
     positions = _positions(h.shape[0], h.shape[1], h.device)
 
     def dec(h: torch.Tensor, lp: Params, mk: torch.Tensor,

@@ -39,6 +39,16 @@ through ``ops.softmax_xent``: the softmax cross-entropy kernels K4/K5 on
 the card, their plain versions on the CPU.  ``remat_wrap`` is the
 reference's scan-body checkpoint policy as ``torch.utils.checkpoint``.
 
+The reference's dynamically scoped product dtype (``use_accum_dtype``,
+``pet()``) is kept: the products it governs there (the unembedding,
+SwiGLU's gate and up, the one-hot embedding) go through ``matmul_acc``,
+fp32 under the default ``"float32"`` and the activation dtype under
+``"bfloat16"``.  ``embed(..., onehot=True)`` is the reference's one-hot
+matmul lookup, chunked over length.  Causal self-attention whose Lq·Lk
+exceeds ``chunk_threshold`` takes, on the plain path (``mode="ref"``,
+what training runs), the reference's kv-chunked online softmax with its
+flash-style backward (``_SdpaChunkedCausal``); the kernel path keeps K6.
+
 On the card a bf16 product with fp32 output (``matmul_fp32``,
 ``bmm_fp32``) is one GEMM writing fp32; PyTorch has no derivative for
 that form, so it runs as an autograd function (``_GemmF32``).  JAX's
@@ -47,7 +57,8 @@ backward here splits the cotangent into two bf16 halves, hi + lo, and
 runs each product as two bf16 GEMMs summed in fp32 and rounded once to
 bf16 (``gemm_f32_grads``): ~16 of the cotangent's bits instead of the 8
 of one rounding, at twice the GEMMs.  On the CPU the product runs on the
-upcast operands and autograd gives exactly JAX's transpose.
+upcast operands and autograd gives exactly JAX's transpose.  Meta tensors
+(the dry-run) take the card's branch.
 """
 
 from __future__ import annotations
@@ -70,11 +81,37 @@ __all__ = [
     "embed", "unembed", "rope_freqs", "apply_rope", "apply_mrope",
     "init_attention", "attention", "prefill_attention_kv",
     "decode_attention", "decode_cross_attention", "init_mlp",
-    "mlp", "matmul_fp32", "bmm_fp32", "normal", "cross_entropy_loss",
-    "fused_unembed_ce", "remat_wrap", "gemm_f32_grads",
+    "mlp", "matmul_fp32", "bmm_fp32", "matmul_acc", "use_accum_dtype",
+    "pet", "normal", "cross_entropy_loss", "fused_unembed_ce", "remat_wrap",
+    "gemm_f32_grads",
 ]
 
 Params = dict[str, Any]
+
+# The reference's dynamically scoped product output dtype
+# (``preferred_element_type``): fp32 by default; the bf16comm variants set
+# bf16.  Norms, RoPE and softmax stay fp32 regardless.
+_PET = [torch.float32]
+
+
+class use_accum_dtype:
+    """``with use_accum_dtype("bfloat16"):`` products through
+    ``matmul_acc`` return that dtype inside the block."""
+
+    def __init__(self, dtype: str | torch.dtype):
+        self.dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+
+    def __enter__(self) -> torch.dtype:
+        _PET.append(self.dtype)
+        return self.dtype
+
+    def __exit__(self, *exc) -> bool:
+        _PET.pop()
+        return False
+
+
+def pet() -> torch.dtype:
+    return _PET[-1]
 
 
 def normal(generator: torch.Generator, shape: tuple[int, ...], scale: float,
@@ -122,15 +159,32 @@ def init_embedding(generator: torch.Generator, vocab: int, d: int,
     return {"w": normal(generator, (vocab, d), 0.02, dtype, device)}
 
 
-def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    """Row gather.  tokens: (B, L) integer -> (B, L, d)."""
-    return p["w"][tokens.long()]
+def embed(p: Params, tokens: torch.Tensor, onehot: bool = False,
+          chunk: int = 512) -> torch.Tensor:
+    """tokens (B, L) integer -> (B, L, d) in the table's dtype: a row
+    gather, or with ``onehot`` the reference's one-hot matmul, chunked over
+    length so a (B, chunk, V) one-hot slab is live at a time (the whole
+    length where ``chunk`` does not divide it); each product's single
+    nonzero term makes it equal to the gather."""
+    w = p["w"]
+    if not onehot:
+        return w[tokens.long()]
+    b, l = tokens.shape
+    if l % chunk:
+        chunk = l
+    outs = []
+    for j in range(0, l, chunk):
+        tok = tokens[:, j:j + chunk].long()
+        oh = torch.zeros((b, tok.shape[1], w.shape[0]), dtype=w.dtype,
+                         device=w.device).scatter_(-1, tok[..., None], 1.0)
+        outs.append(matmul_acc(oh, w).to(w.dtype))
+    return torch.cat(outs, dim=1)
 
 
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """(…, d) -> (…, V) fp32 logits (bf16 operands multiplied in fp32,
-    with no fp32 copy of the table)."""
-    return matmul_fp32(x, p["w"].t())
+    """(…, d) -> (…, V) logits in ``pet()`` (fp32: bf16 operands
+    multiplied in fp32, with no fp32 copy of the table)."""
+    return matmul_acc(x, p["w"].t())
 
 
 # --------------------------------------------------------------------------
@@ -283,11 +337,115 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, lq, h, d).to(q.dtype)
 
 
+# Above this many score elements, causal self-attention on the plain path
+# switches to the kv-chunked online softmax (the reference's
+# _CHUNKED_SDPA_THRESHOLD and _SDPA_CHUNK).
+CHUNKED_SDPA_THRESHOLD = 4096 * 4096
+SDPA_CHUNK = 1024
+
+
+def _chunk_scores(q, kb, rows, ci: int, scale: float) -> torch.Tensor:
+    """Scaled scores (E, G·Lq, chunk) fp32 of chunk ``ci``, -1e30 where the
+    key lies after the query."""
+    chunk = kb.shape[1]
+    s = bmm_fp32(q, kb.transpose(1, 2)) * scale
+    cols = ci * chunk + torch.arange(chunk, device=q.device)
+    return torch.where(rows[:, None] >= cols[None, :], s,
+                       torch.full((), -1e30, device=q.device))
+
+
+def _grouped(t: torch.Tensor, kv: int) -> torch.Tensor:
+    """(B, L, KV·G, D) -> (B·KV, G·L, D), rows ordered (g, l)."""
+    b, l, h, d = t.shape
+    return (t.reshape(b, l, kv, h // kv, d).permute(0, 2, 3, 1, 4)
+            .reshape(b * kv, (h // kv) * l, d))
+
+
+def _ungrouped(t: torch.Tensor, b: int, l: int, kv: int) -> torch.Tensor:
+    """(B·KV, G·L, D) -> (B, L, KV·G, D), the inverse of ``_grouped``."""
+    d = t.shape[-1]
+    g = t.shape[1] // l
+    return (t.reshape(b, kv, g, l, d).permute(0, 3, 1, 2, 4)
+            .reshape(b, l, kv * g, d))
+
+
+def _kv_chunks(t: torch.Tensor, chunk: int) -> torch.Tensor:
+    """(B, Lk, KV, D) -> (NC, B·KV, chunk, D)."""
+    b, lk, kv, d = t.shape
+    return (t.reshape(b, lk // chunk, chunk, kv, d).permute(1, 0, 3, 2, 4)
+            .reshape(lk // chunk, b * kv, chunk, d))
+
+
+class _SdpaChunkedCausal(torch.autograd.Function):
+    """The reference's ``_sdpa_chunked_causal``: causal attention by an
+    online softmax over key chunks, q (B, L, H, D), k, v (B, L, KV, D)
+    with GQA.  The forward keeps (m, l, acc) per query row in fp32; the
+    backward recomputes each chunk's probabilities from the saved
+    log-sum-exp (flash-style) instead of holding O(L²) residuals.  Each
+    product has the reference's operand and output dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, chunk):
+        b, l, h, d = q.shape
+        kv = k.shape[2]
+        scale = 1.0 / math.sqrt(d)
+        qg = _grouped(q, kv)                              # (E, G·L, D)
+        rows = torch.arange(l, device=q.device).repeat(h // kv)
+        m = torch.full(qg.shape[:2], -1e30, device=q.device)
+        den = torch.zeros(qg.shape[:2], device=q.device)
+        acc = torch.zeros(qg.shape, device=q.device)
+        for ci, (kb, vb) in enumerate(zip(_kv_chunks(k, chunk),
+                                          _kv_chunks(v, chunk))):
+            s = _chunk_scores(qg, kb, rows, ci, scale)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            den = den * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + bmm_fp32(p.to(vb.dtype), vb)
+            m = m_new
+        out = _ungrouped(acc / den[..., None], b, l, kv).to(q.dtype)
+        lse = m + torch.log(den)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.chunk = chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        chunk = ctx.chunk
+        b, l, h, d = q.shape
+        kv = k.shape[2]
+        scale = 1.0 / math.sqrt(d)
+        qg = _grouped(q, kv)
+        og = _grouped(dout.float(), kv)
+        delta = (_grouped(out.float(), kv) * og).sum(-1)  # (E, G·L)
+        rows = torch.arange(l, device=q.device).repeat(h // kv)
+        dq = torch.zeros(qg.shape, device=q.device)
+        dks, dvs = [], []
+        for ci, (kb, vb) in enumerate(zip(_kv_chunks(k, chunk),
+                                          _kv_chunks(v, chunk))):
+            p = torch.exp(_chunk_scores(qg, kb, rows, ci, scale)
+                          - lse[..., None])
+            dvs.append(bmm_fp32(p.transpose(1, 2), og))
+            dp = bmm_fp32(og.to(vb.dtype), vb.transpose(1, 2))
+            ds = p * (dp - delta[..., None]) * scale
+            dq = dq + bmm_fp32(ds.to(kb.dtype), kb)
+            dks.append(bmm_fp32(ds.to(q.dtype).transpose(1, 2), qg))
+
+        def keys(parts, like):                 # (NC, E, chunk, D) -> k's
+            t = torch.stack(parts).reshape(l // chunk, b, kv, chunk, d)
+            return t.permute(1, 0, 3, 2, 4).reshape(b, l, kv, d).to(like.dtype)
+
+        return (_ungrouped(dq, b, l, kv).to(q.dtype), keys(dks, k),
+                keys(dvs, v), None)
+
+
 def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
               theta: float, qk_norm: bool = False, eps: float = 1e-6,
               mrope_sections: tuple[int, ...] = (),
               kv_override: tuple[torch.Tensor, torch.Tensor] | None = None,
-              causal: bool = True, window: int = 0, mode: str | None = None):
+              causal: bool = True, window: int = 0, mode: str | None = None,
+              chunk_threshold: int = CHUNKED_SDPA_THRESHOLD):
     """Full-sequence (prefill) attention through the flash kernel.  x:
     (B, L, d); positions: (B, L), or (3, B, L) with ``mrope_sections``.
     Returns (y (B, L, d), (k, v)): the keys and values (B, Lk, KV, D)
@@ -296,7 +454,10 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
     projection).  A causal self-attention with ``window`` > 0 keeps key k
     for query q where q - window < k <= q.  With ``kv_override`` = (k, v)
     it is cross-attention: only the queries are projected, and the mask is
-    all-true whatever ``causal`` and ``window`` say, as the reference's."""
+    all-true whatever ``causal`` and ``window`` say, as the reference's.
+    On the plain path (``mode="ref"``) a causal self-attention with no
+    window inside the sequence, Lq = Lk a multiple of ``SDPA_CHUNK`` and
+    Lq·Lk > ``chunk_threshold`` runs the reference's kv-chunked twin."""
     if kv_override is None:
         q, k, v = _project_qkv(p, x, positions, theta, qk_norm, eps,
                                mrope_sections)
@@ -304,6 +465,12 @@ def attention(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
     else:
         q = _project_q(p, x, positions, theta, qk_norm, eps, mrope_sections)
         (k, v), causal, window = kv_override, False, 0
+    lq, lk = q.shape[1], k.shape[1]
+    if (mode == "ref" and causal and kv_override is None
+            and (window == 0 or window >= lk) and lq == lk
+            and lq * lk > chunk_threshold and lk % SDPA_CHUNK == 0):
+        out = _SdpaChunkedCausal.apply(q, k, v, SDPA_CHUNK)
+        return _out_proj(p, out, x.dtype), (k, v)
     # (B, L, H, D) -> (B, H, L, D) views; the kernel reads them strided and
     # maps each query head to its KV head itself
     out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
@@ -420,7 +587,7 @@ def matmul_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     has no such GEMM, the fp32 product of the upcast operands is the same
     arithmetic: bf16 products are exact in fp32."""
     w = w.to(x.dtype)
-    if x.dtype == torch.float32 or not x.is_cuda:
+    if x.dtype == torch.float32 or x.device.type == "cpu":
         return torch.matmul(x.float(), w.float())
     out = _GemmF32.apply(x.reshape(-1, x.shape[-1]), w, torch.mm)
     return out.reshape(*x.shape[:-1], w.shape[-1])
@@ -431,16 +598,26 @@ def bmm_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     accumulated and returned in fp32 (``_GemmF32`` of ``torch.bmm`` on the
     card, the upcast operands on the CPU)."""
     w = w.to(x.dtype)
-    if x.dtype == torch.float32 or not x.is_cuda:
+    if x.dtype == torch.float32 or x.device.type == "cpu":
         return torch.bmm(x.float(), w.float())
     return _GemmF32.apply(x, w, torch.bmm)
 
 
+def matmul_acc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w with w in x's dtype, returned in ``pet()``: ``matmul_fp32``
+    under the default fp32; otherwise the product in x's dtype (one GEMM,
+    fp32 accumulation inside) cast to ``pet()``."""
+    if pet() == torch.float32:
+        return matmul_fp32(x, w)
+    return torch.matmul(x, w.to(x.dtype)).to(pet())
+
+
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: the gate and up products stay fp32 until silu(g)·u is
-    rounded to x's dtype, as in the reference."""
-    g = matmul_fp32(x, p["w_gate"])
-    u = matmul_fp32(x, p["w_up"])
+    """SwiGLU: the gate and up products stay in ``pet()`` (fp32 by
+    default) until silu(g)·u is rounded to x's dtype, as in the
+    reference."""
+    g = matmul_acc(x, p["w_gate"])
+    u = matmul_acc(x, p["w_up"])
     h = (torch.nn.functional.silu(g) * u).to(x.dtype)
     return torch.matmul(h, p["w_down"].to(x.dtype))
 
@@ -477,7 +654,9 @@ def fused_unembed_ce(emb: Params, h: torch.Tensor, labels: torch.Tensor,
 
     def chunk_sum(h_c: torch.Tensor, lab_c: torch.Tensor) -> torch.Tensor:
         rows = lab_c.numel()
-        return cross_entropy_loss(unembed(emb, h_c), lab_c, mode=mode) * rows
+        # fp32 logits whatever pet(), as the reference's fused loss
+        logits = matmul_fp32(h_c, emb["w"].t())
+        return cross_entropy_loss(logits, lab_c, mode=mode) * rows
 
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for j in range(0, l, chunk):

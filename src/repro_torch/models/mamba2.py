@@ -290,7 +290,8 @@ def _logits(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def forward(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     """Logits (B, S, V) fp32 of the whole sequence (S a multiple of
     ``ssm_chunk``)."""
-    h = L.embed(params["embedding"], batch["tokens"])
+    h = L.embed(params["embedding"], batch["tokens"],
+                onehot=cfg.embed_onehot)
     for i in range(cfg.n_layers):
         h = block_apply(layer(params["layers"], i), h, cfg)
     return _logits(params, h, cfg)
@@ -301,7 +302,8 @@ def loss_fn(params: Params, batch: dict, cfg: ModelConfig, *,
     """Mean token cross-entropy (0-d fp32), masked by ``batch["mask"]``
     where given.  ``mode`` is the loss kernels' (K4/K5); the SSD trains on
     its plain version whatever ``mode`` says."""
-    h = L.embed(params["embedding"], batch["tokens"])
+    h = L.embed(params["embedding"], batch["tokens"],
+                onehot=cfg.embed_onehot)
 
     def body(h: torch.Tensor, lp: Params) -> torch.Tensor:
         return block_apply(lp, h, cfg, mode="ref")
@@ -341,7 +343,8 @@ def prefill(params: Params, batch: dict, cfg: ModelConfig, max_len: int, *,
     """Run the prompt (a multiple of ``ssm_chunk`` tokens); return
     (last-position logits (B, 1, V) fp32, a fresh cache holding every
     layer's final SSM state and conv tail)."""
-    h = L.embed(params["embedding"], batch["tokens"])
+    h = L.embed(params["embedding"], batch["tokens"],
+                onehot=cfg.embed_onehot)
     bsz, s = batch["tokens"].shape
     cache = init_cache(cfg, bsz, max_len, h.device)
     for i in range(cfg.n_layers):

@@ -84,7 +84,8 @@ def attend(p: Params, h: torch.Tensor, positions: torch.Tensor,
     a, kv = L.attention(p["attn"], L.rms_norm(p["ln1"], h, cfg.norm_eps),
                         positions, theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
                         eps=cfg.norm_eps, mrope_sections=cfg.mrope_sections,
-                        causal=True, mode=mode)
+                        causal=True, mode=mode,
+                        chunk_threshold=cfg.attn_chunk_threshold)
     return h + a, kv
 
 
@@ -149,7 +150,8 @@ def _embed_in(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     stub), else the tokens' embeddings."""
     if "embeds" in batch:
         return batch["embeds"].to(getattr(torch, cfg.dtype))
-    return L.embed(params["embedding"], batch["tokens"])
+    return L.embed(params["embedding"], batch["tokens"],
+                   onehot=cfg.embed_onehot)
 
 
 def _positions_of(batch: dict, cfg: ModelConfig,

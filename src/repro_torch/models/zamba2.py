@@ -96,7 +96,8 @@ def shared_block_apply(p: Params, h: torch.Tensor, h0: torch.Tensor,
     x = _shared_in(p, h, h0)
     a, kv = L.attention(p["attn"], L.rms_norm(p["ln1"], x, cfg.norm_eps),
                         positions, theta=cfg.rope_theta, causal=True,
-                        window=cfg.attn_window, mode=mode)
+                        window=cfg.attn_window, mode=mode,
+                        chunk_threshold=cfg.attn_chunk_threshold)
     return _shared_out(p, h, x, a, cfg), kv
 
 
@@ -151,7 +152,8 @@ def _is_full(seg: int, cfg: ModelConfig) -> bool:
 
 def forward(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     """Logits (B, S, V) fp32 of the whole sequence."""
-    h = L.embed(params["embedding"], batch["tokens"])
+    h = L.embed(params["embedding"], batch["tokens"],
+                onehot=cfg.embed_onehot)
     h0 = h
     bsz, s = batch["tokens"].shape
     positions = _positions(bsz, s, h.device)
@@ -172,7 +174,8 @@ def loss_fn(params: Params, batch: dict, cfg: ModelConfig, *,
             mode: str | None = None) -> torch.Tensor:
     """Mean token cross-entropy (0-d fp32), masked by ``batch["mask"]``
     where given.  ``mode`` is the loss kernels' (K4/K5)."""
-    h = L.embed(params["embedding"], batch["tokens"])
+    h = L.embed(params["embedding"], batch["tokens"],
+                onehot=cfg.embed_onehot)
     h0 = h
     bsz, s = batch["tokens"].shape
     positions = _positions(bsz, s, h.device)
@@ -245,7 +248,8 @@ def prefill(params: Params, batch: dict, cfg: ModelConfig, max_len: int, *,
     decode after such a prompt restarts RoPE at ``attn_window``
     (ROADMAP.md, queue 3); for a prompt within the ring the two caches are
     the same."""
-    h = L.embed(params["embedding"], batch["tokens"])
+    h = L.embed(params["embedding"], batch["tokens"],
+                onehot=cfg.embed_onehot)
     h0 = h
     bsz, s = batch["tokens"].shape
     positions = _positions(bsz, s, h.device)
