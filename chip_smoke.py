@@ -13,8 +13,9 @@ and seamless-m4t-large-v2 (full width) and qwen2-vl-72b (full width, cut
 in depth) through their prefill and decode steps, granite-3-2b and
 Zamba2-1.2B trained at full width by the LM train step, Zamba2-1.2B
 served on a ring of 8 logical devices losing 2 under the Lemma-1
-autoscaler and prefilled past its attention window, and granite-3-2b
-trained by the LM training driver through a crash and a resume.  Phases, each
+autoscaler and prefilled past its attention window, granite-3-2b
+trained by the LM training driver through a crash and a resume, and NN1
+and NN5 trained in bf16.  Phases, each
 printing its own lines; any failure raises and the script exits non-zero
 without a result line:
 
@@ -259,6 +260,27 @@ without a result line:
               the dry-run does (lower where it predicts lower by > 10%,
               else within 10%: at full width AdamW's fp32 temporaries of
               the largest leaf set both)
+
+ 23. bf16     the FCNN in bf16 (``fcnn.init(dtype=torch.bfloat16)``): K1,
+              K2 and K3 in case (a) (bf16 data, bf16 network), (b) (fp32
+              data, bf16 network: fp32 activations against bf16 weights)
+              and (d) (bf16 data, fp32 network) against their plain
+              versions at NN1's layers (batch 64), NN5's (batch 128) and
+              the ragged (7, 13, 5), (3, 20, 10), (32, 500, 10) and (100,
+              64, 64) with every activation; outputs in the reference's
+              dtypes, bf16 ones element-wise within 2^-7·|plain| + 1e-4
+              of the largest and norm-wise within 2^-7, fp32 ones within
+              1e-4 of the largest; K1 and K2 repeated bit-identical; at
+              NN1's and NN5's layers every (split, slice) of K1 and K2 and
+              every tile of K3 held to the plain version, and in case (a)
+              timed beside the plain version, the bf16 library call and
+              the bound; then NN1, 300 Adam steps at batch 64 through
+              ``train_fcnn.train_step`` in cases (a) and (b): accuracy >
+              0.8, launches per step equal to the fp32 path's, no plain
+              version reached (counted), ms/step and a profiled window;
+              NN5 in case (a), 5 steps, kernel path against plain path
+              from the same weights: losses within 2e-2 relative, step
+              1's gradient leaves within 5e-2 of their norms
 
 The last three lines are a JSON object of per-kernel numbers, the card's
 name and power limit as nvidia-smi reports them, and the result object.
@@ -3397,6 +3419,362 @@ def dryrun_phase(torch, dev, predictor, out_dir: str) -> None:
     check(not failed, f"{len(failed)} phase 22 holds failed: {failed}")
 
 
+# -------------------------------------------------------------- phase 23
+
+# the dtypes of (x, w and b) in each case of phase 23; dy and y take x's
+# ("c", fp32 throughout, is phases 3-6; its launches are the bar of (a)
+# and (b))
+BF16_CASES = {"a": ("bfloat16", "bfloat16"), "b": ("float32", "bfloat16"),
+              "d": ("bfloat16", "float32")}
+# the reference's ragged test shapes, an even width under 16 bytes of bf16,
+# NN1's output layer at a short batch and a batch that is not a multiple
+# of 64
+BF16_RAGGED = ((7, 13, 5), (3, 20, 10), (32, 500, 10), (100, 64, 64))
+# a bf16 output element-wise within one bf16 ulp of its plain version plus
+# 1e-4 of its largest |plain| (the fp32 sums run in another order and can
+# flip one rounding; a sum that cancels near 0 rounds at another scale),
+# and as a whole within BF16_ULP·||plain||; fp32 outputs at GEMM_RTOL
+BF16_GEMM_SLACK = 1e-4
+# NN5 in bf16, kernel path against plain path from the same weights: the
+# bf16 training bars of PERF.md §2 (port vs JAX reference, LM loss)
+NN5_BF16_LOSS_RTOL = 2e-2
+NN5_BF16_GRAD_RTOL = 5e-2
+PLAIN_FNS = ("fcnn_layer_ref", "fcnn_layer_dgrad_ref", "fcnn_layer_wgrad_ref",
+             "softmax_xent_fwd_ref", "softmax_xent_dlogits_ref")
+
+
+def gemm_close(torch, out, want) -> tuple[bool, float, str]:
+    """(ok, max abs error, the bar and the margin) of one K1-K3 output
+    against its plain version: fp32 within GEMM_RTOL of the largest; bf16
+    element-wise BF16_ULP·|plain| + BF16_GEMM_SLACK·max|plain| and
+    norm-wise BF16_ULP."""
+    check(out.dtype == want.dtype and out.shape == want.shape,
+          f"output {out.dtype} {tuple(out.shape)} against the plain "
+          f"version's {want.dtype} {tuple(want.shape)}")
+    a, r = errors(out, want)
+    if out.dtype != torch.bfloat16:
+        return r <= GEMM_RTOL, a, f"fp32 rel {r:.2e}<={GEMM_RTOL:g}"
+    o, w = out.double(), want.double()
+    bar = (BF16_ULP * w.abs() + BF16_GEMM_SLACK * w.abs().max()).clamp_min(
+        2.2250738585072014e-308)
+    worst = ((o - w).abs() / bar).max().item()
+    norm = ((o - w).norm() / w.norm().clamp_min(1e-300)).item()
+    return (worst <= 1 and norm <= BF16_ULP, a,
+            f"bf16 |d|<=2^-7|ref|+{BF16_GEMM_SLACK:g}max at {worst:.3f} of "
+            f"it, ||d||/||ref|| {norm:.2e}<=2^-7")
+
+
+def bf16_layer(torch, dev, gen, case: str, m: int, k: int, n: int,
+               act: str) -> dict:
+    """One layer's inputs in ``case``'s dtypes, y its plain forward, and
+    each kernel's call, plain version, library call (where timed), forced
+    call at a host-plan choice and work (``kernels.cost``)."""
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import cost as kcost
+    from repro_torch.kernels.fcnn_layer import (act_code, fcnn_layer,
+                                                fcnn_layer_dgrad,
+                                                fcnn_layer_wgrad)
+    xd, wd = (getattr(torch, d) for d in BF16_CASES[case])
+    ext = _build.extension()
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    x, w = rand(m, k).to(xd), rand(k, n, scale=k ** -0.5).to(wd)
+    b, dy = rand(n, scale=0.1).to(wd), rand(m, n, scale=0.01).to(xd)
+    y = ref.fcnn_layer_ref(x, w, b, act)
+    dz = (ref.act_deriv_from_output(y.float(), act) * dy.float()).to(xd)
+    lib_act = {"sigmoid": torch.sigmoid, "relu": torch.relu,
+               "tanh": torch.tanh, "none": lambda z: z}[act]
+    code = act_code(act)
+    xs, ws = x.element_size(), w.element_size()
+
+    def fwd_forced(split, slice_):
+        out = torch.empty(m, n, device=dev, dtype=xd)
+        ext.fcnn_fwd(x, w, b, out, code, split, slice_)
+        return out
+
+    def dgrad_forced(split, slice_):
+        dx = torch.empty(m, k, device=dev, dtype=xd)
+        ext.fcnn_dgrad(dy, y, w, dx, code, split, slice_)
+        return dx
+
+    def wgrad_forced(rows, cols):
+        dw = torch.empty(k, n, device=dev, dtype=xd)
+        db = torch.empty(n, device=dev, dtype=xd)
+        ext.fcnn_wgrad(x, dy, y, dw, db, code, rows, cols)
+        return dw, db
+
+    # the library calls in the working type: bf16 GEMMs on cuBLAS
+    return {
+        "fcnn_layer": (lambda: fcnn_layer(x, w, b, act),
+                       lambda: ref.fcnn_layer_ref(x, w, b, act),
+                       lambda: lib_act(torch.addmm(b.to(xd), x, w.to(xd))),
+                       fwd_forced, kcost.fcnn_fwd(m, k, n, xs, ws)),
+        "fcnn_layer_dgrad": (lambda: fcnn_layer_dgrad(dy, y, w, act),
+                             lambda: ref.fcnn_layer_dgrad_ref(dy, y, w, act),
+                             lambda: dz @ w.to(xd).T, dgrad_forced,
+                             kcost.fcnn_dgrad(m, k, n, xs, ws)),
+        "fcnn_layer_wgrad": (lambda: fcnn_layer_wgrad(x, dy, y, act),
+                             lambda: ref.fcnn_layer_wgrad_ref(x, dy, y, act),
+                             lambda: (x.T @ dz, dz.sum(0)), wgrad_forced,
+                             kcost.fcnn_wgrad(m, k, n, xs, xs)),
+    }
+
+
+def bf16_outputs_close(torch, out, want) -> tuple[bool, float, str]:
+    """gemm_close over the outputs of a call (a tensor or K3's pair)."""
+    outs = out if isinstance(out, tuple) else (out,)
+    wants = want if isinstance(want, tuple) else (want,)
+    ok, worst, notes = True, 0.0, []
+    for o, w in zip(outs, wants):
+        good, a, note = gemm_close(torch, o, w)
+        ok, worst = ok and good, max(worst, a)
+        notes.append(note)
+    return ok, worst, "; ".join(notes)
+
+
+def run_bf16_kernels(torch, dev) -> dict:
+    """Phase 23's kernel checks: K1-K3 in cases (a), (b) and (d) at NN1's
+    layers (batch 64), NN5's (batch 128) and BF16_RAGGED, each against its
+    plain version; K1 and K2 repeated bit-identical; at NN1's and NN5's
+    layers every (split, slice) of K1 and K2 and every tile of K3, each
+    held to the plain version and, in case (a), timed.  Returns case (a)'s
+    per-kernel sums over one NN1 step's calls (phase 3's summary keys) and
+    the worst error of every bf16 and mixed call."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    names = ("fcnn_layer", "fcnn_layer_dgrad", "fcnn_layer_wgrad")
+    summary = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                      "library_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
+                      "ops_ms": 0.0, "shapes": []} for name in names}
+    shapes = []
+    for tag, sizes, batch in (("NN1", NN1, 64), ("NN5", NN5, 128)):
+        last = len(sizes) - 2
+        for i, (k, n) in enumerate(zip(sizes[:-1], sizes[1:])):
+            shapes.append((f"{tag} L{i + 1}", batch, k, n,
+                           "sigmoid" if i < last else "none", True,
+                           tag == "NN1"))
+    for m, k, n in BF16_RAGGED:
+        for act in ACTS:
+            shapes.append(("edge", m, k, n, act, False, False))
+    for case in sorted(BF16_CASES):
+        for tag, m, k, n, act, swept, nn1 in shapes:
+            label = f"({case}) {tag} {m}x{k}x{n} {act}"
+            calls = bf16_layer(torch, dev, gen, case, m, k, n, act)
+            for name in names:
+                kern, plain, lib, forced, work = calls[name]
+                out, want = kern(), plain()
+                torch.cuda.synchronize()
+                ok, worst, note = bf16_outputs_close(torch, out, want)
+                extra = ""
+                if name != "fcnn_layer_wgrad":
+                    same = torch.equal(out, kern())
+                    extra = f" repeat {'bit-identical' if same else 'DIFFERS'}"
+                    ok = ok and same
+                s = summary[name]
+                s["max_abs_err"] = max(s["max_abs_err"], worst)
+                line = f"{name:17s} {label:34s} {note}{extra}"
+                timed = swept and case == "a"
+                on_step = nn1 and (name != "fcnn_layer_dgrad" or
+                                   not tag.endswith("L1"))
+                if timed:
+                    ms, plain_ms, lib_ms = (device_ms(kern), device_ms(plain),
+                                            device_ms(lib))
+                    b_ms, b_by = bound(work)
+                    line += (f" | device ms: kernel {ms:.5f} plain "
+                             f"{plain_ms:.5f} library {lib_ms:.5f} bound "
+                             f"{b_ms:.7f} ({b_by})"
+                             f"{' [NN1 step]' if on_step else ''}")
+                    if on_step:
+                        s["ms"] += ms
+                        s["plain_ms"] += plain_ms
+                        s["library_ms"] += lib_ms
+                        s["bound_ms"] += b_ms
+                        ops_s, bytes_s = work.seconds(h100())
+                        s["bytes_ms"] += bytes_s * 1e3
+                        s["ops_ms"] += ops_s * 1e3
+                        s["shapes"].append(label)
+                print(f"{line} {'ok' if ok else 'FAIL'}", flush=True)
+                check(ok, f"{name} {label} disagrees with its plain version")
+                if swept:
+                    times = {}
+                    for choice in CHOICES[name]:
+                        got = forced(*choice)
+                        torch.cuda.synchronize()
+                        good, err, _ = bf16_outputs_close(torch, got, want)
+                        check(good, f"{name} {label} at {choice}: error "
+                                    f"{err:.3e}")
+                        if timed:
+                            times[choice] = device_ms(
+                                lambda c=choice: forced(*c))
+                    if timed:
+                        sep = "x" if name == "fcnn_layer_wgrad" else "/"
+                        best = min(times, key=times.get)
+                        print("    sweep device ms: " + " ".join(
+                            f"{sep.join(map(str, c))} {t:.5f}"
+                            for c, t in times.items())
+                            + f" | fastest {sep.join(map(str, best))}",
+                            flush=True)
+                    else:
+                        print(f"    every {SWEEP_KIND[name]} choice held to "
+                              f"the plain version", flush=True)
+    for name in names:
+        s = summary[name]
+        print(f"NN1 bf16 step (a), {name}: kernel {s['ms']:.5f} ms, library "
+              f"{s['library_ms']:.5f} ms, plain {s['plain_ms']:.5f} ms, bound "
+              f"{s['bound_ms']:.7f} ms over {len(s['shapes'])} calls")
+    return summary
+
+
+class PlainSpy:
+    """Counts calls of the plain versions of K1-K5 (``kernels.ref``, which
+    the wrappers reach through the module) while active: on the card a
+    bf16 or mixed call must never reach one."""
+
+    def __init__(self):
+        self.calls = dict.fromkeys(PLAIN_FNS, 0)
+
+    def __enter__(self):
+        from repro_torch.kernels import ref
+
+        self._saved = {name: getattr(ref, name) for name in PLAIN_FNS}
+        for name, fn in self._saved.items():
+            def counted(*a, _fn=fn, _name=name, **kw):
+                self.calls[_name] += 1
+                return _fn(*a, **kw)
+            setattr(ref, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ref
+
+        for name, fn in self._saved.items():
+            setattr(ref, name, fn)
+
+
+def bf16_train_parts(torch, dev, sizes, batch: int, case: str, seed: int = 0):
+    """(params, Adam, its state, batches, step counter) of ``sizes`` with
+    weights in the case's w dtype (``fcnn.init(dtype=)``: the fp32 draw
+    rounded once) and the dataset's x in its x dtype (cast once, on the
+    card); ``case`` "c" is fp32 throughout."""
+    from repro_torch.launch.train_fcnn import (FULL_RUN_STEPS, LR,
+                                               synthetic_batches)
+    from repro_torch.models import fcnn
+    from repro_torch.optim import adam, linear_warmup_cosine
+
+    xd, wd = (getattr(torch, d) for d in
+              BF16_CASES.get(case, ("float32", "float32")))
+    params = fcnn.init(sizes, torch.Generator().manual_seed(seed), dev,
+                       dtype=wd)
+    opt = adam(linear_warmup_cosine(LR, 20, FULL_RUN_STEPS))
+    batches = synthetic_batches(sizes, 4096, batch, dev)
+    batches.data["x"] = batches.data["x"].to(xd)
+    return params, opt, opt.init(params), batches, torch.zeros((), device=dev)
+
+
+def bf16_nn1_run(torch, dev, case: str, steps: int) -> dict:
+    """``steps`` Adam steps of NN1 at batch 64 through
+    ``train_fcnn.train_step`` in ``case``: host ms/step, the launches per
+    step (counters reset just before, read just after), the plain versions
+    reached (none may be), the losses and the final train accuracy."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train_fcnn import train_step
+    from repro_torch.models import fcnn
+
+    params, opt, state, batches, step_t = bf16_train_parts(
+        torch, dev, NN1, 64, case)
+    torch.cuda.synchronize()
+    with PlainSpy() as spy:
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        losses = [train_step(params, opt, state, next(batches), step_t)
+                  for _ in range(steps)]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        launches = ops.launch_counts()
+        acc = float(fcnn.accuracy(params, batches.data["x"],
+                                  batches.data["y"]))
+    return {"ms": ms, "launches": launches, "plain_calls": spy.calls,
+            "losses": torch.stack(losses).float().cpu().tolist(),
+            "accuracy": acc, "params": params, "parts": (opt, state, batches,
+                                                         step_t)}
+
+
+def run_bf16_nn5(torch, dev) -> None:
+    """NN5 at batch 128 in case (a), 5 steps, the kernel path against the
+    plain path from the same weights: losses within NN5_BF16_LOSS_RTOL,
+    step 1's gradient leaves within NN5_BF16_GRAD_RTOL of their norms."""
+    from repro_torch.launch.train_fcnn import train_step
+    from repro_torch.models import fcnn
+
+    runs = {}
+    for mode in (None, "ref"):
+        params, opt, state, batches, step_t = bf16_train_parts(
+            torch, dev, NN5, 128, "a")
+        first = next(batches)
+        batches.step -= 1   # step 1 trains on it
+        with PlainSpy() as spy:
+            grads = torch.autograd.grad(
+                fcnn.loss_fn(params, first, kernel_mode=mode),
+                fcnn.parameters(params))
+            losses = [train_step(params, opt, state, next(batches), step_t,
+                                 kernel_mode=mode).float().item()
+                      for _ in range(5)]
+        if mode is None:
+            check(not any(spy.calls.values()), f"NN5 bf16 kernel path "
+                  f"reached a plain version on the card: {spy.calls}")
+        runs[mode] = (losses, grads)
+    (k_loss, k_grads), (p_loss, p_grads) = runs[None], runs["ref"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(k_loss, p_loss)]
+    dists = [((a.float() - b.float()).norm() / b.float().norm()).item()
+             for a, b in zip(k_grads, p_grads)]
+    print("NN5 bf16 (a) kernel losses " + " ".join(f"{v:.6f}" for v in k_loss))
+    print("NN5 bf16 (a) plain  losses " + " ".join(f"{v:.6f}" for v in p_loss))
+    print(f"NN5 bf16 (a) loss rel " + " ".join(f"{v:.3e}" for v in rel)
+          + f" (<= {NN5_BF16_LOSS_RTOL:g}); step 1 gradient leaves "
+          + " ".join(f"{d:.3e}" for d in dists)
+          + f" of their norms (<= {NN5_BF16_GRAD_RTOL:g})")
+    check(max(rel) <= NN5_BF16_LOSS_RTOL, "NN5 bf16 kernel and plain losses "
+          "disagree")
+    check(max(dists) <= NN5_BF16_GRAD_RTOL, "NN5 bf16 kernel and plain "
+          "gradients disagree")
+
+
+def bf16_path_phase(torch, dev, smi: str) -> dict:
+    """Phase 23 (see the module docstring); returns case (a)'s kernel sums
+    (``run_bf16_kernels``) and its launches over the 300-step run."""
+    from repro_torch.launch.train_fcnn import FULL_RUN_STEPS, train_step
+
+    summary = run_bf16_kernels(torch, dev)
+    fp32 = bf16_nn1_run(torch, dev, "c", 5)
+    per_step = {k: v / 5 for k, v in fp32["launches"].items()}
+    print(f"fp32 NN1 path (c), launches per step: {per_step}")
+    out = {}
+    for case in ("a", "b"):
+        run = bf16_nn1_run(torch, dev, case, FULL_RUN_STEPS)
+        got = {k: v / FULL_RUN_STEPS for k, v in run["launches"].items()}
+        print(f"NN1 bf16 case ({case}), {FULL_RUN_STEPS} steps: loss "
+              + " ".join(f"{v:.4f}" for v in run["losses"][::50])
+              + f" ... {run['losses'][-1]:.4f}; final train accuracy "
+              f"{run['accuracy']:.4f}; {run['ms']:.4f} ms/step host; "
+              f"launches per step {got}; plain versions reached "
+              f"{run['plain_calls']} on {smi}")
+        check(run["accuracy"] > 0.8, f"NN1 bf16 case ({case}) failed to "
+              f"learn (accuracy <= 0.8)")
+        check(got == per_step, f"NN1 bf16 case ({case}) launches {got} "
+              f"differ from the fp32 path's {per_step}")
+        check(not any(run["plain_calls"].values()),
+              f"NN1 bf16 case ({case}) reached a plain version on the card")
+        params = run["params"]
+        opt, state, batches, step_t = run["parts"]
+        print(f"case ({case}), where a step's time goes:")
+        profile_steps(torch, lambda: train_step(params, opt, state,
+                                                next(batches), step_t))
+        out[case] = run["launches"]
+    run_bf16_nn5(torch, dev)
+    return {"summary": summary, "launches": out["a"]}
+
+
 # -------------------------------------------------------------- phase 10
 
 RING = 8    # logical devices of the executor's ring
@@ -3784,7 +4162,7 @@ def main() -> int:
 
 
 def run_phases(torch, dev, smi: str, predictor) -> int:
-    """Phases 2-22 and the last three lines; ``predictor`` is phase 22's
+    """Phases 2-23 and the last three lines; ``predictor`` is phase 22's
     dry-run process, started by ``main`` after phase 1."""
     phase(2, "build")
     from repro_torch.kernels import ops
@@ -3851,12 +4229,25 @@ def run_phases(torch, dev, smi: str, predictor) -> int:
               "cells earlier phases run and the knobs at 4096 tokens) held "
               "to one step of each on the card")
     dryrun_phase(torch, dev, predictor, PREDICT_DIR)
+    phase(23, "the FCNN in bf16: K1-K3 in cases (a), (b) and (d) against "
+              "their plain versions; NN1 300 steps in (a) and (b); NN5 "
+              "kernel path against plain path")
+    bf16 = bf16_path_phase(torch, dev, smi)
 
     kernels = []
     for name in FCNN_KERNELS:
         source, replaces = KERNEL_INFO[name]
         s = summary[name]
         extra = {}
+        if name in bf16["summary"]:
+            b16 = bf16["summary"][name]
+            extra["bf16"] = {
+                "launches": bf16["launches"][name], "ms": b16["ms"],
+                "plain_ms": b16["plain_ms"], "bound_ms": b16["bound_ms"],
+                "bound_by": "bytes" if b16["bytes_ms"] >= b16["ops_ms"]
+                else "operations", "library_ms": b16["library_ms"],
+                "max_abs_err": b16["max_abs_err"], "shapes": b16["shapes"],
+                "per": "sum over one NN1 training step in bf16, case (a)"}
         if name in XENT_KERNELS:
             ms, plain_ms, lib_ms, b_ms = s["rows"][LM_XENT_LABEL]
             extra["paths"] = {f"{TRAIN_ARCH} train": {
@@ -3918,7 +4309,10 @@ def run_phases(torch, dev, smi: str, predictor) -> int:
           "(phase 3) and their launches in phase 18's granite-3-2b steps "
           "and phase 21's driver runs (b) and (c); phases 19 and 20's "
           "launches under K6/K7's \"paths\"; K6's sliding-window cases of "
-          "phase 7 under \"windowed\"")
+          "phase 7 under \"windowed\"; K1-K3 in bf16 (case (a): bf16 data, "
+          "bf16 network) under \"bf16\", summed over the [NN1 step] lines of "
+          "phase 23, launches from its 300-step run, max_abs_err over "
+          "cases (a), (b) and (d)")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

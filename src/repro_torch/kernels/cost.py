@@ -6,10 +6,17 @@ functions.
 
 Operations count a product's multiply-add as 2 and each element-wise step
 as 1; where the work depends on the inputs (causal or windowed attention)
-only the (query, key) pairs kept are counted.  ``"float32"`` operations
-run on the CUDA cores, ``"bfloat16"`` ones on the tensor cores: K1–K5 do
-fp32 arithmetic whatever their inputs, K6 and K7 run on the tensor cores
-for bf16 inputs.
+only the (query, key) pairs kept are counted.  Operations are keyed by
+the type the product runs in, which sets the peak they are priced at:
+``"float32"`` at the CUDA cores' rate, ``"bfloat16"`` at the tensor
+cores'.  A product of two bf16 operands is a bf16 one (K1 with bf16 x
+and w; K6 and K7 with bf16 inputs), so its bound is the least the card
+could take, on its tensor cores, though K1 runs it on the CUDA cores in
+fp32; a product with an fp32 operand runs in fp32 (the reference
+promotes a mixed pair exactly; K2's and K3's dZ is always fp32).
+Element-wise steps (bias, activation, A'(Y)) and K4/K5 are fp32.  Bytes
+count each operand at its element size: K1–K3 take a 4 or 2 for each
+operand group, an output in the dtype the kernel gives it.
 
 A kernel wrapper handed meta tensors (the dry-run) returns empty outputs
 of the kernel's shapes and reports its launch and ``Cost`` to every
@@ -74,22 +81,41 @@ def kept_pairs(s: int, window: int) -> int:
     return window * (window + 1) // 2 + (s - window) * window
 
 
-def fcnn_fwd(m: int, k: int, n: int) -> Cost:
-    """K1, act(x @ w + b): x (M, K), w (K, N), b (N,) -> (M, N), fp32."""
-    return Cost({"float32": 2 * m * k * n + 2 * m * n},
-                4 * (m * k + k * n + n + m * n))
+def _product(*element_sizes: int) -> str:
+    """The type a product of operands of these element sizes runs in."""
+    return "bfloat16" if all(e == 2 for e in element_sizes) else "float32"
 
 
-def fcnn_dgrad(m: int, k: int, n: int) -> Cost:
-    """K2, (dY ⊙ A'(Y)) Wᵀ: dy, y (M, N), w (K, N) -> (M, K), fp32."""
-    return Cost({"float32": 2 * m * n * k + 2 * m * n},
-                4 * (2 * m * n + k * n + m * k))
+def _ops(product: str, products: int, elementwise: int) -> dict[str, float]:
+    """Operations by type: the product's and the fp32 element-wise steps."""
+    ops = {product: products}
+    ops["float32"] = ops.get("float32", 0) + elementwise
+    return ops
 
 
-def fcnn_wgrad(m: int, k: int, n: int) -> Cost:
-    """K3, (Xᵀ dZ, Σ dZ): x (M, K), dy, y (M, N) -> (K, N), (N,), fp32."""
-    return Cost({"float32": 2 * m * k * n + 3 * m * n},
-                4 * (m * k + 2 * m * n + k * n + n))
+def fcnn_fwd(m: int, k: int, n: int, x_size: int = 4,
+             w_size: int = 4) -> Cost:
+    """K1, act(x @ w + b): x (M, K), w (K, N), b (N,) -> (M, N) in x's
+    type; element sizes ``x_size`` of x and the output, ``w_size`` of w
+    and b."""
+    return Cost(_ops(_product(x_size, w_size), 2 * m * k * n, 2 * m * n),
+                x_size * (m * k + m * n) + w_size * (k * n + n))
+
+
+def fcnn_dgrad(m: int, k: int, n: int, dy_size: int = 4,
+               w_size: int = 4) -> Cost:
+    """K2, (dY ⊙ A'(Y)) Wᵀ: dy, y (M, N), w (K, N) -> (M, K) in dy's type;
+    the product is fp32 (dZ is fp32) whatever the types."""
+    return Cost(_ops("float32", 2 * m * n * k, 2 * m * n),
+                dy_size * (2 * m * n + m * k) + w_size * k * n)
+
+
+def fcnn_wgrad(m: int, k: int, n: int, x_size: int = 4,
+               dy_size: int = 4) -> Cost:
+    """K3, (Xᵀ dZ, Σ dZ): x (M, K), dy, y (M, N) -> (K, N) in x's type, (N,)
+    in dy's; the product is fp32 (dZ is fp32) whatever the types."""
+    return Cost(_ops("float32", 2 * m * k * n, 3 * m * n),
+                x_size * (m * k + k * n) + dy_size * (2 * m * n + n))
 
 
 def xent_fwd(b: int, c: int, element_size: int) -> Cost:

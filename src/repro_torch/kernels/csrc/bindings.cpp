@@ -12,16 +12,16 @@
 #include <c10/cuda/CUDAStream.h>
 #include <cuda_runtime.h>
 
-cudaError_t launch_fcnn_fwd(const float* x, const float* w, const float* b,
-                            float* out, int M, int K, int N, int act, int split,
-                            int slice, cudaStream_t s);
-cudaError_t launch_fcnn_dgrad(const float* dy, const float* y, const float* w,
-                              float* dx, int M, int K, int N, int act, int split,
-                              int slice, cudaStream_t s);
-cudaError_t launch_fcnn_wgrad(const float* x, const float* dy, const float* y,
-                              float* dw, float* db, int M, int K, int N,
-                              int act, int tile_rows, int tile_cols,
-                              cudaStream_t s);
+cudaError_t launch_fcnn_fwd(const void* x, const void* w, const void* b,
+                            void* out, int M, int K, int N, int act, int split,
+                            int slice, int x_bf16, int w_bf16, cudaStream_t s);
+cudaError_t launch_fcnn_dgrad(const void* dy, const void* y, const void* w,
+                              void* dx, int M, int K, int N, int act, int split,
+                              int slice, int dy_bf16, int w_bf16, cudaStream_t s);
+cudaError_t launch_fcnn_wgrad(const void* x, const void* dy, const void* y,
+                              void* dw, void* db, int M, int K, int N, int act,
+                              int tile_rows, int tile_cols, int x_bf16,
+                              int dy_bf16, cudaStream_t s);
 cudaError_t launch_xent_fwd(const void* logits, const int* labels, float* nll,
                             float* lse, float* mean, int B, int C, int bf16,
                             int warps_per_row, int vec, cudaStream_t s);
@@ -53,40 +53,71 @@ cudaStream_t stream_of(const torch::Tensor& t) {
 
 float* f32(const torch::Tensor& t) { return t.data_ptr<float>(); }
 
-// x (M, K), w (K, N), b (N,) -> out (M, N); the contraction split over
-// ``split`` blocks of a cluster, in slices of ``slice``
+// 1 for a bf16 tensor, 0 for fp32: the FCNN kernels take either
+int bf16_flag(const torch::Tensor& t, const char* kernel, const char* name) {
+  TORCH_CHECK(t.scalar_type() == at::kFloat || t.scalar_type() == at::kBFloat16,
+              kernel, ": ", name, " must be float32 or bfloat16");
+  return t.scalar_type() == at::kBFloat16;
+}
+
+// `t` in the type of `like`: the operands a kernel reads or writes as one
+void same_type(const torch::Tensor& t, const torch::Tensor& like,
+               const char* kernel, const char* name, const char* like_name) {
+  TORCH_CHECK(t.scalar_type() == like.scalar_type(), kernel, ": ", name,
+              " must have ", like_name, "'s dtype");
+}
+
+// x (M, K), w (K, N), b (N,) -> out (M, N), out in x's dtype and b in w's;
+// the contraction split over ``split`` blocks of a cluster, in slices of
+// ``slice``
 void fcnn_fwd(const torch::Tensor& x, const torch::Tensor& w,
               const torch::Tensor& b, torch::Tensor out, int64_t act,
               int64_t split, int64_t slice) {
+  const char* k = "fcnn_layer";
+  const int xb = bf16_flag(x, k, "x"), wb = bf16_flag(w, k, "w");
+  same_type(b, w, k, "b", "w");
+  same_type(out, x, k, "out", "x");
   const c10::cuda::CUDAGuard guard(x.device());
-  check_launch(launch_fcnn_fwd(f32(x), f32(w), f32(b), f32(out), x.size(0),
-                               x.size(1), w.size(1), act, split, slice,
-                               stream_of(x)),
-               "fcnn_layer");
+  check_launch(launch_fcnn_fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                               out.data_ptr(), x.size(0), x.size(1), w.size(1),
+                               act, split, slice, xb, wb, stream_of(x)),
+               k);
 }
 
-// dy, y (M, N), w (K, N) -> dx (M, K); the contraction split over
-// ``split`` blocks of a cluster, in slices of ``slice``
+// dy, y (M, N), w (K, N) -> dx (M, K), y and dx in dy's dtype; the
+// contraction split over ``split`` blocks of a cluster, in slices of
+// ``slice``
 void fcnn_dgrad(const torch::Tensor& dy, const torch::Tensor& y,
                 const torch::Tensor& w, torch::Tensor dx, int64_t act,
                 int64_t split, int64_t slice) {
+  const char* k = "fcnn_layer_dgrad";
+  const int db = bf16_flag(dy, k, "dy"), wb = bf16_flag(w, k, "w");
+  same_type(y, dy, k, "y", "dy");
+  same_type(dx, dy, k, "dx", "dy");
   const c10::cuda::CUDAGuard guard(dy.device());
-  check_launch(launch_fcnn_dgrad(f32(dy), f32(y), f32(w), f32(dx), dy.size(0),
-                                 w.size(0), dy.size(1), act, split, slice,
+  check_launch(launch_fcnn_dgrad(dy.data_ptr(), y.data_ptr(), w.data_ptr(),
+                                 dx.data_ptr(), dy.size(0), w.size(0),
+                                 dy.size(1), act, split, slice, db, wb,
                                  stream_of(dy)),
-               "fcnn_layer_dgrad");
+               k);
 }
 
-// x (M, K), dy, y (M, N) -> dw (K, N), db (N,); dW in tiles of
-// ``tile_rows`` x ``tile_cols``
+// x (M, K), dy, y (M, N) -> dw (K, N) in x's dtype, db (N,) in dy's; dW in
+// tiles of ``tile_rows`` x ``tile_cols``
 void fcnn_wgrad(const torch::Tensor& x, const torch::Tensor& dy,
                 const torch::Tensor& y, torch::Tensor dw, torch::Tensor db,
                 int64_t act, int64_t tile_rows, int64_t tile_cols) {
+  const char* k = "fcnn_layer_wgrad";
+  const int xb = bf16_flag(x, k, "x"), dyb = bf16_flag(dy, k, "dy");
+  same_type(y, dy, k, "y", "dy");
+  same_type(dw, x, k, "dw", "x");
+  same_type(db, dy, k, "db", "dy");
   const c10::cuda::CUDAGuard guard(x.device());
-  check_launch(launch_fcnn_wgrad(f32(x), f32(dy), f32(y), f32(dw), f32(db),
-                                 x.size(0), x.size(1), dy.size(1), act,
-                                 tile_rows, tile_cols, stream_of(x)),
-               "fcnn_layer_wgrad");
+  check_launch(launch_fcnn_wgrad(x.data_ptr(), dy.data_ptr(), y.data_ptr(),
+                                 dw.data_ptr(), db.data_ptr(), x.size(0),
+                                 x.size(1), dy.size(1), act, tile_rows,
+                                 tile_cols, xb, dyb, stream_of(x)),
+               k);
 }
 
 // logits (B, C) fp32 or bf16, labels (B,) int32 -> nll, lse (B,), mean (0-d);

@@ -10,15 +10,25 @@ contraction over the blocks of a thread-block cluster as ``fwd_plan`` and
 ``csrc/fcnn_wgrad.cu``, whose contraction is the batch; ``wgrad_plan``
 picks the height of its dW tiles.
 
-Each wrapper checks dtype (fp32 only), shape and contiguity, then picks
-by the tensors' device: on CUDA it allocates the outputs, launches the
-kernel on the current stream and adds one to its ``launches`` counter;
-on the CPU it runs the plain version from ``ref.py``; on the meta device
-(the dry-run) it returns the empty outputs and reports the launch and its
-``cost`` to the active recorders (``cost.report``), leaving ``launches``
-to the card.  There is no other path: a CUDA tensor never reaches the
-plain version, and a failed build or launch raises.  A size beyond what
-a kernel indexes raises ``KernelLimitError`` on every device.
+Each wrapper checks dtype, shape and contiguity, then picks by the
+tensors' device: on CUDA it allocates the outputs, launches the kernel on
+the current stream and adds one to its ``launches`` counter; on the CPU it
+runs the plain version from ``ref.py``; on the meta device (the dry-run)
+it returns the empty outputs and reports the launch and its ``cost`` to
+the active recorders (``cost.report``), leaving ``launches`` to the card.
+There is no other path: a CUDA tensor never reaches the plain version,
+and a failed build or launch raises.  A size beyond what a kernel indexes
+raises ``KernelLimitError`` on every device.
+
+Dtypes follow the reference's kernels.  Each operand group is fp32 or
+bf16 on its own: K1's x, and its (w, b); K2's (dy, y), and its w; K3's x,
+and its (dy, y).  The outputs take the reference's dtypes: K1's y x's,
+K2's dX dy's, K3's dW x's and db dy's.  The kernels read every operand in
+its own dtype (no wrapper upcasts one), accumulate in fp32 and round a
+bf16 output once.  The four (x, w) cases the FCNN reaches are (a) bf16
+data in a bf16 network, (b) fp32 data in a bf16 network (every layer's
+activations fp32 against bf16 weights), (c) fp32 throughout and (d) bf16
+data in an fp32 network.
 """
 
 from __future__ import annotations
@@ -49,6 +59,8 @@ class KernelLimitError(ValueError):
 # largest split; how many blocks the grid may hold (four to an SM for K1,
 # whose 41.5 KB ring leaves room for them; two for K2, whose 69 KB ring
 # ran slower at three); the fewest contraction slices a block may get.
+# A bf16 operand keeps the tiles and the plans: it halves its part of the
+# ring, which only leaves more room for the blocks the limits allow.
 SPLITK_TILE = (64, 32)
 FWD_LIMITS = (16, 4 * 132, 1)
 DGRAD_LIMITS = (8, 2 * 132, 2)
@@ -86,7 +98,8 @@ def dgrad_plan(m: int, k: int, n: int) -> tuple[int, int]:
 
 # csrc/fcnn_wgrad.cu: dW tiles (rows, columns), the largest first; a tile
 # is taken where its grid keeps at least three in four of the H100's 132
-# SMs busy (chip_smoke.py phase 3's sweep of the three)
+# SMs busy (chip_smoke.py phase 3's sweep of the three); bf16 operands take
+# the same tiles
 WGRAD_TILES = ((128, 128), (128, 64), (64, 64))
 WGRAD_MIN_BLOCKS = 3 * 132 // 4
 
@@ -121,12 +134,19 @@ def device_type(kernel: str, *tensors: torch.Tensor) -> str:
     return dev.type
 
 
+FLOAT_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def check_arg(kernel: str, name: str, t: torch.Tensor, shape: tuple,
-              dtype: torch.dtype = torch.float32) -> None:
-    """Raise unless ``t`` has this shape and dtype and is contiguous,
-    with every size in 1..2**31-1 (the kernels index with 32-bit ints)."""
-    if t.dtype != dtype:
-        raise TypeError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
+              dtype: torch.dtype | tuple[torch.dtype, ...] = torch.float32
+              ) -> None:
+    """Raise unless ``t`` has this shape and dtype (one of them, for a
+    tuple) and is contiguous, with every size in 1..2**31-1 (the kernels
+    index with 32-bit ints)."""
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes:
+        raise TypeError(f"{kernel}: {name} must be "
+                        f"{' or '.join(map(str, dtypes))}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
@@ -146,19 +166,21 @@ def _matrix(kernel: str, name: str, t: torch.Tensor) -> tuple[int, int]:
 
 def fcnn_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                activation: str = "sigmoid") -> torch.Tensor:
-    """act(x @ w + b).  x: (M, K); w: (K, N); b: (N,) -> (M, N) fp32."""
+    """act(x @ w + b).  x: (M, K); w: (K, N); b: (N,) in w's dtype -> (M,
+    N) in x's dtype."""
     act = act_code(activation)
     m, k = _matrix("fcnn_layer", "x", x)
     n = _matrix("fcnn_layer", "w", w)[1]
-    check_arg("fcnn_layer", "x", x, (m, k))
-    check_arg("fcnn_layer", "w", w, (k, n))
-    check_arg("fcnn_layer", "b", b, (n,))
+    check_arg("fcnn_layer", "x", x, (m, k), FLOAT_DTYPES)
+    check_arg("fcnn_layer", "w", w, (k, n), FLOAT_DTYPES)
+    check_arg("fcnn_layer", "b", b, (n,), w.dtype)
     dev = device_type("fcnn_layer", x, w, b)
     if dev == "cpu":
         return _ref.fcnn_layer_ref(x, w, b, activation)
-    out = torch.empty((m, n), device=x.device, dtype=torch.float32)
+    out = torch.empty((m, n), device=x.device, dtype=x.dtype)
     if dev == "meta":
-        cost.report("fcnn_layer", cost.fcnn_fwd(m, k, n))
+        cost.report("fcnn_layer", cost.fcnn_fwd(m, k, n, x.element_size(),
+                                                w.element_size()))
         return out
     _build.extension().fcnn_fwd(x, w, b, out, act, *fwd_plan(m, k, n))
     fcnn_layer.launches += 1
@@ -167,19 +189,21 @@ def fcnn_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def fcnn_layer_dgrad(dy: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                      activation: str = "sigmoid") -> torch.Tensor:
-    """dX = (dY ⊙ A'(Y)) @ Wᵀ.  dy, y: (M, N); w: (K, N) -> (M, K) fp32."""
+    """dX = (dY ⊙ A'(Y)) @ Wᵀ.  dy, y: (M, N), y in dy's dtype; w: (K, N)
+    -> (M, K) in dy's dtype."""
     act = act_code(activation)
     m, n = _matrix("fcnn_layer_dgrad", "dy", dy)
     k = _matrix("fcnn_layer_dgrad", "w", w)[0]
-    check_arg("fcnn_layer_dgrad", "dy", dy, (m, n))
-    check_arg("fcnn_layer_dgrad", "y", y, (m, n))
-    check_arg("fcnn_layer_dgrad", "w", w, (k, n))
+    check_arg("fcnn_layer_dgrad", "dy", dy, (m, n), FLOAT_DTYPES)
+    check_arg("fcnn_layer_dgrad", "y", y, (m, n), dy.dtype)
+    check_arg("fcnn_layer_dgrad", "w", w, (k, n), FLOAT_DTYPES)
     dev = device_type("fcnn_layer_dgrad", dy, y, w)
     if dev == "cpu":
         return _ref.fcnn_layer_dgrad_ref(dy, y, w, activation)
-    dx = torch.empty((m, k), device=dy.device, dtype=torch.float32)
+    dx = torch.empty((m, k), device=dy.device, dtype=dy.dtype)
     if dev == "meta":
-        cost.report("fcnn_layer_dgrad", cost.fcnn_dgrad(m, k, n))
+        cost.report("fcnn_layer_dgrad", cost.fcnn_dgrad(
+            m, k, n, dy.element_size(), w.element_size()))
         return dx
     _build.extension().fcnn_dgrad(dy, y, w, dx, act, *dgrad_plan(m, k, n))
     fcnn_layer_dgrad.launches += 1
@@ -190,20 +214,22 @@ def fcnn_layer_wgrad(x: torch.Tensor, dy: torch.Tensor, y: torch.Tensor,
                      activation: str = "sigmoid"
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dW, db) = (Xᵀ @ dZ, Σ_rows dZ) with dZ = dY ⊙ A'(Y).
-    x: (M, K); dy, y: (M, N) -> ((K, N), (N,)) fp32."""
+    x: (M, K); dy, y: (M, N), y in dy's dtype -> ((K, N) in x's dtype, (N,)
+    in dy's)."""
     act = act_code(activation)
     m, k = _matrix("fcnn_layer_wgrad", "x", x)
     n = _matrix("fcnn_layer_wgrad", "dy", dy)[1]
-    check_arg("fcnn_layer_wgrad", "x", x, (m, k))
-    check_arg("fcnn_layer_wgrad", "dy", dy, (m, n))
-    check_arg("fcnn_layer_wgrad", "y", y, (m, n))
+    check_arg("fcnn_layer_wgrad", "x", x, (m, k), FLOAT_DTYPES)
+    check_arg("fcnn_layer_wgrad", "dy", dy, (m, n), FLOAT_DTYPES)
+    check_arg("fcnn_layer_wgrad", "y", y, (m, n), dy.dtype)
     dev = device_type("fcnn_layer_wgrad", x, dy, y)
     if dev == "cpu":
         return _ref.fcnn_layer_wgrad_ref(x, dy, y, activation)
-    dw = torch.empty((k, n), device=x.device, dtype=torch.float32)
-    db = torch.empty((n,), device=x.device, dtype=torch.float32)
+    dw = torch.empty((k, n), device=x.device, dtype=x.dtype)
+    db = torch.empty((n,), device=x.device, dtype=dy.dtype)
     if dev == "meta":
-        cost.report("fcnn_layer_wgrad", cost.fcnn_wgrad(m, k, n))
+        cost.report("fcnn_layer_wgrad", cost.fcnn_wgrad(
+            m, k, n, x.element_size(), dy.element_size()))
         return dw, db
     _build.extension().fcnn_wgrad(x, dy, y, dw, db, act, *wgrad_plan(k, n))
     fcnn_layer_wgrad.launches += 1

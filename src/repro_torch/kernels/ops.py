@@ -18,7 +18,11 @@ No mode falls back to another: a failed build or launch raises.
 
 Autograd wiring (counterpart of the reference's ``jax.custom_vjp``s):
 ``_FusedFCNN`` saves ``(x, w, b, y)`` — b only for the db dtype, never a
-pre-activation — and its backward runs the dgrad and wgrad kernels;
+pre-activation — and its backward runs the dgrad and wgrad kernels, then
+casts dX, dW and db to the dtypes of x, w and b as the reference's VJP
+does (the kernels give dX in dy's dtype, dW in x's and db in dy's: in a
+bf16 network fed fp32 data, dW leaves K3 in fp32 and is rounded to bf16
+here, as in the reference);
 ``_FusedXent`` returns K4's batch mean as the loss, saves ``(logits,
 labels, lse)`` and hands the loss cotangent ``g`` to the dlogits kernel,
 which forms g/B itself: no PyTorch operation runs around the two

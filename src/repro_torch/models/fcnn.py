@@ -10,6 +10,12 @@ periods goes through ``kernels.ops``: the fused ``fcnn_layer`` forward
 with its dgrad/wgrad backward, and the fused ``softmax_xent`` output
 period.  ``kernel_mode`` threads through ``loss_fn`` and ``accuracy``
 alike so evaluation takes the training path.
+
+Parameters are fp32 or bf16 (``init``'s ``dtype``, or the reference's
+tree as it comes), and the data fp32 or bf16; as in the reference, every
+dtype follows the tensors: a layer's output takes its input's dtype, so
+fp32 data through a bf16 network keeps fp32 activations against bf16
+weights, and each gradient takes its parameter's dtype.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.models import tree as _tree
 
 Params = dict[str, Any]
 
@@ -29,30 +36,45 @@ __all__ = ["init", "params_from_numpy", "params_to_numpy", "parameters",
 
 
 def init(layer_sizes: Sequence[int], generator: torch.Generator,
-         device: torch.device | str) -> Params:
-    """layer_sizes = [n_0, ..., n_l]; w ~ N(0, 1)/√n_in, b = 0, fp32.
+         device: torch.device | str, dtype: torch.dtype = torch.float32
+         ) -> Params:
+    """layer_sizes = [n_0, ..., n_l]; w ~ N(0, 1)/√n_in, b = 0.
 
-    Draws on ``generator`` (a CPU generator, so a seed gives the same
-    weights on every device) and moves the result to ``device``.  The
-    tensors require grad."""
+    Draws in fp32 on ``generator`` (a CPU generator, so a seed gives the
+    same weights on every device), rounds once to ``dtype`` (as the
+    reference's ``init(key, sizes, dtype)`` does) and moves the result to
+    ``device``.  The tensors require grad."""
     layers = []
     for n_in, n_out in zip(layer_sizes[:-1], layer_sizes[1:]):
         w = torch.randn((n_in, n_out), generator=generator) / math.sqrt(n_in)
-        layers.append({"w": w, "b": torch.zeros(n_out)})
+        layers.append({"w": w.to(dtype), "b": torch.zeros(n_out, dtype=dtype)})
     return _as_leaves({"layers": layers}, device)
 
 
 def params_from_numpy(tree: dict, device: torch.device | str = "cpu") -> Params:
     """The reference's ``{"layers": [{"w", "b"}, ...]}`` pytree, given as
-    numpy arrays, as the port's parameters on ``device``."""
-    layers = [{"w": torch.from_numpy(np.array(lp["w"], np.float32)),
-               "b": torch.from_numpy(np.array(lp["b"], np.float32))}
+    numpy arrays (``jax.tree.map(np.asarray, params)``), as the port's
+    parameters on ``device``, each leaf in its own dtype: bfloat16 leaves
+    (ml_dtypes arrays) arrive as ``torch.bfloat16``, exactly, as
+    ``models.tree.params_from_numpy`` carries them."""
+    layers = [{k: _tree.tensor_from_numpy(lp[k], "cpu") for k in ("w", "b")}
               for lp in tree["layers"]]
     return _as_leaves({"layers": layers}, device)
 
 
 def params_to_numpy(params: Params) -> dict:
-    return {"layers": [{k: v.detach().cpu().numpy() for k, v in lp.items()}
+    """The parameters as the reference's tree would give them as numpy:
+    fp32 leaves as float32 arrays, bf16 ones as ``ml_dtypes.bfloat16``
+    arrays (the type ``np.asarray`` gives a bf16 jax array; ml_dtypes is
+    imported only for such a leaf)."""
+    def leaf(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes
+
+            return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        return t.numpy()
+    return {"layers": [{k: leaf(v) for k, v in lp.items()}
                        for lp in params["layers"]]}
 
 

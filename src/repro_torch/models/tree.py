@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 __all__ = ["tree_map", "layer", "unstack", "init_stacked",
-           "params_from_numpy"]
+           "tensor_from_numpy", "params_from_numpy"]
 
 Params = dict[str, Any]
 
@@ -67,15 +67,20 @@ def init_stacked(n_layers: int, init_one: Callable[[], Params]) -> Params:
     return stacked
 
 
+def tensor_from_numpy(a, device: torch.device | str) -> torch.Tensor:
+    """One numpy leaf of the reference's tree (e.g. from ``np.asarray`` of
+    a jax array) as a tensor on ``device`` in its own dtype: bfloat16
+    leaves arrive as ml_dtypes arrays and are converted exactly through
+    fp32."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
 def params_from_numpy(tree: Params, device: torch.device | str) -> Params:
     """The reference's parameter pytree (numpy leaves, e.g. from
     ``jax.tree.map(np.asarray, params)``) as the port's tensors on
-    ``device``: the same nesting, dtypes kept (bfloat16 leaves arrive as
-    ml_dtypes arrays and are converted exactly through fp32)."""
-    def leaf(a) -> torch.Tensor:
-        a = np.asarray(a)
-        if a.dtype.name == "bfloat16":
-            return torch.from_numpy(a.astype(np.float32)).to(
-                device=device, dtype=torch.bfloat16)
-        return torch.from_numpy(np.array(a)).to(device)
-    return tree_map(leaf, tree)
+    ``device``: the same nesting, dtypes kept (``tensor_from_numpy``)."""
+    return tree_map(lambda a: tensor_from_numpy(a, device), tree)

@@ -406,6 +406,168 @@ def test_fused_ops_launch_the_kernels_on_card(cuda):
     _assert_rel(gb, gb_r, 1e-4)
 
 
+# ---- K1-K3 in bf16 and mixed: chip_smoke.py phase 23's cases ----------
+# (x dtype, w and b dtype); dy and y take x's.  Bars: chip_smoke's
+# gemm_close (a bf16 output element-wise within 2^-7·|plain| + 1e-4 of the
+# largest and norm-wise within 2^-7; an fp32 one within 1e-4 of the
+# largest).  NN1's and NN5's layers and the ragged shapes: bf16 rows of
+# 500 and 10 elements (not 16-byte multiples) take 4-byte pairs, of 13 and
+# 5 (odd) guarded 2-byte loads.
+
+BF16_CASES = {"a": (torch.bfloat16, torch.bfloat16),
+              "b": (torch.float32, torch.bfloat16),
+              "d": (torch.bfloat16, torch.float32)}
+BF16_SHAPES = [(64, 784, 1000), (64, 1000, 500), (64, 500, 10),
+               (128, 1024, 4000), (128, 4000, 1000), (128, 1000, 4000),
+               (128, 4000, 10), (7, 13, 5), (3, 20, 10), (32, 500, 10),
+               (100, 64, 64)]
+
+
+def _bf16_layer(rng, m, k, n, case, act, dev):
+    xd, wd = BF16_CASES[case]
+    x = _rand(rng, (m, k), dev).to(xd)
+    w = _rand(rng, (k, n), dev, k ** -0.5).to(wd)
+    b = _rand(rng, (n,), dev, 0.1).to(wd)
+    dy = _rand(rng, (m, n), dev, 0.01).to(xd)
+    return x, w, b, dy, ref.fcnn_layer_ref(x, w, b, act)
+
+
+def _assert_gemm(out, want):
+    ok, err, note = SMOKE.gemm_close(torch, out, want)
+    assert ok, (err, note)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", BF16_SHAPES)
+@pytest.mark.parametrize("case", sorted(BF16_CASES))
+@pytest.mark.parametrize("act", ACTS)
+def test_fcnn_kernels_bf16_match_plain_on_card(cuda, m, k, n, case, act):
+    rng = np.random.default_rng(11)
+    x, w, b, dy, y = _bf16_layer(rng, m, k, n, case, act, cuda)
+    before = ops.launch_counts()
+    out = (fcnn_layer(x, w, b, act), fcnn_layer_dgrad(dy, y, w, act),
+           *fcnn_layer_wgrad(x, dy, y, act))
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    for name in ("fcnn_layer", "fcnn_layer_dgrad", "fcnn_layer_wgrad"):
+        assert after[name] == before[name] + 1
+    want = (ref.fcnn_layer_ref(x, w, b, act),
+            ref.fcnn_layer_dgrad_ref(dy, y, w, act),
+            *ref.fcnn_layer_wgrad_ref(x, dy, y, act))
+    assert [o.dtype for o in out] == [x.dtype, dy.dtype, x.dtype, dy.dtype]
+    for o, r in zip(out, want):
+        _assert_gemm(o, r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(64, 784, 1000), (64, 1000, 500),
+                                   (64, 500, 10), (1, 783, 37),
+                                   (13, 50, 10), (128, 4000, 10)])
+@pytest.mark.parametrize("case", sorted(BF16_CASES))
+def test_fcnn_bf16_every_plan_on_card(cuda, m, k, n, case):
+    """Every (split, slice) of K1 and K2 and every dW tile of K3, as phase
+    3 sweeps them in fp32, in bf16 and mixed."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fcnn_layer import WGRAD_TILES, act_code
+
+    rng = np.random.default_rng(12)
+    x, w, b, dy, y = _bf16_layer(rng, m, k, n, case, "sigmoid", cuda)
+    ext, act = _build.extension(), act_code("sigmoid")
+    y_r = ref.fcnn_layer_ref(x, w, b, "sigmoid")
+    dx_r = ref.fcnn_layer_dgrad_ref(dy, y, w, "sigmoid")
+    dw_r, db_r = ref.fcnn_layer_wgrad_ref(x, dy, y, "sigmoid")
+    for split in (1, 2, 4, 8, 16):
+        for slice_ in (16, 32):
+            out = torch.empty(m, n, device=cuda, dtype=x.dtype)
+            ext.fcnn_fwd(x, w, b, out, act, split, slice_)
+            _assert_gemm(out, y_r)
+            if split <= 8:
+                dx = torch.empty(m, k, device=cuda, dtype=dy.dtype)
+                ext.fcnn_dgrad(dy, y, w, dx, act, split, slice_)
+                _assert_gemm(dx, dx_r)
+    for rows, cols in WGRAD_TILES:
+        dw = torch.empty(k, n, device=cuda, dtype=x.dtype)
+        db = torch.empty(n, device=cuda, dtype=dy.dtype)
+        ext.fcnn_wgrad(x, dy, y, dw, db, act, rows, cols)
+        _assert_gemm(dw, dw_r)
+        _assert_gemm(db, db_r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(64, 1000, 500), (128, 4000, 1000)])
+@pytest.mark.parametrize("case", sorted(BF16_CASES))
+def test_fcnn_fwd_dgrad_bf16_are_deterministic_on_card(cuda, m, k, n, case):
+    """The split partials are summed in rank order and rounded once after:
+    repeated bf16 and mixed calls give bit-identical outputs."""
+    rng = np.random.default_rng(13)
+    x, w, b, dy, y = _bf16_layer(rng, m, k, n, case, "sigmoid", cuda)
+    first = fcnn_layer(x, w, b, "sigmoid")
+    dx = fcnn_layer_dgrad(dy, y, w, "sigmoid")
+    for _ in range(3):
+        assert torch.equal(fcnn_layer(x, w, b, "sigmoid"), first)
+        assert torch.equal(fcnn_layer_dgrad(dy, y, w, "sigmoid"), dx)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(64, 784, 1000), (64, 500, 10),
+                                   (7, 13, 5), (300, 50, 1000)])
+@pytest.mark.parametrize("x_dtype,dy_dtype", [
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
+def test_fcnn_wgrad_mixed_groups_on_card(cuda, m, k, n, x_dtype, dy_dtype):
+    """K3 with x and (dy, y) in different dtypes (off the FCNN's path, taken
+    by the wrapper) at every dW tile: dW in x's dtype, db in dy's."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fcnn_layer import WGRAD_TILES, act_code
+
+    rng = np.random.default_rng(15)
+    x = _rand(rng, (m, k), cuda).to(x_dtype)
+    y = torch.sigmoid(_rand(rng, (m, n), cuda)).to(dy_dtype)
+    dy = _rand(rng, (m, n), cuda, 0.01).to(dy_dtype)
+    dw_r, db_r = ref.fcnn_layer_wgrad_ref(x, dy, y, "sigmoid")
+    dw, db = fcnn_layer_wgrad(x, dy, y, "sigmoid")
+    _assert_gemm(dw, dw_r)
+    _assert_gemm(db, db_r)
+    for rows, cols in WGRAD_TILES:
+        dw = torch.empty(k, n, device=cuda, dtype=x_dtype)
+        db = torch.empty(n, device=cuda, dtype=dy_dtype)
+        _build.extension().fcnn_wgrad(x, dy, y, dw, db, act_code("sigmoid"),
+                                      rows, cols)
+        _assert_gemm(dw, dw_r)
+        _assert_gemm(db, db_r)
+
+
+@pytest.mark.gpu
+def test_fused_fcnn_mixed_launches_the_kernels_on_card(cuda):
+    """Case (b), fp32 data into a bf16 layer: ``_FusedFCNN`` launches K1,
+    K2 and K3 and never reaches a plain version; dX is fp32 (x's), dW and
+    db bf16 (w's and b's, K3's fp32 dW rounded in the backward)."""
+    rng = np.random.default_rng(14)
+    x = _rand(rng, (64, 1000), cuda).requires_grad_(True)
+    w = _rand(rng, (1000, 500), cuda, 1000 ** -0.5).to(
+        torch.bfloat16).requires_grad_(True)
+    b = _rand(rng, (500,), cuda, 0.1).to(torch.bfloat16).requires_grad_(True)
+    with SMOKE.PlainSpy() as spy:
+        ops.reset_launches()
+        y = ops.fcnn_layer(x, w, b, "sigmoid", mode="cuda")
+        gx, gw, gb = torch.autograd.grad(y.sum(), [x, w, b])
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    assert not any(spy.calls.values()), spy.calls
+    assert (counts["fcnn_layer"], counts["fcnn_layer_dgrad"],
+            counts["fcnn_layer_wgrad"]) == (1, 1, 1)
+    assert (y.dtype, gx.dtype, gw.dtype, gb.dtype) == (
+        torch.float32, torch.float32, torch.bfloat16, torch.bfloat16)
+    y_r = ops.fcnn_layer(x, w, b, "sigmoid", mode="ref")
+    gx_r = torch.autograd.grad(y_r.sum(), [x])[0]
+    dy = torch.ones_like(y_r)
+    dw_r, db_r = ref.fcnn_layer_wgrad_ref(x.detach(), dy, y_r.detach(),
+                                          "sigmoid")
+    _assert_gemm(y, y_r)
+    _assert_gemm(gx, gx_r)
+    _assert_gemm(gw, dw_r.to(torch.bfloat16))
+    _assert_gemm(gb, db_r.to(torch.bfloat16))
+
+
 # ---- LM prefill kernels: flash attention (K6), SSD chunk (K7) ----------
 # Tolerances: fp32 2e-5 (K6) and 1e-5 (K7) of the largest output.  A bf16
 # output is held element-wise to 2^-7 |plain| (one bf16 ulp: both sides
