@@ -3,7 +3,7 @@
 
   python3 chip_smoke.py
 
-Builds the seven CUDA kernels from ``src/repro_torch/kernels/csrc`` and
+Builds the CUDA kernels of K1-K7 from ``src/repro_torch/kernels/csrc`` and
 drives the port's main paths through their own entry points: the
 paper's NN1 (784-1000-500-10) trained with Adam, on one device and as a
 period program on an 8-device ring, that program again losing two of its
@@ -22,10 +22,11 @@ without a result line:
   1. device   a CUDA card is required; its name and power limit; TF32 off
   2. build    the extension, with ptxas's per-kernel resource report
               (registers, shared memory and spills of the redesigned
-              kernels, K1, K2, K3 and bf16 K6 and K7, whose spills must be
-              0) and the count of HGMMA, HMMA and FFMA instructions in each
-              kernel's SASS (cuobjdump); the bf16 K6 and K7 kernels must
-              emit HGMMA, and ptxas must not serialize their wgmma
+              kernels, K1, K2 (both kernels of each), K3 and bf16 K6 and
+              K7, whose spills must be 0) and the count of HGMMA, HMMA and
+              FFMA instructions in each kernel's SASS (cuobjdump); K1's
+              and K2's bf16-weight kernels and the bf16 K6 and K7 kernels
+              must emit HGMMA, and ptxas must not serialize their wgmma
   3. kernels  each FCNN kernel against its plain PyTorch version on the
               card, at the NN1 and NN5 shapes and at edge shapes, with
               times of the kernel, the plain version and one PyTorch
@@ -270,14 +271,22 @@ without a result line:
               64, 64) with every activation; outputs in the reference's
               dtypes, bf16 ones element-wise within 2^-7·|plain| + 1e-4
               of the largest and norm-wise within 2^-7, fp32 ones within
-              1e-4 of the largest; K1 and K2 repeated bit-identical; at
-              NN1's and NN5's layers every (split, slice) of K1 and K2 and
-              every tile of K3 held to the plain version, and in case (a)
-              timed beside the plain version, the bf16 library call and
-              the bound; then NN1, 300 Adam steps at batch 64 through
-              ``train_fcnn.train_step`` in cases (a) and (b): accuracy >
-              0.8, launches per step equal to the fp32 path's, no plain
-              version reached (counted), ms/step and a profiled window;
+              1e-4 of the largest; K1 and K2 repeated bit-identical; with
+              bf16 weights ((a), (b)) K1 and K2 run on the tensor cores
+              (wgmma; fp32 x and dZ split into bf16 hi + lo), with fp32
+              weights ((d)) on the CUDA cores; at every shape every plan
+              of both kernels ((width, split) of the tensor-core one,
+              (split, slice) of the CUDA-core one) and every tile of K3
+              held to the plain version and run twice bit-identical, and
+              at NN1's and NN5's layers in case (a) timed beside the plain
+              version, the library calls (K1: cuBLAS's bf16 addmm and the
+              act; K2: the fp32 product dZ·Wᵀ that computes its function,
+              and the bf16 one, which rounds dZ) and the bound; then NN1,
+              300 Adam steps at batch 64 through ``train_fcnn.train_step``
+              in cases (a) and (b): accuracy > 0.8, launches per step
+              equal to the fp32 path's, every K1 and K2 launch a
+              tensor-core one, no plain version reached (counted), ms/step
+              and a profiled window;
               NN5 in case (a), 5 steps, kernel path against plain path
               from the same weights: losses within 2e-2 relative, step
               1's gradient leaves within 5e-2 of their norms
@@ -330,6 +339,11 @@ KERNEL_INFO = {
                         "src/repro/kernels/flash_attention.py:72"),
     "ssd_chunk": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                   "src/repro/kernels/ssd_scan.py:60"),
+    # K1's and K2's kernels for bf16 weights, on the tensor cores (phase 23)
+    "fcnn_layer_tc": ("src/repro_torch/kernels/csrc/fcnn_fwd_tc.cu",
+                      "src/repro/kernels/fcnn_layer.py:142"),
+    "fcnn_layer_dgrad_tc": ("src/repro_torch/kernels/csrc/fcnn_dgrad_tc.cu",
+                            "src/repro/kernels/fcnn_layer.py:208"),
 }
 FCNN_KERNELS = tuple(KERNEL_INFO)[:5]
 XENT_KERNELS = ("softmax_xent_fwd", "softmax_xent_dlogits")
@@ -346,10 +360,13 @@ LM_KERNELS = ("flash_attention", "ssd_chunk")
 # the kernels this script holds to 0 spill bytes in ptxas's report, by a
 # substring of their mangled names
 NO_SPILL_KERNELS = ("fcnn_fwd_kernel", "dgrad_kernel", "fcnn_wgrad_kernel",
+                    "fcnn_fwd_tc_kernel", "fcnn_dgrad_tc_kernel",
                     "flash_fwd_wgmma_kernel", "ssd_chunk_wgmma_kernel")
-# the bf16 K6 and K7 kernels, which must run on the tensor cores (HGMMA in
-# their SASS) with no wgmma serialized by ptxas
-TC_KERNELS = ("flash_fwd_wgmma_kernel", "ssd_chunk_wgmma_kernel")
+# K1's and K2's bf16-weight kernels and the bf16 K6 and K7 kernels, which
+# must run on the tensor cores (HGMMA in their SASS) with no wgmma
+# serialized by ptxas
+TC_KERNELS = ("fcnn_fwd_tc_kernel", "fcnn_dgrad_tc_kernel",
+              "flash_fwd_wgmma_kernel", "ssd_chunk_wgmma_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -611,6 +628,8 @@ class Case(NamedTuple):
 
 # the plans each kernel with a host plan takes: (split, slice) of the
 # cluster split-K kernels, the dW tile (rows, columns) of K3
+# the cluster splits of K1's and K2's tensor-core kernels (phase 23)
+TC_SPLITS = (1, 2, 4, 8, 16)
 CHOICES = {
     "fcnn_layer": [(s, sl) for s in (1, 2, 4, 8, 16) for sl in (16, 32)],
     "fcnn_layer_dgrad": [(s, sl) for s in (1, 2, 4, 8) for sl in (16, 32)],
@@ -3464,11 +3483,26 @@ def gemm_close(torch, out, want) -> tuple[bool, float, str]:
             f"it, ||d||/||ref|| {norm:.2e}<=2^-7")
 
 
+def bf16_choices(name: str, case: str) -> list:
+    """Every plan a forced call of ``name`` takes in ``case``: where w is
+    bf16, K1's and K2's tensor-core kernel at each ("tc", width, split) it
+    is built for and then their CUDA-core kernel at each (split, slice) of
+    phase 3; K3 at each dW tile."""
+    from repro_torch.kernels.fcnn_layer import DGRAD_TC_WIDTHS, FWD_TC_WIDTHS
+
+    if name == "fcnn_layer_wgrad" or BF16_CASES[case][1] != "bfloat16":
+        return list(CHOICES[name])
+    widths = FWD_TC_WIDTHS if name == "fcnn_layer" else DGRAD_TC_WIDTHS
+    return [("tc", w, s) for w in widths for s in TC_SPLITS] + list(
+        CHOICES[name])
+
+
 def bf16_layer(torch, dev, gen, case: str, m: int, k: int, n: int,
                act: str) -> dict:
     """One layer's inputs in ``case``'s dtypes, y its plain forward, and
-    each kernel's call, plain version, library call (where timed), forced
-    call at a host-plan choice and work (``kernels.cost``)."""
+    each kernel's call, plain version, library calls (where timed), forced
+    call at a host-plan choice (``bf16_choices``) and work
+    (``kernels.cost``)."""
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import cost as kcost
     from repro_torch.kernels.fcnn_layer import (act_code, fcnn_layer,
@@ -3483,20 +3517,27 @@ def bf16_layer(torch, dev, gen, case: str, m: int, k: int, n: int,
     x, w = rand(m, k).to(xd), rand(k, n, scale=k ** -0.5).to(wd)
     b, dy = rand(n, scale=0.1).to(wd), rand(m, n, scale=0.01).to(xd)
     y = ref.fcnn_layer_ref(x, w, b, act)
-    dz = (ref.act_deriv_from_output(y.float(), act) * dy.float()).to(xd)
+    dz = ref.act_deriv_from_output(y.float(), act) * dy.float()
+    dz_x, w_f = dz.to(xd), w.float()
     lib_act = {"sigmoid": torch.sigmoid, "relu": torch.relu,
                "tanh": torch.tanh, "none": lambda z: z}[act]
     code = act_code(act)
     xs, ws = x.element_size(), w.element_size()
 
-    def fwd_forced(split, slice_):
+    def fwd_forced(*choice):
         out = torch.empty(m, n, device=dev, dtype=xd)
-        ext.fcnn_fwd(x, w, b, out, code, split, slice_)
+        if choice[0] == "tc":
+            ext.fcnn_fwd_tc(x, w, b, out, code, *choice[1:])
+        else:
+            ext.fcnn_fwd(x, w, b, out, code, *choice)
         return out
 
-    def dgrad_forced(split, slice_):
+    def dgrad_forced(*choice):
         dx = torch.empty(m, k, device=dev, dtype=xd)
-        ext.fcnn_dgrad(dy, y, w, dx, code, split, slice_)
+        if choice[0] == "tc":
+            ext.fcnn_dgrad_tc(dy, y, w, dx, code, *choice[1:])
+        else:
+            ext.fcnn_dgrad(dy, y, w, dx, code, *choice)
         return dx
 
     def wgrad_forced(rows, cols):
@@ -3505,20 +3546,24 @@ def bf16_layer(torch, dev, gen, case: str, m: int, k: int, n: int,
         ext.fcnn_wgrad(x, dy, y, dw, db, code, rows, cols)
         return dw, db
 
-    # the library calls in the working type: bf16 GEMMs on cuBLAS
+    # the library calls: K1's bf16 addmm and act on cuBLAS in the working
+    # type; K2's fp32 product of the fp32 dZ with W, the call that computes
+    # K2's function (TF32 off), and, second, the working type's, which in
+    # (a) rounds dZ to bf16 and so computes another function; K3's in the
+    # working type
     return {
         "fcnn_layer": (lambda: fcnn_layer(x, w, b, act),
                        lambda: ref.fcnn_layer_ref(x, w, b, act),
-                       lambda: lib_act(torch.addmm(b.to(xd), x, w.to(xd))),
+                       (lambda: lib_act(torch.addmm(b.to(xd), x, w.to(xd))),),
                        fwd_forced, kcost.fcnn_fwd(m, k, n, xs, ws)),
         "fcnn_layer_dgrad": (lambda: fcnn_layer_dgrad(dy, y, w, act),
                              lambda: ref.fcnn_layer_dgrad_ref(dy, y, w, act),
-                             lambda: dz @ w.to(xd).T, dgrad_forced,
-                             kcost.fcnn_dgrad(m, k, n, xs, ws)),
+                             (lambda: dz @ w_f.T, lambda: dz_x @ w.to(xd).T),
+                             dgrad_forced, kcost.fcnn_dgrad(m, k, n, xs, ws)),
         "fcnn_layer_wgrad": (lambda: fcnn_layer_wgrad(x, dy, y, act),
                              lambda: ref.fcnn_layer_wgrad_ref(x, dy, y, act),
-                             lambda: (x.T @ dz, dz.sum(0)), wgrad_forced,
-                             kcost.fcnn_wgrad(m, k, n, xs, xs)),
+                             (lambda: (x.T @ dz_x, dz_x.sum(0)),),
+                             wgrad_forced, kcost.fcnn_wgrad(m, k, n, xs, xs)),
     }
 
 
@@ -3534,35 +3579,60 @@ def bf16_outputs_close(torch, out, want) -> tuple[bool, float, str]:
     return ok, worst, "; ".join(notes)
 
 
+def bf16_summary_key(name: str, case: str) -> str:
+    """The kernel a call of ``name`` reaches in ``case``: K1's and K2's
+    tensor-core kernel ("<name>_tc") where w is bf16, else their CUDA-core
+    one; K3's one kernel."""
+    tc = name != "fcnn_layer_wgrad" and BF16_CASES[case][1] == "bfloat16"
+    return f"{name}_tc" if tc else name
+
+
+def _choice_label(name: str, choice) -> str:
+    """A plan of phase 23 in its sweep line: "tc width/split", "cc
+    split/slice" (K1's and K2's CUDA-core kernel), K3's "rowsxcols"."""
+    if choice[0] == "tc":
+        return f"tc {choice[1]}/{choice[2]}"
+    if name == "fcnn_layer_wgrad":
+        return "x".join(map(str, choice))
+    return "cc " + "/".join(map(str, choice))
+
+
 def run_bf16_kernels(torch, dev) -> dict:
     """Phase 23's kernel checks: K1-K3 in cases (a), (b) and (d) at NN1's
     layers (batch 64), NN5's (batch 128) and BF16_RAGGED, each against its
-    plain version; K1 and K2 repeated bit-identical; at NN1's and NN5's
-    layers every (split, slice) of K1 and K2 and every tile of K3, each
-    held to the plain version and, in case (a), timed.  Returns case (a)'s
-    per-kernel sums over one NN1 step's calls (phase 3's summary keys) and
-    the worst error of every bf16 and mixed call."""
+    plain version; K1 and K2 repeated bit-identical; at every shape each
+    plan of ``bf16_choices`` (K1's and K2's two kernels where w is bf16)
+    held to the plain version and, at NN1's and NN5's layers in case (a),
+    timed.  Returns, by the kernel each call reached
+    (``bf16_summary_key``), case (a)'s sums over one NN1 step's calls
+    (phase 3's summary keys, and "library_bf16_ms": K2's product in the
+    working type, which rounds dZ), its NN5 rows ("nn5": label -> kernel,
+    library, working-type library and bound ms) and the worst error of
+    every bf16 and mixed call."""
     gen = torch.Generator(device=dev).manual_seed(23)
     names = ("fcnn_layer", "fcnn_layer_dgrad", "fcnn_layer_wgrad")
-    summary = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                      "library_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
-                      "ops_ms": 0.0, "shapes": []} for name in names}
+    keys = ("fcnn_layer_tc", "fcnn_layer_dgrad_tc", *names)
+    summary = {key: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                     "library_ms": 0.0, "library_bf16_ms": 0.0,
+                     "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+                     "shapes": [], "nn5": {}} for key in keys}
     shapes = []
     for tag, sizes, batch in (("NN1", NN1, 64), ("NN5", NN5, 128)):
         last = len(sizes) - 2
         for i, (k, n) in enumerate(zip(sizes[:-1], sizes[1:])):
             shapes.append((f"{tag} L{i + 1}", batch, k, n,
                            "sigmoid" if i < last else "none", True,
-                           tag == "NN1"))
+                           tag))
     for m, k, n in BF16_RAGGED:
         for act in ACTS:
-            shapes.append(("edge", m, k, n, act, False, False))
+            shapes.append(("edge", m, k, n, act, False, None))
     for case in sorted(BF16_CASES):
-        for tag, m, k, n, act, swept, nn1 in shapes:
+        for tag, m, k, n, act, timed_shape, net in shapes:
             label = f"({case}) {tag} {m}x{k}x{n} {act}"
             calls = bf16_layer(torch, dev, gen, case, m, k, n, act)
             for name in names:
-                kern, plain, lib, forced, work = calls[name]
+                kern, plain, libs, forced, work = calls[name]
+                key = bf16_summary_key(name, case)
                 out, want = kern(), plain()
                 torch.cuda.synchronize()
                 ok, worst, note = bf16_outputs_close(torch, out, want)
@@ -3571,24 +3641,32 @@ def run_bf16_kernels(torch, dev) -> dict:
                     same = torch.equal(out, kern())
                     extra = f" repeat {'bit-identical' if same else 'DIFFERS'}"
                     ok = ok and same
-                s = summary[name]
+                s = summary[key]
                 s["max_abs_err"] = max(s["max_abs_err"], worst)
-                line = f"{name:17s} {label:34s} {note}{extra}"
-                timed = swept and case == "a"
-                on_step = nn1 and (name != "fcnn_layer_dgrad" or
-                                   not tag.endswith("L1"))
+                line = f"{key:20s} {label:34s} {note}{extra}"
+                timed = timed_shape and case == "a"
+                on_step = net == "NN1" and (name != "fcnn_layer_dgrad" or
+                                            not tag.endswith("L1"))
                 if timed:
-                    ms, plain_ms, lib_ms = (device_ms(kern), device_ms(plain),
-                                            device_ms(lib))
+                    ms, plain_ms = device_ms(kern), device_ms(plain)
+                    lib_ms = [device_ms(lib) for lib in libs]
                     b_ms, b_by = bound(work)
                     line += (f" | device ms: kernel {ms:.5f} plain "
-                             f"{plain_ms:.5f} library {lib_ms:.5f} bound "
-                             f"{b_ms:.7f} ({b_by})"
+                             f"{plain_ms:.5f} library {lib_ms[0]:.5f}"
+                             + (f" library in bf16 (rounds dZ) "
+                                f"{lib_ms[1]:.5f}" if len(libs) > 1 else "")
+                             + f" bound {b_ms:.7f} ({b_by})"
                              f"{' [NN1 step]' if on_step else ''}")
+                    if net == "NN5":
+                        s["nn5"][f"{tag} {m}x{k}x{n}"] = {
+                            "ms": ms, "library_ms": lib_ms[0],
+                            "library_bf16_ms": lib_ms[-1], "bound_ms": b_ms,
+                            "bound_by": b_by}
                     if on_step:
                         s["ms"] += ms
                         s["plain_ms"] += plain_ms
-                        s["library_ms"] += lib_ms
+                        s["library_ms"] += lib_ms[0]
+                        s["library_bf16_ms"] += lib_ms[-1]
                         s["bound_ms"] += b_ms
                         ops_s, bytes_s = work.seconds(h100())
                         s["bytes_ms"] += bytes_s * 1e3
@@ -3596,33 +3674,34 @@ def run_bf16_kernels(torch, dev) -> dict:
                         s["shapes"].append(label)
                 print(f"{line} {'ok' if ok else 'FAIL'}", flush=True)
                 check(ok, f"{name} {label} disagrees with its plain version")
-                if swept:
-                    times = {}
-                    for choice in CHOICES[name]:
-                        got = forced(*choice)
-                        torch.cuda.synchronize()
-                        good, err, _ = bf16_outputs_close(torch, got, want)
-                        check(good, f"{name} {label} at {choice}: error "
-                                    f"{err:.3e}")
-                        if timed:
-                            times[choice] = device_ms(
-                                lambda c=choice: forced(*c))
+                times = {}
+                choices = bf16_choices(name, case)
+                for choice in choices:
+                    got = forced(*choice)
+                    torch.cuda.synchronize()
+                    good, err, _ = bf16_outputs_close(torch, got, want)
+                    if good and name != "fcnn_layer_wgrad":
+                        good = torch.equal(got, forced(*choice))
+                    check(good, f"{name} {label} at {choice}: error {err:.3e} "
+                                f"or a repeat differs")
                     if timed:
-                        sep = "x" if name == "fcnn_layer_wgrad" else "/"
-                        best = min(times, key=times.get)
-                        print("    sweep device ms: " + " ".join(
-                            f"{sep.join(map(str, c))} {t:.5f}"
-                            for c, t in times.items())
-                            + f" | fastest {sep.join(map(str, best))}",
-                            flush=True)
-                    else:
-                        print(f"    every {SWEEP_KIND[name]} choice held to "
-                              f"the plain version", flush=True)
-    for name in names:
-        s = summary[name]
-        print(f"NN1 bf16 step (a), {name}: kernel {s['ms']:.5f} ms, library "
-              f"{s['library_ms']:.5f} ms, plain {s['plain_ms']:.5f} ms, bound "
-              f"{s['bound_ms']:.7f} ms over {len(s['shapes'])} calls")
+                        times[_choice_label(name, choice)] = device_ms(
+                            lambda c=choice: forced(*c))
+                if timed:
+                    best = sorted(times, key=times.get)[:3]
+                    print("    sweep device ms: " + " ".join(
+                        f"{c} {t:.5f}" for c, t in times.items())
+                        + " | fastest " + ", ".join(
+                            f"{c} {times[c]:.5f}" for c in best), flush=True)
+                else:
+                    print(f"    all {len(choices)} plans held to the plain "
+                          f"version, K1/K2 repeats bit-identical", flush=True)
+    for key in keys:
+        s = summary[key]
+        print(f"NN1 bf16 step (a), {key}: kernel {s['ms']:.5f} ms, library "
+              f"{s['library_ms']:.5f} ms (in bf16 {s['library_bf16_ms']:.5f}),"
+              f" plain {s['plain_ms']:.5f} ms, bound {s['bound_ms']:.7f} ms "
+              f"over {len(s['shapes'])} calls")
     return summary
 
 
@@ -3672,11 +3751,22 @@ def bf16_train_parts(torch, dev, sizes, batch: int, case: str, seed: int = 0):
     return params, opt, opt.init(params), batches, torch.zeros((), device=dev)
 
 
+def tc_launch_counts() -> dict[str, int]:
+    """The launches of K1's and K2's tensor-core kernels ("<name>_tc"),
+    which their wrappers' ``launches`` also count."""
+    from repro_torch.kernels import ops
+
+    return {f"{name}_tc": fn.tc_launches for name, fn in ops.KERNELS.items()
+            if hasattr(fn, "tc_launches")}
+
+
 def bf16_nn1_run(torch, dev, case: str, steps: int) -> dict:
     """``steps`` Adam steps of NN1 at batch 64 through
     ``train_fcnn.train_step`` in ``case``: host ms/step, the launches per
-    step (counters reset just before, read just after), the plain versions
-    reached (none may be), the losses and the final train accuracy."""
+    step (counters reset just before, read just after; K1's and K2's
+    tensor-core kernels also apart, ``tc_launch_counts``), the plain
+    versions reached (none may be), the losses and the final train
+    accuracy."""
     from repro_torch.kernels import ops
     from repro_torch.launch.train_fcnn import train_step
     from repro_torch.models import fcnn
@@ -3691,7 +3781,7 @@ def bf16_nn1_run(torch, dev, case: str, steps: int) -> dict:
                   for _ in range(steps)]
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3 / steps
-        launches = ops.launch_counts()
+        launches = {**ops.launch_counts(), **tc_launch_counts()}
         acc = float(fcnn.accuracy(params, batches.data["x"],
                                   batches.data["y"]))
     return {"ms": ms, "launches": launches, "plain_calls": spy.calls,
@@ -3747,18 +3837,27 @@ def bf16_path_phase(torch, dev, smi: str) -> dict:
 
     summary = run_bf16_kernels(torch, dev)
     fp32 = bf16_nn1_run(torch, dev, "c", 5)
+    tc_keys = tuple(tc_launch_counts())
     per_step = {k: v / 5 for k, v in fp32["launches"].items()}
     print(f"fp32 NN1 path (c), launches per step: {per_step}")
+    check(not any(per_step.pop(k) for k in tc_keys),
+          "the fp32 path reached a tensor-core kernel")
     out = {}
     for case in ("a", "b"):
         run = bf16_nn1_run(torch, dev, case, FULL_RUN_STEPS)
         got = {k: v / FULL_RUN_STEPS for k, v in run["launches"].items()}
+        # every K1 and K2 launch with bf16 weights is a tensor-core one
+        tc = {key: got.pop(key) for key in tc_keys}
+        for key, n in tc.items():
+            check(n == got[key[:-3]] > 0, f"NN1 bf16 case ({case}): {n} of "
+                  f"{got[key[:-3]]} {key[:-3]} launches a step on the tensor "
+                  f"cores")
         print(f"NN1 bf16 case ({case}), {FULL_RUN_STEPS} steps: loss "
               + " ".join(f"{v:.4f}" for v in run["losses"][::50])
               + f" ... {run['losses'][-1]:.4f}; final train accuracy "
               f"{run['accuracy']:.4f}; {run['ms']:.4f} ms/step host; "
-              f"launches per step {got}; plain versions reached "
-              f"{run['plain_calls']} on {smi}")
+              f"launches per step {got}, on the tensor cores {tc}; plain "
+              f"versions reached {run['plain_calls']} on {smi}")
         check(run["accuracy"] > 0.8, f"NN1 bf16 case ({case}) failed to "
               f"learn (accuracy <= 0.8)")
         check(got == per_step, f"NN1 bf16 case ({case}) launches {got} "
@@ -4230,8 +4329,9 @@ def run_phases(torch, dev, smi: str, predictor) -> int:
               "to one step of each on the card")
     dryrun_phase(torch, dev, predictor, PREDICT_DIR)
     phase(23, "the FCNN in bf16: K1-K3 in cases (a), (b) and (d) against "
-              "their plain versions; NN1 300 steps in (a) and (b); NN5 "
-              "kernel path against plain path")
+              "their plain versions, K1 and K2 on the tensor cores where w "
+              "is bf16; NN1 300 steps in (a) and (b); NN5 kernel path "
+              "against plain path")
     bf16 = bf16_path_phase(torch, dev, smi)
 
     kernels = []
@@ -4239,15 +4339,20 @@ def run_phases(torch, dev, smi: str, predictor) -> int:
         source, replaces = KERNEL_INFO[name]
         s = summary[name]
         extra = {}
-        if name in bf16["summary"]:
-            b16 = bf16["summary"][name]
+        b16 = bf16["summary"].get(name)
+        if name == "fcnn_layer_wgrad":
             extra["bf16"] = {
                 "launches": bf16["launches"][name], "ms": b16["ms"],
                 "plain_ms": b16["plain_ms"], "bound_ms": b16["bound_ms"],
                 "bound_by": "bytes" if b16["bytes_ms"] >= b16["ops_ms"]
                 else "operations", "library_ms": b16["library_ms"],
                 "max_abs_err": b16["max_abs_err"], "shapes": b16["shapes"],
+                "nn5": b16["nn5"],
                 "per": "sum over one NN1 training step in bf16, case (a)"}
+        elif b16 is not None:   # K1, K2 with fp32 weights: case (d)
+            extra["bf16"] = {"max_abs_err": b16["max_abs_err"],
+                             "per": "case (d), bf16 data into an fp32 "
+                                    "network, held to the plain version"}
         if name in XENT_KERNELS:
             ms, plain_ms, lib_ms, b_ms = s["rows"][LM_XENT_LABEL]
             extra["paths"] = {f"{TRAIN_ARCH} train": {
@@ -4297,6 +4402,21 @@ def run_phases(torch, dev, smi: str, predictor) -> int:
             "paths": paths,
             **extra,
         })
+    for name in ("fcnn_layer_tc", "fcnn_layer_dgrad_tc"):
+        source, replaces = KERNEL_INFO[name]
+        s = bf16["summary"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": bf16["launches"][name],
+            "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+            "bound_by": "bytes" if s["bytes_ms"] >= s["ops_ms"]
+            else "operations",
+            "library_ms": s["library_ms"],
+            "library_bf16_ms": s["library_bf16_ms"],
+            "shapes": s["shapes"], "nn5": s["nn5"],
+            "per": "sum over one NN1 training step in bf16, case (a)",
+        })
     print("\nper-kernel numbers: K1-K5 device times summed over the calls "
           "of one NN1 training step (the [NN1 step] lines of phase 3); K6/K7 "
           "per call at the shape of a 2048-token Zamba2 prefill (the "
@@ -4309,10 +4429,14 @@ def run_phases(torch, dev, smi: str, predictor) -> int:
           "(phase 3) and their launches in phase 18's granite-3-2b steps "
           "and phase 21's driver runs (b) and (c); phases 19 and 20's "
           "launches under K6/K7's \"paths\"; K6's sliding-window cases of "
-          "phase 7 under \"windowed\"; K1-K3 in bf16 (case (a): bf16 data, "
+          "phase 7 under \"windowed\"; K3 in bf16 (case (a): bf16 data, "
           "bf16 network) under \"bf16\", summed over the [NN1 step] lines of "
           "phase 23, launches from its 300-step run, max_abs_err over "
-          "cases (a), (b) and (d)")
+          "cases (a), (b) and (d); K1's and K2's tensor-core kernels "
+          "(bf16 weights) as fcnn_layer_tc and fcnn_layer_dgrad_tc, the same "
+          "way, max_abs_err over (a) and (b), K2's library_ms the fp32 "
+          "product that computes its function and library_bf16_ms the bf16 "
+          "one that rounds dZ, \"nn5\" the NN5 layers of phase 23 in (a)")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

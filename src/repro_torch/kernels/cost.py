@@ -9,12 +9,13 @@ as 1; where the work depends on the inputs (causal or windowed attention)
 only the (query, key) pairs kept are counted.  Operations are keyed by
 the type the product runs in, which sets the peak they are priced at:
 ``"float32"`` at the CUDA cores' rate, ``"bfloat16"`` at the tensor
-cores'.  A product of two bf16 operands is a bf16 one (K1 with bf16 x
-and w; K6 and K7 with bf16 inputs), so its bound is the least the card
-could take, on its tensor cores, though K1 runs it on the CUDA cores in
-fp32; a product with an fp32 operand runs in fp32 (the reference
-promotes a mixed pair exactly; K2's and K3's dZ is always fp32).
-Element-wise steps (bias, activation, A'(Y)) and K4/K5 are fp32.  Bytes
+cores'.  K1's and K2's products are counted as their kernels run them:
+with bf16 w on the tensor cores, once where the other operand is bf16
+(K1's x in case (a)) and twice where it is fp32 and split into bf16 hi +
+lo (K1's x in case (b), K2's dZ always); with fp32 w in fp32.  K6 and K7
+with bf16 inputs are bf16 products; K3's dZ is fp32, so its product is
+an fp32 one.  Element-wise steps (bias, activation, A'(Y)) and K4/K5 are
+fp32.  Bytes
 count each operand at its element size: K1–K3 take a 4 or 2 for each
 operand group, an output in the dtype the kernel gives it.
 
@@ -81,11 +82,6 @@ def kept_pairs(s: int, window: int) -> int:
     return window * (window + 1) // 2 + (s - window) * window
 
 
-def _product(*element_sizes: int) -> str:
-    """The type a product of operands of these element sizes runs in."""
-    return "bfloat16" if all(e == 2 for e in element_sizes) else "float32"
-
-
 def _ops(product: str, products: int, elementwise: int) -> dict[str, float]:
     """Operations by type: the product's and the fp32 element-wise steps."""
     ops = {product: products}
@@ -93,20 +89,32 @@ def _ops(product: str, products: int, elementwise: int) -> dict[str, float]:
     return ops
 
 
+def _weight_product(a_size: int, w_size: int,
+                    products: int) -> tuple[str, int]:
+    """(type, operations) of K1's or K2's product of an operand of
+    ``a_size`` bytes an element with weights of ``w_size``, as the kernel
+    runs it: bf16 w on the tensor cores, twice where the operand is fp32
+    (its bf16 hi and lo); fp32 w in fp32."""
+    if w_size != 2:
+        return "float32", products
+    return "bfloat16", products * (1 if a_size == 2 else 2)
+
+
 def fcnn_fwd(m: int, k: int, n: int, x_size: int = 4,
              w_size: int = 4) -> Cost:
     """K1, act(x @ w + b): x (M, K), w (K, N), b (N,) -> (M, N) in x's
     type; element sizes ``x_size`` of x and the output, ``w_size`` of w
     and b."""
-    return Cost(_ops(_product(x_size, w_size), 2 * m * k * n, 2 * m * n),
+    return Cost(_ops(*_weight_product(x_size, w_size, 2 * m * k * n),
+                     2 * m * n),
                 x_size * (m * k + m * n) + w_size * (k * n + n))
 
 
 def fcnn_dgrad(m: int, k: int, n: int, dy_size: int = 4,
                w_size: int = 4) -> Cost:
     """K2, (dY ⊙ A'(Y)) Wᵀ: dy, y (M, N), w (K, N) -> (M, K) in dy's type;
-    the product is fp32 (dZ is fp32) whatever the types."""
-    return Cost(_ops("float32", 2 * m * n * k, 2 * m * n),
+    dZ is fp32 whatever the types."""
+    return Cost(_ops(*_weight_product(4, w_size, 2 * m * n * k), 2 * m * n),
                 dy_size * (2 * m * n + m * k) + w_size * k * n)
 
 

@@ -1,6 +1,7 @@
 // Python bindings of the seven kernels.  The only source that includes
 // PyTorch's headers: the kernels themselves (fcnn_fwd.cu, fcnn_dgrad.cu,
-// fcnn_wgrad.cu, softmax_xent.cu, flash_attention.cu, ssd_scan.cu) export
+// fcnn_fwd_tc.cu, fcnn_dgrad_tc.cu, fcnn_wgrad.cu, softmax_xent.cu,
+// flash_attention.cu, ssd_scan.cu) export
 // plain launchers that take raw pointers, strides and a stream and return
 // the launch's cudaError_t.  The Python wrappers (kernels/fcnn_layer.py, kernels/softmax_xent.py,
 // kernels/flash_attention.py, kernels/ssd_scan.py) check device, dtype,
@@ -18,6 +19,14 @@ cudaError_t launch_fcnn_fwd(const void* x, const void* w, const void* b,
 cudaError_t launch_fcnn_dgrad(const void* dy, const void* y, const void* w,
                               void* dx, int M, int K, int N, int act, int split,
                               int slice, int dy_bf16, int w_bf16, cudaStream_t s);
+cudaError_t launch_fcnn_fwd_tc(const void* x, const void* w, const void* b,
+                               void* out, int M, int K, int N, int act,
+                               int width, int split, int x_bf16,
+                               cudaStream_t s);
+cudaError_t launch_fcnn_dgrad_tc(const void* dy, const void* y, const void* w,
+                                 void* dx, int M, int K, int N, int act,
+                                 int width, int split, int dy_bf16,
+                                 cudaStream_t s);
 cudaError_t launch_fcnn_wgrad(const void* x, const void* dy, const void* y,
                               void* dw, void* db, int M, int K, int N, int act,
                               int tile_rows, int tile_cols, int x_bf16,
@@ -99,6 +108,44 @@ void fcnn_dgrad(const torch::Tensor& dy, const torch::Tensor& y,
                                  dx.data_ptr(), dy.size(0), w.size(0),
                                  dy.size(1), act, split, slice, db, wb,
                                  stream_of(dy)),
+               k);
+}
+
+// K1 on the tensor cores: x (M, K), w (K, N) and b (N,) bf16 -> out (M, N)
+// in x's dtype; out tiles 64 x ``width``, the contraction split over
+// ``split`` blocks of a cluster
+void fcnn_fwd_tc(const torch::Tensor& x, const torch::Tensor& w,
+                 const torch::Tensor& b, torch::Tensor out, int64_t act,
+                 int64_t width, int64_t split) {
+  const char* k = "fcnn_layer";
+  const int xb = bf16_flag(x, k, "x");
+  TORCH_CHECK(w.scalar_type() == at::kBFloat16, k, ": w must be bfloat16");
+  same_type(b, w, k, "b", "w");
+  same_type(out, x, k, "out", "x");
+  const c10::cuda::CUDAGuard guard(x.device());
+  check_launch(launch_fcnn_fwd_tc(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                                  out.data_ptr(), x.size(0), x.size(1),
+                                  w.size(1), act, width, split, xb,
+                                  stream_of(x)),
+               k);
+}
+
+// K2 on the tensor cores: dy, y (M, N), w (K, N) bf16 -> dx (M, K) in dy's
+// dtype; dX tiles 64 x ``width``, the contraction split over ``split``
+// blocks of a cluster
+void fcnn_dgrad_tc(const torch::Tensor& dy, const torch::Tensor& y,
+                   const torch::Tensor& w, torch::Tensor dx, int64_t act,
+                   int64_t width, int64_t split) {
+  const char* k = "fcnn_layer_dgrad";
+  const int db = bf16_flag(dy, k, "dy");
+  TORCH_CHECK(w.scalar_type() == at::kBFloat16, k, ": w must be bfloat16");
+  same_type(y, dy, k, "y", "dy");
+  same_type(dx, dy, k, "dx", "dy");
+  const c10::cuda::CUDAGuard guard(dy.device());
+  check_launch(launch_fcnn_dgrad_tc(dy.data_ptr(), y.data_ptr(), w.data_ptr(),
+                                    dx.data_ptr(), dy.size(0), w.size(0),
+                                    dy.size(1), act, width, split, db,
+                                    stream_of(dy)),
                k);
 }
 
@@ -203,6 +250,8 @@ void ssd_chunk(const torch::Tensor& x, const torch::Tensor& dt_a,
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("fcnn_fwd", &fcnn_fwd);
   m.def("fcnn_dgrad", &fcnn_dgrad);
+  m.def("fcnn_fwd_tc", &fcnn_fwd_tc);
+  m.def("fcnn_dgrad_tc", &fcnn_dgrad_tc);
   m.def("fcnn_wgrad", &fcnn_wgrad);
   m.def("xent_fwd", &xent_fwd);
   m.def("xent_dlogits", &xent_dlogits);

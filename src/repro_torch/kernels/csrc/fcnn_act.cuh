@@ -36,6 +36,21 @@ __device__ __forceinline__ float act_fwd(int act, float z) {
   }
 }
 
+// act_fwd(act, z) without a branch in the sigmoid: exp by __expf and the
+// quotient by __fdividef (within ~1e-6 of act_fwd's, far inside the bf16
+// ulp and the 1e-4 of an fp32 output the kernels are held to).  IEEE
+// division takes a branch to its slow path, and an epilogue of 32 of them
+// a thread on one warpgroup an SM spent microseconds on the latency (the
+// tensor-core forward, fcnn_fwd_tc.cu)
+__device__ __forceinline__ float act_fwd_fast(int act, float z) {
+  switch (act) {
+    case kSigmoid: return __fdividef(1.f, 1.f + __expf(-z));
+    case kRelu: return fmaxf(z, 0.f);
+    case kTanh: return tanhf(z);
+    default: return z;
+  }
+}
+
 __device__ __forceinline__ float act_deriv(int act, float y) {
   switch (act) {
     case kSigmoid: return act_deriv<kSigmoid>(y);

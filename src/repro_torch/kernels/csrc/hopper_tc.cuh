@@ -1,10 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels:
-// flash attention's bf16 instantiation (flash_attention.cu) and the SSD
-// intra-chunk kernel's (ssd_scan.cu).
-//   * wgmma wrappers: m64nNk16 bf16 products into fp32 accumulators, A from
-//     shared memory (ss) or from registers (rs), each operand K-major or
-//     MN-major as its name and comment say;
-//   * desc_sw128: the shared-memory descriptor of a 128-byte-swizzled tile;
+// flash attention's bf16 instantiation (flash_attention.cu), the SSD
+// intra-chunk kernel's (ssd_scan.cu) and the FCNN forward and dgrad
+// kernels with bf16 weights (fcnn_fwd_tc.cu, fcnn_dgrad_tc.cu).
+//   * wgmma wrappers: m64nNk16 bf16 products into fp32 accumulators, N =
+//     16, 64 or 128, A from shared memory (ss) or from registers (rs), each
+//     operand K-major or MN-major as its template flags say;
+//   * desc_sw128 / desc_sw32: the shared-memory descriptor of a 128-byte-
+//     (32-byte-) swizzled tile;
 //   * wg_fence / wg_commit / wg_wait_all and fence_regs around the
 //     asynchronous products; fence_proxy_async between writes by threads to
 //     shared memory and a product that reads them;
@@ -49,7 +51,9 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t des
 }
 
 // d (64 x 64, fp32) += A (64 x 16, bf16 register fragments) ·
-// B (16 x 64, MN-major in shared memory, hence the transpose flag)
+// B (16 x 64); kTransB = 1 (the default) for B MN-major in shared memory,
+// 0 for K-major
+template <int kTransB = 1>
 __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
                                                  uint64_t desc_b) {
   asm volatile(
@@ -59,7 +63,7 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -67,11 +71,14 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
+        "n"(kTransB));
 }
 
 // d (64 x 128, fp32) += A (64 x 16, bf16 register fragments) ·
-// B (16 x 128, MN-major in shared memory, hence the transpose flag)
+// B (16 x 128); kTransB = 1 (the default) for B MN-major in shared memory,
+// 0 for K-major
+template <int kTransB = 1>
 __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
                                                  uint64_t desc_b) {
   asm volatile(
@@ -83,7 +90,7 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -96,7 +103,8 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
+        "n"(kTransB));
 }
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -153,6 +161,15 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo) {
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
+// the same for a 32-byte-swizzled tile (layout type 3), whose 8-row groups
+// of 32-byte rows are 256 bytes apart: an MN-major operand 16 columns
+// wide; LBO is the stride between 16-column atoms
+__device__ __forceinline__ uint64_t desc_sw32(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32) | (3ull << 62);
+}
+
 __device__ __forceinline__ void wg_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
@@ -198,6 +215,42 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t desc
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
+// d (64 x 16, fp32) (+)= A (64 x 16) · B (16 x 16), both in shared
+// memory; kTransA / kTransB = 1 for an MN-major operand, 0 for K-major;
+// scale_d = 0 overwrites d
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss_m64n16k16(float (&d)[8], uint64_t desc_a,
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
+// d (64 x 16, fp32) += A (64 x 16, bf16 register fragments) · B (16 x 16);
+// kTransB = 1 (the default) for B MN-major in shared memory, 0 for K-major
+template <int kTransB = 1>
+__device__ __forceinline__ void wgmma_rs_m64n16k16(float (&d)[8], const uint32_t (&a)[4],
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
+        "n"(kTransB));
 }
 
 // orders this thread's earlier writes to shared memory (st.shared,

@@ -4,15 +4,23 @@
   fcnn_layer_dgrad  dX = (dY ⊙ A'(Y)) @ Wᵀ         replaces repro/kernels/fcnn_layer.py:208
   fcnn_layer_wgrad  (Xᵀ @ dZ, Σ_rows dZ)           replaces repro/kernels/fcnn_layer.py:292
 
-K1 is ``csrc/fcnn_fwd.cu`` and K2 ``csrc/fcnn_dgrad.cu``: each splits its
-contraction over the blocks of a thread-block cluster as ``fwd_plan`` and
-``dgrad_plan`` pick from the shape (one rule, ``splitk_plan``).  K3 is
-``csrc/fcnn_wgrad.cu``, whose contraction is the batch; ``wgrad_plan``
-picks the height of its dW tiles.
+K1 and K2 each have two kernels, picked by w's dtype.  With bf16 w
+(cases (a) and (b) below) they multiply on the tensor cores:
+``csrc/fcnn_fwd_tc.cu`` and ``csrc/fcnn_dgrad_tc.cu`` (wgmma; an fp32
+operand, K1's x in (b) and K2's dZ always, split into bf16 hi + lo and
+multiplied twice), with the tile width and cluster split that
+``fwd_tc_plan`` and ``dgrad_tc_plan`` pick from the shape.  With fp32 w
+(cases (c) and (d)) they multiply in fp32 on the CUDA cores:
+``csrc/fcnn_fwd.cu`` and ``csrc/fcnn_dgrad.cu``, with the (split, slice)
+of ``fwd_plan`` and ``dgrad_plan`` (one rule, ``splitk_plan``).  Every
+kernel splits its contraction over the blocks of a thread-block cluster.
+K3 is ``csrc/fcnn_wgrad.cu``, whose contraction is the batch;
+``wgrad_plan`` picks the height of its dW tiles.
 
 Each wrapper checks dtype, shape and contiguity, then picks by the
 tensors' device: on CUDA it allocates the outputs, launches the kernel on
-the current stream and adds one to its ``launches`` counter; on the CPU it
+the current stream and adds one to its ``launches`` counter (K1's and
+K2's tensor-core kernels also to ``tc_launches``); on the CPU it
 runs the plain version from ``ref.py``; on the meta device (the dry-run)
 it returns the empty outputs and reports the launch and its ``cost`` to
 the active recorders (``cost.report``), leaving ``launches`` to the card.
@@ -25,10 +33,16 @@ bf16 on its own: K1's x, and its (w, b); K2's (dy, y), and its w; K3's x,
 and its (dy, y).  The outputs take the reference's dtypes: K1's y x's,
 K2's dX dy's, K3's dW x's and db dy's.  The kernels read every operand in
 its own dtype (no wrapper upcasts one), accumulate in fp32 and round a
-bf16 output once.  The four (x, w) cases the FCNN reaches are (a) bf16
-data in a bf16 network, (b) fp32 data in a bf16 network (every layer's
-activations fp32 against bf16 weights), (c) fp32 throughout and (d) bf16
-data in an fp32 network.
+bf16 output once.  The four (x, w) cases the FCNN reaches, and the
+kernels each reaches:
+  (a) bf16 data in a bf16 network: K1 and K2 on the tensor cores (K1 one
+      bf16 product, exact in fp32; K2's fp32 dZ split hi/lo), K3 in fp32
+      on the CUDA cores;
+  (b) fp32 data in a bf16 network (every layer's activations fp32
+      against bf16 weights): K1 and K2 on the tensor cores (x and dZ
+      split hi/lo), K3 on the CUDA cores;
+  (c) fp32 throughout and (d) bf16 data in an fp32 network: K1, K2 and
+      K3 in fp32 on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -40,6 +54,7 @@ from repro_torch.kernels import ref as _ref
 
 __all__ = ["fcnn_layer", "fcnn_layer_dgrad", "fcnn_layer_wgrad",
            "fwd_plan", "dgrad_plan", "wgrad_plan", "splitk_plan",
+           "fwd_tc_plan", "dgrad_tc_plan", "fwd_tc_smem", "dgrad_tc_smem",
            "KernelLimitError"]
 
 # codes of csrc/fcnn_act.cuh's Act enum
@@ -66,20 +81,25 @@ FWD_LIMITS = (16, 4 * 132, 1)
 DGRAD_LIMITS = (8, 2 * 132, 2)
 
 
-def splitk_plan(tiles: int, contraction: int,
-                limits: tuple[int, int, int]) -> tuple[int, int]:
-    """(split, slice) of a cluster split-K kernel with ``tiles`` output
-    tiles over ``contraction``: slices of 32 where the contraction is >= 64,
-    else 16; the split is the largest power of two within
+def _split(tiles: int, slices: int, limits: tuple[int, int, int]) -> int:
+    """The largest power-of-two split of ``slices`` contraction slices
+    over the blocks of a cluster, for ``tiles`` output tiles, within
     ``limits = (largest split, block slots, least slices a block)``."""
     max_split, block_slots, min_slices = limits
-    slice_ = 32 if contraction >= 64 else 16
-    slices = -(-contraction // slice_)
     split = 1
     while (split < max_split and tiles * split * 2 <= block_slots
            and slices >= split * 2 * min_slices):
         split *= 2
-    return split, slice_
+    return split
+
+
+def splitk_plan(tiles: int, contraction: int,
+                limits: tuple[int, int, int]) -> tuple[int, int]:
+    """(split, slice) of a cluster split-K kernel with ``tiles`` output
+    tiles over ``contraction``: slices of 32 where the contraction is >= 64,
+    else 16; the split as ``_split`` picks it."""
+    slice_ = 32 if contraction >= 64 else 16
+    return _split(tiles, -(-contraction // slice_), limits), slice_
 
 
 def _tiles(rows: int, cols: int) -> int:
@@ -94,6 +114,70 @@ def fwd_plan(m: int, k: int, n: int) -> tuple[int, int]:
 def dgrad_plan(m: int, k: int, n: int) -> tuple[int, int]:
     """(split, slice) of K2 for dX (m, k) over the contraction n."""
     return splitk_plan(_tiles(m, k), n, DGRAD_LIMITS)
+
+
+# csrc/fcnn_fwd_tc.cu and csrc/fcnn_dgrad_tc.cu (bf16 w): one warpgroup a
+# block, output tiles of 64 rows and a width (K1: 16 or 64; K2: 64 or
+# 128), contraction slices of 64 in a ring of 3 to 8 stages, clusters of
+# up to 16.  The plans, as chip_smoke.py phase 23's sweep of (width,
+# split) chose them on the H100 (132 SMs): a grid of at most one block an
+# SM (where a second block an SM came from a larger split, the cluster's
+# sum cost more than the second block hid) and any split up to 16 that
+# leaves every block a slice; K1 at width 64, 16 where N <= 16 (the output
+# layers' 10); K2 at the widest width whose grid fills three in four of
+# the slots, else 64 (a 128-wide dX tile reads dY and Y half as often for
+# each byte of W).
+TC_ROWS = 64
+TC_SLICE = 64
+FWD_TC_WIDTHS = (16, 64)
+DGRAD_TC_WIDTHS = (64, 128)
+TC_LIMITS = (16, 132, 1)
+TC_MIN_BLOCKS = 3 * 132 // 4
+
+
+def _ring_bytes(stage: int) -> int:
+    """A ring of ``stage``-byte stages and its 1024 bytes of alignment, as
+    deep as ``fcnn_tc::ring_stages`` (csrc/fcnn_tc.cuh) makes it: as many
+    stages as fit in 110 KB, at least 3 and at most 8."""
+    return min(max(110 * 1024 // stage, 3), 8) * stage + 1024
+
+
+def fwd_tc_smem(x_size: int, width: int) -> int:
+    """Dynamic shared memory of K1's tensor-core kernel (``Layout`` in
+    csrc/fcnn_fwd_tc.cu): per stage x's slice (a swizzled bf16 tile of 64
+    x 64, or 64 padded fp32 rows of 72) and w's (64 rows of ``width``
+    columns)."""
+    x_tile = TC_ROWS * (128 if x_size == 2 else (TC_SLICE + 8) * 4)
+    w_tile = TC_SLICE * (32 if width == 16 else 128)
+    return _ring_bytes(x_tile + w_tile)
+
+
+def dgrad_tc_smem(dy_size: int, width: int) -> int:
+    """Dynamic shared memory of K2's tensor-core kernel (``Layout`` in
+    csrc/fcnn_dgrad_tc.cu): per stage dY's and Y's slices (64 padded rows
+    of 72 in dy's type) and Wᵀ's (``width`` rows of 64 bf16)."""
+    return _ring_bytes(2 * TC_ROWS * (TC_SLICE + 8) * dy_size + width * 128)
+
+
+def fwd_tc_plan(m: int, k: int, n: int) -> tuple[int, int]:
+    """(width, split) of K1's tensor-core kernel for out (m, n) over the
+    contraction k."""
+    width = 16 if n <= 16 else 64
+    tiles = -(-m // TC_ROWS) * -(-n // width)
+    return width, _split(tiles, -(-k // TC_SLICE), TC_LIMITS)
+
+
+def dgrad_tc_plan(m: int, k: int, n: int) -> tuple[int, int]:
+    """(width, split) of K2's tensor-core kernel for dX (m, k) over the
+    contraction n: width 128 where its grid holds TC_MIN_BLOCKS blocks,
+    else 64."""
+    slices = -(-n // TC_SLICE)
+    for width in (128, 64):
+        tiles = -(-m // TC_ROWS) * -(-k // width)
+        split = _split(tiles, slices, TC_LIMITS)
+        if tiles * split >= TC_MIN_BLOCKS:
+            break
+    return width, split
 
 
 # csrc/fcnn_wgrad.cu: dW tiles (rows, columns), the largest first; a tile
@@ -182,7 +266,11 @@ def fcnn_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         cost.report("fcnn_layer", cost.fcnn_fwd(m, k, n, x.element_size(),
                                                 w.element_size()))
         return out
-    _build.extension().fcnn_fwd(x, w, b, out, act, *fwd_plan(m, k, n))
+    if w.dtype == torch.bfloat16:
+        _build.extension().fcnn_fwd_tc(x, w, b, out, act, *fwd_tc_plan(m, k, n))
+        fcnn_layer.tc_launches += 1
+    else:
+        _build.extension().fcnn_fwd(x, w, b, out, act, *fwd_plan(m, k, n))
     fcnn_layer.launches += 1
     return out
 
@@ -205,7 +293,13 @@ def fcnn_layer_dgrad(dy: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
         cost.report("fcnn_layer_dgrad", cost.fcnn_dgrad(
             m, k, n, dy.element_size(), w.element_size()))
         return dx
-    _build.extension().fcnn_dgrad(dy, y, w, dx, act, *dgrad_plan(m, k, n))
+    if w.dtype == torch.bfloat16:
+        _build.extension().fcnn_dgrad_tc(dy, y, w, dx, act,
+                                         *dgrad_tc_plan(m, k, n))
+        fcnn_layer_dgrad.tc_launches += 1
+    else:
+        _build.extension().fcnn_dgrad(dy, y, w, dx, act,
+                                      *dgrad_plan(m, k, n))
     fcnn_layer_dgrad.launches += 1
     return dx
 
@@ -238,4 +332,8 @@ def fcnn_layer_wgrad(x: torch.Tensor, dy: torch.Tensor, y: torch.Tensor,
 
 fcnn_layer.launches = 0
 fcnn_layer_dgrad.launches = 0
+# the launches of the tensor-core kernels alone (bf16 w), also in
+# ``launches``
+fcnn_layer.tc_launches = 0
+fcnn_layer_dgrad.tc_launches = 0
 fcnn_layer_wgrad.launches = 0

@@ -76,6 +76,8 @@ def launch_counts() -> dict[str, int]:
 def reset_launches() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, "tc_launches"):
+            fn.tc_launches = 0
 
 
 def resolve_mode(mode: str | None, *tensors: torch.Tensor) -> str | None:

@@ -12,7 +12,8 @@ needs, against the JAX reference and against real CPU steps:
     reference's ``jax.eval_shape`` of the train state, for every
     full-width config, with and without int8 compression; ``input_specs``
     equal for every family x kind;
-  * ``kernels.cost`` giving PERF.md's bounds at three shapes;
+  * ``kernels.cost`` giving PERF.md's bounds at five shapes, and K1's in
+    case (b);
   * the dry-run at smoke width against a real CPU step of the same
     config, one per family, train, prefill and decode: with
     ``mode="ref"`` on both, the counted aten flops equal
@@ -183,9 +184,17 @@ def test_cost_gives_perf_md_bounds():
     """PERF.md's bound column (ms, by): K6 at Zamba2's (1, 32, 2048, 64)
     bf16 causal 0.01738 (ops); K4 at granite's (2048, 49408) fp32 loss
     0.12083 (bytes); K7 at mamba2-2.7b's 16 chunks (128, 80, 64, 128) bf16
-    0.02574 (bytes)."""
+    0.02574 (bytes); K1 and K2 at NN5's batch of 128 with bf16 weights,
+    their products counted as the tensor-core kernels run them: K1's layer
+    1 (1024 -> 4000) in case (a) 0.00283 (bytes; the product once, 0.00108
+    ms), K2's layer 2 (4000 -> 1000) in (a) 0.00285 (bytes; twice, dZ
+    split: 0.00207); and, not in PERF.md, K1's layer 1 in case (b)
+    0.00322 (bytes; twice, x split hi/lo: 0.00214)."""
     h100 = H100Target()
     for c, want, by in (
+            (cost.fcnn_fwd(128, 1024, 4000, 2, 2), 0.00283, 1),
+            (cost.fcnn_fwd(128, 1024, 4000, 4, 2), 0.00322, 1),
+            (cost.fcnn_dgrad(128, 4000, 1000, 2, 2), 0.00285, 1),
             (cost.flash_attention(1, 32, 32, 2048, 2048, 64, 2, True),
              0.01738, 0),
             (cost.xent_fwd(2048, 49408, 4), 0.12083, 1),

@@ -509,6 +509,77 @@ def test_fcnn_fwd_dgrad_bf16_are_deterministic_on_card(cuda, m, k, n, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", BF16_SHAPES)
+@pytest.mark.parametrize("case", ["a", "b"])
+def test_fcnn_tc_every_plan_on_card(cuda, m, k, n, case):
+    """K1's and K2's tensor-core kernels (bf16 w) at every width and split
+    they are built for, held to the plain versions, each plan run twice
+    bit-identical (the split partials summed in rank order)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fcnn_layer import (DGRAD_TC_WIDTHS,
+                                                FWD_TC_WIDTHS, act_code)
+
+    rng = np.random.default_rng(16)
+    x, w, b, dy, y = _bf16_layer(rng, m, k, n, case, "tanh", cuda)
+    ext, act = _build.extension(), act_code("tanh")
+    y_r = ref.fcnn_layer_ref(x, w, b, "tanh")
+    dx_r = ref.fcnn_layer_dgrad_ref(dy, y, w, "tanh")
+    for split in (1, 2, 4, 8, 16):
+        for width in FWD_TC_WIDTHS:
+            outs = [torch.empty(m, n, device=cuda, dtype=x.dtype)
+                    for _ in range(2)]
+            for out in outs:
+                ext.fcnn_fwd_tc(x, w, b, out, act, width, split)
+            _assert_gemm(outs[0], y_r)
+            assert torch.equal(*outs), (width, split)
+        for width in DGRAD_TC_WIDTHS:
+            dxs = [torch.empty(m, k, device=cuda, dtype=dy.dtype)
+                   for _ in range(2)]
+            for dx in dxs:
+                ext.fcnn_dgrad_tc(dy, y, w, dx, act, width, split)
+            _assert_gemm(dxs[0], dx_r)
+            assert torch.equal(*dxs), (width, split)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(BF16_CASES))
+def test_fcnn_wrappers_pick_the_kernel_by_w_on_card(cuda, case):
+    """bf16 w (cases (a), (b)) reaches the tensor-core kernels, counted in
+    ``launches`` and ``tc_launches``; fp32 w (case (d)) the CUDA-core
+    ones."""
+    rng = np.random.default_rng(17)
+    x, w, b, dy, y = _bf16_layer(rng, 64, 1000, 500, case, "sigmoid", cuda)
+    ops.reset_launches()
+    fcnn_layer(x, w, b, "sigmoid")
+    fcnn_layer_dgrad(dy, y, w, "sigmoid")
+    torch.cuda.synchronize()
+    tc = int(w.dtype == torch.bfloat16)
+    assert fcnn_layer.launches == fcnn_layer_dgrad.launches == 1
+    assert fcnn_layer.tc_launches == fcnn_layer_dgrad.tc_launches == tc
+
+
+@pytest.mark.gpu
+def test_fcnn_tc_refuses_bad_plans_on_card(cuda):
+    """A width the tensor-core kernels are not built for, a split that is
+    not a power of two up to 16, or fp32 w is refused, never launched."""
+    from repro_torch.kernels import _build
+
+    ext = _build.extension()
+    x = torch.randn(64, 100, device=cuda, dtype=torch.bfloat16)
+    w = torch.randn(100, 30, device=cuda, dtype=torch.bfloat16)
+    b = torch.zeros(30, device=cuda, dtype=torch.bfloat16)
+    out = torch.empty(64, 30, device=cuda, dtype=torch.bfloat16)
+    for width, split in ((32, 1), (64, 3), (64, 32), (16, 0)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ext.fcnn_fwd_tc(x, w, b, out, 1, width, split)
+    dx = torch.empty(64, 100, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ext.fcnn_dgrad_tc(out, out, w, dx, 1, 16, 1)
+    with pytest.raises(RuntimeError, match="bfloat16"):
+        ext.fcnn_fwd_tc(x, w.float(), b.float(), out, 1, 64, 1)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("m,k,n", [(64, 784, 1000), (64, 500, 10),
                                    (7, 13, 5), (300, 50, 1000)])
 @pytest.mark.parametrize("x_dtype,dy_dtype", [
