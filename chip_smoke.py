@@ -22,11 +22,12 @@ without a result line:
   1. device   a CUDA card is required; its name and power limit; TF32 off
   2. build    the extension, with ptxas's per-kernel resource report
               (registers, shared memory and spills of the redesigned
-              kernels, K1, K2 (both kernels of each), K3 and bf16 K6 and
+              kernels, K1, K2, K3 (both kernels of each) and bf16 K6 and
               K7, whose spills must be 0) and the count of HGMMA, HMMA and
               FFMA instructions in each kernel's SASS (cuobjdump); K1's
-              and K2's bf16-weight kernels and the bf16 K6 and K7 kernels
-              must emit HGMMA, and ptxas must not serialize their wgmma
+              and K2's bf16-weight kernels, K3's bf16-x kernel and the
+              bf16 K6 and K7 kernels must emit HGMMA, and ptxas must not
+              serialize their wgmma
   3. kernels  each FCNN kernel against its plain PyTorch version on the
               card, at the NN1 and NN5 shapes and at edge shapes, with
               times of the kernel, the plain version and one PyTorch
@@ -271,22 +272,30 @@ without a result line:
               64, 64) with every activation; outputs in the reference's
               dtypes, bf16 ones element-wise within 2^-7·|plain| + 1e-4
               of the largest and norm-wise within 2^-7, fp32 ones within
-              1e-4 of the largest; K1 and K2 repeated bit-identical; with
+              1e-4 of the largest; K1-K3 repeated bit-identical; with
               bf16 weights ((a), (b)) K1 and K2 run on the tensor cores
               (wgmma; fp32 x and dZ split into bf16 hi + lo), with fp32
-              weights ((d)) on the CUDA cores; at every shape every plan
-              of both kernels ((width, split) of the tensor-core one,
-              (split, slice) of the CUDA-core one) and every tile of K3
-              held to the plain version and run twice bit-identical, and
-              at NN1's and NN5's layers in case (a) timed beside the plain
-              version, the library calls (K1: cuBLAS's bf16 addmm and the
-              act; K2: the fp32 product dZ·Wᵀ that computes its function,
-              and the bf16 one, which rounds dZ) and the bound; then NN1,
-              300 Adam steps at batch 64 through ``train_fcnn.train_step``
-              in cases (a) and (b): accuracy > 0.8, launches per step
-              equal to the fp32 path's, every K1 and K2 launch a
-              tensor-core one, no plain version reached (counted), ms/step
-              and a profiled window;
+              weights ((d)) on the CUDA cores; with bf16 x ((a), (d)) K3
+              runs on the tensor cores (dZ split hi + lo), with fp32 x
+              ((b)) on the CUDA cores; K2 at a contraction of at most 16
+              (the output layers' 10) on the CUDA cores whatever the
+              dtypes; each wrapper call must reach the kernel this rule
+              names (its ``tc_launches`` counted); at every shape every
+              plan of both kernels of K1-K3 ((width, split) of the
+              tensor-core one, (split, slice) of K1's and K2's CUDA-core
+              one, K3's dW tiles) held to the plain version and run twice
+              bit-identical, and at NN1's and NN5's layers
+              in case (a) timed beside the plain version, the library
+              calls (K1: cuBLAS's bf16 addmm and the act; K2 and K3: the
+              fp32 product, dZ·Wᵀ or Xᵀ·dZ and Σ dZ, that computes their
+              function, and the bf16 one, which rounds dZ) and the bound,
+              and summed over one NN1 step by wrapper, whichever kernel
+              each call reached; then NN1, 300 Adam steps at batch 64
+              through ``train_fcnn.train_step`` in cases (a) and (b):
+              accuracy > 0.8, launches per step equal to the fp32 path's,
+              the tensor-core launches a step the rule gives (K1 3 of 3;
+              K2 1 of 2; K3 3 of 3 in (a), 0 in (b)), no plain version
+              reached (counted), ms/step and a profiled window;
               NN5 in case (a), 5 steps, kernel path against plain path
               from the same weights: losses within 2e-2 relative, step
               1's gradient leaves within 5e-2 of their norms
@@ -344,6 +353,9 @@ KERNEL_INFO = {
                       "src/repro/kernels/fcnn_layer.py:142"),
     "fcnn_layer_dgrad_tc": ("src/repro_torch/kernels/csrc/fcnn_dgrad_tc.cu",
                             "src/repro/kernels/fcnn_layer.py:208"),
+    # K3's kernel for bf16 x, on the tensor cores (phase 23)
+    "fcnn_layer_wgrad_tc": ("src/repro_torch/kernels/csrc/fcnn_wgrad_tc.cu",
+                            "src/repro/kernels/fcnn_layer.py:292"),
 }
 FCNN_KERNELS = tuple(KERNEL_INFO)[:5]
 XENT_KERNELS = ("softmax_xent_fwd", "softmax_xent_dlogits")
@@ -361,12 +373,14 @@ LM_KERNELS = ("flash_attention", "ssd_chunk")
 # substring of their mangled names
 NO_SPILL_KERNELS = ("fcnn_fwd_kernel", "dgrad_kernel", "fcnn_wgrad_kernel",
                     "fcnn_fwd_tc_kernel", "fcnn_dgrad_tc_kernel",
-                    "flash_fwd_wgmma_kernel", "ssd_chunk_wgmma_kernel")
-# K1's and K2's bf16-weight kernels and the bf16 K6 and K7 kernels, which
-# must run on the tensor cores (HGMMA in their SASS) with no wgmma
-# serialized by ptxas
+                    "fcnn_wgrad_tc_kernel", "flash_fwd_wgmma_kernel",
+                    "ssd_chunk_wgmma_kernel")
+# K1's and K2's bf16-weight kernels, K3's bf16-x kernel and the bf16 K6 and
+# K7 kernels, which must run on the tensor cores (HGMMA in their SASS) with
+# no wgmma serialized by ptxas
 TC_KERNELS = ("fcnn_fwd_tc_kernel", "fcnn_dgrad_tc_kernel",
-              "flash_fwd_wgmma_kernel", "ssd_chunk_wgmma_kernel")
+              "fcnn_wgrad_tc_kernel", "flash_fwd_wgmma_kernel",
+              "ssd_chunk_wgmma_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -628,8 +642,11 @@ class Case(NamedTuple):
 
 # the plans each kernel with a host plan takes: (split, slice) of the
 # cluster split-K kernels, the dW tile (rows, columns) of K3
-# the cluster splits of K1's and K2's tensor-core kernels (phase 23)
+# the cluster splits of K1's and K2's tensor-core kernels (phase 23), and
+# of K3's, whose contraction, the batch, is one or two slices of 64 rows at
+# NN1-NN6 (split 4 leaves ranks idle)
 TC_SPLITS = (1, 2, 4, 8, 16)
+WGRAD_TC_SPLITS = (1, 2, 4)
 CHOICES = {
     "fcnn_layer": [(s, sl) for s in (1, 2, 4, 8, 16) for sl in (16, 32)],
     "fcnn_layer_dgrad": [(s, sl) for s in (1, 2, 4, 8) for sl in (16, 32)],
@@ -3454,12 +3471,26 @@ BF16_RAGGED = ((7, 13, 5), (3, 20, 10), (32, 500, 10), (100, 64, 64))
 # flip one rounding; a sum that cancels near 0 rounds at another scale),
 # and as a whole within BF16_ULP·||plain||; fp32 outputs at GEMM_RTOL
 BF16_GEMM_SLACK = 1e-4
+# K3's dW where x is bf16 against the fp32 product Xᵀ·dZ rounded once to
+# bf16 (the plain version): element-wise within one bf16 ulp of it plus
+# ONCE_SLACK of its largest |element| (a sum within 1e-5 of the largest can
+# flip one rounding, or cross 0 where the sum cancels), and bit-equal on
+# all but ONCE_MISS of the elements (at most ONCE_MIN_MISS where that is
+# more). dZ kept at fp32 as bf16 hi + lo leaves about 0.3% of the roundings
+# flipped; dZ rounded to bf16 alone (the bf16 library product) about 40%.
+ONCE_SLACK = 1e-5
+ONCE_MISS = 0.01
+ONCE_MIN_MISS = 4
 # NN5 in bf16, kernel path against plain path from the same weights: the
 # bf16 training bars of PERF.md §2 (port vs JAX reference, LM loss)
 NN5_BF16_LOSS_RTOL = 2e-2
 NN5_BF16_GRAD_RTOL = 5e-2
 PLAIN_FNS = ("fcnn_layer_ref", "fcnn_layer_dgrad_ref", "fcnn_layer_wgrad_ref",
              "softmax_xent_fwd_ref", "softmax_xent_dlogits_ref")
+# K2's contraction at or below which phase 23 expects a call on the CUDA
+# cores whatever the dtypes (kernels/fcnn_layer.py's TC_NARROW, restated
+# here so that a changed rule fails the phase)
+BF16_NARROW = 16
 
 
 def gemm_close(torch, out, want) -> tuple[bool, float, str]:
@@ -3483,18 +3514,59 @@ def gemm_close(torch, out, want) -> tuple[bool, float, str]:
             f"it, ||d||/||ref|| {norm:.2e}<=2^-7")
 
 
-def bf16_choices(name: str, case: str) -> list:
-    """Every plan a forced call of ``name`` takes in ``case``: where w is
-    bf16, K1's and K2's tensor-core kernel at each ("tc", width, split) it
-    is built for and then their CUDA-core kernel at each (split, slice) of
-    phase 3; K3 at each dW tile."""
-    from repro_torch.kernels.fcnn_layer import DGRAD_TC_WIDTHS, FWD_TC_WIDTHS
+def rounded_once(torch, out, want) -> tuple[bool, str]:
+    """(ok, note) of a bf16 ``out`` held to ``want``, an fp32 result
+    rounded once to bf16: within one ulp of ``want`` plus ONCE_SLACK of its
+    largest element-wise, and bit-equal on all but ONCE_MISS of the
+    elements (ONCE_MIN_MISS at least)."""
+    check(out.dtype == want.dtype == torch.bfloat16
+          and out.shape == want.shape,
+          f"output {out.dtype} {tuple(out.shape)} against the rounded "
+          f"product's {want.dtype} {tuple(want.shape)}")
+    o, w = out.double(), want.double()
+    _, exp = torch.frexp(w)
+    ulp = torch.ldexp(torch.ones_like(w), exp - 8) * (w != 0)
+    bar = ulp + ONCE_SLACK * w.abs().max()
+    worst = ((o - w).abs() / bar.clamp_min(2.2250738585072014e-308)).max()
+    miss = int((out != want).sum().item())
+    allowed = max(ONCE_MISS * want.numel(), ONCE_MIN_MISS)
+    return (worst.item() <= 1 and miss <= allowed,
+            f"rounded once: |d|<=ulp+{ONCE_SLACK:g}max at {worst.item():.3f} "
+            f"of it, {miss} of {want.numel()} differ (<={allowed:g})")
 
-    if name == "fcnn_layer_wgrad" or BF16_CASES[case][1] != "bfloat16":
-        return list(CHOICES[name])
-    widths = FWD_TC_WIDTHS if name == "fcnn_layer" else DGRAD_TC_WIDTHS
-    return [("tc", w, s) for w in widths for s in TC_SPLITS] + list(
-        CHOICES[name])
+
+def bf16_route(name: str, case: str, n: int) -> bool:
+    """Whether a call of ``name`` in ``case`` with contraction ``n`` (K2;
+    K1's and K3's output width, which does not count) must reach its
+    tensor-core kernel: K1 where w is bf16; K2 where w is bf16 and n >
+    BF16_NARROW; K3 where x is bf16."""
+    xd, wd = BF16_CASES[case]
+    if name == "fcnn_layer":
+        return wd == "bfloat16"
+    if name == "fcnn_layer_dgrad":
+        return wd == "bfloat16" and n > BF16_NARROW
+    return xd == "bfloat16"
+
+
+def bf16_choices(name: str, case: str) -> list:
+    """Every plan a forced call of ``name`` takes in ``case``: the
+    tensor-core kernel, where it takes the case's dtypes (K1's and K2's
+    where w is bf16, K3's where x is bf16), at each ("tc", width, split)
+    it is built for, then the CUDA-core kernel at each plan of phase 3 (K1
+    and K2: (split, slice); K3: its dW tiles)."""
+    from repro_torch.kernels.fcnn_layer import (DGRAD_TC_WIDTHS,
+                                                FWD_TC_WIDTHS,
+                                                WGRAD_TC_WIDTHS)
+
+    xd, wd = BF16_CASES[case]
+    if name == "fcnn_layer_wgrad":
+        widths, splits, tc = WGRAD_TC_WIDTHS, WGRAD_TC_SPLITS, xd
+    else:
+        widths = FWD_TC_WIDTHS if name == "fcnn_layer" else DGRAD_TC_WIDTHS
+        splits, tc = TC_SPLITS, wd
+    plans = ([("tc", w, s) for w in widths for s in splits]
+             if tc == "bfloat16" else [])
+    return plans + list(CHOICES[name])
 
 
 def bf16_layer(torch, dev, gen, case: str, m: int, k: int, n: int,
@@ -3540,17 +3612,21 @@ def bf16_layer(torch, dev, gen, case: str, m: int, k: int, n: int,
             ext.fcnn_dgrad(dy, y, w, dx, code, *choice)
         return dx
 
-    def wgrad_forced(rows, cols):
+    def wgrad_forced(*choice):
         dw = torch.empty(k, n, device=dev, dtype=xd)
         db = torch.empty(n, device=dev, dtype=xd)
-        ext.fcnn_wgrad(x, dy, y, dw, db, code, rows, cols)
+        if choice[0] == "tc":
+            ext.fcnn_wgrad_tc(x, dy, y, dw, db, code, *choice[1:])
+        else:
+            ext.fcnn_wgrad(x, dy, y, dw, db, code, *choice)
         return dw, db
 
     # the library calls: K1's bf16 addmm and act on cuBLAS in the working
-    # type; K2's fp32 product of the fp32 dZ with W, the call that computes
-    # K2's function (TF32 off), and, second, the working type's, which in
-    # (a) rounds dZ to bf16 and so computes another function; K3's in the
-    # working type
+    # type; K2's and K3's fp32 product of the fp32 dZ with W or x (cast to
+    # fp32 once, outside the timing) and K3's column sum, the calls that
+    # compute their function (TF32 off), and, second, the working type's,
+    # which in (a) rounds dZ to bf16 and so computes another function
+    x_f = x.float()
     return {
         "fcnn_layer": (lambda: fcnn_layer(x, w, b, act),
                        lambda: ref.fcnn_layer_ref(x, w, b, act),
@@ -3562,7 +3638,8 @@ def bf16_layer(torch, dev, gen, case: str, m: int, k: int, n: int,
                              dgrad_forced, kcost.fcnn_dgrad(m, k, n, xs, ws)),
         "fcnn_layer_wgrad": (lambda: fcnn_layer_wgrad(x, dy, y, act),
                              lambda: ref.fcnn_layer_wgrad_ref(x, dy, y, act),
-                             (lambda: (x.T @ dz_x, dz_x.sum(0)),),
+                             (lambda: (x_f.T @ dz, dz.sum(0)),
+                              lambda: (x.T @ dz_x, dz_x.sum(0))),
                              wgrad_forced, kcost.fcnn_wgrad(m, k, n, xs, xs)),
     }
 
@@ -3579,12 +3656,33 @@ def bf16_outputs_close(torch, out, want) -> tuple[bool, float, str]:
     return ok, worst, "; ".join(notes)
 
 
-def bf16_summary_key(name: str, case: str) -> str:
-    """The kernel a call of ``name`` reaches in ``case``: K1's and K2's
-    tensor-core kernel ("<name>_tc") where w is bf16, else their CUDA-core
-    one; K3's one kernel."""
-    tc = name != "fcnn_layer_wgrad" and BF16_CASES[case][1] == "bfloat16"
-    return f"{name}_tc" if tc else name
+def bf16_summary_key(name: str, case: str, n: int) -> str:
+    """The kernel a call of ``name`` reaches in ``case`` at width or
+    contraction ``n``: its tensor-core kernel ("<name>_tc") where
+    ``bf16_route`` says so, else its CUDA-core one (``name``)."""
+    return f"{name}_tc" if bf16_route(name, case, n) else name
+
+
+def bf16_numbers(s: dict) -> dict:
+    """A kernel's fields of the kernels line from its phase-23 sums
+    (``run_bf16_kernels``). Where no timed call of the NN1 step reached the
+    kernel, its times and bound are null: the run measured none."""
+    timed = bool(s["shapes"])
+    fields = {"ms": s["ms"], "plain_ms": s["plain_ms"],
+              "bound_ms": s["bound_ms"],
+              "bound_by": "bytes" if s["bytes_ms"] >= s["ops_ms"]
+              else "operations", "library_ms": s["library_ms"],
+              "library_bf16_ms": s["library_bf16_ms"]}
+    return {"max_abs_err": s["max_abs_err"],
+            **{k: v if timed else None for k, v in fields.items()},
+            "shapes": s["shapes"], "nn5": s["nn5"]}
+
+
+def outputs_equal(torch, a, b) -> bool:
+    """torch.equal over the outputs of two calls (tensors or K3's pairs)."""
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    return all(torch.equal(p, q) for p, q in zip(a, b))
 
 
 def _choice_label(name: str, choice) -> str:
@@ -3597,25 +3695,39 @@ def _choice_label(name: str, choice) -> str:
     return "cc " + "/".join(map(str, choice))
 
 
-def run_bf16_kernels(torch, dev) -> dict:
+def run_bf16_kernels(torch, dev) -> tuple[dict, dict]:
     """Phase 23's kernel checks: K1-K3 in cases (a), (b) and (d) at NN1's
     layers (batch 64), NN5's (batch 128) and BF16_RAGGED, each against its
-    plain version; K1 and K2 repeated bit-identical; at every shape each
-    plan of ``bf16_choices`` (K1's and K2's two kernels where w is bf16)
-    held to the plain version and, at NN1's and NN5's layers in case (a),
-    timed.  Returns, by the kernel each call reached
-    (``bf16_summary_key``), case (a)'s sums over one NN1 step's calls
-    (phase 3's summary keys, and "library_bf16_ms": K2's product in the
-    working type, which rounds dZ), its NN5 rows ("nn5": label -> kernel,
-    library, working-type library and bound ms) and the worst error of
-    every bf16 and mixed call."""
+    plain version, repeated bit-identical, and each wrapper call held to
+    reach the kernel ``bf16_route`` names (its ``tc_launches``); at every
+    shape each plan of ``bf16_choices`` (both kernels of K1-K3 where the
+    tensor-core one takes the dtypes) held to the plain version, repeated
+    bit-identical and, at NN1's and NN5's layers in case (a), timed. K3's
+    dW where x is bf16 is also held, at every plan, to ``rounded_once``
+    against the plain version (the fp32 product rounded once), which the
+    bf16 library product must miss at each timed shape.
+    Returns case (a)'s sums over one NN1 step's calls by the kernel each
+    reached (``bf16_summary_key``; phase 3's summary keys, and
+    "library_bf16_ms": K2's and K3's product in the working type, which
+    rounds dZ; "library_ms" is then the fp32 one), its NN5 rows ("nn5":
+    label -> kernel, library, working-type library and bound ms) and the
+    worst error of every bf16 and mixed call; and the same sums by wrapper,
+    whichever kernel each call reached."""
+    from repro_torch.kernels.fcnn_layer import (fcnn_layer,
+                                                fcnn_layer_dgrad,
+                                                fcnn_layer_wgrad)
+
     gen = torch.Generator(device=dev).manual_seed(23)
-    names = ("fcnn_layer", "fcnn_layer_dgrad", "fcnn_layer_wgrad")
-    keys = ("fcnn_layer_tc", "fcnn_layer_dgrad_tc", *names)
-    summary = {key: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                     "library_ms": 0.0, "library_bf16_ms": 0.0,
-                     "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+    wrappers = {fn.__name__: fn for fn in (fcnn_layer, fcnn_layer_dgrad,
+                                           fcnn_layer_wgrad)}
+    names = tuple(wrappers)
+    keys = tuple(f"{name}_tc" for name in names) + names
+    sums = ("ms", "plain_ms", "library_ms", "library_bf16_ms", "bound_ms",
+            "bytes_ms", "ops_ms")
+    summary = {key: {"max_abs_err": 0.0, **dict.fromkeys(sums, 0.0),
                      "shapes": [], "nn5": {}} for key in keys}
+    steps = {name: {**dict.fromkeys(sums, 0.0), "shapes": []}
+             for name in names}
     shapes = []
     for tag, sizes, batch in (("NN1", NN1, 64), ("NN5", NN5, 128)):
         last = len(sizes) - 2
@@ -3632,18 +3744,28 @@ def run_bf16_kernels(torch, dev) -> dict:
             calls = bf16_layer(torch, dev, gen, case, m, k, n, act)
             for name in names:
                 kern, plain, libs, forced, work = calls[name]
-                key = bf16_summary_key(name, case)
-                out, want = kern(), plain()
+                key = bf16_summary_key(name, case, n)
+                wrapper = wrappers[name]
+                before = wrapper.tc_launches
+                out = kern()
+                reached = wrapper.tc_launches - before
+                want = plain()
                 torch.cuda.synchronize()
+                check(reached == int(key != name), f"{name} {label} reached "
+                      f"the {'tensor' if reached else 'CUDA'}-core kernel; "
+                      f"the rule names {key}")
                 ok, worst, note = bf16_outputs_close(torch, out, want)
-                extra = ""
-                if name != "fcnn_layer_wgrad":
-                    same = torch.equal(out, kern())
-                    extra = f" repeat {'bit-identical' if same else 'DIFFERS'}"
-                    ok = ok and same
+                exact = (name == "fcnn_layer_wgrad"
+                         and out[0].dtype == torch.bfloat16)
+                if exact:
+                    held, once = rounded_once(torch, out[0], want[0])
+                    ok, note = ok and held, f"{note}; dW {once}"
+                same = outputs_equal(torch, out, kern())
+                ok = ok and same
                 s = summary[key]
                 s["max_abs_err"] = max(s["max_abs_err"], worst)
-                line = f"{key:20s} {label:34s} {note}{extra}"
+                line = (f"{key:20s} {label:34s} {note} repeat "
+                        f"{'bit-identical' if same else 'DIFFERS'}")
                 timed = timed_shape and case == "a"
                 on_step = net == "NN1" and (name != "fcnn_layer_dgrad" or
                                             not tag.endswith("L1"))
@@ -3657,33 +3779,46 @@ def run_bf16_kernels(torch, dev) -> dict:
                                 f"{lib_ms[1]:.5f}" if len(libs) > 1 else "")
                              + f" bound {b_ms:.7f} ({b_by})"
                              f"{' [NN1 step]' if on_step else ''}")
+                    if exact and act in ("sigmoid", "tanh"):
+                        # the control: the bf16 library product, which
+                        # rounds dZ to bf16, must miss the same bar (relu
+                        # and none pass the bf16 dY through: dZ is bf16)
+                        missed, once = rounded_once(torch, libs[-1]()[0],
+                                                    want[0])
+                        line += f" | bf16 library dW {once}"
+                        check(not missed, f"{name} {label}: the bf16 library "
+                              f"product passes the rounded-once bar ({once})")
                     if net == "NN5":
                         s["nn5"][f"{tag} {m}x{k}x{n}"] = {
                             "ms": ms, "library_ms": lib_ms[0],
                             "library_bf16_ms": lib_ms[-1], "bound_ms": b_ms,
                             "bound_by": b_by}
                     if on_step:
-                        s["ms"] += ms
-                        s["plain_ms"] += plain_ms
-                        s["library_ms"] += lib_ms[0]
-                        s["library_bf16_ms"] += lib_ms[-1]
-                        s["bound_ms"] += b_ms
                         ops_s, bytes_s = work.seconds(h100())
-                        s["bytes_ms"] += bytes_s * 1e3
-                        s["ops_ms"] += ops_s * 1e3
-                        s["shapes"].append(label)
+                        got = {"ms": ms, "plain_ms": plain_ms,
+                               "library_ms": lib_ms[0],
+                               "library_bf16_ms": lib_ms[-1],
+                               "bound_ms": b_ms, "bytes_ms": bytes_s * 1e3,
+                               "ops_ms": ops_s * 1e3}
+                        for into in (s, steps[name]):
+                            for field, v in got.items():
+                                into[field] += v
+                            into["shapes"].append(label)
                 print(f"{line} {'ok' if ok else 'FAIL'}", flush=True)
-                check(ok, f"{name} {label} disagrees with its plain version")
+                check(ok, f"{name} {label} disagrees with its plain version "
+                          f"or a repeat differs")
                 times = {}
                 choices = bf16_choices(name, case)
                 for choice in choices:
                     got = forced(*choice)
                     torch.cuda.synchronize()
-                    good, err, _ = bf16_outputs_close(torch, got, want)
-                    if good and name != "fcnn_layer_wgrad":
-                        good = torch.equal(got, forced(*choice))
+                    good, err, note = bf16_outputs_close(torch, got, want)
+                    if exact:
+                        held, once = rounded_once(torch, got[0], want[0])
+                        good, note = good and held, f"{note}; dW {once}"
+                    good = good and outputs_equal(torch, got, forced(*choice))
                     check(good, f"{name} {label} at {choice}: error {err:.3e} "
-                                f"or a repeat differs")
+                                f"({note}) or a repeat differs")
                     if timed:
                         times[_choice_label(name, choice)] = device_ms(
                             lambda c=choice: forced(*c))
@@ -3695,14 +3830,20 @@ def run_bf16_kernels(torch, dev) -> dict:
                             f"{c} {times[c]:.5f}" for c in best), flush=True)
                 else:
                     print(f"    all {len(choices)} plans held to the plain "
-                          f"version, K1/K2 repeats bit-identical", flush=True)
+                          f"version, repeats bit-identical", flush=True)
     for key in keys:
         s = summary[key]
         print(f"NN1 bf16 step (a), {key}: kernel {s['ms']:.5f} ms, library "
               f"{s['library_ms']:.5f} ms (in bf16 {s['library_bf16_ms']:.5f}),"
               f" plain {s['plain_ms']:.5f} ms, bound {s['bound_ms']:.7f} ms "
               f"over {len(s['shapes'])} calls")
-    return summary
+    for name, s in steps.items():
+        print(f"NN1 bf16 step (a), {name}, every call whichever kernel it "
+              f"reached: kernel {s['ms']:.5f} ms, library {s['library_ms']:.5f}"
+              f" ms (in bf16 {s['library_bf16_ms']:.5f}), plain "
+              f"{s['plain_ms']:.5f} ms, bound {s['bound_ms']:.7f} ms over "
+              f"{len(s['shapes'])} calls")
+    return summary, steps
 
 
 class PlainSpy:
@@ -3752,8 +3893,8 @@ def bf16_train_parts(torch, dev, sizes, batch: int, case: str, seed: int = 0):
 
 
 def tc_launch_counts() -> dict[str, int]:
-    """The launches of K1's and K2's tensor-core kernels ("<name>_tc"),
-    which their wrappers' ``launches`` also count."""
+    """The launches of K1's, K2's and K3's tensor-core kernels
+    ("<name>_tc"), which their wrappers' ``launches`` also count."""
     from repro_torch.kernels import ops
 
     return {f"{name}_tc": fn.tc_launches for name, fn in ops.KERNELS.items()
@@ -3830,12 +3971,24 @@ def run_bf16_nn5(torch, dev) -> None:
           "gradients disagree")
 
 
+def nn1_tc_launches(case: str) -> dict[str, int]:
+    """The tensor-core launches of one NN1 step in ``case`` by
+    ``bf16_route``: K1 and K3 at every layer, K2 at layers 2.. (layer 1's
+    input needs no gradient)."""
+    widths = NN1[1:]
+    return {f"{name}_tc": sum(bf16_route(name, case, n) for n in ns)
+            for name, ns in (("fcnn_layer", widths),
+                             ("fcnn_layer_dgrad", widths[1:]),
+                             ("fcnn_layer_wgrad", widths))}
+
+
 def bf16_path_phase(torch, dev, smi: str) -> dict:
     """Phase 23 (see the module docstring); returns case (a)'s kernel sums
-    (``run_bf16_kernels``) and its launches over the 300-step run."""
+    by kernel and by wrapper (``run_bf16_kernels``) and its launches over
+    the 300-step run."""
     from repro_torch.launch.train_fcnn import FULL_RUN_STEPS, train_step
 
-    summary = run_bf16_kernels(torch, dev)
+    summary, steps = run_bf16_kernels(torch, dev)
     fp32 = bf16_nn1_run(torch, dev, "c", 5)
     tc_keys = tuple(tc_launch_counts())
     per_step = {k: v / 5 for k, v in fp32["launches"].items()}
@@ -3846,12 +3999,11 @@ def bf16_path_phase(torch, dev, smi: str) -> dict:
     for case in ("a", "b"):
         run = bf16_nn1_run(torch, dev, case, FULL_RUN_STEPS)
         got = {k: v / FULL_RUN_STEPS for k, v in run["launches"].items()}
-        # every K1 and K2 launch with bf16 weights is a tensor-core one
+        # the tensor-core launches a step are those the rule names
         tc = {key: got.pop(key) for key in tc_keys}
-        for key, n in tc.items():
-            check(n == got[key[:-3]] > 0, f"NN1 bf16 case ({case}): {n} of "
-                  f"{got[key[:-3]]} {key[:-3]} launches a step on the tensor "
-                  f"cores")
+        want_tc = nn1_tc_launches(case)
+        check(tc == want_tc, f"NN1 bf16 case ({case}): {tc} launches a step "
+              f"on the tensor cores, the rule names {want_tc}")
         print(f"NN1 bf16 case ({case}), {FULL_RUN_STEPS} steps: loss "
               + " ".join(f"{v:.4f}" for v in run["losses"][::50])
               + f" ... {run['losses'][-1]:.4f}; final train accuracy "
@@ -3871,7 +4023,7 @@ def bf16_path_phase(torch, dev, smi: str) -> dict:
                                                 next(batches), step_t))
         out[case] = run["launches"]
     run_bf16_nn5(torch, dev)
-    return {"summary": summary, "launches": out["a"]}
+    return {"summary": summary, "step": steps, "launches": out["a"]}
 
 
 # -------------------------------------------------------------- phase 10
@@ -4330,8 +4482,8 @@ def run_phases(torch, dev, smi: str, predictor) -> int:
     dryrun_phase(torch, dev, predictor, PREDICT_DIR)
     phase(23, "the FCNN in bf16: K1-K3 in cases (a), (b) and (d) against "
               "their plain versions, K1 and K2 on the tensor cores where w "
-              "is bf16; NN1 300 steps in (a) and (b); NN5 kernel path "
-              "against plain path")
+              "is bf16, K3 where x is bf16; NN1 300 steps in (a) and (b); "
+              "NN5 kernel path against plain path")
     bf16 = bf16_path_phase(torch, dev, smi)
 
     kernels = []
@@ -4339,20 +4491,22 @@ def run_phases(torch, dev, smi: str, predictor) -> int:
         source, replaces = KERNEL_INFO[name]
         s = summary[name]
         extra = {}
-        b16 = bf16["summary"].get(name)
-        if name == "fcnn_layer_wgrad":
+        if name in bf16["step"]:   # K1-K3's CUDA-core kernels in bf16
+            step = bf16["step"][name]
             extra["bf16"] = {
-                "launches": bf16["launches"][name], "ms": b16["ms"],
-                "plain_ms": b16["plain_ms"], "bound_ms": b16["bound_ms"],
-                "bound_by": "bytes" if b16["bytes_ms"] >= b16["ops_ms"]
-                else "operations", "library_ms": b16["library_ms"],
-                "max_abs_err": b16["max_abs_err"], "shapes": b16["shapes"],
-                "nn5": b16["nn5"],
-                "per": "sum over one NN1 training step in bf16, case (a)"}
-        elif b16 is not None:   # K1, K2 with fp32 weights: case (d)
-            extra["bf16"] = {"max_abs_err": b16["max_abs_err"],
-                             "per": "case (d), bf16 data into an fp32 "
-                                    "network, held to the plain version"}
+                "launches": bf16["launches"][name]
+                - bf16["launches"][f"{name}_tc"],
+                **bf16_numbers(bf16["summary"][name]),
+                "per": "sum over the calls of one NN1 training step in "
+                       "bf16, case (a), that reach this kernel (K2: the "
+                       "output layer); max_abs_err over (a), (b), (d)",
+                "step": {**{k: step[k] for k in ("ms", "plain_ms",
+                                                 "library_ms",
+                                                 "library_bf16_ms",
+                                                 "bound_ms", "shapes")},
+                         "per": "sum over every call of one NN1 training "
+                                "step in bf16, case (a), whichever kernel "
+                                "it reached"}}
         if name in XENT_KERNELS:
             ms, plain_ms, lib_ms, b_ms = s["rows"][LM_XENT_LABEL]
             extra["paths"] = {f"{TRAIN_ARCH} train": {
@@ -4402,20 +4556,15 @@ def run_phases(torch, dev, smi: str, predictor) -> int:
             "paths": paths,
             **extra,
         })
-    for name in ("fcnn_layer_tc", "fcnn_layer_dgrad_tc"):
+    for name in ("fcnn_layer_tc", "fcnn_layer_dgrad_tc",
+                 "fcnn_layer_wgrad_tc"):
         source, replaces = KERNEL_INFO[name]
-        s = bf16["summary"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": bf16["launches"][name],
-            "max_abs_err": s["max_abs_err"], "ms": s["ms"],
-            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-            "bound_by": "bytes" if s["bytes_ms"] >= s["ops_ms"]
-            else "operations",
-            "library_ms": s["library_ms"],
-            "library_bf16_ms": s["library_bf16_ms"],
-            "shapes": s["shapes"], "nn5": s["nn5"],
-            "per": "sum over one NN1 training step in bf16, case (a)",
+            **bf16_numbers(bf16["summary"][name]),
+            "per": "sum over the calls of one NN1 training step in bf16, "
+                   "case (a), that reach this kernel",
         })
     print("\nper-kernel numbers: K1-K5 device times summed over the calls "
           "of one NN1 training step (the [NN1 step] lines of phase 3); K6/K7 "
@@ -4429,14 +4578,17 @@ def run_phases(torch, dev, smi: str, predictor) -> int:
           "(phase 3) and their launches in phase 18's granite-3-2b steps "
           "and phase 21's driver runs (b) and (c); phases 19 and 20's "
           "launches under K6/K7's \"paths\"; K6's sliding-window cases of "
-          "phase 7 under \"windowed\"; K3 in bf16 (case (a): bf16 data, "
-          "bf16 network) under \"bf16\", summed over the [NN1 step] lines of "
-          "phase 23, launches from its 300-step run, max_abs_err over "
-          "cases (a), (b) and (d); K1's and K2's tensor-core kernels "
-          "(bf16 weights) as fcnn_layer_tc and fcnn_layer_dgrad_tc, the same "
-          "way, max_abs_err over (a) and (b), K2's library_ms the fp32 "
-          "product that computes its function and library_bf16_ms the bf16 "
-          "one that rounds dZ, \"nn5\" the NN5 layers of phase 23 in (a)")
+          "phase 7 under \"windowed\"; K1-K3's tensor-core kernels as "
+          "fcnn_layer_tc, fcnn_layer_dgrad_tc (bf16 weights) and "
+          "fcnn_layer_wgrad_tc (bf16 x), summed over the [NN1 step] lines "
+          "of phase 23 in case (a) (bf16 data, bf16 network) that reach "
+          "them, launches from its 300-step run, max_abs_err over the "
+          "cases that reach them, library_ms the fp32 product that "
+          "computes K2's and K3's function and library_bf16_ms the bf16 one "
+          "that rounds dZ, \"nn5\" the NN5 layers of phase 23 in (a); "
+          "under K1-K3's \"bf16\" the same for the calls that reach their "
+          "CUDA-core kernels (in (a) K2's output layer) and, under "
+          "\"step\", for every call of the step")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,15 +9,15 @@ as 1; where the work depends on the inputs (causal or windowed attention)
 only the (query, key) pairs kept are counted.  Operations are keyed by
 the type the product runs in, which sets the peak they are priced at:
 ``"float32"`` at the CUDA cores' rate, ``"bfloat16"`` at the tensor
-cores'.  K1's and K2's products are counted as their kernels run them:
-with bf16 w on the tensor cores, once where the other operand is bf16
-(K1's x in case (a)) and twice where it is fp32 and split into bf16 hi +
-lo (K1's x in case (b), K2's dZ always); with fp32 w in fp32.  K6 and K7
-with bf16 inputs are bf16 products; K3's dZ is fp32, so its product is
-an fp32 one.  Element-wise steps (bias, activation, A'(Y)) and K4/K5 are
-fp32.  Bytes
-count each operand at its element size: K1–K3 take a 4 or 2 for each
-operand group, an output in the dtype the kernel gives it.
+cores'.  K1's, K2's and K3's products are counted as their kernels run
+them: on the tensor cores where ``uses_tc`` says so (K1 and K2 with bf16
+w, but K2 at a contraction N <= TC_NARROW; K3 with bf16 x), once where
+both operands are bf16 (K1's x in case (a)) and twice where one is fp32
+and split into bf16 hi + lo (K1's x in case (b), K2's and K3's dZ
+always); on the CUDA cores in fp32.  K6 and K7 with bf16 inputs are bf16 products.  Element-wise steps
+(bias, activation, A'(Y)) and K4/K5 are fp32.  Bytes count each operand
+at its element size: K1–K3 take a 4 or 2 for each operand group, an
+output in the dtype the kernel gives it.
 
 A kernel wrapper handed meta tensors (the dry-run) returns empty outputs
 of the kernel's shapes and reports its launch and ``Cost`` to every
@@ -30,8 +30,8 @@ import contextlib
 import dataclasses
 from typing import Any, Iterator
 
-__all__ = ["Cost", "recording", "report", "kept_pairs",
-           "fcnn_fwd", "fcnn_dgrad", "fcnn_wgrad", "xent_fwd",
+__all__ = ["Cost", "recording", "report", "kept_pairs", "TC_NARROW",
+           "uses_tc", "fcnn_fwd", "fcnn_dgrad", "fcnn_wgrad", "xent_fwd",
            "xent_dlogits", "flash_attention", "ssd_chunk"]
 
 
@@ -89,13 +89,34 @@ def _ops(product: str, products: int, elementwise: int) -> dict[str, float]:
     return ops
 
 
-def _weight_product(a_size: int, w_size: int,
-                    products: int) -> tuple[str, int]:
-    """(type, operations) of K1's or K2's product of an operand of
-    ``a_size`` bytes an element with weights of ``w_size``, as the kernel
-    runs it: bf16 w on the tensor cores, twice where the operand is fp32
-    (its bf16 hi and lo); fp32 w in fp32."""
-    if w_size != 2:
+# K2's contraction N at or below which the FCNN wrapper
+# (kernels/fcnn_layer.py) keeps a bf16-w call on the CUDA cores
+TC_NARROW = 16
+
+
+def uses_tc(kernel: str, *, x_size: int = 4, w_size: int = 4,
+            n: int = 0) -> bool:
+    """Whether a call of K1-K3 runs on the tensor cores: the one rule the
+    wrappers of kernels/fcnn_layer.py dispatch by and the costs below count
+    by.  K1 ("fcnn_layer") where w is bf16 (``w_size`` 2); K2
+    ("fcnn_layer_dgrad") where w is bf16 and its contraction ``n`` >
+    TC_NARROW; K3 ("fcnn_layer_wgrad") where x is bf16 (``x_size`` 2)."""
+    if kernel == "fcnn_layer_wgrad":
+        return x_size == 2
+    if kernel == "fcnn_layer_dgrad":
+        return w_size == 2 and n > TC_NARROW
+    if kernel == "fcnn_layer":
+        return w_size == 2
+    raise ValueError(f"no tensor-core rule for {kernel!r}")
+
+
+def _product(tensor_cores: bool, a_size: int,
+             products: int) -> tuple[str, int]:
+    """(type, operations) of a K1-K3 product whose other operand has
+    ``a_size`` bytes an element, as its kernel runs it: on the tensor
+    cores, twice where that operand is fp32 (its bf16 hi and lo); else in
+    fp32."""
+    if not tensor_cores:
         return "float32", products
     return "bfloat16", products * (1 if a_size == 2 else 2)
 
@@ -105,7 +126,8 @@ def fcnn_fwd(m: int, k: int, n: int, x_size: int = 4,
     """K1, act(x @ w + b): x (M, K), w (K, N), b (N,) -> (M, N) in x's
     type; element sizes ``x_size`` of x and the output, ``w_size`` of w
     and b."""
-    return Cost(_ops(*_weight_product(x_size, w_size, 2 * m * k * n),
+    return Cost(_ops(*_product(uses_tc("fcnn_layer", w_size=w_size), x_size,
+                               2 * m * k * n),
                      2 * m * n),
                 x_size * (m * k + m * n) + w_size * (k * n + n))
 
@@ -114,15 +136,17 @@ def fcnn_dgrad(m: int, k: int, n: int, dy_size: int = 4,
                w_size: int = 4) -> Cost:
     """K2, (dY ⊙ A'(Y)) Wᵀ: dy, y (M, N), w (K, N) -> (M, K) in dy's type;
     dZ is fp32 whatever the types."""
-    return Cost(_ops(*_weight_product(4, w_size, 2 * m * n * k), 2 * m * n),
+    tc = uses_tc("fcnn_layer_dgrad", w_size=w_size, n=n)
+    return Cost(_ops(*_product(tc, 4, 2 * m * n * k), 2 * m * n),
                 dy_size * (2 * m * n + m * k) + w_size * k * n)
 
 
 def fcnn_wgrad(m: int, k: int, n: int, x_size: int = 4,
                dy_size: int = 4) -> Cost:
     """K3, (Xᵀ dZ, Σ dZ): x (M, K), dy, y (M, N) -> (K, N) in x's type, (N,)
-    in dy's; the product is fp32 (dZ is fp32) whatever the types."""
-    return Cost(_ops("float32", 2 * m * k * n, 3 * m * n),
+    in dy's; dZ is fp32 whatever the types."""
+    return Cost(_ops(*_product(uses_tc("fcnn_layer_wgrad", x_size=x_size), 4,
+                               2 * m * k * n), 3 * m * n),
                 x_size * (m * k + k * n) + dy_size * (2 * m * n + n))
 
 

@@ -1,7 +1,7 @@
 // Python bindings of the seven kernels.  The only source that includes
 // PyTorch's headers: the kernels themselves (fcnn_fwd.cu, fcnn_dgrad.cu,
-// fcnn_fwd_tc.cu, fcnn_dgrad_tc.cu, fcnn_wgrad.cu, softmax_xent.cu,
-// flash_attention.cu, ssd_scan.cu) export
+// fcnn_fwd_tc.cu, fcnn_dgrad_tc.cu, fcnn_wgrad.cu, fcnn_wgrad_tc.cu,
+// softmax_xent.cu, flash_attention.cu, ssd_scan.cu) export
 // plain launchers that take raw pointers, strides and a stream and return
 // the launch's cudaError_t.  The Python wrappers (kernels/fcnn_layer.py, kernels/softmax_xent.py,
 // kernels/flash_attention.py, kernels/ssd_scan.py) check device, dtype,
@@ -31,6 +31,10 @@ cudaError_t launch_fcnn_wgrad(const void* x, const void* dy, const void* y,
                               void* dw, void* db, int M, int K, int N, int act,
                               int tile_rows, int tile_cols, int x_bf16,
                               int dy_bf16, cudaStream_t s);
+cudaError_t launch_fcnn_wgrad_tc(const void* x, const void* dy, const void* y,
+                                 void* dw, void* db, int M, int K, int N,
+                                 int act, int width, int split, int dy_bf16,
+                                 cudaStream_t s);
 cudaError_t launch_xent_fwd(const void* logits, const int* labels, float* nll,
                             float* lse, float* mean, int B, int C, int bf16,
                             int warps_per_row, int vec, cudaStream_t s);
@@ -167,6 +171,26 @@ void fcnn_wgrad(const torch::Tensor& x, const torch::Tensor& dy,
                k);
 }
 
+// K3 on the tensor cores: x (M, K) bf16, dy, y (M, N) -> dw (K, N) bf16,
+// db (N,) in dy's dtype; dWᵀ tiles 64 x ``width``, the batch split over
+// ``split`` blocks of a cluster
+void fcnn_wgrad_tc(const torch::Tensor& x, const torch::Tensor& dy,
+                   const torch::Tensor& y, torch::Tensor dw, torch::Tensor db,
+                   int64_t act, int64_t width, int64_t split) {
+  const char* k = "fcnn_layer_wgrad";
+  TORCH_CHECK(x.scalar_type() == at::kBFloat16, k, ": x must be bfloat16");
+  const int dyb = bf16_flag(dy, k, "dy");
+  same_type(y, dy, k, "y", "dy");
+  same_type(dw, x, k, "dw", "x");
+  same_type(db, dy, k, "db", "dy");
+  const c10::cuda::CUDAGuard guard(x.device());
+  check_launch(launch_fcnn_wgrad_tc(x.data_ptr(), dy.data_ptr(), y.data_ptr(),
+                                    dw.data_ptr(), db.data_ptr(), x.size(0),
+                                    x.size(1), dy.size(1), act, width, split,
+                                    dyb, stream_of(x)),
+               k);
+}
+
 // logits (B, C) fp32 or bf16, labels (B,) int32 -> nll, lse (B,), mean (0-d);
 // warps_per_row 0 is the one-block lane kernel, else the rows kernel with
 // that many warps a row (16-byte loads with vec), as fwd_plan picks
@@ -253,6 +277,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("fcnn_fwd_tc", &fcnn_fwd_tc);
   m.def("fcnn_dgrad_tc", &fcnn_dgrad_tc);
   m.def("fcnn_wgrad", &fcnn_wgrad);
+  m.def("fcnn_wgrad_tc", &fcnn_wgrad_tc);
   m.def("xent_fwd", &xent_fwd);
   m.def("xent_dlogits", &xent_dlogits);
   m.def("launch_floor", &launch_floor);

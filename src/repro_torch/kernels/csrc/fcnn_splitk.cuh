@@ -1,8 +1,8 @@
 // Pieces shared by the FCNN kernels that stage operands with cp.async and
 // split a contraction over the blocks of a thread-block cluster: the
 // forward (fcnn_fwd.cu), dgrad (fcnn_dgrad.cu) and wgrad (fcnn_wgrad.cu)
-// kernels, and the copies and chunk maps of the tensor-core forward and
-// dgrad (fcnn_tc.cuh).  Each operand is float or __nv_bfloat16, read in its own type.
+// kernels, and the copies and chunk maps of the tensor-core forward, dgrad
+// and wgrad (fcnn_tc.cuh).  Each operand is float or __nv_bfloat16, read in its own type.
 //   * copy_chunk<T, VEC>: one chunk of an operand from device memory into
 //     shared memory, or zeros where the source lies outside the operand
 //     (the source is then not read): 16 bytes with cp.async where VEC,

@@ -1,15 +1,16 @@
-// Pieces shared by the FCNN kernels that multiply on Hopper's tensor cores
-// where the weights are bf16: the forward (fcnn_fwd_tc.cu) and dgrad
-// (fcnn_dgrad_tc.cu) kernels.  Both cut the batch into 64-row tiles (one
-// warpgroup's m64 wgmma), split the contraction over the blocks of a
-// thread-block cluster in slices of 64 (128 bytes of bf16, four k16 steps)
-// and stage the slices with cp.async in a ring of 3 to 8 stages
-// (fcnn_splitk.cuh's copy_chunk: 16 bytes where a row allows, else 4-byte
-// fp32 elements or bf16 pairs, or two guarded 2-byte loads).  With one
-// warpgroup an SM, latency is what is left exposed: the first slice's
-// trip from memory, each slice's, and an epilogue's dependent work, so
-// the epilogue reads the partial sums 16 bytes a rank at a time and
-// stores pairs of outputs.
+// Pieces shared by the FCNN kernels that multiply on Hopper's tensor cores:
+// the forward (fcnn_fwd_tc.cu) and dgrad (fcnn_dgrad_tc.cu) kernels where
+// the weights are bf16, and the wgrad (fcnn_wgrad_tc.cu) where the data
+// are.  The forward and dgrad cut the batch into 64-row tiles (one
+// warpgroup's m64 wgmma), the wgrad dW's columns; all split the
+// contraction over the blocks of a thread-block cluster in slices of 64
+// (128 bytes of bf16, four k16 steps) and stage the slices with cp.async
+// in a ring of 3 to 8 stages (fcnn_splitk.cuh's copy_chunk: 16 bytes
+// where a row allows, else 4-byte fp32 elements or bf16 pairs, or two
+// guarded 2-byte loads).  With one warpgroup an SM, latency is what is
+// left exposed: the first slice's trip from memory, each slice's, and an
+// epilogue's dependent work, so the epilogue reads the partial sums 16
+// bytes a rank at a time and stores pairs of outputs.
 //   * ring_stages: how deep a ring is;
 //   * mainloop: the slices through the ring, the copies kStages − 1
 //     slices ahead of the products;

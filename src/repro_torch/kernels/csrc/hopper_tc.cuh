@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels:
 // flash attention's bf16 instantiation (flash_attention.cu), the SSD
-// intra-chunk kernel's (ssd_scan.cu) and the FCNN forward and dgrad
-// kernels with bf16 weights (fcnn_fwd_tc.cu, fcnn_dgrad_tc.cu).
+// intra-chunk kernel's (ssd_scan.cu), the FCNN forward and dgrad kernels
+// with bf16 weights (fcnn_fwd_tc.cu, fcnn_dgrad_tc.cu) and the FCNN wgrad
+// kernel with bf16 data (fcnn_wgrad_tc.cu).
 //   * wgmma wrappers: m64nNk16 bf16 products into fp32 accumulators, N =
 //     16, 64 or 128, A from shared memory (ss) or from registers (rs), each
 //     operand K-major or MN-major as its template flags say;

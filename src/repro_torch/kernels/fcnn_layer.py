@@ -4,8 +4,8 @@
   fcnn_layer_dgrad  dX = (dY ⊙ A'(Y)) @ Wᵀ         replaces repro/kernels/fcnn_layer.py:208
   fcnn_layer_wgrad  (Xᵀ @ dZ, Σ_rows dZ)           replaces repro/kernels/fcnn_layer.py:292
 
-K1 and K2 each have two kernels, picked by w's dtype.  With bf16 w
-(cases (a) and (b) below) they multiply on the tensor cores:
+Each has two kernels.  K1 and K2 pick by w's dtype, K3 by x's.  With
+bf16 w (cases (a) and (b) below) K1 and K2 multiply on the tensor cores:
 ``csrc/fcnn_fwd_tc.cu`` and ``csrc/fcnn_dgrad_tc.cu`` (wgmma; an fp32
 operand, K1's x in (b) and K2's dZ always, split into bf16 hi + lo and
 multiplied twice), with the tile width and cluster split that
@@ -14,13 +14,19 @@ multiplied twice), with the tile width and cluster split that
 ``csrc/fcnn_fwd.cu`` and ``csrc/fcnn_dgrad.cu``, with the (split, slice)
 of ``fwd_plan`` and ``dgrad_plan`` (one rule, ``splitk_plan``).  Every
 kernel splits its contraction over the blocks of a thread-block cluster.
-K3 is ``csrc/fcnn_wgrad.cu``, whose contraction is the batch;
-``wgrad_plan`` picks the height of its dW tiles.
+K3's contraction is the batch.  With bf16 x (cases (a) and (d)) it runs
+``csrc/fcnn_wgrad_tc.cu`` on the tensor cores (dWᵀ = dZᵀ·X, dZ split hi +
+lo; ``wgrad_tc_plan``), with fp32 x (cases (b), (c)) ``csrc/fcnn_wgrad.cu``
+in fp32 on the CUDA cores (``wgrad_plan`` picks its dW tile).  K2 at a
+contraction of at most ``TC_NARROW`` (the output layers' 10) stays on the
+CUDA cores whatever the dtypes (``TC_NARROW`` says why).  The rule is
+``cost.uses_tc``, which the wrappers dispatch by and ``kernels/cost.py``
+counts by.
 
 Each wrapper checks dtype, shape and contiguity, then picks by the
 tensors' device: on CUDA it allocates the outputs, launches the kernel on
-the current stream and adds one to its ``launches`` counter (K1's and
-K2's tensor-core kernels also to ``tc_launches``); on the CPU it
+the current stream and adds one to its ``launches`` counter (the
+tensor-core kernels of K1-K3 also to ``tc_launches``); on the CPU it
 runs the plain version from ``ref.py``; on the meta device (the dry-run)
 it returns the empty outputs and reports the launch and its ``cost`` to
 the active recorders (``cost.report``), leaving ``launches`` to the card.
@@ -35,14 +41,16 @@ K2's dX dy's, K3's dW x's and db dy's.  The kernels read every operand in
 its own dtype (no wrapper upcasts one), accumulate in fp32 and round a
 bf16 output once.  The four (x, w) cases the FCNN reaches, and the
 kernels each reaches:
-  (a) bf16 data in a bf16 network: K1 and K2 on the tensor cores (K1 one
-      bf16 product, exact in fp32; K2's fp32 dZ split hi/lo), K3 in fp32
-      on the CUDA cores;
+  (a) bf16 data in a bf16 network: K1, K2 and K3 on the tensor cores (K1
+      one bf16 product, exact in fp32; K2's and K3's fp32 dZ split hi/lo);
   (b) fp32 data in a bf16 network (every layer's activations fp32
       against bf16 weights): K1 and K2 on the tensor cores (x and dZ
-      split hi/lo), K3 on the CUDA cores;
-  (c) fp32 throughout and (d) bf16 data in an fp32 network: K1, K2 and
-      K3 in fp32 on the CUDA cores.
+      split hi/lo), K3 in fp32 on the CUDA cores;
+  (c) fp32 throughout: K1, K2 and K3 in fp32 on the CUDA cores;
+  (d) bf16 data in an fp32 network: K1 and K2 in fp32 on the CUDA cores,
+      K3 on the tensor cores (dZ split hi/lo);
+and in every case K2 of the output layer (N = 10 <= TC_NARROW) on the
+CUDA cores.
 """
 
 from __future__ import annotations
@@ -54,8 +62,8 @@ from repro_torch.kernels import ref as _ref
 
 __all__ = ["fcnn_layer", "fcnn_layer_dgrad", "fcnn_layer_wgrad",
            "fwd_plan", "dgrad_plan", "wgrad_plan", "splitk_plan",
-           "fwd_tc_plan", "dgrad_tc_plan", "fwd_tc_smem", "dgrad_tc_smem",
-           "KernelLimitError"]
+           "fwd_tc_plan", "dgrad_tc_plan", "wgrad_tc_plan", "fwd_tc_smem",
+           "dgrad_tc_smem", "wgrad_tc_smem", "TC_NARROW", "KernelLimitError"]
 
 # codes of csrc/fcnn_act.cuh's Act enum
 ACT_CODES = {"none": 0, "sigmoid": 1, "relu": 2, "tanh": 3}
@@ -133,6 +141,33 @@ FWD_TC_WIDTHS = (16, 64)
 DGRAD_TC_WIDTHS = (64, 128)
 TC_LIMITS = (16, 132, 1)
 TC_MIN_BLOCKS = 3 * 132 // 4
+# csrc/fcnn_wgrad_tc.cu (bf16 x): dWᵀ tiles of 64 columns of dW by a width
+# of rows, the batch split over a cluster in slices of 64.  The plan takes
+# width 64 where its grid fits two blocks an SM (at a batch of 64 or 128 a
+# launch takes one or two stages of its ring, at width 64 at most 87 KB,
+# with fp32 dY: room for two): each block's work is one or two slices, so
+# more blocks hide more of each one's load latency; past two blocks an SM,
+# width 128's blocks, which read each batch row of dY and Y half as often,
+# run faster.  The split is 2 only where the grid leaves half the SMs idle
+# (NN5's output layer, 63 tiles).  chip_smoke.py
+# phase 23's sweep on the H100, case (a), ms: NN1 L1 (64 x 784 x 1000)
+# 64/1 0.00425, 128/1 0.00443; NN1 L2 64/1 0.00619, 128/1 0.00861; NN5
+# L1-L3 128/1 0.01227-0.01350, 64/1 0.01550-0.01653; NN5 L4 (N = 10) 64/2
+# 0.00733, 64/1 0.00855; every split of 2 or 4 slower elsewhere.  At N =
+# 10 the CUDA-core kernel's best tile ran 0.00657 (NN1 L3, against 64/1's
+# 0.00590) and 0.01025 (NN5 L4): K3 takes no narrow rule.
+WGRAD_TC_WIDTHS = (64, 128)
+WGRAD_TC_SLOTS = 2 * 132
+# K2's contraction N at or below which a bf16-w call stays on the CUDA
+# cores (fcnn_dgrad.cu): the tensor-core kernel's slices of 64 contraction
+# elements hold 10 at the output layers.  chip_smoke.py phase 23's sweep on
+# the H100 measured K2 at NN1 L3 (64 x 500 x 10) 0.00243 ms on the CUDA
+# cores against 0.00409 on the tensor cores, at NN5 L4 (128 x 4000 x 10)
+# 0.00350 against 0.00459.  kernels/cost.py counts the products by the same
+# rule.  K3 takes no such rule: its tensor-core kernel tiles N = 10 with 64
+# wgmma rows, 54 of them idle, and still ran faster than the CUDA-core one
+# (the note above WGRAD_TC_WIDTHS).
+TC_NARROW = cost.TC_NARROW
 
 
 def _ring_bytes(stage: int) -> int:
@@ -159,6 +194,24 @@ def dgrad_tc_smem(dy_size: int, width: int) -> int:
     return _ring_bytes(2 * TC_ROWS * (TC_SLICE + 8) * dy_size + width * 128)
 
 
+def wgrad_tc_smem(dy_size: int, width: int, m: int | None = None,
+                  split: int = 1) -> int:
+    """Dynamic shared memory of K3's tensor-core kernel (``Layout`` and
+    ``launch`` in csrc/fcnn_wgrad_tc.cu): per stage X's slice (64 batch rows
+    of ``width`` bf16) and dY's and Y's (64 batch rows of 64 columns, padded
+    to 68 fp32 or 72 bf16); the whole ring where ``m`` is None, else the
+    stages a launch over a batch ``m`` split ``split`` ways takes: a rank's
+    slices, and no fewer than the epilogue's partials and dW tile need."""
+    pitch = TC_ROWS + (4 if dy_size == 4 else 8)
+    stage = TC_SLICE * width * 2 + 2 * TC_SLICE * pitch * dy_size
+    ring = _ring_bytes(stage)
+    if m is None:
+        return ring
+    epilogue = TC_ROWS * (width + 8) * 4 + width * (TC_ROWS + 8) * 2
+    stages = max(-(-(-(-m // TC_SLICE)) // split), -(-epilogue // stage))
+    return min(stages * stage + 1024, ring)
+
+
 def fwd_tc_plan(m: int, k: int, n: int) -> tuple[int, int]:
     """(width, split) of K1's tensor-core kernel for out (m, n) over the
     contraction k."""
@@ -178,6 +231,16 @@ def dgrad_tc_plan(m: int, k: int, n: int) -> tuple[int, int]:
         if tiles * split >= TC_MIN_BLOCKS:
             break
     return width, split
+
+
+def wgrad_tc_plan(m: int, k: int, n: int) -> tuple[int, int]:
+    """(width, split) of K3's tensor-core kernel for dWᵀ (n, k) over the
+    batch m: tiles of 64 columns of dW by ``width`` rows, width 64 where
+    its grid fits WGRAD_TC_SLOTS, else 128; the batch split over ``split``
+    blocks of a cluster as ``_split`` picks it."""
+    cols = -(-n // TC_ROWS)
+    width = 64 if cols * -(-k // 64) <= WGRAD_TC_SLOTS else 128
+    return width, _split(cols * -(-k // width), -(-m // TC_SLICE), TC_LIMITS)
 
 
 # csrc/fcnn_wgrad.cu: dW tiles (rows, columns), the largest first; a tile
@@ -266,7 +329,7 @@ def fcnn_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         cost.report("fcnn_layer", cost.fcnn_fwd(m, k, n, x.element_size(),
                                                 w.element_size()))
         return out
-    if w.dtype == torch.bfloat16:
+    if cost.uses_tc("fcnn_layer", w_size=w.element_size()):
         _build.extension().fcnn_fwd_tc(x, w, b, out, act, *fwd_tc_plan(m, k, n))
         fcnn_layer.tc_launches += 1
     else:
@@ -293,7 +356,7 @@ def fcnn_layer_dgrad(dy: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
         cost.report("fcnn_layer_dgrad", cost.fcnn_dgrad(
             m, k, n, dy.element_size(), w.element_size()))
         return dx
-    if w.dtype == torch.bfloat16:
+    if cost.uses_tc("fcnn_layer_dgrad", w_size=w.element_size(), n=n):
         _build.extension().fcnn_dgrad_tc(dy, y, w, dx, act,
                                          *dgrad_tc_plan(m, k, n))
         fcnn_layer_dgrad.tc_launches += 1
@@ -325,15 +388,21 @@ def fcnn_layer_wgrad(x: torch.Tensor, dy: torch.Tensor, y: torch.Tensor,
         cost.report("fcnn_layer_wgrad", cost.fcnn_wgrad(
             m, k, n, x.element_size(), dy.element_size()))
         return dw, db
-    _build.extension().fcnn_wgrad(x, dy, y, dw, db, act, *wgrad_plan(k, n))
+    if cost.uses_tc("fcnn_layer_wgrad", x_size=x.element_size()):
+        _build.extension().fcnn_wgrad_tc(x, dy, y, dw, db, act,
+                                         *wgrad_tc_plan(m, k, n))
+        fcnn_layer_wgrad.tc_launches += 1
+    else:
+        _build.extension().fcnn_wgrad(x, dy, y, dw, db, act,
+                                      *wgrad_plan(k, n))
     fcnn_layer_wgrad.launches += 1
     return dw, db
 
 
 fcnn_layer.launches = 0
 fcnn_layer_dgrad.launches = 0
-# the launches of the tensor-core kernels alone (bf16 w), also in
-# ``launches``
+fcnn_layer_wgrad.launches = 0
+# the launches of the tensor-core kernels alone, also in ``launches``
 fcnn_layer.tc_launches = 0
 fcnn_layer_dgrad.tc_launches = 0
-fcnn_layer_wgrad.launches = 0
+fcnn_layer_wgrad.tc_launches = 0

@@ -374,10 +374,12 @@ def calls(monkeypatch):
 @pytest.mark.parametrize("case", ["a", "b"])
 def test_meta_step_counts_bf16_bytes_and_the_cpu_launches(case, calls):
     """A bf16 NN1 step on meta: each bf16 element counted at 2 bytes and
-    each fp32 one at 4; K1's and K2's products at the bf16 rate as their
-    tensor-core kernels run them (K1 once in (a), twice in (b) where x is
-    split hi/lo; K2 twice, dZ split hi/lo), K3's at fp32's; the launches
-    are the wrapper calls of the same step on the CPU."""
+    each fp32 one at 4; the products at the bf16 rate as the tensor-core
+    kernels run them (K1 once in (a), twice in (b) where x is split hi/lo;
+    K2, and K3 in (a) where x is bf16, twice, dZ split hi/lo) and at fp32's
+    where the CUDA-core kernels run them (K3 in (b); K2 at the output
+    layer, N = 10 <= cost.TC_NARROW); the launches are the wrapper calls of
+    the same step on the CPU."""
     batch = 8
     counter = dryrun.count(*_nn1_meta_step(case, batch))
     calls.update(dict.fromkeys(calls, 0))
@@ -400,10 +402,17 @@ def test_meta_step_counts_bf16_bytes_and_the_cpu_launches(case, calls):
         nbytes += xs * (m * k + m * n) + 2 * (k * n + n)          # K1
         nbytes += xs * (m * k + 2 * m * n) + xs * n + xs * k * n  # K3
         flops["bfloat16"] += (1 if case == "a" else 2) * 2 * m * k * n
-        flops["float32"] += 2 * m * n + 2 * m * k * n + 3 * m * n
+        flops["float32"] += 2 * m * n + 3 * m * n
+        if case == "a":                    # K3 on the tensor cores
+            flops["bfloat16"] += 2 * 2 * m * k * n
+        else:
+            flops["float32"] += 2 * m * k * n
         if i:                                                      # K2
             nbytes += xs * (2 * m * n + m * k) + 2 * k * n
-            flops["bfloat16"] += 2 * 2 * m * n * k
+            if n <= cost.TC_NARROW:
+                flops["float32"] += 2 * m * n * k
+            else:
+                flops["bfloat16"] += 2 * 2 * m * n * k
             flops["float32"] += 2 * m * n
     for c in (cost.xent_fwd(batch, 10, xs), cost.xent_dlogits(batch, 10, xs)):
         nbytes += c.nbytes

@@ -542,6 +542,92 @@ def test_fcnn_tc_every_plan_on_card(cuda, m, k, n, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", BF16_SHAPES)
+@pytest.mark.parametrize("dy_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("act", ACTS)
+def test_fcnn_wgrad_tc_every_plan_on_card(cuda, m, k, n, dy_dtype, act):
+    """K3's tensor-core kernel (bf16 x; dy and y in bf16 as in cases (a)
+    and (d), or fp32) at every width and split it is built for, at NN1's,
+    NN5's and the ragged shapes, held to the plain version (dW bf16, db in
+    dy's dtype), each plan run twice bit-identical (the split partials and
+    db summed in a fixed order); dW also held to ``rounded_once`` against
+    the fp32 product rounded once, which the product of dZ rounded to bf16
+    misses."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fcnn_layer import WGRAD_TC_WIDTHS, act_code
+
+    rng = np.random.default_rng(18)
+    x = _rand(rng, (m, k), cuda).to(torch.bfloat16)
+    y = ref.apply_activation(_rand(rng, (m, n), cuda), act).to(dy_dtype)
+    dy = _rand(rng, (m, n), cuda, 0.01).to(dy_dtype)
+    ext, code = _build.extension(), act_code(act)
+    dw_r, db_r = ref.fcnn_layer_wgrad_ref(x, dy, y, act)
+    for width in WGRAD_TC_WIDTHS:
+        for split in (1, 2, 4, 8, 16):
+            outs = []
+            for _ in range(2):
+                dw = torch.empty(k, n, device=cuda, dtype=x.dtype)
+                db = torch.empty(n, device=cuda, dtype=dy_dtype)
+                ext.fcnn_wgrad_tc(x, dy, y, dw, db, code, width, split)
+                outs.append((dw, db))
+            _assert_gemm(outs[0][0], dw_r)
+            _assert_gemm(outs[0][1], db_r)
+            held, note = SMOKE.rounded_once(torch, outs[0][0], dw_r)
+            assert held, (width, split, note)
+            for a, b in zip(*outs):
+                assert torch.equal(a, b), (width, split)
+    if m * k * n >= 64 * 500 * 10 and (dy_dtype == torch.float32
+                                       or act in ("sigmoid", "tanh")):
+        # the control: dZ rounded to bf16 before the product misses the bar
+        # (relu and none pass a bf16 dY through: dZ is bf16 already)
+        dz = ref.act_deriv_from_output(y.float(), act) * dy.float()
+        alone = (x.T @ dz.to(torch.bfloat16)).to(x.dtype)
+        assert not SMOKE.rounded_once(torch, alone, dw_r)[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(64, 784, 1000), (64, 500, 10),
+                                   (128, 4000, 1000)])
+@pytest.mark.parametrize("case", sorted(BF16_CASES))
+def test_fcnn_wgrad_picks_the_kernel_by_x_on_card(cuda, m, k, n, case):
+    """bf16 x (cases (a), (d)) reaches K3's tensor-core kernel, at the
+    output layer's width of 10 too, counted in ``launches`` and
+    ``tc_launches``; fp32 x (case (b)) the CUDA-core one; repeats
+    bit-identical."""
+    rng = np.random.default_rng(19)
+    x, w, b, dy, y = _bf16_layer(rng, m, k, n, case, "sigmoid", cuda)
+    ops.reset_launches()
+    dw, db = fcnn_layer_wgrad(x, dy, y, "sigmoid")
+    torch.cuda.synchronize()
+    tc = int(x.dtype == torch.bfloat16)
+    assert fcnn_layer_wgrad.launches == 1
+    assert fcnn_layer_wgrad.tc_launches == tc
+    dw_r, db_r = ref.fcnn_layer_wgrad_ref(x, dy, y, "sigmoid")
+    _assert_gemm(dw, dw_r)
+    _assert_gemm(db, db_r)
+    again = fcnn_layer_wgrad(x, dy, y, "sigmoid")
+    assert torch.equal(again[0], dw) and torch.equal(again[1], db)
+
+
+@pytest.mark.gpu
+def test_fcnn_wgrad_tc_refuses_bad_plans_on_card(cuda):
+    """A width K3's tensor-core kernel is not built for, a split that is
+    not a power of two up to 16, or fp32 x is refused, never launched."""
+    from repro_torch.kernels import _build
+
+    ext = _build.extension()
+    x = torch.randn(64, 100, device=cuda, dtype=torch.bfloat16)
+    dy = torch.randn(64, 30, device=cuda, dtype=torch.bfloat16)
+    dw = torch.empty(100, 30, device=cuda, dtype=torch.bfloat16)
+    db = torch.empty(30, device=cuda, dtype=torch.bfloat16)
+    for width, split in ((32, 1), (64, 3), (128, 32), (16, 0)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ext.fcnn_wgrad_tc(x, dy, dy, dw, db, 1, width, split)
+    with pytest.raises(RuntimeError, match="bfloat16"):
+        ext.fcnn_wgrad_tc(x.float(), dy, dy, dw.float(), db, 1, 64, 1)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(BF16_CASES))
 def test_fcnn_wrappers_pick_the_kernel_by_w_on_card(cuda, case):
     """bf16 w (cases (a), (b)) reaches the tensor-core kernels, counted in
