@@ -22,12 +22,13 @@ without a result line:
   1. device   a CUDA card is required; its name and power limit; TF32 off
   2. build    the extension, with ptxas's per-kernel resource report
               (registers, shared memory and spills of the redesigned
-              kernels, K1, K2, K3 (both kernels of each) and bf16 K6 and
-              K7, whose spills must be 0) and the count of HGMMA, HMMA and
-              FFMA instructions in each kernel's SASS (cuobjdump); K1's
-              and K2's bf16-weight kernels, K3's bf16-x kernel and the
-              bf16 K6 and K7 kernels must emit HGMMA, and ptxas must not
-              serialize their wgmma
+              kernels, K1, K2, K3 (both kernels of each), bf16 K6 and K7
+              and the five kernels of K6's backward, whose spills must be
+              0) and the count of HGMMA, HMMA and FFMA instructions in
+              each kernel's SASS (cuobjdump); K1's and K2's bf16-weight
+              kernels, K3's bf16-x kernel, the bf16 K6 kernel and its
+              backward's two and the bf16 K7 kernel must emit HGMMA, and
+              ptxas must not serialize their wgmma
   3. kernels  each FCNN kernel against its plain PyTorch version on the
               card, at the NN1 and NN5 shapes and at edge shapes, with
               times of the kernel, the plain version and one PyTorch
@@ -79,7 +80,17 @@ without a result line:
               4096, windows 1, 63, 64, 65, 127, 128, 129 and 1000, in bf16
               and fp32, at the same bars (window 1 returns v bit for bit),
               timed beside SDPA with the same boolean mask and the bound
-              of the kept pairs only
+              of the kept pairs only; then K6's backward
+              (``flash_attention_bwd``) against its plain version on the
+              kernel's own o and lse, bf16 and fp32, at granite-3-2b's
+              and Zamba2-1.2B's training shapes, qwen3-14b's (1, 40,
+              2048, 128) on 8, seamless's cross-attention (1, 16, 512, 64)
+              over 1024 frames, a window of 1000 at 4096 tokens (each
+              timed beside the plain version, SDPA's backward and the
+              bound) and edges (S = 1, ragged tiles, Sk < a tile, D = 16
+              to 128, groups of 1 to 5, windows 1 and 65); repeats
+              bit-identical, the forward's o with its lse bit-identical to
+              o without it (bars at ``K6_BWD_FP32_RTOL``)
   8. serve    Zamba2-1.2B, full width, bf16, random weights: 8 requests
               of the ``steady`` preset with 512/1024/2048-token prompts on
               4 slots through ``repro_torch.launch.serve.serve``; every
@@ -184,17 +195,24 @@ without a result line:
               fp32 AdamW moments, remat, random weights and one batch of
               2 x 2048 seeded token ids in 2 microbatches: 5 steps, every
               loss finite and the last below the first, K4 and K5 launched
-              2 times a step and K6/K7 never (counters reset before each
-              step), host ms/step, peak memory < 80 GB beside the
-              reckoned, a profiled step (device busy, top operations, K4/K5
-              and the plain attention's share, the latter timed alone and
-              multiplied out); the kernel path against the plain path on
-              step 1 from the same weights (loss 1e-5, gradient norm 1e-2
-              relative); 3 steps with int8 error feedback, the same checks;
+              2 times a step, K6 160 (40 layers x 2 microbatches x 2: the
+              remat recomputes each forward) and K6's backward 80, K7
+              never (counters reset before each step, ``train_launches``),
+              no plain version of attention reached (``PlainSpy``), host
+              ms/step, peak memory < 80 GB beside the reckoned, a
+              profiled step (device busy, top operations, K4/K5's and K6's
+              shares from its rows, and attention, K6 forward + backward
+              and its plain version, device time alone multiplied out: an
+              estimate); the kernel path
+              against the plain path on step 1 from the same weights (loss
+              1e-5, gradient norm 1e-2 relative, each gradient leaf 5e-2
+              of its norm, the kernel path's peak of requested bytes no
+              higher than the plain path's); 3 steps with int8 error feedback, the same checks;
               then Zamba2-1.2B at full width and depth, bf16, batch 1 x
-              2048, 3 steps (the loss falls, K4/K5 once a step) and a
-              profiled step with the plain SSD's and the shared attention's
-              shares of device busy time
+              2048, 3 steps (the loss falls, K4/K5 once a step, K6 and its
+              backward once a shared-block call) and a profiled step with
+              K6's share from its rows and the plain SSD's estimated from
+              its device time alone
  19. elastic  Zamba2-1.2B, full width, bf16: 8 requests of the
               ``device-loss-mid-decode`` preset (2 devices lost at decode
               step 4) with 512/1024/2048-token prompts on 4 slots, the
@@ -259,9 +277,9 @@ without a result line:
               (the state made after the reset) and the step's own, the
               roofline bound no more than the device busy time; the card
               orders the knob variant's and the baseline's step peaks as
-              the dry-run does (lower where it predicts lower by > 10%,
-              else within 10%: at full width AdamW's fp32 temporaries of
-              the largest leaf set both)
+              the dry-run does (lower or higher where it predicts lower
+              or higher by > 10%, else within 10%: at full width AdamW's
+              fp32 temporaries of the largest leaf set both)
 
  23. bf16     the FCNN in bf16 (``fcnn.init(dtype=torch.bfloat16)``): K1,
               K2 and K3 in case (a) (bf16 data, bf16 network), (b) (fp32
@@ -348,6 +366,10 @@ KERNEL_INFO = {
                         "src/repro/kernels/flash_attention.py:72"),
     "ssd_chunk": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                   "src/repro/kernels/ssd_scan.py:60"),
+    # K6's backward: no pallas_call, the counterpart of the reference's
+    # flash-style VJP _sdpa_chunked_bwd (phases 7 and 18)
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                            "src/repro/models/layers.py:367"),
     # K1's and K2's kernels for bf16 weights, on the tensor cores (phase 23)
     "fcnn_layer_tc": ("src/repro_torch/kernels/csrc/fcnn_fwd_tc.cu",
                       "src/repro/kernels/fcnn_layer.py:142"),
@@ -374,13 +396,16 @@ LM_KERNELS = ("flash_attention", "ssd_chunk")
 NO_SPILL_KERNELS = ("fcnn_fwd_kernel", "dgrad_kernel", "fcnn_wgrad_kernel",
                     "fcnn_fwd_tc_kernel", "fcnn_dgrad_tc_kernel",
                     "fcnn_wgrad_tc_kernel", "flash_fwd_wgmma_kernel",
-                    "ssd_chunk_wgmma_kernel")
-# K1's and K2's bf16-weight kernels, K3's bf16-x kernel and the bf16 K6 and
-# K7 kernels, which must run on the tensor cores (HGMMA in their SASS) with
-# no wgmma serialized by ptxas
+                    "ssd_chunk_wgmma_kernel", "flash_bwd_delta_kernel",
+                    "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
+                    "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel")
+# K1's and K2's bf16-weight kernels, K3's bf16-x kernel, the bf16 K6
+# kernel and its backward's two, and the bf16 K7 kernel, which must run on
+# the tensor cores (HGMMA in their SASS) with no wgmma serialized by ptxas
 TC_KERNELS = ("fcnn_fwd_tc_kernel", "fcnn_dgrad_tc_kernel",
               "fcnn_wgrad_tc_kernel", "flash_fwd_wgmma_kernel",
-              "ssd_chunk_wgmma_kernel")
+              "ssd_chunk_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel",
+              "flash_bwd_dq_wgmma_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -1365,6 +1390,226 @@ def run_lm_kernel_phase(torch, dev) -> dict:
     return summary
 
 
+# ------------------------------------------------------ phase 7: K6 bwd
+
+# K6's backward against its plain version (``ref.flash_attention_bwd_ref``,
+# the reference's _sdpa_chunked_bwd arithmetic) on the same q, k, v, dO and
+# the kernel's own o and lse.  fp32: each gradient within K6_BWD_FP32_RTOL
+# of its largest element (fp32 sums of up to G·Sq terms in another order).
+# bf16: each (b, head) slice of dQ, dK and dV element-wise within
+# BF16_ULP·|plain| + K6_BWD_SLACK of the slice's largest |plain| (both
+# sides round an fp32 sum taken in another order, and dS, rounded to bf16
+# on both sides, can flip a rounding) and norm-wise within BF16_ULP; dV
+# also ``rounded_once`` at the timed shapes (p stays fp32 for dV, carried
+# into wgmma as bf16 hi + lo; p rounded once to bf16 would flip ~40% of
+# dV's roundings, tests/test_torch_flash_bwd.py).  Not at the edges: where
+# a dV element sums a few exact bf16 products (a window of 1, p = 1) its
+# fp32 sum can sit on a rounding tie, and the kernel's p = 1 − 2^-24 (its
+# exponent in log2 units) flips the tie: 6.6% of dV at window 1, each by
+# one ulp.  Each bar's absolute part is at least
+# the fp32 noise of one summed term (``k6_bwd_noise``): where a gradient
+# is 0 in exact arithmetic (one key for every query: p = 1 and dP =
+# delta, so dQ = dK = 0), both sides return rounding noise of that size.
+# The forward's lse within K6_LSE_TOL·(1 + |plain|), and its o with the
+# lse bit-identical to o without it.
+K6_BWD_FP32_RTOL = 1e-4
+K6_BWD_SLACK = 1e-3
+K6_BWD_NOISE = 2.0 ** -20     # 16 fp32 ulps of a term's bound
+K6_LSE_TOL = 1e-5
+# (B, H, KV, S, D, Sk, causal, window), each timed: the attention that
+# phase 18 trains (granite-3-2b: 32 heads on 8 KV heads of 64 at 2048
+# tokens; Zamba2-1.2B's shared attention, 32 heads of 64), qwen3-14b's GQA
+# of 128 (1, 40, 2048, 128) on 8, the seamless-m4t-large-v2 decoder's
+# cross-attention (512 tokens over 1024 frames) and a sliding window
+K6_BWD_SHAPES = (("granite-3-2b train", (1, 32, 8, 2048, 64, 2048, True, 0)),
+                 ("zamba2-1.2b train", (1, 32, 32, 2048, 64, 2048, True, 0)),
+                 ("qwen3-14b", (1, 40, 8, 2048, 128, 2048, True, 0)),
+                 ("seamless-m4t-large-v2 cross-attention",
+                  (1, 16, 16, 512, 64, 1024, False, 0)),
+                 ("window 1000", (1, 32, 32, 4096, 64, 4096, True, 1000)))
+# the edges, untimed: one token, ragged tiles and lengths, Sk < one tile,
+# D = 16, 32, 96, groups of 1 to 5, windows of 1 and 65
+K6_BWD_EDGES = ((1, 4, 2, 1, 64, 1, True, 0), (2, 4, 2, 300, 64, 300, True, 0),
+                (1, 8, 2, 77, 128, 203, False, 0), (1, 4, 2, 128, 16, 128, True, 0),
+                (2, 6, 3, 129, 32, 1, False, 0), (1, 5, 1, 100, 128, 100, True, 0),
+                (1, 4, 2, 300, 64, 300, True, 65), (1, 4, 4, 77, 16, 30, False, 0),
+                (2, 2, 1, 200, 96, 200, True, 1))
+K6_BWD_MAIN = "granite-3-2b train"   # the kernels line's shape
+
+
+def k6_bwd_noise(q, k, v, do) -> tuple[float, float, float]:
+    """The fp32 noise floors of dQ, dK and dV: K6_BWD_NOISE times the bound
+    of one term of each sum.  p <= 1 and |dP|, |delta| <= D·max|dO|·max|v|
+    (o is a convex combination of v's rows), so |dS| <= 2·√D·max|dO|·max|v|;
+    a dQ term is at most that times max|k|, a dK term times max|q|, a dV
+    term max|dO|."""
+    def big(t):
+        return t.float().abs().max().item()
+
+    ds = 2 * q.shape[-1] ** 0.5 * big(do) * big(v)
+    return tuple(K6_BWD_NOISE * t for t in (ds * big(k), ds * big(q), big(do)))
+
+
+def k6_bwd_close(torch, out, want, noise: float = 0.0
+                 ) -> tuple[bool, float, str]:
+    """(ok, max abs error, the margin) of one gradient of K6's backward
+    against its plain version (the bars above); ``noise`` is its
+    ``k6_bwd_noise`` floor."""
+    check(out.dtype == want.dtype and out.shape == want.shape,
+          f"gradient {out.dtype} {tuple(out.shape)} against the plain "
+          f"version's {want.dtype} {tuple(want.shape)}")
+    a, _ = errors(out, want)
+    if out.dtype != torch.bfloat16:
+        bar = K6_BWD_FP32_RTOL * want.double().abs().max().item() + noise
+        return a <= bar, a, f"{a / max(bar, 1e-300):.2f} of the bar"
+    o, w = out.double().flatten(2), want.double().flatten(2)
+    slack = (K6_BWD_SLACK * w.abs().amax(-1, keepdim=True)).clamp_min(noise)
+    bar = BF16_ULP * w.abs() + slack
+    worst = ((o - w).abs() / bar.clamp_min(2.2250738585072014e-308)).max()
+    d_norm = (o - w).norm(dim=-1)
+    n_bar = BF16_ULP * w.norm(dim=-1) + noise * w.shape[-1] ** 0.5
+    norm = (d_norm / n_bar.clamp_min(1e-300)).max()
+    return (worst.item() <= 1 and norm.item() <= 1, a,
+            f"{worst.item():.2f} of the bar, {norm.item():.2f} of the norm's")
+
+
+def k6_bwd_inputs(torch, dev, gen, shape, dtype):
+    """q, k, v, dO of one case in the model's layout ((B, S, heads, D)
+    projections seen as (B, heads, S, D)), and the kernel's o and lse."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    b, h, kv, s, d, sk, causal, window = shape
+
+    def rand(*size):
+        return torch.randn(*size, generator=gen, device=dev).to(dtype)
+
+    q, do = (rand(b, s, h, d).transpose(1, 2) for _ in range(2))
+    k, v = (rand(b, sk, kv, d).transpose(1, 2) for _ in range(2))
+    o, lse = flash_attention(q, k, v, causal, window, lse=True)
+    return q, k, v, do, o, lse
+
+
+def k6_bwd_library(torch, q, k, v, do, causal: bool, window: int):
+    """(forward, forward + backward) of PyTorch's SDPA at the same inputs
+    (``is_causal``, or the window's boolean mask, ``enable_gqa``): timed
+    only, never on a path."""
+    from repro_torch.kernels import ref
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kw = {"enable_gqa": k.shape[1] != q.shape[1]}
+    if window:
+        kw["attn_mask"] = ref.attention_mask(q.shape[2], k.shape[2], window,
+                                             q.device)
+    else:
+        kw["is_causal"] = causal
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+
+    def fwd():
+        with torch.no_grad():
+            return sdpa(q, k, v, **kw)
+
+    def both():
+        torch.autograd.grad(sdpa(*leaves, **kw), leaves, do)
+
+    return fwd, both
+
+
+def library_backward_ms(fwd, both) -> float:
+    """SDPA's backward alone: forward + backward less forward, each by
+    CUDA-graph replay (``device_ms``; autograd's backward is captured with
+    the forward)."""
+    return (device_ms(both, iters=5, replays=5)
+            - device_ms(fwd, iters=5, replays=5))
+
+
+def run_k6_bwd_phase(torch, dev) -> dict:
+    """Phase 7's K6 backward (see the bars above): every case in bf16 and
+    fp32, repeats bit-identical; the timed cases against the plain
+    version, SDPA's backward (``library_backward_ms``) and the bound.  Returns the kernels line's
+    numbers, at K6_BWD_MAIN in bf16, and each timed shape's under
+    "paths"."""
+    from repro_torch.kernels import cost as kcost
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    summary = {"max_abs_err": 0.0, "paths": {}}
+    print(f"K6 backward against its plain version: fp32 each gradient within "
+          f"{K6_BWD_FP32_RTOL:g} of its largest; bf16 each (b, head) slice "
+          f"element-wise within 2^-7|ref| + {K6_BWD_SLACK:g} of its largest "
+          f"and norm-wise within 2^-7 (the share of each bar used), each "
+          f"absolute part at least {K6_BWD_NOISE:g} of a summed term's bound;"
+          f" dV also rounded once (one ulp + {ONCE_SLACK:g} of the largest, "
+          f"at most {ONCE_MISS:g} of the roundings flipped); lse within "
+          f"{K6_LSE_TOL:g}(1 + |ref|)", flush=True)
+    cases = [(name, shape) for name, shape in K6_BWD_SHAPES]
+    cases += [("", shape) for shape in K6_BWD_EDGES]
+    for name, shape in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            b, h, kv, s, d, sk, causal, window = shape
+            q, k, v, do, o, lse = k6_bwd_inputs(torch, dev, gen, shape, dtype)
+            same_o = torch.equal(o, flash_attention(q, k, v, causal, window))
+            lse_ref = ref.flash_attention_lse_ref(q, k, v, causal, window)[1]
+            lse_err = ((lse - lse_ref).abs() / (1 + lse_ref.abs())).max().item()
+
+            def kern():
+                return flash_attention_bwd(q, k, v, o, do, lse, causal, window)
+
+            got, again = kern(), kern()
+            want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal,
+                                               window)
+            torch.cuda.synchronize()
+            repeat = all(torch.equal(x, y) for x, y in zip(got, again))
+            ok, worst, crits = same_o and lse_err <= K6_LSE_TOL and repeat, 0.0, []
+            for gname, g, w, noise in zip(("dq", "dk", "dv"), got, want,
+                                          k6_bwd_noise(q, k, v, do)):
+                good, a, crit = k6_bwd_close(torch, g, w, noise)
+                ok, worst = ok and good, max(worst, a)
+                crits.append(f"{gname} {crit}")
+            if dtype == torch.bfloat16 and name:
+                good, note = rounded_once(torch, got[2], want[2])
+                ok = ok and good
+                crits.append(f"dv {note.split(', ', 1)[1]}")
+            label = (f"({b},{h},{s},{d}) kv {kv}{f' over Sk {sk}' if sk != s else ''} "
+                     f"{str(dtype)[6:]} {'causal' if causal else 'full'}"
+                     f"{f' window {window}' if window else ''}")
+            line = (f"flash_attention_bwd {label:48s} max_abs {worst:.3e} "
+                    f"({'; '.join(crits)}; lse {lse_err:.1e}; o with lse "
+                    f"{'=' if same_o else '!='} o; repeats "
+                    f"{'bit-identical' if repeat else 'DIFFER'}) "
+                    f"{'ok' if ok else 'FAIL'}")
+            summary["max_abs_err"] = max(summary["max_abs_err"], worst)
+            if name:
+                del again, want
+                fwd, both = k6_bwd_library(torch, q, k, v, do, causal, window)
+                ms = device_ms(kern, iters=5, replays=5)
+                plain_ms = device_ms(lambda: ref.flash_attention_bwd_ref(
+                    q, k, v, o, do, lse, causal, window), iters=2, replays=3)
+                lib_ms = library_backward_ms(fwd, both)
+                c = kcost.flash_attention_bwd(b, h, kv, s, sk, d,
+                                              q.element_size(), causal, window)
+                b_ms, b_by = bound(c)
+                flops = sum(c.flops.values())
+                line += (f" | device ms: kernel {ms:.5f} plain {plain_ms:.5f} "
+                         f"library (SDPA backward) {lib_ms:.5f} bound "
+                         f"{b_ms:.5f} ({b_by}) = {100 * b_ms / ms:.1f}% | "
+                         f"{flops / ms / 1e9:.2f} TFLOP/s [{name}]")
+                row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=b_ms, bound_by=b_by, shapes=[label],
+                           max_abs_err=worst)
+                summary["paths"][f"{name} {str(dtype)[6:]}"] = row
+                if name == K6_BWD_MAIN and dtype == torch.bfloat16:
+                    summary.update({k_: v_ for k_, v_ in row.items()
+                                    if k_ != "max_abs_err"})
+            print(line, flush=True)
+            check(ok, f"flash_attention_bwd {label} disagrees with its plain "
+                      f"version")
+            del q, k, v, do, o, lse, got
+    free_device_memory(torch)
+    return summary
+
+
 # --------------------------------------------------------------- phase 8
 
 
@@ -1660,9 +1905,10 @@ def lm_path_phases(torch, dev) -> tuple[dict, dict]:
     from repro_torch.configs import get_config
     from repro_torch.models.api import get_model
 
-    phase(7, "flash attention (K6) and SSD chunk (K7) against their plain "
-             "versions")
+    phase(7, "flash attention (K6), its backward and SSD chunk (K7) against "
+             "their plain versions")
     summary = run_lm_kernel_phase(torch, dev)
+    summary["flash_attention_bwd"] = run_k6_bwd_phase(torch, dev)
 
     phase(8, "serve Zamba2-1.2B, full width, bf16, 8 requests on 4 slots")
     launches = run_serve_phase(torch, dev)
@@ -2002,12 +2248,17 @@ def run_ssm_bf16_parity(torch, cfg, model, params, tokens) -> None:
           "a bf16 kernel-path layer disagrees with the plain path")
 
 
-def _leaves(tree):
+def _paths(tree, prefix=""):
+    """(path, leaf) of a dict tree, in its dicts' order."""
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
+        for key, v in tree.items():
+            yield from _paths(v, f"{prefix}/{key}")
     else:
-        yield tree
+        yield prefix, tree
+
+
+def _leaves(tree):
+    return (leaf for _, leaf in _paths(tree))
 
 
 def _greedy(torch, model, params, logits, cache, steps: int) -> list[int]:
@@ -2152,13 +2403,44 @@ TRAIN_SEQ = 2048
 TRAIN_STEPS = 5           # AdamW steps of granite-3-2b, microbatches 2
 TRAIN_INT8_STEPS = 3      # then with int8 error feedback
 TRAIN_HYBRID_STEPS = 3    # Zamba2-1.2B, batch 1
-# the kernel path against the plain path (the loss's K4/K5 against their
-# plain versions) on granite's first step: the loss (fp32 sums of 49408
-# classes in another order) and the global gradient norm (the fp32
-# dlogits, a few ulps apart, become bf16 gradients of the hidden states,
-# whose roundings then differ through 40 layers: 2.8e-4 measured)
+# the kernel path against the plain path (the loss's K4/K5 and attention's
+# K6 and its backward against their plain versions) on granite's first
+# step: the loss (fp32 sums of 49408 classes in another order, bf16
+# attention outputs a rounding apart) and the global gradient norm (the
+# fp32 dlogits, a few ulps apart, become bf16 gradients of the hidden
+# states, whose roundings then differ through 40 layers: 2.8e-4 measured
+# with plain attention on both paths), and each gradient leaf relative to
+# its norm (the bf16 train bar of PERF.md §2)
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GNORM_RTOL = 1e-2
+TRAIN_LEAF_RTOL = 5e-2
+# the plain versions of attention, which no kernel-path train step may reach
+ATTN_PLAIN_FNS = ("flash_attention_ref", "flash_attention_lse_ref",
+                  "flash_attention_bwd_ref")
+
+
+def train_launches(cfg, microbatches: int, kernel_path: bool
+                   ) -> dict[str, int]:
+    """The launches of K4-K7 and K6's backward that one train step of
+    ``cfg`` makes: the loss's K4 and K5 once a microbatch; each attention
+    layer's K6 once a microbatch, twice under remat (the recompute of its
+    layer's forward), and its backward once; K7 never (the SSD trains on
+    its plain version).  Zamba2's shared block is not under remat.  The
+    plain path (``mode="ref"``) launches nothing."""
+    from repro_torch.models import zamba2 as Z
+
+    if not kernel_path:
+        return dict.fromkeys(("softmax_xent_fwd", "softmax_xent_dlogits",
+                              "flash_attention", "flash_attention_bwd",
+                              "ssd_chunk"), 0)
+    if cfg.family == "hybrid":
+        layers, fwd = Z.n_shared_invocations(cfg), 1
+    else:
+        layers, fwd = cfg.n_layers, 2 if cfg.remat else 1
+    return {"softmax_xent_fwd": microbatches,
+            "softmax_xent_dlogits": microbatches,
+            "flash_attention": fwd * layers * microbatches,
+            "flash_attention_bwd": layers * microbatches, "ssd_chunk": 0}
 
 
 def gemm_f32_backward_ms(torch, dev, m: int, k: int, n: int
@@ -2196,48 +2478,57 @@ def train_batch(torch, dev, cfg, batch: int, gen):
     return {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
 
 
-def run_train(torch, model, settings, state, batch, steps: int,
-              k45_per_step: int, what: str, mode=None):
+def run_train(torch, model, settings, state, batch, steps: int, what: str,
+              mode=None):
     """``steps`` steps of ``launch.steps.build_train_step``: per step the
-    loss, the gradient norm, host ms (synchronised) and the launches
-    (counters reset just before the step, read just after); K4 and K5
-    must launch ``k45_per_step`` times a step (0 on the plain path), K6 and
-    K7 never (they have no backward: attention and the SSD train on their
-    plain versions).  Returns (the state after the steps, the rows)."""
+    loss, the gradient norm, host ms (synchronised), the peak memory since
+    the caller's last reset (the allocator's, and the bytes the program
+    requested, without the allocator's block rounding) and the launches
+    (counters reset just before
+    the step, read just after), which must be
+    ``train_launches``'s for the model and ``mode``; on the kernel path no
+    plain version of attention may be reached (``PlainSpy``).  Returns (the
+    state after the steps, the rows)."""
     import math
 
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import build_train_step
 
     step = build_train_step(model, settings, mode=mode)
+    expected = train_launches(model.cfg, settings.microbatches, mode != "ref")
     out = []
     for i in range(steps):
         torch.cuda.synchronize()
         ops.reset_launches()
         t0 = time.perf_counter()
-        state, metrics = step(state, batch)
-        torch.cuda.synchronize()
+        with PlainSpy(ATTN_PLAIN_FNS) as spy:
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         launches = ops.launch_counts()
         row = {"loss": metrics["loss"].item(),
                "grad_norm": metrics["grad_norm"].item(), "ms": ms,
-               "launches": launches}
+               "launches": launches,
+               "peak": torch.cuda.max_memory_allocated(),
+               "requested_peak":
+                   torch.cuda.memory_stats()["requested_bytes.all.peak"]}
         out.append(row)
         print(f"{what} step {i + 1}: loss {row['loss']:.6f} grad_norm "
               f"{row['grad_norm']:.6f} host {ms:.1f} ms; K4 "
               f"{launches['softmax_xent_fwd']} K5 "
               f"{launches['softmax_xent_dlogits']} K6 "
-              f"{launches['flash_attention']} K7 {launches['ssd_chunk']}",
+              f"{launches['flash_attention']} K6 bwd "
+              f"{launches['flash_attention_bwd']} K7 {launches['ssd_chunk']}; "
+              f"plain attention reached {sum(spy.calls.values())} times",
               flush=True)
         check(math.isfinite(row["loss"]) and math.isfinite(row["grad_norm"]),
               f"{what}: step {i + 1} is not finite")
-        check(launches["softmax_xent_fwd"] == k45_per_step
-              and launches["softmax_xent_dlogits"] == k45_per_step,
-              f"{what}: K4/K5 launched {launches['softmax_xent_fwd']}/"
-              f"{launches['softmax_xent_dlogits']} times in a step, expected "
-              f"{k45_per_step}")
-        check(launches["flash_attention"] == 0 and launches["ssd_chunk"] == 0,
-              f"{what}: K6/K7 launched in a train step")
+        got = {name: launches[name] for name in expected}
+        check(got == expected, f"{what}: launches {got} in a step, expected "
+                               f"{expected}")
+        check(mode == "ref" or not any(spy.calls.values()),
+              f"{what}: a kernel-path step reached the plain attention "
+              f"{spy.calls}")
     if steps > 1:
         check(out[-1]["loss"] < out[0]["loss"],
               f"{what}: the loss did not fall ({out[0]['loss']:.6f} -> "
@@ -2261,29 +2552,38 @@ def profile_train_step(torch, step) -> tuple[float, list]:
 
 def fwd_bwd_ms(torch, fn, inputs, reps: int = 5) -> tuple[float, float]:
     """(forward ms, forward + backward ms) of ``fn(*inputs)`` under
-    autograd, CUDA events over ``reps`` calls after a warm-up."""
+    autograd: the device busy time a call, summed over the device
+    operations torch.profiler records in ``reps`` calls after a warm-up
+    (host gaps left out), nan where it records none.  The backward takes
+    a contiguous cotangent made beforehand (no reduction, no copy of a
+    stride-0 one) and accumulates no .grad."""
+    from torch.profiler import ProfilerActivity, profile
+
     leaves = [t.detach().requires_grad_(t.is_floating_point()) for t in inputs]
+    grads = [t for t in leaves if t.requires_grad]
+
+    def first(out):
+        return out[0] if isinstance(out, tuple) else out
+
+    cot = torch.ones_like(first(fn(*leaves)))
 
     def fwd():
         return fn(*leaves)
 
     def both():
-        out = fn(*leaves)
-        out = out[0] if isinstance(out, tuple) else out
-        out.float().sum().backward()
+        torch.autograd.grad(first(fn(*leaves)), grads, cot, allow_unused=True)
 
     times = []
     for f in (fwd, both):
         f()
         torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            f()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                f()
+            torch.cuda.synchronize()
+        us = sum(us for _, _, us in device_rows(prof))
+        times.append(us / 1e3 / reps if us else float("nan"))
     return times[0], times[1]
 
 
@@ -2300,13 +2600,94 @@ def print_profile(what: str, busy: float, host_ms: float, rows) -> None:
         print(f"  {us / 1e3:9.3f} ms {count:5d} calls  {key[:100]}")
 
 
+# granite-3-2b's train step with plain attention on the card (PERF.md §5):
+# host ms/step and device busy, printed beside this run's
+PLAIN_ATTENTION_STEP = (1451.8, 1416.6)
+
+
+def attention_train_ms(torch, dev, cfg, layers: int, recompute: bool
+                       ) -> tuple[str, float, float]:
+    """Attention in a train step, composed from its time alone at the
+    step's shape ((1, n_heads, TRAIN_SEQ, head_dim) on n_kv_heads) times
+    ``layers`` calls a step, its forward twice where ``recompute`` — an
+    estimate, not a share of the profiled step: the kernels by graph
+    replay (``device_ms``: K6 with its lse, K6's backward), the plain
+    version under autograd by its device rows (``fwd_bwd_ms``).  Returns
+    (a line, the kernels' ms, the plain version's ms)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    dt = getattr(torch, cfg.dtype)
+    hd, h, kv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    q = torch.randn(1, h, TRAIN_SEQ, hd, generator=gen, device=dev).to(dt)
+    k = torch.randn(1, kv, TRAIN_SEQ, hd, generator=gen, device=dev).to(dt)
+    v = torch.randn(1, kv, TRAIN_SEQ, hd, generator=gen, device=dev).to(dt)
+    o, lse = flash_attention(q, k, v, True, lse=True)
+    do = torch.randn(o.shape, generator=gen, device=dev).to(dt)
+    kf = device_ms(lambda: flash_attention(q, k, v, True, lse=True))
+    kb = device_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse, True))
+    calls = 2 if recompute else 1
+    kern = layers * (calls * kf + kb)
+    pf, pfb = fwd_bwd_ms(torch, lambda q, k, v: ops.flash_attention(
+        q, k, v, True, mode="ref"), (q, k, v))
+    plain = layers * (calls * pf + pfb - pf)
+    line = (f"attention at (1, {h}, {TRAIN_SEQ}, {hd}) on {kv} KV heads, "
+            f"alone: K6 with its lse {kf:.4f} ms, K6's backward {kb:.4f} ms "
+            f"(graph replay); the plain version forward {pf:.3f}, forward + "
+            f"backward {pfb:.3f} ms (device rows); x {layers} calls a step"
+            f"{' with the recompute' if recompute else ''} = {kern:.1f} ms "
+            f"on the kernels, {plain:.1f} ms plain (composed: an estimate)")
+    return line, kern, plain
+
+
+def k6_step_ms(prof_rows, busy: float) -> float:
+    """K6's and its backward's device ms in a profiled step (its rows
+    ``flash_fwd``, ``flash_bwd_*``), printed by kernel with its share of
+    the step's device busy time."""
+    k6 = {n: sum(us for key, _, us in prof_rows if tag in key) / 1e3
+          for n, tag in (("K6", "flash_fwd"),
+                         ("K6 bwd delta", "flash_bwd_delta"),
+                         ("K6 bwd dK/dV", "flash_bwd_dkdv"),
+                         ("K6 bwd dQ", "flash_bwd_dq"))}
+    total = sum(k6.values())
+    print("K6 and its backward in the profiled step: " + ", ".join(
+        f"{n} {ms:.3f} ms" for n, ms in k6.items())
+        + f" = {total:.3f} ms, {100 * total / busy:.1f}% of device busy")
+    return total
+
+
+def grad_leaf_errors(torch, model, params, batch, microbatches: int
+                     ) -> list[tuple[str, float]]:
+    """(path, ||g_kernel − g_plain|| / ||g_plain||) of every gradient leaf
+    of one step's loss from ``params``, the kernel path's against the plain
+    path's, largest first."""
+    from repro_torch.parallel import gradsync
+
+    micro = {k: v.reshape((microbatches, v.shape[0] // microbatches)
+                          + tuple(v.shape[1:])) for k, v in batch.items()}
+    grads = {}
+    for mode in (None, "ref"):
+        _, g = gradsync.accumulate_grads(
+            lambda p, b, m=mode: model.loss_fn(p, b, mode=m), params, micro)
+        grads[mode] = g
+        del g
+    out = []
+    for (path, a), (_, b) in zip(_paths(grads[None]), _paths(grads["ref"])):
+        rel = ((a.float() - b.float()).norm()
+               / b.float().norm().clamp_min(1e-30)).item()
+        out.append((path, rel))
+    del grads
+    return sorted(out, key=lambda r: -r[1])
+
+
 def granite_train_phase(torch, dev, smi: str) -> dict:
     """Phase 18a: granite-3-2b at full width and depth trained by
-    ``build_train_step``; returns K4/K5's launches and numbers."""
+    ``build_train_step``; returns K4/K5's and K6's launches and numbers."""
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import (TrainSettings, build_train_step,
                                           init_train_state)
-    from repro_torch.models import layers as L
     from repro_torch.models.api import get_model
 
     cfg = get_config(TRAIN_ARCH)
@@ -2327,7 +2708,7 @@ def granite_train_phase(torch, dev, smi: str) -> dict:
           f"{cfg.remat} ({cfg.remat_policy}); batch 2 x {TRAIN_SEQ}, "
           f"microbatches 2 (K4 at ({TRAIN_SEQ}, {cfg.padded_vocab}) each)")
     state, rows = run_train(torch, model, settings, state, batch,
-                            TRAIN_STEPS, 2, TRAIN_ARCH)
+                            TRAIN_STEPS, TRAIN_ARCH)
     peak = torch.cuda.max_memory_allocated()
     gb = 1e9
     p_bytes = _tree_bytes(state["params"])
@@ -2352,26 +2733,13 @@ def granite_train_phase(torch, dev, smi: str) -> dict:
     print_profile(f"{TRAIN_ARCH} train step (profiled, one step; host ms the "
                   f"median of steps 2-{TRAIN_STEPS})", busy, host_ms,
                   prof_rows)
-    # the plain attention of one layer at the step's shape, forward and
-    # forward + backward, alone: x n_layers x 2 microbatches, its forward
-    # twice (the remat recomputes it)
-    hd, h, kv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
-    gen = torch.Generator(device=dev).manual_seed(2)
-    dt = getattr(torch, cfg.dtype)
-    q = torch.randn(1, h, TRAIN_SEQ, hd, generator=gen, device=dev).to(dt)
-    k = torch.randn(1, kv, TRAIN_SEQ, hd, generator=gen, device=dev).to(dt)
-    v = torch.randn(1, kv, TRAIN_SEQ, hd, generator=gen, device=dev).to(dt)
-    from repro_torch.kernels import ops
-
-    f_ms, fb_ms = fwd_bwd_ms(torch, lambda q, k, v: ops.flash_attention(
-        q, k, v, True, mode="ref"), (q, k, v))
-    attn = cfg.n_layers * 2 * (2 * f_ms + (fb_ms - f_ms))
-    print(f"plain attention of one layer at (1, {h}, {TRAIN_SEQ}, {hd}) on "
-          f"{kv} KV heads, alone: forward {f_ms:.3f} ms, forward+backward "
-          f"{fb_ms:.3f} ms; x {cfg.n_layers} layers x 2 microbatches with "
-          f"the recompute = {attn:.1f} ms = {100 * attn / busy:.1f}% of the "
-          f"step's device busy time")
-    del q, k, v
+    # attention of one layer at the step's shape, forward and forward +
+    # backward, alone: x n_layers x 2 microbatches, its forward twice (the
+    # remat recomputes it)
+    line, attn, plain_attn = attention_train_ms(
+        torch, dev, cfg, cfg.n_layers * settings.microbatches, True)
+    print(line)
+    k6_ms = k6_step_ms(prof_rows, busy)
     xent = {n: sum(us for key, _, us in prof_rows if tag in key) / 1e3
             for n, tag in (("K4", "xent_fwd"), ("K4 mean", "xent_mean"),
                            ("K5", "xent_dlogits"))}
@@ -2382,9 +2750,10 @@ def granite_train_phase(torch, dev, smi: str) -> dict:
     # kernel path against plain path, first step from the same weights
     del state, step
     free_device_memory(torch)
+    torch.cuda.reset_peak_memory_stats()
     state = init_train_state(model, settings,
                              torch.Generator(device=dev).manual_seed(0), dev)
-    state, (plain,) = run_train(torch, model, settings, state, batch, 1, 0,
+    state, (plain,) = run_train(torch, model, settings, state, batch, 1,
                                 f"{TRAIN_ARCH} plain path", mode="ref")
     loss_rel = abs(rows[0]["loss"] - plain["loss"]) / abs(plain["loss"])
     gn_rel = (abs(rows[0]["grad_norm"] - plain["grad_norm"])
@@ -2396,7 +2765,29 @@ def granite_train_phase(torch, dev, smi: str) -> dict:
           f"{TRAIN_GNORM_RTOL:g})")
     check(loss_rel <= TRAIN_LOSS_RTOL, "granite kernel/plain losses differ")
     check(gn_rel <= TRAIN_GNORM_RTOL, "granite kernel/plain grad norms differ")
+    print(f"peak from the state's making through step 1, requested: kernel "
+          f"path {rows[0]['requested_peak']} B, plain path "
+          f"{plain['requested_peak']} B (the kernel path's no higher); "
+          f"allocated (blocks, the allocator's rounding and the cuBLAS "
+          f"workspaces its first steps add): {rows[0]['peak']} B, "
+          f"{plain['peak']} B; through {TRAIN_STEPS} steps {peak} B")
+    check(rows[0]["requested_peak"] <= plain["requested_peak"],
+          "granite kernel path peaks above the plain path")
     del state
+    free_device_memory(torch)
+    params = init_train_state(model, settings,
+                              torch.Generator(device=dev).manual_seed(0),
+                              dev)["params"]
+    free_device_memory(torch)
+    leaves = grad_leaf_errors(torch, model, params, batch,
+                              settings.microbatches)
+    print(f"kernel path against plain path, step 1's gradients from the same "
+          f"weights: {len(leaves)} leaves, ||g - g_plain|| / ||g_plain|| "
+          f"worst {leaves[0][0]} {leaves[0][1]:.3e} (<= {TRAIN_LEAF_RTOL:g}),"
+          f" then " + ", ".join(f"{p} {r:.2e}" for p, r in leaves[1:6]))
+    check(leaves[0][1] <= TRAIN_LEAF_RTOL,
+          f"granite kernel/plain gradient leaf {leaves[0][0]} differs")
+    del params
     free_device_memory(torch)
 
     # int8 error feedback
@@ -2405,7 +2796,7 @@ def granite_train_phase(torch, dev, smi: str) -> dict:
     state = init_train_state(model, settings8,
                              torch.Generator(device=dev).manual_seed(0), dev)
     state, rows8 = run_train(torch, model, settings8, state, batch,
-                             TRAIN_INT8_STEPS, 2, f"{TRAIN_ARCH} int8")
+                             TRAIN_INT8_STEPS, f"{TRAIN_ARCH} int8")
     peak8 = torch.cuda.max_memory_allocated()
     r_bytes = _tree_bytes(state["residual"])
     print(f"int8: residual {r_bytes / gb:.2f} GB (fp32), dequantized fp32 "
@@ -2433,11 +2824,18 @@ def granite_train_phase(torch, dev, smi: str) -> dict:
           f"{TRAIN_SEQ}, 2 microbatches), device busy {busy:.1f} ms, peak "
           f"{peak / gb:.3f} GB; int8 {ms8[len(ms8) // 2]:.1f} ms/step, peak "
           f"{peak8 / gb:.3f} GB; loss {rows[0]['loss']:.4f} -> "
-          f"{rows[-1]['loss']:.4f} over {TRAIN_STEPS} steps; plain attention "
-          f"{100 * attn / busy:.1f}% of device busy")
-    return {"launches": sum(r["launches"]["softmax_xent_fwd"] for r in rows),
+          f"{rows[-1]['loss']:.4f} over {TRAIN_STEPS} steps; K6 and its "
+          f"backward {k6_ms:.1f} ms = {100 * k6_ms / busy:.1f}% of the "
+          f"profiled step's device busy (composed estimate {attn:.1f} ms, "
+          f"its plain version's {plain_attn:.1f} ms); with plain attention "
+          f"(PERF.md §5) {PLAIN_ATTENTION_STEP[0]} ms/step, busy "
+          f"{PLAIN_ATTENTION_STEP[1]} ms")
+    launched = {name: sum(r["launches"][name] for r in rows)
+                for name in ("softmax_xent_fwd", "flash_attention",
+                             "flash_attention_bwd")}
+    return {"launches": launched["softmax_xent_fwd"], "k6": launched,
             "steps": TRAIN_STEPS, "ms_per_step": host_ms, "busy_ms": busy,
-            "attention_share": attn / busy, "n_params": n_params}
+            "attention_share": k6_ms / busy, "n_params": n_params}
 
 
 def hybrid_train_phase(torch, dev, smi: str) -> None:
@@ -2445,7 +2843,6 @@ def hybrid_train_phase(torch, dev, smi: str) -> None:
     TRAIN_SEQ, TRAIN_HYBRID_STEPS steps; where a step's time goes, with the
     plain SSD's and the shared attention's shares."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
     from repro_torch.launch.steps import (TrainSettings, build_train_step,
                                           init_train_state)
     from repro_torch.models import mamba2 as M
@@ -2466,7 +2863,7 @@ def hybrid_train_phase(torch, dev, smi: str) -> None:
           f"{Z.n_shared_invocations(cfg)} shared-attention invocations, "
           f"{n_params / 1e9:.3f} B parameters, bf16, batch 1 x {TRAIN_SEQ}")
     state, rows = run_train(torch, model, settings, state, batch,
-                            TRAIN_HYBRID_STEPS, 1, TRAIN_HYBRID_ARCH)
+                            TRAIN_HYBRID_STEPS, TRAIN_HYBRID_ARCH)
     peak = torch.cuda.max_memory_allocated()
     host = sorted(r["ms"] for r in rows[1:])
     host_ms = host[len(host) // 2]
@@ -2481,10 +2878,10 @@ def hybrid_train_phase(torch, dev, smi: str) -> None:
                   host_ms, prof_rows)
     del state, step
     free_device_memory(torch)
-    # the plain SSD of one Mamba2 layer and the shared block's plain
-    # attention at the step's shapes, alone, each forward and backward;
-    # the Mamba layers recompute their forward (remat), the shared block
-    # does not
+    # the plain SSD of one Mamba2 layer and the shared block's attention
+    # (K6 and its backward, and its plain version) at the step's shapes,
+    # alone, each forward and backward; the Mamba layers recompute their
+    # forward (remat), the shared block does not
     gen = torch.Generator(device=dev).manual_seed(2)
     dt = getattr(torch, cfg.dtype)
     h, p, n = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
@@ -2495,30 +2892,23 @@ def hybrid_train_phase(torch, dev, smi: str) -> None:
     f_ms, fb_ms = fwd_bwd_ms(torch, lambda x, a, b, c: M.ssd_chunked(
         x, a, b, c, cfg.ssm_chunk, mode="ref"), (x, dt_a, b, c))
     ssd = cfg.n_layers * (2 * f_ms + (fb_ms - f_ms))
-    hd = cfg.resolved_head_dim
-    q = torch.randn(1, cfg.n_heads, TRAIN_SEQ, hd, generator=gen,
-                    device=dev).to(dt)
-    k = torch.randn(1, cfg.n_kv_heads, TRAIN_SEQ, hd, generator=gen,
-                    device=dev).to(dt)
-    af_ms, afb_ms = fwd_bwd_ms(torch, lambda q, k, v: ops.flash_attention(
-        q, k, v, True, mode="ref"), (q, k, k.clone()))
-    attn = Z.n_shared_invocations(cfg) * afb_ms
+    line, attn, _ = attention_train_ms(torch, dev, cfg,
+                                       Z.n_shared_invocations(cfg), False)
     print(f"plain SSD (ssd_chunked) of one layer at ({TRAIN_SEQ} tokens, {h} "
-          f"heads of {p}, state {n}), alone: forward {f_ms:.3f} ms, "
-          f"forward+backward {fb_ms:.3f} ms; x {cfg.n_layers} layers with "
-          f"the recompute = {ssd:.1f} ms = {100 * ssd / busy:.1f}% of the "
-          f"step's device busy time")
-    print(f"plain attention of the shared block at (1, {cfg.n_heads}, "
-          f"{TRAIN_SEQ}, {hd}), alone: forward {af_ms:.3f} ms, "
-          f"forward+backward {afb_ms:.3f} ms; x "
-          f"{Z.n_shared_invocations(cfg)} invocations = {attn:.1f} ms = "
-          f"{100 * attn / busy:.1f}% of device busy")
+          f"heads of {p}, state {n}), device time alone: forward {f_ms:.3f} "
+          f"ms, forward+backward {fb_ms:.3f} ms; x {cfg.n_layers} layers "
+          f"with the recompute = {ssd:.1f} ms, an estimate composed from "
+          f"the SSD alone ({100 * ssd / busy:.1f}% of the profiled step's "
+          f"device busy {busy:.1f} ms)")
+    print(f"the shared block's {line}")
+    k6_ms = k6_step_ms(prof_rows, busy)
     print(f"{TRAIN_HYBRID_ARCH} train on {smi}: {host_ms:.1f} ms/step "
           f"(batch 1 x {TRAIN_SEQ}), device busy {busy:.1f} ms, peak "
           f"{peak / 1e9:.3f} GB; loss {rows[0]['loss']:.4f} -> "
-          f"{rows[-1]['loss']:.4f} over {TRAIN_HYBRID_STEPS} steps; plain SSD "
-          f"{100 * ssd / busy:.1f}%, shared attention {100 * attn / busy:.1f}%"
-          f" of device busy")
+          f"{rows[-1]['loss']:.4f} over {TRAIN_HYBRID_STEPS} steps; K6 and "
+          f"its backward {100 * k6_ms / busy:.1f}% of the profiled step's "
+          f"device busy; plain SSD {ssd:.1f} ms composed from the SSD alone "
+          f"(an estimate, {100 * ssd / busy:.1f}% of busy)")
     check(peak < 80e9, f"{TRAIN_HYBRID_ARCH} train peak {peak / 1e9:.3f} GB")
 
 
@@ -3427,10 +3817,12 @@ def dryrun_phase(torch, dev, predictor, out_dir: str) -> None:
         p_base = out["cells"][base_label]["step_peak_bytes"]
         p_var = out["cells"][var_label]["step_peak_bytes"]
         # the card orders the two steps' peaks as the dry-run does: lower
-        # where the dry-run's is lower by more than DRY_PEAK_RTOL, else
-        # within DRY_PEAK_RTOL of each other
+        # (higher) where the dry-run's is lower (higher) by more than
+        # DRY_PEAK_RTOL, else within DRY_PEAK_RTOL of each other
         if p_var < (1 - DRY_PEAK_RTOL) * p_base:
             order_ok = var["step_peak"] < base["step_peak"]
+        elif p_var > (1 + DRY_PEAK_RTOL) * p_base:
+            order_ok = var["step_peak"] > base["step_peak"]
         else:
             order_ok = (p_var <= (1 + DRY_PEAK_RTOL) * p_base
                         and abs(var["step_peak"] - base["step_peak"])
@@ -3847,17 +4239,17 @@ def run_bf16_kernels(torch, dev) -> tuple[dict, dict]:
 
 
 class PlainSpy:
-    """Counts calls of the plain versions of K1-K5 (``kernels.ref``, which
-    the wrappers reach through the module) while active: on the card a
-    bf16 or mixed call must never reach one."""
+    """Counts calls of plain versions (``kernels.ref`` functions, which the
+    wrappers and ops reach through the module; by default K1-K5's) while
+    active: on the card a kernel-path call must never reach one."""
 
-    def __init__(self):
-        self.calls = dict.fromkeys(PLAIN_FNS, 0)
+    def __init__(self, names=PLAIN_FNS):
+        self.calls = dict.fromkeys(names, 0)
 
     def __enter__(self):
         from repro_torch.kernels import ref
 
-        self._saved = {name: getattr(ref, name) for name in PLAIN_FNS}
+        self._saved = {name: getattr(ref, name) for name in self.calls}
         for name, fn in self._saved.items():
             def counted(*a, _fn=fn, _name=name, **kw):
                 self.calls[_name] += 1
@@ -4543,6 +4935,9 @@ def run_phases(torch, dev, smi: str, predictor) -> int:
         if name == "flash_attention":
             paths[f"{ARCH} {LONG_PROMPT - LONG_TAIL}-token prefill"].update(
                 later["long_k6"])
+            paths[f"{TRAIN_ARCH} train"] = {
+                "launches": train["k6"]["flash_attention"],
+                "steps": train["steps"]}
         extra = ({"windowed": s["windowed"]} if name == "flash_attention"
                  else {})
         kernels.append({
@@ -4556,6 +4951,22 @@ def run_phases(torch, dev, smi: str, predictor) -> int:
             "paths": paths,
             **extra,
         })
+    source, replaces = KERNEL_INFO["flash_attention_bwd"]
+    s = lm_summary["flash_attention_bwd"]
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda", "source": source,
+        "replaces": replaces,
+        "launches": train["k6"]["flash_attention_bwd"],
+        "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+        "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+        "bound_by": s["bound_by"], "library_ms": s["library_ms"],
+        "shapes": s["shapes"],
+        "per": f"call at {K6_BWD_MAIN}'s attention shape, bf16",
+        "note": "no pallas_call: the counterpart of the reference's "
+                "flash-style VJP _sdpa_chunked_bwd; library_ms is SDPA's "
+                "backward (forward + backward less forward)",
+        "paths": s["paths"],
+    })
     for name in ("fcnn_layer_tc", "fcnn_layer_dgrad_tc",
                  "fcnn_layer_wgrad_tc"):
         source, replaces = KERNEL_INFO[name]
@@ -4588,7 +4999,10 @@ def run_phases(torch, dev, smi: str, predictor) -> int:
           "that rounds dZ, \"nn5\" the NN5 layers of phase 23 in (a); "
           "under K1-K3's \"bf16\" the same for the calls that reach their "
           "CUDA-core kernels (in (a) K2's output layer) and, under "
-          "\"step\", for every call of the step")
+          "\"step\", for every call of the step; flash_attention_bwd (K6's "
+          "backward) per call at granite-3-2b's training attention shape "
+          "in bf16 (phase 7), its launches from phase 18's granite-3-2b "
+          "steps, every timed shape and dtype under \"paths\"")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

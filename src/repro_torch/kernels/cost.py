@@ -1,4 +1,5 @@
-"""The work of one launch of each kernel, K1–K7: the operations it does,
+"""The work of one launch of each kernel, K1–K7 and K6's backward: the
+operations it does,
 by the type of the units that do them, and the bytes it must move, each
 input read once and each output written once.  ``chip_smoke.py``'s bound
 column and the dry-run (``launch/dryrun.py``) both count through these
@@ -14,7 +15,8 @@ them: on the tensor cores where ``uses_tc`` says so (K1 and K2 with bf16
 w, but K2 at a contraction N <= TC_NARROW; K3 with bf16 x), once where
 both operands are bf16 (K1's x in case (a)) and twice where one is fp32
 and split into bf16 hi + lo (K1's x in case (b), K2's and K3's dZ
-always); on the CUDA cores in fp32.  K6 and K7 with bf16 inputs are bf16 products.  Element-wise steps
+always); on the CUDA cores in fp32.  K6, its backward and K7 with bf16
+inputs are bf16 products.  Element-wise steps
 (bias, activation, A'(Y)) and K4/K5 are fp32.  Bytes count each operand
 at its element size: K1–K3 take a 4 or 2 for each operand group, an
 output in the dtype the kernel gives it.
@@ -32,7 +34,8 @@ from typing import Any, Iterator
 
 __all__ = ["Cost", "recording", "report", "kept_pairs", "TC_NARROW",
            "uses_tc", "fcnn_fwd", "fcnn_dgrad", "fcnn_wgrad", "xent_fwd",
-           "xent_dlogits", "flash_attention", "ssd_chunk"]
+           "xent_dlogits", "flash_attention", "flash_attention_bwd",
+           "ssd_chunk"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,6 +176,20 @@ def flash_attention(b: int, h: int, kv: int, s: int, sk: int, d: int,
     pairs = kept_pairs(s, window) if causal else s * sk
     return Cost({_dtype(element_size): 4 * b * h * pairs * d},
                 2 * b * (h * s + kv * sk) * d * element_size)
+
+
+def flash_attention_bwd(b: int, h: int, kv: int, s: int, sk: int, d: int,
+                        element_size: int, causal: bool,
+                        window: int = 0) -> Cost:
+    """K6's backward: q, o, dO (B, H, S, D), k, v (B, KV, Sk, D) and the
+    fp32 lse (B, H, S) -> dq (B, H, S, D), dk, dv (B, KV, Sk, D), and the
+    fp32 row correction delta (B, H, S) once; the VJP's five products (S,
+    dP, dV, dQ, dK) over the kept pairs, as ``flash_attention`` keeps
+    them."""
+    pairs = kept_pairs(s, window) if causal else s * sk
+    return Cost({_dtype(element_size): 10 * b * h * pairs * d},
+                4 * b * (h * s + kv * sk) * d * element_size
+                + 2 * b * h * s * 4)
 
 
 def ssd_chunk(bc: int, q: int, h: int, p: int, n: int, groups: int,

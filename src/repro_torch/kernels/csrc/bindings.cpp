@@ -1,7 +1,8 @@
-// Python bindings of the seven kernels.  The only source that includes
-// PyTorch's headers: the kernels themselves (fcnn_fwd.cu, fcnn_dgrad.cu,
-// fcnn_fwd_tc.cu, fcnn_dgrad_tc.cu, fcnn_wgrad.cu, fcnn_wgrad_tc.cu,
-// softmax_xent.cu, flash_attention.cu, ssd_scan.cu) export
+// Python bindings of the seven kernels and K6's backward.  The only source
+// that includes PyTorch's headers: the kernels themselves (fcnn_fwd.cu,
+// fcnn_dgrad.cu, fcnn_fwd_tc.cu, fcnn_dgrad_tc.cu, fcnn_wgrad.cu,
+// fcnn_wgrad_tc.cu, softmax_xent.cu, flash_attention.cu,
+// flash_attention_bwd.cu, ssd_scan.cu) export
 // plain launchers that take raw pointers, strides and a stream and return
 // the launch's cudaError_t.  The Python wrappers (kernels/fcnn_layer.py, kernels/softmax_xent.py,
 // kernels/flash_attention.py, kernels/ssd_scan.py) check device, dtype,
@@ -44,9 +45,17 @@ cudaError_t launch_xent_dlogits(const void* logits, const int* labels,
                                 int C, int bf16, int vec, cudaStream_t s);
 cudaError_t launch_empty(cudaStream_t s);
 cudaError_t launch_flash_attention(const void* q, const void* k, const void* v,
-                                   void* o, const long long* st, int B, int H,
-                                   int KV, int Sq, int Sk, int D, int causal,
-                                   int window, int bf16, cudaStream_t stream);
+                                   void* o, float* lse, const long long* st,
+                                   int B, int H, int KV, int Sq, int Sk, int D,
+                                   int causal, int window, int bf16,
+                                   cudaStream_t stream);
+cudaError_t launch_flash_attention_bwd(const void* q, const void* k, const void* v,
+                                       const void* o, const void* dout,
+                                       const float* lse, float* delta, void* dq,
+                                       void* dk, void* dv, const long long* st,
+                                       int B, int H, int KV, int Sq, int Sk, int D,
+                                       int causal, int window, int bf16,
+                                       cudaStream_t stream);
 cudaError_t launch_ssd_chunk(const void* x, const float* dt_a, const void* b,
                              const void* c, void* y, float* state,
                              float* decay, const long long* st, int BC, int Q,
@@ -232,21 +241,58 @@ void launch_floor() {
 
 // q, o (B, H, Sq, D) and k, v (B, KV, Sk, D), H a multiple of KV (GQA),
 // Sk = Sq where causal; read and written through their strides; a causal
-// call with window > 0 keeps key k for query q where q - window < k <= q
-void flash_attention(const torch::Tensor& q, const torch::Tensor& k,
-                     const torch::Tensor& v, torch::Tensor o, bool causal,
-                     int64_t window) {
+// call with window > 0 keeps key k for query q where q - window < k <= q;
+// lse: nullptr, or the (B, H, Sq) fp32 log-sum-exp of each row
+void flash_attention_launch(const torch::Tensor& q, const torch::Tensor& k,
+                            const torch::Tensor& v, torch::Tensor o, float* lse,
+                            bool causal, int64_t window) {
   const c10::cuda::CUDAGuard guard(q.device());
   long long st[12];
   const torch::Tensor* ts[4] = {&q, &k, &v, &o};
   for (int i = 0; i < 4; ++i)
     for (int d = 0; d < 3; ++d) st[3 * i + d] = ts[i]->stride(d);
   check_launch(launch_flash_attention(
-                   q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), st,
+                   q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse, st,
                    q.size(0), q.size(1), k.size(1), q.size(2), k.size(2),
                    q.size(3), causal, static_cast<int>(window),
                    q.scalar_type() == at::kBFloat16, stream_of(q)),
                "flash_attention");
+}
+
+void flash_attention(const torch::Tensor& q, const torch::Tensor& k,
+                     const torch::Tensor& v, torch::Tensor o, bool causal,
+                     int64_t window) {
+  flash_attention_launch(q, k, v, o, nullptr, causal, window);
+}
+
+// the same, also writing lse (B, H, Sq) fp32, contiguous
+void flash_attention_lse(const torch::Tensor& q, const torch::Tensor& k,
+                         const torch::Tensor& v, torch::Tensor o, torch::Tensor lse,
+                         bool causal, int64_t window) {
+  flash_attention_launch(q, k, v, o, f32(lse), causal, window);
+}
+
+// dq, dk, dv of flash_attention from q, k, v, o, dout (q's and k's shapes,
+// through their strides) and the forward's lse; delta (B, H, Sq) fp32 is
+// scratch the kernels fill and read
+void flash_attention_bwd(const torch::Tensor& q, const torch::Tensor& k,
+                         const torch::Tensor& v, const torch::Tensor& o,
+                         const torch::Tensor& dout, const torch::Tensor& lse,
+                         torch::Tensor delta, torch::Tensor dq, torch::Tensor dk,
+                         torch::Tensor dv, bool causal, int64_t window) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  long long st[24];
+  const torch::Tensor* ts[8] = {&q, &k, &v, &o, &dout, &dq, &dk, &dv};
+  for (int i = 0; i < 8; ++i)
+    for (int d = 0; d < 3; ++d) st[3 * i + d] = ts[i]->stride(d);
+  check_launch(launch_flash_attention_bwd(
+                   q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                   dout.data_ptr(), f32(lse), f32(delta), dq.data_ptr(),
+                   dk.data_ptr(), dv.data_ptr(), st, q.size(0), q.size(1),
+                   k.size(1), q.size(2), k.size(2), q.size(3), causal,
+                   static_cast<int>(window), q.scalar_type() == at::kBFloat16,
+                   stream_of(q)),
+               "flash_attention_bwd");
 }
 
 // x (BC, Q, H, P), dt_a (BC, Q, H), b, c (BC, Q, H, N) through their
@@ -282,5 +328,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("xent_dlogits", &xent_dlogits);
   m.def("launch_floor", &launch_floor);
   m.def("flash_attention", &flash_attention);
+  m.def("flash_attention_lse", &flash_attention_lse);
+  m.def("flash_attention_bwd", &flash_attention_bwd);
   m.def("ssd_chunk", &ssd_chunk);
 }

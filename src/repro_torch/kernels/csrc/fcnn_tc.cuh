@@ -17,9 +17,9 @@
 //   * sw128 / sw32: where an element of a 128-byte- (32-byte-) swizzled
 //     tile lies, the layouts tc::desc_sw128 / tc::desc_sw32 describe;
 //   * for_chunks: the chunks of a tile each thread copies;
-//   * pair / split_pack: two neighbouring elements of a staged slice as
-//     fp32, and an fp32 pair split into bf16 hi = bf16(v) and lo =
-//     bf16(v − hi), packed as a wgmma A fragment.  hi + lo carries ~16
+//   * pair / split_pack (hopper_tc.cuh's): two neighbouring elements of a
+//     staged slice as fp32, and an fp32 pair split into bf16 hi = bf16(v)
+//     and lo = bf16(v − hi), packed as a wgmma A fragment.  hi + lo carries ~16
 //     bits (|v − hi − lo| <= 2^-17·|v|), so two bf16 products, summed in
 //     fp32, stand for the fp32 × bf16 product the reference computes;
 //   * mma_rs / mma_ss: the m64nNk16 wgmma of a tile width N (16, 64, 128
@@ -96,15 +96,7 @@ __device__ __forceinline__ float2 pair(const bf16* p) {
   return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
 }
 
-// v = hi + lo: hi = bf16(v), lo = bf16(v − hi) (v − hi is exact in fp32),
-// each pair packed with its lower column in the lower half
-__device__ __forceinline__ void split_pack(float2 v, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(v.x - hf.x, v.y - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
+using tc::split_pack;  // hopper_tc.cuh
 
 // Slices [0, count) of this block through a ring of kStages stages:
 // load(slice, stage) issues a slice's copies, mma(stage) its products,

@@ -27,6 +27,12 @@
 //         bar (2e-5 of the largest output) rules out TF32 and bf16 tensor
 //         cores.
 //
+// With an lse pointer (training: kLse, a template flag, so the serving
+// kernels are unchanged) both also write each row's log-sum-exp of its
+// scaled scores, m + log(l) in natural-log units, as the reference's
+// _flash_fwd_core returns it; flash_attention_bwd.cu recomputes the
+// probabilities from it.
+//
 // Common to both.  The TPU grid walked the kv blocks in sequence and
 // carried m, l and acc in VMEM scratch from one grid step to the next.
 // Here one thread block owns one (batch·head, query tile), the kv loop
@@ -119,10 +125,11 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
-template <typename T, int kDPad>
+template <typename T, int kDPad, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, Strides3 sq,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, Strides3 sq,
                  Strides3 sk, Strides3 sv, Strides3 so, int H, int G, int Sq,
                  int Sk, int D, int causal, int window, float scale) {
   constexpr int kPitch = kDPad + 4;
@@ -243,6 +250,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
+  if constexpr (kLse) {
+    // every thread of a row's half-warp holds its m and l
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + ty + 16 * i;
+      if (tx == 0 && row < Sq)
+        lse[static_cast<long long>(blockIdx.y) * Sq + row] = m[i] + logf(l[i]);
+    }
+  }
   T* op = o + b * so.b + h * so.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -258,14 +274,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int kDPad>
+template <typename T, int kDPad, bool kLse>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const long long* st, int B, int H, int KV, int Sq, int Sk,
-                   int D, int causal, int window, cudaStream_t stream) {
+                   float* lse, const long long* st, int B, int H, int KV,
+                   int Sq, int Sk, int D, int causal, int window,
+                   cudaStream_t stream) {
   constexpr int kPitch = kDPad + 4;
   const int smem = static_cast<int>(sizeof(float)) *
                    (kBlockQ * kPitch + 2 * kBlockKV * kPitch + kBlockQ * kPPitch);
-  auto kern = flash_fwd_kernel<T, kDPad>;
+  auto kern = flash_fwd_kernel<T, kDPad, kLse>;
   // opt in to the shared memory once per instantiation (outside any CUDA
   // graph capture that later launches record into)
   static bool opted_in = false;
@@ -283,7 +300,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, sv, so, H, H / KV,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, sv, so, H, H / KV,
       Sq, Sk, D, causal, window, scale);
   return cudaGetLastError();
 }
@@ -339,13 +356,14 @@ __device__ __forceinline__ void wgmma_pv<2>(float (&o)[64], const uint32_t (&a)[
   wgmma_rs_m64n128k16(o, a, desc);
 }
 
-// kChunks 64-column boxes cover D (D <= 64 * kChunks)
-template <int kChunks>
+// kChunks 64-column boxes cover D (D <= 64 * kChunks); kLse: write lse
+template <int kChunks, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
-                       __nv_bfloat16* __restrict__ o, Strides3 so, int H, int G,
+                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                       Strides3 so, int H, int G,
                        int Sq, int Sk, int D, int causal, int window,
                        float scale_log2) {
   constexpr int kTile = kBoxBytes * kChunks;   // one Q, K or V tile
@@ -503,6 +521,16 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
+  if constexpr (kLse) {
+    // m is in log2 units of the scaled scores: lse = (m + log2 l)·ln 2
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (lane % 4 == 0 && row < Sq)
+        lse[static_cast<long long>(blockIdx.y) * Sq + row] =
+            (m[r] + log2f(l[r])) * 0.6931471805599453f;
+    }
+  }
   __nv_bfloat16* op = o + b * so.b + h * so.h;
 #pragma unroll
   for (int i = 0; i < kAcc; i += 2) {
@@ -520,62 +548,21 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime,
-// so the extension needs no link against libcuda
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// 4-D map over the (D, S, H, B) view with strides st = (b, h, s) in
-// elements, boxes of 64 columns x 128 rows, 128-byte swizzle, zero fill.
-// A dimension of size 1 is never stepped: it gets a stride TMA accepts.
-bool encode_map(CUtensorMap* map, const void* ptr, const long long* st, int B,
-                int H, int S, int D) {
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return false;
-  cuuint64_t stride_s = S > 1 ? st[2] * 2 : (D * 2 + 15) / 16 * 16;
-  cuuint64_t stride_h = H > 1 ? st[1] * 2 : stride_s * S;
-  cuuint64_t stride_b = B > 1 ? st[0] * 2 : stride_h * H;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {stride_s, stride_h, stride_b};
-  const cuuint32_t box[4] = {64, kBlockKV, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-             strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-template <int kChunks>
+template <int kChunks, bool kLse>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const long long* st, int B, int H, int KV, int Sq, int Sk,
-                   int D, int causal, int window, cudaStream_t stream) {
+                   float* lse, const long long* st, int B, int H, int KV,
+                   int Sq, int Sk, int D, int causal, int window,
+                   cudaStream_t stream) {
   // q's map spans its H heads and Sq rows, k's and v's their KV heads and
   // Sk rows
   CUtensorMap tq, tk, tv;
-  if (!encode_map(&tq, q, st, B, H, Sq, D) ||
-      !encode_map(&tk, k, st + 3, B, KV, Sk, D) ||
-      !encode_map(&tv, v, st + 6, B, KV, Sk, D))
+  if (!encode_map(&tq, q, st, B, H, Sq, D, kBlockKV) ||
+      !encode_map(&tk, k, st + 3, B, KV, Sk, D, kBlockKV) ||
+      !encode_map(&tv, v, st + 6, B, KV, Sk, D, kBlockKV))
     return cudaErrorInvalidValue;
   const int smem = 1024 + (1 + 2 * kStages) * kBoxBytes * kChunks +
                    8 * (1 + 2 * kStages);
-  auto kern = flash_fwd_wgmma_kernel<kChunks>;
+  auto kern = flash_fwd_wgmma_kernel<kChunks, kLse>;
   // opt in once per instantiation, outside any CUDA graph capture that
   // later launches are recorded into
   static bool opted_in = false;
@@ -589,37 +576,56 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const Strides3 so{st[9], st[10], st[11]};
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
   kern<<<grid, kThreads, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o),
-                                         so, H, H / KV, Sq, Sk, D, causal, window,
-                                         scale_log2);
+                                         lse, so, H, H / KV, Sq, Sk, D, causal,
+                                         window, scale_log2);
   return cudaGetLastError();
 }
 
 }  // namespace tc
+
+namespace {
+
+// the instantiation for the dtype and D
+template <bool kLse>
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
+                     float* lse, const long long* st, int B, int H, int KV,
+                     int Sq, int Sk, int D, int causal, int window, int bf16,
+                     cudaStream_t stream) {
+  if (bf16)
+    return D <= 64 ? tc::launch<1, kLse>(q, k, v, o, lse, st, B, H, KV, Sq, Sk, D,
+                                         causal, window, stream)
+                   : tc::launch<2, kLse>(q, k, v, o, lse, st, B, H, KV, Sq, Sk, D,
+                                         causal, window, stream);
+  return D <= 64 ? launch<float, 64, kLse>(q, k, v, o, lse, st, B, H, KV, Sq, Sk,
+                                           D, causal, window, stream)
+                 : launch<float, 128, kLse>(q, k, v, o, lse, st, B, H, KV, Sq, Sk,
+                                            D, causal, window, stream);
+}
+
+}  // namespace
 
 // q, o: (B, H, Sq, D) and k, v: (B, KV, Sk, D), H a multiple of KV, with
 // unit D stride; st: the (b, h, s) strides of q, k, v and o in that order,
 // in elements; bf16 != 0 for bfloat16 data.  Query head h attends with KV
 // head h / (H / KV) (grouped-query attention; KV = H is multi-head).
 // Causal attention needs Sq = Sk; window > 0 (a sliding window) needs a
-// causal call.
+// causal call.  lse: nullptr, or (B, H, Sq) fp32 contiguous, each row's
+// log-sum-exp of its scaled scores.
 cudaError_t launch_flash_attention(const void* q, const void* k, const void* v,
-                                   void* o, const long long* st, int B, int H,
-                                   int KV, int Sq, int Sk, int D, int causal,
-                                   int window, int bf16, cudaStream_t stream) {
+                                   void* o, float* lse, const long long* st,
+                                   int B, int H, int KV, int Sq, int Sk, int D,
+                                   int causal, int window, int bf16,
+                                   cudaStream_t stream) {
   if (D < 1 || D > 128 || Sq < 1 || Sk < 1 || (causal && Sq != Sk) || B * H < 1 ||
       B * H > 65535 || KV < 1 || H % KV != 0 || window < 0 || (window > 0 && !causal))
     return cudaErrorInvalidValue;
-  if (bf16) {
-    // TMA: 16-byte aligned base and strides (the wrapper checks them first)
-    if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-         reinterpret_cast<uintptr_t>(v)) % 16)
-      return cudaErrorMisalignedAddress;
-    return D <= 64
-               ? tc::launch<1>(q, k, v, o, st, B, H, KV, Sq, Sk, D, causal, window, stream)
-               : tc::launch<2>(q, k, v, o, st, B, H, KV, Sq, Sk, D, causal, window, stream);
-  }
-  return D <= 64
-             ? launch<float, 64>(q, k, v, o, st, B, H, KV, Sq, Sk, D, causal, window, stream)
-             : launch<float, 128>(q, k, v, o, st, B, H, KV, Sq, Sk, D, causal, window,
-                                  stream);
+  // TMA: 16-byte aligned base and strides (the wrapper checks them first)
+  if (bf16 && (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+               reinterpret_cast<uintptr_t>(v)) % 16)
+    return cudaErrorMisalignedAddress;
+  return lse != nullptr
+             ? dispatch<true>(q, k, v, o, lse, st, B, H, KV, Sq, Sk, D, causal,
+                              window, bf16, stream)
+             : dispatch<false>(q, k, v, o, lse, st, B, H, KV, Sq, Sk, D, causal,
+                               window, bf16, stream);
 }

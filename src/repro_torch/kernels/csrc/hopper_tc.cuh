@@ -11,11 +11,15 @@
 //   * wg_fence / wg_commit / wg_wait_all and fence_regs around the
 //     asynchronous products; fence_proxy_async between writes by threads to
 //     shared memory and a product that reads them;
-//   * mbarrier and TMA helpers, and pack_bf16 for register A fragments.
+//   * mbarrier and TMA helpers, and pack_bf16 / split_pack for register A
+//     fragments;
+//   * encode_map (host): the 4-D tensor map over a (B, heads, S, D) view
+//     that K6's forward and backward load their tiles through.
 #pragma once
 
-#include <cuda.h>  // CUtensorMap (types only: no -lcuda)
+#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace tc {
@@ -194,6 +198,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// v = hi + lo: hi = bf16(v), lo = bf16(v − hi) (v − hi is exact in fp32),
+// each pair packed with its lower column in the lower half
+__device__ __forceinline__ void split_pack(float2 v, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(v.x - hf.x, v.y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
 // d (64 x 64, fp32) (+)= A (64 x 16) · B (16 x 64), both in shared
 // memory; kTransA / kTransB = 1 for an MN-major operand, 0 for K-major;
 // scale_d = 0 overwrites d
@@ -259,6 +273,48 @@ __device__ __forceinline__ void wgmma_rs_m64n16k16(float (&d)[8], const uint32_t
 // must follow before another thread's product reads them
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime,
+// so the extension needs no link against libcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// 4-D bf16 map over the (D, S, H, B) view with strides st = (b, h, s) in
+// elements, boxes of 64 columns x `rows` rows, 128-byte swizzle, zero fill.
+// A dimension of size 1 is never stepped: it gets a stride TMA accepts.
+inline bool encode_map(CUtensorMap* map, const void* ptr, const long long* st,
+                       int B, int H, int S, int D, int rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  cuuint64_t stride_s = S > 1 ? st[2] * 2 : (D * 2 + 15) / 16 * 16;
+  cuuint64_t stride_h = H > 1 ? st[1] * 2 : stride_s * S;
+  cuuint64_t stride_b = B > 1 ? st[0] * 2 : stride_h * H;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {stride_s, stride_h, stride_b};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+             strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace tc

@@ -1,12 +1,15 @@
 """The ops the models call over the kernels, and their dispatch.
 
 ``fcnn_layer`` and ``softmax_xent`` (differentiable) are what the FCNN
-calls, and ``softmax_xent`` the LM loss too; ``flash_attention`` and
-``ssd_chunk`` (forward only: the reference kernels have no VJP) are what
-the LM prefill calls.  The mode:
+calls, and ``softmax_xent`` the LM loss too; ``flash_attention``
+(differentiable: K6 forward, K6's backward kernels for the gradients) is
+the LM's attention in prefill and in training; ``ssd_chunk`` (forward
+only: the reference kernel has no VJP) is what the Mamba2 prefill calls.
+The mode:
 
-  * ``None`` (default) — the fused path: ``_FusedFCNN`` / ``_FusedXent``,
-    whose forward and backward call the kernel wrappers.  A wrapper
+  * ``None`` (default) — the fused path: ``_FusedFCNN`` / ``_FusedXent``
+    / ``_FlashAttention``, whose forward and backward call the kernel
+    wrappers.  A wrapper
     launches its CUDA kernel for CUDA tensors and runs its plain version
     for CPU tensors, so the tensors' device picks the path.
   * ``"cuda"`` — the fused path, and raise unless the tensors are on CUDA
@@ -29,7 +32,10 @@ which forms g/B itself: no PyTorch operation runs around the two
 kernels.  ``_MaskedXent`` (the LM loss with a token mask) takes the
 masked mean Σ nll·mask / max(Σ mask, 1) of K4's per-row nll and hands
 K5 the per-row factor g·mask / max(Σ mask, 1).  Labels and masks get no
-gradient.
+gradient.  ``_FlashAttention`` (where q, k or v requires grad) runs K6
+with its log-sum-exp, saves ``(q, k, v, o, lse)`` and hands its backward
+to ``flash_attention_bwd``; attention that needs no gradient (serving)
+calls K6 alone, without the lse.
 """
 
 from __future__ import annotations
@@ -39,6 +45,8 @@ import torch
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import (
     flash_attention as _flash_attention,
+    flash_attention_bwd as _flash_attention_bwd,
+    tma_aligned,
 )
 from repro_torch.kernels.fcnn_layer import (
     fcnn_layer as _fcnn_fwd,
@@ -65,6 +73,7 @@ KERNELS = {
     "softmax_xent_fwd": _xent_fwd,
     "softmax_xent_dlogits": _xent_dlogits,
     "flash_attention": _flash_attention,
+    "flash_attention_bwd": _flash_attention_bwd,
     "ssd_chunk": _ssd_chunk,
 }
 
@@ -140,6 +149,29 @@ class _MaskedXent(torch.autograd.Function):
         return (_xent_dlogits(logits, labels, lse, g * weight), None, None)
 
 
+def _unit_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where K6's backward can read it (a unit last stride,
+    ``tma_aligned``), else a contiguous copy: the cotangent autograd hands
+    over may be any view."""
+    return t if t.stride(-1) == 1 and tma_aligned(t) else t.contiguous()
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        o, lse = _flash_attention(q, k, v, causal, window, lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_attention_bwd(q, k, v, o, _unit_rows(do), lse,
+                                          ctx.causal, ctx.window)
+        return dq, dk, dv, None, None
+
+
 def fcnn_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                activation: str = "sigmoid", *,
                mode: str | None = None) -> torch.Tensor:
@@ -172,9 +204,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q kᵀ/√D) v.  q: (B, H, Sq, D), k, v: (B, KV, Sk, D) with
     H % KV == 0 (GQA) and Sk = Sq where causal -> (B, H, Sq, D); a causal
     call with ``window`` > 0 keeps key k for query q where
-    q - window < k <= q."""
+    q - window < k <= q.  Differentiable in q, k and v."""
     if resolve_mode(mode, q, k, v) == "ref":
         return _ref.flash_attention_ref(q, k, v, causal, window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window)
     return _flash_attention(q, k, v, causal, window)
 
 

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the seven kernels: the five of the FCNN
 training step and the two of the LM prefill (flash attention, the SSD
-intra-chunk term).
+intra-chunk term), and of flash attention's backward (the LM training
+step's attention, with the forward's log-sum-exp).
 
 Each function computes what its CUDA kernel computes, with PyTorch ops in
 fp32.  The kernel wrappers run these for tensors on the CPU, ``ops``
@@ -25,6 +26,8 @@ __all__ = [
     "softmax_xent_fwd_ref",
     "softmax_xent_dlogits_ref",
     "flash_attention_ref",
+    "flash_attention_lse_ref",
+    "flash_attention_bwd_ref",
     "attention_mask",
     "check_causal_lengths",
     "ssd_chunk_ref",
@@ -159,6 +162,70 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqm,bkmd->bkgqd", p.to(v.dtype).float(), v.float())
     return o.reshape(b, h, sq, d).to(q.dtype)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
+            window: int) -> torch.Tensor:
+    """Scaled scores (B, KV, G, Sq, Sk) fp32 of q (B, H, Sq, D) against k
+    (B, KV, Sk, D), -1e30 where the mask drops the key (the reference's
+    ``_flash_fwd_core`` and ``_sdpa_chunked_bwd``)."""
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, kv, h // kv, sq, d)
+    s = torch.einsum("bkgqd,bkmd->bkgqm", qg, k.float()) * (1.0 / math.sqrt(d))
+    if causal:
+        mask = attention_mask(sq, sk, window, q.device)
+        s = torch.where(mask, s, torch.full((), -1e30, device=q.device))
+    return s
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, causal: bool = True,
+                            window: int = 0
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse): ``flash_attention_ref``'s output and each query row's
+    log-sum-exp (B, H, Sq) fp32 of its scaled scores, m + log(l) in
+    natural-log units, as the reference's ``_flash_fwd_core`` returns it."""
+    b, h, sq, _ = q.shape
+    lse = torch.logsumexp(_scores(q, k, causal, window), dim=-1)
+    return (flash_attention_ref(q, k, v, causal, window),
+            lse.reshape(b, h, sq))
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            dout: torch.Tensor, lse: torch.Tensor,
+                            causal: bool = True, window: int = 0
+                            ) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention_ref`` for the cotangent ``dout``
+    (q's shape), from the forward's ``o`` and ``lse`` (B, H, Sq), in the
+    reference's ``_sdpa_chunked_bwd`` arithmetic and roundings, over any
+    mask ``attention_mask`` gives and GQA: p = exp(s − lse) in fp32,
+    delta = Σ o·dO, dV = pᵀ·dO with p and dO in fp32, dP = dO·vᵀ, dS =
+    p·(dP − delta)·scale rounded to q's dtype for dQ = dS·k and dK =
+    dSᵀ·q; every product accumulates in fp32, and the gradients are
+    rounded once to q's, k's and v's dtypes."""
+    b, h, sq, d = q.shape
+    kv = k.shape[1]
+    check_causal_lengths(sq, k.shape[2], causal, window)
+    g = h // kv
+    scale = 1.0 / math.sqrt(d)
+
+    def grouped(t):
+        return t.float().reshape(b, kv, g, sq, d)
+
+    og = grouped(dout)
+    delta = (grouped(o) * og).sum(-1)                          # (B, KV, G, Sq)
+    p = torch.exp(_scores(q, k, causal, window)
+                  - lse.float().reshape(b, kv, g, sq)[..., None])
+    dv = torch.einsum("bkgqm,bkgqd->bkmd", p, og)
+    dp = torch.einsum("bkgqd,bkmd->bkgqm", og.to(v.dtype).float(), v.float())
+    ds = (p * (dp - delta[..., None]) * scale).to(q.dtype).float()
+    dq = torch.einsum("bkgqm,bkmd->bkgqd", ds, k.float())
+    dk = torch.einsum("bkgqm,bkgqd->bkmd", ds, grouped(q))
+    return (dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def ssd_chunk_ref(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,

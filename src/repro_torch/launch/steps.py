@@ -16,9 +16,9 @@ it in place, and the step returns it.  Nothing is read back to the host:
 the metrics are 0-d tensors on the parameters' device.
 
 The loss is the model's ``loss_fn``, whose token cross-entropy goes
-through the softmax cross-entropy kernels (K4/K5) unless ``mode="ref"``;
-attention and the SSD train on their plain versions (the reference trains
-through its jnp paths, and K6/K7 have no backward).
+through the softmax cross-entropy kernels (K4/K5) and whose attention
+goes through K6 and its backward kernels, unless ``mode="ref"``; the SSD
+trains on its plain version (K7 has no backward kernel yet).
 """
 
 from __future__ import annotations
@@ -76,9 +76,10 @@ def train_state_spec(model: Model, settings: TrainSettings) -> Params:
 
 def build_train_step(model: Model, settings: TrainSettings = TrainSettings(),
                      *, mode: str | None = None) -> Callable:
-    """The train step of ``model`` under ``settings``; ``mode`` is the loss
-    kernels' (``None``: K4/K5 on the card; ``"ref"``: their plain
-    versions, for comparisons)."""
+    """The train step of ``model`` under ``settings``; ``mode`` is the
+    kernels' of the loss and of attention (``None``: K4/K5, K6 and its
+    backward on the card; ``"ref"``: their plain versions, for
+    comparisons)."""
     if settings.grad_compression not in ("none", "int8"):
         raise ValueError(f"unknown grad_compression "
                          f"{settings.grad_compression!r}")

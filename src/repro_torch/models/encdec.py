@@ -24,9 +24,10 @@ them in the cache (``mem_k``, ``mem_v``) beside the self-attention cache;
 ``decode_step`` runs plain PyTorch, updates the cache in place and drops
 a self-attention write past ``max_len``, as the reference does.
 
-``loss_fn`` trains the model on the decoder's labels: every attention on
-its plain version (``mode="ref"``; the reference trains through its jnp
-attention and K6 has no backward), each encoder and decoder layer under
+``loss_fn`` trains the model on the decoder's labels: every attention
+(the encoder's, the decoder's causal self-attention and its
+cross-attention over the memory) through K6 and its backward kernels
+(``mode`` as in prefill), each encoder and decoder layer under
 ``layers.remat_wrap`` (the memory's cross-attention keys and values are
 computed outside it, as the reference computes them before its decoder
 scan), the token loss through K4/K5.
@@ -187,13 +188,14 @@ def forward(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
 def loss_fn(params: Params, batch: dict, cfg: ModelConfig, *,
             mode: str | None = None) -> torch.Tensor:
     """Mean token cross-entropy (0-d fp32) of ``batch["labels"]`` (B,
-    S_dec), masked by ``batch["mask"]`` where given.  ``mode`` is the loss
-    kernels' (K4/K5)."""
+    S_dec), masked by ``batch["mask"]`` where given.  ``mode`` is the
+    kernels' of the loss (K4/K5) and of every attention (K6 and its
+    backward)."""
     h = batch["enc_embeds"].to(getattr(torch, cfg.dtype))
     enc_pos = _positions(h.shape[0], h.shape[1], h.device)
 
     def enc(h: torch.Tensor, lp: Params) -> torch.Tensor:
-        return enc_block_apply(lp, h, enc_pos, cfg, mode="ref")
+        return enc_block_apply(lp, h, enc_pos, cfg, mode=mode)
 
     enc = L.remat_wrap(cfg, enc)
     for lp in unstack(params["encoder"], cfg.n_encoder_layers):
@@ -208,7 +210,7 @@ def loss_fn(params: Params, batch: dict, cfg: ModelConfig, *,
 
     def dec(h: torch.Tensor, lp: Params, mk: torch.Tensor,
             mv: torch.Tensor) -> torch.Tensor:
-        return dec_block_apply(lp, h, (mk, mv), positions, cfg, mode="ref")[0]
+        return dec_block_apply(lp, h, (mk, mv), positions, cfg, mode=mode)[0]
 
     dec = L.remat_wrap(cfg, dec)
     for lp, kv in zip(decoder, mem_kv):

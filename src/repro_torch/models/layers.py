@@ -45,9 +45,11 @@ SwiGLU's gate and up, the one-hot embedding) go through ``matmul_acc``,
 fp32 under the default ``"float32"`` and the activation dtype under
 ``"bfloat16"``.  ``embed(..., onehot=True)`` is the reference's one-hot
 matmul lookup, chunked over length.  Causal self-attention whose Lq·Lk
-exceeds ``chunk_threshold`` takes, on the plain path (``mode="ref"``,
-what training runs), the reference's kv-chunked online softmax with its
-flash-style backward (``_SdpaChunkedCausal``); the kernel path keeps K6.
+exceeds ``chunk_threshold`` takes, on the plain path (``mode="ref"``),
+the reference's kv-chunked online softmax with its flash-style backward
+(``_SdpaChunkedCausal``); the kernel path keeps K6 at every length, in
+training too, where ``ops.flash_attention`` differentiates through K6's
+backward kernels.
 
 On the card a bf16 product with fp32 output (``matmul_fp32``,
 ``bmm_fp32``) is one GEMM writing fp32; PyTorch has no derivative for

@@ -28,8 +28,8 @@ and its cache is the recurrent state alone, of constant size: ``ssm``
 (n_layers, B, H, P, N) fp32, ``conv`` (n_layers, B, K-1, conv_dim) and
 ``len``.  Every prefill runs one K7 launch per layer; ``decode_step``
 updates the cache in place.  ``loss_fn`` trains the LM: the SSD on its
-plain version (``mode="ref"``; the reference trains through its jnp SSD
-and K7 has no backward), each layer under ``layers.remat_wrap``, the
+plain version (``mode="ref"``: K7 has no backward yet), each layer under
+``layers.remat_wrap``, the
 token loss through K4/K5.
 """
 
@@ -306,6 +306,7 @@ def loss_fn(params: Params, batch: dict, cfg: ModelConfig, *,
                 onehot=cfg.embed_onehot)
 
     def body(h: torch.Tensor, lp: Params) -> torch.Tensor:
+        # K7 has no backward kernel yet (ROADMAP, queue 2): the plain SSD
         return block_apply(lp, h, cfg, mode="ref")
 
     body = L.remat_wrap(cfg, body)

@@ -207,13 +207,13 @@ def loss_fn(params: Params, batch: dict, cfg: ModelConfig, *,
             mode: str | None = None) -> torch.Tensor:
     """Token cross-entropy plus ``router_aux_coef`` times the layers'
     mean load-balance loss, the aux carried through the layer loop as the
-    reference carries it through its scan.  ``mode`` is the loss kernels'
-    (K4/K5); attention trains on its plain version (K6 has no backward)."""
+    reference carries it through its scan.  ``mode`` is the kernels' of
+    the loss (K4/K5) and of attention (K6 and its backward)."""
     h = T._embed_in(params, batch, cfg)
     positions = T._positions_of(batch, cfg, h)
 
     def body(h: torch.Tensor, lp: Params):
-        return block_apply_aux(lp, h, positions, cfg, mode="ref")
+        return block_apply_aux(lp, h, positions, cfg, mode=mode)
 
     body = L.remat_wrap(cfg, body)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)

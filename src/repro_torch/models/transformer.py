@@ -31,11 +31,10 @@ The stack machinery (``block_apply``/``block_decode`` taken as
 ``apply_one``/``decode_one``) is shared with ``moe.py``.
 
 ``loss_fn`` is the training loss: the token cross-entropy through the
-softmax cross-entropy kernels (K4/K5; ``mode`` selects them as it does
-for attention elsewhere), each layer under ``layers.remat_wrap`` where
-the reference checkpoints its scan body.  Attention in training takes
-its plain version (``mode="ref"``): the reference trains through its jnp
-attention, and the flash kernel K6 has no backward.
+softmax cross-entropy kernels (K4/K5), each layer under
+``layers.remat_wrap`` where the reference checkpoints its scan body, and
+attention through K6 and its backward kernels; ``mode`` selects the
+kernels for both as it does in prefill (``"ref"``: the plain versions).
 """
 
 from __future__ import annotations
@@ -184,14 +183,15 @@ def forward(params: Params, batch: dict, cfg: ModelConfig,
 
 
 def train_stack(params: Params, batch: dict, cfg: ModelConfig,
-                apply_one: Callable = block_apply) -> torch.Tensor:
+                apply_one: Callable = block_apply, *,
+                mode: str | None = None) -> torch.Tensor:
     """The final-normed hidden states (B, S, d) of the training forward:
-    every layer under ``remat_wrap``, attention on its plain version."""
+    every layer under ``remat_wrap``, attention in ``mode``."""
     h = _embed_in(params, batch, cfg)
     positions = _positions_of(batch, cfg, h)
 
     def body(h: torch.Tensor, lp: Params) -> torch.Tensor:
-        return apply_one(lp, h, positions, cfg, mode="ref")[0]
+        return apply_one(lp, h, positions, cfg, mode=mode)[0]
 
     body = L.remat_wrap(cfg, body)
     for lp in unstack(params["layers"], cfg.n_layers):
@@ -205,9 +205,9 @@ def loss_fn(params: Params, batch: dict, cfg: ModelConfig,
     """Mean token cross-entropy (0-d fp32) of ``batch["labels"]`` (B, S),
     masked by ``batch["mask"]`` where given; with ``cfg.fused_ce`` and no
     mask, the unembedding and the loss are fused over length chunks
-    (``layers.fused_unembed_ce``).  ``mode`` is the loss kernels' (K4/K5);
-    attention trains on its plain version whatever ``mode`` says."""
-    h = train_stack(params, batch, cfg, apply_one)
+    (``layers.fused_unembed_ce``).  ``mode`` is the kernels' of the loss
+    (K4/K5) and of attention (K6 and its backward)."""
+    h = train_stack(params, batch, cfg, apply_one, mode=mode)
     emb = _unembedding(params, cfg)
     if cfg.fused_ce and "mask" not in batch:
         return L.fused_unembed_ce(emb, h, batch["labels"], mode=mode)

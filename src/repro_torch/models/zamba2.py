@@ -17,9 +17,9 @@ both (``"ref"`` selects the plain versions, for comparisons).  The cache
 has the reference's leaves and layouts (``cache_axes``); ``decode_step``
 updates it in place and returns it.
 
-``loss_fn`` trains the model: the SSD and the shared attention on their
-plain versions (``mode="ref"``; the reference trains through its jnp
-paths, and K6/K7 have no backward), each Mamba layer under
+``loss_fn`` trains the model: the shared attention through K6 and its
+backward kernels (``mode`` as in prefill), the SSD on its plain version
+(``mode="ref"``: K7 has no backward yet), each Mamba layer under
 ``layers.remat_wrap`` as the reference checkpoints its Mamba scan body
 (the shared block is not), the token loss through K4/K5.
 """
@@ -173,7 +173,9 @@ def forward(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
 def loss_fn(params: Params, batch: dict, cfg: ModelConfig, *,
             mode: str | None = None) -> torch.Tensor:
     """Mean token cross-entropy (0-d fp32), masked by ``batch["mask"]``
-    where given.  ``mode`` is the loss kernels' (K4/K5)."""
+    where given.  ``mode`` is the kernels' of the loss (K4/K5) and of the
+    shared attention (K6 and its backward); the SSD trains on its plain
+    version whatever ``mode`` says."""
     h = L.embed(params["embedding"], batch["tokens"],
                 onehot=cfg.embed_onehot)
     h0 = h
@@ -181,6 +183,7 @@ def loss_fn(params: Params, batch: dict, cfg: ModelConfig, *,
     positions = _positions(bsz, s, h.device)
 
     def mamba(h: torch.Tensor, lp: Params) -> torch.Tensor:
+        # K7 has no backward kernel yet (ROADMAP, queue 2): the plain SSD
         return M.block_apply(lp, h, cfg, mode="ref")
 
     mamba = L.remat_wrap(cfg, mamba)
@@ -192,7 +195,7 @@ def loss_fn(params: Params, batch: dict, cfg: ModelConfig, *,
         off += seg
         if _is_full(seg, cfg):
             h, _ = shared_block_apply(params["shared"], h, h0, positions, cfg,
-                                      mode="ref")
+                                      mode=mode)
     h = L.rms_norm(params["final_norm"], h, cfg.norm_eps)
     emb = params["embedding"] if cfg.tie_embeddings else params["unembed"]
     return L.cross_entropy_loss(L.unembed(emb, h), batch["labels"],

@@ -58,6 +58,8 @@ from repro_torch.configs import (
 )
 from repro_torch.core.planner import H100Target
 from repro_torch.kernels import cost, ops
+from repro_torch.kernels.fcnn_layer import KernelLimitError
+from repro_torch.kernels.softmax_xent import softmax_xent_fwd
 from repro_torch.launch import dryrun, hillclimb
 from repro_torch.launch import steps as S
 from repro_torch.models.api import get_model
@@ -272,6 +274,7 @@ def wrapper_calls(monkeypatch):
                        ("_xent_fwd", "softmax_xent_fwd"),
                        ("_xent_dlogits", "softmax_xent_dlogits"),
                        ("_flash_attention", "flash_attention"),
+                       ("_flash_attention_bwd", "flash_attention_bwd"),
                        ("_ssd_chunk", "ssd_chunk")):
         fn = getattr(ops, attr)
 
@@ -314,9 +317,20 @@ def test_full_width_decode_cell_ends_ok(family):
 
 
 def test_full_width_train_cell_refused_at_k4_limit():
+    """granite-3-2b's train_4k (256 x 4096 tokens on one card) is past
+    K4's 32-bit limit with its logits, and past K6's with its attention's
+    q (2^31 elements), which the step reaches first: the cell ends at K6's
+    limit, and K4 refuses the logits it would get."""
     res = dryrun.run_cell("granite-3-2b", "train_4k")
     assert not res["ok"] and res["limit"]
-    assert res["error"].startswith("KernelLimitError: softmax_xent_fwd")
+    assert res["error"].startswith("KernelLimitError: flash_attention: q "
+                                   "has 2147483648 elements")
+    rows = SHAPES["train_4k"].global_batch * SHAPES["train_4k"].seq_len
+    logits = torch.empty((rows, get_config("granite-3-2b").padded_vocab),
+                         device="meta", dtype=torch.bfloat16)
+    labels = torch.empty((rows,), device="meta", dtype=torch.int32)
+    with pytest.raises(KernelLimitError, match="softmax_xent_fwd"):
+        softmax_xent_fwd(logits, labels)
 
 
 def test_hillclimb_marks_rule_only_variant(tmp_path):

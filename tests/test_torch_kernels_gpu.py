@@ -397,7 +397,7 @@ def test_fused_ops_launch_the_kernels_on_card(cuda):
     assert counts == {"fcnn_layer": 1, "fcnn_layer_dgrad": 0,
                       "fcnn_layer_wgrad": 1, "softmax_xent_fwd": 1,
                       "softmax_xent_dlogits": 1, "flash_attention": 0,
-                      "ssd_chunk": 0}
+                      "flash_attention_bwd": 0, "ssd_chunk": 0}
     loss_r = ops.softmax_xent(ops.fcnn_layer(x, w, b, "none", mode="ref"), y,
                               mode="ref")
     gw_r, gb_r = torch.autograd.grad(loss_r, [w, b])
@@ -960,3 +960,78 @@ def test_swiglu_products_stay_fp32_on_card(cuda, shape):
     out = L.mlp(p, x)
     assert out.dtype == torch.bfloat16
     _assert_rel(out, torch.matmul(h, p["w_down"]), 2.0 ** -7)
+
+
+# K6's backward (flash_attention_bwd.cu) against its plain version
+# (ref.flash_attention_bwd_ref) on the kernel's own o and lse, at phase 7's
+# shapes and edges, bars chip_smoke.k6_bwd_close (fp32 1e-4 of each
+# gradient's largest; bf16 per (b, head) slice one bf16 ulp of |plain| +
+# 1e-3 of its largest, norm-wise 2^-7; each absolute part at least the fp32
+# noise of one summed term, k6_bwd_noise) and, at the timed shapes,
+# rounded_once for bf16 dV (chip_smoke.py says why not at the edges); two
+# calls bit-identical; K6's o with the lse bit-identical to o without it
+# and the lse within 1e-5·(1 + |plain|)
+K6_BWD_TIMED = [shape for _, shape in SMOKE.K6_BWD_SHAPES]
+K6_BWD_CASES = K6_BWD_TIMED + list(SMOKE.K6_BWD_EDGES)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", K6_BWD_CASES, ids=str)
+def test_flash_attention_bwd_matches_plain_on_card(cuda, shape, dtype):
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+
+    b, h, kv, s, d, sk, causal, window = shape
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    q, k, v, do, o, lse = SMOKE.k6_bwd_inputs(torch, cuda, gen, shape, dtype)
+    before = ops.launch_counts()["flash_attention_bwd"]
+    got = flash_attention_bwd(q, k, v, o, do, lse, causal, window)
+    again = flash_attention_bwd(q, k, v, o, do, lse, causal, window)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal, window)
+    plain_o = flash_attention(q, k, v, causal, window)
+    lse_ref = ref.flash_attention_lse_ref(q, k, v, causal, window)[1]
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention_bwd"] == before + 2
+    assert torch.equal(o, plain_o)
+    assert ((lse - lse_ref).abs() / (1 + lse_ref.abs())).max() <= \
+        SMOKE.K6_LSE_TOL
+    for g, g2, w, noise in zip(got, again, want,
+                               SMOKE.k6_bwd_noise(q, k, v, do)):
+        assert torch.equal(g, g2)
+        assert g.dtype == dtype and g.shape == w.shape
+        ok, _, crit = SMOKE.k6_bwd_close(torch, g, w, noise)
+        assert ok, crit
+    if dtype == torch.bfloat16 and shape in K6_BWD_TIMED:
+        ok, note = SMOKE.rounded_once(torch, got[2], want[2])
+        assert ok, note
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_autograd_launches_the_kernels_on_card(cuda, dtype):
+    """``ops.flash_attention`` under autograd: one K6 (with its lse) and
+    one K6 backward launch, gradients within the card bars of the plain
+    backward, and a strided cotangent taken."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    shape = (2, 8, 2, 300, 64, 300, True, 0)
+    q, k, v, do, o, lse = SMOKE.k6_bwd_inputs(torch, cuda, gen, shape, dtype)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    before = ops.launch_counts()
+    out = ops.flash_attention(*leaves, True)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    assert torch.equal(out, o)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, True)
+    for g, w, noise in zip(grads, want, SMOKE.k6_bwd_noise(q, k, v, do)):
+        ok, _, crit = SMOKE.k6_bwd_close(torch, g, w, noise)
+        assert ok, crit
+    out = ops.flash_attention(*leaves, True)
+    ones = torch.autograd.grad(out.float().sum(), leaves)
+    do1 = torch.ones_like(o)
+    for g, w, noise in zip(ones, ref.flash_attention_bwd_ref(
+            q, k, v, o, do1, lse, True), SMOKE.k6_bwd_noise(q, k, v, do1)):
+        assert SMOKE.k6_bwd_close(torch, g, w, noise)[0]

@@ -689,27 +689,56 @@ def test_xent_kernels_match_plain_at_lm_shapes_on_card(cuda, b, c, dtype):
     torch.testing.assert_close(odd_fwd[0], want[0], rtol=0, atol=1e-5)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("family", ["dense", "hybrid", "moe"])
-def test_train_step_kernel_path_matches_plain_on_card(cuda, family):
-    """Two steps of a smoke config on the card, bf16, from the same
-    weights: step 1's loss and gradient norm and step 2's loss through
-    K4/K5 within 1e-5 of the plain path's; step 2's gradient norm within
-    1e-2 (AdamW's first update is lr·sign(g), so a gradient element near
-    0 that the two paths round to opposite signs moves a whole step:
-    4.2e-4 apart on the hybrid); both paths' losses fall."""
+# a bf16 smoke step's kernel path against its plain path: the losses (1e-4
+# relative), the gradient norms and each gradient leaf of step 1 (phase
+# 18's bars, TRAIN_GNORM_RTOL and TRAIN_LEAF_RTOL, for the same comparison
+# at full width)
+BF16_STEP_LOSS_RTOL = 1e-4
+
+
+def _held_k6_backward(monkeypatch) -> list:
+    """Hold every K6 backward launch to its plain version on the same
+    inputs at phase 7's bars (``k6_bwd_close`` with the ``k6_bwd_noise``
+    floor) and the lse it is handed to the plain one (``K6_LSE_TOL``);
+    returns the list of (ok, note) it fills, one entry a gradient or lse."""
+    bwd = ops._flash_attention_bwd
+    held = []
+
+    def checked(q, k, v, o, do, lse, causal, window):
+        got = bwd(q, k, v, o, do, lse, causal, window)
+        want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal,
+                                           window)
+        for g, w, noise in zip(got, want, SMOKE.k6_bwd_noise(q, k, v, do)):
+            ok, _, note = SMOKE.k6_bwd_close(torch, g, w, noise)
+            held.append((ok, f"{tuple(q.shape)} {g.dtype}: {note}"))
+        plain = ref.flash_attention_lse_ref(q, k, v, causal, window)[1]
+        err = ((lse - plain).abs() / (1 + plain.abs())).max().item()
+        held.append((err <= SMOKE.K6_LSE_TOL, f"lse {err:.2e}"))
+        return got
+
+    monkeypatch.setattr(ops, "_flash_attention_bwd", checked)
+    return held
+
+
+def _two_steps_both_paths(cuda, family, dtype):
+    """Two steps of ``family``'s smoke config in ``dtype`` on the card
+    through the kernel path (``mode=None``) and the plain path
+    (``mode="ref"``) from the same weights: {mode: [(loss, grad_norm)] a
+    step}, and step 1's gradient leaves, kernel against plain, worst
+    first.  Asserts the launches: K4 twice a step, K6 and its backward on
+    the kernel path, none of them on the plain path."""
     cfg = smoke_config(FAMILY_ARCHS[family]).replace(
-        dtype="bfloat16", param_dtype="bfloat16", remat=True)
+        dtype=dtype, param_dtype=dtype, remat=True)
     model = get_model(cfg)
     nb = batch_np(cfg, b=2, s=32, seed=13)
-    batch = {k: v.to(cuda) for k, v in to_torch(nb, "bfloat16").items()}
+    batch = {k: v.to(cuda) for k, v in to_torch(nb, dtype).items()}
+    settings = TrainSettings(microbatches=2)
     out = {}
     for mode in (None, "ref"):
-        state = init_train_state(model, TrainSettings(microbatches=2),
+        state = init_train_state(model, settings,
                                  torch.Generator(device=cuda).manual_seed(0),
                                  cuda)
-        step = build_train_step(model, TrainSettings(microbatches=2),
-                                mode=mode)
+        step = build_train_step(model, settings, mode=mode)
         before = ops.launch_counts()
         metrics = [step(state, batch)[1] for _ in range(2)]
         after = ops.launch_counts()
@@ -717,9 +746,69 @@ def test_train_step_kernel_path_matches_plain_on_card(cuda, family):
                      for m in metrics]
         launched = after["softmax_xent_fwd"] - before["softmax_xent_fwd"]
         assert launched == (4 if mode is None else 0)
-        assert after["flash_attention"] == before["flash_attention"]
+        for name in ("flash_attention", "flash_attention_bwd"):
+            k6 = after[name] - before[name]
+            assert k6 > 0 if mode is None else k6 == 0, (name, k6)
+    params = init_train_state(model, settings,
+                              torch.Generator(device=cuda).manual_seed(0),
+                              cuda)["params"]
+    leaves = SMOKE.grad_leaf_errors(torch, model, params, batch,
+                                    settings.microbatches)
+    for rows in out.values():
+        assert rows[1][0] < rows[0][0]
+    return out, leaves
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["dense", "hybrid", "moe"])
+def test_train_step_kernel_path_matches_plain_on_card(cuda, family,
+                                                      monkeypatch):
+    """Two steps of a smoke config on the card, bf16, from the same
+    weights, through K4/K5 and K6 with its backward, against the plain
+    path (``ref.flash_attention_ref`` under autograd).  Every K6 backward
+    launch of the kernel path is held to its plain version on the same
+    inputs at phase 7's bars.  The step carries two roundings of the
+    reference's flash-style attention that ``_sdpa``'s autodiff, the plain
+    path, does not take: the forward rounds the unnormalised p for PV
+    (``_flash_fwd_core``) and the backward rounds dS (``_sdpa_chunked_bwd``).
+    Plain against plain on the card, the two move step 1's loss by
+    2.5e-5-2.9e-5 and its gradient norm by 4.9e-4-5.9e-4, and the plain
+    path with its attention's head dimension permuted (a change of fp32
+    sum orders only) moves the dense step's gradient norm by 1.0e-4, so
+    1e-5 is below the noise here; the step is held to phase 18's bars for
+    the same comparison: both losses within 1e-4, both gradient norms
+    within 1e-2 (AdamW's first update is lr·sign(g), so a gradient
+    element near 0 that the two paths round to opposite signs moves a
+    whole step), each leaf of step 1 within 5e-2 of its norm.  fp32, where
+    no rounding separates the paths, keeps 1e-5 (the next test).  Both
+    paths' losses fall; K6 and its backward launch on the kernel path,
+    never on the plain path."""
+    held = _held_k6_backward(monkeypatch)
+    out, leaves = _two_steps_both_paths(cuda, family, "bfloat16")
+    assert held and all(ok for ok, _ in held), [n for ok, n in held if not ok]
+    np.testing.assert_allclose([r[0] for r in out[None]],
+                               [r[0] for r in out["ref"]],
+                               rtol=BF16_STEP_LOSS_RTOL)
+    np.testing.assert_allclose([r[1] for r in out[None]],
+                               [r[1] for r in out["ref"]],
+                               rtol=SMOKE.TRAIN_GNORM_RTOL)
+    assert leaves[0][1] <= SMOKE.TRAIN_LEAF_RTOL, leaves[:3]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["dense", "hybrid", "moe"])
+def test_train_step_kernel_path_matches_plain_fp32_on_card(cuda, family,
+                                                           monkeypatch):
+    """The same two steps in fp32, where K6 and its backward take no
+    rounding the plain path does not: step 1's loss and gradient norm and
+    step 2's loss within 1e-5 of the plain path's, step 2's gradient norm
+    within 1e-2, each leaf of step 1 within 1e-4 of its norm (the fp32
+    bar of the families' parity tests), every K6 backward launch within
+    phase 7's fp32 bar of its plain version."""
+    held = _held_k6_backward(monkeypatch)
+    out, leaves = _two_steps_both_paths(cuda, family, "float32")
+    assert held and all(ok for ok, _ in held), [n for ok, n in held if not ok]
     np.testing.assert_allclose(out[None][0], out["ref"][0], rtol=1e-5)
     np.testing.assert_allclose(out[None][1][0], out["ref"][1][0], rtol=1e-5)
     np.testing.assert_allclose(out[None][1][1], out["ref"][1][1], rtol=1e-2)
-    for rows in out.values():
-        assert rows[1][0] < rows[0][0]
+    assert leaves[0][1] <= GRAD_TOL, leaves[:3]
