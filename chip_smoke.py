@@ -11,9 +11,11 @@ devices and resuming from a checkpoint on the six left, Zamba2-1.2B,
 qwen3-14b, qwen2-moe-a2.7b and mamba2-2.7b served at full width in bf16,
 and seamless-m4t-large-v2 (full width) and qwen2-vl-72b (full width, cut
 in depth) through their prefill and decode steps, granite-3-2b and
-Zamba2-1.2B trained at full width by the LM train step, Zamba2-1.2B
-served on a ring of 8 logical devices losing 2 under the Lemma-1
-autoscaler and prefilled past its attention window, granite-3-2b
+Zamba2-1.2B and mamba2-2.7b trained at full width by the LM train step
+(attention, the SSD and the loss through their kernels and backward
+kernels), Zamba2-1.2B served on a ring of 8 logical devices losing 2
+under the Lemma-1 autoscaler and prefilled past its attention window,
+granite-3-2b
 trained by the LM training driver through a crash and a resume, and NN1
 and NN5 trained in bf16.  Phases, each
 printing its own lines; any failure raises and the script exits non-zero
@@ -22,13 +24,14 @@ without a result line:
   1. device   a CUDA card is required; its name and power limit; TF32 off
   2. build    the extension, with ptxas's per-kernel resource report
               (registers, shared memory and spills of the redesigned
-              kernels, K1, K2, K3 (both kernels of each), bf16 K6 and K7
-              and the five kernels of K6's backward, whose spills must be
-              0) and the count of HGMMA, HMMA and FFMA instructions in
-              each kernel's SASS (cuobjdump); K1's and K2's bf16-weight
-              kernels, K3's bf16-x kernel, the bf16 K6 kernel and its
-              backward's two and the bf16 K7 kernel must emit HGMMA, and
-              ptxas must not serialize their wgmma
+              kernels, K1, K2, K3 (both kernels of each), bf16 K6 and K7,
+              the five kernels of K6's backward and the four of K7's,
+              whose spills must be 0) and the count of HGMMA, HMMA and
+              FFMA instructions in each kernel's SASS (cuobjdump); K1's
+              and K2's bf16-weight kernels, K3's bf16-x kernel, the bf16
+              K6 kernel and its backward's two and the bf16 K7 kernel and
+              its backward's must emit HGMMA, and ptxas must not serialize
+              their wgmma
   3. kernels  each FCNN kernel against its plain PyTorch version on the
               card, at the NN1 and NN5 shapes and at edge shapes, with
               times of the kernel, the plain version and one PyTorch
@@ -90,7 +93,15 @@ without a result line:
               bound) and edges (S = 1, ragged tiles, Sk < a tile, D = 16
               to 128, groups of 1 to 5, windows 1 and 65); repeats
               bit-identical, the forward's o with its lse bit-identical to
-              o without it (bars at ``K6_BWD_FP32_RTOL``)
+              o without it (bars at ``K6_BWD_FP32_RTOL``); then K7's
+              backward (``ssd_chunk_bwd``) against its plain version, bf16
+              and fp32, at Zamba2-1.2B's and mamba2-2.7b's training SSD
+              shapes (16 chunks of 128, 64 and 80 heads, N = 64 and 128,
+              one B/C group; timed beside the plain version and the bound)
+              and edges (per-head and grouped B/C, ragged chunks, Q <= 64,
+              N = 4 to 128, P < 64), each with all three cotangents and
+              with one alone; repeats bit-identical (bars at
+              ``K7_BWD_FP32_RTOL``)
   8. serve    Zamba2-1.2B, full width, bf16, random weights: 8 requests
               of the ``steady`` preset with 512/1024/2048-token prompts on
               4 slots through ``repro_torch.launch.serve.serve``; every
@@ -198,7 +209,8 @@ without a result line:
               2 times a step, K6 160 (40 layers x 2 microbatches x 2: the
               remat recomputes each forward) and K6's backward 80, K7
               never (counters reset before each step, ``train_launches``),
-              no plain version of attention reached (``PlainSpy``), host
+              no plain version of attention or the SSD reached
+              (``PlainSpy``), host
               ms/step, peak memory < 80 GB beside the reckoned, a
               profiled step (device busy, top operations, K4/K5's and K6's
               shares from its rows, and attention, K6 forward + backward
@@ -208,11 +220,22 @@ without a result line:
               1e-5, gradient norm 1e-2 relative, each gradient leaf 5e-2
               of its norm, the kernel path's peak of requested bytes no
               higher than the plain path's); 3 steps with int8 error feedback, the same checks;
-              then Zamba2-1.2B at full width and depth, bf16, batch 1 x
+              18b: Zamba2-1.2B at full width and depth, bf16, batch 1 x
               2048, 3 steps (the loss falls, K4/K5 once a step, K6 and its
-              backward once a shared-block call) and a profiled step with
-              K6's share from its rows and the plain SSD's estimated from
-              its device time alone
+              backward once a shared-block call, K7 twice a Mamba2 layer
+              (remat) and its backward once, no plain version reached),
+              step 1 against the plain path (the loss within 1e-4,
+              above the plain path's own noise, which is printed beside
+              it; the gradient norm and each leaf at the bars above), a
+              profiled step with K6's and K7's shares from its rows, and
+              the SSD (kernel and plain path) and attention estimated
+              from their device time alone;
+              18c: mamba2-2.7b (64 Mamba2 layers, 2.7 B parameters) at
+              full width and depth, bf16, remat, batch 1 x 2048: the
+              dry-run's predicted peak on meta, then 3 AdamW steps (the
+              loss finite and falling, K7 128 and its backward 64 a step,
+              K4/K5 once, no plain version reached), peak < 80 GB beside
+              the prediction, a profiled step with K7's share
  19. elastic  Zamba2-1.2B, full width, bf16: 8 requests of the
               ``device-loss-mid-decode`` preset (2 devices lost at decode
               step 4) with 512/1024/2048-token prompts on 4 slots, the
@@ -370,6 +393,10 @@ KERNEL_INFO = {
     # flash-style VJP _sdpa_chunked_bwd (phases 7 and 18)
     "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                             "src/repro/models/layers.py:367"),
+    # K7's backward: no pallas_call, the counterpart of jax.vjp of the
+    # reference's jnp oracle ssd_chunk_ref (phases 7 and 18)
+    "ssd_chunk_bwd": ("src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                      "src/repro/kernels/ref.py:122"),
     # K1's and K2's kernels for bf16 weights, on the tensor cores (phase 23)
     "fcnn_layer_tc": ("src/repro_torch/kernels/csrc/fcnn_fwd_tc.cu",
                       "src/repro/kernels/fcnn_layer.py:142"),
@@ -398,14 +425,17 @@ NO_SPILL_KERNELS = ("fcnn_fwd_kernel", "dgrad_kernel", "fcnn_wgrad_kernel",
                     "fcnn_wgrad_tc_kernel", "flash_fwd_wgmma_kernel",
                     "ssd_chunk_wgmma_kernel", "flash_bwd_delta_kernel",
                     "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
-                    "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel")
+                    "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                    "ssd_bwd_wgmma_kernel", "ssd_bwd_f32_kernel",
+                    "group_sum_kernel")
 # K1's and K2's bf16-weight kernels, K3's bf16-x kernel, the bf16 K6
-# kernel and its backward's two, and the bf16 K7 kernel, which must run on
-# the tensor cores (HGMMA in their SASS) with no wgmma serialized by ptxas
+# kernel and its backward's two, and the bf16 K7 kernel and its backward,
+# which must run on the tensor cores (HGMMA in their SASS) with no wgmma
+# serialized by ptxas
 TC_KERNELS = ("fcnn_fwd_tc_kernel", "fcnn_dgrad_tc_kernel",
               "fcnn_wgrad_tc_kernel", "flash_fwd_wgmma_kernel",
               "ssd_chunk_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel",
-              "flash_bwd_dq_wgmma_kernel")
+              "flash_bwd_dq_wgmma_kernel", "ssd_bwd_wgmma_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -1080,6 +1110,21 @@ K7_FP32_RTOL = 1e-5
 BF16_ULP = 2.0 ** -7
 K7_BF16_SLACK = 1e-3
 K7_BF16_STATE_RTOL = 1e-3  # fp32 state and decay from bf16 inputs
+# K7's backward against its plain version (``ref.ssd_chunk_bwd_ref``: the
+# formulas in fp32, each gradient rounded once, dB and dC summed over each
+# group in fp32 first) on the same inputs.  dx, dB, dC: fp32 within
+# K7_BWD_FP32_RTOL of their largest element (sums of up to Q·N terms in
+# another order); bf16 ``rounded_once`` (the kernel passes S∘L, dS and dst
+# as bf16 hi + lo: one rounding of any of them flips ~40% of one gradient's
+# roundings, tests/test_torch_ssd_bwd.py).  d(dt_a), fp32 in both dtypes,
+# within K7_BWD_DT_RTOL of its largest plus ``k7_bwd_noise``: each element
+# is a difference of row and column sums of dS∘S then a reverse cumsum
+# over the chunk, so the fp32 noise of the summed terms, not its size, can
+# set the bar (the CPU tests show the bar still catches a dropped decay
+# cotangent).
+K7_BWD_FP32_RTOL = 1e-4
+K7_BWD_DT_RTOL = 1e-5
+K7_BWD_NOISE = 2.0 ** -20     # 16 fp32 ulps of a term's bound
 # bf16 full-width prefill logits, kernel path against plain path, as a
 # share of the largest logit: 2.0% measured at 2048 tokens (38 layers of
 # bf16 rounding of differently ordered sums, random weights)
@@ -1610,6 +1655,165 @@ def run_k6_bwd_phase(torch, dev) -> dict:
     return summary
 
 
+# ------------------------------------------------------ phase 7: K7 bwd
+
+# (label, (BC, Q, H, P, N, G), timed): the SSD that phase 18 trains
+# (K7_PATHS: Zamba2-1.2B's and mamba2-2.7b's 2048-token sequence, one B/C
+# group), then per-head and grouped B/C, a ragged chunk, Q <= 64, N = 72
+# and 90, P < 64
+K7_BWD_SHAPES = (tuple((f"{arch} train", (*K7_PATHS[arch], 1), True)
+                       for arch in (ARCH, SSM_ARCH))
+                 + (("", (2, 100, 8, 64, 128, 8), False),
+                    ("", (3, 77, 6, 32, 72, 3), False),
+                    ("", (1, 128, 3, 64, 90, 3), False),
+                    ("", (2, 64, 4, 16, 16, 1), False),
+                    ("", (2, 16, 8, 8, 4, 2), False)))
+K7_BWD_MAIN = f"{ARCH} train"   # the kernels line's shape
+# the cotangents a case passes (the others None: zero), every subset of
+# one or all three: the kernel stages a missing one as zeros
+K7_BWD_COTANGENTS = ((True, True, True), (True, False, False),
+                     (False, True, False), (False, False, True))
+
+
+def k7_bwd_inputs(torch, dev, gen, shape, dtype):
+    """x, dt_a, b, c (B and C one of G groups broadcast to its H / G
+    consecutive heads, a stride-0 view where G = 1, as the model hands K7
+    them) and the cotangents dy, dstate, ddecay of one case; dt_a = −0.3·|N|
+    as phase 7's K7 cases."""
+    from repro_torch.kernels.ops import heads_of_groups
+
+    bc, q, h, p, n, g = shape
+
+    def rand(*size, dt=torch.float32):
+        return torch.randn(*size, generator=gen, device=dev).to(dt)
+
+    x, dy = rand(bc, q, h, p, dt=dtype), rand(bc, q, h, p, dt=dtype)
+    dt_a = -rand(bc, q, h).abs() * 0.3
+    b, c = (heads_of_groups(rand(bc, q, g, n, dt=dtype), h) for _ in range(2))
+    return x, dt_a, b, c, dy, rand(bc, h, p, n), rand(bc, q, h)
+
+
+def k7_bwd_noise(x, b, c, dy, dstate, ddecay) -> float:
+    """The fp32 noise floor of d(dt_a): K7_BWD_NOISE times the largest bound
+    of one summed term.  By Cauchy-Schwarz over the rows, |(dS∘S)[t,s]| <=
+    ||dy_t||·||x_s||·||C_t||·||B_s||, |dw_s·w_s| <= ||x_s||·||dst||·||B_s||
+    (w <= 1), |ddec_t·exp(cs_t)| <= |ddec_t|; a missing cotangent adds
+    nothing."""
+    def rows(t):
+        return t.float().norm(dim=-1).max().item()
+
+    xb = rows(x) * rows(b)
+    terms = [0.0]
+    if dy is not None:
+        terms.append(rows(dy) * rows(c) * xb)
+    if dstate is not None:
+        terms.append(dstate.float().flatten(2).norm(dim=-1).max().item() * xb)
+    if ddecay is not None:
+        terms.append(ddecay.float().abs().max().item())
+    return K7_BWD_NOISE * max(terms)
+
+
+def k7_bwd_close(torch, got, want, noise: float) -> tuple[bool, float, str]:
+    """(ok, max abs error, the margins) of K7's backward (dx, d(dt_a), dB,
+    dC) against its plain version: the bars above; ``noise`` is the
+    ``k7_bwd_noise`` floor of d(dt_a)."""
+    ok, worst, crits = True, 0.0, []
+    for name, g, w in zip(("dx", "ddt", "db", "dc"), got, want):
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"{name} {g.dtype} {tuple(g.shape)} against the plain "
+              f"version's {w.dtype} {tuple(w.shape)}")
+        a, _ = errors(g, w)
+        big = w.double().abs().max().item()
+        if name == "ddt":
+            bar = K7_BWD_DT_RTOL * big + noise
+            good, crit = a <= bar, f"{a / max(bar, 1e-300):.2f} of the bar"
+        elif g.dtype == torch.bfloat16:
+            good, crit = rounded_once(torch, g, w)
+            crit = crit.split(": ", 1)[1]
+        else:
+            bar = K7_BWD_FP32_RTOL * big
+            good = a <= bar
+            crit = f"{a / max(bar, 1e-300):.2f} of the bar"
+        ok, worst = ok and good, max(worst, a)
+        crits.append(f"{name} {crit}")
+    return ok, worst, "; ".join(crits)
+
+
+def run_k7_bwd_phase(torch, dev) -> dict:
+    """Phase 7's K7 backward (the bars above): every case in bf16 and fp32
+    with every set of cotangents of K7_BWD_COTANGENTS, repeats
+    bit-identical; the timed cases (all three cotangents) against the plain
+    version and the bound.  Returns the kernels line's numbers, at
+    K7_BWD_MAIN in bf16, and each timed shape's under "paths"."""
+    from repro_torch.kernels import cost as kcost
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_chunk_bwd
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    summary = {"max_abs_err": 0.0, "paths": {}}
+    print(f"K7 backward against its plain version: dx, dB, dC fp32 within "
+          f"{K7_BWD_FP32_RTOL:g} of their largest, bf16 rounded once (one "
+          f"ulp + {ONCE_SLACK:g} of the largest, at most {ONCE_MISS:g} of "
+          f"the roundings flipped); d(dt_a) within {K7_BWD_DT_RTOL:g} of its "
+          f"largest + {K7_BWD_NOISE:g} of a summed term's bound (the share "
+          f"of each bar used)", flush=True)
+    for name, shape, timed in K7_BWD_SHAPES:
+        bc, q, h, p, n, g = shape
+        for dtype in (torch.bfloat16, torch.float32):
+            x, dt_a, b, c, *cots = k7_bwd_inputs(torch, dev, gen, shape, dtype)
+            for given in K7_BWD_COTANGENTS:
+                use = [t if k else None for t, k in zip(cots, given)]
+
+                def kern(use=use):
+                    return ssd_chunk_bwd(x, dt_a, b, c, *use, g)
+
+                got, again = kern(), kern()
+                want = ref.ssd_chunk_bwd_ref(x, dt_a, b, c, *use, g)
+                torch.cuda.synchronize()
+                repeat = all(torch.equal(u, v) for u, v in zip(got, again))
+                ok, worst, crit = k7_bwd_close(torch, got, want,
+                                               k7_bwd_noise(x, b, c, *use))
+                ok = ok and repeat
+                given_bits = "".join("1" if k else "0" for k in given)
+                label = (f"BC={bc} ({q},{h},{p},{n}) G={g} {str(dtype)[6:]} "
+                         f"cotangents {given_bits}")
+                line = (f"ssd_chunk_bwd {label:48s} max_abs {worst:.3e} "
+                        f"({crit}; repeats "
+                        f"{'bit-identical' if repeat else 'DIFFER'}) "
+                        f"{'ok' if ok else 'FAIL'}")
+                summary["max_abs_err"] = max(summary["max_abs_err"], worst)
+                if timed and all(given):
+                    del again, want
+                    ms = device_ms(kern, iters=5, replays=5)
+                    plain_ms = device_ms(lambda: ref.ssd_chunk_bwd_ref(
+                        x, dt_a, b, c, *use, g), iters=2, replays=3)
+                    cost = kcost.ssd_chunk_bwd(bc, q, h, p, n, g,
+                                               x.element_size())
+                    b_ms, b_by = bound(cost)
+                    ops_s, bytes_s = cost.seconds(h100())
+                    flops = sum(cost.flops.values())
+                    line += (f" | device ms: kernel {ms:.5f} plain "
+                             f"{plain_ms:.5f} library none bound {b_ms:.5f} "
+                             f"({b_by}; bytes {bytes_s * 1e3:.5f}, operations "
+                             f"{ops_s * 1e3:.5f}) = {100 * b_ms / ms:.1f}% | "
+                             f"{flops / ms / 1e9:.2f} TFLOP/s, "
+                             f"{cost.nbytes / ms / 1e6:.1f} GB/s [{name}]")
+                    row = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                               bound_ms=b_ms, bound_by=b_by, shapes=[label],
+                               max_abs_err=worst)
+                    summary["paths"][f"{name} {str(dtype)[6:]}"] = row
+                    if name == K7_BWD_MAIN and dtype == torch.bfloat16:
+                        summary.update({k: v for k, v in row.items()
+                                        if k != "max_abs_err"})
+                print(line, flush=True)
+                check(ok, f"ssd_chunk_bwd {label} disagrees with its plain "
+                          f"version")
+                del got
+            del x, dt_a, b, c, cots
+    free_device_memory(torch)
+    return summary
+
+
 # --------------------------------------------------------------- phase 8
 
 
@@ -1905,10 +2109,11 @@ def lm_path_phases(torch, dev) -> tuple[dict, dict]:
     from repro_torch.configs import get_config
     from repro_torch.models.api import get_model
 
-    phase(7, "flash attention (K6), its backward and SSD chunk (K7) against "
-             "their plain versions")
+    phase(7, "flash attention (K6), SSD chunk (K7) and their backwards "
+             "against their plain versions")
     summary = run_lm_kernel_phase(torch, dev)
     summary["flash_attention_bwd"] = run_k6_bwd_phase(torch, dev)
+    summary["ssd_chunk_bwd"] = run_k7_bwd_phase(torch, dev)
 
     phase(8, "serve Zamba2-1.2B, full width, bf16, 8 requests on 4 slots")
     launches = run_serve_phase(torch, dev)
@@ -2403,10 +2608,12 @@ TRAIN_SEQ = 2048
 TRAIN_STEPS = 5           # AdamW steps of granite-3-2b, microbatches 2
 TRAIN_INT8_STEPS = 3      # then with int8 error feedback
 TRAIN_HYBRID_STEPS = 3    # Zamba2-1.2B, batch 1
-# the kernel path against the plain path (the loss's K4/K5 and attention's
-# K6 and its backward against their plain versions) on granite's first
-# step: the loss (fp32 sums of 49408 classes in another order, bf16
-# attention outputs a rounding apart) and the global gradient norm (the
+TRAIN_SSM_STEPS = 3       # mamba2-2.7b, batch 1
+# the kernel path against the plain path (the loss's K4/K5, attention's K6
+# and the SSD's K7 and their backwards against their plain versions) on
+# granite's and Zamba2-1.2B's first step: the loss (fp32 sums of 49408
+# classes in another order, bf16 attention outputs a rounding apart) and
+# the global gradient norm (the
 # fp32 dlogits, a few ulps apart, become bf16 gradients of the hidden
 # states, whose roundings then differ through 40 layers: 2.8e-4 measured
 # with plain attention on both paths), and each gradient leaf relative to
@@ -2414,33 +2621,50 @@ TRAIN_HYBRID_STEPS = 3    # Zamba2-1.2B, batch 1
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GNORM_RTOL = 1e-2
 TRAIN_LEAF_RTOL = 5e-2
-# the plain versions of attention, which no kernel-path train step may reach
-ATTN_PLAIN_FNS = ("flash_attention_ref", "flash_attention_lse_ref",
-                  "flash_attention_bwd_ref")
+# Zamba2-1.2B's step-1 loss, kernel path against plain path: 1e-4, the
+# smoke step's card bar for the same comparison (tests/test_torch_lm_train.py
+# BF16_STEP_LOSS_RTOL).  1e-5 lies under the plain path's own noise there:
+# the plain path with its SSD's y sum taken in two halves
+# (``reordered_ssd_chunk_ref``) moves the loss by 2.611e-5, K6 alone by
+# 2.037e-5, K7 alone by 2.161e-5, both 6.350e-5, while every K7 launch of
+# the step and its backward lie within phase 7's bars of their plain
+# versions (ROADMAP F4); phase 18b prints that witness beside the gap
+TRAIN_HYBRID_LOSS_RTOL = 1e-4
+# the plain versions of attention and of the SSD, which no kernel-path
+# train step may reach
+TRAIN_PLAIN_FNS = ("flash_attention_ref", "flash_attention_lse_ref",
+                   "flash_attention_bwd_ref", "ssd_chunk_ref",
+                   "ssd_chunk_bwd_ref")
 
 
 def train_launches(cfg, microbatches: int, kernel_path: bool
                    ) -> dict[str, int]:
-    """The launches of K4-K7 and K6's backward that one train step of
-    ``cfg`` makes: the loss's K4 and K5 once a microbatch; each attention
-    layer's K6 once a microbatch, twice under remat (the recompute of its
-    layer's forward), and its backward once; K7 never (the SSD trains on
-    its plain version).  Zamba2's shared block is not under remat.  The
-    plain path (``mode="ref"``) launches nothing."""
+    """The launches of K4-K7 and the backwards of K6 and K7 that one train
+    step of ``cfg`` makes: the loss's K4 and K5 once a microbatch; each
+    attention layer's K6 and each Mamba2 layer's K7 once a microbatch,
+    twice under remat (the recompute of its layer's forward), and the
+    backward of each once.  Zamba2's shared block is not under remat, its
+    Mamba2 layers are.  The plain path (``mode="ref"``) launches
+    nothing."""
     from repro_torch.models import zamba2 as Z
 
     if not kernel_path:
         return dict.fromkeys(("softmax_xent_fwd", "softmax_xent_dlogits",
                               "flash_attention", "flash_attention_bwd",
-                              "ssd_chunk"), 0)
+                              "ssd_chunk", "ssd_chunk_bwd"), 0)
+    fwd = 2 if cfg.remat else 1
     if cfg.family == "hybrid":
-        layers, fwd = Z.n_shared_invocations(cfg), 1
+        attn, attn_fwd, mamba = Z.n_shared_invocations(cfg), 1, cfg.n_layers
+    elif cfg.family == "ssm":
+        attn, attn_fwd, mamba = 0, fwd, cfg.n_layers
     else:
-        layers, fwd = cfg.n_layers, 2 if cfg.remat else 1
+        attn, attn_fwd, mamba = cfg.n_layers, fwd, 0
     return {"softmax_xent_fwd": microbatches,
             "softmax_xent_dlogits": microbatches,
-            "flash_attention": fwd * layers * microbatches,
-            "flash_attention_bwd": layers * microbatches, "ssd_chunk": 0}
+            "flash_attention": attn_fwd * attn * microbatches,
+            "flash_attention_bwd": attn * microbatches,
+            "ssd_chunk": fwd * mamba * microbatches,
+            "ssd_chunk_bwd": mamba * microbatches}
 
 
 def gemm_f32_backward_ms(torch, dev, m: int, k: int, n: int
@@ -2487,7 +2711,8 @@ def run_train(torch, model, settings, state, batch, steps: int, what: str,
     (counters reset just before
     the step, read just after), which must be
     ``train_launches``'s for the model and ``mode``; on the kernel path no
-    plain version of attention may be reached (``PlainSpy``).  Returns (the
+    plain version of attention or of the SSD may be reached
+    (``PlainSpy``).  Returns (the
     state after the steps, the rows)."""
     import math
 
@@ -2501,7 +2726,7 @@ def run_train(torch, model, settings, state, batch, steps: int, what: str,
         torch.cuda.synchronize()
         ops.reset_launches()
         t0 = time.perf_counter()
-        with PlainSpy(ATTN_PLAIN_FNS) as spy:
+        with PlainSpy(TRAIN_PLAIN_FNS) as spy:
             state, metrics = step(state, batch)
             torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
@@ -2518,8 +2743,9 @@ def run_train(torch, model, settings, state, batch, steps: int, what: str,
               f"{launches['softmax_xent_fwd']} K5 "
               f"{launches['softmax_xent_dlogits']} K6 "
               f"{launches['flash_attention']} K6 bwd "
-              f"{launches['flash_attention_bwd']} K7 {launches['ssd_chunk']}; "
-              f"plain attention reached {sum(spy.calls.values())} times",
+              f"{launches['flash_attention_bwd']} K7 {launches['ssd_chunk']} "
+              f"K7 bwd {launches['ssd_chunk_bwd']}; plain attention and SSD "
+              f"reached {sum(spy.calls.values())} times",
               flush=True)
         check(math.isfinite(row["loss"]) and math.isfinite(row["grad_norm"]),
               f"{what}: step {i + 1} is not finite")
@@ -2527,7 +2753,7 @@ def run_train(torch, model, settings, state, batch, steps: int, what: str,
         check(got == expected, f"{what}: launches {got} in a step, expected "
                                f"{expected}")
         check(mode == "ref" or not any(spy.calls.values()),
-              f"{what}: a kernel-path step reached the plain attention "
+              f"{what}: a kernel-path step reached a plain version "
               f"{spy.calls}")
     if steps > 1:
         check(out[-1]["loss"] < out[0]["loss"],
@@ -2642,18 +2868,23 @@ def attention_train_ms(torch, dev, cfg, layers: int, recompute: bool
     return line, kern, plain
 
 
-def k6_step_ms(prof_rows, busy: float) -> float:
-    """K6's and its backward's device ms in a profiled step (its rows
-    ``flash_fwd``, ``flash_bwd_*``), printed by kernel with its share of
-    the step's device busy time."""
-    k6 = {n: sum(us for key, _, us in prof_rows if tag in key) / 1e3
-          for n, tag in (("K6", "flash_fwd"),
-                         ("K6 bwd delta", "flash_bwd_delta"),
-                         ("K6 bwd dK/dV", "flash_bwd_dkdv"),
-                         ("K6 bwd dQ", "flash_bwd_dq"))}
-    total = sum(k6.values())
-    print("K6 and its backward in the profiled step: " + ", ".join(
-        f"{n} {ms:.3f} ms" for n, ms in k6.items())
+# the profiled step's rows of K6 and its backward, and of K7 and its
+# backward: (label, a substring of the kernel's name)
+K6_ROWS = (("K6", "flash_fwd"), ("K6 bwd delta", "flash_bwd_delta"),
+           ("K6 bwd dK/dV", "flash_bwd_dkdv"), ("K6 bwd dQ", "flash_bwd_dq"))
+K7_ROWS = (("K7", "ssd_chunk_wgmma"), ("K7 bwd", "ssd_bwd_wgmma"),
+           ("K7 bwd group sum", "group_sum"))
+
+
+def step_rows_ms(prof_rows, busy: float, what: str, tags) -> float:
+    """The device ms of ``what`` in a profiled step: its rows (``tags``,
+    K6_ROWS or K7_ROWS), printed by kernel with their share of the step's
+    device busy time."""
+    ms = {n: sum(us for key, _, us in prof_rows if tag in key) / 1e3
+          for n, tag in tags}
+    total = sum(ms.values())
+    print(f"{what} in the profiled step: " + ", ".join(
+        f"{n} {v:.3f} ms" for n, v in ms.items())
         + f" = {total:.3f} ms, {100 * total / busy:.1f}% of device busy")
     return total
 
@@ -2739,7 +2970,7 @@ def granite_train_phase(torch, dev, smi: str) -> dict:
     line, attn, plain_attn = attention_train_ms(
         torch, dev, cfg, cfg.n_layers * settings.microbatches, True)
     print(line)
-    k6_ms = k6_step_ms(prof_rows, busy)
+    k6_ms = step_rows_ms(prof_rows, busy, "K6 and its backward", K6_ROWS)
     xent = {n: sum(us for key, _, us in prof_rows if tag in key) / 1e3
             for n, tag in (("K4", "xent_fwd"), ("K4 mean", "xent_mean"),
                            ("K5", "xent_dlogits"))}
@@ -2749,22 +2980,7 @@ def granite_train_phase(torch, dev, smi: str) -> dict:
 
     # kernel path against plain path, first step from the same weights
     del state, step
-    free_device_memory(torch)
-    torch.cuda.reset_peak_memory_stats()
-    state = init_train_state(model, settings,
-                             torch.Generator(device=dev).manual_seed(0), dev)
-    state, (plain,) = run_train(torch, model, settings, state, batch, 1,
-                                f"{TRAIN_ARCH} plain path", mode="ref")
-    loss_rel = abs(rows[0]["loss"] - plain["loss"]) / abs(plain["loss"])
-    gn_rel = (abs(rows[0]["grad_norm"] - plain["grad_norm"])
-              / abs(plain["grad_norm"]))
-    print(f"kernel path against plain path, step 1: loss "
-          f"{rows[0]['loss']:.7f} vs {plain['loss']:.7f} (rel {loss_rel:.3e}"
-          f" <= {TRAIN_LOSS_RTOL:g}); grad_norm {rows[0]['grad_norm']:.6f} "
-          f"vs {plain['grad_norm']:.6f} (rel {gn_rel:.3e} <= "
-          f"{TRAIN_GNORM_RTOL:g})")
-    check(loss_rel <= TRAIN_LOSS_RTOL, "granite kernel/plain losses differ")
-    check(gn_rel <= TRAIN_GNORM_RTOL, "granite kernel/plain grad norms differ")
+    plain = plain_path_step1(torch, model, settings, batch, rows, TRAIN_ARCH)
     print(f"peak from the state's making through step 1, requested: kernel "
           f"path {rows[0]['requested_peak']} B, plain path "
           f"{plain['requested_peak']} B (the kernel path's no higher); "
@@ -2773,22 +2989,6 @@ def granite_train_phase(torch, dev, smi: str) -> dict:
           f"{plain['peak']} B; through {TRAIN_STEPS} steps {peak} B")
     check(rows[0]["requested_peak"] <= plain["requested_peak"],
           "granite kernel path peaks above the plain path")
-    del state
-    free_device_memory(torch)
-    params = init_train_state(model, settings,
-                              torch.Generator(device=dev).manual_seed(0),
-                              dev)["params"]
-    free_device_memory(torch)
-    leaves = grad_leaf_errors(torch, model, params, batch,
-                              settings.microbatches)
-    print(f"kernel path against plain path, step 1's gradients from the same "
-          f"weights: {len(leaves)} leaves, ||g - g_plain|| / ||g_plain|| "
-          f"worst {leaves[0][0]} {leaves[0][1]:.3e} (<= {TRAIN_LEAF_RTOL:g}),"
-          f" then " + ", ".join(f"{p} {r:.2e}" for p, r in leaves[1:6]))
-    check(leaves[0][1] <= TRAIN_LEAF_RTOL,
-          f"granite kernel/plain gradient leaf {leaves[0][0]} differs")
-    del params
-    free_device_memory(torch)
 
     # int8 error feedback
     settings8 = TrainSettings(microbatches=2, grad_compression="int8")
@@ -2838,14 +3038,123 @@ def granite_train_phase(torch, dev, smi: str) -> dict:
             "attention_share": k6_ms / busy, "n_params": n_params}
 
 
-def hybrid_train_phase(torch, dev, smi: str) -> None:
+def ssd_train_ms(torch, dev, cfg) -> tuple[str, float, float]:
+    """The SSD (``mamba2.ssd_chunked``) of one Mamba2 layer at the step's
+    shape (TRAIN_SEQ tokens, one B/C group), alone, under autograd: its
+    forward and forward + backward device time on the kernel path (K7 and
+    its backward with the inter-chunk recurrence and readout) and on the
+    plain path, by the profiler's device rows (``fwd_bwd_ms``), times
+    ``cfg.n_layers`` with the forward twice (the remat recompute).  Returns
+    (a line, the kernel path's ms, the plain path's ms): an estimate, not a
+    share of the profiled step."""
+    from repro_torch.models import mamba2 as M
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    dt = getattr(torch, cfg.dtype)
+    h, p, n = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    x = torch.randn(1, TRAIN_SEQ, h, p, generator=gen, device=dev).to(dt)
+    dt_a = -torch.rand(1, TRAIN_SEQ, h, generator=gen, device=dev) * 0.1
+    b = torch.randn(1, TRAIN_SEQ, 1, n, generator=gen, device=dev).to(dt)
+    c = torch.randn(1, TRAIN_SEQ, 1, n, generator=gen, device=dev).to(dt)
+    out = {}
+    for mode in (None, "ref"):
+        f_ms, fb_ms = fwd_bwd_ms(
+            torch, lambda x, a, b, c, m=mode: M.ssd_chunked(
+                x, a, b, c, cfg.ssm_chunk, mode=m), (x, dt_a, b, c))
+        out[mode] = (f_ms, fb_ms, cfg.n_layers * (2 * f_ms + fb_ms - f_ms))
+    line = (f"SSD (ssd_chunked) of one layer at ({TRAIN_SEQ} tokens, {h} "
+            f"heads of {p}, state {n}), device time alone: kernel path "
+            f"forward {out[None][0]:.3f} ms, forward + backward "
+            f"{out[None][1]:.3f} ms; plain path {out['ref'][0]:.3f}, "
+            f"{out['ref'][1]:.3f} ms; x {cfg.n_layers} layers with the "
+            f"recompute = {out[None][2]:.1f} ms on the kernels, "
+            f"{out['ref'][2]:.1f} ms plain (composed: an estimate)")
+    return line, out[None][2], out["ref"][2]
+
+
+def plain_path_step1(torch, model, settings, batch, rows, what: str,
+                     loss_rtol: float = TRAIN_LOSS_RTOL) -> dict:
+    """Step 1 of the kernel path (``rows[0]``) held to the plain path's
+    from the same weights (seed 0) at phase 18's bars: the loss (within
+    ``loss_rtol``), the global gradient norm and each gradient leaf
+    (``grad_leaf_errors``).  Returns the plain step's ``run_train`` row,
+    its peaks counted from the state's making."""
+    from repro_torch.launch.steps import init_train_state
+
+    free_device_memory(torch)
+    torch.cuda.reset_peak_memory_stats()
+    dev = batch["tokens"].device
+    state = init_train_state(model, settings,
+                             torch.Generator(device=dev).manual_seed(0), dev)
+    state, (plain,) = run_train(torch, model, settings, state, batch, 1,
+                                f"{what} plain path", mode="ref")
+    del state
+    free_device_memory(torch)
+    loss_rel = abs(rows[0]["loss"] - plain["loss"]) / abs(plain["loss"])
+    gn_rel = (abs(rows[0]["grad_norm"] - plain["grad_norm"])
+              / abs(plain["grad_norm"]))
+    print(f"{what} kernel path against plain path, step 1: loss "
+          f"{rows[0]['loss']:.7f} vs {plain['loss']:.7f} (rel {loss_rel:.3e}"
+          f" <= {loss_rtol:g}); grad_norm {rows[0]['grad_norm']:.6f} "
+          f"vs {plain['grad_norm']:.6f} (rel {gn_rel:.3e} <= "
+          f"{TRAIN_GNORM_RTOL:g})")
+    check(loss_rel <= loss_rtol, f"{what} kernel/plain losses differ")
+    check(gn_rel <= TRAIN_GNORM_RTOL, f"{what} kernel/plain grad norms differ")
+    params = init_train_state(model, settings,
+                              torch.Generator(device=dev).manual_seed(0),
+                              dev)["params"]
+    free_device_memory(torch)
+    leaves = grad_leaf_errors(torch, model, params, batch,
+                              settings.microbatches)
+    print(f"{what} kernel path against plain path, step 1's gradients from "
+          f"the same weights: {len(leaves)} leaves, ||g - g_plain|| / "
+          f"||g_plain|| worst {leaves[0][0]} {leaves[0][1]:.3e} (<= "
+          f"{TRAIN_LEAF_RTOL:g}), then "
+          + ", ".join(f"{p} {r:.2e}" for p, r in leaves[1:6]))
+    check(leaves[0][1] <= TRAIN_LEAF_RTOL,
+          f"{what} kernel/plain gradient leaf {leaves[0][0]} differs")
+    del params
+    free_device_memory(torch)
+    return plain
+
+
+def reordered_loss_drift(torch, model, settings, batch, plain) -> float:
+    """|loss − plain["loss"]| / |plain["loss"]| of the plain path's loss
+    (no gradient) from the same weights (seed 0) with its SSD's y sum in
+    two halves (``reordered_ssd_chunk_ref``): the same function, rounded
+    elsewhere, so the plain path's own noise at this depth."""
+    from repro_torch.kernels import ref
+    from repro_torch.launch.steps import init_train_state
+
+    dev = batch["tokens"].device
+    params = init_train_state(model, settings,
+                              torch.Generator(device=dev).manual_seed(0),
+                              dev)["params"]
+    saved, ref.ssd_chunk_ref = ref.ssd_chunk_ref, reordered_ssd_chunk_ref
+    try:
+        with torch.no_grad():
+            loss = model.loss_fn(params, batch, mode="ref").item()
+    finally:
+        ref.ssd_chunk_ref = saved
+    del params
+    free_device_memory(torch)
+    return abs(loss - plain["loss"]) / abs(plain["loss"])
+
+
+def train_ssd_launches(rows) -> dict[str, int]:
+    return {name: sum(r["launches"][name] for r in rows)
+            for name in ("ssd_chunk", "ssd_chunk_bwd")}
+
+
+def hybrid_train_phase(torch, dev, smi: str) -> dict:
     """Phase 18b: Zamba2-1.2B at full width and depth, bf16, batch 1 x
-    TRAIN_SEQ, TRAIN_HYBRID_STEPS steps; where a step's time goes, with the
-    plain SSD's and the shared attention's shares."""
+    TRAIN_SEQ, TRAIN_HYBRID_STEPS steps through K6, K7 and their
+    backwards; step 1 held to the plain path; where a step's time goes,
+    with the SSD's and the shared attention's shares.  Returns K7's and its
+    backward's launches over the steps."""
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import (TrainSettings, build_train_step,
                                           init_train_state)
-    from repro_torch.models import mamba2 as M
     from repro_torch.models import zamba2 as Z
     from repro_torch.models.api import get_model
 
@@ -2861,7 +3170,8 @@ def hybrid_train_phase(torch, dev, smi: str) -> None:
     n_params = sum(t.numel() for t in _leaves(state["params"]))
     print(f"{TRAIN_HYBRID_ARCH}: {cfg.n_layers} Mamba2 layers and "
           f"{Z.n_shared_invocations(cfg)} shared-attention invocations, "
-          f"{n_params / 1e9:.3f} B parameters, bf16, batch 1 x {TRAIN_SEQ}")
+          f"{n_params / 1e9:.3f} B parameters, bf16, batch 1 x {TRAIN_SEQ}, "
+          f"remat {cfg.remat} ({cfg.remat_policy}) on the Mamba2 layers")
     state, rows = run_train(torch, model, settings, state, batch,
                             TRAIN_HYBRID_STEPS, TRAIN_HYBRID_ARCH)
     peak = torch.cuda.max_memory_allocated()
@@ -2877,49 +3187,119 @@ def hybrid_train_phase(torch, dev, smi: str) -> None:
     print_profile(f"{TRAIN_HYBRID_ARCH} train step (profiled)", busy,
                   host_ms, prof_rows)
     del state, step
-    free_device_memory(torch)
-    # the plain SSD of one Mamba2 layer and the shared block's attention
-    # (K6 and its backward, and its plain version) at the step's shapes,
-    # alone, each forward and backward; the Mamba layers recompute their
-    # forward (remat), the shared block does not
-    gen = torch.Generator(device=dev).manual_seed(2)
-    dt = getattr(torch, cfg.dtype)
-    h, p, n = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
-    x = torch.randn(1, TRAIN_SEQ, h, p, generator=gen, device=dev).to(dt)
-    dt_a = -torch.rand(1, TRAIN_SEQ, h, generator=gen, device=dev) * 0.1
-    b = torch.randn(1, TRAIN_SEQ, 1, n, generator=gen, device=dev).to(dt)
-    c = torch.randn(1, TRAIN_SEQ, 1, n, generator=gen, device=dev).to(dt)
-    f_ms, fb_ms = fwd_bwd_ms(torch, lambda x, a, b, c: M.ssd_chunked(
-        x, a, b, c, cfg.ssm_chunk, mode="ref"), (x, dt_a, b, c))
-    ssd = cfg.n_layers * (2 * f_ms + (fb_ms - f_ms))
+    plain = plain_path_step1(torch, model, settings, batch, rows,
+                             TRAIN_HYBRID_ARCH, TRAIN_HYBRID_LOSS_RTOL)
+    print(f"the plain path's own noise: its step-1 loss with the SSD's y sum "
+          f"in two halves (reordered_ssd_chunk_ref) moves by "
+          f"{reordered_loss_drift(torch, model, settings, batch, plain):.3e}"
+          f" relative (the loss bar {TRAIN_HYBRID_LOSS_RTOL:g}, ROADMAP F4)")
+    # the SSD of one Mamba2 layer and the shared block's attention (K6 and
+    # its backward, and its plain version) at the step's shapes, alone,
+    # each forward and backward; the Mamba layers recompute their forward
+    # (remat), the shared block does not
+    ssd_line, ssd, plain_ssd = ssd_train_ms(torch, dev, cfg)
     line, attn, _ = attention_train_ms(torch, dev, cfg,
                                        Z.n_shared_invocations(cfg), False)
-    print(f"plain SSD (ssd_chunked) of one layer at ({TRAIN_SEQ} tokens, {h} "
-          f"heads of {p}, state {n}), device time alone: forward {f_ms:.3f} "
-          f"ms, forward+backward {fb_ms:.3f} ms; x {cfg.n_layers} layers "
-          f"with the recompute = {ssd:.1f} ms, an estimate composed from "
-          f"the SSD alone ({100 * ssd / busy:.1f}% of the profiled step's "
-          f"device busy {busy:.1f} ms)")
+    print(ssd_line)
     print(f"the shared block's {line}")
-    k6_ms = k6_step_ms(prof_rows, busy)
+    k6_ms = step_rows_ms(prof_rows, busy, "K6 and its backward", K6_ROWS)
+    k7_ms = step_rows_ms(prof_rows, busy, "K7 and its backward", K7_ROWS)
     print(f"{TRAIN_HYBRID_ARCH} train on {smi}: {host_ms:.1f} ms/step "
           f"(batch 1 x {TRAIN_SEQ}), device busy {busy:.1f} ms, peak "
           f"{peak / 1e9:.3f} GB; loss {rows[0]['loss']:.4f} -> "
           f"{rows[-1]['loss']:.4f} over {TRAIN_HYBRID_STEPS} steps; K6 and "
-          f"its backward {100 * k6_ms / busy:.1f}% of the profiled step's "
-          f"device busy; plain SSD {ssd:.1f} ms composed from the SSD alone "
-          f"(an estimate, {100 * ssd / busy:.1f}% of busy)")
+          f"its backward {100 * k6_ms / busy:.1f}% and K7 and its backward "
+          f"{100 * k7_ms / busy:.1f}% of the profiled step's device busy; "
+          f"the SSD {ssd:.1f} ms on the kernels, {plain_ssd:.1f} ms on its "
+          f"plain version, composed from the SSD alone (an estimate)")
     check(peak < 80e9, f"{TRAIN_HYBRID_ARCH} train peak {peak / 1e9:.3f} GB")
+    free_device_memory(torch)
+    return {"launches": train_ssd_launches(rows), "steps": TRAIN_HYBRID_STEPS,
+            "ms_per_step": host_ms, "busy_ms": busy, "k7_share": k7_ms / busy}
+
+
+def ssm_train_phase(torch, dev, smi: str) -> dict:
+    """Phase 18c: mamba2-2.7b at full width and depth, bf16, remat, batch
+    1 x TRAIN_SEQ, TRAIN_SSM_STEPS AdamW steps through K7 and its backward
+    (and K4/K5): the dry-run's predicted peak first (``launch.dryrun`` on
+    the meta device), then the steps (the loss finite and falling, the
+    launches ``train_launches`` counts, no plain version reached), the
+    peak against 80 GB and the prediction, and a profiled step."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import (TrainSettings, build_train_step,
+                                          init_train_state)
+    from repro_torch.models.api import get_model
+
+    cfg = get_config(SSM_ARCH)
+    model = get_model(cfg)
+    settings = TrainSettings()
+    t0 = time.perf_counter()
+    pred = dryrun.run_cell(SSM_ARCH, ShapeSpec("train", TRAIN_SEQ, 1, "train"),
+                           settings=settings)
+    check(pred["ok"], f"{SSM_ARCH} train dry-run: {pred.get('error')}")
+    launched = {k: v for k, v in pred["kernel_launches"].items() if v}
+    print(f"{SSM_ARCH}: {cfg.n_layers} Mamba2 layers, d_model {cfg.d_model}, "
+          f"{cfg.ssm_heads} heads of {cfg.ssm_headdim}, state "
+          f"{cfg.ssm_state}, {cfg.ssm_groups} B/C group; bf16, batch 1 x "
+          f"{TRAIN_SEQ}, remat {cfg.remat} ({cfg.remat_policy}); dry-run on "
+          f"meta ({time.perf_counter() - t0:.1f} s): peak "
+          f"{pred['peak_memory_per_device'] / 1e9:.3f} GB predicted, step's "
+          f"{pred['step_peak_bytes'] / 1e9:.3f} GB, launches {launched}, "
+          f"bound {1e3 * max(pred['compute_s'], pred['memory_s']):.3f} ms "
+          f"({pred['bottleneck']})", flush=True)
+    check(cfg.remat, f"{SSM_ARCH} trains with remat")
+    free_device_memory(torch)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(model, settings,
+                             torch.Generator(device=dev).manual_seed(0), dev)
+    batch = train_batch(torch, dev, cfg, 1,
+                        torch.Generator(device=dev).manual_seed(1))
+    n_params = sum(t.numel() for t in _leaves(state["params"]))
+    state, rows = run_train(torch, model, settings, state, batch,
+                            TRAIN_SSM_STEPS, SSM_ARCH)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{SSM_ARCH}: {n_params / 1e9:.3f} B parameters; measured peak "
+          f"{peak / 1e9:.3f} GB (torch.cuda.max_memory_allocated; < 80 GB), "
+          f"predicted {pred['peak_memory_per_device'] / 1e9:.3f} GB")
+    check(peak < 80e9, f"{SSM_ARCH} train peak {peak / 1e9:.3f} GB >= 80 GB")
+    host = sorted(r["ms"] for r in rows[1:])
+    host_ms = host[len(host) // 2]
+    step = build_train_step(model, settings)
+
+    def one_step():
+        nonlocal state
+        state, _ = step(state, batch)
+
+    busy, prof_rows = profile_train_step(torch, one_step)
+    print_profile(f"{SSM_ARCH} train step (profiled; host ms the median of "
+                  f"steps 2-{TRAIN_SSM_STEPS})", busy, host_ms, prof_rows)
+    k7_ms = step_rows_ms(prof_rows, busy, "K7 and its backward", K7_ROWS)
+    del state, step
+    free_device_memory(torch)
+    print(f"{SSM_ARCH} train on {smi}: {host_ms:.1f} ms/step (batch 1 x "
+          f"{TRAIN_SEQ}), device busy {busy:.1f} ms, peak {peak / 1e9:.3f} "
+          f"GB; loss {rows[0]['loss']:.4f} -> {rows[-1]['loss']:.4f} over "
+          f"{TRAIN_SSM_STEPS} steps; K7 and its backward "
+          f"{100 * k7_ms / busy:.1f}% of the profiled step's device busy")
+    return {"launches": train_ssd_launches(rows), "steps": TRAIN_SSM_STEPS,
+            "ms_per_step": host_ms, "busy_ms": busy, "k7_share": k7_ms / busy}
 
 
 def train_path_phase(torch, dev, smi: str) -> dict:
-    """Phase 18; returns K4/K5's launches and numbers on the train path."""
+    """Phase 18; returns K4/K5's launches and numbers on the train path,
+    and K7's and its backward's under "hybrid" and "ssm"."""
     phase(18, f"lm train: {TRAIN_ARCH} full width, {TRAIN_STEPS} AdamW steps "
               f"(2 microbatches of {TRAIN_SEQ} tokens), {TRAIN_INT8_STEPS} "
-              f"with int8 error feedback, kernel path against plain path; "
-              f"{TRAIN_HYBRID_ARCH} full width, {TRAIN_HYBRID_STEPS} steps")
+              f"with int8 error feedback, kernel path against plain path")
     out = granite_train_phase(torch, dev, smi)
-    hybrid_train_phase(torch, dev, smi)
+    phase("18b", f"lm train: {TRAIN_HYBRID_ARCH} full width, "
+                 f"{TRAIN_HYBRID_STEPS} steps through K6, K7 and their "
+                 f"backwards, step 1 against the plain path")
+    out["hybrid"] = hybrid_train_phase(torch, dev, smi)
+    phase("18c", f"lm train: {SSM_ARCH} full width and depth, remat, "
+                 f"{TRAIN_SSM_STEPS} steps through K7 and its backward")
+    out["ssm"] = ssm_train_phase(torch, dev, smi)
     return out
 
 
@@ -4938,6 +5318,12 @@ def run_phases(torch, dev, smi: str, predictor) -> int:
             paths[f"{TRAIN_ARCH} train"] = {
                 "launches": train["k6"]["flash_attention"],
                 "steps": train["steps"]}
+        else:
+            for arch, key in ((TRAIN_HYBRID_ARCH, "hybrid"),
+                              (SSM_ARCH, "ssm")):
+                paths[f"{arch} train"] = {
+                    "launches": train[key]["launches"]["ssd_chunk"],
+                    "steps": train[key]["steps"]}
         extra = ({"windowed": s["windowed"]} if name == "flash_attention"
                  else {})
         kernels.append({
@@ -4965,6 +5351,26 @@ def run_phases(torch, dev, smi: str, predictor) -> int:
         "note": "no pallas_call: the counterpart of the reference's "
                 "flash-style VJP _sdpa_chunked_bwd; library_ms is SDPA's "
                 "backward (forward + backward less forward)",
+        "paths": s["paths"],
+    })
+    source, replaces = KERNEL_INFO["ssd_chunk_bwd"]
+    s = lm_summary["ssd_chunk_bwd"]
+    for arch, key in ((TRAIN_HYBRID_ARCH, "hybrid"), (SSM_ARCH, "ssm")):
+        s["paths"].setdefault(f"{arch} train bfloat16", {}).update(
+            launches=train[key]["launches"]["ssd_chunk_bwd"],
+            steps=train[key]["steps"])
+    kernels.append({
+        "name": "ssd_chunk_bwd", "route": "cuda", "source": source,
+        "replaces": replaces,
+        "launches": train["hybrid"]["launches"]["ssd_chunk_bwd"],
+        "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+        "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+        "bound_by": s["bound_by"], "library_ms": s["library_ms"],
+        "shapes": s["shapes"],
+        "per": f"call at {K7_BWD_MAIN}'s SSD shape, bf16",
+        "note": "no pallas_call: the counterpart of jax.vjp of the "
+                "reference's jnp oracle ssd_chunk_ref; no single PyTorch "
+                "call computes it (library_ms null)",
         "paths": s["paths"],
     })
     for name in ("fcnn_layer_tc", "fcnn_layer_dgrad_tc",
@@ -5002,7 +5408,12 @@ def run_phases(torch, dev, smi: str, predictor) -> int:
           "\"step\", for every call of the step; flash_attention_bwd (K6's "
           "backward) per call at granite-3-2b's training attention shape "
           "in bf16 (phase 7), its launches from phase 18's granite-3-2b "
-          "steps, every timed shape and dtype under \"paths\"")
+          "steps, every timed shape and dtype under \"paths\"; "
+          "ssd_chunk_bwd (K7's backward) per call at Zamba2-1.2B's "
+          "training SSD shape in bf16 (phase 7), its launches from phase "
+          "18b's Zamba2-1.2B steps, every timed shape and dtype and phase "
+          "18c's mamba2-2.7b launches under \"paths\"; K7's launches in "
+          "phases 18b and 18c under its \"paths\"")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -13,9 +13,10 @@ through one of five hand-written CUDA kernels, and every LM prefill
 through two more — flash attention (every attention of a prompt) and the
 SSD intra-chunk term (every Mamba2 layer) (``repro_torch.kernels``).  The
 LM train step (``launch.steps``) takes its token cross-entropy through the
-FCNN's softmax cross-entropy kernels at vocabulary width; attention and
-the SSD train on their plain versions, as the reference trains through
-jnp.
+FCNN's softmax cross-entropy kernels at vocabulary width, its attention
+through flash attention and that kernel's backward, and its SSD through
+the SSD kernel and that kernel's backward (the reference trains both
+through jnp: the backwards are kernels the port added).
 """
 
 from repro_torch.device import resolve_device  # noqa: F401

@@ -1,4 +1,5 @@
-"""The work of one launch of each kernel, K1–K7 and K6's backward: the
+"""The work of one launch of each kernel, K1–K7 and the backward of K6
+and of K7: the
 operations it does,
 by the type of the units that do them, and the bytes it must move, each
 input read once and each output written once.  ``chip_smoke.py``'s bound
@@ -15,8 +16,10 @@ them: on the tensor cores where ``uses_tc`` says so (K1 and K2 with bf16
 w, but K2 at a contraction N <= TC_NARROW; K3 with bf16 x), once where
 both operands are bf16 (K1's x in case (a)) and twice where one is fp32
 and split into bf16 hi + lo (K1's x in case (b), K2's and K3's dZ
-always); on the CUDA cores in fp32.  K6, its backward and K7 with bf16
-inputs are bf16 products.  Element-wise steps
+always); on the CUDA cores in fp32.  K6, K7 and their backwards with
+bf16 inputs are bf16 products, counted once each (the hi/lo split K7 and
+its backward give an fp32 operand is the kernels' way of keeping it
+exact, not work the function needs).  Element-wise steps
 (bias, activation, A'(Y)) and K4/K5 are fp32.  Bytes count each operand
 at its element size: K1–K3 take a 4 or 2 for each operand group, an
 output in the dtype the kernel gives it.
@@ -35,7 +38,7 @@ from typing import Any, Iterator
 __all__ = ["Cost", "recording", "report", "kept_pairs", "TC_NARROW",
            "uses_tc", "fcnn_fwd", "fcnn_dgrad", "fcnn_wgrad", "xent_fwd",
            "xent_dlogits", "flash_attention", "flash_attention_bwd",
-           "ssd_chunk"]
+           "ssd_chunk", "ssd_chunk_bwd"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,3 +206,19 @@ def ssd_chunk(bc: int, q: int, h: int, p: int, n: int, groups: int,
                 2 * bc * q * h * p * element_size
                 + 2 * bc * q * groups * n * element_size
                 + bc * h * p * n * 4 + 2 * bc * q * h * 4)
+
+
+def ssd_chunk_bwd(bc: int, q: int, h: int, p: int, n: int, groups: int,
+                  element_size: int) -> Cost:
+    """K7's backward: x, dy (BC, Q, H, P), dt_a (BC, Q, H) fp32, B and C
+    (BC, Q, H, N) with ``groups`` distinct heads, the fp32 cotangents of
+    the state (BC, H, P, N) and the decay (BC, Q, H) -> dx (BC, Q, H, P),
+    d(dt_a) (BC, Q, H) fp32, dB and dC (BC, Q, ``groups``, N).  Per (chunk,
+    head) the products S = C·Bᵀ, dM = dy·xᵀ, (S∘L)ᵀ·dy, dS·B and dSᵀ·C over
+    the kept pairs, and B·dstᵀ and x·dst over the chunk's rows."""
+    pairs = q * (q + 1) // 2
+    return Cost({_dtype(element_size):
+                 bc * h * (pairs * (6 * n + 4 * p) + 4 * q * p * n)},
+                3 * bc * q * h * p * element_size
+                + 4 * bc * q * groups * n * element_size
+                + bc * h * p * n * 4 + 3 * bc * q * h * 4)

@@ -1,8 +1,8 @@
-// Python bindings of the seven kernels and K6's backward.  The only source
-// that includes PyTorch's headers: the kernels themselves (fcnn_fwd.cu,
-// fcnn_dgrad.cu, fcnn_fwd_tc.cu, fcnn_dgrad_tc.cu, fcnn_wgrad.cu,
-// fcnn_wgrad_tc.cu, softmax_xent.cu, flash_attention.cu,
-// flash_attention_bwd.cu, ssd_scan.cu) export
+// Python bindings of the seven kernels and the backwards of K6 and K7.  The
+// only source that includes PyTorch's headers: the kernels themselves
+// (fcnn_fwd.cu, fcnn_dgrad.cu, fcnn_fwd_tc.cu, fcnn_dgrad_tc.cu,
+// fcnn_wgrad.cu, fcnn_wgrad_tc.cu, softmax_xent.cu, flash_attention.cu,
+// flash_attention_bwd.cu, ssd_scan.cu, ssd_scan_bwd.cu) export
 // plain launchers that take raw pointers, strides and a stream and return
 // the launch's cudaError_t.  The Python wrappers (kernels/fcnn_layer.py, kernels/softmax_xent.py,
 // kernels/flash_attention.py, kernels/ssd_scan.py) check device, dtype,
@@ -61,6 +61,12 @@ cudaError_t launch_ssd_chunk(const void* x, const float* dt_a, const void* b,
                              float* decay, const long long* st, int BC, int Q,
                              int H, int P, int N, int bf16, int heads,
                              cudaStream_t stream);
+cudaError_t launch_ssd_chunk_bwd(const void* x, const float* dt_a, const void* b,
+                                 const void* c, const void* dy, const float* dstate,
+                                 const float* ddecay, void* dx, float* ddt, float* part,
+                                 void* db, void* dc, const long long* st, int BC, int Q,
+                                 int H, int P, int N, int G, int bf16,
+                                 cudaStream_t stream);
 
 namespace {
 
@@ -315,6 +321,33 @@ void ssd_chunk(const torch::Tensor& x, const torch::Tensor& dt_a,
                "ssd_chunk");
 }
 
+// the backward of ssd_chunk: x, dt_a, b, c as the forward takes them, dy
+// (x's shape, through its strides), dstate (BC, H, P, N) and ddecay (BC, Q,
+// H) fp32 contiguous, each cotangent empty where it is zero -> dx, ddt
+// (BC, Q, H) fp32, db and dc (BC, Q, G, N), summing each group's H / G
+// heads; heads_db_dc (2, BC, Q, H, N) fp32 is scratch the kernels fill
+void ssd_chunk_bwd(const torch::Tensor& x, const torch::Tensor& dt_a,
+                   const torch::Tensor& b, const torch::Tensor& c,
+                   const torch::Tensor& dy, const torch::Tensor& dstate,
+                   const torch::Tensor& ddecay, torch::Tensor dx, torch::Tensor ddt,
+                   torch::Tensor heads_db_dc, torch::Tensor db, torch::Tensor dc) {
+  const c10::cuda::CUDAGuard guard(x.device());
+  long long st[15] = {};
+  const torch::Tensor* ts[5] = {&x, &dt_a, &b, &c, &dy};
+  for (int i = 0; i < 5; ++i)
+    if (ts[i]->numel())
+      for (int d = 0; d < 3; ++d) st[3 * i + d] = ts[i]->stride(d);
+  check_launch(launch_ssd_chunk_bwd(
+                   x.data_ptr(), f32(dt_a), b.data_ptr(), c.data_ptr(),
+                   dy.numel() ? dy.data_ptr() : nullptr,
+                   dstate.numel() ? f32(dstate) : nullptr,
+                   ddecay.numel() ? f32(ddecay) : nullptr, dx.data_ptr(), f32(ddt),
+                   f32(heads_db_dc), db.data_ptr(), dc.data_ptr(), st, x.size(0),
+                   x.size(1), x.size(2), x.size(3), b.size(3), db.size(2),
+                   x.scalar_type() == at::kBFloat16, stream_of(x)),
+               "ssd_chunk_bwd");
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -331,4 +364,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_attention_lse", &flash_attention_lse);
   m.def("flash_attention_bwd", &flash_attention_bwd);
   m.def("ssd_chunk", &ssd_chunk);
+  m.def("ssd_chunk_bwd", &ssd_chunk_bwd);
 }

@@ -3,8 +3,9 @@
 ``fcnn_layer`` and ``softmax_xent`` (differentiable) are what the FCNN
 calls, and ``softmax_xent`` the LM loss too; ``flash_attention``
 (differentiable: K6 forward, K6's backward kernels for the gradients) is
-the LM's attention in prefill and in training; ``ssd_chunk`` (forward
-only: the reference kernel has no VJP) is what the Mamba2 prefill calls.
+the LM's attention in prefill and in training; ``ssd_chunk``
+(differentiable: K7 forward, its backward kernels for the gradients) is
+the Mamba2 SSD's intra-chunk term in prefill and in training.
 The mode:
 
   * ``None`` (default) — the fused path: ``_FusedFCNN`` / ``_FusedXent``
@@ -35,7 +36,20 @@ K5 the per-row factor g·mask / max(Σ mask, 1).  Labels and masks get no
 gradient.  ``_FlashAttention`` (where q, k or v requires grad) runs K6
 with its log-sum-exp, saves ``(q, k, v, o, lse)`` and hands its backward
 to ``flash_attention_bwd``; attention that needs no gradient (serving)
-calls K6 alone, without the lse.
+calls K6 alone, without the lse.  ``_SsdChunk`` (where x, dt_a, b or c
+requires grad) runs K7, saves ``(x, dt_a, b, c)`` and nothing of (Q, Q)
+size, and hands the three cotangents (None where autograd has none:
+zeros are not made) to ``ssd_chunk_bwd``; the SSD that needs no gradient
+(serving) calls K7 alone.
+
+The head broadcast of B and C lies inside ``ssd_chunk``: it takes them
+group-shaped (BC, Q, G, N), G dividing H, and hands the kernels a
+(BC, Q, H, N) view of them, stride 0 across the heads where G = 1 (the
+models' ``ssm_groups``).  So ``_SsdChunk`` returns dB and dC group-shaped,
+each group's heads summed by the backward kernels in fp32 in a fixed
+order and rounded once.  Outside, the expand's backward would sum
+per-head gradients already rounded to bf16, in an order autograd picks,
+and the kernels would write H / G times the bytes.
 """
 
 from __future__ import annotations
@@ -57,11 +71,14 @@ from repro_torch.kernels.softmax_xent import (
     softmax_xent_dlogits as _xent_dlogits,
     softmax_xent_fwd as _xent_fwd,
 )
-from repro_torch.kernels.ssd_scan import ssd_chunk as _ssd_chunk
+from repro_torch.kernels.ssd_scan import (
+    ssd_chunk as _ssd_chunk,
+    ssd_chunk_bwd as _ssd_chunk_bwd,
+)
 
 __all__ = ["fcnn_layer", "softmax_xent", "flash_attention", "ssd_chunk",
-           "KERNELS", "MODES", "launch_counts", "reset_launches",
-           "resolve_mode"]
+           "heads_of_groups", "KERNELS", "MODES", "launch_counts",
+           "reset_launches", "resolve_mode"]
 
 MODES = (None, "cuda", "ref")
 
@@ -75,6 +92,7 @@ KERNELS = {
     "flash_attention": _flash_attention,
     "flash_attention_bwd": _flash_attention_bwd,
     "ssd_chunk": _ssd_chunk,
+    "ssd_chunk_bwd": _ssd_chunk_bwd,
 }
 
 
@@ -172,6 +190,39 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def heads_of_groups(t: torch.Tensor, h: int) -> torch.Tensor:
+    """B or C (…, G, N) as (…, H, N), each group repeated over its H / G
+    consecutive heads: a view, stride 0 across the heads where G = 1 (and
+    ``t`` itself where G = H); a tensor whose G does not divide H is
+    returned as it is, for the wrapper to refuse."""
+    if t.dim() < 2 or t.shape[-2] == h or h % t.shape[-2]:
+        return t
+    *lead, g, n = t.shape
+    return t[..., :, None, :].expand(*lead, g, h // g, n).reshape(
+        *lead, h, n)
+
+
+class _SsdChunk(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt_a, b, c):
+        h = x.shape[2]
+        out = _ssd_chunk(x, dt_a, heads_of_groups(b, h),
+                         heads_of_groups(c, h))
+        ctx.save_for_backward(x, dt_a, b, c)
+        ctx.set_materialize_grads(False)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy, dstate, ddecay):
+        x, dt_a, b, c = ctx.saved_tensors
+        h = x.shape[2]
+        if dy is not None and dy.stride(-1) != 1:
+            dy = dy.contiguous()
+        return _ssd_chunk_bwd(x, dt_a, heads_of_groups(b, h),
+                              heads_of_groups(c, h), dy, dstate, ddecay,
+                              b.shape[2])
+
+
 def fcnn_layer(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                activation: str = "sigmoid", *,
                mode: str | None = None) -> torch.Tensor:
@@ -217,8 +268,14 @@ def ssd_chunk(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
               c: torch.Tensor, *, mode: str | None = None
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Intra-chunk SSD over a batch of chunks.  x (BC, Q, H, P), dt_a
-    (BC, Q, H), b, c (BC, Q, H, N) -> (y_diag, state (BC, H, P, N),
-    decay (BC, Q, H))."""
+    (BC, Q, H), b, c (BC, Q, G, N), each of G groups broadcast to H / G
+    consecutive heads (G = H: one a head) -> (y_diag, state (BC, H, P, N),
+    decay (BC, Q, H)).  Differentiable in x, dt_a, b and c."""
+    h = x.shape[2] if x.dim() == 4 else 0
     if resolve_mode(mode, x, dt_a, b, c) == "ref":
-        return _ref.ssd_chunk_ref(x, dt_a, b, c)
-    return _ssd_chunk(x, dt_a, b, c)
+        return _ref.ssd_chunk_ref(x, dt_a, heads_of_groups(b, h),
+                                  heads_of_groups(c, h))
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, dt_a, b, c)):
+        return _SsdChunk.apply(x, dt_a, b, c)
+    return _ssd_chunk(x, dt_a, heads_of_groups(b, h), heads_of_groups(c, h))

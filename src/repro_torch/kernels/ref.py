@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the seven kernels: the five of the FCNN
 training step and the two of the LM prefill (flash attention, the SSD
-intra-chunk term), and of flash attention's backward (the LM training
-step's attention, with the forward's log-sum-exp).
+intra-chunk term), and of the two backward kernels of the LM training
+step: flash attention's (with the forward's log-sum-exp) and the SSD
+intra-chunk term's.
 
 Each function computes what its CUDA kernel computes, with PyTorch ops in
 fp32.  The kernel wrappers run these for tensors on the CPU, ``ops``
@@ -31,6 +32,7 @@ __all__ = [
     "attention_mask",
     "check_causal_lengths",
     "ssd_chunk_ref",
+    "ssd_chunk_bwd_ref",
 ]
 
 ACTIVATIONS = ("sigmoid", "relu", "tanh", "none")
@@ -256,3 +258,65 @@ def ssd_chunk_ref(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
     decay_state = torch.exp(cs[:, -1:, :] - cs)                # (BC, Q, H)
     state = torch.einsum("bshn,bsh,bshp->bhpn", bf, decay_state, xf)
     return y.to(x.dtype), state, torch.exp(cs)
+
+
+def ssd_chunk_bwd_ref(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
+                      c: torch.Tensor, dy: torch.Tensor | None,
+                      dstate: torch.Tensor | None,
+                      ddecay: torch.Tensor | None, groups: int | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+    """(dx, d(dt_a), db, dc) of ``ssd_chunk_ref`` for the cotangents ``dy``
+    (y's shape), ``dstate`` (BC, H, P, N) and ``ddecay`` (BC, Q, H), any of
+    which may be None (zero).  Per (chunk, head), with cs = cumsum(dt_a),
+    L[t,s] = exp(cs_t − cs_s) on s <= t (0 above), S = C·Bᵀ, w_s =
+    exp(cs_{Q-1} − cs_s) and dec = exp(cs):
+
+      dM = dy·xᵀ, dS = dM∘L       (L masked before exp: no 0·inf)
+      dx = (S∘L)ᵀ·dy + w∘(B·dstᵀ)
+      dC = dS·B,  dB = dSᵀ·C + w∘(x·dst)
+      dcs_t = Σ_s (dS∘S)[t,s] − Σ_s (dS∘S)[s,t] − dw_t·w_t + ddec_t·dec_t,
+              plus Σ_s dw_s·w_s at t = Q−1, with dw_s = x_sᵀ·dst·B_s
+      d(dt_a) = the reverse cumsum of dcs over the chunk.
+
+    Everything in fp32; db and dc are summed over each of ``groups``
+    consecutive-head groups (None: one a head) into (BC, Q, G, N) in fp32,
+    and each gradient is rounded once to its input's dtype (d(dt_a) fp32):
+    ordinary autograd through ``ssd_chunk_ref`` up to fp32 sum orders."""
+    bc, q, h, p = x.shape
+    n = b.shape[-1]
+    g = h if groups is None else groups
+    xf, bf, cf = x.float(), b.float(), c.float()
+    cs = torch.cumsum(dt_a.float(), dim=1)                     # (BC, Q, H)
+    seg = cs[:, :, None, :] - cs[:, None, :, :]                # (BC, Q, Q, H)
+    mask = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    lmat = torch.exp(seg.masked_fill(~mask[None, :, :, None], float("-inf")))
+    scores = torch.einsum("bthn,bshn->btsh", cf, bf)
+    w = torch.exp(cs[:, -1:, :] - cs)                          # (BC, Q, H)
+    dx = torch.zeros((bc, q, h, p), dtype=torch.float32, device=x.device)
+    db = torch.zeros((bc, q, h, n), dtype=torch.float32, device=x.device)
+    dc = torch.zeros_like(db)
+    dcs = torch.zeros_like(cs)
+    if dy is not None:
+        dyf = dy.float()
+        ds = torch.einsum("bthp,bshp->btsh", dyf, xf) * lmat
+        dx += torch.einsum("btsh,bthp->bshp", scores * lmat, dyf)
+        dc += torch.einsum("btsh,bshn->bthn", ds, bf)
+        db += torch.einsum("btsh,bthn->bshn", ds, cf)
+        r = ds * scores
+        dcs += r.sum(2) - r.sum(1)
+    if dstate is not None:
+        dst = dstate.float()
+        dx += w[..., None] * torch.einsum("bshn,bhpn->bshp", bf, dst)
+        xdst = torch.einsum("bshp,bhpn->bshn", xf, dst)
+        db += w[..., None] * xdst
+        dww = (xdst * bf).sum(-1) * w                          # dw_s·w_s
+        dcs -= dww
+        dcs[:, -1] += dww.sum(1)
+    if ddecay is not None:
+        dcs += ddecay.float() * torch.exp(cs)
+    ddt = torch.flip(torch.cumsum(torch.flip(dcs, (1,)), dim=1), (1,))
+    if g != h:
+        db = db.reshape(bc, q, g, h // g, n).sum(3)
+        dc = dc.reshape(bc, q, g, h // g, n).sum(3)
+    return dx.to(x.dtype), ddt, db.to(b.dtype), dc.to(c.dtype)

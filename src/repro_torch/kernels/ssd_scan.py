@@ -1,21 +1,39 @@
-"""Wrapper of the Mamba2 SSD intra-chunk kernel (``csrc/ssd_scan.cu``).
+"""Wrappers of the Mamba2 SSD intra-chunk kernel (``csrc/ssd_scan.cu``)
+and of its backward (``csrc/ssd_scan_bwd.cu``), which the Mamba2 and
+Zamba2 training steps run.
 
-  ssd_chunk  (y_diag, chunk state, exp(cumsum dt_a)) per chunk   replaces repro/kernels/ssd_scan.py:60
+  ssd_chunk      (y_diag, chunk state, exp(cumsum dt_a)) per chunk   replaces repro/kernels/ssd_scan.py:60
+  ssd_chunk_bwd  dx, d(dt_a), dB, dC from the three cotangents      counterpart of jax.vjp of repro/kernels/ref.py:122
 
-Checks device, dtype (x, b and c fp32 or bf16, of one dtype; dt_a
-fp32), shapes and strides, then picks by the tensors' device: on
-CUDA it allocates the three outputs, launches the kernel on the current
-stream (all chunks and heads in one launch) and adds one to ``launches``;
-on the CPU it runs the plain version from ``ref.py``; on the meta
-device it returns the empty outputs and reports the launch to the
-dry-run (``cost.report``).  b and c are read
-through their strides, so one group broadcast to every head is an
-``expand``ed view with a head stride of 0 and is never copied.  bf16
-runs the tensor-core kernel, whose blocks each walk ``ssd_plan``'s
-number of consecutive heads of one chunk; fp32 the CUDA-core kernel, one
-head a block.  Q <= 128, P <= 64 and N <= 128 on either device (Zamba2's
-N = 64 and Mamba2-2.7B's N = 128; the kernels take N as 64 or 128
-columns).  Forward only, as the reference kernel.
+``ssd_chunk`` checks device, dtype (x, b and c fp32 or bf16, of one
+dtype; dt_a fp32), shapes and strides, then picks by the tensors'
+device: on CUDA it allocates the three outputs, launches the kernel on
+the current stream (all chunks and heads in one launch) and adds one to
+``launches``; on the CPU it runs the plain version from ``ref.py``; on
+the meta device it returns the empty outputs and reports the launch to
+the dry-run (``cost.report``).  b and c are read through their strides,
+so one group broadcast to every head is an ``expand``ed view with a head
+stride of 0 and is never copied.  bf16 runs the tensor-core kernel, whose
+blocks each walk ``ssd_plan``'s number of consecutive heads of one chunk;
+fp32 the CUDA-core kernel, one head a block.  Q <= 128, P <= 64 and N <=
+128 on either device (Zamba2's N = 64 and Mamba2-2.7B's N = 128; the
+kernels take N as 64 or 128 columns).  The raw wrapper refuses inputs
+that require grad: ``ops.ssd_chunk`` is the differentiable op, an
+autograd function whose backward calls ``ssd_chunk_bwd``.
+
+``ssd_chunk_bwd`` takes the forward's checks and inputs, the cotangents
+dy (x's shape and dtype), dstate (BC, H, P, N) fp32 and ddecay (BC, Q, H)
+fp32, any of them None (zero), and ``groups``: B and C hold ``groups``
+distinct groups of H / groups consecutive heads (the model's
+``ssm_groups``; None: one a head), and dB and dC come back summed over
+each group, (BC, Q, groups, N).  It picks by device as the forward does:
+CPU, the plain ``ref.ssd_chunk_bwd_ref``; meta, empty gradients and
+``cost.ssd_chunk_bwd``; CUDA, the kernels of ``ssd_scan_bwd.cu`` with one
+count in ``ssd_chunk_bwd.launches``: the main kernel writes dx, d(dt_a)
+and each head's dB and dC in fp32 to scratch this wrapper allocates, and
+a second kernel sums each group's heads in a fixed order and rounds once,
+so repeats are bit-identical (no atomics).  The gradients leave in x's,
+dt_a's (fp32), b's and c's dtypes, contiguous.
 """
 
 from __future__ import annotations
@@ -27,7 +45,7 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.fcnn_layer import KernelLimitError, device_type
 from repro_torch.kernels.flash_attention import check_float_args
 
-__all__ = ["ssd_chunk", "ssd_plan"]
+__all__ = ["ssd_chunk", "ssd_chunk_bwd", "ssd_plan"]
 
 MAX_CHUNK = 128
 MAX_P = 64      # head dim: one 64-column tile
@@ -71,32 +89,40 @@ def ssd_plan(bc: int, h: int, q: int, shared_bc: bool, n: int = 64) -> int:
     return 1
 
 
+def _check(kernel: str, x: torch.Tensor, dt_a: torch.Tensor,
+           b: torch.Tensor, c: torch.Tensor) -> tuple[int, ...]:
+    """Raise unless x (BC, Q, H, P), dt_a (BC, Q, H) fp32 and b, c (BC, Q,
+    H, N) are shapes the kernels take; return (BC, Q, H, P, N)."""
+    if x.dim() != 4 or dt_a.dim() != 3 or b.dim() != 4 or c.dim() != 4:
+        raise ValueError(f"{kernel}: x, b, c must be 4-D and dt_a 3-D")
+    bc, q, h, p = x.shape
+    n = b.shape[-1]
+    if tuple(dt_a.shape) != (bc, q, h):
+        raise ValueError(f"{kernel}: dt_a has shape {tuple(dt_a.shape)}, "
+                         f"expected {(bc, q, h)}")
+    for name, t in (("b", b), ("c", c)):
+        if tuple(t.shape) != (bc, q, h, n):
+            raise ValueError(f"{kernel}: {name} has shape "
+                             f"{tuple(t.shape)}, expected {(bc, q, h, n)}")
+    if (min(bc, q, h, p, n) < 1 or bc > 65535 or q > MAX_CHUNK
+            or p > MAX_P or n > MAX_N):
+        error = ValueError if min(bc, q, h, p, n) < 1 else KernelLimitError
+        raise error(f"{kernel}: x {tuple(x.shape)}, N = {n} outside "
+                    f"BC <= 65535, Q <= {MAX_CHUNK}, P <= {MAX_P}, "
+                    f"N <= {MAX_N}")
+    if dt_a.dtype != torch.float32:
+        raise TypeError(f"{kernel}: dt_a must be float32, got {dt_a.dtype}")
+    return bc, q, h, p, n
+
+
 def ssd_chunk(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
               c: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (BC, Q, H, P), dt_a (BC, Q, H), b, c (BC, Q, H, N) ->
     (y_diag (BC, Q, H, P) in x's dtype, state (BC, H, P, N) fp32,
     decay (BC, Q, H) fp32)."""
-    if x.dim() != 4 or dt_a.dim() != 3 or b.dim() != 4 or c.dim() != 4:
-        raise ValueError("ssd_chunk: x, b, c must be 4-D and dt_a 3-D")
-    bc, q, h, p = x.shape
-    n = b.shape[-1]
-    if tuple(dt_a.shape) != (bc, q, h):
-        raise ValueError(f"ssd_chunk: dt_a has shape {tuple(dt_a.shape)}, "
-                         f"expected {(bc, q, h)}")
-    for name, t in (("b", b), ("c", c)):
-        if tuple(t.shape) != (bc, q, h, n):
-            raise ValueError(f"ssd_chunk: {name} has shape {tuple(t.shape)}, "
-                             f"expected {(bc, q, h, n)}")
-    if (min(bc, q, h, p, n) < 1 or bc > 65535 or q > MAX_CHUNK
-            or p > MAX_P or n > MAX_N):
-        error = ValueError if min(bc, q, h, p, n) < 1 else KernelLimitError
-        raise error(f"ssd_chunk: x {tuple(x.shape)}, N = {n} outside "
-                    f"BC <= 65535, Q <= {MAX_CHUNK}, P <= {MAX_P}, "
-                    f"N <= {MAX_N}")
+    bc, q, h, p, n = _check("ssd_chunk", x, dt_a, b, c)
     check_float_args("ssd_chunk", x=x, b=b, c=c)
-    if dt_a.dtype != torch.float32:
-        raise TypeError(f"ssd_chunk: dt_a must be float32, got {dt_a.dtype}")
     dev = device_type("ssd_chunk", x, dt_a, b, c)
     if dev == "cpu":
         return _ref.ssd_chunk_ref(x, dt_a, b, c)
@@ -116,3 +142,56 @@ def ssd_chunk(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
 
 
 ssd_chunk.launches = 0
+
+
+def ssd_chunk_bwd(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
+                  c: torch.Tensor, dy: torch.Tensor | None,
+                  dstate: torch.Tensor | None, ddecay: torch.Tensor | None,
+                  groups: int | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
+    """(dx, d(dt_a), db, dc) of ``ssd_chunk(x, dt_a, b, c)`` for the
+    cotangents of its three outputs (None: zero); db and dc (BC, Q, G, N)
+    summed over each of ``groups`` = G groups of consecutive heads."""
+    kernel = "ssd_chunk_bwd"
+    bc, q, h, p, n = _check(kernel, x, dt_a, b, c)
+    g = h if groups is None else int(groups)
+    if g < 1 or h % g:
+        raise ValueError(f"{kernel}: {g} groups do not divide {h} heads")
+    if dy is not None and tuple(dy.shape) != (bc, q, h, p):
+        raise ValueError(f"{kernel}: dy has shape {tuple(dy.shape)}, "
+                         f"expected x's {(bc, q, h, p)}")
+    for name, t, shape in (("dstate", dstate, (bc, h, p, n)),
+                           ("ddecay", ddecay, (bc, q, h))):
+        if t is not None and (tuple(t.shape) != shape
+                              or t.dtype != torch.float32):
+            raise ValueError(f"{kernel}: {name} must be {shape} float32, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+    given = {"dy": dy} if dy is not None else {}
+    check_float_args(kernel, x=x, b=b, c=c, **given)
+    cots = [t for t in (dy, dstate, ddecay) if t is not None]
+    dev = device_type(kernel, x, dt_a, b, c, *cots)
+    if dev == "cpu":
+        return _ref.ssd_chunk_bwd_ref(x, dt_a, b, c, dy, dstate, ddecay, g)
+    dx = torch.empty((bc, q, h, p), device=x.device, dtype=x.dtype)
+    ddt = torch.empty((bc, q, h), device=x.device, dtype=torch.float32)
+    db = torch.empty((bc, q, g, n), device=x.device, dtype=b.dtype)
+    dc = torch.empty((bc, q, g, n), device=x.device, dtype=c.dtype)
+    # each head's dB and dC in fp32, before the group sum
+    heads_db_dc = torch.empty((2, bc, q, h, n), device=x.device,
+                              dtype=torch.float32)
+    if dev == "meta":
+        cost.report(kernel, cost.ssd_chunk_bwd(bc, q, h, p, n, g,
+                                               x.element_size()))
+        return dx, ddt, db, dc
+    none = torch.empty(0, device=x.device)
+    _build.extension().ssd_chunk_bwd(
+        x, dt_a, b, c, none if dy is None else dy,
+        none if dstate is None else dstate.contiguous(),
+        none if ddecay is None else ddecay.contiguous(),
+        dx, ddt, heads_db_dc, db, dc)
+    ssd_chunk_bwd.launches += 1
+    return dx, ddt, db, dc
+
+
+ssd_chunk_bwd.launches = 0

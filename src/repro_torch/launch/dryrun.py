@@ -19,9 +19,9 @@ storage, so nothing is allocated on the card or the host:
 On meta the step follows the card's path: the kernel wrappers (K1–K7)
 run their checks, return empty outputs and report each launch and its
 ``kernels.cost``; a bf16 product with fp32 output takes the card's
-branch; a train cell's attention reports K6 with its lse (twice a layer
-under remat, which recomputes it) and K6's backward, and the SSD trains
-on its plain version, as on the card.  ``CostCounter``, a
+branch; a train cell's attention reports K6 with its lse and its SSD
+K7 (each twice a layer under remat, which recomputes it), and the
+backward of each once, as on the card.  ``CostCounter``, a
 ``TorchDispatchMode``, sees every aten op the step runs, autograd's
 backward and the recompute of checkpointed layers included, and counts
 

@@ -16,9 +16,9 @@ it in place, and the step returns it.  Nothing is read back to the host:
 the metrics are 0-d tensors on the parameters' device.
 
 The loss is the model's ``loss_fn``, whose token cross-entropy goes
-through the softmax cross-entropy kernels (K4/K5) and whose attention
-goes through K6 and its backward kernels, unless ``mode="ref"``; the SSD
-trains on its plain version (K7 has no backward kernel yet).
+through the softmax cross-entropy kernels (K4/K5), whose attention goes
+through K6 and its backward kernels and whose SSD goes through K7 and its
+backward kernels, unless ``mode="ref"``.
 """
 
 from __future__ import annotations

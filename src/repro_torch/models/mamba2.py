@@ -27,10 +27,10 @@ stacked on a leading layer axis, drawn layer by layer by
 and its cache is the recurrent state alone, of constant size: ``ssm``
 (n_layers, B, H, P, N) fp32, ``conv`` (n_layers, B, K-1, conv_dim) and
 ``len``.  Every prefill runs one K7 launch per layer; ``decode_step``
-updates the cache in place.  ``loss_fn`` trains the LM: the SSD on its
-plain version (``mode="ref"``: K7 has no backward yet), each layer under
-``layers.remat_wrap``, the
-token loss through K4/K5.
+updates the cache in place.  ``loss_fn`` trains the LM: the SSD through
+K7 and its backward kernels (``ops.ssd_chunk``'s autograd function;
+``mode="ref"`` selects the plain versions, for comparisons), each layer
+under ``layers.remat_wrap``, the token loss through K4/K5.
 """
 
 from __future__ import annotations
@@ -62,13 +62,6 @@ Params = dict[str, Any]
 # SSD core
 # --------------------------------------------------------------------------
 
-def _group_to_heads(t: torch.Tensor, h: int) -> torch.Tensor:
-    """(…, G, N) -> (…, H, N), each group repeated over its H/G heads as a
-    view (stride 0 across the heads of a group when G = 1)."""
-    *lead, g, n = t.shape
-    return t[..., :, None, :].expand(*lead, g, h // g, n).reshape(*lead, h, n)
-
-
 def ssd_chunked(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
                 c: torch.Tensor, chunk: int,
                 initial_state: torch.Tensor | None = None, *,
@@ -87,12 +80,13 @@ def ssd_chunked(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
     nc = l // chunk
     rep = h // g
 
-    # 1.-2. intra-chunk term, chunk states and in-chunk decays (K7)
+    # 1.-2. intra-chunk term, chunk states and in-chunk decays (K7; B and
+    # C go in group-shaped, ops.ssd_chunk broadcasts them to the heads)
     y_diag, states, decay = ops.ssd_chunk(
         x.reshape(bs * nc, chunk, h, p),
         dt_a.reshape(bs * nc, chunk, h),
-        _group_to_heads(b.reshape(bs * nc, chunk, g, n), h),
-        _group_to_heads(c.reshape(bs * nc, chunk, g, n), h),
+        b.reshape(bs * nc, chunk, g, n),
+        c.reshape(bs * nc, chunk, g, n),
         mode=mode)
     states = states.reshape(bs, nc, h, p, n)
     decay = decay.reshape(bs, nc, chunk, h)
@@ -122,8 +116,8 @@ def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, dt_a: torch.Tensor,
     """One-token recurrence.  state: (B, H, P, N); x: (B, H, P); dt_a:
     (B, H); b, c: (B, G, N).  Returns (y (B, H, P), new_state fp32)."""
     h = x.shape[1]
-    bh = _group_to_heads(b, h).float()                          # (B, H, N)
-    ch = _group_to_heads(c, h).float()
+    bh = ops.heads_of_groups(b, h).float()                      # (B, H, N)
+    ch = ops.heads_of_groups(c, h).float()
     decay = torch.exp(dt_a)[..., None, None]                    # (B, H, 1, 1)
     upd = bh[:, :, None, :] * x.float()[..., None]              # (B, H, P, N)
     new_state = state * decay + upd
@@ -300,14 +294,13 @@ def forward(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
 def loss_fn(params: Params, batch: dict, cfg: ModelConfig, *,
             mode: str | None = None) -> torch.Tensor:
     """Mean token cross-entropy (0-d fp32), masked by ``batch["mask"]``
-    where given.  ``mode`` is the loss kernels' (K4/K5); the SSD trains on
-    its plain version whatever ``mode`` says."""
+    where given.  ``mode`` is the kernels' of the SSD (K7 and its
+    backward) and of the loss (K4/K5)."""
     h = L.embed(params["embedding"], batch["tokens"],
                 onehot=cfg.embed_onehot)
 
     def body(h: torch.Tensor, lp: Params) -> torch.Tensor:
-        # K7 has no backward kernel yet (ROADMAP, queue 2): the plain SSD
-        return block_apply(lp, h, cfg, mode="ref")
+        return block_apply(lp, h, cfg, mode=mode)
 
     body = L.remat_wrap(cfg, body)
     for lp in unstack(params["layers"], cfg.n_layers):

@@ -18,10 +18,10 @@ has the reference's leaves and layouts (``cache_axes``); ``decode_step``
 updates it in place and returns it.
 
 ``loss_fn`` trains the model: the shared attention through K6 and its
-backward kernels (``mode`` as in prefill), the SSD on its plain version
-(``mode="ref"``: K7 has no backward yet), each Mamba layer under
-``layers.remat_wrap`` as the reference checkpoints its Mamba scan body
-(the shared block is not), the token loss through K4/K5.
+backward kernels and the SSD through K7 and its backward kernels
+(``mode`` as in prefill), each Mamba layer under ``layers.remat_wrap``
+as the reference checkpoints its Mamba scan body (the shared block is
+not), the token loss through K4/K5.
 """
 
 from __future__ import annotations
@@ -173,9 +173,9 @@ def forward(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
 def loss_fn(params: Params, batch: dict, cfg: ModelConfig, *,
             mode: str | None = None) -> torch.Tensor:
     """Mean token cross-entropy (0-d fp32), masked by ``batch["mask"]``
-    where given.  ``mode`` is the kernels' of the loss (K4/K5) and of the
-    shared attention (K6 and its backward); the SSD trains on its plain
-    version whatever ``mode`` says."""
+    where given.  ``mode`` is the kernels' of the loss (K4/K5), of the
+    shared attention (K6 and its backward) and of the SSD (K7 and its
+    backward)."""
     h = L.embed(params["embedding"], batch["tokens"],
                 onehot=cfg.embed_onehot)
     h0 = h
@@ -183,8 +183,7 @@ def loss_fn(params: Params, batch: dict, cfg: ModelConfig, *,
     positions = _positions(bsz, s, h.device)
 
     def mamba(h: torch.Tensor, lp: Params) -> torch.Tensor:
-        # K7 has no backward kernel yet (ROADMAP, queue 2): the plain SSD
-        return M.block_apply(lp, h, cfg, mode="ref")
+        return M.block_apply(lp, h, cfg, mode=mode)
 
     mamba = L.remat_wrap(cfg, mamba)
     layers = unstack(params["mamba"], cfg.n_layers)

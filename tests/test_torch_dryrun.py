@@ -275,7 +275,8 @@ def wrapper_calls(monkeypatch):
                        ("_xent_dlogits", "softmax_xent_dlogits"),
                        ("_flash_attention", "flash_attention"),
                        ("_flash_attention_bwd", "flash_attention_bwd"),
-                       ("_ssd_chunk", "ssd_chunk")):
+                       ("_ssd_chunk", "ssd_chunk"),
+                       ("_ssd_chunk_bwd", "ssd_chunk_bwd")):
         fn = getattr(ops, attr)
 
         def spy(*a, _fn=fn, _name=name, **kw):

@@ -106,7 +106,7 @@ def test_launches_equal_cpu_step_and_program(name, calls):
                      "fcnn_layer_wgrad": sum(degrees),
                      "softmax_xent_fwd": 1, "softmax_xent_dlogits": 1,
                      "flash_attention": 0, "flash_attention_bwd": 0,
-                     "ssd_chunk": 0}
+                     "ssd_chunk": 0, "ssd_chunk_bwd": 0}
     loss = cost.xent_fwd(batch, 10, 4).flops["float32"] \
         + cost.xent_dlogits(batch, 10, 4).flops["float32"]
     assert res["flops"] == sum(res["flops_per_device"]) + loss

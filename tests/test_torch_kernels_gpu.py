@@ -397,7 +397,8 @@ def test_fused_ops_launch_the_kernels_on_card(cuda):
     assert counts == {"fcnn_layer": 1, "fcnn_layer_dgrad": 0,
                       "fcnn_layer_wgrad": 1, "softmax_xent_fwd": 1,
                       "softmax_xent_dlogits": 1, "flash_attention": 0,
-                      "flash_attention_bwd": 0, "ssd_chunk": 0}
+                      "flash_attention_bwd": 0, "ssd_chunk": 0,
+                      "ssd_chunk_bwd": 0}
     loss_r = ops.softmax_xent(ops.fcnn_layer(x, w, b, "none", mode="ref"), y,
                               mode="ref")
     gw_r, gb_r = torch.autograd.grad(loss_r, [w, b])
@@ -1035,3 +1036,79 @@ def test_flash_attention_autograd_launches_the_kernels_on_card(cuda, dtype):
     for g, w, noise in zip(ones, ref.flash_attention_bwd_ref(
             q, k, v, o, do1, lse, True), SMOKE.k6_bwd_noise(q, k, v, do1)):
         assert SMOKE.k6_bwd_close(torch, g, w, noise)[0]
+
+
+# K7's backward (ssd_scan_bwd.cu) against its plain version
+# (ref.ssd_chunk_bwd_ref) at phase 7's shapes: Zamba2-1.2B's and
+# mamba2-2.7b's training SSD (one B/C group broadcast to the heads) and the
+# edges (per-head and grouped B/C, ragged chunks, Q <= 64, small N and P),
+# with all three cotangents and with each alone; bars chip_smoke.
+# k7_bwd_close (dx, dB, dC: fp32 within 1e-4 of their largest, bf16 rounded
+# once; d(dt_a) within 1e-5 of its largest plus k7_bwd_noise); two calls
+# bit-identical (no atomics: each group's heads summed in a fixed order)
+K7_BWD_CASES = [shape for _, shape, _ in SMOKE.K7_BWD_SHAPES]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("given", SMOKE.K7_BWD_COTANGENTS, ids=str)
+@pytest.mark.parametrize("shape", K7_BWD_CASES, ids=str)
+def test_ssd_chunk_bwd_matches_plain_on_card(cuda, shape, given, dtype):
+    from repro_torch.kernels.ssd_scan import ssd_chunk_bwd
+
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    x, dt_a, b, c, *cots = SMOKE.k7_bwd_inputs(torch, cuda, gen, shape,
+                                               dtype)
+    use = [t if k else None for t, k in zip(cots, given)]
+    g = shape[-1]
+    before = ops.launch_counts()["ssd_chunk_bwd"]
+    got = ssd_chunk_bwd(x, dt_a, b, c, *use, g)
+    again = ssd_chunk_bwd(x, dt_a, b, c, *use, g)
+    want = ref.ssd_chunk_bwd_ref(x, dt_a, b, c, *use, g)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_chunk_bwd"] == before + 2
+    for t, t2 in zip(got, again):
+        assert torch.equal(t, t2)
+    ok, _, crit = SMOKE.k7_bwd_close(torch, got, want,
+                                     SMOKE.k7_bwd_noise(x, b, c, *use))
+    assert ok, crit
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("groups", [1, 2])
+def test_ssd_chunk_autograd_launches_the_kernels_on_card(cuda, dtype,
+                                                         groups):
+    """``ops.ssd_chunk`` under autograd with group-shaped B and C: one K7
+    and one K7 backward launch, gradients (dB, dC summed over each group)
+    within the card bars of the plain backward, no plain version reached."""
+    from repro_torch.kernels.ops import heads_of_groups
+
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    bc, q, h, p, n = 4, 128, 8, 64, 64
+
+    def rand(*size, dt=dtype):
+        return torch.randn(*size, generator=gen, device=cuda).to(dt)
+
+    x, dy = rand(bc, q, h, p), rand(bc, q, h, p)
+    dt_a = -rand(bc, q, h, dt=torch.float32).abs() * 0.3
+    b, c = rand(bc, q, groups, n), rand(bc, q, groups, n)
+    dst, dd = rand(bc, h, p, n, dt=torch.float32), rand(bc, q, h,
+                                                       dt=torch.float32)
+    leaves = [t.detach().requires_grad_(True) for t in (x, dt_a, b, c)]
+    before = ops.launch_counts()
+    with SMOKE.PlainSpy(SMOKE.TRAIN_PLAIN_FNS) as spy:
+        out = ops.ssd_chunk(*leaves)
+        grads = torch.autograd.grad(out, leaves, (dy, dst, dd))
+        torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert not any(spy.calls.values()), spy.calls
+    assert after["ssd_chunk"] == before["ssd_chunk"] + 1
+    assert after["ssd_chunk_bwd"] == before["ssd_chunk_bwd"] + 1
+    bh, ch = heads_of_groups(b, h), heads_of_groups(c, h)
+    want = ref.ssd_chunk_bwd_ref(x, dt_a, bh, ch, dy, dst, dd, groups)
+    assert [tuple(t.shape) for t in grads] == [tuple(t.shape) for t in want]
+    ok, _, crit = SMOKE.k7_bwd_close(torch, grads, want,
+                                     SMOKE.k7_bwd_noise(x, bh, ch, dy, dst,
+                                                        dd))
+    assert ok, crit

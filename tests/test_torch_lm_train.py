@@ -29,7 +29,8 @@ to numpy and seeded numpy token ids, fed to both frameworks.
   * K4/K5's host plans and chip_smoke.py's element-wise dlogits bar, which
     a K5 with a small error in exp or lse fails (CPU), and on the card
     (``gpu``) K4/K5 at LM shapes against their plain versions and the
-    train step's kernel path against its plain path;
+    train step's kernel path (K4-K7 and the backwards of K6 and K7)
+    against its plain path;
   * ``layers.gemm_f32_grads`` (the card's backward of a bf16 product
     with fp32 output, its GEMM emulated on the CPU) against JAX's
     transpose.
@@ -720,13 +721,43 @@ def _held_k6_backward(monkeypatch) -> list:
     return held
 
 
+def _held_k7_backward(monkeypatch) -> list:
+    """Hold every K7 backward launch to its plain version on the same
+    inputs at phase 7's bars (``k7_bwd_close`` with the ``k7_bwd_noise``
+    floor); returns the list of (ok, note) it fills, one entry a launch."""
+    bwd = ops._ssd_chunk_bwd
+    held = []
+
+    def checked(x, dt_a, b, c, dy, dstate, ddecay, groups):
+        got = bwd(x, dt_a, b, c, dy, dstate, ddecay, groups)
+        want = ref.ssd_chunk_bwd_ref(x, dt_a, b, c, dy, dstate, ddecay,
+                                     groups)
+        ok, _, note = SMOKE.k7_bwd_close(
+            torch, got, want, SMOKE.k7_bwd_noise(x, b, c, dy, dstate, ddecay))
+        held.append((ok, f"{tuple(x.shape)} {x.dtype}: {note}"))
+        return got
+
+    monkeypatch.setattr(ops, "_ssd_chunk_bwd", checked)
+    return held
+
+
+# the kernels whose launches a train step of each family makes on the
+# kernel path (K4/K5 aside)
+FAMILY_KERNELS = {"dense": ("flash_attention", "flash_attention_bwd"),
+                  "moe": ("flash_attention", "flash_attention_bwd"),
+                  "ssm": ("ssd_chunk", "ssd_chunk_bwd"),
+                  "hybrid": ("flash_attention", "flash_attention_bwd",
+                             "ssd_chunk", "ssd_chunk_bwd")}
+
+
 def _two_steps_both_paths(cuda, family, dtype):
     """Two steps of ``family``'s smoke config in ``dtype`` on the card
     through the kernel path (``mode=None``) and the plain path
     (``mode="ref"``) from the same weights: {mode: [(loss, grad_norm)] a
     step}, and step 1's gradient leaves, kernel against plain, worst
-    first.  Asserts the launches: K4 twice a step, K6 and its backward on
-    the kernel path, none of them on the plain path."""
+    first.  Asserts the launches: K4 twice a step, the family's K6, K7 and
+    their backwards (``FAMILY_KERNELS``) on the kernel path, none of them
+    on the plain path."""
     cfg = smoke_config(FAMILY_ARCHS[family]).replace(
         dtype=dtype, param_dtype=dtype, remat=True)
     model = get_model(cfg)
@@ -746,9 +777,11 @@ def _two_steps_both_paths(cuda, family, dtype):
                      for m in metrics]
         launched = after["softmax_xent_fwd"] - before["softmax_xent_fwd"]
         assert launched == (4 if mode is None else 0)
-        for name in ("flash_attention", "flash_attention_bwd"):
-            k6 = after[name] - before[name]
-            assert k6 > 0 if mode is None else k6 == 0, (name, k6)
+        for name in ("flash_attention", "flash_attention_bwd", "ssd_chunk",
+                     "ssd_chunk_bwd"):
+            n = after[name] - before[name]
+            on = mode is None and name in FAMILY_KERNELS[family]
+            assert n > 0 if on else n == 0, (name, n)
     params = init_train_state(model, settings,
                               torch.Generator(device=cuda).manual_seed(0),
                               cuda)["params"]
@@ -760,17 +793,18 @@ def _two_steps_both_paths(cuda, family, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("family", ["dense", "hybrid", "moe"])
+@pytest.mark.parametrize("family", ["dense", "hybrid", "moe", "ssm"])
 def test_train_step_kernel_path_matches_plain_on_card(cuda, family,
                                                       monkeypatch):
     """Two steps of a smoke config on the card, bf16, from the same
-    weights, through K4/K5 and K6 with its backward, against the plain
-    path (``ref.flash_attention_ref`` under autograd).  Every K6 backward
-    launch of the kernel path is held to its plain version on the same
-    inputs at phase 7's bars.  The step carries two roundings of the
-    reference's flash-style attention that ``_sdpa``'s autodiff, the plain
-    path, does not take: the forward rounds the unnormalised p for PV
-    (``_flash_fwd_core``) and the backward rounds dS (``_sdpa_chunked_bwd``).
+    weights, through K4/K5, K6 and K7 with their backwards, against the
+    plain path (``ref.flash_attention_ref`` and ``ref.ssd_chunk_ref`` under
+    autograd).  Every K6 and K7 backward launch of the kernel path is held
+    to its plain version on the same inputs at phase 7's bars.  The step
+    carries two roundings of the reference's flash-style attention that
+    ``_sdpa``'s autodiff, the plain path, does not take: the forward
+    rounds the unnormalised p for PV (``_flash_fwd_core``) and the
+    backward rounds dS (``_sdpa_chunked_bwd``).
     Plain against plain on the card, the two move step 1's loss by
     2.5e-5-2.9e-5 and its gradient norm by 4.9e-4-5.9e-4, and the plain
     path with its attention's head dimension permuted (a change of fp32
@@ -782,9 +816,11 @@ def test_train_step_kernel_path_matches_plain_on_card(cuda, family,
     whole step), each leaf of step 1 within 5e-2 of its norm.  fp32, where
     no rounding separates the paths, keeps 1e-5 (the next test).  Both
     paths' losses fall; K6 and its backward launch on the kernel path,
-    never on the plain path."""
-    held = _held_k6_backward(monkeypatch)
+    never on the plain path; so do K7 and its backward for the ssm and
+    hybrid families."""
+    k6, k7 = _held_k6_backward(monkeypatch), _held_k7_backward(monkeypatch)
     out, leaves = _two_steps_both_paths(cuda, family, "bfloat16")
+    held = k6 + k7
     assert held and all(ok for ok, _ in held), [n for ok, n in held if not ok]
     np.testing.assert_allclose([r[0] for r in out[None]],
                                [r[0] for r in out["ref"]],
@@ -796,17 +832,18 @@ def test_train_step_kernel_path_matches_plain_on_card(cuda, family,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("family", ["dense", "hybrid", "moe"])
+@pytest.mark.parametrize("family", ["dense", "hybrid", "moe", "ssm"])
 def test_train_step_kernel_path_matches_plain_fp32_on_card(cuda, family,
                                                            monkeypatch):
-    """The same two steps in fp32, where K6 and its backward take no
-    rounding the plain path does not: step 1's loss and gradient norm and
-    step 2's loss within 1e-5 of the plain path's, step 2's gradient norm
-    within 1e-2, each leaf of step 1 within 1e-4 of its norm (the fp32
-    bar of the families' parity tests), every K6 backward launch within
-    phase 7's fp32 bar of its plain version."""
-    held = _held_k6_backward(monkeypatch)
+    """The same two steps in fp32, where K6, K7 and their backwards take
+    no rounding the plain path does not: step 1's loss and gradient norm
+    and step 2's loss within 1e-5 of the plain path's, step 2's gradient
+    norm within 1e-2, each leaf of step 1 within 1e-4 of its norm (the
+    fp32 bar of the families' parity tests), every K6 and K7 backward
+    launch within phase 7's fp32 bar of its plain version."""
+    k6, k7 = _held_k6_backward(monkeypatch), _held_k7_backward(monkeypatch)
     out, leaves = _two_steps_both_paths(cuda, family, "float32")
+    held = k6 + k7
     assert held and all(ok for ok, _ in held), [n for ok, n in held if not ok]
     np.testing.assert_allclose(out[None][0], out["ref"][0], rtol=1e-5)
     np.testing.assert_allclose(out[None][1][0], out["ref"][1][0], rtol=1e-5)
