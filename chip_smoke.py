@@ -25,13 +25,15 @@ without a result line:
   2. build    the extension, with ptxas's per-kernel resource report
               (registers, shared memory and spills of the redesigned
               kernels, K1, K2, K3 (both kernels of each), bf16 K6 and K7,
-              the five kernels of K6's backward and the four of K7's,
+              the six kernels of K6's backward and the four of K7's,
               whose spills must be 0) and the count of HGMMA, HMMA and
               FFMA instructions in each kernel's SASS (cuobjdump); K1's
               and K2's bf16-weight kernels, K3's bf16-x kernel, the bf16
-              K6 kernel and its backward's two and the bf16 K7 kernel and
-              its backward's must emit HGMMA, and ptxas must not serialize
-              their wgmma
+              K6 kernel and its backward's fused kernel and the bf16 K7
+              kernel and its backward's must emit HGMMA, and ptxas must
+              not serialize their wgmma; the fused K6 backward must be
+              launched with the 168 registers its setmaxnreg hand-over
+              assumes
   3. kernels  each FCNN kernel against its plain PyTorch version on the
               card, at the NN1 and NN5 shapes and at edge shapes, with
               times of the kernel, the plain version and one PyTorch
@@ -272,7 +274,10 @@ without a result line:
               uninterrupted run (d) witnesses the step's run-to-run spread:
               where (c) and (d) agree bit for bit the resume fails, else
               it is held within max(2 x their spread, 1e-5 relative);
-              K4/K5 twice a step; ms/step, checkpoint bytes,
+              each run's K4-K7 launches a step equal to
+              ``train_launches`` (K4/K5 twice, K6 160 and its backward
+              80); (b) profiled, its device busy time a step and K6's
+              share printed; ms/step, checkpoint bytes,
               snapshot, write and restore ms; the checkpoint goes under
               ``build/``, which must hold 1.5 times it (else Zamba2-1.2B
               is driven), and is removed afterwards
@@ -347,6 +352,7 @@ name and power limit as nvidia-smi reports them, and the result object.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -425,17 +431,24 @@ NO_SPILL_KERNELS = ("fcnn_fwd_kernel", "dgrad_kernel", "fcnn_wgrad_kernel",
                     "fcnn_wgrad_tc_kernel", "flash_fwd_wgmma_kernel",
                     "ssd_chunk_wgmma_kernel", "flash_bwd_delta_kernel",
                     "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
-                    "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                    "flash_bwd_prep_kernel", "flash_bwd_wgmma_kernel",
+                    "flash_bwd_dq_round_kernel",
                     "ssd_bwd_wgmma_kernel", "ssd_bwd_f32_kernel",
                     "group_sum_kernel")
 # K1's and K2's bf16-weight kernels, K3's bf16-x kernel, the bf16 K6
-# kernel and its backward's two, and the bf16 K7 kernel and its backward,
-# which must run on the tensor cores (HGMMA in their SASS) with no wgmma
-# serialized by ptxas
+# kernel and its backward's fused kernel, and the bf16 K7 kernel and its
+# backward, which must run on the tensor cores (HGMMA in their SASS) with
+# no wgmma serialized by ptxas
 TC_KERNELS = ("fcnn_fwd_tc_kernel", "fcnn_dgrad_tc_kernel",
               "fcnn_wgrad_tc_kernel", "flash_fwd_wgmma_kernel",
-              "ssd_chunk_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel",
-              "flash_bwd_dq_wgmma_kernel", "ssd_bwd_wgmma_kernel")
+              "ssd_chunk_wgmma_kernel", "flash_bwd_wgmma_kernel",
+              "ssd_bwd_wgmma_kernel")
+# the kernels whose consumer warpgroups take registers from the producer
+# warpgroup with setmaxnreg, and the count each must be launched with: 384
+# threads at 168, of which the producer's 128 x (168 − 24) pay for two
+# warpgroups at 240; at fewer, setmaxnreg.inc would wait for registers no
+# warpgroup frees
+SETMAXNREG_KERNELS = (("flash_bwd_wgmma_kernel", 168),)
 
 
 class SmokeFailure(RuntimeError):
@@ -670,6 +683,15 @@ def run_build_phase() -> None:
         print(line[:300])
     check(not any(k in line for line in serial for k in TC_KERNELS),
           "ptxas serializes the wgmma of a tensor-core kernel")
+    ignored = [line.strip() for line in text.splitlines()
+               if "setmaxnreg ignored" in line]
+    check(not ignored, f"ptxas ignores setmaxnreg: {ignored[:2]}")
+    for kernel, regs in SETMAXNREG_KERNELS:
+        found = [r for name, r in report.items() if kernel in name]
+        if report:
+            check(bool(found) and all(r["registers"] == regs for r in found),
+                  f"{kernel} must be launched with {regs} registers a thread "
+                  f"for its setmaxnreg: {[r['registers'] for r in found]}")
 
 
 # --------------------------------------------------------------- phase 3
@@ -1480,6 +1502,10 @@ K6_BWD_EDGES = ((1, 4, 2, 1, 64, 1, True, 0), (2, 4, 2, 300, 64, 300, True, 0),
                 (1, 4, 2, 300, 64, 300, True, 65), (1, 4, 4, 77, 16, 30, False, 0),
                 (2, 2, 1, 200, 96, 200, True, 1))
 K6_BWD_MAIN = "granite-3-2b train"   # the kernels line's shape
+# the products the kernels issue for the five the bound counts: bf16 S,
+# dP, dV's hi and lo, dK and dQ; fp32 S and dP in both the dK/dV and the
+# dQ kernel, dV, dK and dQ
+K6_BWD_ISSUED = {"bfloat16": 6 / 5, "float32": 7 / 5}
 
 
 def k6_bwd_noise(q, k, v, do) -> tuple[float, float, float]:
@@ -1636,10 +1662,12 @@ def run_k6_bwd_phase(torch, dev) -> dict:
                                               q.element_size(), causal, window)
                 b_ms, b_by = bound(c)
                 flops = sum(c.flops.values())
+                issued = flops * K6_BWD_ISSUED[str(dtype)[6:]]
                 line += (f" | device ms: kernel {ms:.5f} plain {plain_ms:.5f} "
                          f"library (SDPA backward) {lib_ms:.5f} bound "
                          f"{b_ms:.5f} ({b_by}) = {100 * b_ms / ms:.1f}% | "
-                         f"{flops / ms / 1e9:.2f} TFLOP/s [{name}]")
+                         f"{flops / ms / 1e9:.2f} TFLOP/s of work, "
+                         f"{issued / ms / 1e9:.2f} issued [{name}]")
                 row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                            bound_ms=b_ms, bound_by=b_by, shapes=[label],
                            max_abs_err=worst)
@@ -2870,8 +2898,12 @@ def attention_train_ms(torch, dev, cfg, layers: int, recompute: bool
 
 # the profiled step's rows of K6 and its backward, and of K7 and its
 # backward: (label, a substring of the kernel's name)
-K6_ROWS = (("K6", "flash_fwd"), ("K6 bwd delta", "flash_bwd_delta"),
-           ("K6 bwd dK/dV", "flash_bwd_dkdv"), ("K6 bwd dQ", "flash_bwd_dq"))
+K6_ROWS = (("K6", "flash_fwd"), ("K6 bwd prep", "flash_bwd_prep"),
+           ("K6 bwd dK/dV/dQ", "flash_bwd_wgmma"),
+           ("K6 bwd dQ rounded", "flash_bwd_dq_round"),
+           ("K6 bwd fp32 delta", "flash_bwd_delta"),
+           ("K6 bwd fp32 dK/dV", "flash_bwd_dkdv"),
+           ("K6 bwd fp32 dQ", "flash_bwd_dq_kernel"))
 K7_ROWS = (("K7", "ssd_chunk_wgmma"), ("K7 bwd", "ssd_bwd_wgmma"),
            ("K7 bwd group sum", "group_sum"))
 
@@ -3669,19 +3701,41 @@ def long_prefill_phase(torch, dev, smi: str) -> tuple[dict[str, int], dict]:
              "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
 
 
-def driver_run(torch, train, arch: str, name: str, ck, kw: dict) -> tuple:
+def driver_run(torch, train, arch: str, name: str, ck, kw: dict,
+               profiled: bool = False) -> tuple:
     """One uninterrupted or resumed run of phase 21 through ``ck`` (no
-    checkpoints written): (run, launches, median ms/step, ck)."""
+    checkpoints written): (run, launches, median ms/step, ck).  Each
+    step's K4-K7 launches must be ``train_launches``'s; ``profiled``
+    prints the run's device busy time a step from the profiler's kernel
+    rows (its copies, the restore's among them, left out)."""
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch.kernels import ops
+    from repro_torch.launch import train as driver
 
     free_device_memory(torch)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    run = train(arch, checkpoint_every=0, checkpoint_dir=ck.directory,
-                checkpointer=ck, **kw)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 ) if profiled else contextlib.nullcontext() as prof:
+        run = train(arch, checkpoint_every=0, checkpoint_dir=ck.directory,
+                    checkpointer=ck, **kw)
+        torch.cuda.synchronize()
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     n = len(run.history)
+    want = train_launches(driver.get_config(arch), kw["microbatches"], True)
+    check(all(launches[k] == n * v for k, v in want.items()),
+          f"({name}) launches {dict(launches)} in {n} steps, a step "
+          f"{want}")
+    if profiled:
+        rows = [r for r in device_rows(prof) if "Memcpy" not in r[0]
+                and "Memset" not in r[0]]
+        busy = sum(us for _, _, us in rows) / 1e3 / n
+        k6 = step_rows_ms([(k, c, us / n) for k, c, us in rows], busy,
+                          f"({name}) K6 and its backward", K6_ROWS)
+        print(f"({name}) device busy {busy:.3f} ms a step over {n} steps "
+              f"(kernel rows of the profiled run), K6 + bwd {k6:.3f} ms")
     ms = sorted(h["seconds"] * 1e3 for h in run.history[1:])
     print(f"({name}) resumed from {run.resumed_from}, steps "
           f"{[h['step'] for h in run.history]}, losses "
@@ -3779,7 +3833,7 @@ def driver_phase(torch, dev, smi: str, n_params: int) -> dict:
         for name, sub in (("b", "ck"), ("c", "c")):
             runs[name] = driver_run(torch, train, arch, name,
                                     TimedCheckpointer(os.path.join(root, sub)),
-                                    kw)
+                                    kw, profiled=name == "b")
         b, c = runs["b"][0], runs["c"][0]
         check(b.resumed_from == 2
               and [h["step"] for h in b.history] == [3, 4, 5],

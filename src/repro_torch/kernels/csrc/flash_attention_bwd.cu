@@ -15,37 +15,61 @@
 //   dV = Σ pᵀ·dO    dP = dO·vᵀ    dS = p ⊙ (dP − delta) · scale
 //   dQ = dS·k       dK = Σ dSᵀ·q
 //
-// Three kernels, launched in order on one stream:
+// fp32: three kernels, launched in order on one stream:
 //   (a) flash_bwd_delta_kernel: delta (B, H, Sq) fp32, one warp a row;
 //   (b) dK and dV: a block owns one (batch, KV head, 64-key tile) and walks
 //       the G query heads of its group and their 64-row query tiles, so
 //       each dK and dV element is summed by one block in a fixed order;
 //   (c) dQ: a block owns one (batch, query head, 64-row query tile) and
 //       walks the key tiles.
-// No atomics: repeated calls are bit-identical.  Tiles wholly masked
-// (above the causal diagonal, below a window) are never loaded, as in the
-// forward; a query row past Sq gets lse = +inf (p = 0) and a key past Sk
-// is masked, so ragged tiles add nothing.
+// bf16: three kernels, every product on the tensor cores with wgmma:
+//   (a) flash_bwd_prep_kernel: delta and lse·log2(e) per query row, in
+//       64-row tiles the main kernel loads in one bulk copy, and the
+//       counters zeroed;
+//   (b) flash_bwd_wgmma_kernel: dK, dV and dQ in one pass.  A persistent
+//       grid takes units (batch, KV head, 128-key span, a slice of the
+//       span's (query tile, query head) walk) from a ticket, in the order
+//       of a list the wrapper builds heaviest first (bwd_schedule in
+//       kernels/flash_attention.py).  A producer thread loads K and V of
+//       the span once and streams Q, dO and the row stats through a TMA
+//       ring; two consumer warpgroups of 64 keys each compute Sᵀ and dPᵀ,
+//       then dV and dK in registers, and dQ's part over their own keys
+//       from their dSᵀ in shared memory: six products a (64-query, 128-key)
+//       pair, S and dP computed once, and neither warpgroup waits on the
+//       other's products.  The two dQ parts are summed in shared memory; a
+//       writer thread adds the pair's part to its tile's fp32 sum with a
+//       TMA store (the first part) or TMA reduce-add (the rest), in the
+//       list's order, a counter a tile deciding whose turn it is; a span
+//       whose walk the list split sums its slices' dK and dV the same way,
+//       in fp32 scratch;
+//   (c) flash_bwd_dq_round_kernel: dQ's sums rounded to bf16 once.
+// No atomic add of a value: repeated calls are bit-identical (the bf16
+// kernel's only atomic takes a ticket, its counters order the sums without
+// carrying a value, and a TMA reduce-add waits for its turn).  Tiles
+// wholly masked (above the causal diagonal, below a window) are never
+// loaded, as in the forward; a query row past Sq gets lse = +inf (p = 0)
+// and a key past Sk is masked or, in bf16, a zero row of K and V that is
+// never stored, so ragged tiles add nothing.
 //
-// bf16 (namespace-local wgmma kernels): every product on the tensor cores
-// with wgmma, one warpgroup a block, tiles of 64 rows x 64 columns fed by
-// TMA (128-byte swizzle, zeros past S and D) and the walked tiles through
-// a two-stage ring.  The roundings are the reference's: S, dP and every
-// sum in fp32; p stays fp32 for dV (the reference multiplies it by the
-// fp32 upcast of dO), so pᵀ enters wgmma as a bf16 hi + lo pair, two
-// products summed in fp32 (~16 bits of p); dS is rounded to bf16 for dQ
-// and dK, as the reference rounds it (ds.astype(q.dtype)).  Scores are
-// exponentiated in log2 units (exp2 of s·log2(e)/√D − lse·log2(e)).
-// fp32: the CUDA cores, 4 x 4 register tiles a thread as in the fp32
-// forward (fp32's parity bar rules out TF32).
+// bf16: tiles fed by TMA (128-byte swizzle, zeros past S and D).  The
+// roundings are the reference's: S, dP and every sum in fp32; p stays fp32
+// for dV (the reference multiplies it by the fp32 upcast of dO), so pᵀ
+// enters wgmma as a bf16 hi + lo pair, two products summed in fp32 (~16
+// bits of p); dS is rounded to bf16 for dQ and dK, as the reference rounds
+// it (ds.astype(q.dtype)), so storing it in bf16 for dQ's product is exact;
+// each gradient is rounded to bf16 once.  Scores are exponentiated in log2
+// units (exp2 of s·log2(e)/√D − lse·log2(e)).  fp32: the CUDA cores, 4 x 4
+// register tiles a thread as in the fp32 forward (fp32's parity bar rules
+// out TF32).
 //
 // What bounds it on an H100: five products over the kept (query, key)
 // pairs, 10·D operations a pair and head, against each of q, k, v, o, dO,
 // lse and the three gradients moved once: at granite-3-2b's (1, 32, 2048,
 // 64) causal on 8 KV heads ~43 GFLOP over ~42 MB, far above the ridge, so
 // the bound is the tensor cores' 989 TFLOP/s (bf16) or the CUDA cores' 67
-// (fp32).  The bf16 kernels run six products (p's hi and lo) and recompute
-// S and dP in both (b) and (c): 8 products a pair where the bound counts 5.
+// (fp32).  The bf16 kernel runs six products (p's hi and lo), and its dQ
+// parts travel through L2 (the fp32 scratch, 16.8 MB at granite's shape);
+// the fp32 kernels recompute S and dP in both (b) and (c).
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
@@ -406,8 +430,239 @@ cudaError_t launch_fp32(const Args& a, cudaStream_t stream) {
 
 using namespace tc;
 
-constexpr int kWgThreads = 128;   // one warpgroup
-constexpr int kBox = kTile * 128; // a 64-row, 64-column bf16 box
+constexpr int kBox = kTile * 128;    // a 64-row, 64-column bf16 box
+constexpr int kSpan = 128;           // keys of a unit: 64 for each consumer warpgroup
+constexpr int kSpanBox = kSpan * 128;
+constexpr int kConsumers = 256;      // two warpgroups
+// + the producer warpgroup, of which two threads work (the loads, dQ's
+// sums): setmaxnreg moves registers between whole warpgroups, and ptxas
+// launches 384 threads at 168 registers, so the producer's 128 x (168 −
+// 24) pay for the consumers' 256 x (240 − 168)
+constexpr int kMainThreads = kConsumers + 128;
+constexpr int kStatBytes = 2 * kTile * 4;       // a tile's lse·log2(e) and delta
+constexpr int kDqBox = kTile * 128;             // 64 rows of 32 fp32 columns
+
+// what fits in shared memory beside K, V and the dS buffer: a ring of 3
+// (Q, dO, stats) stages, and 2 dQ buffers at D <= 64, 1 at D = 128
+template <int kChunks>
+struct Ring {
+  static constexpr int kStages = 3;
+  static constexpr int kDqBufs = kChunks == 1 ? 2 : 1;
+  static constexpr int kStage = 2 * kBox * kChunks + 1024;  // Q, dO, stats
+  static constexpr int kDq = 2 * kDqBox * kChunks;          // 64 x 64·kChunks fp32
+};
+
+// (a), bf16: delta and lse·log2(e) of each query row into `stats`, tile by
+// tile ((B·H·n_qt) tiles of 64 lse then 64 delta, +inf and 0 past Sq), which
+// the main kernel loads with one bulk copy a tile; and `ctr` (the ticket
+// and the order counters) zeroed, in every call, so a replayed CUDA graph
+// starts from zero too
+__global__ void __launch_bounds__(256)
+flash_bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                      const float* __restrict__ lse, float* __restrict__ stats, Str3 so,
+                      Str3 sd, int H, int Sq, int D, int n_qt, long long rows,
+                      int* __restrict__ ctr, int n_ctr) {
+  for (long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x; i < n_ctr;
+       i += static_cast<long long>(gridDim.x) * 256)
+    ctr[i] = 0;
+  const long long r = static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32;
+  if (r >= rows) return;  // uniform across the warp
+  const int lane = threadIdx.x % 32;
+  const int padded = n_qt * kTile;
+  const int s = static_cast<int>(r % padded);
+  const long long bh = r / padded;
+  const long long b = bh / H, h = bh % H;
+  float acc = 0.f;
+  if (s < Sq) {
+    const bf16* op = o + b * so.b + h * so.h + s * so.s;
+    const bf16* dp = dout + b * sd.b + h * sd.h + s * sd.s;
+    for (int d = lane; d < D; d += 32) acc = fmaf(to_f32(op[d]), to_f32(dp[d]), acc);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    float* t = stats + (bh * n_qt + s / kTile) * (2 * kTile) + s % kTile;
+    t[0] = s < Sq ? lse[bh * Sq + s] * kLog2e : INFINITY;
+    t[kTile] = s < Sq ? acc : 0.f;
+  }
+}
+
+// (c), bf16: dQ's fp32 sums (B·H, n_qt·64, ld) rounded once into dq,
+// two columns a thread
+__global__ void __launch_bounds__(256)
+flash_bwd_dq_round_kernel(const float* __restrict__ acc, bf16* __restrict__ dq,
+                          Str3 sdq, int H, int Sq, int D, int n_qt, int ld,
+                          long long pairs) {
+  const int half = (D + 1) / 2;
+  for (long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x; i < pairs;
+       i += static_cast<long long>(gridDim.x) * 256) {
+    const int c = 2 * static_cast<int>(i % half);
+    const long long row = i / half;
+    const int s = static_cast<int>(row % Sq);
+    const long long bh = row / Sq;
+    const float2 v = *reinterpret_cast<const float2*>(
+        acc + (bh * n_qt * kTile + s) * ld + c);
+    bf16* dst = dq + (bh / H) * sdq.b + (bh % H) * sdq.h + s * sdq.s + c;
+    if (c + 1 < D) {
+      *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v.x, v.y);
+    } else {
+      *dst = __float2bfloat16(v.x);
+    }
+  }
+}
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// a 3-D tile from shared memory stored (TMA) or added (TMA reduce) into
+// the tensor `map` describes; completion through the bulk async-group
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_add_3d(const CUtensorMap* map, uint32_t src, int c0,
+                                           int c1, int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.tile.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit_wait() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// orders global memory between the generic proxy (the counters) and the
+// async proxy (the TMA store and reduce)
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void st_shared2(uint32_t addr, float x, float y) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};" ::"r"(addr), "f"(x), "f"(y) : "memory");
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// keeps the register A operands of a wgmma alive (unmoved and unreused)
+// until the wait that follows its completion
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[4][4], uint32_t (&b)[4][4],
+                                            uint32_t (&c)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      asm volatile("" : "+r"(a[i][j]), "+r"(b[i][j]), "+r"(c[i][j])::"memory");
+}
+
+// a barrier of one consumer warpgroup (ids 1 and 2; 0 is __syncthreads)
+__device__ __forceinline__ void wg_bar(int id) {
+  asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory");
+}
+
+// The ordered sums.  A (64-row tile, gradient) sum has `count` parts, each
+// added in the unit list's order: part `rank` waits until the tile's
+// counter reads `rank`, stores (rank 0) or adds its part into the fp32
+// scratch, then sets the counter to rank + 1.  Counters order the adds; no
+// value is ever added atomically, so every call sums in the same order.
+// The warpgroup form (dK and dV of a split span): one thread waits, the
+// warpgroup's barrier `bar` passes the turn on.
+__device__ __forceinline__ void wait_turn(const int* ctr, int rank, int bar) {
+  if (rank == 0) return;
+  if (threadIdx.x % 128 == 0)
+    while (ld_acquire(ctr) != rank) __nanosleep(32);
+  wg_bar(bar);
+}
+
+__device__ __forceinline__ void pass_turn(int* ctr, int rank, int count, int bar) {
+  if (rank == count - 1) return;  // the last part: nobody waits on it
+  __threadfence();
+  wg_bar(bar);
+  if (threadIdx.x % 128 == 0) st_release(ctr, rank + 1);
+}
+
+// one warpgroup's part of a 64-row tile (rows 16·warp + lane/4 + 8·((e/2) %
+// 2), columns 8·(e/4) + 2·(lane % 4) + e % 2 of its fragment): `part` is
+// added to the running sum in `scratch` (fp32, row stride ld, read and
+// written through L2; 64 columns' reads issued before their first write)
+// unless it is the first, and the last part writes the sum to `out` in
+// bf16 (row stride out_s); rows >= rows and columns >= D are not written
+template <int kN>
+__device__ __forceinline__ void add_part(const float (&part)[kN], float* scratch, int ld,
+                                         bf16* out, long long out_s, int rows, int D,
+                                         bool first, bool last) {
+  const int lane = threadIdx.x % 32;
+  const int warp = (threadIdx.x % 128) / 32;
+#pragma unroll
+  for (int e0 = 0; e0 < kN; e0 += 32) {
+    float2 sum[16];
+#pragma unroll
+    for (int e = e0; e < e0 + 32; e += 2) {
+      const int r = 16 * warp + lane / 4 + 8 * ((e / 2) % 2);
+      const int c = 8 * (e / 4) + 2 * (lane % 4);
+      sum[(e - e0) / 2] = make_float2(0.f, 0.f);
+      if (!first && r < rows && c < D)
+        sum[(e - e0) / 2] = __ldcg(reinterpret_cast<const float2*>(scratch + r * ld + c));
+    }
+#pragma unroll
+    for (int e = e0; e < e0 + 32; e += 2) {
+      const int r = 16 * warp + lane / 4 + 8 * ((e / 2) % 2);
+      const int c = 8 * (e / 4) + 2 * (lane % 4);
+      if (r >= rows || c >= D) continue;
+      const float x = sum[(e - e0) / 2].x + part[e], y = sum[(e - e0) / 2].y + part[e + 1];
+      if (!last) {
+        __stcg(reinterpret_cast<float2*>(scratch + r * ld + c), make_float2(x, y));
+      } else {
+        bf16* dst = out + r * out_s + c;
+        if (c + 1 < D) {
+          *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x, y);
+        } else {
+          *dst = __float2bfloat16(x);
+        }
+      }
+    }
+  }
+}
+
+// d (64 x 64, fp32) = A·Bᵀ over D: A and B tiles K-major in shared memory,
+// kChunks boxes of 64 columns a_chunk and b_chunk bytes apart, one k16 step
+// 32 bytes inside a box; the first step writes d without reading it
+template <int kChunks>
+__device__ __forceinline__ void mma_scores(float (&d)[32], uint32_t a, uint32_t a_chunk,
+                                           uint32_t b, uint32_t b_chunk) {
+  wgmma_ss_m64n64k16_first<0, 0>(d, desc_sw128(a, 16), desc_sw128(b, 16));
+#pragma unroll
+  for (int kk = 1; kk < 4 * kChunks; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    wgmma_ss_m64n64k16<0, 0>(d, desc_sw128(a + (kk / 4) * a_chunk + off, 16),
+                             desc_sw128(b + (kk / 4) * b_chunk + off, 16), 1);
+  }
+}
 
 // d (64 x 64·kChunks) += A (64 x 16, register fragments) · B (16 x
 // 64·kChunks), B MN-major in shared memory with its 64-column boxes kBox
@@ -426,356 +681,507 @@ __device__ __forceinline__ void mma_rs<2>(float (&d)[64], const uint32_t (&a)[4]
   wgmma_rs_m64n128k16(d, a, desc_sw128(b_addr, kBox));
 }
 
-// d (64 x 64, fp32) = A·Bᵀ over D: A and B 64-row tiles, K-major in shared
-// memory (kChunks boxes), one k16 step 32 bytes inside a box
+// a warpgroup's dQ part, 64 queries x 64·kChunks columns, = dS_w·K_w over
+// its 64 keys: its rows of the stored dSᵀ (a key a 128-byte row) the
+// MN-major A, its rows of K the MN-major B (64-column boxes kSpanBox
+// apart); each k16 step is 16 keys (2048 bytes) of both, the first
+// writing d without reading it
 template <int kChunks>
-__device__ __forceinline__ void mma_scores(float (&d)[32], uint32_t a, uint32_t b) {
+__device__ __forceinline__ void mma_dq(float (&d)[32 * kChunks], uint32_t ds, uint32_t k) {
 #pragma unroll
-  for (int kk = 0; kk < 4 * kChunks; ++kk) {
-    const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
-    wgmma_ss_m64n64k16<0, 0>(d, desc_sw128(a + off, 16), desc_sw128(b + off, 16), kk > 0);
-  }
-}
-
-// fragment element e of a thread's 64 x 64 accumulator: row 16·warp +
-// lane/4 + 8·((e/2) % 2), column 8·(e/4) + 2·(lane % 4) + e % 2.  The
-// fragment of columns [16kk, 16kk + 16) is, pair by pair, the A fragment
-// of k16 step kk of the next product.
-
-// bf16 pairs of rows row0 and row0 + 8 of a (rows, D) gradient from a
-// 64 x 64·kChunks accumulator
-template <int kChunks>
-__device__ __forceinline__ void store_frag(bf16* out, long long stride_s,
-                                           const float (&a)[32 * kChunks], int row0,
-                                           int col_in, int S, int D) {
-#pragma unroll
-  for (int e = 0; e < 32 * kChunks; e += 2) {
-    const int row = row0 + 8 * ((e / 2) % 2);
-    const int col = 8 * (e / 4) + col_in;
-    if (row >= S || col >= D) continue;
-    bf16* dst = out + row * stride_s + col;
-    if (col + 1 < D) {
-      *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a[e], a[e + 1]);
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t a = desc_sw128(ds + kk * 2048, kSpanBox);
+    const uint64_t b = desc_sw128(k + kk * 2048, kSpanBox);
+    if constexpr (kChunks == 1) {
+      if (kk == 0)
+        wgmma_ss_m64n64k16_first<1, 1>(d, a, b);
+      else
+        wgmma_ss_m64n64k16<1, 1>(d, a, b, 1);
     } else {
-      *dst = __float2bfloat16(a[e]);
+      if (kk == 0)
+        wgmma_ss_m64n128k16_first<1, 1>(d, a, b);
+      else
+        wgmma_ss_m64n128k16<1, 1>(d, a, b, 1);
     }
   }
 }
 
-// (b), bf16: one block per (64-key tile, batch·KV head).  Sᵀ = K·Qᵀ and
-// dPᵀ = V·dOᵀ put the keys on the accumulator's rows, so pᵀ and dSᵀ are
-// the register A operands of dV += pᵀ·dO and dK += dSᵀ·Q, with dO and Q
-// the MN-major B.  Q and dO of the walked (head, query tile) pairs come
-// through a two-stage TMA ring, their lse (in log2 units) and delta
-// through a two-stage array the threads fill one tile ahead.
+// 2^x for the probabilities: MUFU.EX2 alone (flushing a result below
+// 2^-126 to 0, which no sum here can see)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// pᵀ = exp2(Sᵀ·scale·log2 e − lse·log2 e) into s and dSᵀ = pᵀ(dPᵀ − delta)·
+// scale into dp, in place, element e at key row key0 + 8·((e/2) % 2) and
+// query column q0 + 8·(e/4) + col_in + e % 2; kMask: the pair crosses the
+// diagonal or the window's edge, so each element is checked (a separate
+// instantiation, so unmasked pairs compute no masks)
+template <bool kMask>
+__device__ __forceinline__ void probs(float (&s)[32], float (&dp)[32], const float* lse2,
+                                      const float* dl, float scale_log2, float scale,
+                                      int col_in, int key0, int q0, int causal, int window) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int c = 8 * (e / 4) + col_in + (e % 2);
+    float p = exp2_ftz(s[e] * scale_log2 - lse2[c]);
+    if constexpr (kMask) {
+      const int key = key0 + 8 * ((e / 2) % 2), row = q0 + c;
+      if ((causal && key > row) || (window > 0 && key <= row - window)) p = 0.f;
+    }
+    dp[e] = p * (dp[e] - dl[c]) * scale;
+    s[e] = p;
+  }
+}
+
+// Sᵀ = K_w·Qᵀ and dPᵀ = V_w·dOᵀ of one pair once its stage (Q at s_q, dO
+// after it) is loaded; the caller commits the group.  No register fence
+// here: the products may be issued while others run, and ptxas serializes
+// every wgmma where an instruction between an issue and its wait touches
+// an accumulator of one (the asm's "+f" operands order s and dp already)
 template <int kChunks>
-__global__ void __launch_bounds__(kWgThreads, 1)
-flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
-                            const __grid_constant__ CUtensorMap tk,
-                            const __grid_constant__ CUtensorMap tv,
-                            const __grid_constant__ CUtensorMap tdo,
-                            const float* __restrict__ lse,
-                            const float* __restrict__ delta, bf16* __restrict__ dk,
-                            bf16* __restrict__ dv, Str3 sdk, Str3 sdv, int H, int G,
-                            int Sq, int Sk, int D, int causal, int window,
-                            float scale, float scale_log2) {
-  constexpr int kT = kBox * kChunks;  // one tile's bytes
+__device__ __forceinline__ void issue_scores(float (&s)[32], float (&dp)[32], uint32_t full,
+                                             uint32_t parity, uint32_t kw, uint32_t vw,
+                                             uint32_t s_q) {
+  mbar_wait(full, parity);
+  wg_fence();
+  mma_scores<kChunks>(s, kw, kSpanBox, s_q, kBox);
+  mma_scores<kChunks>(dp, vw, kSpanBox, s_q + kBox * kChunks, kBox);
+}
+
+// where the elements of a thread's 64 x 64·kChunks dQ fragment lie in a
+// dQ buffer: element e is row r = 16·warp + lane/4 + 8·((e/2) % 2), column
+// c = 8·(e/4) + 2·(lane % 4) + e % 2, stored in 32-column box c / 32 = e /
+// 16 at 16-byte chunk (c % 32 / 4) ^ (r % 8), the 128-byte swizzle the
+// writer's TMA expects.  r % 8 is lane / 4, and the chunk takes four
+// values a thread, one for each (e / 4) % 4: four addresses, the rest an
+// immediate offset
+struct PartAddr {
+  uint32_t a[4];
+  __device__ __forceinline__ explicit PartAddr(uint32_t buf) {
+    const int lane = threadIdx.x % 32;
+    const int x = lane / 4, b1 = (lane / 2) % 2;
+    const uint32_t row = buf + (16 * ((threadIdx.x % 128) / 32) + x) * 128 + 8 * (lane % 2);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) a[k] = row + (((2 * k + b1) ^ x) << 4);
+  }
+  __device__ __forceinline__ uint32_t at(int e) const {
+    return a[(e / 4) % 4] + (e / 16) * kDqBox + ((e / 2) % 2) * 1024;
+  }
+};
+
+__device__ __forceinline__ float2 ld_shared2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];" : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+
+// The plan (int32, built by kernels/flash_attention.py bwd_schedule): the
+// pattern of one (batch, KV head), n_pat units in list order, 4 ints each:
+// the key span n (keys [128n, 128n + 128)), the walked query tiles
+// [qt_lo, qt_hi), and its dK/dV part's rank | count << 16; then rank[qt ·
+// n_sp + n], the place of span n's part among query tile qt's dQ parts
+// (-1: none); then count[qt].  Unit t of the list is pattern unit t / BKV
+// of (batch·KV head) t % BKV, so every (batch, KV head) repeats the
+// pattern's order.
+struct Plan {
+  const int* p;
+  int n_pat, n_qt, n_sp;
+  __device__ int span(int u) const { return p[4 * u]; }
+  __device__ int qt_lo(int u) const { return p[4 * u + 1]; }
+  __device__ int qt_hi(int u) const { return p[4 * u + 2]; }
+  __device__ int dkv(int u) const { return p[4 * u + 3]; }
+  __device__ int dq_rank(int qt, int n) const { return p[4 * n_pat + qt * n_sp + n]; }
+  __device__ int dq_count(int qt) const { return p[4 * n_pat + n_qt * n_sp + qt]; }
+};
+
+// dQ's part of pair j into its buffer (dst), use `round` of the buffer:
+// warpgroup 0 stores its part once the writer is done with the buffer's
+// last contents (`reused`); warpgroup 1 adds its own to it, element by
+// element (part 0 + part 1), and hands the pair's part (tile, rank; rank
+// -1 ends the writer) to the writer
+template <int kN>
+__device__ __forceinline__ void post_part(const float (&acc)[kN], int round, bool reused,
+                                          int tile, int rank, int w, uint32_t dst,
+                                          uint32_t half, uint32_t full, uint32_t empty,
+                                          int (&job)[2]) {
+  const PartAddr at(dst);
+  if (w == 0) {
+    if (reused) mbar_wait(empty, (round - 1) & 1);
+    if (rank >= 0) {
+#pragma unroll
+      for (int e = 0; e < kN; e += 2) st_shared2(at.at(e), acc[e], acc[e + 1]);
+    }
+    mbar_arrive(half);
+  } else {
+    mbar_wait(half, round & 1);
+    if (rank >= 0) {
+#pragma unroll
+      for (int e = 0; e < kN; e += 2) {
+        const float2 p0 = ld_shared2(at.at(e));
+        st_shared2(at.at(e), p0.x + acc[e], p0.y + acc[e + 1]);
+      }
+    }
+    if (threadIdx.x == 128) {
+      job[0] = tile;
+      job[1] = rank;
+    }
+    fence_proxy_async();
+    mbar_arrive(full);
+  }
+}
+
+// (b), bf16: the one fused kernel for dK, dV and dQ.  A persistent grid
+// (one block an SM) takes units from a ticket in list order.  A unit owns
+// one (batch, KV head, 128-key span) and a slice of its walk: the query
+// tiles [qt_lo, qt_hi), highest first, and for each the G query heads of
+// the group.  One producer thread loads K and V of the span once (TMA) and
+// streams each walked pair's Q, dO and row stats through the ring;
+// consumer warpgroup w owns keys 64w..64w + 63 of the span and, for each
+// pair,
+//   Sᵀ = K_w·Qᵀ, dPᵀ = V_w·dOᵀ          (2 products over D)
+//   pᵀ = exp2(Sᵀ·scale·log2 e − lse·log2 e), dSᵀ = pᵀ(dPᵀ − delta)·scale
+//   dV += pᵀ(hi + lo)·dO, dK += dSᵀ·Q  (3 products over the 64 queries)
+//   dQ_w = dS_w·K_w                    (1 product over its 64 keys, dSᵀ
+//                                       through shared memory)
+// so six products a (64-query, 128-key) pair, S and dP once, and the two
+// warpgroups never wait on each other's products.  Warpgroup 0 puts its
+// dQ part in a dQ buffer (fp32, 128-byte swizzled boxes of 32 columns);
+// warpgroup 1 adds its own to it there (part 0 + part 1, element by
+// element); a second producer thread, the writer, adds the pair's part to
+// query tile (head, qt)'s fp32 sum in the list's order with one TMA store
+// (the first part) or TMA reduce-add (the rest), so no consumer waits on
+// another unit.  At the end of its walk a warpgroup writes its dK and dV
+// in bf16 or, where the plan split the span's walk, adds them to the
+// span's fp32 sum in list order (add_part); a third kernel rounds dQ.
+template <int kChunks>
+__global__ void __launch_bounds__(kMainThreads, 1)
+flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const __grid_constant__ CUtensorMap tdq,
+                       const float* __restrict__ stats, Plan plan, int BKV,
+                       bf16* __restrict__ dk, bf16* __restrict__ dv, Str3 sdk, Str3 sdv,
+                       float* __restrict__ dkv_acc, int* __restrict__ ctr, int H, int G,
+                       int Sk, int causal, int window, int D, float scale,
+                       float scale_log2) {
+  using R = Ring<kChunks>;
+  constexpr int kQ = kBox * kChunks;        // a Q or dO tile (64 rows)
+  constexpr int kKV = kSpanBox * kChunks;   // a K or V span (128 rows)
   constexpr int kAcc = 32 * kChunks;
+  constexpr int kLd = 64 * kChunks;         // the fp32 scratch's row stride
   extern __shared__ uint8_t smem_raw[];
-  __shared__ float lse_s[2][kTile], dl_s[2][kTile];
+  __shared__ int sched;                     // the unit the producer took
+  __shared__ int jobs[R::kDqBufs][2];       // each dQ buffer's tile and rank
   // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint8_t* gen = smem_raw + (base - smem_u32(smem_raw));  // base, generic
   const uint32_t k_s = base;
-  const uint32_t v_s = base + kT;
-  auto q_s = [&](int st) { return base + (2 + 2 * st) * kT; };
-  auto do_s = [&](int st) { return base + (3 + 2 * st) * kT; };
-  const uint32_t kv_full = base + 6 * kT;
-  auto full = [&](int st) { return kv_full + 8 * (1 + st); };
+  const uint32_t v_s = base + kKV;
+  const uint32_t ds_s = base + 2 * kKV;     // dSᵀ, a key a 128-byte row
+  auto stage = [&](int st) { return ds_s + kSpanBox + st * R::kStage; };
+  auto dq_s = [&](int j) { return stage(R::kStages) + j * R::kDq; };
+  const uint32_t bars = dq_s(R::kDqBufs);
+  const uint32_t kv_full = bars, kv_empty = bars + 8;
+  auto full = [&](int st) { return bars + 16 + 8 * st; };
+  auto empty = [&](int st) { return bars + 16 + 8 * (R::kStages + st); };
+  // a dQ buffer: its part 0 stored (dq_half), the pair's part stored
+  // (dq_full), the writer done with it (dq_empty)
+  auto dq_half = [&](int j) { return bars + 16 + 8 * (2 * R::kStages + j); };
+  auto dq_full = [&](int j) { return bars + 16 + 8 * (2 * R::kStages + R::kDqBufs + j); };
+  auto dq_empty = [&](int j) {
+    return bars + 16 + 8 * (2 * R::kStages + 2 * R::kDqBufs + j);
+  };
 
   const int KV = H / G;
-  const int k0 = blockIdx.x * kTile;
-  const int b = blockIdx.y / KV;
-  const int hk = blockIdx.y % KV;
-  const int n_qt = (Sq + kTile - 1) / kTile;
-  const int qt_begin = causal ? k0 / kTile : 0;
-  const int qt_end = window > 0 ? min(n_qt, (k0 + kTile - 2 + window) / kTile + 1) : n_qt;
-  const int nq = qt_end - qt_begin;
-  const int n = G * nq;  // walked (head, query tile) pairs, head-major
+  const int n_units = plan.n_pat * BKV;
+  const int n_qt = plan.n_qt, n_sp = plan.n_sp;
+  int* const ticket = ctr;
+  int* const dq_ctr = ctr + 1;
+  int* const dkv_ctr = dq_ctr + static_cast<long long>(BKV) * G * n_qt;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
     mbar_init(kv_full, 1);
-    mbar_init(full(0), 1);
-    mbar_init(full(1), 1);
+    mbar_init(kv_empty, kConsumers);
+    for (int st = 0; st < R::kStages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), kConsumers);
+    }
+    for (int j = 0; j < R::kDqBufs; ++j) {
+      mbar_init(dq_half(j), 128);
+      mbar_init(dq_full(j), 128);
+      mbar_init(dq_empty(j), 1);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  auto issue = [&](int i) {  // thread 0: pair i's Q and dO into stage i % 2
-    const int st = i & 1;
-    const int h = hk * G + i / nq;
-    const int q0 = (qt_begin + i % nq) * kTile;
-    mbar_expect_tx(full(st), 2 * kT);
-    for (int c = 0; c < kChunks; ++c) {
-      tma_load_4d(q_s(st) + c * kBox, &tq, full(st), 64 * c, q0, h, b);
-      tma_load_4d(do_s(st) + c * kBox, &tdo, full(st), 64 * c, q0, h, b);
-    }
-  };
-  auto stage_rows = [&](int i) {  // all threads: pair i's lse and delta
-    const int st = i & 1;
-    const long long at = (static_cast<long long>(b) * H + hk * G + i / nq) * Sq;
-    const int row = (qt_begin + i % nq) * kTile + tid % kTile;
-    if (tid < kTile)
-      lse_s[st][tid] = row < Sq ? lse[at + row] * kLog2e : INFINITY;
-    else
-      dl_s[st][tid - kTile] = row < Sq ? delta[at + row] : 0.f;
-  };
-  if (tid == 0) {
-    mbar_expect_tx(kv_full, 2 * kT);
-    for (int c = 0; c < kChunks; ++c) {
-      tma_load_4d(k_s + c * kBox, &tk, kv_full, 64 * c, k0, hk, b);
-      tma_load_4d(v_s + c * kBox, &tv, kv_full, 64 * c, k0, hk, b);
-    }
-    issue(0);
-  }
-  stage_rows(0);
-  __syncthreads();
-
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int key0 = k0 + 16 * warp + lane / 4;  // and key0 + 8
-  const int col_in = 2 * (lane % 4);
-  float adv[kAcc], adk[kAcc];
-#pragma unroll
-  for (int e = 0; e < kAcc; ++e) adv[e] = adk[e] = 0.f;
-
-  mbar_wait(kv_full, 0);
-  for (int i = 0; i < n; ++i) {
-    const int st = i & 1;
-    // stage st ^ 1 was last read in pair i − 1, which every thread has left
-    if (tid == 0 && i + 1 < n) issue(i + 1);
-    const int q0 = (qt_begin + i % nq) * kTile;
-    mbar_wait(full(st), (i >> 1) & 1);
-
-    float s[32], dp[32];
-    fence_regs(s);
-    fence_regs(dp);
-    wg_fence();
-    mma_scores<kChunks>(s, k_s, q_s(st));
-    mma_scores<kChunks>(dp, v_s, do_s(st));
-    wg_commit();
-    wg_wait_all();
-    fence_regs(s);
-    fence_regs(dp);
-
-    // pᵀ in s, dSᵀ in dp; a pair is masked where the tile crosses the
-    // diagonal or reaches below the window
-    const bool masked = (causal && q0 < k0 + kTile - 1) ||
-                        (window > 0 && q0 + kTile - 1 >= k0 + window);
-#pragma unroll
-    for (int e = 0; e < 32; ++e) {
-      const int c = 8 * (e / 4) + col_in + (e % 2);
-      float p = exp2f(s[e] * scale_log2 - lse_s[st][c]);
-      if (masked) {
-        const int key = key0 + 8 * ((e / 2) % 2);
-        const int row = q0 + c;
-        if ((causal && key > row) || (window > 0 && key <= row - window)) p = 0.f;
-      }
-      dp[e] = p * (dp[e] - dl_s[st][c]) * scale;
-      s[e] = p;
-    }
-    uint32_t ph[4][4], pl[4][4], ds[4][4];
-#pragma unroll
-    for (int e = 0; e < 32; e += 2) {
-      ds[e / 8][(e % 8) / 2] = pack_bf16(dp[e], dp[e + 1]);
-      split_pack(make_float2(s[e], s[e + 1]), ph[e / 8][(e % 8) / 2],
-                 pl[e / 8][(e % 8) / 2]);
-    }
-
-    // dV += (pᵀ hi + pᵀ lo)·dO, dK += dSᵀ·Q over the 64 queries in k16
-    // steps of 16 rows (2048 bytes)
-    fence_regs(adv);
-    fence_regs(adk);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      mma_rs<kChunks>(adv, ph[kk], do_s(st) + kk * 2048);
-      mma_rs<kChunks>(adv, pl[kk], do_s(st) + kk * 2048);
-      mma_rs<kChunks>(adk, ds[kk], q_s(st) + kk * 2048);
-    }
-    wg_commit();
-    wg_wait_all();
-    fence_regs(adv);
-    fence_regs(adk);
-    if (i + 1 < n) stage_rows(i + 1);
-    __syncthreads();
-  }
-
-  store_frag<kChunks>(dk + b * sdk.b + hk * sdk.h, sdk.s, adk, key0, col_in, Sk, D);
-  store_frag<kChunks>(dv + b * sdv.b + hk * sdv.h, sdv.s, adv, key0, col_in, Sk, D);
-}
-
-// (c), bf16: one block per (64-row query tile, batch·head), the tiles with
-// the most keys first.  Q and dO load once; K and V tiles come through a
-// two-stage TMA ring; S = Q·Kᵀ and dP = dO·Vᵀ, then dQ += dS·K with dS
-// the register A operand and K the MN-major B.
-template <int kChunks>
-__global__ void __launch_bounds__(kWgThreads, 1)
-flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
-                          const __grid_constant__ CUtensorMap tk,
-                          const __grid_constant__ CUtensorMap tv,
-                          const __grid_constant__ CUtensorMap tdo,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta, bf16* __restrict__ dq,
-                          Str3 sdq, int H, int G, int Sq, int Sk, int D, int causal,
-                          int window, float scale, float scale_log2) {
-  constexpr int kT = kBox * kChunks;
-  constexpr int kAcc = 32 * kChunks;
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t q_s = base;
-  const uint32_t do_s = base + kT;
-  auto k_s = [&](int st) { return base + (2 + 2 * st) * kT; };
-  auto v_s = [&](int st) { return base + (3 + 2 * st) * kT; };
-  const uint32_t q_full = base + 6 * kT;
-  auto full = [&](int st) { return q_full + 8 * (1 + st); };
-
-  const int n_qt = (Sq + kTile - 1) / kTile;
-  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * kTile;
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
-  const int hk = h / G;
-  const int kv_end = causal ? min(Sk, q0 + kTile) : Sk;
-  const int n_kv = (kv_end + kTile - 1) / kTile;
-  const int n_begin = window > 0 ? max(0, q0 - window + 1) / kTile : 0;
-  const int tid = threadIdx.x;
-
-  if (tid == 0) {
-    mbar_init(q_full, 1);
-    mbar_init(full(0), 1);
-    mbar_init(full(1), 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-
-  auto issue = [&](int j) {  // thread 0: key tile j into stage (j − n_begin) % 2
-    const int st = (j - n_begin) & 1;
-    mbar_expect_tx(full(st), 2 * kT);
-    for (int c = 0; c < kChunks; ++c) {
-      tma_load_4d(k_s(st) + c * kBox, &tk, full(st), 64 * c, j * kTile, hk, b);
-      tma_load_4d(v_s(st) + c * kBox, &tv, full(st), 64 * c, j * kTile, hk, b);
-    }
-  };
-  if (tid == 0) {
-    mbar_expect_tx(q_full, 2 * kT);
-    for (int c = 0; c < kChunks; ++c) {
-      tma_load_4d(q_s + c * kBox, &tq, q_full, 64 * c, q0, h, b);
-      tma_load_4d(do_s + c * kBox, &tdo, q_full, 64 * c, q0, h, b);
-    }
-    issue(n_begin);
-  }
-
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int row0 = q0 + 16 * warp + lane / 4;  // and row0 + 8
-  const int col_in = 2 * (lane % 4);
-  float lse2[2], dl[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    const long long at = static_cast<long long>(blockIdx.y) * Sq + row;
-    lse2[r] = row < Sq ? lse[at] * kLog2e : INFINITY;
-    dl[r] = row < Sq ? delta[at] : 0.f;
-  }
-  float acc[kAcc];
-#pragma unroll
-  for (int e = 0; e < kAcc; ++e) acc[e] = 0.f;
-
-  mbar_wait(q_full, 0);
-  for (int j = n_begin; j < n_kv; ++j) {
-    const int i = j - n_begin;
-    const int st = i & 1;
-    // stage st ^ 1 was last read in tile j − 1, which every thread has left
-    if (tid == 0 && j + 1 < n_kv) issue(j + 1);
-    mbar_wait(full(st), (i >> 1) & 1);
-
-    float s[32], dp[32];
-    fence_regs(s);
-    fence_regs(dp);
-    wg_fence();
-    mma_scores<kChunks>(s, q_s, k_s(st));
-    mma_scores<kChunks>(dp, do_s, v_s(st));
-    wg_commit();
-    wg_wait_all();
-    fence_regs(s);
-    fence_regs(dp);
-
-    // dS in dp; a tile is masked where it runs past Sk, crosses the
-    // diagonal or reaches below the window
-    const int kv0 = j * kTile;
-    const bool masked = kv0 + kTile > Sk || (causal && kv0 + kTile - 1 > q0) ||
-                        (window > 0 && kv0 <= q0 + kTile - 1 - window);
-    uint32_t ds[4][4];
-#pragma unroll
-    for (int e = 0; e < 32; e += 2) {
-      float d2[2];
-#pragma unroll
-      for (int x = 0; x < 2; ++x) {
-        const int r = (e / 2) % 2;
-        float p = exp2f(s[e + x] * scale_log2 - lse2[r]);
-        if (masked) {
-          const int key = kv0 + 8 * (e / 4) + col_in + x;
-          const int row = row0 + 8 * r;
-          if (key >= Sk || (causal && key > row) || (window > 0 && key <= row - window))
-            p = 0.f;
+  if (tid >= kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == kConsumers) {
+      // the loads: units from the ticket, K and V, then the ring
+      int i = 0;  // pairs issued over all units
+      for (int it = 0;; ++it) {
+        const int t = atomicAdd(ticket, 1);
+        // the consumers are done with the last unit's K, V and sched
+        if (it > 0) mbar_wait(kv_empty, (it - 1) & 1);
+        sched = t;
+        if (t >= n_units) {
+          mbar_arrive(kv_full);
+          break;
         }
-        d2[x] = p * (dp[e + x] - dl[r]) * scale;
+        const int u = t / BKV, bh = t % BKV;
+        const int b = bh / KV, hk = bh % KV;
+        const int n = plan.span(u);
+        mbar_expect_tx(kv_full, 2 * kKV);
+        for (int c = 0; c < kChunks; ++c) {
+          tma_load_4d(k_s + c * kSpanBox, &tk, kv_full, 64 * c, n * kSpan, hk, b);
+          tma_load_4d(v_s + c * kSpanBox, &tv, kv_full, 64 * c, n * kSpan, hk, b);
+        }
+        for (int qt = plan.qt_hi(u) - 1; qt >= plan.qt_lo(u); --qt) {
+          for (int g = 0; g < G; ++g, ++i) {
+            const int st = i % R::kStages;
+            if (i >= R::kStages) mbar_wait(empty(st), ((i / R::kStages) - 1) & 1);
+            const int h = hk * G + g;
+            const uint32_t s = stage(st);
+            mbar_expect_tx(full(st), 2 * kQ + kStatBytes);
+            for (int c = 0; c < kChunks; ++c) {
+              tma_load_4d(s + c * kBox, &tq, full(st), 64 * c, qt * kTile, h, b);
+              tma_load_4d(s + kQ + c * kBox, &tdo, full(st), 64 * c, qt * kTile, h, b);
+            }
+            bulk_load(s + 2 * kQ,
+                      stats + (static_cast<long long>(b * H + h) * n_qt + qt) * (2 * kTile),
+                      kStatBytes, full(st));
+          }
+        }
       }
-      ds[e / 8][(e % 8) / 2] = pack_bf16(d2[0], d2[1]);
+    } else if (tid == kConsumers + 32) {
+      // the writer: each pair's dQ part into its tile's fp32 sum, in the
+      // list's order; a tile (batch·head·n_qt + qt) of rank -1 ends
+      for (int j = 0;; ++j) {
+        const int buf = j % R::kDqBufs;
+        mbar_wait(dq_full(buf), (j / R::kDqBufs) & 1);
+        const int tile = jobs[buf][0], rank = jobs[buf][1];
+        if (rank < 0) break;
+        const int bh = tile / n_qt, qt = tile % n_qt;
+        if (rank > 0)
+          while (ld_acquire(dq_ctr + tile) != rank) __nanosleep(32);
+        fence_proxy_async_global();
+        for (int x = 0; x < 2 * kChunks; ++x) {
+          if (rank == 0)
+            tma_store_3d(&tdq, dq_s(buf) + x * kDqBox, 32 * x, qt * kTile, bh);
+          else
+            tma_add_3d(&tdq, dq_s(buf) + x * kDqBox, 32 * x, qt * kTile, bh);
+        }
+        bulk_commit_wait();
+        fence_proxy_async_global();
+        // the last part's turn passes to nobody; the counters restart at 0
+        // in the next call's first kernel
+        if (rank + 1 < plan.dq_count(qt)) st_release(dq_ctr + tile, rank + 1);
+        mbar_arrive(dq_empty(buf));
+      }
     }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    // warpgroup-uniform to the compiler: a branch on it around a wgmma
+    // must not make ptxas serialize the products
+    const int w = __shfl_sync(0xffffffffu, tid / 128, 0);
+    const int warp = (tid % 128) / 32;
+    const int lane = tid % 32;
+    const int col_in = 2 * (lane % 4);
+    const int bar = 1 + w;
+    float acc[kAcc];  // this warpgroup's dQ part
+    int i = 0;  // pairs consumed over all units
+    for (int it = 0;; ++it) {
+      mbar_wait(kv_full, it & 1);
+      const int t = sched;
+      if (t >= n_units) break;
+      const int u = t / BKV, bh = t % BKV;
+      const int b = bh / KV, hk = bh % KV;
+      const int n = plan.span(u);
+      const int qt_lo = plan.qt_lo(u), qt_hi = plan.qt_hi(u);
+      const int k0 = n * kSpan + 64 * w;             // this warpgroup's first key
+      const int key0 = k0 + 16 * warp + lane / 4;     // and key0 + 8
+      const uint32_t kw_s = k_s + 64 * w * 128, vw_s = v_s + 64 * w * 128;
+      const uint32_t dsw_s = ds_s + 64 * w * 128;     // this warpgroup's dSᵀ rows
 
-    // dQ += dS·K over the 64 keys in k16 steps of 16 rows (2048 bytes)
-    fence_regs(acc);
-    wg_fence();
+      float adv[kAcc], adk[kAcc];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) mma_rs<kChunks>(acc, ds[kk], k_s(st) + kk * 2048);
-    wg_commit();
-    wg_wait_all();
-    fence_regs(acc);
-    __syncthreads();
-  }
+      for (int e = 0; e < kAcc; ++e) adv[e] = adk[e] = 0.f;
+      // Each pair issues and awaits its own products: the scores, then
+      // dK/dV's and dQ's (ptxas serializes the products of a wgmma
+      // pipeline that crosses the loop's back edge, and D = 128 has no
+      // registers for the next pair's scores beside dK/dV's operands)
+      for (int qt = qt_hi - 1; qt >= qt_lo; --qt) {
+        const int q0 = qt * kTile;
+        const int rank = plan.dq_rank(qt, n);
+        // a pair is masked where the tile crosses the diagonal or reaches
+        // below the window
+        const bool masked = (causal && q0 < k0 + kTile - 1) ||
+                            (window > 0 && q0 + kTile - 1 >= k0 + window);
+        for (int g = 0; g < G; ++g, ++i) {
+          const int st = i % R::kStages;
+          const uint32_t s_q = stage(st), s_do = s_q + kQ;
+          const float* lse2 = reinterpret_cast<const float*>(gen + (s_q + 2 * kQ - base));
+          const float* dl = lse2 + kTile;
 
-  store_frag<kChunks>(dq + b * sdq.b + h * sdq.h, sdq.s, acc, row0, col_in, Sq, D);
+          float s[32], dp[32];
+          issue_scores<kChunks>(s, dp, full(st), (i / R::kStages) & 1, kw_s, vw_s, s_q);
+          wg_commit();
+          wg_wait_all();
+          fence_regs(s);
+          fence_regs(dp);
+
+          if (masked)
+            probs<true>(s, dp, lse2, dl, scale_log2, scale, col_in, key0, q0, causal, window);
+          else
+            probs<false>(s, dp, lse2, dl, scale_log2, scale, col_in, key0, q0, causal, window);
+          // the A fragments: pᵀ as bf16 hi + lo, dSᵀ rounded
+          uint32_t ph[4][4], pl[4][4], ds[4][4];
+#pragma unroll
+          for (int e = 0; e < 32; e += 2) {
+            ds[e / 8][(e % 8) / 2] = pack_bf16(dp[e], dp[e + 1]);
+            split_pack(make_float2(s[e], s[e + 1]), ph[e / 8][(e % 8) / 2],
+                       pl[e / 8][(e % 8) / 2]);
+          }
+
+          // dSᵀ into this warpgroup's rows of the dS buffer, 128-byte
+          // swizzled: key row r, the 16-byte chunk of queries 8·(e/4).. at
+          // chunk (e/4) ^ (r % 8).  Only this warpgroup's dQ product reads
+          // them, and the pair before's was awaited
+#pragma unroll
+          for (int e = 0; e < 32; e += 2) {
+            const int r = 16 * warp + lane / 4 + 8 * ((e / 2) % 2);
+            st_shared(dsw_s + r * 128 + (((e / 4) ^ (r % 8)) << 4) + 4 * (lane % 4),
+                      ds[e / 8][(e % 8) / 2]);
+          }
+          fence_proxy_async();
+          wg_bar(bar);
+
+          // dV += (pᵀ hi + pᵀ lo)·dO, dK += dSᵀ·Q over the 64 queries in k16
+          // steps of 16 rows (2048 bytes)
+          fence_regs(adv);
+          fence_regs(adk);
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            mma_rs<kChunks>(adv, ph[kk], s_do + kk * 2048);
+            mma_rs<kChunks>(adv, pl[kk], s_do + kk * 2048);
+            mma_rs<kChunks>(adk, ds[kk], s_q + kk * 2048);
+          }
+          if constexpr (kChunks == 1) {
+            // D <= 64: dQ's product in the same batch (its dS is stored)
+            mma_dq<kChunks>(acc, dsw_s, kw_s);
+            wg_commit();
+            wg_wait_all();
+            fence_regs(adv);
+            fence_regs(adk);
+            fence_frags(ph, pl, ds);
+            mbar_arrive(empty(st));
+          } else {
+            // D = 128: no registers for dQ's part beside dK/dV's operands
+            wg_commit();
+            wg_wait_all();
+            fence_regs(adv);
+            fence_regs(adk);
+            fence_frags(ph, pl, ds);
+            mbar_arrive(empty(st));
+            wg_fence();
+            mma_dq<kChunks>(acc, dsw_s, kw_s);
+            wg_commit();
+            wg_wait_all();
+          }
+          fence_regs(acc);
+          const int buf = i % R::kDqBufs;
+          post_part<kAcc>(acc, i / R::kDqBufs, i >= R::kDqBufs,
+                          (b * H + hk * G + g) * n_qt + qt, rank, w, dq_s(buf),
+                          dq_half(buf), dq_full(buf), dq_empty(buf), jobs[buf]);
+        }
+      }
+      mbar_arrive(kv_empty);  // every product reading K or V is done
+
+      // dK and dV of this warpgroup's 64 keys: written at once, or this
+      // slice's part of the span's ordered sum
+      const int rank = plan.dkv(u) & 0xffff, count = plan.dkv(u) >> 16;
+      int* const c = dkv_ctr + (static_cast<long long>(bh) * n_sp + n) * 2 + w;
+      const long long row = static_cast<long long>(bh) * Sk + k0;
+      const long long half = static_cast<long long>(BKV) * Sk * kLd;
+      wait_turn(c, rank, bar);
+      add_part<kAcc>(adk, dkv_acc + row * kLd, kLd, dk + b * sdk.b + hk * sdk.h + k0 * sdk.s,
+                     sdk.s, Sk - k0, D, rank == 0, rank == count - 1);
+      add_part<kAcc>(adv, dkv_acc + half + row * kLd, kLd,
+                     dv + b * sdv.b + hk * sdv.h + k0 * sdv.s, sdv.s, Sk - k0, D, rank == 0,
+                     rank == count - 1);
+      pass_turn(c, rank, count, bar);
+    }
+    // the writer's last job: the end
+    const int buf = i % R::kDqBufs;
+    post_part<kAcc>(acc, i / R::kDqBufs, i >= R::kDqBufs, 0, -1, w, dq_s(buf), dq_half(buf),
+                    dq_full(buf), dq_empty(buf), jobs[buf]);
+  }
+}
+
+// the main kernel's dynamic shared memory: K and V, the dS buffer, the
+// ring, the dQ buffers, their barriers, and 1024 bytes to align the base
+template <int kChunks>
+constexpr int main_smem() {
+  using R = Ring<kChunks>;
+  return 1024 + 2 * kSpanBox * kChunks + kSpanBox + R::kStages * R::kStage +
+         R::kDqBufs * R::kDq + 8 * (2 + 2 * R::kStages + 3 * R::kDqBufs);
+}
+
+// dQ's fp32 sum (B·H, rows, ld) as a 3-D map of 64-row, 32-column boxes
+// with the 128-byte swizzle, the dQ buffers' layout
+bool encode_f32_map(CUtensorMap* map, float* ptr, int ld, int rows, int bh) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(ld), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld) * 4,
+                                 static_cast<cuuint64_t>(ld) * 4 * rows};
+  const cuuint32_t box[3] = {32, kTile, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, ptr, dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int kChunks>
-cudaError_t launch_bf16(const Args& a, const long long* st, cudaStream_t stream) {
-  // q's and dO's maps span H heads and Sq rows, k's and v's KV heads and Sk
-  CUtensorMap tq, tk, tv, tdo;
+cudaError_t launch_bf16(const Args& a, const long long* st, const int* plan, int n_pat,
+                        int blocks, float* dq_acc, float* dkv_acc, int* ctr,
+                        cudaStream_t stream) {
+  const int n_qt = (a.Sq + kTile - 1) / kTile;
+  constexpr int kLd = 64 * kChunks;
+  // q's and dO's maps span H heads and Sq rows in 64-row boxes, k's and v's
+  // KV heads and Sk rows in 128-row boxes
+  CUtensorMap tq, tk, tv, tdo, tdq;
   if (!encode_map(&tq, a.q, st, a.B, a.H, a.Sq, a.D, kTile) ||
-      !encode_map(&tk, a.k, st + 3, a.B, a.KV, a.Sk, a.D, kTile) ||
-      !encode_map(&tv, a.v, st + 6, a.B, a.KV, a.Sk, a.D, kTile) ||
-      !encode_map(&tdo, a.dout, st + 12, a.B, a.H, a.Sq, a.D, kTile))
+      !encode_map(&tk, a.k, st + 3, a.B, a.KV, a.Sk, a.D, kSpan) ||
+      !encode_map(&tv, a.v, st + 6, a.B, a.KV, a.Sk, a.D, kSpan) ||
+      !encode_map(&tdo, a.dout, st + 12, a.B, a.H, a.Sq, a.D, kTile) ||
+      !encode_f32_map(&tdq, dq_acc, kLd, n_qt * kTile, a.B * a.H))
     return cudaErrorInvalidValue;
-  const int smem = 1024 + 6 * kBox * kChunks + 8 * 3;
-  static bool kv_in = false, q_in = false;
-  cudaError_t err = opt_in(flash_bwd_dkdv_wgmma_kernel<kChunks>, smem, kv_in);
-  if (err == cudaSuccess) err = opt_in(flash_bwd_dq_wgmma_kernel<kChunks>, smem, q_in);
+  constexpr int smem = main_smem<kChunks>();
+  static bool opted_in = false;
+  cudaError_t err = opt_in(flash_bwd_wgmma_kernel<kChunks>, smem, opted_in);
   if (err != cudaSuccess) return err;
   const float scale = 1.0f / sqrtf(static_cast<float>(a.D));
-  const float scale_log2 = kLog2e * scale;
-  const int G = a.H / a.KV;
-  flash_bwd_dkdv_wgmma_kernel<kChunks>
-      <<<dim3((a.Sk + kTile - 1) / kTile, a.B * a.KV), kWgThreads, smem, stream>>>(
-          tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dk),
-          static_cast<bf16*>(a.dv), a.sdk, a.sdv, a.H, G, a.Sq, a.Sk, a.D, a.causal,
-          a.window, scale, scale_log2);
+  const Plan p{plan, n_pat, n_qt, (a.Sk + kSpan - 1) / kSpan};
+  flash_bwd_wgmma_kernel<kChunks><<<blocks, kMainThreads, smem, stream>>>(
+      tq, tk, tv, tdo, tdq, a.delta, p, a.B * a.KV, static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.sdk, a.sdv, dkv_acc, ctr, a.H, a.H / a.KV, a.Sk,
+      a.causal, a.window, a.D, scale, kLog2e * scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_wgmma_kernel<kChunks>
-      <<<dim3((a.Sq + kTile - 1) / kTile, a.B * a.H), kWgThreads, smem, stream>>>(
-          tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dq), a.sdq, a.H, G,
-          a.Sq, a.Sk, a.D, a.causal, a.window, scale, scale_log2);
+  const long long pairs = static_cast<long long>(a.B) * a.H * a.Sq * ((a.D + 1) / 2);
+  const long long grid = (pairs + 255) / 256 < 65535LL * 16 ? (pairs + 255) / 256 : 65535LL * 16;
+  flash_bwd_dq_round_kernel<<<static_cast<unsigned>(grid), 256, 0, stream>>>(
+      dq_acc, static_cast<bf16*>(a.dq), a.sdq, a.H, a.Sq, a.D, n_qt, kLd, pairs);
   return cudaGetLastError();
 }
 
@@ -784,42 +1190,54 @@ cudaError_t launch_bf16(const Args& a, const long long* st, cudaStream_t stream)
 // q, o, dout, dq: (B, H, Sq, D) and k, v, dk, dv: (B, KV, Sk, D), H a
 // multiple of KV, with unit D stride; st: the (b, h, s) strides in
 // elements of q, k, v, o, dout, dq, dk and dv in that order; lse: the
-// forward's (B, H, Sq) fp32, contiguous; delta: (B, H, Sq) fp32 scratch
-// the first kernel fills; bf16_data != 0 for bfloat16 data (lse and delta
-// fp32 either way).  Masks as launch_flash_attention's: causal needs Sq = Sk,
-// window > 0 a causal call.
+// forward's (B, H, Sq) fp32, contiguous; bf16_data != 0 for bfloat16 data
+// (lse fp32 either way).  Masks as launch_flash_attention's: causal needs
+// Sq = Sk, window > 0 a causal call.  delta: fp32 scratch the first kernel
+// fills, (B, H, Sq) for fp32 data, for bf16 the row stats (B·H·n_qt tiles
+// of 2 x 64, n_qt = ceil(Sq / 64)).  bf16 only (else ignored): plan and
+// n_pat, the unit list's pattern (see Plan); blocks, the persistent grid;
+// dq_acc (B·H, 64·n_qt, 64·ceil(D / 64)) and dkv_acc (2·B·KV·Sk·64·ceil(D / 64),
+// only where the plan splits a span) fp32 scratch; ctr, n_ctr = 1 + B·H·n_qt
+// + 2·B·KV·ceil(Sk / 128) int32 counters, zeroed by the first kernel.
 cudaError_t launch_flash_attention_bwd(const void* q, const void* k, const void* v,
                                        const void* o, const void* dout,
                                        const float* lse, float* delta, void* dq,
                                        void* dk, void* dv, const long long* st,
                                        int B, int H, int KV, int Sq, int Sk, int D,
                                        int causal, int window, int bf16_data,
-                                       cudaStream_t stream) {
+                                       const int* plan, int n_pat, int blocks,
+                                       float* dq_acc, float* dkv_acc, int* ctr,
+                                       long long n_ctr, cudaStream_t stream) {
   if (D < 1 || D > 128 || Sq < 1 || Sk < 1 || (causal && Sq != Sk) || B * H < 1 ||
       B * H > 65535 || KV < 1 || H % KV != 0 || window < 0 || (window > 0 && !causal))
     return cudaErrorInvalidValue;
-  // TMA: 16-byte aligned bases (the wrapper checks them and the strides)
-  if (bf16_data && (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                    reinterpret_cast<uintptr_t>(v) |
-                    reinterpret_cast<uintptr_t>(dout)) % 16)
-    return cudaErrorMisalignedAddress;
   auto s3 = [&](int i) { return Str3{st[3 * i], st[3 * i + 1], st[3 * i + 2]}; };
   const Args a{q, k, v, dout, lse, delta, dq, dk, dv, s3(0), s3(1), s3(2), s3(4),
                s3(5), s3(6), s3(7), B, H, KV, Sq, Sk, D, causal, window};
-  const long long rows = static_cast<long long>(B) * H * Sq;
-  const dim3 grid_delta(static_cast<unsigned>((rows + 7) / 8));
-  if (bf16_data) {
-    flash_bwd_delta_kernel<bf16><<<grid_delta, 256, 0, stream>>>(
-        static_cast<const bf16*>(o), static_cast<const bf16*>(dout), delta, s3(3),
-        s3(4), H, Sq, D, rows);
-  } else {
-    flash_bwd_delta_kernel<float><<<grid_delta, 256, 0, stream>>>(
+  if (!bf16_data) {
+    const long long rows = static_cast<long long>(B) * H * Sq;
+    flash_bwd_delta_kernel<float><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(
         static_cast<const float*>(o), static_cast<const float*>(dout), delta, s3(3),
         s3(4), H, Sq, D, rows);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    return D <= 64 ? launch_fp32<64>(a, stream) : launch_fp32<128>(a, stream);
   }
+  // TMA: 16-byte aligned bases (the wrapper checks them and the strides)
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
+       reinterpret_cast<uintptr_t>(delta)) % 16)
+    return cudaErrorMisalignedAddress;
+  const int n_qt = (Sq + kTile - 1) / kTile, n_sp = (Sk + kSpan - 1) / kSpan;
+  if (plan == nullptr || n_pat < 1 || blocks < 1 || dq_acc == nullptr || ctr == nullptr ||
+      n_ctr != 1 + static_cast<long long>(B) * H * n_qt + 2LL * B * KV * n_sp)
+    return cudaErrorInvalidValue;
+  const long long rows = static_cast<long long>(B) * H * n_qt * kTile;
+  flash_bwd_prep_kernel<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, delta, s3(3),
+      s3(4), H, Sq, D, n_qt, rows, ctr, static_cast<int>(n_ctr));
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if (bf16_data)
-    return D <= 64 ? launch_bf16<1>(a, st, stream) : launch_bf16<2>(a, st, stream);
-  return D <= 64 ? launch_fp32<64>(a, stream) : launch_fp32<128>(a, stream);
+  return D <= 64 ? launch_bf16<1>(a, st, plan, n_pat, blocks, dq_acc, dkv_acc, ctr, stream)
+                 : launch_bf16<2>(a, st, plan, n_pat, blocks, dq_acc, dkv_acc, ctr, stream);
 }

@@ -38,14 +38,21 @@ function whose forward saves ``lse`` and whose backward calls
 
 ``flash_attention_bwd`` takes the forward's checks, dO of q's shape and
 o's too, lse (B, H, Sq) fp32, and picks by device as the forward does:
-CPU, the plain ``ref.flash_attention_bwd_ref``; meta, empty gradients and
-``cost.flash_attention_bwd``; CUDA, the three kernels of
-``flash_attention_bwd.cu`` (delta, dK/dV, dQ) with one count in
-``flash_attention_bwd.launches``.  The gradients leave in q's, k's and
-v's dtypes and memory layouts.
+CPU, the plain ``ref.flash_attention_bwd_ref``; meta, empty gradients,
+the same scratch as the card's and ``cost.flash_attention_bwd``; CUDA,
+the kernels of ``flash_attention_bwd.cu`` with one count in
+``flash_attention_bwd.launches``: in fp32 three (delta, dK/dV, dQ), in
+bf16 two (the row stats with the counters zeroed, then one fused kernel
+for dK, dV and dQ over the unit list ``bwd_schedule`` builds).  The
+gradients leave in q's, k's and v's dtypes and memory layouts.
 """
 
 from __future__ import annotations
+
+import functools
+import heapq
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -54,7 +61,8 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.fcnn_layer import KernelLimitError, device_type
 
 __all__ = ["flash_attention", "flash_attention_bwd", "FLOAT_DTYPES",
-           "check_float_args", "check_tma_aligned", "tma_aligned"]
+           "check_float_args", "check_tma_aligned", "tma_aligned",
+           "BwdSchedule", "bwd_schedule"]
 
 FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 128
@@ -198,16 +206,200 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _ref.flash_attention_bwd_ref(q, k, v, o, dout, lse, causal,
                                             window)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    if dtype == torch.bfloat16:
+        sched = bwd_schedule(b, h, kv, s, sk, bool(causal), window)
+        extra = _bwd_scratch(sched, b, h, kv, s, sk, d, q.device)
+        stats = extra.pop(0)
+    else:
+        stats = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+        none = torch.empty(0, dtype=torch.float32, device=q.device)
+        extra = [none.int(), 0, 0, none, none, none.int()]
     if dev == "meta":
         cost.report(kernel, cost.flash_attention_bwd(
             b, h, kv, s, sk, d, q.element_size(), causal, window))
     else:
-        _build.extension().flash_attention_bwd(q, k, v, o, dout, lse, delta,
+        if dtype == torch.bfloat16:
+            extra[0] = _plan_tensor(sched, q.device)
+        _build.extension().flash_attention_bwd(q, k, v, o, dout, lse, stats,
                                                dq, dk, dv, bool(causal),
-                                               window)
+                                               window, *extra)
         flash_attention_bwd.launches += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+
+
+# ------------------------------------------------- the bf16 unit list
+
+BWD_TILE = 64      # query rows of a walked tile (the kernel's kTile)
+BWD_SPAN = 128     # keys of a unit: 64 for each consumer warpgroup (kSpan)
+BWD_SMS = 132      # the H100's SMs: the persistent grid's blocks at most
+# a unit's fixed cost in (query tile, head) pairs, for the choice of its
+# slices: K and V loaded, dK and dV stored or added (measured order of
+# magnitude on the H100: a few pairs' time)
+BWD_UNIT_PAIRS = 4
+
+
+class BwdSchedule(NamedTuple):
+    """The bf16 backward's unit list, one (batch, KV head)'s pattern: units
+    ``(span, qt_lo, qt_hi, dkv_rank, dkv_count)`` in list order, span n
+    the keys [128n, 128n + 128), walking the query tiles qt_hi - 1 down to
+    qt_lo (64 rows each), each with the G heads of the group; dkv_rank of
+    dkv_count, the unit's place in its span's dK/dV sum.  ``dq_rank[qt][n]``
+    is span n's place among query tile qt's dQ parts (-1: none), and
+    ``dq_count[qt]`` their number.  The full list repeats each pattern unit
+    for the B·KV (batch, KV head)s in turn (unit t: pattern unit t // bkv of
+    (batch·KV head) t % bkv); ``tiles`` is the slice height the walks were
+    cut to, ``blocks`` the persistent grid."""
+    units: tuple
+    dq_rank: tuple
+    dq_count: tuple
+    bkv: int
+    groups: int
+    tiles: int
+    blocks: int
+
+    @property
+    def n_units(self) -> int:
+        return len(self.units) * self.bkv
+
+    @property
+    def split(self) -> bool:
+        """Whether a span's walk was cut into slices (dK/dV through scratch)."""
+        return any(u[4] > 1 for u in self.units)
+
+    def pairs(self) -> int:
+        """(query tile, head) pairs walked over the whole list."""
+        return self.bkv * self.groups * sum(u[2] - u[1] for u in self.units)
+
+    def makespan(self, sms: int = BWD_SMS, unit_pairs: int = 0) -> int:
+        """Pairs the busiest SM walks when each free SM takes the next unit
+        of the list (the kernel's ticket), a unit costing its pairs plus
+        ``unit_pairs``; waits on the ordered sums are not modelled."""
+        free = [0] * min(sms, self.n_units)
+        for u in self.units:
+            cost = self.groups * (u[2] - u[1]) + unit_pairs
+            for _ in range(self.bkv):
+                heapq.heapreplace(free, free[0] + cost)
+        return max(free)
+
+    def plan(self) -> list[int]:
+        """The int32 plan the kernel reads (``Plan`` in the source)."""
+        out = []
+        for n, lo, hi, rank, count in self.units:
+            out += [n, lo, hi, rank | count << 16]
+        for row in self.dq_rank:
+            out += row
+        return out + list(self.dq_count)
+
+
+def _kept_spans(sq: int, sk: int, causal: bool, window: int
+                ) -> tuple[list[int], list[int]]:
+    """For each 64-row query tile, the first and last 128-key span holding
+    a key that one of its rows attends (every span between holds one)."""
+    n_sp = math.ceil(sk / BWD_SPAN)
+    lo, hi = [], []
+    for qt in range(math.ceil(sq / BWD_TILE)):
+        if causal:
+            hi.append(min(BWD_TILE * qt + BWD_TILE - 1, sq - 1) // BWD_SPAN)
+            lo.append(max(0, BWD_TILE * qt - window + 1) // BWD_SPAN
+                      if window else 0)
+        else:
+            lo.append(0)
+            hi.append(n_sp - 1)
+    return lo, hi
+
+
+def _pattern(lo: list[int], hi: list[int], n_sp: int, tiles: int) -> list:
+    """Units (span, qt_lo, qt_hi) of walks cut at every ``tiles`` query
+    tiles, heaviest first; ties by span, then by the higher tiles."""
+    units = []
+    for top in range(0, len(lo), tiles):
+        for n in range(n_sp):
+            kept = [qt for qt in range(top, min(len(lo), top + tiles))
+                    if lo[qt] <= n <= hi[qt]]
+            if kept:
+                units.append((n, kept[0], kept[-1] + 1))
+    return sorted(units, key=lambda u: (u[1] - u[2], u[0], -u[1]))
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_schedule(b: int, h: int, kv: int, sq: int, sk: int, causal: bool,
+                 window: int) -> BwdSchedule:
+    """The unit list of the bf16 backward at one shape.  Each (batch, KV
+    head, 128-key span) walks its kept query tiles; a span whose walk
+    weighs more than an SM's share is cut into slices of ``tiles`` query
+    tiles, the height (among n_qt / k, k = 1..8) whose list, each free SM
+    taking the next unit, ends soonest at ``BWD_UNIT_PAIRS`` a unit.  The
+    list is heaviest first, so a unit's ordered sums wait only on units
+    earlier in it, which running blocks took before it: no deadlock for
+    any number of units or blocks.  Slices of one height start at the same
+    query tile, so the spans that add to one dQ tile reach it in step."""
+    lo, hi = _kept_spans(sq, sk, causal, window)
+    n_qt, n_sp = len(lo), math.ceil(sk / BWD_SPAN)
+    best = None
+    if b * kv * n_sp < 8 * BWD_SMS:    # else enough units to balance unsplit
+        heights = sorted({math.ceil(n_qt / k) for k in range(1, 9)},
+                         reverse=True)
+    else:
+        heights = [n_qt]
+    for tiles in heights:
+        units = _pattern(lo, hi, n_sp, tiles)
+        sched = _finish(units, n_qt, n_sp, b * kv, h // kv, tiles)
+        span = sched.makespan(unit_pairs=BWD_UNIT_PAIRS)
+        if best is None or span < best[0]:
+            best = (span, sched)
+    return best[1]
+
+
+def _finish(units: list, n_qt: int, n_sp: int, bkv: int, groups: int,
+            tiles: int) -> BwdSchedule:
+    """The ranks of each dQ tile's and each span's parts, in list order."""
+    dq_rank = [[-1] * n_sp for _ in range(n_qt)]
+    dq_count = [0] * n_qt
+    parts = [0] * n_sp
+    ranked = []
+    for n, qt_lo, qt_hi in units:
+        for qt in range(qt_lo, qt_hi):
+            dq_rank[qt][n] = dq_count[qt]
+            dq_count[qt] += 1
+        ranked.append([n, qt_lo, qt_hi, parts[n]])
+        parts[n] += 1
+    return BwdSchedule(tuple((*u, parts[u[0]]) for u in ranked),
+                       tuple(map(tuple, dq_rank)), tuple(dq_count), bkv,
+                       groups, tiles, min(BWD_SMS, len(units) * bkv))
+
+
+_PLANS: dict = {}
+
+
+def _plan_tensor(sched: BwdSchedule, device: torch.device) -> torch.Tensor:
+    """The schedule's plan on the card, made once per schedule and device
+    (the first call at a shape copies it; a captured CUDA graph replays a
+    call that found it made)."""
+    key = (sched, str(device))
+    if key not in _PLANS:
+        _PLANS[key] = torch.tensor(sched.plan(), dtype=torch.int32,
+                                   device=device)
+    return _PLANS[key]
+
+
+def _bwd_scratch(sched: BwdSchedule, b: int, h: int, kv: int, sq: int,
+                 sk: int, d: int, device) -> list:
+    """[row stats, plan (set on the card), n_pat, blocks, dq_acc, dkv_acc,
+    counters]: the bf16 kernel's scratch, the same on the meta device
+    (the dry-run's peak counts it).  dq_acc (B·H, 64·n_qt, ld) and dkv_acc
+    are fp32 with rows of ld = 64 or 128 (D padded to the kernel's boxes,
+    Sq to its query tiles); dkv_acc is empty unless a span's walk is
+    split."""
+    n_qt = math.ceil(sq / BWD_TILE)
+    n_sp = math.ceil(sk / BWD_SPAN)
+    ld = 64 * math.ceil(d / 64)
+    f32 = dict(dtype=torch.float32, device=device)
+    return [torch.empty(b * h * n_qt * 2 * BWD_TILE, **f32), None,
+            len(sched.units), sched.blocks,
+            torch.empty((b * h, BWD_TILE * n_qt, ld), **f32),
+            torch.empty((2, b, kv, sk, ld) if sched.split else (0,), **f32),
+            torch.empty(1 + b * h * n_qt + 2 * b * kv * n_sp,
+                        dtype=torch.int32, device=device)]

@@ -21,8 +21,9 @@ the wrappers run on CPU tensors:
   * the lse against ``_flash_fwd_core``'s;
   * a CPU emulation of the card's bf16 arithmetic (scores and dP in fp32,
     p exponentiated in log2 units, pᵀ as bf16 hi + lo for dV, dS rounded to
-    bf16) within chip_smoke.py's bars of the plain version, where p rounded
-    once to bf16 misses dV's (the pattern of
+    bf16, dQ summed from per-span parts and dK/dV from per-slice parts in
+    the unit list's order) within chip_smoke.py's bars of the plain
+    version, where p rounded once to bf16 misses dV's (the pattern of
     ``test_ssd_bf16_kernel_arithmetic_meets_the_card_bars``);
   * ``ops.flash_attention``'s autograd function (K6 with its lse, then
     ``flash_attention_bwd``) against ``mode="ref"``'s ordinary autograd;
@@ -47,7 +48,9 @@ from repro.models import layers as JL
 from repro_torch.configs import smoke_config
 from repro_torch.core.planner import H100Target
 from repro_torch.kernels import cost, ops, ref
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.kernels.flash_attention import (BWD_SPAN, BWD_TILE,
+                                                 bwd_schedule,
+                                                 flash_attention,
                                                  flash_attention_bwd)
 from repro_torch.kernels.fcnn_layer import KernelLimitError
 from repro_torch.launch.steps import TrainSettings, build_train_step, \
@@ -229,32 +232,57 @@ def test_lse_matches_flash_fwd_core(dtype, groups):
 # --------------------------------------------- the card's bf16 arithmetic
 
 def emulate_bwd(q, k, v, o, do, lse, causal, window, split=True):
-    """The bf16 kernels' arithmetic (flash_attention_bwd.cu) in torch:
+    """The bf16 kernel's arithmetic (flash_attention_bwd.cu) in torch:
     scores and dP as fp32 sums of bf16 products, p = exp2(s·log2(e)/√D −
     lse·log2(e)), delta = Σ o·dO; pᵀ enters dV's product as bf16 hi + lo
     (``split``) or rounded once to bf16; dS rounded to bf16 for dQ and dK;
-    the gradients rounded once to bf16."""
+    and the kernel's order of summation from its unit list
+    (``bwd_schedule``): each dQ tile the fp32 sum of one part a 128-key
+    span (its two warpgroups' 64-key parts added first), added in the
+    tiles' rank order, each span's dK and dV the fp32 sum of one part a
+    walk slice, added in list order; the gradients rounded once to
+    bf16."""
     b, h, sq, d = q.shape
     kv, sk = k.shape[1], k.shape[2]
     g = h // kv
     log2e = 1.4426950408889634
     qf = q.float().reshape(b, kv, g, sq, d)
     dof = do.float().reshape(b, kv, g, sq, d)
-    s = torch.einsum("bkgqd,bkmd->bkgqm", qf, k.float())
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bkgqd,bkmd->bkgqm", qf, kf)
     p = torch.exp2(s * (log2e / math.sqrt(d))
                    - lse.reshape(b, kv, g, sq, 1) * log2e)
     if causal:
         p = torch.where(ref.attention_mask(sq, sk, window, "cpu"), p, 0.0)
     delta = (o.float() * do.float()).sum(-1).reshape(b, kv, g, sq, 1)
-    dp = torch.einsum("bkgqd,bkmd->bkgqm", dof, v.float())
+    dp = torch.einsum("bkgqd,bkmd->bkgqm", dof, vf)
     ds = (p * (dp - delta) * (1.0 / math.sqrt(d))).bfloat16().float()
     hi = p.bfloat16().float()
-    dv = torch.einsum("bkgqm,bkgqd->bkmd", hi, dof)
-    if split:
-        lo = (p - hi).bfloat16().float()
-        dv = dv + torch.einsum("bkgqm,bkgqd->bkmd", lo, dof)
-    dq = torch.einsum("bkgqm,bkmd->bkgqd", ds, k.float())
-    dk = torch.einsum("bkgqm,bkgqd->bkmd", ds, qf)
+    lo = (p - hi).bfloat16().float()
+    sched = bwd_schedule(b, h, kv, sq, sk, bool(causal), window)
+    tile, span = BWD_TILE, BWD_SPAN
+    dq = torch.zeros(b, kv, g, sq, d)
+    for qt, ranks in enumerate(sched.dq_rank):
+        rows = slice(tile * qt, tile * qt + tile)
+        for n in sorted((n for n, r in enumerate(ranks) if r >= 0),
+                        key=ranks.__getitem__):
+            part = [torch.einsum("bkgqm,bkmd->bkgqd", ds[..., rows, keys],
+                                 kf[..., keys, :])
+                    for keys in (slice(span * n + half, span * n + half + 64)
+                                 for half in (0, 64))]
+            dq[..., rows, :] += part[0] + part[1]
+    dk, dv = torch.zeros(b, kv, sk, d), torch.zeros(b, kv, sk, d)
+    for n, qt_lo, qt_hi, _, _ in sched.units:     # list order
+        rows = slice(tile * qt_lo, tile * qt_hi)
+        keys = slice(span * n, span * n + span)
+        dk[..., keys, :] += torch.einsum("bkgqm,bkgqd->bkmd",
+                                         ds[..., rows, keys], qf[..., rows, :])
+        part = torch.einsum("bkgqm,bkgqd->bkmd", (hi if split else p.bfloat16(
+        ).float())[..., rows, keys], dof[..., rows, :])
+        if split:
+            part = part + torch.einsum("bkgqm,bkgqd->bkmd",
+                                       lo[..., rows, keys], dof[..., rows, :])
+        dv[..., keys, :] += part
     return (dq.reshape(b, h, sq, d).bfloat16(), dk.bfloat16(),
             dv.bfloat16())
 

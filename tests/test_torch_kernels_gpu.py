@@ -1009,6 +1009,42 @@ def test_flash_attention_bwd_matches_plain_on_card(cuda, shape, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", K6_BWD_TIMED, ids=str)
+def test_flash_attention_bwd_repeats_bit_identical_on_card(cuda, shape):
+    """The bf16 kernel sums dQ (and a split span's dK/dV) in its unit
+    list's order, counters deciding whose turn it is: 5 calls give the same
+    bits, and so do 3 replays of one CUDA graph that captured a call, which
+    holds only if the call zeroes its counters and ticket itself."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    b, h, kv, s, d, sk, causal, window = shape
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    q, k, v, do, o, lse = SMOKE.k6_bwd_inputs(torch, cuda, gen, shape,
+                                              torch.bfloat16)
+
+    def call():
+        return flash_attention_bwd(q, k, v, o, do, lse, causal, window)
+
+    first = [t.clone() for t in call()]
+    for _ in range(4):
+        assert all(torch.equal(a, b_) for a, b_ in zip(first, call()))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for _ in range(3):
+        for t in out:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b_) for a, b_ in zip(first, out))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_autograd_launches_the_kernels_on_card(cuda, dtype):
     """``ops.flash_attention`` under autograd: one K6 (with its lse) and

@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
 """Two checkouts of the port, A and B, on one CUDA card: the LM prefill
-kernels (K6 flash_attention, K7 ssd_chunk) at chip_smoke.py phase 7's
-timed shapes, outputs compared bit for bit and device times taken in
-turns A, B, B, A.
+kernels (K6 flash_attention, K7 ssd_chunk) and K6's backward
+(flash_attention_bwd) at chip_smoke.py phase 7's timed shapes, outputs
+compared bit for bit and device times taken in turns A, B, B, A.  Where
+the backward's outputs differ (a changed order of summation), B's are
+held to A's at phase 7's bars (chip_smoke.k6_bwd_close with its noise
+floor) and the run fails if one misses.
 
   python3 tools/ab_lm_kernels.py --a OLD_CHECKOUT --b NEW_CHECKOUT
 
@@ -33,25 +36,39 @@ SHAPES = (
     *[("ssd_chunk", "bfloat16", (bc, 128, 64, 64, 64), True)
       for bc in (1, 4, 8, 16)],
     ("ssd_chunk", "float32", (16, 128, 64, 64, 64), True),
+    # K6's backward: (B, H, KV, S, D, Sk, causal, window)
+    *[("flash_attention_bwd", "bfloat16", shape, name)
+      for name, shape in (
+          ("granite-3-2b train", (1, 32, 8, 2048, 64, 2048, True, 0)),
+          ("zamba2-1.2b train", (1, 32, 32, 2048, 64, 2048, True, 0)),
+          ("qwen3-14b", (1, 40, 8, 2048, 128, 2048, True, 0)),
+          ("seamless-m4t-large-v2 cross-attention",
+           (1, 16, 16, 512, 64, 1024, False, 0)),
+          ("window 1000", (1, 32, 32, 4096, 64, 4096, True, 1000)))],
+    ("flash_attention_bwd", "float32", (1, 32, 8, 2048, 64, 2048, True, 0),
+     "granite-3-2b train"),
 )
 
 
-def label(kernel: str, dtype: str, shape: tuple, flag: bool) -> str:
+def label(kernel: str, dtype: str, shape: tuple, flag) -> str:
     if kernel == "flash_attention":
         return f"K6 {shape} {dtype} {'causal' if flag else 'full'}"
+    if kernel == "flash_attention_bwd":
+        return f"K6 bwd {flag} {dtype}"
     return f"K7 BC={shape[0]} {shape[1:]} {dtype} stride-0 b/c"
 
 
 def worker(root: str, save: str | None) -> None:
     """Build (``save`` None) or run every shape and save outputs and ms."""
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    from chip_smoke import device_ms  # puts this repo's own src on the path
+    from chip_smoke import device_ms, k6_bwd_inputs, k6_bwd_noise
 
-    sys.path.insert(0, os.path.join(root, "src"))   # ahead of it
+    sys.path.insert(0, os.path.join(root, "src"))   # ahead of this repo's
     import torch
 
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.kernels.ssd_scan import ssd_chunk
 
     assert _build.BUILD_DIR.is_relative_to(os.path.realpath(root)), root
@@ -67,10 +84,17 @@ def worker(root: str, save: str | None) -> None:
         def rand(*s, dt=dt):
             return torch.randn(*s, generator=gen, device=dev).to(dt)
 
+        noise = None
         if kernel == "flash_attention":
             b, h, s, d = shape
             q, k, v = (rand(b, s, h, d).transpose(1, 2) for _ in range(3))
             fn = lambda q=q, k=k, v=v: (flash_attention(q, k, v, flag),)  # noqa: E731
+        elif kernel == "flash_attention_bwd":
+            q, k, v, do, o, lse = k6_bwd_inputs(torch, dev, gen, shape, dt)
+            causal, window = shape[6], shape[7]
+            fn = lambda a=(q, k, v, o, do, lse): flash_attention_bwd(  # noqa: E731
+                *a, causal, window)
+            noise = k6_bwd_noise(q, k, v, do)
         else:
             bc, q, h, p, n = shape
             x = rand(bc, q, h, p)
@@ -79,7 +103,7 @@ def worker(root: str, save: str | None) -> None:
             c_ = rand(bc, q, 1, n).expand(bc, q, h, n)
             fn = lambda x=x, a=dt_a, b=b_, c=c_: ssd_chunk(x, a, b, c)  # noqa: E731
         outs = [t.cpu() for t in fn()]
-        results.append((outs, device_ms(fn, iters=5)))
+        results.append((outs, device_ms(fn, iters=5), noise))
     torch.save(results, save)
 
 
@@ -112,20 +136,38 @@ def main(argv: list[str] | None = None) -> int:
             subprocess.run([sys.executable, me, "--worker", roots[side],
                             "--save", save], check=True)
             runs[side].append(torch.load(save))
+    sys.path.insert(0, os.path.dirname(os.path.dirname(me)))
+    from chip_smoke import k6_bwd_close
+
+    failed = False
     for i, spec in enumerate(SHAPES):
-        (outs_a, ms_a1), (_, ms_a2) = runs["A"][0][i], runs["A"][1][i]
-        (outs_b, ms_b1), (_, ms_b2) = runs["B"][0][i], runs["B"][1][i]
+        (outs_a, ms_a1, noise), (_, ms_a2, _) = runs["A"][0][i], runs["A"][1][i]
+        (outs_b, ms_b1, _), (_, ms_b2, _) = runs["B"][0][i], runs["B"][1][i]
         same = all(torch.equal(a, b) for a, b in zip(outs_a, outs_b))
         diff = max((a.double() - b.double()).abs().max().item()
                    for a, b in zip(outs_a, outs_b))
-        print(f"{label(*spec):48s} device ms A {ms_a1:.5f} {ms_a2:.5f} | "
-              f"B {ms_b1:.5f} {ms_b2:.5f} | outputs "
-              f"{'bit-identical' if same else f'differ, max abs {diff:.3e}'}")
+        line = (f"{label(*spec):48s} device ms A {ms_a1:.5f} {ms_a2:.5f} | "
+                f"B {ms_b1:.5f} {ms_b2:.5f} | A/B "
+                f"{(ms_a1 + ms_a2) / (ms_b1 + ms_b2):.3f}x | outputs "
+                f"{'bit-identical' if same else f'differ, max abs {diff:.3e}'}")
+        if noise is not None and not same:
+            notes = []
+            for name, a, b, n in zip(("dq", "dk", "dv"), outs_a, outs_b, noise):
+                if torch.equal(a, b):
+                    notes.append(f"{name} bit-identical")
+                    continue
+                ok, _, crit = k6_bwd_close(torch, b, a, n)
+                share = (a != b).double().mean().item()
+                notes.append(f"{name} {100 * share:.2f}% differ, {crit} "
+                             f"{'ok' if ok else 'FAIL'}")
+                failed = failed or not ok
+            line += " (" + "; ".join(notes) + ")"
+        print(line)
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     print(out.stdout.strip().splitlines()[0])
-    return 0
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":
