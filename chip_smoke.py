@@ -276,8 +276,8 @@ without a result line:
               it is held within max(2 x their spread, 1e-5 relative);
               each run's K4-K7 launches a step equal to
               ``train_launches`` (K4/K5 twice, K6 160 and its backward
-              80); (b) profiled, its device busy time a step and K6's
-              share printed; ms/step, checkpoint bytes,
+              80); (b) profiled from the end of its restore, its device
+              busy time a step and K6's share printed; ms/step, checkpoint bytes,
               snapshot, write and restore ms; the checkpoint goes under
               ``build/``, which must hold 1.5 times it (else Zamba2-1.2B
               is driven), and is removed afterwards
@@ -352,7 +352,6 @@ name and power limit as nvidia-smi reports them, and the result object.
 
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import subprocess
@@ -3705,9 +3704,10 @@ def driver_run(torch, train, arch: str, name: str, ck, kw: dict,
                profiled: bool = False) -> tuple:
     """One uninterrupted or resumed run of phase 21 through ``ck`` (no
     checkpoints written): (run, launches, median ms/step, ck).  Each
-    step's K4-K7 launches must be ``train_launches``'s; ``profiled``
-    prints the run's device busy time a step from the profiler's kernel
-    rows (its copies, the restore's among them, left out)."""
+    step's K4-K7 launches must be ``train_launches``'s; ``profiled`` (a
+    resumed run) starts the profiler once the restore is done, so the
+    restore's time is not the profiler's, and prints the steps' device
+    busy time a step from its kernel rows (copies left out)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ops
@@ -3716,11 +3716,16 @@ def driver_run(torch, train, arch: str, name: str, ck, kw: dict,
     free_device_memory(torch)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 ) if profiled else contextlib.nullcontext() as prof:
-        run = train(arch, checkpoint_every=0, checkpoint_dir=ck.directory,
-                    checkpointer=ck, **kw)
-        torch.cuda.synchronize()
+    prof = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            if profiled else None)
+    ck.after_restore = prof.start if profiled else None
+    run = train(arch, checkpoint_every=0, checkpoint_dir=ck.directory,
+                checkpointer=ck, **kw)
+    torch.cuda.synchronize()
+    if profiled:
+        check(run.resumed_from is not None,
+              f"({name}) restored nothing: the profiler never started")
+        prof.stop()
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     n = len(run.history)
@@ -3735,7 +3740,8 @@ def driver_run(torch, train, arch: str, name: str, ck, kw: dict,
         k6 = step_rows_ms([(k, c, us / n) for k, c, us in rows], busy,
                           f"({name}) K6 and its backward", K6_ROWS)
         print(f"({name}) device busy {busy:.3f} ms a step over {n} steps "
-              f"(kernel rows of the profiled run), K6 + bwd {k6:.3f} ms")
+              f"(kernel rows of the profiled run, after its restore), K6 + "
+              f"bwd {k6:.3f} ms; its ms/step below are profiled")
     ms = sorted(h["seconds"] * 1e3 for h in run.history[1:])
     print(f"({name}) resumed from {run.resumed_from}, steps "
           f"{[h['step'] for h in run.history]}, losses "
@@ -3775,13 +3781,15 @@ def driver_phase(torch, dev, smi: str, n_params: int) -> dict:
 
     class TimedCheckpointer(Checkpointer):
         """Times the snapshot (the host copy) and, waited on at once, the
-        write of each save, the bytes written, and each restore; with
-        ``crash`` it dies right after its first write, as a process would."""
+        write of each save, the bytes written, and each restore, after
+        which it calls ``after_restore`` if set; with ``crash`` it dies
+        right after its first write, as a process would."""
 
         def __init__(self, directory, crash=False):
             super().__init__(directory)
             self.crash = crash
             self.times = []
+            self.after_restore = None
 
         def save(self, step, state, blocking=True, extra_meta=None):
             t0 = time.perf_counter()
@@ -3804,6 +3812,8 @@ def driver_phase(torch, dev, smi: str, n_params: int) -> dict:
             torch.cuda.synchronize()
             self.times.append(("restore", step,
                                (time.perf_counter() - t0) * 1e3))
+            if self.after_restore is not None:
+                self.after_restore()
             return out
 
     root = os.path.join(ROOT, "build", "driver_ckpt")

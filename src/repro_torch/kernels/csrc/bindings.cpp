@@ -56,8 +56,8 @@ cudaError_t launch_flash_attention_bwd(const void* q, const void* k, const void*
                                        int B, int H, int KV, int Sq, int Sk, int D,
                                        int causal, int window, int bf16,
                                        const int* plan, int n_pat, int blocks,
-                                       float* dq_acc, float* dkv_acc, int* ctr,
-                                       long long n_ctr, cudaStream_t stream);
+                                       int slots, float* dq_acc, float* dkv_acc,
+                                       int* ctr, long long n_ctr, cudaStream_t stream);
 cudaError_t launch_ssd_chunk(const void* x, const float* dt_a, const void* b,
                              const void* c, void* y, float* state,
                              float* decay, const long long* st, int BC, int Q,
@@ -284,15 +284,17 @@ void flash_attention_lse(const torch::Tensor& q, const torch::Tensor& k,
 // through their strides) and the forward's lse; delta is fp32 scratch the
 // first kernel fills ((B, H, Sq) for fp32 data, the row stats for bf16).
 // bf16 only (empty tensors for fp32): plan (int32, n_pat units and the
-// order tables), the persistent grid's blocks, the fp32 scratch dq_acc and
-// dkv_acc (empty where no span is split) and the int32 counters ctr
+// order tables), the persistent grid's blocks, the slots of a dQ tile's
+// sum, the fp32 scratch dq_acc and dkv_acc (empty where no span is split)
+// and the int32 counters ctr
 void flash_attention_bwd(const torch::Tensor& q, const torch::Tensor& k,
                          const torch::Tensor& v, const torch::Tensor& o,
                          const torch::Tensor& dout, const torch::Tensor& lse,
                          torch::Tensor delta, torch::Tensor dq, torch::Tensor dk,
                          torch::Tensor dv, bool causal, int64_t window,
                          const torch::Tensor& plan, int64_t n_pat, int64_t blocks,
-                         torch::Tensor dq_acc, torch::Tensor dkv_acc, torch::Tensor ctr) {
+                         int64_t slots, torch::Tensor dq_acc, torch::Tensor dkv_acc,
+                         torch::Tensor ctr) {
   const c10::cuda::CUDAGuard guard(q.device());
   long long st[24];
   const torch::Tensor* ts[8] = {&q, &k, &v, &o, &dout, &dq, &dk, &dv};
@@ -309,7 +311,7 @@ void flash_attention_bwd(const torch::Tensor& q, const torch::Tensor& k,
                    static_cast<int>(window), q.scalar_type() == at::kBFloat16,
                    plan.numel() ? plan.data_ptr<int>() : nullptr,
                    static_cast<int>(n_pat), static_cast<int>(blocks),
-                   f32_or_null(dq_acc), f32_or_null(dkv_acc),
+                   static_cast<int>(slots), f32_or_null(dq_acc), f32_or_null(dkv_acc),
                    ctr.numel() ? ctr.data_ptr<int>() : nullptr, ctr.numel(),
                    stream_of(q)),
                "flash_attention_bwd");

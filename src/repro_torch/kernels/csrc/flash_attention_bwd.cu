@@ -39,10 +39,13 @@
 //       other's products.  The two dQ parts are summed in shared memory; a
 //       writer thread adds the pair's part to its tile's fp32 sum with a
 //       TMA store (the first part) or TMA reduce-add (the rest), in the
-//       list's order, a counter a tile deciding whose turn it is; a span
-//       whose walk the list split sums its slices' dK and dV the same way,
-//       in fp32 scratch;
-//   (c) flash_bwd_dq_round_kernel: dQ's sums rounded to bf16 once.
+//       list's order, a counter a tile deciding whose turn it is (a tile's
+//       sum may be cut into slots taking its parts in turn, each slot a
+//       sum of its own, so its chain of waits is shorter); a span whose
+//       walk the list split sums its slices' dK and dV the same way, in
+//       fp32 scratch;
+//   (c) flash_bwd_dq_round_kernel: dQ's slots added in slot order and
+//       rounded to bf16 once.
 // No atomic add of a value: repeated calls are bit-identical (the bf16
 // kernel's only atomic takes a ticket, its counters order the sums without
 // carrying a value, and a TMA reduce-add waits for its turn).  Tiles
@@ -439,6 +442,7 @@ constexpr int kConsumers = 256;      // two warpgroups
 // launches 384 threads at 168 registers, so the producer's 128 x (168 −
 // 24) pay for the consumers' 256 x (240 − 168)
 constexpr int kMainThreads = kConsumers + 128;
+constexpr int kMainRegs = 168;
 constexpr int kStatBytes = 2 * kTile * 4;       // a tile's lse·log2(e) and delta
 constexpr int kDqBox = kTile * 128;             // 64 rows of 32 fp32 columns
 
@@ -487,21 +491,29 @@ flash_bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
   }
 }
 
-// (c), bf16: dQ's fp32 sums (B·H, n_qt·64, ld) rounded once into dq,
-// two columns a thread
+// (c), bf16: dQ's fp32 slots (slots, B·H, n_qt·64, ld) added in slot
+// order, those of a query tile with count[qt] parts the first
+// min(slots, count[qt]), and rounded once into dq, two columns a thread
 __global__ void __launch_bounds__(256)
-flash_bwd_dq_round_kernel(const float* __restrict__ acc, bf16* __restrict__ dq,
-                          Str3 sdq, int H, int Sq, int D, int n_qt, int ld,
-                          long long pairs) {
+flash_bwd_dq_round_kernel(const float* __restrict__ acc, const int* __restrict__ count,
+                          bf16* __restrict__ dq, Str3 sdq, int H, int Sq, int D, int n_qt,
+                          int ld, int slots, long long pairs) {
   const int half = (D + 1) / 2;
+  const long long plane = pairs / half / Sq * n_qt * kTile * ld;  // a slot
   for (long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x; i < pairs;
        i += static_cast<long long>(gridDim.x) * 256) {
     const int c = 2 * static_cast<int>(i % half);
     const long long row = i / half;
     const int s = static_cast<int>(row % Sq);
     const long long bh = row / Sq;
-    const float2 v = *reinterpret_cast<const float2*>(
-        acc + (bh * n_qt * kTile + s) * ld + c);
+    const float* a = acc + (bh * n_qt * kTile + s) * ld + c;
+    float2 v = *reinterpret_cast<const float2*>(a);
+    const int used = min(slots, count[s / kTile]);
+    for (int j = 1; j < used; ++j) {
+      const float2 x = *reinterpret_cast<const float2*>(a + j * plane);
+      v.x += x.x;
+      v.y += x.y;
+    }
     bf16* dst = dq + (bh / H) * sdq.b + (bh % H) * sdq.h + s * sdq.s + c;
     if (c + 1 < D) {
       *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v.x, v.y);
@@ -785,10 +797,11 @@ __device__ __forceinline__ float2 ld_shared2(uint32_t addr) {
 // n_sp + n], the place of span n's part among query tile qt's dQ parts
 // (-1: none); then count[qt].  Unit t of the list is pattern unit t / BKV
 // of (batch·KV head) t % BKV, so every (batch, KV head) repeats the
-// pattern's order.
+// pattern's order.  Part r of a dQ tile goes into slot r % slots, where it
+// is part r / slots of that slot's ordered sum.
 struct Plan {
   const int* p;
-  int n_pat, n_qt, n_sp;
+  int n_pat, n_qt, n_sp, slots;
   __device__ int span(int u) const { return p[4 * u]; }
   __device__ int qt_lo(int u) const { return p[4 * u + 1]; }
   __device__ int qt_hi(int u) const { return p[4 * u + 2]; }
@@ -900,8 +913,8 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int n_units = plan.n_pat * BKV;
   const int n_qt = plan.n_qt, n_sp = plan.n_sp;
   int* const ticket = ctr;
-  int* const dq_ctr = ctr + 1;
-  int* const dkv_ctr = dq_ctr + static_cast<long long>(BKV) * G * n_qt;
+  int* const dq_ctr = ctr + 1;  // a counter a (tile, slot)
+  int* const dkv_ctr = dq_ctr + static_cast<long long>(BKV) * G * n_qt * plan.slots;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -960,28 +973,32 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         }
       }
     } else if (tid == kConsumers + 32) {
-      // the writer: each pair's dQ part into its tile's fp32 sum, in the
-      // list's order; a tile (batch·head·n_qt + qt) of rank -1 ends
+      // the writer: each pair's dQ part into its slot of its tile's fp32
+      // sum, in the list's order; a tile (batch·head·n_qt + qt) of rank -1
+      // ends
       for (int j = 0;; ++j) {
         const int buf = j % R::kDqBufs;
         mbar_wait(dq_full(buf), (j / R::kDqBufs) & 1);
         const int tile = jobs[buf][0], rank = jobs[buf][1];
         if (rank < 0) break;
         const int bh = tile / n_qt, qt = tile % n_qt;
-        if (rank > 0)
-          while (ld_acquire(dq_ctr + tile) != rank) __nanosleep(32);
+        const int slot = rank % plan.slots, turn = rank / plan.slots;
+        int* const c = dq_ctr + static_cast<long long>(tile) * plan.slots + slot;
+        if (turn > 0)
+          while (ld_acquire(c) != turn) __nanosleep(32);
         fence_proxy_async_global();
+        const int plane = slot * BKV * G + bh;
         for (int x = 0; x < 2 * kChunks; ++x) {
-          if (rank == 0)
-            tma_store_3d(&tdq, dq_s(buf) + x * kDqBox, 32 * x, qt * kTile, bh);
+          if (turn == 0)
+            tma_store_3d(&tdq, dq_s(buf) + x * kDqBox, 32 * x, qt * kTile, plane);
           else
-            tma_add_3d(&tdq, dq_s(buf) + x * kDqBox, 32 * x, qt * kTile, bh);
+            tma_add_3d(&tdq, dq_s(buf) + x * kDqBox, 32 * x, qt * kTile, plane);
         }
         bulk_commit_wait();
         fence_proxy_async_global();
-        // the last part's turn passes to nobody; the counters restart at 0
-        // in the next call's first kernel
-        if (rank + 1 < plan.dq_count(qt)) st_release(dq_ctr + tile, rank + 1);
+        // the slot's last part passes its turn to nobody; the counters
+        // restart at 0 in the next call's first kernel
+        if (rank + plan.slots < plan.dq_count(qt)) st_release(c, turn + 1);
         mbar_arrive(dq_empty(buf));
       }
     }
@@ -1134,8 +1151,8 @@ constexpr int main_smem() {
          R::kDqBufs * R::kDq + 8 * (2 + 2 * R::kStages + 3 * R::kDqBufs);
 }
 
-// dQ's fp32 sum (B·H, rows, ld) as a 3-D map of 64-row, 32-column boxes
-// with the 128-byte swizzle, the dQ buffers' layout
+// dQ's fp32 slots (planes, rows, ld), planes = slots·B·H, as a 3-D map of
+// 64-row, 32-column boxes with the 128-byte swizzle, the dQ buffers' layout
 bool encode_f32_map(CUtensorMap* map, float* ptr, int ld, int rows, int bh) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return false;
@@ -1151,9 +1168,25 @@ bool encode_f32_map(CUtensorMap* map, float* ptr, int ld, int rows, int bh) {
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// once per instantiation, outside any CUDA graph capture: refuse a build
+// whose register count is not kMainRegs, the count the fused kernel's
+// setmaxnreg hand-over is sized for (at another, setmaxnreg.inc would wait
+// for registers no warpgroup frees and the kernel would never end), and
+// opt the kernel in to its shared memory
+template <int kChunks>
+cudaError_t prepare_main(int smem) {
+  const auto kern = flash_bwd_wgmma_kernel<kChunks>;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kern);
+  if (err == cudaSuccess && attr.numRegs != kMainRegs) err = cudaErrorInvalidKernelImage;
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  return err;
+}
+
 template <int kChunks>
 cudaError_t launch_bf16(const Args& a, const long long* st, const int* plan, int n_pat,
-                        int blocks, float* dq_acc, float* dkv_acc, int* ctr,
+                        int blocks, int slots, float* dq_acc, float* dkv_acc, int* ctr,
                         cudaStream_t stream) {
   const int n_qt = (a.Sq + kTile - 1) / kTile;
   constexpr int kLd = 64 * kChunks;
@@ -1164,24 +1197,25 @@ cudaError_t launch_bf16(const Args& a, const long long* st, const int* plan, int
       !encode_map(&tk, a.k, st + 3, a.B, a.KV, a.Sk, a.D, kSpan) ||
       !encode_map(&tv, a.v, st + 6, a.B, a.KV, a.Sk, a.D, kSpan) ||
       !encode_map(&tdo, a.dout, st + 12, a.B, a.H, a.Sq, a.D, kTile) ||
-      !encode_f32_map(&tdq, dq_acc, kLd, n_qt * kTile, a.B * a.H))
+      !encode_f32_map(&tdq, dq_acc, kLd, n_qt * kTile, slots * a.B * a.H))
     return cudaErrorInvalidValue;
   constexpr int smem = main_smem<kChunks>();
-  static bool opted_in = false;
-  cudaError_t err = opt_in(flash_bwd_wgmma_kernel<kChunks>, smem, opted_in);
-  if (err != cudaSuccess) return err;
+  static const cudaError_t ready = prepare_main<kChunks>(smem);
+  if (ready != cudaSuccess) return ready;
   const float scale = 1.0f / sqrtf(static_cast<float>(a.D));
-  const Plan p{plan, n_pat, n_qt, (a.Sk + kSpan - 1) / kSpan};
+  const int n_sp = (a.Sk + kSpan - 1) / kSpan;
+  const Plan p{plan, n_pat, n_qt, n_sp, slots};
   flash_bwd_wgmma_kernel<kChunks><<<blocks, kMainThreads, smem, stream>>>(
       tq, tk, tv, tdo, tdq, a.delta, p, a.B * a.KV, static_cast<bf16*>(a.dk),
       static_cast<bf16*>(a.dv), a.sdk, a.sdv, dkv_acc, ctr, a.H, a.H / a.KV, a.Sk,
       a.causal, a.window, a.D, scale, kLog2e * scale);
-  err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long pairs = static_cast<long long>(a.B) * a.H * a.Sq * ((a.D + 1) / 2);
   const long long grid = (pairs + 255) / 256 < 65535LL * 16 ? (pairs + 255) / 256 : 65535LL * 16;
   flash_bwd_dq_round_kernel<<<static_cast<unsigned>(grid), 256, 0, stream>>>(
-      dq_acc, static_cast<bf16*>(a.dq), a.sdq, a.H, a.Sq, a.D, n_qt, kLd, pairs);
+      dq_acc, plan + 4 * n_pat + n_qt * n_sp, static_cast<bf16*>(a.dq), a.sdq, a.H, a.Sq,
+      a.D, n_qt, kLd, slots, pairs);
   return cudaGetLastError();
 }
 
@@ -1196,9 +1230,10 @@ cudaError_t launch_bf16(const Args& a, const long long* st, const int* plan, int
 // fills, (B, H, Sq) for fp32 data, for bf16 the row stats (B·H·n_qt tiles
 // of 2 x 64, n_qt = ceil(Sq / 64)).  bf16 only (else ignored): plan and
 // n_pat, the unit list's pattern (see Plan); blocks, the persistent grid;
-// dq_acc (B·H, 64·n_qt, 64·ceil(D / 64)) and dkv_acc (2·B·KV·Sk·64·ceil(D / 64),
-// only where the plan splits a span) fp32 scratch; ctr, n_ctr = 1 + B·H·n_qt
-// + 2·B·KV·ceil(Sk / 128) int32 counters, zeroed by the first kernel.
+// slots, the slots of a dQ tile's sum; dq_acc (slots·B·H, 64·n_qt, 64·ceil(D /
+// 64)) and dkv_acc (2·B·KV·Sk·64·ceil(D / 64), only where the plan splits a
+// span) fp32 scratch; ctr, n_ctr = 1 + B·H·n_qt·slots + 2·B·KV·ceil(Sk / 128)
+// int32 counters, zeroed by the first kernel.
 cudaError_t launch_flash_attention_bwd(const void* q, const void* k, const void* v,
                                        const void* o, const void* dout,
                                        const float* lse, float* delta, void* dq,
@@ -1206,8 +1241,8 @@ cudaError_t launch_flash_attention_bwd(const void* q, const void* k, const void*
                                        int B, int H, int KV, int Sq, int Sk, int D,
                                        int causal, int window, int bf16_data,
                                        const int* plan, int n_pat, int blocks,
-                                       float* dq_acc, float* dkv_acc, int* ctr,
-                                       long long n_ctr, cudaStream_t stream) {
+                                       int slots, float* dq_acc, float* dkv_acc,
+                                       int* ctr, long long n_ctr, cudaStream_t stream) {
   if (D < 1 || D > 128 || Sq < 1 || Sk < 1 || (causal && Sq != Sk) || B * H < 1 ||
       B * H > 65535 || KV < 1 || H % KV != 0 || window < 0 || (window > 0 && !causal))
     return cudaErrorInvalidValue;
@@ -1229,8 +1264,9 @@ cudaError_t launch_flash_attention_bwd(const void* q, const void* k, const void*
        reinterpret_cast<uintptr_t>(delta)) % 16)
     return cudaErrorMisalignedAddress;
   const int n_qt = (Sq + kTile - 1) / kTile, n_sp = (Sk + kSpan - 1) / kSpan;
-  if (plan == nullptr || n_pat < 1 || blocks < 1 || dq_acc == nullptr || ctr == nullptr ||
-      n_ctr != 1 + static_cast<long long>(B) * H * n_qt + 2LL * B * KV * n_sp)
+  if (plan == nullptr || n_pat < 1 || blocks < 1 || slots < 1 || dq_acc == nullptr ||
+      ctr == nullptr ||
+      n_ctr != 1 + static_cast<long long>(B) * H * n_qt * slots + 2LL * B * KV * n_sp)
     return cudaErrorInvalidValue;
   const long long rows = static_cast<long long>(B) * H * n_qt * kTile;
   flash_bwd_prep_kernel<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(
@@ -1238,6 +1274,7 @@ cudaError_t launch_flash_attention_bwd(const void* q, const void* k, const void*
       s3(4), H, Sq, D, n_qt, rows, ctr, static_cast<int>(n_ctr));
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return D <= 64 ? launch_bf16<1>(a, st, plan, n_pat, blocks, dq_acc, dkv_acc, ctr, stream)
-                 : launch_bf16<2>(a, st, plan, n_pat, blocks, dq_acc, dkv_acc, ctr, stream);
+  return D <= 64
+             ? launch_bf16<1>(a, st, plan, n_pat, blocks, slots, dq_acc, dkv_acc, ctr, stream)
+             : launch_bf16<2>(a, st, plan, n_pat, blocks, slots, dq_acc, dkv_acc, ctr, stream);
 }

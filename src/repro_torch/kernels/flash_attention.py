@@ -42,15 +42,15 @@ CPU, the plain ``ref.flash_attention_bwd_ref``; meta, empty gradients,
 the same scratch as the card's and ``cost.flash_attention_bwd``; CUDA,
 the kernels of ``flash_attention_bwd.cu`` with one count in
 ``flash_attention_bwd.launches``: in fp32 three (delta, dK/dV, dQ), in
-bf16 two (the row stats with the counters zeroed, then one fused kernel
-for dK, dV and dQ over the unit list ``bwd_schedule`` builds).  The
-gradients leave in q's, k's and v's dtypes and memory layouts.
+bf16 three too (the row stats with the counters zeroed, one fused kernel
+for dK, dV and dQ over the unit list ``bwd_schedule`` builds, then dQ's
+fp32 slots added and rounded).  The gradients leave in q's, k's and v's
+dtypes and memory layouts.
 """
 
 from __future__ import annotations
 
 import functools
-import heapq
 import math
 from typing import NamedTuple
 
@@ -207,13 +207,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                             window)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dtype == torch.bfloat16:
-        sched = bwd_schedule(b, h, kv, s, sk, bool(causal), window)
+        sched = bwd_schedule(b, h, kv, s, sk, d, bool(causal), window)
         extra = _bwd_scratch(sched, b, h, kv, s, sk, d, q.device)
         stats = extra.pop(0)
     else:
         stats = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
         none = torch.empty(0, dtype=torch.float32, device=q.device)
-        extra = [none.int(), 0, 0, none, none, none.int()]
+        extra = [none.int(), 0, 0, 0, none, none, none.int()]
     if dev == "meta":
         cost.report(kernel, cost.flash_attention_bwd(
             b, h, kv, s, sk, d, q.element_size(), causal, window))
@@ -235,10 +235,19 @@ flash_attention_bwd.launches = 0
 BWD_TILE = 64      # query rows of a walked tile (the kernel's kTile)
 BWD_SPAN = 128     # keys of a unit: 64 for each consumer warpgroup (kSpan)
 BWD_SMS = 132      # the H100's SMs: the persistent grid's blocks at most
-# a unit's fixed cost in (query tile, head) pairs, for the choice of its
-# slices: K and V loaded, dK and dV stored or added (measured order of
-# magnitude on the H100: a few pairs' time)
-BWD_UNIT_PAIRS = 4
+# causal walks are cut until the list holds this many units an SM (fewer
+# cuts left whole spans' walks, 1.9x an SM's share at granite-3-2b's
+# shape, to the last wave; more added units' fixed cost: on the H100
+# granite's and qwen3-14b's backward ran fastest cut to 416 units, Zamba2's
+# and the window's unsplit at 512 and 1024, tools/k6_bwd_sched.py)
+BWD_UNITS_PER_SM = 3
+# dQ's fp32 sums: a tile's parts go round-robin into up to this many bytes
+# of slots (each its own ordered sum, the slots added when dQ is rounded),
+# so a tile's chain of waits is shorter; the rounding kernel reads every
+# slot back, which costs more than the waits save once a slot is large
+# (tools/k6_bwd_sched.py on the H100: seamless's cross-attention fastest
+# at 4 slots of 2 MiB, granite's slower at 2 slots of 16 MiB than at one)
+BWD_DQ_BYTES = 8 << 20
 
 
 class BwdSchedule(NamedTuple):
@@ -248,10 +257,12 @@ class BwdSchedule(NamedTuple):
     qt_lo (64 rows each), each with the G heads of the group; dkv_rank of
     dkv_count, the unit's place in its span's dK/dV sum.  ``dq_rank[qt][n]``
     is span n's place among query tile qt's dQ parts (-1: none), and
-    ``dq_count[qt]`` their number.  The full list repeats each pattern unit
-    for the B·KV (batch, KV head)s in turn (unit t: pattern unit t // bkv of
-    (batch·KV head) t % bkv); ``tiles`` is the slice height the walks were
-    cut to, ``blocks`` the persistent grid."""
+    ``dq_count[qt]`` their number; part r goes into slot r % ``slots`` of
+    the tile's sum, after the parts r - slots, r - 2·slots, ...  The full
+    list repeats each pattern unit for the B·KV (batch, KV head)s in turn
+    (unit t: pattern unit t // bkv of (batch·KV head) t % bkv); ``tiles``
+    is the slice height the walks were cut to, ``blocks`` the persistent
+    grid."""
     units: tuple
     dq_rank: tuple
     dq_count: tuple
@@ -259,6 +270,7 @@ class BwdSchedule(NamedTuple):
     groups: int
     tiles: int
     blocks: int
+    slots: int = 1
 
     @property
     def n_units(self) -> int:
@@ -272,17 +284,6 @@ class BwdSchedule(NamedTuple):
     def pairs(self) -> int:
         """(query tile, head) pairs walked over the whole list."""
         return self.bkv * self.groups * sum(u[2] - u[1] for u in self.units)
-
-    def makespan(self, sms: int = BWD_SMS, unit_pairs: int = 0) -> int:
-        """Pairs the busiest SM walks when each free SM takes the next unit
-        of the list (the kernel's ticket), a unit costing its pairs plus
-        ``unit_pairs``; waits on the ordered sums are not modelled."""
-        free = [0] * min(sms, self.n_units)
-        for u in self.units:
-            cost = self.groups * (u[2] - u[1]) + unit_pairs
-            for _ in range(self.bkv):
-                heapq.heapreplace(free, free[0] + cost)
-        return max(free)
 
     def plan(self) -> list[int]:
         """The int32 plan the kernel reads (``Plan`` in the source)."""
@@ -325,32 +326,37 @@ def _pattern(lo: list[int], hi: list[int], n_sp: int, tiles: int) -> list:
 
 
 @functools.lru_cache(maxsize=256)
-def bwd_schedule(b: int, h: int, kv: int, sq: int, sk: int, causal: bool,
-                 window: int) -> BwdSchedule:
+def bwd_schedule(b: int, h: int, kv: int, sq: int, sk: int, d: int,
+                 causal: bool, window: int) -> BwdSchedule:
     """The unit list of the bf16 backward at one shape.  Each (batch, KV
-    head, 128-key span) walks its kept query tiles; a span whose walk
-    weighs more than an SM's share is cut into slices of ``tiles`` query
-    tiles, the height (among n_qt / k, k = 1..8) whose list, each free SM
-    taking the next unit, ends soonest at ``BWD_UNIT_PAIRS`` a unit.  The
-    list is heaviest first, so a unit's ordered sums wait only on units
-    earlier in it, which running blocks took before it: no deadlock for
-    any number of units or blocks.  Slices of one height start at the same
-    query tile, so the spans that add to one dQ tile reach it in step."""
+    head, 128-key span) walks its kept query tiles.  Causal walks, whose
+    length falls with the span, are cut into slices of ``tiles`` query
+    tiles, the tallest height among n_qt / k (k = 1..8) whose list holds
+    ``BWD_UNITS_PER_SM`` units an SM, else n_qt / 8; full attention's
+    walks are all as long, so cutting them evens nothing out and they stay
+    whole.  The list is heaviest first, so a unit's ordered sums wait only
+    on units earlier in it, which running blocks took before it: no
+    deadlock for any number of units or blocks.  Slices of one height
+    start at the same query tile, so the spans that add to one dQ tile
+    reach it in step, and each waits on the one before it: dQ's sums take
+    as many slots as a tile has parts, within ``BWD_DQ_BYTES``."""
     lo, hi = _kept_spans(sq, sk, causal, window)
     n_qt, n_sp = len(lo), math.ceil(sk / BWD_SPAN)
-    best = None
-    if b * kv * n_sp < 8 * BWD_SMS:    # else enough units to balance unsplit
-        heights = sorted({math.ceil(n_qt / k) for k in range(1, 9)},
-                         reverse=True)
-    else:
-        heights = [n_qt]
+    heights = sorted({math.ceil(n_qt / k) for k in range(1, 9)} if causal
+                     else {n_qt}, reverse=True)
     for tiles in heights:
         units = _pattern(lo, hi, n_sp, tiles)
-        sched = _finish(units, n_qt, n_sp, b * kv, h // kv, tiles)
-        span = sched.makespan(unit_pairs=BWD_UNIT_PAIRS)
-        if best is None or span < best[0]:
-            best = (span, sched)
-    return best[1]
+        if len(units) * b * kv >= BWD_UNITS_PER_SM * BWD_SMS:
+            break
+    sched = _finish(units, n_qt, n_sp, b * kv, h // kv, tiles)
+    slot = b * h * n_qt * BWD_TILE * _dq_ld(d) * 4
+    return sched._replace(slots=max(1, min(max(sched.dq_count),
+                                           BWD_DQ_BYTES // slot)))
+
+
+def _dq_ld(d: int) -> int:
+    """The row stride of dQ's fp32 sums: D padded to the kernel's boxes."""
+    return 64 * math.ceil(d / 64)
 
 
 def _finish(units: list, n_qt: int, n_sp: int, bkv: int, groups: int,
@@ -387,19 +393,19 @@ def _plan_tensor(sched: BwdSchedule, device: torch.device) -> torch.Tensor:
 
 def _bwd_scratch(sched: BwdSchedule, b: int, h: int, kv: int, sq: int,
                  sk: int, d: int, device) -> list:
-    """[row stats, plan (set on the card), n_pat, blocks, dq_acc, dkv_acc,
-    counters]: the bf16 kernel's scratch, the same on the meta device
-    (the dry-run's peak counts it).  dq_acc (B·H, 64·n_qt, ld) and dkv_acc
-    are fp32 with rows of ld = 64 or 128 (D padded to the kernel's boxes,
-    Sq to its query tiles); dkv_acc is empty unless a span's walk is
-    split."""
+    """[row stats, plan (set on the card), n_pat, blocks, slots, dq_acc,
+    dkv_acc, counters]: the bf16 kernel's scratch, the same on the meta
+    device (the dry-run's peak counts it).  dq_acc (slots, B·H, 64·n_qt,
+    ld) and dkv_acc are fp32 with rows of ld = 64 or 128 (D padded to the
+    kernel's boxes, Sq to its query tiles); dkv_acc is empty unless a
+    span's walk is split; a counter a (dQ tile, slot)."""
     n_qt = math.ceil(sq / BWD_TILE)
     n_sp = math.ceil(sk / BWD_SPAN)
-    ld = 64 * math.ceil(d / 64)
+    ld = _dq_ld(d)
     f32 = dict(dtype=torch.float32, device=device)
     return [torch.empty(b * h * n_qt * 2 * BWD_TILE, **f32), None,
-            len(sched.units), sched.blocks,
-            torch.empty((b * h, BWD_TILE * n_qt, ld), **f32),
+            len(sched.units), sched.blocks, sched.slots,
+            torch.empty((sched.slots, b * h, BWD_TILE * n_qt, ld), **f32),
             torch.empty((2, b, kv, sk, ld) if sched.split else (0,), **f32),
-            torch.empty(1 + b * h * n_qt + 2 * b * kv * n_sp,
+            torch.empty(1 + b * h * n_qt * sched.slots + 2 * b * kv * n_sp,
                         dtype=torch.int32, device=device)]

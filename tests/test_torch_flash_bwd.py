@@ -238,10 +238,10 @@ def emulate_bwd(q, k, v, o, do, lse, causal, window, split=True):
     (``split``) or rounded once to bf16; dS rounded to bf16 for dQ and dK;
     and the kernel's order of summation from its unit list
     (``bwd_schedule``): each dQ tile the fp32 sum of one part a 128-key
-    span (its two warpgroups' 64-key parts added first), added in the
-    tiles' rank order, each span's dK and dV the fp32 sum of one part a
-    walk slice, added in list order; the gradients rounded once to
-    bf16."""
+    span (its two warpgroups' 64-key parts added first), part r added in
+    rank order into slot r % slots, the slots then added in slot order;
+    each span's dK and dV the fp32 sum of one part a walk slice, added in
+    list order; the gradients rounded once to bf16."""
     b, h, sq, d = q.shape
     kv, sk = k.shape[1], k.shape[2]
     g = h // kv
@@ -259,18 +259,24 @@ def emulate_bwd(q, k, v, o, do, lse, causal, window, split=True):
     ds = (p * (dp - delta) * (1.0 / math.sqrt(d))).bfloat16().float()
     hi = p.bfloat16().float()
     lo = (p - hi).bfloat16().float()
-    sched = bwd_schedule(b, h, kv, sq, sk, bool(causal), window)
+    sched = bwd_schedule(b, h, kv, sq, sk, d, bool(causal), window)
     tile, span = BWD_TILE, BWD_SPAN
     dq = torch.zeros(b, kv, g, sq, d)
     for qt, ranks in enumerate(sched.dq_rank):
         rows = slice(tile * qt, tile * qt + tile)
-        for n in sorted((n for n, r in enumerate(ranks) if r >= 0),
-                        key=ranks.__getitem__):
+        slots = [None] * sched.slots
+        for r, n in enumerate(sorted((n for n, r in enumerate(ranks)
+                                      if r >= 0), key=ranks.__getitem__)):
             part = [torch.einsum("bkgqm,bkmd->bkgqd", ds[..., rows, keys],
                                  kf[..., keys, :])
                     for keys in (slice(span * n + half, span * n + half + 64)
                                  for half in (0, 64))]
-            dq[..., rows, :] += part[0] + part[1]
+            part = part[0] + part[1]
+            x = r % sched.slots
+            slots[x] = part if slots[x] is None else slots[x] + part
+        for x in slots:
+            if x is not None:
+                dq[..., rows, :] += x
     dk, dv = torch.zeros(b, kv, sk, d), torch.zeros(b, kv, sk, d)
     for n, qt_lo, qt_hi, _, _ in sched.units:     # list order
         rows = slice(tile * qt_lo, tile * qt_hi)

@@ -12,14 +12,19 @@ runs (``K6_BWD_SHAPES`` and ``K6_BWD_EDGES``):
     exactly one unit, and no other pair is; each unit lies in one slice;
   * every ordered sum's parts are ranked in list order, so a part waits
     only on units earlier in the list (taken first by the ticket: no
-    deadlock, whatever the number of blocks);
-  * each free SM taking the next unit, the busiest of 132 walks within
-    1.15x of an even share at granite-3-2b's, qwen3-14b's and Zamba2's
-    training shapes;
+    deadlock, whatever the number of blocks), dQ's in each of its slots;
+  * causal walks cut until the list holds 3 units an SM, full attention's
+    left whole; each free SM taking the next unit, the busiest of 132
+    walks within 1.15x of an even share at granite-3-2b's, qwen3-14b's and
+    Zamba2's training shapes;
+  * dQ's slots: as many as a tile has parts as far as they fit in
+    ``BWD_DQ_BYTES`` (the seamless cross-attention's chains of 8 become 4
+    of 2);
   * the plan the kernel reads, and the scratch the meta path allocates as
     the card does (the dry-run's peak counts it).
 """
 
+import heapq
 import importlib.util
 import math
 from pathlib import Path
@@ -28,7 +33,10 @@ import pytest
 import torch
 
 from repro_torch.kernels import cost, ref
-from repro_torch.kernels.flash_attention import (BWD_SMS, BWD_SPAN, BWD_TILE,
+from repro_torch.kernels.flash_attention import (BWD_DQ_BYTES, BWD_SMS,
+                                                 BWD_SPAN, BWD_TILE,
+                                                 BWD_UNITS_PER_SM,
+                                                 _kept_spans, _pattern,
                                                  bwd_schedule,
                                                  flash_attention_bwd)
 from repro_torch.launch.dryrun import ALLOC_ROUND, CostCounter
@@ -45,8 +53,8 @@ BALANCED = ("granite-3-2b train", "qwen3-14b", "zamba2-1.2b train")
 
 
 def _schedule(shape):
-    b, h, kv, s, _, sk, causal, window = shape
-    return bwd_schedule(b, h, kv, s, sk, causal, window)
+    b, h, kv, s, d, sk, causal, window = shape
+    return bwd_schedule(b, h, kv, s, sk, d, causal, window)
 
 
 def _kept_pairs(shape) -> set[tuple[int, int]]:
@@ -76,7 +84,9 @@ def test_ordered_sums_wait_only_on_earlier_units(name):
     """Ranks count 0, 1, ... in list order for every dQ tile and every
     span's dK/dV, so each part's predecessor comes earlier in the list (in
     the full list, pattern unit p of (batch, KV head) x is unit
-    p·B·KV + x, and a tile's parts share x)."""
+    p·B·KV + x, and a tile's parts share x); a dQ part of rank r waits on
+    rank r - slots, the one before it in its slot, so on an earlier unit
+    too."""
     sched = _schedule(SHAPES[name])
     where = {}
     for p, (n, lo, hi, _, _) in enumerate(sched.units):
@@ -96,6 +106,38 @@ def test_ordered_sums_wait_only_on_earlier_units(name):
         assert all(c == len(parts) for _, _, c in parts)
 
 
+def _makespan(sched) -> int:
+    """Pairs the busiest SM walks when each of 132 takes the next unit of
+    the list when free (the kernel's ticket)."""
+    free = [0] * min(BWD_SMS, sched.n_units)
+    for n, lo, hi, _, _ in sched.units:
+        for _ in range(sched.bkv):
+            heapq.heapreplace(free, free[0] + sched.groups * (hi - lo))
+    return max(free)
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_causal_walks_cut_to_units_an_sm(name):
+    """A causal list holds ``BWD_UNITS_PER_SM`` units an SM at the tallest
+    slice height n_qt / k that reaches it (or is cut at k = 8); full
+    attention's walks are whole."""
+    b, h, kv, s, _, sk, causal, window = SHAPES[name]
+    sched = _schedule(SHAPES[name])
+    n_qt = math.ceil(s / BWD_TILE)
+    want = BWD_UNITS_PER_SM * BWD_SMS
+    if not causal:
+        assert sched.tiles == n_qt and not sched.split
+        return
+    heights = sorted({math.ceil(n_qt / k) for k in range(1, 9)},
+                     reverse=True)
+    assert sched.tiles in heights
+    assert sched.n_units >= want or sched.tiles == heights[-1]
+    lo, hi = _kept_spans(s, sk, causal, window)
+    for taller in heights[:heights.index(sched.tiles)]:
+        assert len(_pattern(lo, hi, math.ceil(sk / BWD_SPAN),
+                            taller)) * b * kv < want
+
+
 @pytest.mark.parametrize("name", BALANCED)
 def test_makespan_near_an_even_share(name):
     """Greedy list scheduling on 132 SMs, heaviest first: the busiest SM
@@ -104,7 +146,7 @@ def test_makespan_near_an_even_share(name):
     cut into slices (unsplit, one span's walk alone is 1.9x the share)."""
     sched = _schedule(SHAPES[name])
     share = sched.pairs() / BWD_SMS
-    assert sched.makespan() <= 1.15 * share, (sched.makespan(), share)
+    assert _makespan(sched) <= 1.15 * share, (_makespan(sched), share)
     assert sched.blocks == min(BWD_SMS, sched.n_units)
     _, h, kv, s, _, _, _, _ = SHAPES[name]
     assert sched.split == (name != "zamba2-1.2b train")
@@ -143,8 +185,8 @@ def test_meta_path_allocates_the_scratch(name, dtype):
     """Under the dry-run's counter a meta call's peak (its inputs made
     before it) is the gradients plus the kernel's scratch: bf16 the row
     stats, dQ's fp32 sum (rows padded to 64 or 128 columns and whole query
-    tiles), dK/dV's where a span
-    is split, and the counters; fp32 the (B, H, Sq) delta alone."""
+    tiles) in each of its slots, dK/dV's where a span is split, and the
+    counters; fp32 the (B, H, Sq) delta alone."""
     b, h, kv, s, d, sk, causal, window = SHAPES[name]
     meta = dict(device="meta", dtype=dtype)
     q, do, o = (torch.empty(b, h, s, d, **meta) for _ in range(3))
@@ -153,12 +195,14 @@ def test_meta_path_allocates_the_scratch(name, dtype):
     e = q.element_size()
     want = _rounded(b * h * s * d * e) + 2 * _rounded(b * kv * sk * d * e)
     if dtype == torch.bfloat16:
-        sched = bwd_schedule(b, h, kv, s, sk, causal, window)
+        sched = bwd_schedule(b, h, kv, s, sk, d, causal, window)
         n_qt, n_sp, ld = (math.ceil(s / BWD_TILE), math.ceil(sk / BWD_SPAN),
                           64 * math.ceil(d / 64))
+        slots = sched.slots
         want += (_rounded(b * h * n_qt * 128 * 4)
-                 + _rounded(b * h * n_qt * BWD_TILE * ld * 4)
-                 + _rounded(4 * (1 + b * h * n_qt + 2 * b * kv * n_sp)))
+                 + _rounded(slots * b * h * n_qt * BWD_TILE * ld * 4)
+                 + _rounded(4 * (1 + b * h * n_qt * slots
+                                 + 2 * b * kv * n_sp)))
         if sched.split:
             want += _rounded(2 * b * kv * sk * ld * 4)
     else:
@@ -168,3 +212,23 @@ def test_meta_path_allocates_the_scratch(name, dtype):
     assert counter.peak == want, (counter.peak, want)
     assert counter.launches["flash_attention_bwd"] == 1
     assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_dq_slots_fit_the_budget(name):
+    """As many slots as the most parts a dQ tile has, as far as
+    ``BWD_DQ_BYTES`` holds them (and always one): the seamless
+    cross-attention's 8 parts a tile go into 4 slots of 2 MiB, chains of
+    2; the training shapes' single slot is already past the budget."""
+    b, h, _, s, d, _, _, _ = SHAPES[name]
+    sched = _schedule(SHAPES[name])
+    slot = b * h * math.ceil(s / BWD_TILE) * BWD_TILE * 64 * math.ceil(
+        d / 64) * 4
+    most = max(sched.dq_count)
+    assert 1 <= sched.slots <= most
+    assert sched.slots == most or (sched.slots + 1) * slot > BWD_DQ_BYTES
+    assert sched.slots == 1 or sched.slots * slot <= BWD_DQ_BYTES
+    if name == "seamless-m4t-large-v2 cross-attention":
+        assert (sched.slots, most) == (4, 8)
+    elif not name.startswith("edge"):
+        assert sched.slots == 1
