@@ -99,11 +99,14 @@ without a result line:
               backward (``ssd_chunk_bwd``) against its plain version, bf16
               and fp32, at Zamba2-1.2B's and mamba2-2.7b's training SSD
               shapes (16 chunks of 128, 64 and 80 heads, N = 64 and 128,
-              one B/C group; timed beside the plain version and the bound)
-              and edges (per-head and grouped B/C, ragged chunks, Q <= 64,
-              N = 4 to 128, P < 64), each with all three cotangents and
-              with one alone; repeats bit-identical (bars at
-              ``K7_BWD_FP32_RTOL``)
+              one B/C group; timed beside the plain version and the bound;
+              bf16 at every heads-per-block choice of ``SSD_BWD_HEADS``
+              that divides the group's heads, each held to the plain
+              version and run twice bit-identical, with the plan's choice
+              and the fastest named) and edges (per-head and grouped B/C,
+              ragged chunks, Q <= 64, N = 4 to 128, P < 64), each with all
+              three cotangents and with one alone; repeats bit-identical
+              (bars at ``K7_BWD_FP32_RTOL``)
   8. serve    Zamba2-1.2B, full width, bf16, random weights: 8 requests
               of the ``steady`` preset with 512/1024/2048-token prompts on
               4 slots through ``repro_torch.launch.serve.serve``; every
@@ -432,6 +435,9 @@ NO_SPILL_KERNELS = ("fcnn_fwd_kernel", "dgrad_kernel", "fcnn_wgrad_kernel",
                     "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
                     "flash_bwd_prep_kernel", "flash_bwd_wgmma_kernel",
                     "flash_bwd_dq_round_kernel",
+                    # K7's backward: the bf16 kernel (a block the heads of
+                    # a B/C group), the fp32 one, and the sum of a group's
+                    # parts (bf16: blocks', fp32: heads')
                     "ssd_bwd_wgmma_kernel", "ssd_bwd_f32_kernel",
                     "group_sum_kernel")
 # K1's and K2's bf16-weight kernels, K3's bf16-x kernel, the bf16 K6
@@ -1766,6 +1772,37 @@ def k7_bwd_close(torch, got, want, noise: float) -> tuple[bool, float, str]:
     return ok, worst, "; ".join(crits)
 
 
+def k7_bwd_sweep_line(torch, ssd_chunk_bwd, x, dt_a, b, c, use, g,
+                      want) -> str:
+    """Device ms of bf16 K7 bwd at every heads-per-block choice of
+    ssd_scan.SSD_BWD_HEADS that divides H / G, each held to the plain
+    version's gradients ``want`` at the bars above and run twice
+    bit-identical; the plan's choice and the fastest are named."""
+    from repro_torch.kernels.ssd_scan import SSD_BWD_HEADS, ssd_bwd_plan
+
+    bc, q, h, _ = x.shape
+    noise = k7_bwd_noise(x, b, c, *use)
+    times = {}
+    for heads in (k for k in SSD_BWD_HEADS if (h // g) % k == 0):
+        def kern(heads=heads):
+            return ssd_chunk_bwd(x, dt_a, b, c, *use, g, heads=heads)
+
+        out, again = kern(), kern()
+        torch.cuda.synchronize()
+        ok, _, crit = k7_bwd_close(torch, out, want, noise)
+        same = all(torch.equal(u, v) for u, v in zip(out, again))
+        check(ok and same, f"ssd_chunk_bwd at {heads} heads a block: {crit}"
+                           f"{'' if same else ', repeats differ'}")
+        del out, again
+        times[heads] = device_ms(kern, iters=5, replays=5)
+    plan = ssd_bwd_plan(bc, h, q, g, b.shape[-1])
+    best = min(times, key=times.get)
+    cells = " ".join(f"{k} {ms:.5f}" for k, ms in times.items())
+    return (f"    sweep heads/block device ms: {cells} | plan {plan} "
+            f"{times[plan]:.5f}, fastest {best} {times[best]:.5f}; every "
+            f"choice within the bars, repeats bit-identical")
+
+
 def run_k7_bwd_phase(torch, dev) -> dict:
     """Phase 7's K7 backward (the bars above): every case in bf16 and fp32
     with every set of cotangents of K7_BWD_COTANGENTS, repeats
@@ -1810,6 +1847,9 @@ def run_k7_bwd_phase(torch, dev) -> dict:
                         f"{'ok' if ok else 'FAIL'}")
                 summary["max_abs_err"] = max(summary["max_abs_err"], worst)
                 if timed and all(given):
+                    if dtype == torch.bfloat16:
+                        print(k7_bwd_sweep_line(torch, ssd_chunk_bwd, x, dt_a, b,
+                                                c, use, g, want), flush=True)
                     del again, want
                     ms = device_ms(kern, iters=5, replays=5)
                     plain_ms = device_ms(lambda: ref.ssd_chunk_bwd_ref(
@@ -2903,6 +2943,9 @@ K6_ROWS = (("K6", "flash_fwd"), ("K6 bwd prep", "flash_bwd_prep"),
            ("K6 bwd fp32 delta", "flash_bwd_delta"),
            ("K6 bwd fp32 dK/dV", "flash_bwd_dkdv"),
            ("K6 bwd fp32 dQ", "flash_bwd_dq_kernel"))
+# K7 and its backward by profiler row: the bf16 backward's kernel (a block
+# the heads of a B/C group) and the sum of each group's parts (one fp32
+# part a block; no launch where a block is a whole group)
 K7_ROWS = (("K7", "ssd_chunk_wgmma"), ("K7 bwd", "ssd_bwd_wgmma"),
            ("K7 bwd group sum", "group_sum"))
 

@@ -215,7 +215,11 @@ def ssd_chunk_bwd(bc: int, q: int, h: int, p: int, n: int, groups: int,
     the state (BC, H, P, N) and the decay (BC, Q, H) -> dx (BC, Q, H, P),
     d(dt_a) (BC, Q, H) fp32, dB and dC (BC, Q, ``groups``, N).  Per (chunk,
     head) the products S = C·Bᵀ, dM = dy·xᵀ, (S∘L)ᵀ·dy, dS·B and dSᵀ·C over
-    the kept pairs, and B·dstᵀ and x·dst over the chunk's rows."""
+    the kept pairs, and B·dstᵀ and x·dst over the chunk's rows.  This is the
+    function's work, what any kernel must do: the bf16 kernel's fp32 parts
+    of dB and dC (one a block of heads, added by a second kernel) and its
+    sums over a group's heads before dB's and dC's products (which save
+    those two products for all but one head of a block) are not counted."""
     pairs = q * (q + 1) // 2
     return Cost({_dtype(element_size):
                  bc * h * (pairs * (6 * n + 4 * p) + 4 * q * p * n)},

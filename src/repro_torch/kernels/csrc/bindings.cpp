@@ -67,7 +67,7 @@ cudaError_t launch_ssd_chunk_bwd(const void* x, const float* dt_a, const void* b
                                  const void* c, const void* dy, const float* dstate,
                                  const float* ddecay, void* dx, float* ddt, float* part,
                                  void* db, void* dc, const long long* st, int BC, int Q,
-                                 int H, int P, int N, int G, int bf16,
+                                 int H, int P, int N, int G, int bf16, int heads,
                                  cudaStream_t stream);
 
 namespace {
@@ -341,12 +341,16 @@ void ssd_chunk(const torch::Tensor& x, const torch::Tensor& dt_a,
 // (x's shape, through its strides), dstate (BC, H, P, N) and ddecay (BC, Q,
 // H) fp32 contiguous, each cotangent empty where it is zero -> dx, ddt
 // (BC, Q, H) fp32, db and dc (BC, Q, G, N), summing each group's H / G
-// heads; heads_db_dc (2, BC, Q, H, N) fp32 is scratch the kernels fill
+// heads.  bf16 blocks walk `heads` heads of one group (1 for fp32);
+// parts (2, BC, Q, H / heads, N) fp32 is the scratch of each block's (fp32:
+// each head's) dB and dC before the group sum, empty where each bf16 block
+// is a whole group
 void ssd_chunk_bwd(const torch::Tensor& x, const torch::Tensor& dt_a,
                    const torch::Tensor& b, const torch::Tensor& c,
                    const torch::Tensor& dy, const torch::Tensor& dstate,
                    const torch::Tensor& ddecay, torch::Tensor dx, torch::Tensor ddt,
-                   torch::Tensor heads_db_dc, torch::Tensor db, torch::Tensor dc) {
+                   torch::Tensor parts, torch::Tensor db, torch::Tensor dc,
+                   int64_t heads) {
   const c10::cuda::CUDAGuard guard(x.device());
   long long st[15] = {};
   const torch::Tensor* ts[5] = {&x, &dt_a, &b, &c, &dy};
@@ -358,9 +362,10 @@ void ssd_chunk_bwd(const torch::Tensor& x, const torch::Tensor& dt_a,
                    dy.numel() ? dy.data_ptr() : nullptr,
                    dstate.numel() ? f32(dstate) : nullptr,
                    ddecay.numel() ? f32(ddecay) : nullptr, dx.data_ptr(), f32(ddt),
-                   f32(heads_db_dc), db.data_ptr(), dc.data_ptr(), st, x.size(0),
-                   x.size(1), x.size(2), x.size(3), b.size(3), db.size(2),
-                   x.scalar_type() == at::kBFloat16, stream_of(x)),
+                   parts.numel() ? f32(parts) : nullptr, db.data_ptr(), dc.data_ptr(), st,
+                   x.size(0), x.size(1), x.size(2), x.size(3), b.size(3), db.size(2),
+                   x.scalar_type() == at::kBFloat16, static_cast<int>(heads),
+                   stream_of(x)),
                "ssd_chunk_bwd");
 }
 

@@ -1,11 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels:
 // flash attention's bf16 instantiation (flash_attention.cu), the SSD
-// intra-chunk kernel's (ssd_scan.cu), the FCNN forward and dgrad kernels
-// with bf16 weights (fcnn_fwd_tc.cu, fcnn_dgrad_tc.cu) and the FCNN wgrad
-// kernel with bf16 data (fcnn_wgrad_tc.cu).
+// intra-chunk kernel's (ssd_scan.cu), the backwards of both
+// (flash_attention_bwd.cu, ssd_scan_bwd.cu), the FCNN forward and dgrad
+// kernels with bf16 weights (fcnn_fwd_tc.cu, fcnn_dgrad_tc.cu) and the
+// FCNN wgrad kernel with bf16 data (fcnn_wgrad_tc.cu).
 //   * wgmma wrappers: m64nNk16 bf16 products into fp32 accumulators, N =
-//     16, 64 or 128, A from shared memory (ss) or from registers (rs), each
-//     operand K-major or MN-major as its template flags say;
+//     16, 32, 64 or 128, A from shared memory (ss) or from registers (rs),
+//     each operand K-major or MN-major as its template flags say;
 //   * desc_sw128 / desc_sw32: the shared-memory descriptor of a 128-byte-
 //     (32-byte-) swizzled tile;
 //   * wg_fence / wg_commit / wg_wait_all and fence_regs around the
@@ -285,6 +286,26 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16_first(float (&d)[64], uint64
         "=f"(d[54]), "=f"(d[55]), "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]),
         "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(0), "n"(kTransA), "n"(kTransB));
+}
+
+// d (64 x 32, fp32) (+)= A (64 x 16) · B (16 x 32), both in shared
+// memory; kTransA / kTransB = 1 for an MN-major operand, 0 for K-major;
+// scale_d = 0 overwrites d
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss_m64n32k16(float (&d)[16], uint64_t desc_a,
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 
 // d (64 x 16, fp32) (+)= A (64 x 16) · B (16 x 16), both in shared

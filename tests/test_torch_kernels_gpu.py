@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.ssd_scan import SSD_BWD_HEADS
 from repro_torch.kernels.fcnn_layer import (
     fcnn_layer,
     fcnn_layer_dgrad,
@@ -1107,6 +1108,35 @@ def test_ssd_chunk_bwd_matches_plain_on_card(cuda, shape, given, dtype):
         assert torch.equal(t, t2)
     ok, _, crit = SMOKE.k7_bwd_close(torch, got, want,
                                      SMOKE.k7_bwd_noise(x, b, c, *use))
+    assert ok, crit
+
+
+# bf16 K7 bwd at every heads-per-block choice of ssd_scan.SSD_BWD_HEADS
+# that divides a group's heads, at phase 7's two training shapes (one B/C
+# group), all three cotangents: each held at the bars, two calls
+# bit-identical (phase 7 times the same sweep)
+K7_BWD_SWEEP = [(shape, k) for name, shape, timed in SMOKE.K7_BWD_SHAPES
+                if timed for k in SSD_BWD_HEADS
+                if shape[2] // shape[5] % k == 0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,heads", K7_BWD_SWEEP, ids=str)
+def test_ssd_chunk_bwd_every_heads_per_block_on_card(cuda, shape, heads):
+    from repro_torch.kernels.ssd_scan import ssd_chunk_bwd
+
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    x, dt_a, b, c, *cots = SMOKE.k7_bwd_inputs(torch, cuda, gen, shape,
+                                               torch.bfloat16)
+    g = shape[-1]
+    got = ssd_chunk_bwd(x, dt_a, b, c, *cots, g, heads=heads)
+    again = ssd_chunk_bwd(x, dt_a, b, c, *cots, g, heads=heads)
+    want = ref.ssd_chunk_bwd_ref(x, dt_a, b, c, *cots, g)
+    torch.cuda.synchronize()
+    for t, t2 in zip(got, again):
+        assert torch.equal(t, t2)
+    ok, _, crit = SMOKE.k7_bwd_close(torch, got, want,
+                                     SMOKE.k7_bwd_noise(x, b, c, *cots))
     assert ok, crit
 
 

@@ -22,13 +22,17 @@ reference and through the port:
   * ``ops.ssd_chunk``'s autograd function against ``mode="ref"``'s
     ordinary autograd;
   * a CPU emulation of the card's bf16 arithmetic (``csrc/ssd_scan_bwd.cu``:
-    exact bf16 products summed in fp32, S∘L, dS and dst as bf16 hi + lo)
-    within chip_smoke.py's phase-7 bars (``k7_bwd_close``), where one bf16
-    rounding of any of the three misses them, and d(dt_a)'s bar, floored
-    at ``k7_bwd_noise``, still catches a dropped decay term (the pattern
-    of ``test_ssd_bf16_kernel_arithmetic_meets_the_card_bars``);
-  * the wrapper's checks, its meta path and ``cost.ssd_chunk_bwd``, and
-    the launches a remat'd train step makes (phase 18's count).
+    exact bf16 products summed in fp32, S∘L, ΣdS and dst as bf16 hi + lo,
+    a block's heads summed in head order and its parts in block order)
+    within chip_smoke.py's phase-7 bars (``k7_bwd_close``) at 1, 2, 4 and
+    8 heads a block, where one bf16 rounding of any of the three misses
+    them, and d(dt_a)'s bar, floored at ``k7_bwd_noise``, still catches a
+    dropped decay term (the pattern of
+    ``test_ssd_bf16_kernel_arithmetic_meets_the_card_bars``);
+  * ``ssd_bwd_plan`` (a divisor of each group's heads, one wave at the
+    training shapes), the wrapper's checks, its meta path (the card's
+    scratch, ``cost.ssd_chunk_bwd``), and the launches a remat'd train
+    step makes (phase 18's count).
 
 The CUDA kernels are held against the same plain version on the card in
 tests/test_torch_kernels_gpu.py and chip_smoke.py's phase 7.
@@ -36,6 +40,7 @@ tests/test_torch_kernels_gpu.py and chip_smoke.py's phase 7.
 
 import importlib.util
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -49,7 +54,11 @@ from repro_torch.configs import smoke_config
 from repro_torch.core.planner import H100Target
 from repro_torch.kernels import cost, ops, ref
 from repro_torch.kernels.fcnn_layer import KernelLimitError
-from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_bwd
+from repro_torch.kernels import ssd_scan
+from repro_torch.kernels.ssd_scan import (SM_COUNT, SSD_BWD_BLOCK_COST,
+                                          SSD_BWD_HEADS, bwd_parts_shape,
+                                          ssd_bwd_plan, ssd_chunk,
+                                          ssd_chunk_bwd)
 from repro_torch.launch.steps import TrainSettings, build_train_step, \
     init_train_state
 from repro_torch.models import mamba2 as M
@@ -305,17 +314,32 @@ def test_heads_of_groups_broadcasts_consecutive_heads():
 
 # --------------------------------------------- the card's bf16 arithmetic
 
+def _in_order(t, dim):
+    """Σ over ``dim`` one term after another, in index order (the kernel's
+    fp32 order: head by head, part by part)."""
+    terms = t.unbind(dim)
+    out = terms[0]
+    for term in terms[1:]:
+        out = out + term
+    return out
+
+
 def emulate_bwd(x, dt_a, b, c, dy, dstate, ddecay, groups, once=(),
-                drop=()):
+                drop=(), heads=1):
     """The bf16 kernel's arithmetic (ssd_scan_bwd.cu) in torch: S = C·Bᵀ,
     dM = dy·xᵀ, x·dst and B·dstᵀ as fp32 sums of exact bf16 products; L
-    and w from exp in fp32; S∘L, dS and dst entering their products as
-    bf16 hi + lo, or rounded once to bf16 where named in ``once``
-    ("w", "ds", "dst"); d(dt_a) in fp32 from the row and column sums of
-    dS∘S, dw and the decay term (left out where ``drop`` names "decay");
-    dx, dB and dC (each group's heads summed in fp32) rounded once."""
+    and w from exp in fp32; S∘L and dst entering their products as bf16
+    hi + lo, or rounded once to bf16 where named in ``once`` ("w",
+    "dst"); d(dt_a) in fp32 from the row and column sums of dS∘S, dw and
+    the decay term (left out where ``drop`` names "decay").  A block walks
+    ``heads`` consecutive heads of a group: ΣdS over them in fp32, in head
+    order, enters dC = ΣdS·B and dB's ΣdSᵀ·C as hi + lo (rounded once
+    where ``once`` names "ds"), dB's w∘(x·dst) summed over them in head
+    order; each group's parts added in block order; dx, dB and dC rounded
+    once."""
     bc, q, h, p = x.shape
     n = b.shape[-1]
+    blocks = h // heads
 
     def operand(v, name):
         hi = v.bfloat16().float()
@@ -333,9 +357,11 @@ def emulate_bwd(x, dt_a, b, c, dy, dstate, ddecay, groups, once=(),
     dx = (w[..., None] * torch.einsum("bshn,bhpn->bshp", bf, dst)
           + torch.einsum("btsh,bthp->bshp", operand(s * lmat, "w"), dyf))
     f = torch.einsum("bshp,bhpn->bshn", xf, dst)
-    dsp = operand(ds, "ds")
-    db = w[..., None] * f + torch.einsum("btsh,bthn->bshn", dsp, cf)
-    dc = torch.einsum("btsh,bshn->bthn", dsp, bf)
+    sds = operand(_in_order(ds.reshape(bc, q, q, blocks, heads), 4), "ds")
+    wf = _in_order((w[..., None] * f).reshape(bc, q, blocks, heads, n), 3)
+    bk, ck = bf[:, :, ::heads], cf[:, :, ::heads]   # a block's group's B, C
+    db = wf + torch.einsum("btsk,btkn->bskn", sds, ck)
+    dc = torch.einsum("btsk,bskn->btkn", sds, bk)
     r = ds * s
     dww = (f * bf).sum(-1) * w
     dcs = r.sum(2) - r.sum(1) - dww
@@ -343,7 +369,7 @@ def emulate_bwd(x, dt_a, b, c, dy, dstate, ddecay, groups, once=(),
     if "decay" not in drop:
         dcs = dcs + ddecay * torch.exp(cs)
     ddt = torch.flip(torch.cumsum(torch.flip(dcs, (1,)), 1), (1,))
-    db, dc = (t.reshape(bc, q, groups, h // groups, n).sum(3)
+    db, dc = (_in_order(t.reshape(bc, q, groups, blocks // groups, n), 3)
               for t in (db, dc))
     return dx.bfloat16(), ddt, db.bfloat16(), dc.bfloat16()
 
@@ -400,6 +426,40 @@ def test_one_bf16_rounding_misses_the_card_bars(operand, misses):
     print(f"{operand} rounded once, {misses}: {note}")
     assert not ok, note
     assert SMOKE.rounded_once(torch, emulate_bwd(*ins)[i], want[i])[0]
+
+
+# every EMULATED case at each heads-per-block choice of 1, 2, 4, 8 that
+# divides its group's heads (per-head B/C: 1)
+EMULATED_HEADS = [(case, k) for case in sorted(EMULATED) for k in (1, 2, 4, 8)
+                  if EMULATED[case][2] // EMULATED[case][5] % k == 0]
+
+
+@pytest.mark.parametrize("case,heads", EMULATED_HEADS, ids=str)
+def test_block_order_of_sums_meets_the_card_bars(case, heads):
+    """The emulated kernel with ``heads`` heads a block (ΣdS over them,
+    then hi + lo; w∘F summed over them; the parts added in block order)
+    within chip_smoke.py's phase-7 bars of the plain version."""
+    ins = _card_inputs(EMULATED[case], seed=5)
+    want = ref.ssd_chunk_bwd_ref(*ins)
+    ok, crit = _held(emulate_bwd(*ins, heads=heads), want, ins)
+    print(crit)
+    assert ok, crit
+
+
+@pytest.mark.parametrize("misses", ["db", "dc"])
+def test_block_dS_sum_rounded_once_misses_the_card_bars(misses):
+    """Why ΣdS over a block's heads enters dB's and dC's products as bf16 hi
+    + lo: rounded once to bf16, it puts the gradient past
+    ``rounded_once``; hi + lo meets it (8 heads a block at Zamba2's N)."""
+    ins = _card_inputs(EMULATED["zamba2"], seed=5)
+    want = ref.ssd_chunk_bwd_ref(*ins)
+    i = NAMES.index(misses)
+    ok, note = SMOKE.rounded_once(
+        torch, emulate_bwd(*ins, once=("ds",), heads=8)[i], want[i])
+    print(f"ΣdS rounded once, {misses}: {note}")
+    assert not ok, note
+    assert SMOKE.rounded_once(torch, emulate_bwd(*ins, heads=8)[i],
+                              want[i])[0]
 
 
 def test_ddt_bar_catches_a_dropped_decay_term():
@@ -480,6 +540,117 @@ def test_meta_path_reports_both_kernels():
     assert [tuple(g.shape) for g in grads] == [
         (16, 128, 64, 64), (16, 128, 64), (16, 128, 1, 64), (16, 128, 1, 64)]
     assert ops.launch_counts()["ssd_chunk_bwd"] == 0
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "mamba2-2.7b"])
+def test_bwd_plan_fills_the_card_at_the_training_shapes(arch):
+    """``ssd_bwd_plan`` at phase 7's (and phase 18's) training shapes, one
+    B/C group: a divisor of H of SSD_BWD_HEADS whose grid is one wave of
+    at least nine in ten of the H100's SMs (8 heads at Zamba2-1.2B, 10 at
+    mamba2-2.7b: 128 blocks, where 8 of 80 heads would leave 160, a second
+    wave of 28), and no other choice spans less by the plan's measure."""
+    bc, q, h, p, n = SMOKE.K7_PATHS[arch]
+    heads = ssd_bwd_plan(bc, h, q, 1, n)
+    assert heads == {"zamba2-1.2b": 8, "mamba2-2.7b": 10}[arch]
+    assert heads in SSD_BWD_HEADS and h % heads == 0
+    assert 0.9 * SM_COUNT <= bc * h // heads <= SM_COUNT
+    for k in SSD_BWD_HEADS:
+        if h % k == 0:
+            waves = -(-bc * h // k // SM_COUNT)
+            assert waves * (k + SSD_BWD_BLOCK_COST) >= heads + \
+                SSD_BWD_BLOCK_COST
+
+
+@pytest.mark.parametrize("bc,h,g,n", [(16, 64, 1, 64), (16, 80, 1, 128),
+                                      (2, 8, 8, 128), (1, 3, 3, 90),
+                                      (3, 6, 3, 72), (2, 4, 1, 16),
+                                      (2, 8, 2, 4), (32, 64, 1, 64),
+                                      (64, 80, 4, 128), (1, 64, 1, 64)])
+def test_bwd_plan_keeps_a_block_in_one_group(bc, h, g, n):
+    """A block's heads lie in one B/C group: the plan divides H / G (per-head
+    B/C, G = H, gives 1, as phase 7's edge cases take it), and a chunk's
+    blocks stay within SM_COUNT where some choice allows it."""
+    heads = ssd_bwd_plan(bc, h, 128, g, n)
+    assert heads in SSD_BWD_HEADS and (h // g) % heads == 0
+    if g == h:
+        assert heads == 1
+    if any((h // g) % k == 0 and bc * h // k <= SM_COUNT
+           for k in SSD_BWD_HEADS):
+        assert bc * h // heads <= SM_COUNT
+
+
+def test_bwd_plan_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="chunk 129"):
+        ssd_bwd_plan(16, 64, 129, 1)
+    with pytest.raises(ValueError, match="state size 129"):
+        ssd_bwd_plan(16, 64, 128, 1, 129)
+    with pytest.raises(ValueError, match="3 groups do not divide 64"):
+        ssd_bwd_plan(16, 64, 128, 3)
+    x = torch.zeros(2, 8, 4, 16, dtype=torch.bfloat16)
+    b = torch.zeros(2, 8, 4, 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="3 heads a block"):
+        ssd_chunk_bwd(x.to("meta"), torch.zeros(2, 8, 4, device="meta"),
+                      b.to("meta"), b.to("meta"), None, None, None, 1,
+                      heads=3)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", [(16, 128, 64, 64, 64, 1),
+                                   (16, 128, 80, 64, 128, 1),
+                                   (2, 100, 8, 64, 128, 8),
+                                   (3, 77, 6, 32, 72, 3)], ids=str)
+def test_meta_path_allocates_what_the_card_path_allocates(dtype, shape,
+                                                          monkeypatch):
+    """On meta (the dry-run) ``ssd_chunk_bwd`` allocates the tensors the
+    CUDA path allocates, scratch included (bf16: one fp32 part of dB and dC
+    a block, none where a block is a whole group; fp32: each head's), and
+    reports ``cost.ssd_chunk_bwd``; the CUDA path, run here against a
+    stand-in extension, hands the kernel that scratch and the plan's
+    heads."""
+    bc, q, h, p, n, g = shape
+    tdt = DTYPES[dtype][1]
+    allocs = {"meta": [], "cuda": []}
+    real_empty = torch.empty
+    seen = []
+
+    def run(dev):
+        x = real_empty(bc, q, h, p, dtype=tdt, device=dev)
+        dt_a = real_empty(bc, q, h, device=dev)
+        b = real_empty(bc, q, 1, n, dtype=tdt, device=dev).expand(bc, q, h, n)
+        dy = real_empty(bc, q, h, p, dtype=tdt, device=dev)
+        dst = real_empty(bc, h, p, n, device=dev)
+        where = "meta" if dev == "meta" else "cuda"
+
+        def spy(*size, **kw):
+            t = real_empty(*size, **kw)
+            if t.numel():
+                allocs[where].append((tuple(t.shape), t.dtype))
+            return t
+
+        monkeypatch.setattr(torch, "empty", spy)
+        try:
+            return ssd_chunk_bwd(x, dt_a, b, b, dy, dst, None, g)
+        finally:
+            monkeypatch.setattr(torch, "empty", real_empty)
+
+    with cost.recording(_Recorder()) as rec:
+        run("meta")
+    assert rec.calls == [("ssd_chunk_bwd", cost.ssd_chunk_bwd(
+        bc, q, h, p, n, g, 2 if dtype == "bfloat16" else 4))]
+    monkeypatch.setattr(ssd_scan, "device_type", lambda *a: "cuda")
+    monkeypatch.setattr(ssd_scan._build, "extension", lambda: SimpleNamespace(
+        ssd_chunk_bwd=lambda *a: seen.append(a)))
+    run("cpu")
+    assert allocs["meta"] == allocs["cuda"]
+    bf16 = dtype == "bfloat16"
+    heads = ssd_bwd_plan(bc, h, q, g, n) if bf16 else 1
+    want = bwd_parts_shape(bc, q, h, n, g, bf16, heads)
+    (args,) = seen
+    assert args[-1] == heads and tuple(args[9].shape) == want
+    parts = h // heads
+    assert want == ((0,) if bf16 and parts == g else (2, bc, q, parts, n))
+    if shape[:3] == (16, 128, 64) and bf16:     # Zamba2-1.2B: 8 parts of 64
+        assert want == (2, 16, 128, 8, 64)
 
 
 def test_bwd_cost_and_bound_at_zamba2():

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Two checkouts of the port, A and B, on one CUDA card: the LM prefill
-kernels (K6 flash_attention, K7 ssd_chunk) and K6's backward
-(flash_attention_bwd) at chip_smoke.py phase 7's timed shapes, outputs
-compared bit for bit and device times taken in turns A, B, B, A.  Where
-the backward's outputs differ (a changed order of summation), B's are
-held to A's at phase 7's bars (chip_smoke.k6_bwd_close with its noise
-floor) and the run fails if one misses.
+kernels (K6 flash_attention, K7 ssd_chunk) and the backwards of K6
+(flash_attention_bwd) and K7 (ssd_chunk_bwd) at chip_smoke.py phase 7's
+timed shapes, outputs compared bit for bit and device times taken in turns
+A, B, B, A.  Where a backward's outputs differ (a changed order of
+summation), B's are held at phase 7's bars: K6's to A's
+(chip_smoke.k6_bwd_close with its noise floor), K7's to its plain
+version on the same inputs (chip_smoke.k7_bwd_close with k7_bwd_noise);
+the run fails if one misses, or if K7's fp32 backward is not
+bit-identical (its kernel is meant to be unchanged).
 
   python3 tools/ab_lm_kernels.py --a OLD_CHECKOUT --b NEW_CHECKOUT
 
@@ -47,6 +50,11 @@ SHAPES = (
           ("window 1000", (1, 32, 32, 4096, 64, 4096, True, 1000)))],
     ("flash_attention_bwd", "float32", (1, 32, 8, 2048, 64, 2048, True, 0),
      "granite-3-2b train"),
+    # K7's backward: (BC, Q, H, P, N), one B/C group broadcast to the heads
+    *[("ssd_chunk_bwd", dtype, shape, name)
+      for dtype in ("bfloat16", "float32")
+      for name, shape in (("zamba2-1.2b train", (16, 128, 64, 64, 64)),
+                          ("mamba2-2.7b train", (16, 128, 80, 64, 128)))],
 )
 
 
@@ -55,21 +63,24 @@ def label(kernel: str, dtype: str, shape: tuple, flag) -> str:
         return f"K6 {shape} {dtype} {'causal' if flag else 'full'}"
     if kernel == "flash_attention_bwd":
         return f"K6 bwd {flag} {dtype}"
+    if kernel == "ssd_chunk_bwd":
+        return f"K7 bwd {flag} {dtype}"
     return f"K7 BC={shape[0]} {shape[1:]} {dtype} stride-0 b/c"
 
 
 def worker(root: str, save: str | None) -> None:
     """Build (``save`` None) or run every shape and save outputs and ms."""
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    from chip_smoke import device_ms, k6_bwd_inputs, k6_bwd_noise
+    from chip_smoke import (device_ms, k6_bwd_inputs, k6_bwd_noise,
+                            k7_bwd_inputs, k7_bwd_noise)
 
     sys.path.insert(0, os.path.join(root, "src"))   # ahead of this repo's
     import torch
 
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, ref
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
-    from repro_torch.kernels.ssd_scan import ssd_chunk
+    from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_bwd
 
     assert _build.BUILD_DIR.is_relative_to(os.path.realpath(root)), root
     _build.extension()
@@ -84,8 +95,15 @@ def worker(root: str, save: str | None) -> None:
         def rand(*s, dt=dt):
             return torch.randn(*s, generator=gen, device=dev).to(dt)
 
-        noise = None
-        if kernel == "flash_attention":
+        noise = plain = None
+        if kernel == "ssd_chunk_bwd":
+            x, dt_a, b_, c_, *cots = k7_bwd_inputs(torch, dev, gen, (*shape, 1),
+                                                   dt)
+            fn = lambda a=(x, dt_a, b_, c_, *cots): ssd_chunk_bwd(*a, 1)  # noqa: E731
+            noise = k7_bwd_noise(x, b_, c_, *cots)
+            plain = [t.cpu() for t in ref.ssd_chunk_bwd_ref(x, dt_a, b_, c_,
+                                                            *cots, 1)]
+        elif kernel == "flash_attention":
             b, h, s, d = shape
             q, k, v = (rand(b, s, h, d).transpose(1, 2) for _ in range(3))
             fn = lambda q=q, k=k, v=v: (flash_attention(q, k, v, flag),)  # noqa: E731
@@ -103,7 +121,7 @@ def worker(root: str, save: str | None) -> None:
             c_ = rand(bc, q, 1, n).expand(bc, q, h, n)
             fn = lambda x=x, a=dt_a, b=b_, c=c_: ssd_chunk(x, a, b, c)  # noqa: E731
         outs = [t.cpu() for t in fn()]
-        results.append((outs, device_ms(fn, iters=5), noise))
+        results.append((outs, device_ms(fn, iters=5), noise, plain))
     torch.save(results, save)
 
 
@@ -137,12 +155,13 @@ def main(argv: list[str] | None = None) -> int:
                             "--save", save], check=True)
             runs[side].append(torch.load(save))
     sys.path.insert(0, os.path.dirname(os.path.dirname(me)))
-    from chip_smoke import k6_bwd_close
+    from chip_smoke import k6_bwd_close, k7_bwd_close
 
     failed = False
     for i, spec in enumerate(SHAPES):
-        (outs_a, ms_a1, noise), (_, ms_a2, _) = runs["A"][0][i], runs["A"][1][i]
-        (outs_b, ms_b1, _), (_, ms_b2, _) = runs["B"][0][i], runs["B"][1][i]
+        (outs_a, ms_a1, noise, plain), (_, ms_a2, _, _) = (runs["A"][0][i],
+                                                           runs["A"][1][i])
+        (outs_b, ms_b1, _, _), (_, ms_b2, _, _) = runs["B"][0][i], runs["B"][1][i]
         same = all(torch.equal(a, b) for a, b in zip(outs_a, outs_b))
         diff = max((a.double() - b.double()).abs().max().item()
                    for a, b in zip(outs_a, outs_b))
@@ -150,7 +169,16 @@ def main(argv: list[str] | None = None) -> int:
                 f"B {ms_b1:.5f} {ms_b2:.5f} | A/B "
                 f"{(ms_a1 + ms_a2) / (ms_b1 + ms_b2):.3f}x | outputs "
                 f"{'bit-identical' if same else f'differ, max abs {diff:.3e}'}")
-        if noise is not None and not same:
+        if spec[0] == "ssd_chunk_bwd" and not same:
+            share = max((a != b).double().mean().item()
+                        for a, b in zip(outs_a, outs_b))
+            ok, _, crit = k7_bwd_close(torch, outs_b, plain, noise)
+            ok = ok and spec[1] == "bfloat16"
+            line += (f" (B against the plain version: {crit}; up to "
+                     f"{100 * share:.2f}% of an output's elements differ from "
+                     f"A's) {'ok' if ok else 'FAIL'}")
+            failed = failed or not ok
+        elif noise is not None and not same:
             notes = []
             for name, a, b, n in zip(("dq", "dk", "dv"), outs_a, outs_b, noise):
                 if torch.equal(a, b):
