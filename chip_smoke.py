@@ -10,9 +10,10 @@ period program on an 8-device ring, that program again losing two of its
 devices and resuming from a checkpoint on the six left, Zamba2-1.2B,
 qwen3-14b, qwen2-moe-a2.7b and mamba2-2.7b served at full width in bf16,
 and seamless-m4t-large-v2 (full width) and qwen2-vl-72b (full width, cut
-in depth) through their prefill and decode steps, granite-3-2b and
-Zamba2-1.2B and mamba2-2.7b trained at full width by the LM train step
-(attention, the SSD and the loss through their kernels and backward
+in depth) through their prefill and decode steps, granite-3-2b,
+Zamba2-1.2B, mamba2-2.7b, granite-moe-1b-a400m, seamless-m4t-large-v2
+and qwen2-vl-72b (cut in depth) trained at full width by the LM train
+step (attention, the SSD and the loss through their kernels and backward
 kernels), Zamba2-1.2B served on a ring of 8 logical devices losing 2
 under the Lemma-1 autoscaler and prefilled past its attention window,
 granite-3-2b
@@ -44,7 +45,9 @@ without a result line:
               held to the plain version; K4/K5 (softmax_xent) in fp32 and
               bf16 at NN1 (64, 10), NN5 (128, 10) and the edges (1, 10)
               and (37, 300), and at LM loss shapes (2048, 49408) fp32 and
-              bf16, (4096, 32000), (37, 49408) and (2048, 1000), each K4/K5
+              bf16, (4096, 32000), (37, 49408), (2048, 1000), and the
+              losses phases 18e and 18f train, (1024, 256256) and (2048,
+              152064) fp32, each K4/K5
               row naming the launch its host plan picked (K4: the
               one-block lane kernel, or the rows kernel's warps a row;
               both: 16-byte vectors or not), nll, lse and the batch mean
@@ -90,8 +93,14 @@ without a result line:
               kernel's own o and lse, bf16 and fp32, at granite-3-2b's
               and Zamba2-1.2B's training shapes, qwen3-14b's (1, 40,
               2048, 128) on 8, seamless's cross-attention (1, 16, 512, 64)
-              over 1024 frames, a window of 1000 at 4096 tokens (each
-              timed beside the plain version, SDPA's backward and the
+              over 1024 frames, a window of 1000 at 4096 tokens, what
+              phases 18d-18f train: granite-moe-1b-a400m's (1, 16, 2048,
+              64) on 8, seamless's encoder and cross-attention at its
+              train inputs (1, 16, 1024, 64) full and its decoder's causal,
+              qwen2-vl-72b's (1, 64, 2048, 128) on 8 (each timed beside
+              the plain version, SDPA's backward and the bound, and its
+              forward with the lse held to the
+              plain version and timed beside it, SDPA's forward and the
               bound) and edges (S = 1, ragged tiles, Sk < a tile, D = 16
               to 128, groups of 1 to 5, windows 1 and 65); repeats
               bit-identical, the forward's o with its lse bit-identical to
@@ -240,7 +249,34 @@ without a result line:
               dry-run's predicted peak on meta, then 3 AdamW steps (the
               loss finite and falling, K7 128 and its backward 64 a step,
               K4/K5 once, no plain version reached), peak < 80 GB beside
-              the prediction, a profiled step with K7's share
+              the prediction, a profiled step with K7's share;
+              18d-18f: granite-moe-1b-a400m (24 layers, 32 experts top-8,
+              2 x 2048 in 2 microbatches), seamless-m4t-large-v2 (24 + 24
+              layers, 2 x (1024 frames + 1024 tokens) in 2) and
+              qwen2-vl-72b at full width cut to 2 of 80 layers (1 x 2048
+              patch embeddings at M-RoPE positions: an image grid, then
+              text), each in bf16 with fp32 moments and full remat from
+              seeded weights: phase 22's dry-run of the cell first, 3
+              AdamW steps (the loss finite and falling; K4/K5 once a
+              microbatch, K6 twice a layer's attention and microbatch and
+              its backward once, ``train_launches``; no plain version
+              reached), the peak < 80 GB and within 10% of the dry-run's,
+              a profiled step (K6's and K4/K5's shares from its rows);
+              step 1 against the plain path at phase 18's bars, the
+              seamless and qwen2-vl cells' raised to fixed bars, twice the
+              largest move of the plain path with the reference's chunked
+              attention at its 1024-key chunk (``_flash_fwd_core``'s
+              forward and ``_sdpa_chunked_bwd``'s backward) against
+              itself over five batches (``TRAIN_FAMILIES``), that witness
+              printed each run on the cell's batch, and an fp32 twin (4
+              layers; the VLM 1) at 1e-5 for the loss and 1e-4 for each
+              leaf.  The MoE's expert choices
+              are recorded by (layer, forward or recompute, microbatch)
+              and the plain path replays them (``ExpertChoices``); each
+              recompute must route bit for bit as its forward; the plain
+              path's free-running flip share per layer is printed; step 1
+              is taken twice from the same state and the two compared bit
+              for bit
  19. elastic  Zamba2-1.2B, full width, bf16: 8 requests of the
               ``device-loss-mid-decode`` preset (2 devices lost at decode
               step 4) with 512/1024/2048-token prompts on 4 slots, the
@@ -268,8 +304,10 @@ without a result line:
               read only the keys in their window; prefill ms, a profiled
               prefill, K6 ms a call against its bound, peak memory
  21. driver   the LM training driver (``repro_torch.launch.train.train``):
-              granite-3-2b at full width and depth, bf16, 2 x 2048 tokens
-              in 2 microbatches, the reference's ``TrainSettings``: (a) a
+              granite-3-2b at full width cut to 10 of its 40 layers
+              (``DRIVER_LAYERS``, the script's running time), bf16, 2 x
+              2048 tokens in 2 microbatches, the reference's
+              ``TrainSettings``: (a) a
               6-step run dies right after its checkpoint of step index 2;
               (b) a 6-step run in the same directory resumes at step 3;
               (c) runs 6 steps uninterrupted; only (a) checkpoints; (b)'s
@@ -278,8 +316,8 @@ without a result line:
               where (c) and (d) agree bit for bit the resume fails, else
               it is held within max(2 x their spread, 1e-5 relative);
               each run's K4-K7 launches a step equal to
-              ``train_launches`` (K4/K5 twice, K6 160 and its backward
-              80); (b) profiled from the end of its restore, its device
+              ``train_launches`` (K4/K5 twice, K6 40 and its backward
+              20); (b) profiled from the end of its restore, its device
               busy time a step and K6's share printed; ms/step, checkpoint bytes,
               snapshot, write and restore ms; the checkpoint goes under
               ``build/``, which must hold 1.5 times it (else Zamba2-1.2B
@@ -295,8 +333,8 @@ without a result line:
               granite-3-2b train 2 x 2048 in 2 microbatches, Zamba2-1.2B
               train 1 x 2048, the 2048-token batch-1 prefill and the
               4-slot decode step at depth 2048 of Zamba2-1.2B, qwen3-14b
-              and mamba2-2.7b, NN1-NN6's executor step at batch 128 on 8
-              logical devices; (c) granite-3-2b at 1 x 4096, the baseline
+              and mamba2-2.7b, the train steps of phases 18d-18f,
+              NN1-NN6's executor step at batch 128 on 8 logical devices; (c) granite-3-2b at 1 x 4096, the baseline
               and hillclimb's pure_fsdp+fce+oh+chunk config (fused CE,
               one-hot embedding, chunked attention past 2048²) from the
               same weights, bf16 at full width (loss 2e-2, gradient norm
@@ -355,6 +393,7 @@ name and power limit as nvidia-smi reports them, and the result object.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -417,14 +456,23 @@ KERNEL_INFO = {
 FCNN_KERNELS = tuple(KERNEL_INFO)[:5]
 XENT_KERNELS = ("softmax_xent_fwd", "softmax_xent_dlogits")
 # K4/K5 at LM loss shapes (B·L, padded vocabulary): granite-3-2b's
-# microbatch of 2048 tokens (the train path, phase 18), Zamba2's vocabulary
-# at 4096 tokens, a ragged batch, a narrow vocabulary, and bf16 logits
+# microbatch of 2048 tokens (the train path, phase 18; granite-moe-1b-a400m's
+# too, phase 18d), Zamba2's vocabulary at 4096 tokens, a ragged batch, a
+# narrow vocabulary, bf16 logits, and the microbatches of phases 18e
+# (seamless-m4t-large-v2: 1024 decoder tokens, 256206 classes padded) and
+# 18f (qwen2-vl-72b: 2048 tokens, 152064 classes)
 LM_XENT_SHAPES = (("2048x49408", 2048, 49408, "float32"),
                   ("4096x32000", 4096, 32000, "float32"),
                   ("37x49408", 37, 49408, "float32"),
                   ("2048x1000", 2048, 1000, "float32"),
-                  ("2048x49408", 2048, 49408, "bfloat16"))
+                  ("2048x49408", 2048, 49408, "bfloat16"),
+                  ("1024x256256", 1024, 256256, "float32"),
+                  ("2048x152064", 2048, 152064, "float32"))
 LM_XENT_LABEL = "LM 2048x49408 float32"
+# the LM loss shape of each family train path, by arch
+LM_XENT_PATHS = {"granite-moe-1b-a400m": LM_XENT_LABEL,
+                 "seamless-m4t-large-v2": "LM 1024x256256 float32",
+                 "qwen2-vl-72b": "LM 2048x152064 float32"}
 LM_KERNELS = ("flash_attention", "ssd_chunk")
 # the kernels this script holds to 0 spill bytes in ptxas's report, by a
 # substring of their mangled names
@@ -1488,17 +1536,29 @@ K6_BWD_FP32_RTOL = 1e-4
 K6_BWD_SLACK = 1e-3
 K6_BWD_NOISE = 2.0 ** -20     # 16 fp32 ulps of a term's bound
 K6_LSE_TOL = 1e-5
-# (B, H, KV, S, D, Sk, causal, window), each timed: the attention that
-# phase 18 trains (granite-3-2b: 32 heads on 8 KV heads of 64 at 2048
-# tokens; Zamba2-1.2B's shared attention, 32 heads of 64), qwen3-14b's GQA
-# of 128 (1, 40, 2048, 128) on 8, the seamless-m4t-large-v2 decoder's
-# cross-attention (512 tokens over 1024 frames) and a sliding window
+# (B, H, KV, S, D, Sk, causal, window), each timed with its forward: the
+# attention that phase 18 trains (granite-3-2b: 32 heads on 8 KV heads of
+# 64 at 2048 tokens; Zamba2-1.2B's shared attention, 32 heads of 64),
+# qwen3-14b's GQA of 128 (1, 40, 2048, 128) on 8, the seamless-m4t-large-v2
+# decoder's cross-attention (512 tokens over 1024 frames), a sliding
+# window, and what phases 18d-18f train: granite-moe-1b-a400m's 16 heads
+# on 8 KV heads of 64 at 2048 tokens (causal), seamless's encoder
+# self-attention and cross-attention at the train inputs' 1024 frames and
+# tokens (full) and its decoder self-attention (causal), qwen2-vl-72b's
+# (1, 64, 2048, 128) on 8 (causal)
 K6_BWD_SHAPES = (("granite-3-2b train", (1, 32, 8, 2048, 64, 2048, True, 0)),
                  ("zamba2-1.2b train", (1, 32, 32, 2048, 64, 2048, True, 0)),
                  ("qwen3-14b", (1, 40, 8, 2048, 128, 2048, True, 0)),
                  ("seamless-m4t-large-v2 cross-attention",
                   (1, 16, 16, 512, 64, 1024, False, 0)),
-                 ("window 1000", (1, 32, 32, 4096, 64, 4096, True, 1000)))
+                 ("window 1000", (1, 32, 32, 4096, 64, 4096, True, 1000)),
+                 ("granite-moe-1b-a400m train",
+                  (1, 16, 8, 2048, 64, 2048, True, 0)),
+                 ("seamless-m4t-large-v2 train",
+                  (1, 16, 16, 1024, 64, 1024, False, 0)),
+                 ("seamless-m4t-large-v2 decoder train",
+                  (1, 16, 16, 1024, 64, 1024, True, 0)),
+                 ("qwen2-vl-72b train", (1, 64, 8, 2048, 128, 2048, True, 0)))
 # the edges, untimed: one token, ragged tiles and lengths, Sk < one tile,
 # D = 16, 32, 96, groups of 1 to 5, windows of 1 and 65
 K6_BWD_EDGES = ((1, 4, 2, 1, 64, 1, True, 0), (2, 4, 2, 300, 64, 300, True, 0),
@@ -1659,6 +1719,22 @@ def run_k6_bwd_phase(torch, dev) -> dict:
             if name:
                 del again, want
                 fwd, both = k6_bwd_library(torch, q, k, v, do, causal, window)
+                # the forward with its lse, as a train step runs it: held
+                # to the plain version at phase 7's K6 bars, timed beside
+                # it, SDPA's forward and the bound
+                f_ok, f_err, f_crit = _close(
+                    torch, o, ref.flash_attention_ref(q, k, v, causal, window),
+                    K6_FP32_RTOL, lambda: BF16_ULP * ref.flash_attention_ref(
+                        q.float(), k.float(), v.float().abs(), causal,
+                        window))
+                ok = ok and f_ok
+                f_ms = device_ms(lambda: flash_attention(
+                    q, k, v, causal, window, lse=True), iters=5, replays=5)
+                f_plain = device_ms(lambda: ref.flash_attention_lse_ref(
+                    q, k, v, causal, window), iters=2, replays=3)
+                f_lib = device_ms(fwd, iters=5, replays=5)
+                f_bound, f_by = bound(kcost.flash_attention(
+                    b, h, kv, s, sk, d, q.element_size(), causal, window))
                 ms = device_ms(kern, iters=5, replays=5)
                 plain_ms = device_ms(lambda: ref.flash_attention_bwd_ref(
                     q, k, v, o, do, lse, causal, window), iters=2, replays=3)
@@ -1672,14 +1748,22 @@ def run_k6_bwd_phase(torch, dev) -> dict:
                          f"library (SDPA backward) {lib_ms:.5f} bound "
                          f"{b_ms:.5f} ({b_by}) = {100 * b_ms / ms:.1f}% | "
                          f"{flops / ms / 1e9:.2f} TFLOP/s of work, "
-                         f"{issued / ms / 1e9:.2f} issued [{name}]")
+                         f"{issued / ms / 1e9:.2f} issued [{name}]"
+                         f"\n  its forward with the lse: max_abs {f_err:.3e} "
+                         f"({f_crit}) {'ok' if f_ok else 'FAIL'} | device ms:"
+                         f" kernel {f_ms:.5f} plain {f_plain:.5f} library "
+                         f"(SDPA forward) {f_lib:.5f} bound {f_bound:.5f} "
+                         f"({f_by}) = {100 * f_bound / f_ms:.1f}%")
                 row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                            bound_ms=b_ms, bound_by=b_by, shapes=[label],
-                           max_abs_err=worst)
+                           max_abs_err=worst, forward={
+                               "ms": f_ms, "plain_ms": f_plain,
+                               "library_ms": f_lib, "bound_ms": f_bound,
+                               "bound_by": f_by, "max_abs_err": f_err})
                 summary["paths"][f"{name} {str(dtype)[6:]}"] = row
                 if name == K6_BWD_MAIN and dtype == torch.bfloat16:
                     summary.update({k_: v_ for k_, v_ in row.items()
-                                    if k_ != "max_abs_err"})
+                                    if k_ not in ("max_abs_err", "forward")})
             print(line, flush=True)
             check(ok, f"flash_attention_bwd {label} disagrees with its plain "
                       f"version")
@@ -2249,41 +2333,104 @@ def dense_path_phases(torch, dev) -> dict[str, dict[str, int]]:
     return launches
 
 
+class ExpertChoices:
+    """The MoE's expert choices, recorded in one run and replayed in
+    another, keyed by (layer, pass, n): the layer from its router's place
+    in the stacked leaf (layer i's view starts i·numel into it), the pass
+    "forward" or "recompute" (a call made while autograd runs a backward
+    is the remat's recompute of its layer's forward, which runs the layers
+    last first), n the count of earlier calls with the same layer and
+    pass (a microbatch, a prefill).  ``record()`` and ``replay()`` are
+    context managers that patch ``moe._route`` (to learn the key) and
+    ``moe.top_k`` (to pick) and restore both on exit, a raise included; a
+    replayed call takes its recorded experts and gathers their gates from
+    its own probabilities, and a key that was not recorded raises."""
+
+    FORWARD, RECOMPUTE = "forward", "recompute"
+
+    def __init__(self):
+        self.choices: dict[tuple[int, str, int], object] = {}
+
+    @classmethod
+    def key(cls, router, seen: dict) -> tuple[int, str, int]:
+        import torch
+
+        layer = router.storage_offset() // max(router.numel(), 1)
+        kind = (cls.RECOMPUTE if torch._C._current_graph_task_id() != -1
+                else cls.FORWARD)
+        n = seen.get((layer, kind), 0)
+        seen[(layer, kind)] = n + 1
+        return layer, kind, n
+
+    @contextlib.contextmanager
+    def _patched(self, pick):
+        from repro_torch.models import moe
+
+        route, top_k = moe._route, moe.top_k
+        seen: dict = {}
+        keys: list = []
+
+        def keyed_route(router, tokens, valid, cfg):
+            keys.append(self.key(router, seen))
+            try:
+                return route(router, tokens, valid, cfg)
+            finally:
+                keys.pop()
+
+        moe._route = keyed_route
+        moe.top_k = lambda probs, k: pick(keys[-1], probs, k, top_k)
+        try:
+            yield self
+        finally:
+            moe._route, moe.top_k = route, top_k
+
+    def record(self):
+        """Record every call's choices (earlier records dropped)."""
+        self.choices = {}
+
+        def pick(key, probs, k, top_k):
+            gate, expert = top_k(probs, k)
+            self.choices[key] = expert
+            return gate, expert
+        return self._patched(pick)
+
+    def replay(self):
+        def pick(key, probs, k, top_k):
+            if key not in self.choices:
+                raise KeyError(f"no expert choices recorded for {key}")
+            expert = self.choices[key]
+            return probs.gather(-1, expert), expert
+        return self._patched(pick)
+
+    def by_layer(self, kind: str = FORWARD, n: int = 0) -> list:
+        """The (G, T, k) choices of each layer's ``kind`` call ``n``."""
+        return [self.choices[key] for key in sorted(self.choices)
+                if key[1:] == (kind, n)]
+
+    def recompute_differs(self) -> list[tuple[int, int]]:
+        """(layer, n) of every recompute whose choices are not bit for bit
+        its forward's."""
+        import torch
+
+        return [(layer, n) for (layer, kind, n), e in sorted(
+                    self.choices.items())
+                if kind == self.RECOMPUTE and not torch.equal(
+                    e, self.choices[(layer, self.FORWARD, n)])]
+
+
 def moe_prefills(torch, model, params, batch, max_len: int):
     """Prefill logits of the kernel path, the plain path, and the plain path
-    replaying the kernel path's expert choices (gates from its own
-    probabilities); and the experts each free-running path chose, a
-    (G, T, k) tensor per layer."""
-    from repro_torch.models import moe
-
-    top_k = moe.top_k
-    runs: dict[str, list] = {"kernel": [], "plain": []}
-
-    def recording(into):
-        def pick(probs, k):
-            gate, expert = top_k(probs, k)
-            into.append(expert)
-            return gate, expert
-        return pick
-
-    def replaying(choices):
-        it = iter(choices)
-
-        def pick(probs, k):
-            expert = next(it)
-            return probs.gather(-1, expert), expert
-        return pick
-
-    try:
-        moe.top_k = recording(runs["kernel"])
+    replaying the kernel path's expert choices (``ExpertChoices``; gates
+    from its own probabilities); and the experts each free-running path
+    chose, a (G, T, k) tensor per layer."""
+    kernel, plain = ExpertChoices(), ExpertChoices()
+    with kernel.record():
         lk, _ = model.prefill(params, batch, max_len)
-        moe.top_k = recording(runs["plain"])
+    with plain.record():
         lp, _ = model.prefill(params, batch, max_len, mode="ref")
-        moe.top_k = replaying(runs["kernel"])
+    with kernel.replay():
         lpin, _ = model.prefill(params, batch, max_len, mode="ref")
-    finally:
-        moe.top_k = top_k
-    return lk, lp, lpin, runs["kernel"], runs["plain"]
+    return lk, lp, lpin, kernel.by_layer(), plain.by_layer()
 
 
 def flip_shares(kernel: list, plain: list) -> list[float]:
@@ -2710,8 +2857,11 @@ def train_launches(cfg, microbatches: int, kernel_path: bool
     step of ``cfg`` makes: the loss's K4 and K5 once a microbatch; each
     attention layer's K6 and each Mamba2 layer's K7 once a microbatch,
     twice under remat (the recompute of its layer's forward), and the
-    backward of each once.  Zamba2's shared block is not under remat, its
-    Mamba2 layers are.  The plain path (``mode="ref"``) launches
+    backward of each once.  A dense, MoE or VLM layer holds one attention;
+    an encoder-decoder's encoder layer one (full), its decoder layer two
+    (causal self-attention and cross-attention over the memory, both
+    inside the remat'd layer).  Zamba2's shared block is not under remat,
+    its Mamba2 layers are.  The plain path (``mode="ref"``) launches
     nothing."""
     from repro_torch.models import zamba2 as Z
 
@@ -2724,8 +2874,12 @@ def train_launches(cfg, microbatches: int, kernel_path: bool
         attn, attn_fwd, mamba = Z.n_shared_invocations(cfg), 1, cfg.n_layers
     elif cfg.family == "ssm":
         attn, attn_fwd, mamba = 0, fwd, cfg.n_layers
-    else:
+    elif cfg.family == "encdec":
+        attn, attn_fwd, mamba = cfg.n_encoder_layers + 2 * cfg.n_layers, fwd, 0
+    elif cfg.family in ("dense", "moe", "vlm"):
         attn, attn_fwd, mamba = cfg.n_layers, fwd, 0
+    else:
+        raise ValueError(f"train_launches: unknown family {cfg.family!r}")
     return {"softmax_xent_fwd": microbatches,
             "softmax_xent_dlogits": microbatches,
             "flash_attention": attn_fwd * attn * microbatches,
@@ -2761,16 +2915,47 @@ def _tree_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in _leaves(tree))
 
 
-def train_batch(torch, dev, cfg, batch: int, gen):
-    """``batch`` rows of TRAIN_SEQ + 1 seeded token ids: tokens and their
-    next-token labels."""
-    tok = torch.randint(0, cfg.vocab_size, (batch, TRAIN_SEQ + 1),
+def train_batch(torch, dev, cfg, batch: int, gen, seq: int | None = None):
+    """A seeded training batch of ``seq`` (default TRAIN_SEQ) positions with
+    the keys, shapes and dtypes of ``model.input_specs`` for a train shape:
+    ``batch`` rows of seq + 1 token ids as tokens and their next-token
+    labels; for the encoder-decoder seq // 2 frame embeddings (the front
+    end's stub, at the token embeddings' scale, in ``cfg.dtype``) and the
+    rest as decoder tokens; for the VLM seq patch embeddings at M-RoPE
+    positions (3, B, seq): an image grid of 1 x 32 x (seq // 64) patches
+    (``vlm.make_image_positions``) followed by its text, the text's
+    positions past the grid's largest (``vlm.make_text_positions``)."""
+    from repro_torch.models import vlm
+
+    seq = seq or TRAIN_SEQ
+    dt = getattr(torch, cfg.dtype)
+    if cfg.family == "encdec":
+        frames = seq // 2
+        seq -= frames
+    tok = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
                         generator=gen, device=dev, dtype=torch.int32)
-    return {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    out = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    if cfg.family == "encdec":
+        emb = torch.randn((batch, frames, cfg.d_model), generator=gen,
+                          device=dev)
+        return {"enc_embeds": (emb * 0.02).to(dt),
+                "dec_tokens": out["tokens"], "labels": out["labels"]}
+    if cfg.family == "vlm":
+        emb = torch.randn((batch, seq, cfg.d_model), generator=gen,
+                          device=dev)
+        w = max(seq // 64, 1)
+        grid = min(32 * w, seq)
+        image = vlm.make_image_positions(batch, 1, grid // w, w, dev)
+        text = vlm.make_text_positions(batch, seq - grid, dev) + (
+            int(image.max()) + 1 if grid else 0)
+        return {"embeds": (emb * 0.02).to(dt),
+                "positions": torch.cat([image, text], dim=-1).contiguous(),
+                "labels": out["labels"]}
+    return out
 
 
 def run_train(torch, model, settings, state, batch, steps: int, what: str,
-              mode=None):
+              mode=None, around: Callable | None = None):
     """``steps`` steps of ``launch.steps.build_train_step``: per step the
     loss, the gradient norm, host ms (synchronised), the peak memory since
     the caller's last reset (the allocator's, and the bytes the program
@@ -2779,8 +2964,9 @@ def run_train(torch, model, settings, state, batch, steps: int, what: str,
     the step, read just after), which must be
     ``train_launches``'s for the model and ``mode``; on the kernel path no
     plain version of attention or of the SSD may be reached
-    (``PlainSpy``).  Returns (the
-    state after the steps, the rows)."""
+    (``PlainSpy``).  ``around(i)``, where given, is a context manager that
+    step i runs in (the MoE's ``ExpertChoices``).  Returns (the state after
+    the steps, the rows)."""
     import math
 
     from repro_torch.kernels import ops
@@ -2793,7 +2979,8 @@ def run_train(torch, model, settings, state, batch, steps: int, what: str,
         torch.cuda.synchronize()
         ops.reset_launches()
         t0 = time.perf_counter()
-        with PlainSpy(TRAIN_PLAIN_FNS) as spy:
+        with (around(i) if around else contextlib.nullcontext()), \
+                PlainSpy(TRAIN_PLAIN_FNS) as spy:
             state, metrics = step(state, batch)
             torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
@@ -2963,28 +3150,67 @@ def step_rows_ms(prof_rows, busy: float, what: str, tags) -> float:
     return total
 
 
-def grad_leaf_errors(torch, model, params, batch, microbatches: int
+def microbatched(batch, microbatches: int) -> dict:
+    """``batch`` split as ``launch.steps`` splits it, on a leading axis of
+    ``microbatches`` (one batch of one: the VLM's (3, B, S) positions
+    keep their layout)."""
+    return {k: v.reshape((microbatches, v.shape[0] // microbatches)
+                         + tuple(v.shape[1:])) for k, v in batch.items()}
+
+
+def step_grads(model, params, batch, microbatches: int, mode=None,
+               around: Callable = contextlib.nullcontext):
+    """(loss, gradients) of one step's loss from ``params``, as
+    ``launch.steps`` takes them (``accumulate_grads`` over microbatches, or
+    one ``value_and_grad``), in ``mode``, inside ``around()``."""
+    from repro_torch.parallel import gradsync
+
+    def loss_fn(p, b):
+        return model.loss_fn(p, b, mode=mode)
+
+    with around():
+        if microbatches > 1:
+            return gradsync.accumulate_grads(
+                loss_fn, params, microbatched(batch, microbatches))
+        return gradsync.value_and_grad(loss_fn)(params, batch)
+
+
+def step_loss(torch, model, params, batch, microbatches: int, mode=None,
+              around: Callable = contextlib.nullcontext) -> float:
+    """``step_grads``'s loss alone, without the gradients: each
+    microbatch's loss summed in fp32 in order, then divided by their
+    count, as ``accumulate_grads`` takes it."""
+    micro = microbatched(batch, microbatches)
+    with torch.no_grad(), around():
+        total = None
+        for i in range(microbatches):
+            loss = model.loss_fn(params, {k: v[i] for k, v in micro.items()},
+                                 mode=mode)
+            total = loss if total is None else total + loss
+    return (total / microbatches).item()
+
+
+def leaf_errors(a, b) -> list[tuple[str, float]]:
+    """(path, ||a − b|| / ||b||) of every leaf of two gradient trees,
+    largest first."""
+    out = [(path, ((x.float() - y.float()).norm()
+                   / y.float().norm().clamp_min(1e-30)).item())
+           for (path, x), (_, y) in zip(_paths(a), _paths(b))]
+    return sorted(out, key=lambda r: -r[1])
+
+
+def grad_leaf_errors(torch, model, params, batch, microbatches: int,
+                     around: Callable = contextlib.nullcontext
                      ) -> list[tuple[str, float]]:
     """(path, ||g_kernel − g_plain|| / ||g_plain||) of every gradient leaf
     of one step's loss from ``params``, the kernel path's against the plain
-    path's, largest first."""
-    from repro_torch.parallel import gradsync
-
-    micro = {k: v.reshape((microbatches, v.shape[0] // microbatches)
-                          + tuple(v.shape[1:])) for k, v in batch.items()}
-    grads = {}
-    for mode in (None, "ref"):
-        _, g = gradsync.accumulate_grads(
-            lambda p, b, m=mode: model.loss_fn(p, b, mode=m), params, micro)
-        grads[mode] = g
-        del g
-    out = []
-    for (path, a), (_, b) in zip(_paths(grads[None]), _paths(grads["ref"])):
-        rel = ((a.float() - b.float()).norm()
-               / b.float().norm().clamp_min(1e-30)).item()
-        out.append((path, rel))
-    del grads
-    return sorted(out, key=lambda r: -r[1])
+    path's, largest first; each path's gradients taken inside
+    ``around()``."""
+    _, kernel = step_grads(model, params, batch, microbatches, None, around)
+    _, plain = step_grads(model, params, batch, microbatches, "ref", around)
+    out = leaf_errors(kernel, plain)
+    del kernel, plain
+    return out
 
 
 def granite_train_phase(torch, dev, smi: str) -> dict:
@@ -3147,48 +3373,79 @@ def ssd_train_ms(torch, dev, cfg) -> tuple[str, float, float]:
 
 
 def plain_path_step1(torch, model, settings, batch, rows, what: str,
-                     loss_rtol: float = TRAIN_LOSS_RTOL) -> dict:
+                     loss_rtol: float = TRAIN_LOSS_RTOL,
+                     leaf_rtol: float = TRAIN_LEAF_RTOL,
+                     around: Callable = contextlib.nullcontext,
+                     witness: bool = False) -> dict:
     """Step 1 of the kernel path (``rows[0]``) held to the plain path's
-    from the same weights (seed 0) at phase 18's bars: the loss (within
-    ``loss_rtol``), the global gradient norm and each gradient leaf
-    (``grad_leaf_errors``).  Returns the plain step's ``run_train`` row,
-    its peaks counted from the state's making."""
+    from the same weights (seed 0): the loss within ``loss_rtol``, the
+    global gradient norm within TRAIN_GNORM_RTOL and each gradient leaf
+    within ``leaf_rtol`` (``grad_leaf_errors``), every step and gradient
+    taken inside ``around()`` (the MoE's replayed expert choices).  With
+    ``witness``, the plain path's own noise on this batch is printed beside
+    the bars, not held: the plain path with the reference's chunked
+    attention (``chunked_plain_attention``) against itself, the loss and
+    each leaf.  Returns the plain step's ``run_train`` row, its peaks
+    counted from the state's making."""
     from repro_torch.launch.steps import init_train_state
 
     free_device_memory(torch)
     torch.cuda.reset_peak_memory_stats()
-    dev = batch["tokens"].device
+    dev = batch["labels"].device
     state = init_train_state(model, settings,
                              torch.Generator(device=dev).manual_seed(0), dev)
     state, (plain,) = run_train(torch, model, settings, state, batch, 1,
-                                f"{what} plain path", mode="ref")
+                                f"{what} plain path", mode="ref",
+                                around=lambda _: around())
     del state
+    free_device_memory(torch)
+    params = init_train_state(model, settings,
+                              torch.Generator(device=dev).manual_seed(0),
+                              dev)["params"]
+    free_device_memory(torch)
+    if witness:
+        _, kernel = step_grads(model, params, batch, settings.microbatches,
+                               None, around)
+        lp, plain_g = step_grads(model, params, batch, settings.microbatches,
+                                 "ref", around)
+        leaves = leaf_errors(kernel, plain_g)
+        del kernel
+        with chunked_plain_attention():
+            lw, chunked = step_grads(model, params, batch,
+                                     settings.microbatches, "ref", around)
+        noise = leaf_errors(chunked, plain_g)
+        del chunked, plain_g
+        print(f"the plain path's own noise on this batch (printed, not held):"
+              f" the plain path with the reference's chunked attention at "
+              f"{WITNESS_CHUNK}-key chunks against itself moves the loss by "
+              f"{abs(lw.item() - lp.item()) / abs(lp.item()):.3e} relative "
+              f"and the leaves by worst {noise[0][0]} {noise[0][1]:.3e}, "
+              f"then " + ", ".join(f"{p} {r:.2e}" for p, r in noise[1:6])
+              + f"; the bars {loss_rtol:.3e} and {leaf_rtol:.3e} are twice "
+              f"the largest such move over batches 1-5 "
+              f"(tools/train_loss_noise.py, ROADMAP F5)")
+    else:
+        leaves = grad_leaf_errors(torch, model, params, batch,
+                                  settings.microbatches, around)
+    del params
     free_device_memory(torch)
     loss_rel = abs(rows[0]["loss"] - plain["loss"]) / abs(plain["loss"])
     gn_rel = (abs(rows[0]["grad_norm"] - plain["grad_norm"])
               / abs(plain["grad_norm"]))
     print(f"{what} kernel path against plain path, step 1: loss "
           f"{rows[0]['loss']:.7f} vs {plain['loss']:.7f} (rel {loss_rel:.3e}"
-          f" <= {loss_rtol:g}); grad_norm {rows[0]['grad_norm']:.6f} "
+          f" <= {loss_rtol:.3e}); grad_norm {rows[0]['grad_norm']:.6f} "
           f"vs {plain['grad_norm']:.6f} (rel {gn_rel:.3e} <= "
           f"{TRAIN_GNORM_RTOL:g})")
     check(loss_rel <= loss_rtol, f"{what} kernel/plain losses differ")
     check(gn_rel <= TRAIN_GNORM_RTOL, f"{what} kernel/plain grad norms differ")
-    params = init_train_state(model, settings,
-                              torch.Generator(device=dev).manual_seed(0),
-                              dev)["params"]
-    free_device_memory(torch)
-    leaves = grad_leaf_errors(torch, model, params, batch,
-                              settings.microbatches)
     print(f"{what} kernel path against plain path, step 1's gradients from "
           f"the same weights: {len(leaves)} leaves, ||g - g_plain|| / "
           f"||g_plain|| worst {leaves[0][0]} {leaves[0][1]:.3e} (<= "
-          f"{TRAIN_LEAF_RTOL:g}), then "
+          f"{leaf_rtol:.3e}), then "
           + ", ".join(f"{p} {r:.2e}" for p, r in leaves[1:6]))
-    check(leaves[0][1] <= TRAIN_LEAF_RTOL,
+    check(leaves[0][1] <= leaf_rtol,
           f"{what} kernel/plain gradient leaf {leaves[0][0]} differs")
-    del params
-    free_device_memory(torch)
     return plain
 
 
@@ -3360,6 +3617,428 @@ def ssm_train_phase(torch, dev, smi: str) -> dict:
             "ms_per_step": host_ms, "busy_ms": busy, "k7_share": k7_ms / busy}
 
 
+# ------------------------------------------------------- phases 18d-18f
+
+class FamilyTrain(NamedTuple):
+    """A train path of phases 18d-18f: ``arch`` at full width, ``layers``
+    deep (None: the config's depth), ``batch`` rows of TRAIN_SEQ positions
+    (the reference's train inputs) in ``microbatches``; its fp32 twin
+    ``fp32_layers`` deep (the encoder's and the decoder's alike)."""
+    phase: str
+    arch: str
+    batch: int
+    microbatches: int
+    layers: int | None
+    fp32_layers: int
+    loss_rtol: float = TRAIN_LOSS_RTOL
+    leaf_rtol: float = TRAIN_LEAF_RTOL
+
+
+TRAIN_MOE_ARCH = "granite-moe-1b-a400m"
+# qwen2-vl-72b trains cut to the most layers whose step the dry-run on meta
+# puts under 72 GB: 2 (67.9 GB; 3 are 79.4 GB), its embedding and head 1.25 B
+# parameters each, a layer 0.88 B, 12 bytes of state a parameter
+VLM_TRAIN_LAYERS = 2
+# step 1's bars where phase 18's lie under the plain path's own noise
+# (ROADMAP F5): twice the largest move of the plain path's loss, or of a
+# gradient leaf, when its attention is the reference's chunked attention at
+# the reference's own 1024-key chunks (``chunked_plain_attention``), over
+# batches 1-5 of the cell (tools/train_loss_noise.py; the readings in
+# PERF.md §7): seamless-m4t-large-v2's loss 1.763e-5 (batch 4) and its
+# leaves 5.525e-2 (batch 1, /decoder/ln_x/scale), qwen2-vl-72b's loss
+# 3.490e-5 (batch 3); granite-moe-1b-a400m keeps phase 18's bars
+ENCDEC_TRAIN_LOSS_RTOL = 2 * 1.763e-5
+ENCDEC_TRAIN_LEAF_RTOL = 2 * 5.525e-2
+VLM_TRAIN_LOSS_RTOL = 2 * 3.490e-5
+# the fp32 twins: 4 layers, the VLM's 1 (in fp32 its two 152064 x 8192
+# tables and a layer are 13.5 GB, held with both paths' gradients)
+TRAIN_FAMILIES = (FamilyTrain("18d", TRAIN_MOE_ARCH, 2, 2, None, 4),
+                  FamilyTrain("18e", ENCDEC_ARCH, 2, 2, None, 4,
+                              ENCDEC_TRAIN_LOSS_RTOL, ENCDEC_TRAIN_LEAF_RTOL),
+                  FamilyTrain("18f", VLM_ARCH, 1, 1, VLM_TRAIN_LAYERS, 1,
+                              VLM_TRAIN_LOSS_RTOL))
+TRAIN_FAMILY_STEPS = 3
+# the fp32 twin's kernel path against its plain path: fp32 order
+TRAIN_FP32_LOSS_RTOL = 1e-5
+TRAIN_FP32_LEAF_RTOL = 1e-4
+
+
+def family_label(ft: FamilyTrain) -> str:
+    return (f"{ft.arch} train {ft.batch}x{TRAIN_SEQ}"
+            + (f" {ft.layers} layers" if ft.layers else ""))
+
+
+def family_config(ft: FamilyTrain):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(ft.arch)
+    return cfg.replace(n_layers=ft.layers) if ft.layers else cfg
+
+
+def flash_rounded_attention_ref(q, k, v, causal=True, window=0,
+                                chunk=None):
+    """The plain version of K6 rounded where the reference's chunked
+    attention rounds (its ``_flash_fwd_core`` over key chunks of ``chunk``,
+    None: one chunk): each chunk's exp(s − running max) rounded to v's
+    dtype before its PV product, the running sums rescaled and the output
+    normalised in fp32, masked scores at -1e30, where
+    ``ref.flash_attention_ref`` (the reference's ``_sdpa``) rounds the
+    normalised softmax.  The reference takes either by its score size, so
+    the same function, rounded elsewhere."""
+    import math
+
+    import torch
+
+    from repro_torch.kernels import ref
+
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    ref.check_causal_lengths(sq, sk, causal, window)
+    qg = q.float().reshape(b, kv, h // kv, sq, d)
+    s = torch.einsum("bkgqd,bkmd->bkgqm", qg, k.float()) / math.sqrt(d)
+    if causal:
+        mask = ref.attention_mask(sq, sk, window, q.device)
+        s = torch.where(mask, s, torch.full((), -1e30, device=q.device))
+    m = torch.full(s.shape[:-1] + (1,), -1e30, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(s.shape[:-1] + (d,), device=q.device)
+    step = chunk or sk
+    for j in range(0, sk, step):
+        sj = s[..., j:j + step]
+        m_new = torch.maximum(m, sj.amax(dim=-1, keepdim=True))
+        p = torch.exp(sj - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            "bkgqm,bkmd->bkgqd", p.to(v.dtype).float(),
+            v[:, :, j:j + step].float())
+        m = m_new
+    return (acc / l).reshape(b, h, sq, d).to(q.dtype)
+
+
+# the key chunk of the plain path's noise witness: the reference's own
+# ``_SDPA_CHUNK``, which its attention takes past ``_CHUNKED_SDPA_THRESHOLD``
+WITNESS_CHUNK = 1024
+
+
+def reference_chunked_attention(chunk=None):
+    """A stand-in for ``ref.flash_attention_ref`` (what ``mode="ref"``
+    runs) that is the reference's chunked attention in plain PyTorch (its
+    ``_sdpa_chunked_causal``: ``_flash_fwd_core``'s forward over key
+    chunks of ``chunk``, ``flash_rounded_attention_ref``, and
+    ``_sdpa_chunked_bwd``'s backward, ``ref.flash_attention_bwd_ref``,
+    from the forward's lse) under any mask: the plain path's attention as
+    a function, rounded where the reference's other path rounds it (dS,
+    not p and dP, to bf16)."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    scores, backward = ref._scores, ref.flash_attention_bwd_ref
+
+    class Chunked(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal, window):
+            o = flash_rounded_attention_ref(q, k, v, causal, window, chunk)
+            b, h, sq, _ = q.shape
+            lse = torch.logsumexp(scores(q, k, causal, window),
+                                  dim=-1).reshape(b, h, sq)
+            ctx.save_for_backward(q, k, v, o, lse)
+            ctx.mask = (causal, window)
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, o, lse = ctx.saved_tensors
+            return (*backward(q, k, v, o, do.contiguous(), lse, *ctx.mask),
+                    None, None)
+
+    return lambda q, k, v, causal=True, window=0: Chunked.apply(
+        q, k, v, causal, window)
+
+
+@contextlib.contextmanager
+def chunked_plain_attention(chunk: int = WITNESS_CHUNK):
+    """Inside the block, ``mode="ref"`` attends through
+    ``reference_chunked_attention(chunk)``; ``ref.flash_attention_ref`` is
+    restored after it, also after a raise."""
+    from repro_torch.kernels import ref
+
+    saved = ref.flash_attention_ref
+    ref.flash_attention_ref = reference_chunked_attention(chunk)
+    try:
+        yield
+    finally:
+        ref.flash_attention_ref = saved
+
+
+def moe_step1_repeats(torch, model, params, batch, microbatches: int
+                      ) -> bool:
+    """Step 1's loss and gradients on the kernel path taken twice from the
+    same weights and batch, each running free: bit for bit equal, or the
+    leaves that differ (printed)."""
+    la, ga = step_grads(model, params, batch, microbatches)
+    lb, gb = step_grads(model, params, batch, microbatches)
+    differ = [(path, (x.float() - y.float()).abs().max().item(),
+               y.float().abs().max().item())
+              for (path, x), (_, y) in zip(_paths(ga), _paths(gb))
+              if not torch.equal(x, y)]
+    same = torch.equal(la, lb) and not differ
+    print(f"{TRAIN_MOE_ARCH} step 1 run twice from the same state, kernel "
+          f"path: loss {la.item():.9g} vs {lb.item():.9g}, "
+          + ("every gradient leaf bit-identical" if same else
+             f"{len(differ)} of {len(list(_paths(ga)))} gradient leaves "
+             f"differ: " + ", ".join(f"{p} max |d| {a:.3e} of {m:.3e}"
+                                     for p, a, m in differ[:8])))
+    del ga, gb
+    return same
+
+
+def fp32_twin(torch, dev, ft: FamilyTrain, cfg) -> None:
+    """The path's fp32 twin: ``cfg`` in fp32, ``ft.fp32_layers`` deep, from
+    seeded weights and the same batch (its embeddings in fp32): step 1's
+    loss and gradients on the kernel path (the launches ``train_launches``
+    counts, no plain version reached) against the plain path's, the loss
+    within TRAIN_FP32_LOSS_RTOL and each leaf within TRAIN_FP32_LEAF_RTOL
+    of its norm; the MoE's plain path replays the kernel path's choices."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import get_model
+
+    over = {"dtype": "float32", "param_dtype": "float32",
+            "n_layers": min(ft.fp32_layers, cfg.n_layers)}
+    if cfg.family == "encdec":
+        over["n_encoder_layers"] = min(ft.fp32_layers, cfg.n_encoder_layers)
+    cfg32 = cfg.replace(**over)
+    model = get_model(cfg32)
+    free_device_memory(torch)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    batch = train_batch(torch, dev, cfg32, ft.batch,
+                        torch.Generator(device=dev).manual_seed(1))
+    choices = ExpertChoices()
+    moe = cfg.family == "moe"
+    ops.reset_launches()
+    with PlainSpy(TRAIN_PLAIN_FNS) as spy:
+        lk, gk = step_grads(model, params, batch, ft.microbatches, None,
+                            choices.record if moe else contextlib.nullcontext)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    expected = train_launches(cfg32, ft.microbatches, True)
+    lp, gp = step_grads(model, params, batch, ft.microbatches, "ref",
+                        choices.replay if moe else contextlib.nullcontext)
+    leaves = leaf_errors(gk, gp)
+    del gk, gp, params
+    free_device_memory(torch)
+    loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
+    got = {name: launches[name] for name in expected}
+    print(f"{ft.arch} fp32 twin ({cfg32.n_layers} layers"
+          + (f" + {cfg32.n_encoder_layers} encoder"
+             if cfg.family == "encdec" else "")
+          + f", full width{', the plain path replaying the expert choices' if moe else ''}"
+          f"), step 1 kernel path against plain path: loss {lk.item():.9g} "
+          f"vs {lp.item():.9g} (rel {loss_rel:.3e} <= "
+          f"{TRAIN_FP32_LOSS_RTOL:g}); {len(leaves)} leaves, worst "
+          f"{leaves[0][0]} {leaves[0][1]:.3e} (<= {TRAIN_FP32_LEAF_RTOL:g}); "
+          f"launches {got} (expected {expected}); plain attention and SSD "
+          f"reached {sum(spy.calls.values())} times")
+    check(loss_rel <= TRAIN_FP32_LOSS_RTOL,
+          f"{ft.arch} fp32 twin: kernel/plain losses differ")
+    check(leaves[0][1] <= TRAIN_FP32_LEAF_RTOL,
+          f"{ft.arch} fp32 twin: gradient leaf {leaves[0][0]} differs")
+    check(got == expected and not any(spy.calls.values()),
+          f"{ft.arch} fp32 twin: launches {got}, expected {expected}, plain "
+          f"versions reached {spy.calls}")
+
+
+def family_train_phase(torch, dev, smi: str, ft: FamilyTrain,
+                       pred: dict) -> dict:
+    """One of phases 18d-18f (module docstring): ``ft``'s path trained by
+    ``build_train_step`` at full width in bf16 with fp32 AdamW moments and
+    remat, TRAIN_FAMILY_STEPS steps from seeded weights on a seeded batch;
+    its peak against 80 GB and ``pred`` (the dry-run of the same cell on
+    meta); a profiled step; step 1 against the plain path (the MoE's plain
+    path replaying the kernel path's expert choices, recorded by layer,
+    forward and recompute); the fp32 twin.  Returns the launches and
+    numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import (TrainSettings, build_train_step,
+                                          init_train_state)
+    from repro_torch.models.api import get_model
+
+    cfg = family_config(ft)
+    model = get_model(cfg)
+    settings = TrainSettings(microbatches=ft.microbatches)
+    moe = cfg.family == "moe"
+    label = family_label(ft)
+    check(pred.get("ok"), f"{label}: the dry-run ended {pred}")
+    check(cfg.remat and cfg.remat_policy == "full",
+          f"{ft.arch} trains with full remat")
+    launched = {k: v for k, v in pred["kernel_launches"].items() if v}
+    print(f"{label}: {cfg.family}, {cfg.n_layers} layers"
+          + (f" of {get_config(ft.arch).n_layers}" if ft.layers else "")
+          + (f" + {cfg.n_encoder_layers} encoder layers"
+             if cfg.family == "encdec" else "")
+          + f", d_model {cfg.d_model}, {cfg.n_heads} heads on "
+          f"{cfg.n_kv_heads} KV heads of {cfg.resolved_head_dim}, "
+          + (f"{cfg.n_experts} experts top-{cfg.experts_per_token} of "
+             f"d_ff {cfg.moe_d_ff}, groups of {cfg.moe_group_size}, capacity "
+             f"factor {cfg.capacity_factor}, " if moe else
+             f"d_ff {cfg.d_ff}, ")
+          + f"vocab {cfg.vocab_size} padded to {cfg.padded_vocab}; bf16, fp32 "
+          f"moments, remat {cfg.remat} ({cfg.remat_policy}); batch "
+          f"{ft.batch} x {TRAIN_SEQ} in {ft.microbatches} microbatches; "
+          f"dry-run on meta: peak {pred['peak_memory_per_device'] / 1e9:.3f} "
+          f"GB predicted, launches {launched}, bound "
+          f"{1e3 * max(pred['compute_s'], pred['memory_s']):.3f} ms "
+          f"({pred['bottleneck']})", flush=True)
+    free_device_memory(torch)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(model, settings,
+                             torch.Generator(device=dev).manual_seed(0), dev)
+    n_params = sum(t.numel() for t in _leaves(state["params"]))
+    batch = train_batch(torch, dev, cfg, ft.batch,
+                        torch.Generator(device=dev).manual_seed(1))
+    choices = ExpertChoices()
+
+    def step1_recorded(i):
+        return choices.record() if moe and i == 0 else contextlib.nullcontext()
+
+    state, rows = run_train(torch, model, settings, state, batch,
+                            TRAIN_FAMILY_STEPS, ft.arch, around=step1_recorded)
+    peak = torch.cuda.max_memory_allocated() - before
+    p_peak = pred["peak_memory_per_device"]
+    print(f"{ft.arch}: {n_params / 1e9:.3f} B parameters; measured peak "
+          f"{peak / 1e9:.3f} GB over {TRAIN_FAMILY_STEPS} steps (from the "
+          f"state's making; < 80 GB), predicted {p_peak / 1e9:.3f} GB "
+          f"({100 * (p_peak - peak) / peak:+.2f}%, within "
+          f"{100 * DRY_PEAK_RTOL:g}%)")
+    check(peak < 80e9, f"{ft.arch} train peak {peak / 1e9:.3f} GB >= 80 GB")
+    check(abs(p_peak - peak) <= DRY_PEAK_RTOL * peak,
+          f"{ft.arch} train peak {peak / 1e9:.3f} GB, predicted "
+          f"{p_peak / 1e9:.3f} GB")
+    if moe:
+        differ = choices.recompute_differs()
+        n_re = sum(k[1] == ExpertChoices.RECOMPUTE for k in choices.choices)
+        print(f"{ft.arch} step 1: expert choices recorded by (layer, pass, "
+              f"microbatch): {len(choices.choices) - n_re} forward, {n_re} "
+              f"recompute; every recompute's choices bit-identical to its "
+              f"forward's: {not differ}"
+              + (f" (differ: {differ})" if differ else ""))
+        check(n_re == cfg.n_layers * ft.microbatches and not differ,
+              f"{ft.arch}: the remat recompute routed otherwise than the "
+              f"forward at (layer, microbatch) {differ}")
+    host = sorted(r["ms"] for r in rows[1:])
+    host_ms = host[len(host) // 2]
+    step = build_train_step(model, settings)
+
+    def one_step():
+        nonlocal state
+        state, _ = step(state, batch)
+
+    busy, prof_rows = profile_train_step(torch, one_step)
+    print_profile(f"{ft.arch} train step (profiled, one step; host ms the "
+                  f"median of steps 2-{TRAIN_FAMILY_STEPS})", busy, host_ms,
+                  prof_rows)
+    k6_ms = step_rows_ms(prof_rows, busy, "K6 and its backward", K6_ROWS)
+    xent = {n: sum(us for key, _, us in prof_rows if tag in key) / 1e3
+            for n, tag in (("K4", "xent_fwd"), ("K4 mean", "xent_mean"),
+                           ("K5", "xent_dlogits"))}
+    rows_mb = (ft.batch // ft.microbatches) * (
+        TRAIN_SEQ - TRAIN_SEQ // 2 if cfg.family == "encdec" else TRAIN_SEQ)
+    print(f"K4/K5 at ({rows_mb}, {cfg.padded_vocab}) in the profiled step: "
+          + ", ".join(
+              f"{n} {ms:.4f} ms" for n, ms in xent.items())
+          + f" = {100 * sum(xent.values()) / busy:.2f}% of device busy")
+    del state, step
+    free_device_memory(torch)
+
+    replay = choices.replay if moe else contextlib.nullcontext
+    if moe:
+        params = init_train_state(model, settings,
+                                  torch.Generator(device=dev).manual_seed(0),
+                                  dev)["params"]
+        repeat = moe_step1_repeats(torch, model, params, batch,
+                                   ft.microbatches)
+        free = ExpertChoices()
+        micro = microbatched(batch, ft.microbatches)
+        with torch.no_grad(), free.record():
+            for i in range(ft.microbatches):
+                model.loss_fn(params, {k: v[i] for k, v in micro.items()},
+                              mode="ref")
+        shares = [sum(f) / len(f) for f in zip(*(
+            flip_shares(choices.by_layer(n=i), free.by_layer(n=i))
+            for i in range(ft.microbatches)))]
+        print(f"{ft.arch} step 1, the plain path running free (printed, not "
+              f"held): expert choices that differ from the kernel path's, % "
+              f"of tokens by layer: " + " ".join(f"{100 * f:.2f}"
+                                                 for f in shares)
+              + f"; all layers {100 * sum(shares) / len(shares):.2f}%")
+        del free, params
+        free_device_memory(torch)
+    raised = (ft.loss_rtol, ft.leaf_rtol) != (TRAIN_LOSS_RTOL,
+                                              TRAIN_LEAF_RTOL)
+    plain = plain_path_step1(torch, model, settings, batch, rows, ft.arch,
+                             ft.loss_rtol, ft.leaf_rtol, replay, raised)
+    fp32_twin(torch, dev, ft, cfg)
+    peak_gb = peak / 1e9
+    print(f"{label} on {smi}: {host_ms:.1f} ms/step (batch {ft.batch} x "
+          f"{TRAIN_SEQ}, {ft.microbatches} microbatches), device busy "
+          f"{busy:.1f} ms, peak {peak_gb:.3f} GB (predicted "
+          f"{p_peak / 1e9:.3f}); loss {rows[0]['loss']:.4f} -> "
+          f"{rows[-1]['loss']:.4f} over {TRAIN_FAMILY_STEPS} steps; K6 and its "
+          f"backward {k6_ms:.1f} ms = {100 * k6_ms / busy:.1f}% and K4/K5 "
+          f"{100 * sum(xent.values()) / busy:.2f}% of the profiled step's "
+          f"device busy; plain step 1 host {plain['ms']:.1f} ms"
+          + (f"; step 1 repeated bit-identical: {repeat}" if moe else ""))
+    totals = {name: sum(r["launches"][name] for r in rows)
+              for name in ("softmax_xent_fwd", "softmax_xent_dlogits",
+                           "flash_attention", "flash_attention_bwd")}
+    return {"launches": totals, "steps": TRAIN_FAMILY_STEPS,
+            "ms_per_step": host_ms, "busy_ms": busy, "peak": peak,
+            "k6_share": k6_ms / busy, "n_params": n_params}
+
+
+def wait_predictions(predictor, out_dir: str) -> float:
+    """Wait for phase 22's dry-runs on meta (``start_predictions``), which
+    must end with 0; returns the seconds waited."""
+    t0 = time.perf_counter()
+    try:
+        rc = predictor.wait(timeout=PREDICT_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        rc = None
+    log = os.path.join(out_dir, "predict.log")
+    if rc != 0:
+        with open(log) as f:
+            print(f.read()[-4000:])
+    check(rc == 0, f"the dry-runs' process ended with {rc} (log: {log})")
+    return time.perf_counter() - t0
+
+
+def load_predictions(out_dir: str, name: str) -> dict:
+    with open(os.path.join(out_dir, name)) as f:
+        return json.load(f)
+
+
+def family_train_phases(torch, dev, smi: str, predictor) -> dict:
+    """Phases 18d-18f: the MoE, encoder-decoder and VLM families trained
+    at full width (TRAIN_FAMILIES), each held to the dry-run's prediction
+    of its cell; returns each path's numbers by arch."""
+    wait_predictions(predictor, PREDICT_DIR)
+    cells = load_predictions(PREDICT_DIR, "cells.json")["cells"]
+    out = {}
+    for ft in TRAIN_FAMILIES:
+        cfg = family_config(ft)
+        phase(ft.phase, f"lm train: {family_label(ft)}, full width, "
+                        f"{TRAIN_FAMILY_STEPS} AdamW steps through K4/K5, K6 "
+                        f"and its backward, step 1 against the plain path, "
+                        f"an fp32 twin of {min(ft.fp32_layers, cfg.n_layers)} "
+                        f"layers")
+        out[ft.arch] = family_train_phase(torch, dev, smi, ft,
+                                          cells[family_label(ft)])
+    return out
+
+
 def train_path_phase(torch, dev, smi: str) -> dict:
     """Phase 18; returns K4/K5's launches and numbers on the train path,
     and K7's and its backward's under "hybrid" and "ssm"."""
@@ -3391,6 +4070,11 @@ LONG_DECODE = 16
 DRIVER_STEPS = 6
 DRIVER_CKPT_EVERY = 3
 DRIVER_LOSS_RTOL = 1e-5
+# phase 21 drives granite-3-2b at full width cut to this many of its 40
+# layers, so that the script stays within its earlier running time with
+# phases 18d-18f added: the full model's 25.3 GB checkpoint took ~120 s of
+# writes and restores
+DRIVER_LAYERS = 10
 
 
 def replay_logits(torch, runner, slot: int, prompt, tokens) -> list:
@@ -3754,7 +4438,6 @@ def driver_run(torch, train, arch: str, name: str, ck, kw: dict,
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ops
-    from repro_torch.launch import train as driver
 
     free_device_memory(torch)
     torch.cuda.reset_peak_memory_stats()
@@ -3772,7 +4455,7 @@ def driver_run(torch, train, arch: str, name: str, ck, kw: dict,
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     n = len(run.history)
-    want = train_launches(driver.get_config(arch), kw["microbatches"], True)
+    want = train_launches(kw["cfg"], kw["microbatches"], True)
     check(all(launches[k] == n * v for k, v in want.items()),
           f"({name}) launches {dict(launches)} in {n} steps, a step "
           f"{want}")
@@ -3804,11 +4487,12 @@ def driver_run(torch, train, arch: str, name: str, ck, kw: dict,
 
 def driver_phase(torch, dev, smi: str, n_params: int) -> dict:
     """Phase 21: the LM training driver (``launch.train.train``) at full
-    width and depth, bf16, 2 x TRAIN_SEQ tokens in 2 microbatches: (a) a
-    run of DRIVER_STEPS dies right after its checkpoint of step index 2;
-    (b) a second run in the same directory resumes at step 3; (c) runs
-    the steps uninterrupted.  Only (a) checkpoints, so the phase writes
-    one checkpoint (25.3 GB for granite-3-2b) to the disk.  Steps 3-5 of
+    width, DRIVER_LAYERS deep, bf16, 2 x TRAIN_SEQ tokens in 2
+    microbatches: (a) a run of DRIVER_STEPS dies right after its checkpoint
+    of step index 2; (b) a second run in the same directory resumes at
+    step 3; (c) runs the steps uninterrupted.  Only (a) checkpoints, so the
+    phase writes one checkpoint (25.3 GB for granite-3-2b at full depth)
+    to the disk.  Steps 3-5 of
     (b) equal (c)'s bit for bit; where they do not, a second uninterrupted
     run (d) witnesses the step's run-to-run spread: if (c) and (d) agree
     bit for bit the step is deterministic and the resume fails, else it
@@ -3862,14 +4546,24 @@ def driver_phase(torch, dev, smi: str, n_params: int) -> dict:
     root = os.path.join(ROOT, "build", "driver_ckpt")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
-    need = n_params * (2 + 4 + 4)       # bf16 params, fp32 moments
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import param_count
+
+    def cut(arch):
+        return get_config(arch).replace(n_layers=DRIVER_LAYERS)
+
+    full = get_config(TRAIN_ARCH)
+    need = (n_params * param_count(cut(TRAIN_ARCH)) / param_count(full)
+            * (2 + 4 + 4))              # bf16 params, fp32 moments
     free = shutil.disk_usage(root).free
     arch = TRAIN_ARCH if free > 1.5 * need else TRAIN_HYBRID_ARCH
+    cfg = cut(arch)
     print(f"checkpoint directory {root}: {free / 1e9:.1f} GB free, a "
-          f"{TRAIN_ARCH} checkpoint needs ~{need / 1e9:.1f} GB: driving "
-          f"{arch}")
+          f"{TRAIN_ARCH} checkpoint of {cut(TRAIN_ARCH).n_layers} of its "
+          f"{full.n_layers} layers needs ~{need / 1e9:.1f} GB: driving "
+          f"{arch} at full width, {cfg.n_layers} layers")
     kw = dict(steps=DRIVER_STEPS, batch=2, seq=TRAIN_SEQ, microbatches=2,
-              device=dev)
+              device=dev, cfg=cfg)
     runs = {}
     try:
         free_device_memory(torch)
@@ -3924,7 +4618,8 @@ def driver_phase(torch, dev, smi: str, n_params: int) -> dict:
     restores = [t for t in runs["b"][3].times if t[0] == "restore"]
     snap, write = ck_a.times[0][2], ck_a.times[0][3]
     nbytes = ck_a.times[0][4]
-    print(f"{arch} driver on {smi}: {runs['c'][2]:.1f} ms/step (batch 2 x "
+    print(f"{arch} driver ({cfg.n_layers} layers) on {smi}: "
+          f"{runs['c'][2]:.1f} ms/step (batch 2 x "
           f"{TRAIN_SEQ}, 2 microbatches); checkpoint {nbytes} bytes "
           f"({nbytes / 1e9:.3f} GB), snapshot {snap:.1f} ms, write "
           f"{write:.1f} ms (step 2); restore {restores[0][2]:.1f} ms; "
@@ -3944,8 +4639,9 @@ def later_path_phases(torch, dev, smi: str, n_params: int) -> dict:
               f"its last {LONG_DECODE} tokens decoded through the ring, "
               f"against forward")
     long, long_k6 = long_prefill_phase(torch, dev, smi)
-    phase(21, f"the LM training driver: {TRAIN_ARCH} full width, crash, "
-              f"resume and uninterrupted runs of {DRIVER_STEPS} steps")
+    phase(21, f"the LM training driver: {TRAIN_ARCH} full width, "
+              f"{DRIVER_LAYERS} layers, crash, resume and uninterrupted runs "
+              f"of {DRIVER_STEPS} steps")
     driver = driver_phase(torch, dev, smi, n_params)
     return {"elastic": elastic, "long": long, "long_k6": long_k6,
             "driver": driver}
@@ -3997,8 +4693,9 @@ def cell_config(cell: DryCell):
 
 def dry_cells() -> list[DryCell]:
     """(b): the cells earlier phases run (phase 18's train steps, phase
-    8/12/15's 2048-token prefill and 4-slot decode step, phase 10's
-    executor step at batch 128 for NN1-NN6); (c): granite-3-2b at
+    8/12/15's 2048-token prefill and 4-slot decode step, phases 18d-18f's
+    train steps, phase 10's executor step at batch 128 for NN1-NN6); (c):
+    granite-3-2b at
     1 x KNOB_SEQ, baseline and KNOB_VARIANT, bf16 at full width and fp32
     cut to KNOB_FP32_LAYERS layers."""
     from repro_torch.configs import ShapeSpec
@@ -4019,6 +4716,11 @@ def dry_cells() -> list[DryCell]:
                           ShapeSpec("prefill", serve, 1, "prefill")),
                   DryCell(f"{arch} decode 4x{serve}", "b", arch,
                           ShapeSpec("decode", serve, 4, "decode"))]
+    cells += [DryCell(family_label(ft), "b", ft.arch,
+                      ShapeSpec("train", TRAIN_SEQ, ft.batch, "train"),
+                      TrainSettings(microbatches=ft.microbatches),
+                      (("n_layers", ft.layers),) if ft.layers else ())
+              for ft in TRAIN_FAMILIES]
     cells += [DryCell(f"{nn} ORRM {RING} devices b{DRY_FCNN_BATCH}", "b", nn)
               for nn in sorted(NN_BENCHMARKS)]
     knobs = tuple(sorted(VARIANTS[KNOB_VARIANT][1].items()))
@@ -4118,7 +4820,7 @@ def card_step(torch, dev, cell: DryCell):
     cfg = cell_config(cell)
     model, shape = get_model(cfg), cell.shape
 
-    def tokens():        # the cells' batches are token ids (and labels)
+    def tokens():        # the serving cells' batches are token ids
         return {k: torch.randint(0, cfg.vocab_size, tuple(v.shape),
                                  generator=gen, device=dev, dtype=v.dtype)
                 for k, v in model.input_specs(shape).items()}
@@ -4128,7 +4830,9 @@ def card_step(torch, dev, cell: DryCell):
 
         def setup():
             gen.manual_seed(0)
-            return init_train_state(model, cell.settings, gen, dev), tokens()
+            return (init_train_state(model, cell.settings, gen, dev),
+                    train_batch(torch, dev, cfg, shape.global_batch, gen,
+                                shape.seq_len))
 
         return setup, lambda args: step(*args)
 
@@ -4237,24 +4941,9 @@ def dryrun_phase(torch, dev, predictor, out_dir: str) -> None:
     dry-run orders them."""
     from repro_torch.launch.dryrun import cell_line
 
-    t0 = time.perf_counter()
-    try:
-        rc = predictor.wait(timeout=PREDICT_TIMEOUT)
-    except subprocess.TimeoutExpired:
-        rc = None
-    waited = time.perf_counter() - t0
-    log = os.path.join(out_dir, "predict.log")
-    if rc != 0:
-        with open(log) as f:
-            print(f.read()[-4000:])
-    check(rc == 0, f"the dry-runs' process ended with {rc} (log: {log})")
-
-    def load(name):
-        with open(os.path.join(out_dir, name)) as f:
-            return json.load(f)
-
-    out, sweep, fcnn = (load(n) for n in ("cells.json", "dryrun.json",
-                                          "dryrun_fcnn.json"))
+    waited = wait_predictions(predictor, out_dir)
+    out, sweep, fcnn = (load_predictions(out_dir, n) for n in (
+        "cells.json", "dryrun.json", "dryrun_fcnn.json"))
     print(f"(a) the dry-runs ran on the meta device in a process that sees "
           f"no card, beside phases 2-21 (this phase waited {waited:.1f} s "
           f"for them): dryrun --all {out['sweep_s']:.1f} s, dryrun_fcnn "
@@ -5354,6 +6043,7 @@ def run_phases(torch, dev, smi: str, predictor) -> int:
     dense_launches = dense_path_phases(torch, dev)
     family_launches = family_path_phases(torch, dev)
     train = train_path_phase(torch, dev, smi)
+    families = family_train_phases(torch, dev, smi, predictor)
     later = later_path_phases(torch, dev, smi, train["n_params"])
     phase(22, "dry-runs on the meta device (dryrun --all, dryrun_fcnn, the "
               "cells earlier phases run and the knobs at 4096 tokens) held "
@@ -5395,6 +6085,15 @@ def run_phases(torch, dev, smi: str, predictor) -> int:
                 f"{later['driver']['arch']} training driver": {
                 "launches": later["driver"]["launches"],
                 "steps": later["driver"]["steps"]}}
+            for ft in TRAIN_FAMILIES:
+                fam = families[ft.arch]
+                shape = LM_XENT_PATHS[ft.arch]
+                ms, plain_ms, lib_ms, b_ms = s["rows"][shape]
+                extra["paths"][family_label(ft)] = {
+                    "launches": fam["launches"][name], "steps": fam["steps"],
+                    "shape": shape, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "bound_ms": b_ms,
+                    "bound_by": "bytes"}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
@@ -5425,6 +6124,10 @@ def run_phases(torch, dev, smi: str, predictor) -> int:
             paths[f"{TRAIN_ARCH} train"] = {
                 "launches": train["k6"]["flash_attention"],
                 "steps": train["steps"]}
+            for ft in TRAIN_FAMILIES:
+                paths[family_label(ft)] = {
+                    "launches": families[ft.arch]["launches"][name],
+                    "steps": families[ft.arch]["steps"]}
         else:
             for arch, key in ((TRAIN_HYBRID_ARCH, "hybrid"),
                               (SSM_ARCH, "ssm")):
@@ -5446,6 +6149,10 @@ def run_phases(torch, dev, smi: str, predictor) -> int:
         })
     source, replaces = KERNEL_INFO["flash_attention_bwd"]
     s = lm_summary["flash_attention_bwd"]
+    for ft in TRAIN_FAMILIES:
+        s["paths"][family_label(ft)] = {
+            "launches": families[ft.arch]["launches"]["flash_attention_bwd"],
+            "steps": families[ft.arch]["steps"]}
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda", "source": source,
         "replaces": replaces,
@@ -5520,7 +6227,11 @@ def run_phases(torch, dev, smi: str, predictor) -> int:
           "training SSD shape in bf16 (phase 7), its launches from phase "
           "18b's Zamba2-1.2B steps, every timed shape and dtype and phase "
           "18c's mamba2-2.7b launches under \"paths\"; K7's launches in "
-          "phases 18b and 18c under its \"paths\"")
+          "phases 18b and 18c under its \"paths\"; phases 18d-18f's "
+          "launches of K4/K5 (beside phase 3's times at their loss "
+          "shapes), K6 and its backward under \"paths\" by cell, K6's "
+          "backward at their attention shapes (phase 7) with its forward "
+          "under \"forward\"")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
