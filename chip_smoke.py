@@ -26,15 +26,16 @@ without a result line:
   2. build    the extension, with ptxas's per-kernel resource report
               (registers, shared memory and spills of the redesigned
               kernels, K1, K2, K3 (both kernels of each), bf16 K6 and K7,
-              the six kernels of K6's backward and the four of K7's,
+              the six kernels of K6's backward and the three of K7's,
               whose spills must be 0) and the count of HGMMA, HMMA and
               FFMA instructions in each kernel's SASS (cuobjdump); K1's
               and K2's bf16-weight kernels, K3's bf16-x kernel, the bf16
               K6 kernel and its backward's fused kernel and the bf16 K7
               kernel and its backward's must emit HGMMA, and ptxas must
-              not serialize their wgmma; the fused K6 backward must be
-              launched with the 168 registers its setmaxnreg hand-over
-              assumes
+              not serialize their wgmma; the fp32 backwards' fused kernels
+              (3xTF32 on mma.sync) must emit HMMA; the fused K6 backward
+              must be launched with the 168 registers its setmaxnreg
+              hand-over assumes
   3. kernels  each FCNN kernel against its plain PyTorch version on the
               card, at the NN1 and NN5 shapes and at edge shapes, with
               times of the kernel, the plain version and one PyTorch
@@ -109,13 +110,17 @@ without a result line:
               and fp32, at Zamba2-1.2B's and mamba2-2.7b's training SSD
               shapes (16 chunks of 128, 64 and 80 heads, N = 64 and 128,
               one B/C group; timed beside the plain version and the bound;
-              bf16 at every heads-per-block choice of ``SSD_BWD_HEADS``
-              that divides the group's heads, each held to the plain
+              in each dtype at every heads-per-block choice of
+              ``SSD_BWD_HEADS`` that divides the group's heads, each held to the plain
               version and run twice bit-identical, with the plan's choice
               and the fastest named) and edges (per-head and grouped B/C,
               ragged chunks, Q <= 64, N = 4 to 128, P < 64), each with all
               three cotangents and with one alone; repeats bit-identical
-              (bars at ``K7_BWD_FP32_RTOL``)
+              (bars at ``K7_BWD_FP32_RTOL``); at every timed shape both
+              fp32 backwards also against their plain versions run in
+              float64: each gradient's distance to that run printed beside
+              the fp32 plain version's, the kernel's at most 8x it
+              (``F64_WITNESS``)
   8. serve    Zamba2-1.2B, full width, bf16, random weights: 8 requests
               of the ``steady`` preset with 512/1024/2048-token prompts on
               4 slots through ``repro_torch.launch.serve.serve``; every
@@ -276,7 +281,18 @@ without a result line:
               recompute must route bit for bit as its forward; the plain
               path's free-running flip share per layer is printed; step 1
               is taken twice from the same state and the two compared bit
-              for bit
+              for bit;
+              18g: Zamba2-1.2B in fp32 (weights and activations) at full
+              width and depth, remat as configured, batch 1 x 2048: phase
+              22's dry-run of the cell first (peak and launches), 2 AdamW steps
+              through the fp32 K4/K5, K6, K7 and the backwards of K6 and
+              K7 (3xTF32 on the tensor cores), the loss finite and
+              falling, launches as ``train_launches`` counts them and as
+              the dry-run predicts, no plain version reached, the peak
+              within 10% of the dry-run's, a profiled step with K6's and
+              K7's shares (with their backwards) of device busy, and step
+              1 against the plain path at the fp32 twins' bars (loss
+              1e-5, each leaf 1e-4 of its norm)
  19. elastic  Zamba2-1.2B, full width, bf16: 8 requests of the
               ``device-loss-mid-decode`` preset (2 devices lost at decode
               step 4) with 512/1024/2048-token prompts on 4 slots, the
@@ -331,7 +347,8 @@ without a result line:
               cell (peak against the card's 80 GB, compute and memory ms,
               bottleneck, seconds); (b) the cells earlier phases run:
               granite-3-2b train 2 x 2048 in 2 microbatches, Zamba2-1.2B
-              train 1 x 2048, the 2048-token batch-1 prefill and the
+              train 1 x 2048 in bf16 and in fp32, the 2048-token batch-1
+              prefill and the
               4-slot decode step at depth 2048 of Zamba2-1.2B, qwen3-14b
               and mamba2-2.7b, the train steps of phases 18d-18f,
               NN1-NN6's executor step at batch 128 on 8 logical devices; (c) granite-3-2b at 1 x 4096, the baseline
@@ -340,7 +357,10 @@ without a result line:
               same weights, bf16 at full width (loss 2e-2, gradient norm
               5e-2 relative) and fp32 cut to 4 layers (1e-5, 1e-4).  Each
               cell of (b) and (c) runs one profiled step on the card from
-              ``reset_peak_memory_stats``, its state allocated after it:
+              ``reset_peak_memory_stats``, its state allocated after it
+              (the fp32 Zamba2-1.2B cell is held to phase 18g's steps and
+              profiled step, measured the same way, and takes no step
+              here):
               the predicted K1-K7 launches equal the card's, the predicted
               peak within 10% of the card's (FCNN: or 64 MiB), the cell's
               (the state made after the reset) and the step's own, the
@@ -479,14 +499,14 @@ LM_KERNELS = ("flash_attention", "ssd_chunk")
 NO_SPILL_KERNELS = ("fcnn_fwd_kernel", "dgrad_kernel", "fcnn_wgrad_kernel",
                     "fcnn_fwd_tc_kernel", "fcnn_dgrad_tc_kernel",
                     "fcnn_wgrad_tc_kernel", "flash_fwd_wgmma_kernel",
-                    "ssd_chunk_wgmma_kernel", "flash_bwd_delta_kernel",
-                    "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
+                    "ssd_chunk_wgmma_kernel",
                     "flash_bwd_prep_kernel", "flash_bwd_wgmma_kernel",
-                    "flash_bwd_dq_round_kernel",
-                    # K7's backward: the bf16 kernel (a block the heads of
-                    # a B/C group), the fp32 one, and the sum of a group's
-                    # parts (bf16: blocks', fp32: heads')
-                    "ssd_bwd_wgmma_kernel", "ssd_bwd_f32_kernel",
+                    "flash_bwd_dq_round_kernel", "flash_bwd_prep_f32_kernel",
+                    "flash_bwd_tf32_kernel", "flash_bwd_dq_sum_kernel",
+                    # K7's backward: the bf16 kernel and the fp32 one (a
+                    # block the heads of a B/C group), and the sum of a
+                    # group's blocks' parts
+                    "ssd_bwd_wgmma_kernel", "ssd_bwd_tf32_kernel",
                     "group_sum_kernel")
 # K1's and K2's bf16-weight kernels, K3's bf16-x kernel, the bf16 K6
 # kernel and its backward's fused kernel, and the bf16 K7 kernel and its
@@ -496,6 +516,9 @@ TC_KERNELS = ("fcnn_fwd_tc_kernel", "fcnn_dgrad_tc_kernel",
               "fcnn_wgrad_tc_kernel", "flash_fwd_wgmma_kernel",
               "ssd_chunk_wgmma_kernel", "flash_bwd_wgmma_kernel",
               "ssd_bwd_wgmma_kernel")
+# the fp32 backwards of K6 and K7, whose products run on the tensor cores
+# as 3xTF32 on mma.sync (HMMA in their SASS), held to no spills as well
+MMA_KERNELS = ("flash_bwd_tf32_kernel", "ssd_bwd_tf32_kernel")
 # the kernels whose consumer warpgroups take registers from the producer
 # warpgroup with setmaxnreg, and the count each must be launched with: 384
 # threads at 168, of which the producer's 128 x (168 − 24) pay for two
@@ -730,11 +753,16 @@ def run_build_phase() -> None:
         found = [c for name, c in counts.items() if kernel in name]
         check(bool(found) and all(c["HGMMA"] > 0 for c in found),
               f"{kernel} has no HGMMA in its SASS")
+    for kernel in MMA_KERNELS:
+        found = [c for name, c in counts.items() if kernel in name]
+        check(bool(found) and all(c["HMMA"] > 0 for c in found),
+              f"{kernel} has no HMMA in its SASS")
     serial = [line.strip() for line in text.splitlines()
               if "wgmma.mma_async instructions are serialized" in line]
     for line in serial:
         print(line[:300])
-    check(not any(k in line for line in serial for k in TC_KERNELS),
+    check(not any(k in line for line in serial
+                  for k in TC_KERNELS + MMA_KERNELS),
           "ptxas serializes the wgmma of a tensor-core kernel")
     ignored = [line.strip() for line in text.splitlines()
                if "setmaxnreg ignored" in line]
@@ -1568,9 +1596,30 @@ K6_BWD_EDGES = ((1, 4, 2, 1, 64, 1, True, 0), (2, 4, 2, 300, 64, 300, True, 0),
                 (2, 2, 1, 200, 96, 200, True, 1))
 K6_BWD_MAIN = "granite-3-2b train"   # the kernels line's shape
 # the products the kernels issue for the five the bound counts: bf16 S,
-# dP, dV's hi and lo, dK and dQ; fp32 S and dP in both the dK/dV and the
-# dQ kernel, dV, dK and dQ
-K6_BWD_ISSUED = {"bfloat16": 6 / 5, "float32": 7 / 5}
+# dP, dV's hi and lo, dK and dQ; fp32 the five, each as the three TF32
+# products the bound already counts (kernels/cost.py)
+K6_BWD_ISSUED = {"bfloat16": 6 / 5, "float32": 1.0}
+# the fp32 backwards' float64 witness: at each timed shape the plain
+# version also runs in float64 on the same inputs, and each gradient's
+# distance to it, ||g − g64|| / ||g64||, may be at most F64_WITNESS times
+# the fp32 plain version's (3xTF32 keeps about fp32's bits; one TF32
+# product, 11 bits, lands ~2^13 times as far)
+F64_WITNESS = 8.0
+
+
+def f64_witness(names, got, want, want64) -> tuple[bool, str]:
+    """(ok, a note): each gradient's distance to the float64 run, the
+    kernel's (``got``) against the fp32 plain version's (``want``)."""
+    ok, parts = True, []
+    for name, g, w, w64 in zip(names, got, want, want64):
+        n64 = w64.norm().item()
+        dk = (g.double() - w64).norm().item() / max(n64, 1e-300)
+        dp = (w.double() - w64).norm().item() / max(n64, 1e-300)
+        ok = ok and dk <= F64_WITNESS * dp
+        parts.append(f"{name} {dk:.2e} vs {dp:.2e} "
+                     f"({dk / max(dp, 1e-300):.2f}x)")
+    return ok, (f"float64 witness, kernel vs fp32 plain: " + ", ".join(parts)
+                + f" (<= {F64_WITNESS:g}x)")
 
 
 def k6_bwd_noise(q, k, v, do) -> tuple[float, float, float]:
@@ -1707,6 +1756,15 @@ def run_k6_bwd_phase(torch, dev) -> dict:
                 good, note = rounded_once(torch, got[2], want[2])
                 ok = ok and good
                 crits.append(f"dv {note.split(', ', 1)[1]}")
+            if dtype == torch.float32 and name:
+                want64 = ref.flash_attention_bwd_ref(
+                    *(t.double() for t in (q, k, v, o, do, lse)), causal,
+                    window)
+                good, note = f64_witness(("dq", "dk", "dv"), got, want,
+                                         want64)
+                ok = ok and good
+                crits.append(note)
+                del want64
             label = (f"({b},{h},{s},{d}) kv {kv}{f' over Sk {sk}' if sk != s else ''} "
                      f"{str(dtype)[6:]} {'causal' if causal else 'full'}"
                      f"{f' window {window}' if window else ''}")
@@ -1858,7 +1916,7 @@ def k7_bwd_close(torch, got, want, noise: float) -> tuple[bool, float, str]:
 
 def k7_bwd_sweep_line(torch, ssd_chunk_bwd, x, dt_a, b, c, use, g,
                       want) -> str:
-    """Device ms of bf16 K7 bwd at every heads-per-block choice of
+    """Device ms of K7 bwd in x's dtype at every heads-per-block choice of
     ssd_scan.SSD_BWD_HEADS that divides H / G, each held to the plain
     version's gradients ``want`` at the bars above and run twice
     bit-identical; the plan's choice and the fastest are named."""
@@ -1922,6 +1980,13 @@ def run_k7_bwd_phase(torch, dev) -> dict:
                 ok, worst, crit = k7_bwd_close(torch, got, want,
                                                k7_bwd_noise(x, b, c, *use))
                 ok = ok and repeat
+                if timed and all(given) and dtype == torch.float32:
+                    want64 = ref.ssd_chunk_bwd_ref(
+                        *(t.double() for t in (x, dt_a, b, c, *use)), g)
+                    good, note = f64_witness(("dx", "ddt", "db", "dc"), got,
+                                             want, want64)
+                    ok, crit = ok and good, f"{crit}; {note}"
+                    del want64
                 given_bits = "".join("1" if k else "0" for k in given)
                 label = (f"BC={bc} ({q},{h},{p},{n}) G={g} {str(dtype)[6:]} "
                          f"cotangents {given_bits}")
@@ -1931,9 +1996,8 @@ def run_k7_bwd_phase(torch, dev) -> dict:
                         f"{'ok' if ok else 'FAIL'}")
                 summary["max_abs_err"] = max(summary["max_abs_err"], worst)
                 if timed and all(given):
-                    if dtype == torch.bfloat16:
-                        print(k7_bwd_sweep_line(torch, ssd_chunk_bwd, x, dt_a, b,
-                                                c, use, g, want), flush=True)
+                    print(k7_bwd_sweep_line(torch, ssd_chunk_bwd, x, dt_a, b,
+                                            c, use, g, want), flush=True)
                     del again, want
                     ms = device_ms(kern, iters=5, replays=5)
                     plain_ms = device_ms(lambda: ref.ssd_chunk_bwd_ref(
@@ -3127,13 +3191,13 @@ def attention_train_ms(torch, dev, cfg, layers: int, recompute: bool
 K6_ROWS = (("K6", "flash_fwd"), ("K6 bwd prep", "flash_bwd_prep"),
            ("K6 bwd dK/dV/dQ", "flash_bwd_wgmma"),
            ("K6 bwd dQ rounded", "flash_bwd_dq_round"),
-           ("K6 bwd fp32 delta", "flash_bwd_delta"),
-           ("K6 bwd fp32 dK/dV", "flash_bwd_dkdv"),
-           ("K6 bwd fp32 dQ", "flash_bwd_dq_kernel"))
+           ("K6 bwd fp32 dK/dV/dQ", "flash_bwd_tf32"),
+           ("K6 bwd fp32 dQ summed", "flash_bwd_dq_sum"))
 # K7 and its backward by profiler row: the bf16 backward's kernel (a block
 # the heads of a B/C group) and the sum of each group's parts (one fp32
 # part a block; no launch where a block is a whole group)
-K7_ROWS = (("K7", "ssd_chunk_wgmma"), ("K7 bwd", "ssd_bwd_wgmma"),
+K7_ROWS = (("K7", "ssd_chunk_wgmma"), ("K7 fp32", "ssd_chunk_kernel"),
+           ("K7 bwd", "ssd_bwd_wgmma"), ("K7 bwd fp32", "ssd_bwd_tf32"),
            ("K7 bwd group sum", "group_sum"))
 
 
@@ -4039,9 +4103,133 @@ def family_train_phases(torch, dev, smi: str, predictor) -> dict:
     return out
 
 
-def train_path_phase(torch, dev, smi: str) -> dict:
-    """Phase 18; returns K4/K5's launches and numbers on the train path,
-    and K7's and its backward's under "hybrid" and "ssm"."""
+# phase 18g: Zamba2-1.2B in fp32 (weights, activations and the SSD and
+# attention inputs), the one training cell that reaches the fp32 backwards
+# of K6 and K7 at full width
+TRAIN_FP32_STEPS = 2
+
+
+def fp32_train_config():
+    """Zamba2-1.2B at full width and depth in fp32, remat as configured."""
+    from repro_torch.configs import get_config
+
+    return get_config(TRAIN_HYBRID_ARCH).replace(dtype="float32",
+                                                 param_dtype="float32")
+
+
+def fp32_train_label() -> str:
+    return f"{TRAIN_HYBRID_ARCH} train 1x{TRAIN_SEQ} fp32"
+
+
+def fp32_hybrid_train_phase(torch, dev, smi: str, pred: dict | None = None
+                            ) -> dict:
+    """Phase 18g: ``fp32_train_config`` trained by ``build_train_step``,
+    batch 1 x TRAIN_SEQ, TRAIN_FP32_STEPS AdamW steps from seeded weights:
+    the dry-run on meta first (``pred``, phase 22's prediction of the same
+    cell, or run here where None: its peak and launches), then the steps (the
+    loss finite and falling, the launches ``train_launches`` counts, no
+    plain version reached), the measured peak within DRY_PEAK_RTOL of the
+    prediction, a profiled step with the shares of K6 and K7 with their
+    backwards, and step 1 against the plain path at the fp32 twins' bars
+    (loss TRAIN_FP32_LOSS_RTOL, each leaf TRAIN_FP32_LEAF_RTOL of its
+    norm).  Returns the launches and the step's numbers, and under "card"
+    what ``card_cell`` measures of a cell (the peak of the state made after
+    the reset, the steps' own, step 1's launches, loss and gradient norm,
+    the profiled step's busy time), which phase 22 holds to the same
+    prediction in place of a step of its own."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import (TrainSettings, build_train_step,
+                                          init_train_state)
+    from repro_torch.models import zamba2 as Z
+    from repro_torch.models.api import get_model
+
+    what = fp32_train_label()
+    cfg = fp32_train_config()
+    model = get_model(cfg)
+    settings = TrainSettings()
+    source = "phase 22's"
+    if pred is None:
+        t0 = time.perf_counter()
+        pred = dryrun.run_cell(TRAIN_HYBRID_ARCH,
+                               ShapeSpec("train", TRAIN_SEQ, 1, "train"),
+                               cfg=cfg, settings=settings)
+        source = f"{time.perf_counter() - t0:.1f} s"
+    check(pred["ok"], f"{what} dry-run: {pred.get('error')}")
+    launched = {k: v for k, v in pred["kernel_launches"].items() if v}
+    print(f"{what}: {cfg.n_layers} Mamba2 layers and "
+          f"{Z.n_shared_invocations(cfg)} shared-attention invocations, "
+          f"remat {cfg.remat} ({cfg.remat_policy}); dry-run on meta "
+          f"({source}): peak "
+          f"{pred['peak_memory_per_device'] / 1e9:.3f} GB predicted, step's "
+          f"{pred['step_peak_bytes'] / 1e9:.3f} GB, launches {launched}, "
+          f"bound {1e3 * max(pred['compute_s'], pred['memory_s']):.3f} ms "
+          f"({pred['bottleneck']})", flush=True)
+    free_device_memory(torch)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(model, settings,
+                             torch.Generator(device=dev).manual_seed(0), dev)
+    batch = train_batch(torch, dev, cfg, 1,
+                        torch.Generator(device=dev).manual_seed(1))
+    n_params = sum(t.numel() for t in _leaves(state["params"]))
+    torch.cuda.synchronize()
+    setup_peak = torch.cuda.max_memory_allocated() - before
+    torch.cuda.reset_peak_memory_stats()
+    state, rows = run_train(torch, model, settings, state, batch,
+                            TRAIN_FP32_STEPS, what)
+    step_peak = torch.cuda.max_memory_allocated() - before
+    peak = max(setup_peak, step_peak)
+    p_peak = pred["peak_memory_per_device"]
+    print(f"{what}: {n_params / 1e9:.3f} B parameters; measured peak "
+          f"{peak / 1e9:.3f} GB above the {before / 1e9:.3f} GB held before "
+          f"(torch.cuda.max_memory_allocated), predicted {p_peak / 1e9:.3f} "
+          f"GB ({100 * (p_peak - peak) / peak:+.2f}%, within "
+          f"{100 * DRY_PEAK_RTOL:g}%)")
+    check(abs(p_peak - peak) <= DRY_PEAK_RTOL * peak,
+          f"{what}: measured peak {peak / 1e9:.3f} GB, predicted "
+          f"{p_peak / 1e9:.3f} GB")
+    check(pred["kernel_launches"] == rows[0]["launches"],
+          f"{what}: launches {rows[0]['launches']}, predicted "
+          f"{pred['kernel_launches']}")
+    host_ms = rows[-1]["ms"]
+    step = build_train_step(model, settings)
+
+    def one_step():
+        nonlocal state
+        state, _ = step(state, batch)
+
+    busy, prof_rows = profile_train_step(torch, one_step)
+    print_profile(f"{what} step (profiled; host ms step "
+                  f"{TRAIN_FP32_STEPS}'s)", busy, host_ms, prof_rows)
+    k6_ms = step_rows_ms(prof_rows, busy, "K6 and its backward", K6_ROWS)
+    k7_ms = step_rows_ms(prof_rows, busy, "K7 and its backward", K7_ROWS)
+    del state, step
+    plain_path_step1(torch, model, settings, batch, rows, what,
+                     TRAIN_FP32_LOSS_RTOL, TRAIN_FP32_LEAF_RTOL)
+    free_device_memory(torch)
+    print(f"{what} on {smi}: {host_ms:.1f} ms/step, device busy {busy:.1f} "
+          f"ms, peak {peak / 1e9:.3f} GB; loss {rows[0]['loss']:.4f} -> "
+          f"{rows[-1]['loss']:.4f} over {TRAIN_FP32_STEPS} steps; K6 and its "
+          f"backward {k6_ms:.3f} ms ({100 * k6_ms / busy:.1f}%), K7 and its "
+          f"backward {k7_ms:.3f} ms ({100 * k7_ms / busy:.1f}%) of the "
+          f"profiled step's device busy")
+    return {"launches": {name: sum(r["launches"][name] for r in rows)
+                         for name in rows[0]["launches"]},
+            "steps": TRAIN_FP32_STEPS, "ms_per_step": host_ms,
+            "busy_ms": busy, "peak": peak, "k6_ms": k6_ms, "k7_ms": k7_ms,
+            "card": {"peak": peak, "step_peak": step_peak, "before": before,
+                     "launches": rows[0]["launches"], "busy_ms": busy,
+                     "ops": sum(c for _, c, _ in prof_rows),
+                     "loss": rows[0]["loss"],
+                     "grad_norm": rows[0]["grad_norm"]}}
+
+
+def train_path_phase(torch, dev, smi: str, predictor) -> dict:
+    """Phases 18-18c and 18g (its dry-run from phase 22's ``predictor``);
+    returns K4/K5's launches and numbers on the train path, K7's and its
+    backward's under "hybrid" and "ssm", 18g's under "fp32"."""
     phase(18, f"lm train: {TRAIN_ARCH} full width, {TRAIN_STEPS} AdamW steps "
               f"(2 microbatches of {TRAIN_SEQ} tokens), {TRAIN_INT8_STEPS} "
               f"with int8 error feedback, kernel path against plain path")
@@ -4053,6 +4241,13 @@ def train_path_phase(torch, dev, smi: str) -> dict:
     phase("18c", f"lm train: {SSM_ARCH} full width and depth, remat, "
                  f"{TRAIN_SSM_STEPS} steps through K7 and its backward")
     out["ssm"] = ssm_train_phase(torch, dev, smi)
+    phase("18g", f"lm train: {fp32_train_label()}, full width and depth, "
+                 f"{TRAIN_FP32_STEPS} steps through the fp32 K6, K7 and "
+                 f"their backwards, step 1 against the plain path")
+    wait_predictions(predictor, PREDICT_DIR)
+    cells = load_predictions(PREDICT_DIR, "cells.json")["cells"]
+    out["fp32"] = fp32_hybrid_train_phase(torch, dev, smi,
+                                          cells[fp32_train_label()])
     return out
 
 
@@ -4692,9 +4887,10 @@ def cell_config(cell: DryCell):
 
 
 def dry_cells() -> list[DryCell]:
-    """(b): the cells earlier phases run (phase 18's train steps, phase
-    8/12/15's 2048-token prefill and 4-slot decode step, phases 18d-18f's
-    train steps, phase 10's executor step at batch 128 for NN1-NN6); (c):
+    """(b): the cells earlier phases run (phase 18's train steps and
+    18g's fp32 Zamba2-1.2B step, phase 8/12/15's 2048-token prefill and
+    4-slot decode step, phases 18d-18f's train steps, phase 10's executor
+    step at batch 128 for NN1-NN6); (c):
     granite-3-2b at
     1 x KNOB_SEQ, baseline and KNOB_VARIANT, bf16 at full width and fp32
     cut to KNOB_FP32_LAYERS layers."""
@@ -4710,7 +4906,11 @@ def dry_cells() -> list[DryCell]:
              DryCell(f"{TRAIN_HYBRID_ARCH} train 1x{TRAIN_SEQ}", "b",
                      TRAIN_HYBRID_ARCH,
                      ShapeSpec("train", TRAIN_SEQ, 1, "train"),
-                     TrainSettings())]
+                     TrainSettings()),
+             DryCell(fp32_train_label(), "b", TRAIN_HYBRID_ARCH,
+                     ShapeSpec("train", TRAIN_SEQ, 1, "train"),
+                     TrainSettings(),
+                     (("dtype", "float32"), ("param_dtype", "float32")))]
     for arch in (ARCH, DENSE_ARCH, SSM_ARCH):
         cells += [DryCell(f"{arch} prefill 1x{serve}", "b", arch,
                           ShapeSpec("prefill", serve, 1, "prefill")),
@@ -4932,11 +5132,14 @@ def hold_cell(cell: DryCell, pred: dict, got: dict) -> tuple[bool, str]:
     return peak_ok and launches_ok and bound_ok, line
 
 
-def dryrun_phase(torch, dev, predictor, out_dir: str) -> None:
+def dryrun_phase(torch, dev, predictor, out_dir: str,
+                 measured: dict) -> None:
     """Phase 22 (see the module docstring): (a) the meta sweep's results,
     each cell ``ok``, the reference's skip or refused at a kernel's limit;
     (b) and (c) every ``dry_cells`` cell's prediction held to a real step
-    on the card; (c) the knob variant's loss and gradient norm held to the
+    on the card, ``measured``'s cells (label: ``card_cell``'s numbers) to
+    the steps an earlier phase took of them, the others to a step taken
+    here; (c) the knob variant's loss and gradient norm held to the
     baseline's, and the two steps' peaks ordered on the card as the
     dry-run orders them."""
     from repro_torch.launch.dryrun import cell_line
@@ -4976,9 +5179,12 @@ def dryrun_phase(torch, dev, predictor, out_dir: str) -> None:
     for cell in dry_cells():
         pred = out["cells"][cell.label]
         check(pred.get("ok"), f"{cell.label}: the dry-run ended {pred}")
-        got[cell.label] = card_cell(torch, dev, cell)
+        if cell.label in measured:
+            got[cell.label], where = measured[cell.label], " (phase 18g's)"
+        else:
+            got[cell.label], where = card_cell(torch, dev, cell), ""
         ok, line = hold_cell(cell, pred, got[cell.label])
-        lines.append((ok, f"({cell.part}) {line}"))
+        lines.append((ok, f"({cell.part}) {line}{where}"))
         print(lines[-1][1], flush=True)
 
     knob_lines = []
@@ -6042,13 +6248,14 @@ def run_phases(torch, dev, smi: str, predictor) -> int:
 
     dense_launches = dense_path_phases(torch, dev)
     family_launches = family_path_phases(torch, dev)
-    train = train_path_phase(torch, dev, smi)
+    train = train_path_phase(torch, dev, smi, predictor)
     families = family_train_phases(torch, dev, smi, predictor)
     later = later_path_phases(torch, dev, smi, train["n_params"])
     phase(22, "dry-runs on the meta device (dryrun --all, dryrun_fcnn, the "
               "cells earlier phases run and the knobs at 4096 tokens) held "
               "to one step of each on the card")
-    dryrun_phase(torch, dev, predictor, PREDICT_DIR)
+    dryrun_phase(torch, dev, predictor, PREDICT_DIR,
+                 {fp32_train_label(): train["fp32"]["card"]})
     phase(23, "the FCNN in bf16: K1-K3 in cases (a), (b) and (d) against "
               "their plain versions, K1 and K2 on the tensor cores where w "
               "is bf16, K3 where x is bf16; NN1 300 steps in (a) and (b); "
@@ -6134,6 +6341,9 @@ def run_phases(torch, dev, smi: str, predictor) -> int:
                 paths[f"{arch} train"] = {
                     "launches": train[key]["launches"]["ssd_chunk"],
                     "steps": train[key]["steps"]}
+        paths[fp32_train_label()] = {
+            "launches": train["fp32"]["launches"][name],
+            "steps": train["fp32"]["steps"]}
         extra = ({"windowed": s["windowed"]} if name == "flash_attention"
                  else {})
         kernels.append({
@@ -6153,6 +6363,9 @@ def run_phases(torch, dev, smi: str, predictor) -> int:
         s["paths"][family_label(ft)] = {
             "launches": families[ft.arch]["launches"]["flash_attention_bwd"],
             "steps": families[ft.arch]["steps"]}
+    s["paths"][fp32_train_label()] = {
+        "launches": train["fp32"]["launches"]["flash_attention_bwd"],
+        "steps": train["fp32"]["steps"]}
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda", "source": source,
         "replaces": replaces,
@@ -6173,6 +6386,9 @@ def run_phases(torch, dev, smi: str, predictor) -> int:
         s["paths"].setdefault(f"{arch} train bfloat16", {}).update(
             launches=train[key]["launches"]["ssd_chunk_bwd"],
             steps=train[key]["steps"])
+    s["paths"].setdefault(f"{TRAIN_HYBRID_ARCH} train float32", {}).update(
+        launches=train["fp32"]["launches"]["ssd_chunk_bwd"],
+        steps=train["fp32"]["steps"])
     kernels.append({
         "name": "ssd_chunk_bwd", "route": "cuda", "source": source,
         "replaces": replaces,

@@ -32,16 +32,20 @@ __all__ = ["H100Target", "PeriodPlan", "FCNNPlan", "plan_fcnn",
 class H100Target:
     """NVIDIA H100 SXM data-sheet figures (dense rates, 700 W): HBM
     bandwidth, bf16 on the tensor cores, fp32 outside them (the port runs
-    with TF32 off), and HBM capacity."""
+    with TF32 off), TF32 on the tensor cores (the products of the fp32
+    backwards of K6 and K7, each split into three TF32 products), and HBM
+    capacity."""
 
     hbm_bw: float = 3.35e12           # bytes/s
     peak_flops: float = 989e12        # bf16
     fp32_flops: float = 67e12
+    tf32_flops: float = 495e12
     hbm_bytes: float = 80e9
 
     def flop_rate(self, dtype: str) -> float:
         """Peak FLOP/s of products whose operands are ``dtype``."""
-        rates = {"bfloat16": self.peak_flops, "float32": self.fp32_flops}
+        rates = {"bfloat16": self.peak_flops, "float32": self.fp32_flops,
+                 "tfloat32": self.tf32_flops}
         if dtype not in rates:
             raise ValueError(f"no H100 peak for {dtype} operations; "
                              f"known: {sorted(rates)}")

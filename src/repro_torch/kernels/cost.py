@@ -11,7 +11,8 @@ as 1; where the work depends on the inputs (causal or windowed attention)
 only the (query, key) pairs kept are counted.  Operations are keyed by
 the type the product runs in, which sets the peak they are priced at:
 ``"float32"`` at the CUDA cores' rate, ``"bfloat16"`` at the tensor
-cores'.  K1's, K2's and K3's products are counted as their kernels run
+cores', ``"tfloat32"`` at the tensor cores' TF32 rate.  K1's, K2's and
+K3's products are counted as their kernels run
 them: on the tensor cores where ``uses_tc`` says so (K1 and K2 with bf16
 w, but K2 at a contraction N <= TC_NARROW; K3 with bf16 x), once where
 both operands are bf16 (K1's x in case (a)) and twice where one is fp32
@@ -19,7 +20,11 @@ and split into bf16 hi + lo (K1's x in case (b), K2's and K3's dZ
 always); on the CUDA cores in fp32.  K6, K7 and their backwards with
 bf16 inputs are bf16 products, counted once each (the hi/lo split K7 and
 its backward give an fp32 operand is the kernels' way of keeping it
-exact, not work the function needs).  Element-wise steps
+exact, not work the function needs).  The backwards of K6 and K7 with
+fp32 inputs run every product on the tensor cores as three TF32 products
+(3xTF32: an fp32 operand's TF32 hi and lo), so each is counted three
+times as ``"tfloat32"``: the route's own work, as K1–K3's hi + lo
+products are counted twice.  Element-wise steps
 (bias, activation, A'(Y)) and K4/K5 are fp32.  Bytes count each operand
 at its element size: K1–K3 take a 4 or 2 for each operand group, an
 output in the dtype the kernel gives it.
@@ -43,8 +48,8 @@ __all__ = ["Cost", "recording", "report", "kept_pairs", "TC_NARROW",
 
 @dataclasses.dataclass(frozen=True)
 class Cost:
-    """Operations by the operands' type (``"float32"`` or ``"bfloat16"``)
-    and bytes moved."""
+    """Operations by the operands' type (``"float32"``, ``"bfloat16"`` or
+    ``"tfloat32"``) and bytes moved."""
 
     flops: dict[str, float]
     nbytes: float
@@ -78,6 +83,18 @@ def report(name: str, cost: Cost) -> None:
 
 def _dtype(element_size: int) -> str:
     return "bfloat16" if element_size == 2 else "float32"
+
+
+# the fp32 backwards' products: three TF32 products each (3xTF32)
+TF32_SPLIT = 3
+
+
+def _bwd_ops(element_size: int, products: int) -> dict[str, float]:
+    """Operations of a backward's products as its kernel runs them: bf16
+    once, fp32 as TF32_SPLIT TF32 products."""
+    if element_size == 2:
+        return {"bfloat16": products}
+    return {"tfloat32": TF32_SPLIT * products}
 
 
 def kept_pairs(s: int, window: int) -> int:
@@ -188,9 +205,9 @@ def flash_attention_bwd(b: int, h: int, kv: int, s: int, sk: int, d: int,
     fp32 lse (B, H, S) -> dq (B, H, S, D), dk, dv (B, KV, Sk, D), and the
     fp32 row correction delta (B, H, S) once; the VJP's five products (S,
     dP, dV, dQ, dK) over the kept pairs, as ``flash_attention`` keeps
-    them."""
+    them; fp32 as three TF32 products each (``_bwd_ops``)."""
     pairs = kept_pairs(s, window) if causal else s * sk
-    return Cost({_dtype(element_size): 10 * b * h * pairs * d},
+    return Cost(_bwd_ops(element_size, 10 * b * h * pairs * d),
                 4 * b * (h * s + kv * sk) * d * element_size
                 + 2 * b * h * s * 4)
 
@@ -219,10 +236,11 @@ def ssd_chunk_bwd(bc: int, q: int, h: int, p: int, n: int, groups: int,
     function's work, what any kernel must do: the bf16 kernel's fp32 parts
     of dB and dC (one a block of heads, added by a second kernel) and its
     sums over a group's heads before dB's and dC's products (which save
-    those two products for all but one head of a block) are not counted."""
+    those two products for all but one head of a block) are not counted;
+    fp32 as three TF32 products each (``_bwd_ops``)."""
     pairs = q * (q + 1) // 2
-    return Cost({_dtype(element_size):
-                 bc * h * (pairs * (6 * n + 4 * p) + 4 * q * p * n)},
+    return Cost(_bwd_ops(element_size,
+                         bc * h * (pairs * (6 * n + 4 * p) + 4 * q * p * n)),
                 3 * bc * q * h * p * element_size
                 + 4 * bc * q * groups * n * element_size
                 + bc * h * p * n * 4 + 3 * bc * q * h * 4)

@@ -24,8 +24,10 @@
 //         tensor cores with wgmma, K/V fed by TMA through a shared-memory
 //         ring (design below, at the kernel).
 //   fp32  flash_fwd_kernel: fp32 FMAs on the CUDA cores.  fp32's parity
-//         bar (2e-5 of the largest output) rules out TF32 and bf16 tensor
-//         cores.
+//         bar (2e-5 of the largest output) rules out one TF32 pass and
+//         bf16 tensor cores; a split that keeps fp32's bits (3xTF32, as
+//         the fp32 backward runs, flash_attention_bwd.cu) is not ruled
+//         out, and is not done here yet.
 //
 // With an lse pointer (training: kLse, a template flag, so the serving
 // kernels are unchanged) both also write each row's log-sum-exp of its

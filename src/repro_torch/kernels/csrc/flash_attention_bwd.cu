@@ -15,13 +15,19 @@
 //   dV = Σ pᵀ·dO    dP = dO·vᵀ    dS = p ⊙ (dP − delta) · scale
 //   dQ = dS·k       dK = Σ dSᵀ·q
 //
-// fp32: three kernels, launched in order on one stream:
-//   (a) flash_bwd_delta_kernel: delta (B, H, Sq) fp32, one warp a row;
-//   (b) dK and dV: a block owns one (batch, KV head, 64-key tile) and walks
-//       the G query heads of its group and their 64-row query tiles, so
-//       each dK and dV element is summed by one block in a fixed order;
-//   (c) dQ: a block owns one (batch, query head, 64-row query tile) and
-//       walks the key tiles.
+// fp32: three kernels, the products on the tensor cores as 3xTF32
+// (mma.sync; each fp32 operand split into TF32 hi + lo, a product taken as
+// lo·hi + hi·lo + hi·hi, hopper_tc.cuh):
+//   (a) flash_bwd_prep_f32_kernel: delta (B, H, Sq) fp32, one warp a row,
+//       and the counters zeroed;
+//   (b) flash_bwd_tf32_kernel: dK, dV and dQ in one pass over the unit
+//       list bwd_schedule builds with 64-key spans (the persistent grid and
+//       ticket of the bf16 kernel below): eight warps, each 16 keys of the
+//       span and 32 queries of a tile for Sᵀ and dPᵀ, dV and dK summed in
+//       registers over the walk, dQ's part (dSᵀ through shared memory) added
+//       to its slot of the tile's fp32 sum in list order; five products a
+//       pair, S and dP once;
+//   (c) flash_bwd_dq_sum_kernel: dQ's slots added in slot order.
 // bf16: three kernels, every product on the tensor cores with wgmma:
 //   (a) flash_bwd_prep_kernel: delta and lse·log2(e) per query row, in
 //       64-row tiles the main kernel loads in one bulk copy, and the
@@ -61,18 +67,39 @@
 // bits of p); dS is rounded to bf16 for dQ and dK, as the reference rounds
 // it (ds.astype(q.dtype)), so storing it in bf16 for dQ's product is exact;
 // each gradient is rounded to bf16 once.  Scores are exponentiated in log2
-// units (exp2 of s·log2(e)/√D − lse·log2(e)).  fp32: the CUDA cores, 4 x 4
-// register tiles a thread as in the fp32 forward (fp32's parity bar rules
-// out TF32).
+// units (exp2 of s·log2(e)/√D − lse·log2(e)).  fp32: S, dP, p, dS and every
+// sum in fp32 as the reference takes them; each product's fp32 operands
+// enter as TF32 hi + lo and three products (about 22 of fp32's 24 bits of
+// each operand, the dropped lo·lo term at most 2^-22 of a product), where
+// one TF32 product would keep 11 bits: one TF32 pass is ruled out by the
+// fp32 bars, a split that keeps fp32's bits is not.
+//
+// fp32 design, weighed: wgmma reads a TF32 operand from shared memory only
+// K-major (its transpose bits exist for 16-bit types alone), so dV = pᵀ·dO,
+// dK = dSᵀ·Q and dQ = dS·K would need dO, Q and K staged a second time
+// transposed, and TMA does not transpose; three bf16 terms would read
+// MN-major as the bf16 kernel does, but take six products where 3xTF32
+// takes three.  mma.sync takes its fragments from registers, loaded from
+// shared memory in any layout: pᵀ and dSᵀ go from the Sᵀ/dPᵀ accumulators
+// to dV's and dK's A operand without leaving registers (hopper_tc.cuh
+// acc_as_a), and dO, Q and K are read row-major with a 4-float row pad
+// that makes every fragment load hit 32 banks.  fp32 tiles take twice the
+// shared memory of bf16: 64-key spans (not 128) keep K, V, two stages of
+// Q/dO and dSᵀ in 122,880 bytes at D <= 64 and 221,184 at D = 128, one block an
+// SM; the dQ sums go through the block (it waits for its turn, adds, and
+// passes the turn on) rather than a writer thread, in the slots
+// bwd_schedule gives a tile (at granite-3-2b's shape 1, 2 and 4 slots ran
+// as fast: the waits are not what bounds it).
 //
 // What bounds it on an H100: five products over the kept (query, key)
 // pairs, 10·D operations a pair and head, against each of q, k, v, o, dO,
 // lse and the three gradients moved once: at granite-3-2b's (1, 32, 2048,
 // 64) causal on 8 KV heads ~43 GFLOP over ~42 MB, far above the ridge, so
 // the bound is the tensor cores' 989 TFLOP/s (bf16) or the CUDA cores' 67
-// (fp32).  The bf16 kernel runs six products (p's hi and lo), and its dQ
-// parts travel through L2 (the fp32 scratch, 16.8 MB at granite's shape);
-// the fp32 kernels recompute S and dP in both (b) and (c).
+// (fp32; 495 as 3xTF32, three products each).  The bf16 kernel runs six
+// products (p's hi and lo), and its dQ parts travel through L2 (the fp32
+// scratch, 16.8 MB at granite's shape); the fp32 kernel runs fifteen TF32
+// products a pair and sends its dQ parts through L2 the same way.
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
@@ -103,283 +130,29 @@ __device__ __forceinline__ bool kept(int row, int key, int Sq, int Sk,
          (window == 0 || key > row - window);
 }
 
-// (a) delta[r] = Σ_d o[r, d]·dO[r, d] in fp32, a warp a row (B·H·Sq rows)
-template <typename T>
+// (a), fp32: delta[r] = Σ_d o[r, d]·dO[r, d] in fp32, a warp a row (B·H·Sq
+// rows), and `ctr` (the ticket and the order counters) zeroed, in every
+// call, so a replayed CUDA graph starts from zero too
 __global__ void __launch_bounds__(256)
-flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                       float* __restrict__ delta, Str3 so, Str3 sd, int H,
-                       int Sq, int D, long long rows) {
+flash_bwd_prep_f32_kernel(const float* __restrict__ o, const float* __restrict__ dout,
+                          float* __restrict__ delta, Str3 so, Str3 sd, int H, int Sq,
+                          int D, long long rows, int* __restrict__ ctr, int n_ctr) {
+  for (long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x; i < n_ctr;
+       i += static_cast<long long>(gridDim.x) * 256)
+    ctr[i] = 0;
   const long long r = static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32;
   if (r >= rows) return;  // uniform across the warp
   const int lane = threadIdx.x % 32;
   const int s = static_cast<int>(r % Sq);
   const long long bh = r / Sq;
   const long long b = bh / H, h = bh % H;
-  const T* op = o + b * so.b + h * so.h + s * so.s;
-  const T* dp = dout + b * sd.b + h * sd.h + s * sd.s;
+  const float* op = o + b * so.b + h * so.h + s * so.s;
+  const float* dp = dout + b * sd.b + h * sd.h + s * sd.s;
   float acc = 0.f;
-  for (int d = lane; d < D; d += 32) acc = fmaf(to_f32(op[d]), to_f32(dp[d]), acc);
+  for (int d = lane; d < D; d += 32) acc = fmaf(op[d], dp[d], acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) delta[r] = acc;
-}
-
-// ------------------------------------------------------------------ fp32
-
-constexpr int kThreads = 256;          // 16 x 16 threads, 4 x 4 each
-constexpr int kPPitch = kTile + 4;     // rows of the P and dS tiles
-
-// Rows [row0, row0 + 64) of one (batch, head) slice into shared memory
-// with row pitch kDPad + 4; rows >= S and columns >= D are zero.
-template <int kDPad>
-__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src,
-                                          long long stride_s, int row0, int S,
-                                          int D) {
-  constexpr int kPitch = kDPad + 4;
-  for (int idx = threadIdx.x; idx < kTile * kDPad; idx += kThreads) {
-    const int r = idx / kDPad;
-    const int d = idx % kDPad;
-    const int row = row0 + r;
-    dst[r * kPitch + d] = row < S && d < D ? src[row * stride_s + d] : 0.f;
-  }
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, fmaf(a.w, b.w, acc))));
-}
-
-// a[i][4g + e] += Σ_c t[(ty + 16i)·kPPitch + c] · m[c·kPitch + 4tx + 64g + e]
-// over the 64 columns c of a P or dS tile t (rows ty + 16i of the output)
-template <int kDPad>
-__device__ __forceinline__ void tile_product(float (&a)[4][kDPad / 16],
-                                             const float* t, const float* m,
-                                             int tx, int ty) {
-  constexpr int kPitch = kDPad + 4;
-  for (int c = 0; c < kTile; c += 4) {
-    float4 tf[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      tf[i] = *reinterpret_cast<const float4*>(&t[(ty + 16 * i) * kPPitch + c]);
-#pragma unroll
-    for (int g = 0; g < kDPad / 64; ++g) {
-      const int col = 4 * tx + 64 * g;
-      const float4 m0 = *reinterpret_cast<const float4*>(&m[(c + 0) * kPitch + col]);
-      const float4 m1 = *reinterpret_cast<const float4*>(&m[(c + 1) * kPitch + col]);
-      const float4 m2 = *reinterpret_cast<const float4*>(&m[(c + 2) * kPitch + col]);
-      const float4 m3 = *reinterpret_cast<const float4*>(&m[(c + 3) * kPitch + col]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float* r = &a[i][4 * g];
-        r[0] = fmaf(tf[i].x, m0.x, fmaf(tf[i].y, m1.x, fmaf(tf[i].z, m2.x, fmaf(tf[i].w, m3.x, r[0]))));
-        r[1] = fmaf(tf[i].x, m0.y, fmaf(tf[i].y, m1.y, fmaf(tf[i].z, m2.y, fmaf(tf[i].w, m3.y, r[1]))));
-        r[2] = fmaf(tf[i].x, m0.z, fmaf(tf[i].y, m1.z, fmaf(tf[i].z, m2.z, fmaf(tf[i].w, m3.z, r[2]))));
-        r[3] = fmaf(tf[i].x, m0.w, fmaf(tf[i].y, m1.w, fmaf(tf[i].z, m2.w, fmaf(tf[i].w, m3.w, r[3]))));
-      }
-    }
-  }
-}
-
-// s[i][j] = A[ty + 16i]·B[tx + 16j] and t[i][j] = C[ty + 16i]·E[tx + 16j]
-// over the padded D of four staged tiles
-template <int kDPad>
-__device__ __forceinline__ void two_scores(float (&s)[4][4], float (&t)[4][4],
-                                           const float* A, const float* B,
-                                           const float* C, const float* E,
-                                           int tx, int ty) {
-  constexpr int kPitch = kDPad + 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = t[i][j] = 0.f;
-  for (int d = 0; d < kDPad; d += 4) {
-    float4 af[4], bf[4], cf[4], ef[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      af[i] = *reinterpret_cast<const float4*>(&A[(ty + 16 * i) * kPitch + d]);
-      cf[i] = *reinterpret_cast<const float4*>(&C[(ty + 16 * i) * kPitch + d]);
-      bf[i] = *reinterpret_cast<const float4*>(&B[(tx + 16 * i) * kPitch + d]);
-      ef[i] = *reinterpret_cast<const float4*>(&E[(tx + 16 * i) * kPitch + d]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = dot4(af[i], bf[j], s[i][j]);
-        t[i][j] = dot4(cf[i], ef[j], t[i][j]);
-      }
-  }
-}
-
-// rows ty + 16i, columns 4tx + 64g + e of a (rows, D) gradient
-template <int kDPad>
-__device__ __forceinline__ void store_rows(float* out, long long stride_s,
-                                           const float (&a)[4][kDPad / 16],
-                                           int row0, int S, int D, int tx,
-                                           int ty) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty + 16 * i;
-    if (row >= S) continue;
-#pragma unroll
-    for (int g = 0; g < kDPad / 64; ++g)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 4 * tx + 64 * g + e;
-        if (col < D) out[row * stride_s + col] = a[i][4 * g + e];
-      }
-  }
-}
-
-// (b), fp32: one block per (64-key tile, batch·KV head)
-template <int kDPad>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ dout,
-                      const float* __restrict__ lse, const float* __restrict__ delta,
-                      float* __restrict__ dk, float* __restrict__ dv, Str3 sq,
-                      Str3 sk, Str3 sv, Str3 sdo, Str3 sdk, Str3 sdv, int H, int G,
-                      int Sq, int Sk, int D, int causal, int window, float scale) {
-  constexpr int kPitch = kDPad + 4;
-  constexpr int kCols = kDPad / 16;
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + kTile * kPitch;
-  float* Qs = Vs + kTile * kPitch;
-  float* Os = Qs + kTile * kPitch;   // dO
-  float* Ps = Os + kTile * kPitch;   // Pᵀ: [key][query]
-  float* Ds = Ps + kTile * kPPitch;  // dSᵀ
-  float* Ls = Ds + kTile * kPPitch;  // the query tile's lse
-  float* Dl = Ls + kTile;            // and delta
-
-  const int KV = H / G;
-  const int k0 = blockIdx.x * kTile;
-  const int b = blockIdx.y / KV;
-  const int hk = blockIdx.y % KV;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int n_qt = (Sq + kTile - 1) / kTile;
-  // the query tiles holding a row that attends a key of this tile
-  const int qt_begin = causal ? k0 / kTile : 0;
-  const int qt_end = window > 0 ? min(n_qt, (k0 + kTile - 2 + window) / kTile + 1) : n_qt;
-
-  load_rows<kDPad>(Ks, k + b * sk.b + hk * sk.h, sk.s, k0, Sk, D);
-  load_rows<kDPad>(Vs, v + b * sv.b + hk * sv.h, sv.s, k0, Sk, D);
-  float adv[4][kCols], adk[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) adv[i][c] = adk[i][c] = 0.f;
-
-  for (int g = 0; g < G; ++g) {
-    const int h = hk * G + g;
-    const float* qp = q + b * sq.b + h * sq.h;
-    const float* op = dout + b * sdo.b + h * sdo.h;
-    const float* lp = lse + (static_cast<long long>(b) * H + h) * Sq;
-    const float* dlp = delta + (static_cast<long long>(b) * H + h) * Sq;
-    for (int qt = qt_begin; qt < qt_end; ++qt) {
-      const int q0 = qt * kTile;
-      __syncthreads();  // the previous tile's Q, dO, P and dS are consumed
-      load_rows<kDPad>(Qs, qp, sq.s, q0, Sq, D);
-      load_rows<kDPad>(Os, op, sdo.s, q0, Sq, D);
-      if (threadIdx.x < kTile) {
-        const int row = q0 + threadIdx.x;
-        Ls[threadIdx.x] = row < Sq ? lp[row] : 0.f;
-        Dl[threadIdx.x] = row < Sq ? dlp[row] : 0.f;
-      }
-      __syncthreads();
-
-      // Sᵀ and dPᵀ: keys ty + 16i, queries tx + 16j
-      float s[4][4], dp[4][4];
-      two_scores<kDPad>(s, dp, Ks, Qs, Vs, Os, tx, ty);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = tx + 16 * j;
-          const float p = kept(q0 + c, k0 + ty + 16 * i, Sq, Sk, causal, window)
-                              ? expf(s[i][j] * scale - Ls[c])
-                              : 0.f;
-          Ps[(ty + 16 * i) * kPPitch + c] = p;
-          Ds[(ty + 16 * i) * kPPitch + c] = p * (dp[i][j] - Dl[c]) * scale;
-        }
-      __syncthreads();
-
-      // dV += Pᵀ dO, dK += dSᵀ Q
-      tile_product<kDPad>(adv, Ps, Os, tx, ty);
-      tile_product<kDPad>(adk, Ds, Qs, tx, ty);
-    }
-  }
-  store_rows<kDPad>(dk + b * sdk.b + hk * sdk.h, sdk.s, adk, k0, Sk, D, tx, ty);
-  store_rows<kDPad>(dv + b * sdv.b + hk * sdv.h, sdv.s, adv, k0, Sk, D, tx, ty);
-}
-
-// (c), fp32: one block per (64-row query tile, batch·head), the tiles
-// with the most keys first
-template <int kDPad>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dq, Str3 sq, Str3 sk, Str3 sv, Str3 sdo,
-                    Str3 sdq, int H, int G, int Sq, int Sk, int D, int causal,
-                    int window, float scale) {
-  constexpr int kPitch = kDPad + 4;
-  constexpr int kCols = kDPad / 16;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Os = Qs + kTile * kPitch;   // dO
-  float* Ks = Os + kTile * kPitch;
-  float* Vs = Ks + kTile * kPitch;
-  float* Ds = Vs + kTile * kPitch;   // dS: [query][key]
-
-  const int n_qt = (Sq + kTile - 1) / kTile;
-  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * kTile;
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
-  const int hk = h / G;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const float* kp = k + b * sk.b + hk * sk.h;
-  const float* vp = v + b * sv.b + hk * sv.h;
-
-  load_rows<kDPad>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, Sq, D);
-  load_rows<kDPad>(Os, dout + b * sdo.b + h * sdo.h, sdo.s, q0, Sq, D);
-  float lse_r[4], dl_r[4], acc[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    const long long at = static_cast<long long>(blockIdx.y) * Sq + row;
-    lse_r[i] = row < Sq ? lse[at] : 0.f;
-    dl_r[i] = row < Sq ? delta[at] : 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
-  }
-
-  const int kv_end = causal ? min(Sk, q0 + kTile) : Sk;
-  const int kv_begin = window > 0 ? max(0, q0 - window + 1) / kTile * kTile : 0;
-  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += kTile) {
-    __syncthreads();  // the previous tile's K, V and dS are consumed
-    load_rows<kDPad>(Ks, kp, sk.s, kv0, Sk, D);
-    load_rows<kDPad>(Vs, vp, sv.s, kv0, Sk, D);
-    __syncthreads();
-
-    // S and dP: queries ty + 16i, keys tx + 16j
-    float s[4][4], dp[4][4];
-    two_scores<kDPad>(s, dp, Qs, Ks, Os, Vs, tx, ty);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const float p = kept(q0 + ty + 16 * i, kv0 + c, Sq, Sk, causal, window)
-                            ? expf(s[i][j] * scale - lse_r[i])
-                            : 0.f;
-        Ds[(ty + 16 * i) * kPPitch + c] = p * (dp[i][j] - dl_r[i]) * scale;
-      }
-    __syncthreads();
-    tile_product<kDPad>(acc, Ds, Ks, tx, ty);  // dQ += dS K
-  }
-  store_rows<kDPad>(dq + b * sdq.b + h * sdq.h, sdq.s, acc, q0, Sq, D, tx, ty);
 }
 
 template <typename Kern>
@@ -400,34 +173,6 @@ struct Args {
   Str3 sq, sk, sv, sdo, sdq, sdk, sdv;
   int B, H, KV, Sq, Sk, D, causal, window;
 };
-
-template <int kDPad>
-cudaError_t launch_fp32(const Args& a, cudaStream_t stream) {
-  constexpr int kPitch = kDPad + 4;
-  const int f = static_cast<int>(sizeof(float));
-  const int smem_kv = f * (4 * kTile * kPitch + 2 * kTile * kPPitch + 2 * kTile);
-  const int smem_q = f * (4 * kTile * kPitch + kTile * kPPitch);
-  static bool kv_in = false, q_in = false;
-  cudaError_t err = opt_in(flash_bwd_dkdv_kernel<kDPad>, smem_kv, kv_in);
-  if (err == cudaSuccess) err = opt_in(flash_bwd_dq_kernel<kDPad>, smem_q, q_in);
-  if (err != cudaSuccess) return err;
-  const float scale = 1.0f / sqrtf(static_cast<float>(a.D));
-  const int G = a.H / a.KV;
-  const auto f32 = [](const void* p) { return static_cast<const float*>(p); };
-  flash_bwd_dkdv_kernel<kDPad>
-      <<<dim3((a.Sk + kTile - 1) / kTile, a.B * a.KV), kThreads, smem_kv, stream>>>(
-          f32(a.q), f32(a.k), f32(a.v), f32(a.dout), a.lse, a.delta,
-          static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.sq, a.sk, a.sv,
-          a.sdo, a.sdk, a.sdv, a.H, G, a.Sq, a.Sk, a.D, a.causal, a.window, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<kDPad>
-      <<<dim3((a.Sq + kTile - 1) / kTile, a.B * a.H), kThreads, smem_q, stream>>>(
-          f32(a.q), f32(a.k), f32(a.v), f32(a.dout), a.lse, a.delta,
-          static_cast<float*>(a.dq), a.sq, a.sk, a.sv, a.sdo, a.sdq, a.H, G, a.Sq,
-          a.Sk, a.D, a.causal, a.window, scale);
-  return cudaGetLastError();
-}
 
 // ------------------------------------------------------------------ bf16
 
@@ -1142,6 +887,393 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ------------------------------------------------------------------ fp32
+//
+// (b), fp32: the fused kernel for dK, dV and dQ on the tensor cores, every
+// product as 3xTF32 (hopper_tc.cuh).  A persistent grid takes units from a
+// ticket in the order of the list bwd_schedule builds with 64-key spans;
+// a unit owns one (batch, KV head, 64-key span) and a slice of its walk.
+// Warp w (8 a block) owns keys 16·(w % 4).. of the span and queries
+// 32·(w / 4).. of each walked 64-row tile, and for each pair
+//   Sᵀ = K_w·Q_wᵀ, dPᵀ = V_w·dO_wᵀ      (16 x 32, over D)
+//   pᵀ = exp(Sᵀ·scale − lse), dSᵀ = pᵀ(dPᵀ − delta)·scale
+//   dV_w += pᵀ·dO_w, dK_w += dSᵀ·Q_w    (16 x D, over its 32 queries; pᵀ
+//                                       and dSᵀ as register A operands)
+// then, dSᵀ through shared memory, warp w takes queries 16·(w % 4).. and
+// half of D of dQ's part dS·K over the span's 64 keys.  Five products a
+// pair, S and dP once.  The block adds the pair's dQ part to its slot of
+// the tile's fp32 sum in the list's order (a counter a (tile, slot), the
+// first part stored); at the end of the walk warps 4-7 hand their dK/dV
+// halves to warps 0-3 through shared memory, which add them (half 0 +
+// half 1) and write dK and dV, or add them to the span's sum in dk and dv
+// in list order where the plan split the span's walk.  Q, dO and the row
+// stats of the next pair are in flight (cp.async, two buffers) during a
+// pair's products.
+namespace f32 {
+
+constexpr int kSpan = 64;              // keys of a unit
+constexpr int kThreads = 256;          // 8 warps
+constexpr int kDsPitch = kTile + 4;    // a dSᵀ row: one key, 64 queries
+
+// shared memory in floats: K and V of the span, two stages of (Q, dO, lse,
+// delta), dSᵀ; rows of kDPad + 4 floats (a warp's fragment loads then hit
+// 32 distinct banks)
+template <int kDPad>
+struct Layout {
+  static constexpr int kPitch = kDPad + 4;
+  static constexpr int kTileF = kTile * kPitch;
+  static constexpr int kStage = 2 * kTileF + 2 * kTile;
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kTileF;
+  static constexpr int kStages = kV + kTileF;
+  static constexpr int kDS = kStages + 2 * kStage;
+  static constexpr int kBytes = 4 * (kDS + kSpan * kDsPitch);
+};
+
+// The ordered sums of the fp32 kernel, the whole block taking part: part
+// `turn` of a sum waits until its counter reads `turn`, then stores (turn
+// 0) or adds its part, then sets the counter to turn + 1.  No value is
+// added atomically, so every call sums in the same order.
+__device__ __forceinline__ void block_wait_turn(const int* ctr, int turn) {
+  if (turn > 0 && threadIdx.x == 0)
+    while (ld_acquire(ctr) != turn) __nanosleep(32);
+  __syncthreads();
+}
+
+__device__ __forceinline__ void block_pass_turn(int* ctr, int turn) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) st_release(ctr, turn + 1);
+}
+
+// v at p, or added to what p holds (read through L2)
+__device__ __forceinline__ void put2(float* p, float x, float y, bool first) {
+  if (!first) {
+    const float2 o = __ldcg(reinterpret_cast<const float2*>(p));
+    x += o.x;
+    y += o.y;
+  }
+  __stcg(reinterpret_cast<float2*>(p), make_float2(x, y));
+}
+
+__device__ __forceinline__ void put1(float* p, float x, bool first) {
+  __stcg(p, first ? x : x + __ldcg(p));
+}
+
+template <int kDPad>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      Plan plan, int BKV, float* __restrict__ dq_acc,
+                      float* __restrict__ dk, float* __restrict__ dv, int* __restrict__ ctr,
+                      Str3 sq, Str3 sk, Str3 sv, Str3 sdo, Str3 sdk, Str3 sdv, int H, int G,
+                      int Sq, int Sk, int D, int causal, int window, float scale, bool vec) {
+  using L = Layout<kDPad>;
+  constexpr int kPitch = L::kPitch;
+  constexpr int kN = kDPad / 8;        // n8 tiles of a dK/dV row
+  constexpr int kNq = kDPad / 16;      // n8 tiles of a warp's half of a dQ row
+  constexpr int kJ = kDPad == 128 ? 1 : 4;
+  constexpr int kNqs = kDPad == 128 ? kNq / 2 : kNq;  // dQ's n8 tiles a pass
+  extern __shared__ float4 smem4[];
+  float* const sm = reinterpret_cast<float*>(smem4);
+  const uint32_t sm_s = smem_u32(sm);
+  __shared__ int sched;
+
+  const int KV = H / G;
+  const int n_units = plan.n_pat * BKV;
+  const int n_qt = plan.n_qt, n_sp = plan.n_sp;
+  int* const ticket = ctr;
+  int* const dq_ctr = ctr + 1;  // a counter a (tile, slot)
+  int* const dkv_ctr = dq_ctr + static_cast<long long>(BKV) * G * n_qt * plan.slots;
+  const int tid = threadIdx.x;
+  const int w = tid / 32, lane = tid % 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int kb = w % 4, qh = w / 4;    // keys 16·kb.., queries 32·qh.. of a pair
+  const float* const Ks = sm + L::kK;
+  const float* const Vs = sm + L::kV;
+  float* const Ds = sm + L::kDS;
+  const long long plane = static_cast<long long>(BKV) * G * n_qt * kTile * kDPad;
+
+  for (;;) {
+    if (tid == 0) sched = atomicAdd(ticket, 1);
+    __syncthreads();
+    const int t = sched;
+    if (t >= n_units) break;
+    const int u = t / BKV, bkv = t % BKV;
+    const int b = bkv / KV, hk = bkv % KV;
+    const int n = plan.span(u);
+    const int k0 = n * kSpan;
+    const int qt_lo = plan.qt_lo(u), qt_hi = plan.qt_hi(u);
+    const int pairs = (qt_hi - qt_lo) * G;
+
+    // the stage of pair i: query tile qt_hi − 1 − i / G, head hk·G + i % G
+    auto load_pair = [&](int i) {
+      const int qt = qt_hi - 1 - i / G, h = hk * G + i % G;
+      const uint32_t st = sm_s + 4 * (L::kStages + (i % 2) * L::kStage);
+      const int q0 = qt * kTile;
+      tc::load_f32_tile<kTile, kDPad, kThreads>(st, kPitch, q + b * sq.b + h * sq.h + q0 * sq.s,
+                                                sq.s, Sq - q0, D, vec);
+      tc::load_f32_tile<kTile, kDPad, kThreads>(
+          st + 4 * L::kTileF, kPitch, dout + b * sdo.b + h * sdo.h + q0 * sdo.s, sdo.s,
+          Sq - q0, D, vec);
+      if (tid < 2 * kTile) {
+        const int r = q0 + tid % kTile;
+        const float* src = (tid < kTile ? lse : delta) + (static_cast<long long>(b) * H + h) * Sq;
+        tc::cp_async4(st + 4 * (2 * L::kTileF + tid), r < Sq ? src + r : src, r < Sq);
+      }
+    };
+    tc::load_f32_tile<kTile, kDPad, kThreads>(sm_s + 4 * L::kK, kPitch,
+                                              k + b * sk.b + hk * sk.h + k0 * sk.s, sk.s,
+                                              Sk - k0, D, vec);
+    tc::load_f32_tile<kTile, kDPad, kThreads>(sm_s + 4 * L::kV, kPitch,
+                                              v + b * sv.b + hk * sv.h + k0 * sv.s, sv.s,
+                                              Sk - k0, D, vec);
+    load_pair(0);
+    tc::cp_commit();
+
+    float dka[kN][4], dva[kN][4];
+#pragma unroll
+    for (int j = 0; j < kN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+
+    for (int i = 0; i < pairs; ++i) {
+      if (i + 1 < pairs) {
+        load_pair(i + 1);
+        tc::cp_commit();
+        tc::cp_wait<1>();
+      } else {
+        tc::cp_wait<0>();
+      }
+      __syncthreads();  // pair i's stage is in; the last pair's dSᵀ is consumed
+      const int qt = qt_hi - 1 - i / G, h = hk * G + i % G;
+      const int q0 = qt * kTile;
+      const float* const Qs = sm + L::kStages + (i % 2) * L::kStage;
+      const float* const Os = Qs + L::kTileF;
+      const float* const Ls = Os + L::kTileF;
+      const float* const Dl = Ls + kTile;
+
+      // whether the pair crosses the diagonal or the window's edge, or
+      // holds a row past Sq or a key past Sk: only then is each element's
+      // mask read
+      const bool masked = (causal && q0 < k0 + kSpan - 1) ||
+                          (window > 0 && q0 + kTile - 1 >= k0 + window) ||
+                          q0 + kTile > Sq || k0 + kSpan > Sk;
+      // kJ of the warp's four 8-query tiles at a time: Sᵀ and dPᵀ (keys
+      // 16·kb + g8 (+8), queries 32·qh + 8j + 2·t4 (+1)) over D, pᵀ and
+      // dSᵀ, then dV and dK over those queries (D = 128 takes one at a
+      // time: beside dK's and dV's 128 registers, four spill)
+#pragma unroll
+      for (int j0 = 0; j0 < 4; j0 += kJ) {
+        float s[kJ][4], dp[kJ][4];
+#pragma unroll
+        for (int j = 0; j < kJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < kDPad / 8; ++kk) {
+          tc::Tf32Frag<4> ka, va;
+          const float* kr = Ks + (16 * kb + g8) * kPitch + 8 * kk + t4;
+          const float* vr = Vs + (16 * kb + g8) * kPitch + 8 * kk + t4;
+          ka.set(0, kr[0]);
+          ka.set(1, kr[8 * kPitch]);
+          ka.set(2, kr[4]);
+          ka.set(3, kr[8 * kPitch + 4]);
+          va.set(0, vr[0]);
+          va.set(1, vr[8 * kPitch]);
+          va.set(2, vr[4]);
+          va.set(3, vr[8 * kPitch + 4]);
+#pragma unroll
+          for (int j = 0; j < kJ; ++j) {
+            const int row = (32 * qh + 8 * (j0 + j) + g8) * kPitch + 8 * kk + t4;
+            tc::Tf32Frag<2> qf, of;
+            qf.set(0, Qs[row]);
+            qf.set(1, Qs[row + 4]);
+            of.set(0, Os[row]);
+            of.set(1, Os[row + 4]);
+            tc::mma_3xtf32(s[j], ka, qf);
+            tc::mma_3xtf32(dp[j], va, of);
+          }
+        }
+        // pᵀ into s, dSᵀ into dp and the dSᵀ buffer
+#pragma unroll
+        for (int j = 0; j < kJ; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = 16 * kb + g8 + 8 * (e / 2);
+            const int c = 32 * qh + 8 * (j0 + j) + 2 * t4 + e % 2;
+            const float p = !masked || kept(q0 + c, k0 + key, Sq, Sk, causal, window)
+                                ? expf(s[j][e] * scale - Ls[c])
+                                : 0.f;
+            s[j][e] = p;
+            dp[j][e] = p * (dp[j][e] - Dl[c]) * scale;
+          }
+#pragma unroll
+          for (int e = 0; e < 4; e += 2)
+            *reinterpret_cast<float2*>(
+                &Ds[(16 * kb + g8 + 4 * e) * kDsPitch + 32 * qh + 8 * (j0 + j) + 2 * t4]) =
+                make_float2(dp[j][e], dp[j][e + 1]);
+        }
+        // dV += pᵀ·dO and dK += dSᵀ·Q over these 8·kJ queries, 8 a step
+#pragma unroll
+        for (int j = 0; j < kJ; ++j) {
+          tc::Tf32Frag<4> pa, da;
+          tc::acc_as_a(pa, s[j]);
+          tc::acc_as_a(da, dp[j]);
+          const int row = (32 * qh + 8 * (j0 + j) + 2 * t4) * kPitch + g8;
+#pragma unroll
+          for (int c = 0; c < kN; ++c) {
+            tc::Tf32Frag<2> of, qf;
+            of.set(0, Os[row + 8 * c]);
+            of.set(1, Os[row + kPitch + 8 * c]);
+            qf.set(0, Qs[row + 8 * c]);
+            qf.set(1, Qs[row + kPitch + 8 * c]);
+            tc::mma_3xtf32(dva[c], pa, of);
+            tc::mma_3xtf32(dka[c], da, qf);
+            // D = 128: no loads hoisted past the step (beside dK's and
+            // dV's 128 registers they spill)
+          }
+        }
+      }
+      __syncthreads();  // dSᵀ is whole
+
+      // dQ's part: queries 16·kb + g8 (+8), columns (kDPad / 2)·qh + 8c +
+      // 2·t4 (+1), over the span's 64 keys
+      const int rank = plan.dq_rank(qt, n);
+      const int slot = rank % plan.slots, turn = rank / plan.slots;
+      const long long tile = (static_cast<long long>(b) * H + h) * n_qt + qt;
+      int* const cnt = dq_ctr + tile * plan.slots + slot;
+      float* const part = dq_acc + slot * plane + tile * kTile * kDPad;
+      // (D = 128 in two passes of 32 columns: its dK and dV hold 128
+      // registers; the part goes out once the turn has come, pass by pass)
+      if (kNqs < kNq) block_wait_turn(cnt, turn);
+#pragma unroll
+      for (int c0 = 0; c0 < kNq; c0 += kNqs) {
+        float dqa[kNqs][4];
+#pragma unroll
+        for (int c = 0; c < kNqs; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dqa[c][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < kSpan / 8; ++kk) {
+          tc::Tf32Frag<4> a;
+          const float* d0 = Ds + (8 * kk + 2 * t4) * kDsPitch + 16 * kb + g8;
+          a.set(0, d0[0]);
+          a.set(1, d0[8]);
+          a.set(2, d0[kDsPitch]);
+          a.set(3, d0[kDsPitch + 8]);
+          const float* kr =
+              Ks + (8 * kk + 2 * t4) * kPitch + (kDPad / 2) * qh + 8 * c0 + g8;
+#pragma unroll
+          for (int c = 0; c < kNqs; ++c) {
+            tc::Tf32Frag<2> bf;
+            bf.set(0, kr[8 * c]);
+            bf.set(1, kr[kPitch + 8 * c]);
+            tc::mma_3xtf32(dqa[c], a, bf);
+          }
+        }
+        if (kNqs == kNq) block_wait_turn(cnt, turn);
+#pragma unroll
+        for (int c = 0; c < kNqs; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; e += 2)
+            put2(part + (16 * kb + g8 + 4 * e) * kDPad + (kDPad / 2) * qh + 8 * (c0 + c) +
+                     2 * t4,
+                 dqa[c][e], dqa[c][e + 1], turn == 0);
+      }
+      block_pass_turn(cnt, turn);
+    }
+
+    // dK and dV: warps 4-7 hand their halves to warps 0-3 through the
+    // stages' space (every stage is consumed: the last pair's barriers)
+    float* const hand = sm + L::kStages;
+    if (qh == 1) {
+#pragma unroll
+      for (int c = 0; c < kN; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          hand[((kb * kN + c) * 4 + e) * 32 + lane] = dka[c][e];
+          hand[(((4 + kb) * kN + c) * 4 + e) * 32 + lane] = dva[c][e];
+        }
+    }
+    __syncthreads();
+    const int rank = plan.dkv(u) & 0xffff, count = plan.dkv(u) >> 16;
+    int* const cnt = dkv_ctr + static_cast<long long>(bkv) * n_sp + n;
+    block_wait_turn(cnt, rank);
+    if (qh == 0) {
+      float* const kp = dk + b * sdk.b + hk * sdk.h;
+      float* const vp = dv + b * sdv.b + hk * sdv.h;
+#pragma unroll
+      for (int c = 0; c < kN; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 16 * kb + g8 + 8 * (e / 2);
+          const int col = 8 * c + 2 * t4 + e % 2;
+          if (key >= Sk || col >= D) continue;
+          const float x = dka[c][e] + hand[((kb * kN + c) * 4 + e) * 32 + lane];
+          const float y = dva[c][e] + hand[(((4 + kb) * kN + c) * 4 + e) * 32 + lane];
+          put1(kp + key * sdk.s + col, x, rank == 0);
+          put1(vp + key * sdv.s + col, y, rank == 0);
+        }
+    }
+    if (rank + 1 < count)
+      block_pass_turn(cnt, rank);
+    else
+      __syncthreads();  // the hand-over space is consumed
+  }
+}
+
+}  // namespace f32
+
+// (c), fp32: dQ's fp32 slots (slots, B·H, n_qt·64, ld) added in slot
+// order, those of a query tile with count[qt] parts the first min(slots,
+// count[qt]), into dq (fp32, through its strides)
+__global__ void __launch_bounds__(256)
+flash_bwd_dq_sum_kernel(const float* __restrict__ acc, const int* __restrict__ count,
+                        float* __restrict__ dq, Str3 sdq, int H, int Sq, int D, int n_qt,
+                        int ld, int slots, long long total) {
+  const long long plane = total / D / Sq * n_qt * kTile * ld;  // a slot
+  for (long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x; i < total;
+       i += static_cast<long long>(gridDim.x) * 256) {
+    const int c = static_cast<int>(i % D);
+    const long long row = i / D;
+    const int s = static_cast<int>(row % Sq);
+    const long long bh = row / Sq;
+    const float* a = acc + (bh * n_qt * kTile + s) * ld + c;
+    const int used = min(slots, count[s / kTile]);
+    float x = used > 0 ? a[0] : 0.f;
+    for (int j = 1; j < used; ++j) x += a[j * plane];
+    dq[(bh / H) * sdq.b + (bh % H) * sdq.h + s * sdq.s + c] = x;
+  }
+}
+
+template <int kDPad>
+cudaError_t launch_fp32(const Args& a, const int* plan, int n_pat, int blocks, int slots,
+                        float* dq_acc, int* ctr, bool vec, cudaStream_t stream) {
+  constexpr int smem = f32::Layout<kDPad>::kBytes;
+  static bool opted = false;
+  cudaError_t err = opt_in(f32::flash_bwd_tf32_kernel<kDPad>, smem, opted);
+  if (err != cudaSuccess) return err;
+  const int n_qt = (a.Sq + kTile - 1) / kTile;
+  const int n_sp = (a.Sk + f32::kSpan - 1) / f32::kSpan;
+  const Plan p{plan, n_pat, n_qt, n_sp, slots};
+  const auto f32p = [](const void* x) { return static_cast<const float*>(x); };
+  f32::flash_bwd_tf32_kernel<kDPad><<<blocks, f32::kThreads, smem, stream>>>(
+      f32p(a.q), f32p(a.k), f32p(a.v), f32p(a.dout), a.lse, a.delta, p, a.B * a.KV, dq_acc,
+      static_cast<float*>(a.dk), static_cast<float*>(a.dv), ctr, a.sq, a.sk, a.sv, a.sdo,
+      a.sdk, a.sdv, a.H, a.H / a.KV, a.Sq, a.Sk, a.D, a.causal, a.window,
+      1.0f / sqrtf(static_cast<float>(a.D)), vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long total = static_cast<long long>(a.B) * a.H * a.Sq * a.D;
+  const long long grid = (total + 255) / 256 < 65535LL * 16 ? (total + 255) / 256 : 65535LL * 16;
+  flash_bwd_dq_sum_kernel<<<static_cast<unsigned>(grid), 256, 0, stream>>>(
+      dq_acc, plan + 4 * n_pat + n_qt * n_sp, static_cast<float*>(a.dq), a.sdq, a.H, a.Sq,
+      a.D, n_qt, kDPad, slots, total);
+  return cudaGetLastError();
+}
+
 // the main kernel's dynamic shared memory: K and V, the dS buffer, the
 // ring, the dQ buffers, their barriers, and 1024 bytes to align the base
 template <int kChunks>
@@ -1249,25 +1381,33 @@ cudaError_t launch_flash_attention_bwd(const void* q, const void* k, const void*
   auto s3 = [&](int i) { return Str3{st[3 * i], st[3 * i + 1], st[3 * i + 2]}; };
   const Args a{q, k, v, dout, lse, delta, dq, dk, dv, s3(0), s3(1), s3(2), s3(4),
                s3(5), s3(6), s3(7), B, H, KV, Sq, Sk, D, causal, window};
+  const int n_qt = (Sq + kTile - 1) / kTile;
+  const int n_sp = bf16_data ? (Sk + kSpan - 1) / kSpan : (Sk + f32::kSpan - 1) / f32::kSpan;
+  if (plan == nullptr || n_pat < 1 || blocks < 1 || slots < 1 || dq_acc == nullptr ||
+      ctr == nullptr ||
+      n_ctr != 1 + static_cast<long long>(B) * H * n_qt * slots + 2LL * B * KV * n_sp)
+    return cudaErrorInvalidValue;
   if (!bf16_data) {
     const long long rows = static_cast<long long>(B) * H * Sq;
-    flash_bwd_delta_kernel<float><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(
-        static_cast<const float*>(o), static_cast<const float*>(dout), delta, s3(3),
-        s3(4), H, Sq, D, rows);
+    flash_bwd_prep_f32_kernel<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(
+        static_cast<const float*>(o), static_cast<const float*>(dout), delta, s3(3), s3(4), H,
+        Sq, D, rows, ctr, static_cast<int>(n_ctr));
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    return D <= 64 ? launch_fp32<64>(a, stream) : launch_fp32<128>(a, stream);
+    // 16-byte copies where every row of q, k, v and dO starts 16-byte aligned
+    bool vec = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                 reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) %
+                16) == 0;
+    for (int i : {0, 1, 2, 4})
+      for (int d = 0; d < 3; ++d) vec = vec && st[3 * i + d] % 4 == 0;
+    return D <= 64 ? launch_fp32<64>(a, plan, n_pat, blocks, slots, dq_acc, ctr, vec, stream)
+                   : launch_fp32<128>(a, plan, n_pat, blocks, slots, dq_acc, ctr, vec, stream);
   }
   // TMA: 16-byte aligned bases (the wrapper checks them and the strides)
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
        reinterpret_cast<uintptr_t>(delta)) % 16)
     return cudaErrorMisalignedAddress;
-  const int n_qt = (Sq + kTile - 1) / kTile, n_sp = (Sk + kSpan - 1) / kSpan;
-  if (plan == nullptr || n_pat < 1 || blocks < 1 || slots < 1 || dq_acc == nullptr ||
-      ctr == nullptr ||
-      n_ctr != 1 + static_cast<long long>(B) * H * n_qt * slots + 2LL * B * KV * n_sp)
-    return cudaErrorInvalidValue;
   const long long rows = static_cast<long long>(B) * H * n_qt * kTile;
   flash_bwd_prep_kernel<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, delta, s3(3),

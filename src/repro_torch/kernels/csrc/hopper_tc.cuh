@@ -15,7 +15,10 @@
 //   * mbarrier and TMA helpers, and pack_bf16 / split_pack for register A
 //     fragments;
 //   * encode_map (host): the 4-D tensor map over a (B, heads, S, D) view
-//     that K6's forward and backward load their tiles through.
+//     that K6's forward and backward load their tiles through;
+//   * the fp32 backwards of K6 and K7: mma.sync m16n8k8 TF32 products, each
+//     fp32 operand split into TF32 hi + lo and a product taken as three
+//     (3xTF32, mma_3xtf32), with the split helpers.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
@@ -349,6 +352,128 @@ __device__ __forceinline__ void wgmma_rs_m64n16k16(float (&d)[8], const uint32_t
 // must follow before another thread's product reads them
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// ---- fp32 products on the tensor cores as three TF32 products (3xTF32)
+//
+// v = hi + lo + r: hi = tf32(v), rounded to nearest (|v − hi| <= 2^-11·|v|;
+// v − hi is exact in fp32, with at most 13 significant bits), lo = v − hi
+// with its 13 low bits cleared (truncated to 11 significant bits: |r| <
+// 2^-22·|v|).  a·b is taken as lo_a·hi_b + hi_a·lo_b + hi_a·hi_b (the
+// small terms first), each into the fp32 accumulator: the dropped
+// lo_a·lo_b is at most 2^-22·|a·b|, so a product keeps about 22 of fp32's
+// 24 bits, where one TF32 product keeps 11.  tf32(v) as
+// cvt.rna.tf32.f32 rounds it (to nearest, ties away from zero: half an ulp
+// added to the magnitude, the 13 low bits cleared), in two integer
+// instructions, where the conversion runs on a quarter-rate pipe; lo takes
+// one.
+//
+// A NaN stays NaN: the carry can turn a NaN's hi into a zero of either
+// sign (0x7FFFFFFF, the card's NaN, becomes −0.0), but v − hi is then the
+// card's NaN, 0x7FFFFFFF, and truncation leaves it NaN, so lo carries it
+// into lo_a·hi_b and hi_a·lo_b.  Rounding lo would lose it as hi does; a
+// test for NaN before hi's rounding spilled the fp32 K7 backward's
+// registers and took the K6 backward ~10% longer (NVIDIA H100 80GB HBM3,
+// 700 W).  An inf v has lo =
+// inf − inf = NaN: a·b is NaN where one fp32 product could give inf (so
+// is a finite v within an ulp of the largest fp32, whose hi rounds up to
+// inf)
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+}
+
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(v);
+  lo = __float_as_uint(v - __uint_as_float(hi)) & 0xFFFFE000u;
+}
+
+// an operand fragment of mma.m16n8k8 (A: 4 registers, B: 2) as hi and lo
+template <int N>
+struct Tf32Frag {
+  uint32_t hi[N], lo[N];
+  __device__ __forceinline__ void set(int i, float v) { split_tf32(v, hi[i], lo[i]); }
+};
+
+// d (16 x 8, fp32) += a (16 x 8) · b (8 x 8), TF32 operands (mma.sync, one
+// warp): a_i at rows g + 8·(i % 2), column t + 4·(i / 2); b_i at row t + 4i,
+// column g; d_i at row g + 8·(i / 2), column 2t + i % 2 (g = lane / 4, t =
+// lane % 4)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a·b in 3xTF32 (lo·hi, hi·lo, then hi·hi)
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const Tf32Frag<4>& a,
+                                           const Tf32Frag<2>& b) {
+  mma_tf32(d, a.lo, b.hi);
+  mma_tf32(d, a.hi, b.lo);
+  mma_tf32(d, a.hi, b.hi);
+}
+
+// cp.async of one fp32 (ok: else zeros, the source not read) and of 16
+// bytes of which the first `bytes` are read (the rest zeros), for the
+// fp32 tiles of those kernels
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// rows [0, rows) of a slice (row stride `stride`, fp32) into shared memory
+// at dst with a row pitch of `pitch` floats, kRows x kCols floats in all,
+// zeros past rows and cols, by cp.async from `threads` threads: 16 bytes
+// at a time where `vec` (16-byte aligned rows, pitch a multiple of 4),
+// else 4
+template <int kRows, int kCols, int kThreads>
+__device__ __forceinline__ void load_f32_tile(uint32_t dst, int pitch,
+                                              const float* __restrict__ src,
+                                              long long stride, int rows, int cols,
+                                              bool vec) {
+  if (vec) {
+    constexpr int kChunks = kCols / 4;
+    for (int idx = threadIdx.x; idx < kRows * kChunks; idx += kThreads) {
+      const int r = idx / kChunks, c = 4 * (idx % kChunks);
+      const int bytes = r < rows ? 4 * max(0, min(4, cols - c)) : 0;
+      cp_async16(dst + 4 * (r * pitch + c), bytes ? src + r * stride + c : src, bytes);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < kRows * kCols; idx += kThreads) {
+      const int r = idx / kCols, c = idx % kCols;
+      const bool ok = r < rows && c < cols;
+      cp_async4(dst + 4 * (r * pitch + c), ok ? src + r * stride + c : src, ok);
+    }
+  }
+}
+
+// The accumulator of one m16n8 product used as the A operand of the next
+// (k = its 8 columns): d_0..d_3 go to a_0, a_2, a_1, a_3, so A's column
+// t (t + 4) is the accumulator's column 2t (2t + 1).  The B operand of that
+// product must take its rows in the same order: b_0 from row 2t, b_1 from
+// row 2t + 1 of the 8.
+__device__ __forceinline__ void acc_as_a(Tf32Frag<4>& a, const float (&d)[4]) {
+  a.set(0, d[0]);
+  a.set(1, d[2]);
+  a.set(2, d[1]);
+  a.set(3, d[3]);
 }
 
 // cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime,

@@ -19,7 +19,9 @@
 //   bf16  ssd_chunk_wgmma_kernel: both products on the tensor cores
 //         (design below).
 //   fp32  ssd_chunk_kernel: fp32 FMAs on the CUDA cores.  fp32's 1e-5 bar
-//         rules out TF32 and bf16 tensor cores.  One 256-thread block per
+//         rules out one TF32 pass and bf16 tensor cores; a split that keeps
+//         fp32's bits (3xTF32, as the fp32 backward runs, ssd_scan_bwd.cu)
+//         is not ruled out, and is not done here yet.  One 256-thread block per
 //         (head, chunk) stages x, B and C as fp32 in shared memory (120 KB
 //         at Q = 128 and N <= 64, 188 KB at N = 128, one block per SM) and
 //         forms, per 64-row output tile and 64-column source tile up to

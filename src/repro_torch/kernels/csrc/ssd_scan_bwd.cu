@@ -23,7 +23,9 @@
 // move ~70 MB (x, dy and dx in bf16, the fp32 dst) against ~7.6 GFLOP of
 // products: ~21 µs of bytes, ~7.6 µs at the bf16 tensor-core peak; at
 // mamba2-2.7b's (80 heads, N = 128) ~109 MB and ~16 GFLOP (kernels/cost.py
-// ssd_chunk_bwd).  A head's share of an SM is ~64 KB (N = 64) to ~80 KB
+// ssd_chunk_bwd).  In fp32 the bytes are ~1.5x and the products, three
+// TF32 products each, ~46 µs at Zamba2's shape at the 495 TFLOP/s TF32
+// peak: about even.  A head's share of an SM is ~64 KB (N = 64) to ~80 KB
 // (N = 128) of those bytes, ~2.5-3 µs at the SM's share of the bandwidth,
 // so a block must keep the next head's loads in flight under this head's
 // work and write nothing a head does not have to.
@@ -107,14 +109,40 @@
 // serve); S kept in registers across heads (beside ΣdS and dB's
 // accumulator it passes 255 registers a thread at N = 128).
 //
-// fp32 design: a simple CUDA-core kernel, one 256-thread block per (chunk,
-// head).  x, dy, B and C are staged as fp32 in shared memory; 32 x 32
-// tiles of S∘L, dS and dS∘S are formed one (t-tile, s-tile) pair at a
-// time, s-tiles outer: dx and dB of the s-tile stay in registers, dC
-// accumulates in its fp32 per-head buffer in device memory, each element
-// read and written by one thread in a fixed order.  It writes each head's
-// dB and dC in fp32; group_sum_kernel then sums the H / G consecutive heads
-// of each of G groups in head order and rounds once.
+// fp32 design.  The same structure on the tensor cores: a block of 256
+// threads (8 warps) walks ssd_bwd_plan's heads of one B/C group, every
+// product as 3xTF32 on mma.sync (each fp32 operand split into TF32 hi + lo,
+// a product taken as lo·hi + hi·lo + hi·hi: ~22 of fp32's 24 bits of each
+// operand, where one TF32 product keeps 11; one TF32 pass is ruled out by
+// the fp32 bars, a split that keeps fp32's bits is not).  Everything runs
+// transposed (rows s, columns t), so the sums over t that dx and dB take
+// stay inside a warp: warp w owns the 16 rows s of s-block w (w < 4) or
+// 11 − w (the two warps of a scheduler partition share 18 of the 72 m16 x
+// n8 tiles of the lower triangle).
+//   once a block:  B staged (cp.async, rows of N + 4 floats); C in the head
+//            buffers' place; Sᵀ = B·Cᵀ tile by tile, kept as fragments (a
+//            thread's four values where it reads them back);
+//   per head:  dy and dst staged (two buffers at N <= 64: the next head's
+//            in flight during this head; one at N = 128), x as register A
+//            fragments split once; dx = w∘(B·dstᵀ); for each t-tile dMᵀ =
+//            x·dyᵀ, Wᵀ = Sᵀ∘Lᵀ, dSᵀ = dMᵀ∘Lᵀ added to ΣdSᵀ (fragments in
+//            shared memory, head order), the sums of dS∘S, and dx += Wᵀ·dy
+//            with Wᵀ going from the accumulator to the A operand in
+//            registers; F = x·dst tile by tile for dw and Σ w∘F (dB's
+//            accumulator, registers); d(dt_a) by one warp;
+//   once a block:  C again; dB = ΣdSᵀ·C + Σ w∘F, dC = ΣdS·B, written as
+//            the block's fp32 part (group_sum_kernel adds a group's parts
+//            in block order) or as dB and dC where the block is its group.
+// Shared memory: B 67,584 bytes at N = 128 (34,816 at 64), S and ΣdS as
+// fragments 36,864 each, the head buffers (dy 34,816, dst 33,792 or
+// 17,408; C's place at the ends) and the sums 6,656: 216,576 bytes at N =
+// 128 with one head buffer, 219,648 at N <= 64 with two; one block an SM.
+// x in shared memory too would pass the 232,448 a block may take, so it
+// lives in registers (64 a thread as hi + lo), and Σ w∘F, dB's
+// accumulator, in 32 registers at N <= 64 and in the block's fp32 dB part
+// at N = 128 (beside x's and dx's registers its 64 spill).  S is formed once a block at either N (fp32 S beside double-
+// buffered dy does not fit at N = 128; recomputing it per head would add
+// a third to the products, so N = 128 waits on its head's loads instead).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -188,9 +216,8 @@ __device__ __forceinline__ void finish_ddt(float* __restrict__ out,
 }
 
 // out (BC·Q, G, N) = Σ over the H / G consecutive entries of each group
-// of part (BC·Q, H, N) (the fp32 kernel's heads, or the bf16 kernel's
-// blocks' parts), in order, rounded once to T; blockIdx.y picks dB (0) or
-// dC (1)
+// of part (BC·Q, H, N) (the blocks' parts, H here the blocks of a chunk),
+// in order, rounded once to T; blockIdx.y picks dB (0) or dC (1)
 template <typename T>
 __global__ void group_sum_kernel(const float* __restrict__ part, T* __restrict__ db,
                                  T* __restrict__ dc, long long rows, int H, int G, int N) {
@@ -215,170 +242,443 @@ __global__ void group_sum_kernel(const float* __restrict__ part, T* __restrict__
 }
 
 // ---------------------------------------------------------------------------
-// fp32: CUDA cores.
+// fp32: tensor cores, every product as 3xTF32 (hopper_tc.cuh).
+namespace ssd_bwd_f32 {
 
-constexpr int kThreads = 256;
-constexpr int kT = 32;  // tile of (t, s) pairs
+constexpr int kThreads = 256;     // 8 warps
+constexpr int kRows = 128;        // rows of a chunk's tiles, zero past Q
+constexpr int kTiles = 72;        // the m16 x n8 tiles of Sᵀ's lower part
+constexpr int kMaxHeads = 16;     // heads a block walks, at most
 
-__device__ __forceinline__ void stage_f32(float* dst, const float* __restrict__ src,
-                                          long long stride_q, int n_rows, int rows,
-                                          int cols, int pitch) {
-  for (int idx = threadIdx.x; idx < rows * cols; idx += kThreads) {
-    const int r = idx / cols;
-    const int c = idx % cols;
-    dst[r * pitch + c] = src != nullptr && r < n_rows ? src[r * stride_q + c] : 0.f;
+// shared memory in floats for N padded to kNP (64 or 128): B (rows of kNP
+// + 4), S and ΣdS as fragments (each warp its tiles, each lane its 4
+// values: read back by the thread that wrote them), the head buffers
+// (dy in rows of 68, dst in rows of kNP + 4; two of them at kNP = 64, one
+// at 128), then cs, w, the row sums, the column sums, dw and each warp's
+// part of the row sums.  C takes the head buffers' place at the block's
+// start and end.  219,648 bytes at kNP = 64, 216,576 at 128.
+template <int kNP>
+struct Layout {
+  static constexpr int kPB = kNP + 4;
+  static constexpr int kPY = kMaxP + 4;
+  static constexpr int kBufs = kNP == 64 ? 2 : 1;
+  static constexpr int kB = 0;
+  static constexpr int kS = kB + kRows * kPB;
+  static constexpr int kSum = kS + kTiles * 128;
+  static constexpr int kHead = kSum + kTiles * 128;
+  static constexpr int kDst = kRows * kPY;                 // in a head buffer
+  static constexpr int kHeadBuf = kDst + kMaxP * kPB;
+  static constexpr int kSmall = kHead + kBufs * kHeadBuf;  // cs, w, rows, cols, dw
+  static constexpr int kRowsP = kSmall + 5 * kRows;        // 8 warps' row sums
+  static constexpr int kBytes = 4 * (kRowsP + 8 * kRows);
+  static_assert(kRows * kPB <= kBufs * kHeadBuf, "C fits in the head buffers");
+};
+
+// the first of s-block sb's tiles (its tiles are t-tiles 2·sb .. 15)
+__device__ __forceinline__ int tile0(int sb) { return sb * (17 - sb); }
+
+// Σ_h w∘F of a warp's rows, dB's accumulator over the heads: in registers
+// (kInRegs), or at N = 128, where its 64 registers a thread spill beside
+// x's and dx's, in the block's dB part itself (fp32, each element read and
+// written by the thread that owns it, in head order; at the end the dB
+// product accumulates onto it).  `at` is the element's place in the part,
+// or nullptr past Q or N.
+template <int kNn, bool kInRegs>
+struct DbAcc {
+  float v[kNn][4];
+  __device__ __forceinline__ DbAcc() {
+#pragma unroll
+    for (int n = 0; n < kNn; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[n][e] = 0.f;
   }
-}
+  __device__ __forceinline__ void add(int n, int e, float x, float*, bool) { v[n][e] += x; }
+  __device__ __forceinline__ float get(int n, int e, const float*) const { return v[n][e]; }
+};
+template <int kNn>
+struct DbAcc<kNn, false> {
+  // the read is volatile, so the compiler issues it where the sum is taken
+  // (hoisted, the whole row's reads hold 64 registers and spill; fetched a
+  // tile ahead, the F product's registers spill instead)
+  __device__ __forceinline__ void add(int, int, float x, float* at, bool first) {
+    if (at == nullptr) return;
+    if (!first) {
+      float old;
+      asm volatile("ld.global.cg.f32 %0, [%1];" : "=f"(old) : "l"(at) : "memory");
+      x += old;
+    }
+    __stcg(at, x);
+  }
+  __device__ __forceinline__ float get(int, int, const float* at) const {
+    return at != nullptr ? __ldcg(at) : 0.f;
+  }
+};
 
-__host__ __device__ __forceinline__ int f32_smem_floats(int Q, int P, int N) {
-  const int QP = round_up(Q, kT);
-  return 2 * QP * (P + 1) + 2 * QP * (N + 1) + 3 * kT * (kT + 1) + 5 * QP;
-}
-
-__global__ void __launch_bounds__(kThreads)
-ssd_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ dt_a,
-                   const float* __restrict__ b, const float* __restrict__ c,
-                   const float* __restrict__ dy, const float* __restrict__ dstate,
-                   const float* __restrict__ ddecay, float* __restrict__ dx,
-                   float* __restrict__ ddt, float* __restrict__ part, Strides4 sx,
-                   Strides4 sa, Strides4 sb, Strides4 sc, Strides4 sy, int BC, int H,
-                   int Q, int P, int N) {
-  const int QP = round_up(Q, kT);
-  const int pp = P + 1, pn = N + 1, pt = kT + 1;
+// Per (chunk, head), in the transposed orientation (rows s, columns t):
+// warp w owns rows s of s-block sb = w (w < 4) or 11 − w, so the two warps
+// of a scheduler partition hold 18 of the 72 tiles between them, and for
+// each head walks its t-tiles j = 2·sb .. (8-row tiles, t >= 16·sb):
+//   dMᵀ = x·dyᵀ (16 x 8 over P; x as register A fragments),
+//   Wᵀ = Sᵀ∘Lᵀ and dSᵀ = dMᵀ∘Lᵀ (S read back from its fragments),
+//   ΣdSᵀ += dSᵀ (its fragments in shared memory, in head order), the sums
+//   of dS∘S by t (a part each warp) and by s (in registers),
+//   dx += Wᵀ·dy (Wᵀ from the accumulator as the A operand: k = t);
+// after its t-tiles, dx += w∘(B·dstᵀ) went first, F = x·dst gives dw and
+// w∘F added to dB's accumulator (registers, head order).  Once a block:
+// S = B·Cᵀ at the start, dB = ΣdSᵀ·C + Σ w∘F and dC = ΣdS·B at the end.
+template <int kNP>
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_bwd_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dt_a,
+                    const float* __restrict__ b, const float* __restrict__ c,
+                    const float* __restrict__ dy, const float* __restrict__ dstate,
+                    const float* __restrict__ ddecay, float* __restrict__ dx,
+                    float* __restrict__ ddt, float* __restrict__ dbp, float* __restrict__ dcp,
+                    Strides4 sx, Strides4 sa, Strides4 sb_, Strides4 sc, Strides4 sy, int BC,
+                    int H, int Q, int P, int N, int heads, bool vec_y, bool vec_bc,
+                    bool vec_d) {
+  using L = Layout<kNP>;
+  constexpr int kPB = L::kPB, kPY = L::kPY;
+  constexpr int kNn = kNP / 8;   // n8 tiles of N
   extern __shared__ float4 smem4[];
-  float* X = reinterpret_cast<float*>(smem4);  // QP x pp
-  float* DY = X + QP * pp;                     // QP x pp
-  float* Bs = DY + QP * pp;                    // QP x pn
-  float* Cs = Bs + QP * pn;                    // QP x pn
-  float* Wt = Cs + QP * pn;                    // kT x pt: (S∘L)[t][s]
-  float* Dt = Wt + kT * pt;                    // kT x pt: dS[t][s]
-  float* Rt = Dt + kT * pt;                    // kT x pt: (dS∘S)[t][s]
-  float* cs = Rt + kT * pt;                    // QP each:
-  float* w = cs + QP;
-  float* rows = w + QP;                        // Σ_s (dS∘S)[t][s]
-  float* cols = rows + QP;                     // Σ_t (dS∘S)[t][s]
-  float* dwv = cols + QP;
+  float* const sm = reinterpret_cast<float*>(smem4);
+  const uint32_t sm_s = tc::smem_u32(sm);
+  const float* const Bs = sm + L::kB;
+  float* const Sf = sm + L::kS;
+  float* const Sum = sm + L::kSum;
+  float* const cs = sm + L::kSmall;
+  float* const w = cs + kRows;
+  float* const rows = w + kRows;
+  float* const cols = rows + kRows;
+  float* const dwv = cols + kRows;
+  float* const rows_p = sm + L::kRowsP;
 
-  const int h = blockIdx.x;
-  const int ch = blockIdx.y;
   const int tid = threadIdx.x;
-  stage_f32(X, x + ch * sx.c + h * sx.h, sx.q, Q, QP, P, pp);
-  stage_f32(DY, dy == nullptr ? nullptr : dy + ch * sy.c + h * sy.h, sy.q, Q, QP, P, pp);
-  stage_f32(Bs, b + ch * sb.c + h * sb.h, sb.q, Q, QP, N, pn);
-  stage_f32(Cs, c + ch * sc.c + h * sc.h, sc.q, Q, QP, N, pn);
-  if (tid < 32) chunk_cumsum(cs, dt_a + ch * sa.c + h * sa.h, sa.q, Q);
-  __syncthreads();
-  for (int t = tid; t < QP; t += kThreads) {
-    w[t] = t < Q ? expf(cs[Q - 1] - cs[t]) : 0.f;
-    if (t >= Q) cs[t] = 0.f;
-    rows[t] = cols[t] = 0.f;
-  }
-  __syncthreads();
-
-  const float* dst = dstate == nullptr ? nullptr
-                                       : dstate + (static_cast<long long>(ch) * H + h) * P * N;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int sb = warp < 4 ? warp : 11 - warp;
+  const int s0 = 16 * sb;
+  const int ch = blockIdx.y;
+  const int h0 = blockIdx.x * heads;
+  const int jend = (Q + 7) / 8;       // t-tiles holding a row t < Q
   const long long row0 = static_cast<long long>(ch) * Q;
-  float* dbp = part;                                   // (BC, Q, H, N)
-  float* dcp = part + static_cast<long long>(BC) * Q * H * N;
-  // this thread's row of an s-tile and its columns p = l + 8k, n = l + 8k
-  const int r = tid / 8;
-  const int l = tid % 8;
-  const int nT = QP / kT;
-  for (int j = 0; j < nT; ++j) {
-    const int s = j * kT + r;
-    float dxa[kMaxP / 8], dba[kMaxN / 8];
-    // the state's terms: dx = w∘(B·dstᵀ), F = x·dst, dB = w∘F, dw = Σ F∘B
-    float dwp = 0.f;
-#pragma unroll
-    for (int k = 0; k < kMaxP / 8; ++k) {
-      const int p = l + 8 * k;
-      float e = 0.f;
-      if (dst != nullptr && p < P)
-        for (int n = 0; n < N; ++n) e = fmaf(Bs[s * pn + n], dst[p * N + n], e);
-      dxa[k] = w[s] * e;
-    }
-#pragma unroll
-    for (int k = 0; k < kMaxN / 8; ++k) {
-      const int n = l + 8 * k;
-      float f = 0.f;
-      if (dst != nullptr && n < N)
-        for (int p = 0; p < P; ++p) f = fmaf(X[s * pp + p], dst[p * N + n], f);
-      if (n < N) dwp = fmaf(f, Bs[s * pn + n], dwp);
-      dba[k] = w[s] * f;
-    }
-    dwp += __shfl_xor_sync(0xffffffffu, dwp, 1);
-    dwp += __shfl_xor_sync(0xffffffffu, dwp, 2);
-    dwp += __shfl_xor_sync(0xffffffffu, dwp, 4);
-    if (l == 0) dwv[s] = dwp;
 
-    for (int i = j; i < nT; ++i) {
-      // the (t-tile i, s-tile j) pairs, four a thread
-      for (int idx = tid; idx < kT * kT; idx += kThreads) {
-        const int tt = idx / kT, ss = idx % kT;
-        const int t = i * kT + tt, s2 = j * kT + ss;
-        float sv = 0.f, mv = 0.f;
-        for (int n = 0; n < N; ++n) sv = fmaf(Cs[t * pn + n], Bs[s2 * pn + n], sv);
-        for (int p = 0; p < P; ++p) mv = fmaf(DY[t * pp + p], X[s2 * pp + p], mv);
-        const float lv = s2 <= t && t < Q ? expf(cs[t] - cs[s2]) : 0.f;
-        Wt[tt * pt + ss] = sv * lv;
-        Dt[tt * pt + ss] = mv * lv;
-        Rt[tt * pt + ss] = mv * lv * sv;
-      }
-      __syncthreads();
-      if (tid < kT) {
-        float acc = 0.f;
-        for (int ss = 0; ss < kT; ++ss) acc += Rt[tid * pt + ss];
-        rows[i * kT + tid] += acc;
-      } else if (tid < 2 * kT) {
-        float acc = 0.f;
-        for (int tt = 0; tt < kT; ++tt) acc += Rt[tt * pt + tid - kT];
-        cols[j * kT + tid - kT] += acc;
-      }
-      // dx and dB of the s-tile: Σ_t Wᵀ·dy and Σ_t dSᵀ·C
+  // B, and C into the head buffers
+  const float* bsrc = b + ch * sb_.c + h0 * sb_.h;
+  const float* csrc = c + ch * sc.c + h0 * sc.h;
+  tc::load_f32_tile<kRows, kNP, kThreads>(sm_s + 4 * L::kB, kPB, bsrc, sb_.q, Q, N, vec_bc);
+  tc::load_f32_tile<kRows, kNP, kThreads>(sm_s + 4 * L::kHead, kPB, csrc, sc.q, Q, N, vec_bc);
+  tc::cp_commit();
+  tc::cp_wait<0>();
+  __syncthreads();
+
+  // Sᵀ = B·Cᵀ over N, tile by tile, into its fragments; ΣdSᵀ zeroed
+  {
+    const float* Cs = sm + L::kHead;
+    for (int j = 2 * sb; j < jend; ++j) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int k = 0; k < kMaxP / 8; ++k) {
-        const int p = l + 8 * k;
-        if (p >= P) continue;
-        float acc = dxa[k];
-        for (int tt = 0; tt < kT; ++tt) acc = fmaf(Wt[tt * pt + r], DY[(i * kT + tt) * pp + p], acc);
-        dxa[k] = acc;
+      for (int kk = 0; kk < kNn; ++kk) {
+        tc::Tf32Frag<4> a;
+        const float* br = Bs + (s0 + g8) * kPB + 8 * kk + t4;
+        a.set(0, br[0]);
+        a.set(1, br[8 * kPB]);
+        a.set(2, br[4]);
+        a.set(3, br[8 * kPB + 4]);
+        tc::Tf32Frag<2> bf;
+        const float* cr = Cs + (8 * j + g8) * kPB + 8 * kk + t4;
+        bf.set(0, cr[0]);
+        bf.set(1, cr[4]);
+        tc::mma_3xtf32(acc, a, bf);
       }
-#pragma unroll
-      for (int k = 0; k < kMaxN / 8; ++k) {
-        const int n = l + 8 * k;
-        if (n >= N) continue;
-        float acc = dba[k];
-        for (int tt = 0; tt < kT; ++tt) acc = fmaf(Dt[tt * pt + r], Cs[(i * kT + tt) * pn + n], acc);
-        dba[k] = acc;
-      }
-      // dC of the t-tile: Σ_s dS·B, accumulated over the s-tiles in order
-      const int t = i * kT + r;
-      if (t < Q) {
-        float* row = dcp + ((row0 + t) * H + h) * N;
-        for (int n = l; n < N; n += 8) {
-          float acc = j == 0 ? 0.f : row[n];
-          for (int ss = 0; ss < kT; ++ss) acc = fmaf(Dt[r * pt + ss], Bs[(j * kT + ss) * pn + n], acc);
-          row[n] = acc;
-        }
-      }
-      __syncthreads();  // the tiles are consumed
-    }
-    if (s < Q) {
-      float* xr = dx + ((row0 + s) * H + h) * P;
-#pragma unroll
-      for (int k = 0; k < kMaxP / 8; ++k)
-        if (l + 8 * k < P) xr[l + 8 * k] = dxa[k];
-      float* br = dbp + ((row0 + s) * H + h) * N;
-#pragma unroll
-      for (int k = 0; k < kMaxN / 8; ++k)
-        if (l + 8 * k < N) br[l + 8 * k] = dba[k];
+      const int at = ((tile0(sb) + j - 2 * sb) * 32 + lane) * 4;
+      *reinterpret_cast<float4*>(Sf + at) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+      *reinterpret_cast<float4*>(Sum + at) = make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
+  DbAcc<kNn, kNP == 64> dba;   // Σ_h w∘F of this warp's rows
+  // this block's dB part: rows (BC·Q) of gridDim.x parts of N; the place of
+  // element (n, e) of this thread's fragments in it, or nullptr
+  const long long ld = static_cast<long long>(gridDim.x) * N;
+  const long long at0 = row0 * ld + static_cast<long long>(blockIdx.x) * N;
+  auto db_at = [&](int n, int e) -> float* {
+    const int s = s0 + g8 + 8 * (e / 2), col = 8 * n + 2 * t4 + e % 2;
+    return s < Q && col < N ? dbp + at0 + s * ld + col : nullptr;
+  };
+  __syncthreads();  // C is consumed
+
+  // head hh's dy and dst into head buffer hh % kBufs
+  auto load_head = [&](int hh) {
+    const int h = h0 + hh;
+    const uint32_t buf = sm_s + 4 * (L::kHead + (hh % L::kBufs) * L::kHeadBuf);
+    tc::load_f32_tile<kRows, kMaxP, kThreads>(buf, kPY, dy == nullptr ? x : dy + ch * sy.c + h * sy.h,
+                                              sy.q, dy == nullptr ? 0 : Q, P, vec_y);
+    tc::load_f32_tile<kMaxP, kNP, kThreads>(
+        buf + 4 * L::kDst, kPB,
+        dstate == nullptr ? x : dstate + (static_cast<long long>(ch) * H + h) * P * N, N,
+        dstate == nullptr ? 0 : P, N, vec_d);
+    tc::cp_commit();
+  };
+  load_head(0);
+
+  for (int hh = 0; hh < heads; ++hh) {
+    const int h = h0 + hh;
+    if (L::kBufs == 2 && hh + 1 < heads) {
+      load_head(hh + 1);
+      tc::cp_wait<1>();
+    } else {
+      tc::cp_wait<0>();
+    }
+    const float* Ys = sm + L::kHead + (hh % L::kBufs) * L::kHeadBuf;
+    const float* Ds = Ys + L::kDst;
+    // x of this warp's rows as A fragments, split once a head: a_i at row
+    // s0 + g8 + 8·(i % 2), column 8kk + t4 + 4·(i / 2)
+    tc::Tf32Frag<4> xf[8];
+    {
+      const float* xp = x + ch * sx.c + h * sx.h;
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int s = s0 + g8 + 8 * (i % 2), p = 8 * kk + t4 + 4 * (i / 2);
+          xf[kk].set(i, s < Q && p < P ? xp[s * sx.q + p] : 0.f);
+        }
+    }
+    if (warp == 0) {
+      chunk_cumsum(cs, dt_a + ch * sa.c + h * sa.h, sa.q, Q);
+      __syncwarp();
+      for (int t = lane; t < kRows; t += 32) {
+        w[t] = t < Q ? expf(cs[Q - 1] - cs[t]) : 0.f;
+        if (t >= Q) cs[t] = 0.f;
+      }
+    }
+    __syncthreads();
+
+    // dx = w∘(B·dstᵀ) first: rows s0 + g8 (+8), columns 8p + 2·t4 (+1)
+    float dxa[8][4];
+#pragma unroll
+    for (int p = 0; p < 8; ++p)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dxa[p][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kNn; ++kk) {
+      tc::Tf32Frag<4> a;
+      const float* br = Bs + (s0 + g8) * kPB + 8 * kk + t4;
+      a.set(0, br[0]);
+      a.set(1, br[8 * kPB]);
+      a.set(2, br[4]);
+      a.set(3, br[8 * kPB + 4]);
+#pragma unroll
+      for (int p = 0; p < 8; ++p) {
+        tc::Tf32Frag<2> bf;
+        const float* dr = Ds + (8 * p + g8) * kPB + 8 * kk + t4;
+        bf.set(0, dr[0]);
+        bf.set(1, dr[4]);
+        tc::mma_3xtf32(dxa[p], a, bf);
+      }
+    }
+    const float w_lo = w[s0 + g8], w_hi = w[s0 + g8 + 8];
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      dxa[p][0] *= w_lo;
+      dxa[p][1] *= w_lo;
+      dxa[p][2] *= w_hi;
+      dxa[p][3] *= w_hi;
+    }
+
+    // the t-tiles
+    const float cs_lo = cs[s0 + g8], cs_hi = cs[s0 + g8 + 8];
+    float col_lo = 0.f, col_hi = 0.f;  // Σ_t (dS∘S)[t][s] of rows s0 + g8 (+8)
+    for (int j = 2 * sb; j < jend; ++j) {
+      float dm[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        tc::Tf32Frag<2> bf;
+        const float* yr = Ys + (8 * j + g8) * kPY + 8 * kk + t4;
+        bf.set(0, yr[0]);
+        bf.set(1, yr[4]);
+        tc::mma_3xtf32(dm, xf[kk], bf);
+      }
+      const int at = ((tile0(sb) + j - 2 * sb) * 32 + lane) * 4;
+      const float4 sv = *reinterpret_cast<const float4*>(Sf + at);
+      const float4 acc = *reinterpret_cast<const float4*>(Sum + at);
+      const float s4[4] = {sv.x, sv.y, sv.z, sv.w};
+      float wt[4], ds[4], r[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int s = s0 + g8 + 8 * (e / 2), t = 8 * j + 2 * t4 + e % 2;
+        const float l = s <= t && t < Q ? expf(cs[t] - (e < 2 ? cs_lo : cs_hi)) : 0.f;
+        wt[e] = s4[e] * l;
+        ds[e] = dm[e] * l;
+        r[e] = ds[e] * s4[e];
+      }
+      *reinterpret_cast<float4*>(Sum + at) =
+          make_float4(acc.x + ds[0], acc.y + ds[1], acc.z + ds[2], acc.w + ds[3]);
+      col_lo += r[0] + r[1];
+      col_hi += r[2] + r[3];
+      // Σ_s (dS∘S)[t][s] over this warp's 16 rows: columns 2·t4 (+1)
+      float c0 = r[0] + r[2], c1 = r[1] + r[3];
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        c0 += __shfl_xor_sync(0xffffffffu, c0, o);
+        c1 += __shfl_xor_sync(0xffffffffu, c1, o);
+      }
+      if (g8 == 0) {
+        rows_p[sb * kRows + 8 * j + 2 * t4] = c0;
+        rows_p[sb * kRows + 8 * j + 2 * t4 + 1] = c1;
+      }
+      // dx += Wᵀ·dy over this tile's 8 rows t
+      tc::Tf32Frag<4> wa;
+      tc::acc_as_a(wa, wt);
+      const float* yr = Ys + (8 * j + 2 * t4) * kPY + g8;
+#pragma unroll
+      for (int p = 0; p < 8; ++p) {
+        tc::Tf32Frag<2> bf;
+        bf.set(0, yr[8 * p]);
+        bf.set(1, yr[kPY + 8 * p]);
+        tc::mma_3xtf32(dxa[p], wa, bf);
+      }
+    }
+    col_lo += __shfl_xor_sync(0xffffffffu, col_lo, 1);
+    col_hi += __shfl_xor_sync(0xffffffffu, col_hi, 1);
+    col_lo += __shfl_xor_sync(0xffffffffu, col_lo, 2);
+    col_hi += __shfl_xor_sync(0xffffffffu, col_hi, 2);
+
+    // F = x·dst column tile by column tile: dw and dB's w∘F
+    float dw_lo = 0.f, dw_hi = 0.f;
+#pragma unroll
+    for (int n = 0; n < kNn; ++n) {
+      float f[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        tc::Tf32Frag<2> bf;
+        const float* dr = Ds + (8 * kk + t4) * kPB + 8 * n + g8;
+        bf.set(0, dr[0]);
+        bf.set(1, dr[4 * kPB]);
+        tc::mma_3xtf32(f, xf[kk], bf);
+      }
+      const float* br = Bs + (s0 + g8) * kPB + 8 * n + 2 * t4;
+      dw_lo += f[0] * br[0] + f[1] * br[1];
+      dw_hi += f[2] * br[8 * kPB] + f[3] * br[8 * kPB + 1];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dba.add(n, e, (e < 2 ? w_lo : w_hi) * f[e], db_at(n, e), hh == 0);
+    }
+    dw_lo += __shfl_xor_sync(0xffffffffu, dw_lo, 1);
+    dw_hi += __shfl_xor_sync(0xffffffffu, dw_hi, 1);
+    dw_lo += __shfl_xor_sync(0xffffffffu, dw_lo, 2);
+    dw_hi += __shfl_xor_sync(0xffffffffu, dw_hi, 2);
+    if (t4 == 0) {
+      cols[s0 + g8] = col_lo;
+      cols[s0 + g8 + 8] = col_hi;
+      dwv[s0 + g8] = dw_lo;
+      dwv[s0 + g8 + 8] = dw_hi;
+    }
+    // dx of this head
+    float* const dxp = dx + (row0 * H + h) * P;
+#pragma unroll
+    for (int p = 0; p < 8; ++p)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int s = s0 + g8 + 8 * (e / 2), col = 8 * p + 2 * t4 + e % 2;
+        if (s < Q && col < P) dxp[static_cast<long long>(s) * H * P + col] = dxa[p][e];
+      }
+    __syncthreads();  // the row sums' parts, cols and dw are in
+    if (warp == 0) {
+      for (int t = lane; t < Q; t += 32) {
+        float v = 0.f;
+        for (int k = 0; k <= t / 16; ++k) v += rows_p[k * kRows + t];
+        rows[t] = v;
+      }
+      __syncwarp();
+      finish_ddt(ddt + row0 * H + h, ddecay == nullptr ? nullptr : ddecay + row0 * H + h, H,
+                 rows, cols, dwv, w, cs, Q);
+    }
+    if (L::kBufs == 1 && hh + 1 < heads) load_head(hh + 1);  // its buffer is consumed
+    __syncthreads();  // cs, w and the sums are consumed
+  }
+
+  // C again into the head buffers, then dB = ΣdSᵀ·C + Σ w∘F
+  tc::load_f32_tile<kRows, kNP, kThreads>(sm_s + 4 * L::kHead, kPB, csrc, sc.q, Q, N, vec_bc);
+  tc::cp_commit();
+  tc::cp_wait<0>();
   __syncthreads();
-  if (tid < 32)
-    finish_ddt(ddt + row0 * H + h, ddecay == nullptr ? nullptr : ddecay + row0 * H + h, H,
-               rows, cols, dwv, w, cs, Q);
+  const float* Cs = sm + L::kHead;
+  // both products in passes of kNs n8 tiles (N = 128: two passes of 64
+  // columns, whose 32-register accumulators leave room for the rest)
+  constexpr int kNs = kNP == 128 ? kNn / 2 : kNn;
+#pragma unroll
+  for (int n0 = 0; n0 < kNn; n0 += kNs) {
+    float dbf[kNs][4];
+#pragma unroll
+    for (int n = 0; n < kNs; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dbf[n][e] = dba.get(n0 + n, e, db_at(n0 + n, e));
+    for (int j = 2 * sb; j < jend; ++j) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          Sum + ((tile0(sb) + j - 2 * sb) * 32 + lane) * 4);
+      const float d4[4] = {v.x, v.y, v.z, v.w};
+      tc::Tf32Frag<4> a;
+      tc::acc_as_a(a, d4);
+      const float* cr = Cs + (8 * j + 2 * t4) * kPB + 8 * n0 + g8;
+#pragma unroll
+      for (int n = 0; n < kNs; ++n) {
+        tc::Tf32Frag<2> bf;
+        bf.set(0, cr[8 * n]);
+        bf.set(1, cr[kPB + 8 * n]);
+        tc::mma_3xtf32(dbf[n], a, bf);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kNs; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (float* at = db_at(n0 + n, e)) *at = dbf[n][e];
+  }
+
+  // dC = ΣdS·B: this warp's rows t of t-block sb, over s = 0 .. 16·sb + 15
+  // (k-steps of 8 s, A read from ΣdSᵀ's fragments: element (s, t) is lane
+  // (s % 8)·4 + (t % 8) / 2, value (t % 2) + 2·((s % 16) / 8) of tile (s /
+  // 16, t / 8))
+  if (s0 >= Q) return;
+  auto sum_at = [&](int s, int t) {
+    const int tile = tile0(s / 16) + t / 8 - 2 * (s / 16);
+    return Sum[(tile * 32 + (s % 8) * 4 + (t % 8) / 2) * 4 + (t % 2) + 2 * ((s % 16) / 8)];
+  };
+#pragma unroll
+  for (int n0 = 0; n0 < kNn; n0 += kNs) {
+    float dca[kNs][4];
+#pragma unroll
+    for (int n = 0; n < kNs; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dca[n][e] = 0.f;
+    for (int kk = 0; kk < 2 * sb + 2; ++kk) {
+      // k = 8kk + 2·t4 (+1) for a_0/a_1 (a_2/a_3): rows t = s0 + g8 (+8)
+      tc::Tf32Frag<4> a;
+      const int s = 8 * kk + 2 * t4, t = s0 + g8;
+      a.set(0, sum_at(s, t));
+      a.set(1, sum_at(s, t + 8));
+      a.set(2, sum_at(s + 1, t));
+      a.set(3, sum_at(s + 1, t + 8));
+      const float* br = Bs + s * kPB + 8 * n0 + g8;
+#pragma unroll
+      for (int n = 0; n < kNs; ++n) {
+        tc::Tf32Frag<2> bf;
+        bf.set(0, br[8 * n]);
+        bf.set(1, br[kPB + 8 * n]);
+        tc::mma_3xtf32(dca[n], a, bf);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kNs; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int t = s0 + g8 + 8 * (e / 2), col = 8 * (n0 + n) + 2 * t4 + e % 2;
+        if (t < Q && col < N) dcp[at0 + t * ld + col] = dca[n][e];
+      }
+  }
 }
+
+}  // namespace ssd_bwd_f32
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores.
@@ -1113,17 +1413,19 @@ cudaError_t launch(const void* x, const float* dt_a, const void* b, const void* 
 
 }  // namespace ssd_bwd_tc
 
+template <int kNP>
 cudaError_t launch_f32(const float* x, const float* dt_a, const float* b, const float* c,
                        const float* dy, const float* dstate, const float* ddecay, float* dx,
-                       float* ddt, float* part, const long long* st, int BC, int Q, int H,
-                       int P, int N, cudaStream_t stream) {
-  // opt in once at the largest shapes the wrapper admits (the first launch
-  // must come outside any CUDA graph capture)
+                       float* ddt, float* db, float* dc, const long long* st, int BC, int Q,
+                       int H, int P, int N, int heads, cudaStream_t stream) {
+  using L = ssd_bwd_f32::Layout<kNP>;
+  // opt in once per instantiation (the first launch must come outside any
+  // CUDA graph capture)
   static bool opted_in = false;
   if (!opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ssd_bwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        f32_smem_floats(kMaxQ, kMaxP, kMaxN) * static_cast<int>(sizeof(float)));
+    const cudaError_t err = cudaFuncSetAttribute(ssd_bwd_f32::ssd_bwd_tf32_kernel<kNP>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 L::kBytes);
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
@@ -1132,9 +1434,17 @@ cudaError_t launch_f32(const float* x, const float* dt_a, const float* b, const 
   const Strides4 sb{st[6], st[7], st[8]};
   const Strides4 sc{st[9], st[10], st[11]};
   const Strides4 sy{st[12], st[13], st[14]};
-  const int smem = f32_smem_floats(Q, P, N) * static_cast<int>(sizeof(float));
-  ssd_bwd_f32_kernel<<<dim3(H, BC), kThreads, smem, stream>>>(
-      x, dt_a, b, c, dy, dstate, ddecay, dx, ddt, part, sx, sa, sb, sc, sy, BC, H, Q, P, N);
+  using ssd::tile::aligned16;
+  // 16-byte copies where every row starts 16-byte aligned
+  const bool vec_y = dy == nullptr || (aligned16(dy) && sy.c % 4 == 0 && sy.q % 4 == 0 &&
+                                       sy.h % 4 == 0);
+  const bool vec_bc = aligned16(b) && aligned16(c) && sb.c % 4 == 0 && sb.q % 4 == 0 &&
+                      sb.h % 4 == 0 && sc.c % 4 == 0 && sc.q % 4 == 0 && sc.h % 4 == 0;
+  const bool vec_d = dstate == nullptr || (aligned16(dstate) && N % 4 == 0);
+  ssd_bwd_f32::ssd_bwd_tf32_kernel<kNP><<<dim3(H / heads, BC), ssd_bwd_f32::kThreads,
+                                          L::kBytes, stream>>>(
+      x, dt_a, b, c, dy, dstate, ddecay, dx, ddt, db, dc, sx, sa, sb, sc, sy, BC, H, Q, P, N,
+      heads, vec_y, vec_bc, vec_d);
   return cudaGetLastError();
 }
 
@@ -1147,12 +1457,11 @@ cudaError_t launch_f32(const float* x, const float* dt_a, const float* b, const 
 // ddecay (BC, Q, H) fp32 contiguous, or nullptr (zero).  dx (BC, Q, H, P) in
 // x's dtype and ddt (BC, Q, H) fp32, contiguous; db, dc (BC, Q, G, N) in
 // b's dtype, each group summing H / G consecutive heads.  bf16 != 0 for
-// bfloat16 x, b, c, dy, which run the tensor-core kernel with `heads`
-// consecutive heads of one group a block (a divisor of H / G, at most 16):
-// part (2, BC, Q, H / heads, N) fp32 takes each block's dB and dC, or is
-// nullptr where a block is a whole group (H / heads = G) and writes db and
-// dc itself.  fp32 runs the CUDA-core kernel, one head a block (heads = 1),
-// with part (2, BC, Q, H, N) fp32 for each head's dB and dC.
+// bfloat16 x, b, c, dy (the wgmma kernel), else fp32 (the 3xTF32 kernel);
+// either walks `heads` consecutive heads of one group a block (a divisor
+// of H / G, at most 16): part (2, BC, Q, H / heads, N) fp32 takes each
+// block's dB and dC, or is nullptr where a block is a whole group (H /
+// heads = G) and writes db and dc itself.
 cudaError_t launch_ssd_chunk_bwd(const void* x, const float* dt_a, const void* b,
                                  const void* c, const void* dy, const float* dstate,
                                  const float* ddecay, void* dx, float* ddt, float* part,
@@ -1162,21 +1471,30 @@ cudaError_t launch_ssd_chunk_bwd(const void* x, const float* dt_a, const void* b
   if (BC < 1 || BC > 65535 || Q < 1 || Q > kMaxQ || H < 1 || H > 65535 || P < 1 ||
       P > kMaxP || N < 1 || N > kMaxN || G < 1 || H % G)
     return cudaErrorInvalidValue;
-  const int parts = bf16 ? H / heads : H;
-  if (bf16 && (heads < 1 || heads > ssd_bwd_tc::kMaxHeads || (H / G) % heads ||
-               (part == nullptr && parts != G)))
+  const int parts = heads >= 1 ? H / heads : 0;
+  const int max_heads = bf16 ? ssd_bwd_tc::kMaxHeads : ssd_bwd_f32::kMaxHeads;
+  if (heads < 1 || heads > max_heads || (H / G) % heads || (part == nullptr && parts != G))
     return cudaErrorInvalidValue;
-  if (!bf16 && (heads != 1 || part == nullptr)) return cudaErrorInvalidValue;
   cudaError_t err;
-  if (bf16)
+  if (bf16) {
     err = N <= 64 ? ssd_bwd_tc::launch<1>(x, dt_a, b, c, dy, dstate, ddecay, dx, ddt, part,
                                           db, dc, st, BC, Q, H, P, N, heads, stream)
                   : ssd_bwd_tc::launch<2>(x, dt_a, b, c, dy, dstate, ddecay, dx, ddt, part,
                                           db, dc, st, BC, Q, H, P, N, heads, stream);
-  else
-    err = launch_f32(static_cast<const float*>(x), dt_a, static_cast<const float*>(b),
-                     static_cast<const float*>(c), static_cast<const float*>(dy), dstate,
-                     ddecay, static_cast<float*>(dx), ddt, part, st, BC, Q, H, P, N, stream);
+  } else {
+    // each block's dB and dC into its part, or into db and dc where a block
+    // is a whole group
+    float* const dbp = part != nullptr ? part : static_cast<float*>(db);
+    float* const dcp = part != nullptr ? part + static_cast<long long>(BC) * Q * parts * N
+                                       : static_cast<float*>(dc);
+    const auto f = [](const void* p) { return static_cast<const float*>(p); };
+    err = N <= 64 ? launch_f32<64>(f(x), dt_a, f(b), f(c), f(dy), dstate, ddecay,
+                                   static_cast<float*>(dx), ddt, dbp, dcp, st, BC, Q, H, P, N,
+                                   heads, stream)
+                  : launch_f32<128>(f(x), dt_a, f(b), f(c), f(dy), dstate, ddecay,
+                                    static_cast<float*>(dx), ddt, dbp, dcp, st, BC, Q, H, P,
+                                    N, heads, stream);
+  }
   if (err != cudaSuccess || part == nullptr) return err;
   const long long rows = static_cast<long long>(BC) * Q;
   const long long total = rows * G * N;
@@ -1187,6 +1505,6 @@ cudaError_t launch_ssd_chunk_bwd(const void* x, const float* dt_a, const void* b
         G, N);
   else
     group_sum_kernel<float><<<dim3(blocks, 2), 256, 0, stream>>>(
-        part, static_cast<float*>(db), static_cast<float*>(dc), rows, H, G, N);
+        part, static_cast<float*>(db), static_cast<float*>(dc), rows, parts, G, N);
   return cudaGetLastError();
 }

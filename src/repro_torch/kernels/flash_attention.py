@@ -41,10 +41,11 @@ o's too, lse (B, H, Sq) fp32, and picks by device as the forward does:
 CPU, the plain ``ref.flash_attention_bwd_ref``; meta, empty gradients,
 the same scratch as the card's and ``cost.flash_attention_bwd``; CUDA,
 the kernels of ``flash_attention_bwd.cu`` with one count in
-``flash_attention_bwd.launches``: in fp32 three (delta, dK/dV, dQ), in
-bf16 three too (the row stats with the counters zeroed, one fused kernel
-for dK, dV and dQ over the unit list ``bwd_schedule`` builds, then dQ's
-fp32 slots added and rounded).  The gradients leave in q's, k's and v's
+``flash_attention_bwd.launches``: three in either dtype, the row stats
+with the counters zeroed, one fused kernel for dK, dV and dQ over the unit
+list ``bwd_schedule`` builds (bf16: 128-key spans on wgmma; fp32:
+64-key spans, every product as 3xTF32 on mma.sync), then dQ's fp32 slots
+added (and rounded, in bf16).  The gradients leave in q's, k's and v's
 dtypes and memory layouts.
 """
 
@@ -206,20 +207,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _ref.flash_attention_bwd_ref(q, k, v, o, dout, lse, causal,
                                             window)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    if dtype == torch.bfloat16:
-        sched = bwd_schedule(b, h, kv, s, sk, d, bool(causal), window)
-        extra = _bwd_scratch(sched, b, h, kv, s, sk, d, q.device)
-        stats = extra.pop(0)
-    else:
-        stats = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-        none = torch.empty(0, dtype=torch.float32, device=q.device)
-        extra = [none.int(), 0, 0, 0, none, none, none.int()]
+    bf16 = dtype == torch.bfloat16
+    sched = bwd_schedule(b, h, kv, s, sk, d, bool(causal), window,
+                         BWD_SPAN if bf16 else BWD_F32_SPAN)
+    extra = _bwd_scratch(sched, b, h, kv, s, sk, d, q.device, bf16)
+    stats = extra.pop(0)
     if dev == "meta":
         cost.report(kernel, cost.flash_attention_bwd(
             b, h, kv, s, sk, d, q.element_size(), causal, window))
     else:
-        if dtype == torch.bfloat16:
-            extra[0] = _plan_tensor(sched, q.device)
+        extra[0] = _plan_tensor(sched, q.device)
         _build.extension().flash_attention_bwd(q, k, v, o, dout, lse, stats,
                                                dq, dk, dv, bool(causal),
                                                window, *extra)
@@ -230,10 +227,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_bwd.launches = 0
 
 
-# ------------------------------------------------- the bf16 unit list
+# ------------------------------------------------------ the unit list
 
 BWD_TILE = 64      # query rows of a walked tile (the kernel's kTile)
-BWD_SPAN = 128     # keys of a unit: 64 for each consumer warpgroup (kSpan)
+BWD_SPAN = 128     # keys of a bf16 unit: 64 for each consumer warpgroup (kSpan)
+BWD_F32_SPAN = 64  # keys of an fp32 unit (f32::kSpan): fp32 tiles take
+                   # twice the shared memory
 BWD_SMS = 132      # the H100's SMs: the persistent grid's blocks at most
 # causal walks are cut until the list holds this many units an SM (fewer
 # cuts left whole spans' walks, 1.9x an SM's share at granite-3-2b's
@@ -251,9 +250,10 @@ BWD_DQ_BYTES = 8 << 20
 
 
 class BwdSchedule(NamedTuple):
-    """The bf16 backward's unit list, one (batch, KV head)'s pattern: units
+    """The backward's unit list, one (batch, KV head)'s pattern: units
     ``(span, qt_lo, qt_hi, dkv_rank, dkv_count)`` in list order, span n
-    the keys [128n, 128n + 128), walking the query tiles qt_hi - 1 down to
+    the keys [n·span, (n + 1)·span) (``span`` 128 for the bf16 kernel, 64
+    for the fp32 one), walking the query tiles qt_hi - 1 down to
     qt_lo (64 rows each), each with the G heads of the group; dkv_rank of
     dkv_count, the unit's place in its span's dK/dV sum.  ``dq_rank[qt][n]``
     is span n's place among query tile qt's dQ parts (-1: none), and
@@ -271,6 +271,7 @@ class BwdSchedule(NamedTuple):
     tiles: int
     blocks: int
     slots: int = 1
+    span: int = BWD_SPAN
 
     @property
     def n_units(self) -> int:
@@ -295,16 +296,17 @@ class BwdSchedule(NamedTuple):
         return out + list(self.dq_count)
 
 
-def _kept_spans(sq: int, sk: int, causal: bool, window: int
-                ) -> tuple[list[int], list[int]]:
-    """For each 64-row query tile, the first and last 128-key span holding
-    a key that one of its rows attends (every span between holds one)."""
-    n_sp = math.ceil(sk / BWD_SPAN)
+def _kept_spans(sq: int, sk: int, causal: bool, window: int,
+                span: int = BWD_SPAN) -> tuple[list[int], list[int]]:
+    """For each 64-row query tile, the first and last ``span``-key span
+    holding a key that one of its rows attends (every span between holds
+    one)."""
+    n_sp = math.ceil(sk / span)
     lo, hi = [], []
     for qt in range(math.ceil(sq / BWD_TILE)):
         if causal:
-            hi.append(min(BWD_TILE * qt + BWD_TILE - 1, sq - 1) // BWD_SPAN)
-            lo.append(max(0, BWD_TILE * qt - window + 1) // BWD_SPAN
+            hi.append(min(BWD_TILE * qt + BWD_TILE - 1, sq - 1) // span)
+            lo.append(max(0, BWD_TILE * qt - window + 1) // span
                       if window else 0)
         else:
             lo.append(0)
@@ -327,9 +329,11 @@ def _pattern(lo: list[int], hi: list[int], n_sp: int, tiles: int) -> list:
 
 @functools.lru_cache(maxsize=256)
 def bwd_schedule(b: int, h: int, kv: int, sq: int, sk: int, d: int,
-                 causal: bool, window: int) -> BwdSchedule:
-    """The unit list of the bf16 backward at one shape.  Each (batch, KV
-    head, 128-key span) walks its kept query tiles.  Causal walks, whose
+                 causal: bool, window: int,
+                 span: int = BWD_SPAN) -> BwdSchedule:
+    """The unit list of the backward at one shape, in spans of ``span``
+    keys (BWD_SPAN for the bf16 kernel, BWD_F32_SPAN for the fp32 one).
+    Each (batch, KV head, key span) walks its kept query tiles.  Causal walks, whose
     length falls with the span, are cut into slices of ``tiles`` query
     tiles, the tallest height among n_qt / k (k = 1..8) whose list holds
     ``BWD_UNITS_PER_SM`` units an SM, else n_qt / 8; full attention's
@@ -339,9 +343,11 @@ def bwd_schedule(b: int, h: int, kv: int, sq: int, sk: int, d: int,
     deadlock for any number of units or blocks.  Slices of one height
     start at the same query tile, so the spans that add to one dQ tile
     reach it in step, and each waits on the one before it: dQ's sums take
-    as many slots as a tile has parts, within ``BWD_DQ_BYTES``."""
-    lo, hi = _kept_spans(sq, sk, causal, window)
-    n_qt, n_sp = len(lo), math.ceil(sk / BWD_SPAN)
+    as many slots as a tile has parts, within ``BWD_DQ_BYTES`` (the fp32
+    kernel's whole block waits for a part's turn, yet at granite-3-2b's
+    shape it ran as fast with 1, 2 and 4 slots: tools/k6_bwd_sched.py)."""
+    lo, hi = _kept_spans(sq, sk, causal, window, span)
+    n_qt, n_sp = len(lo), math.ceil(sk / span)
     heights = sorted({math.ceil(n_qt / k) for k in range(1, 9)} if causal
                      else {n_qt}, reverse=True)
     for tiles in heights:
@@ -351,7 +357,7 @@ def bwd_schedule(b: int, h: int, kv: int, sq: int, sk: int, d: int,
     sched = _finish(units, n_qt, n_sp, b * kv, h // kv, tiles)
     slot = b * h * n_qt * BWD_TILE * _dq_ld(d) * 4
     return sched._replace(slots=max(1, min(max(sched.dq_count),
-                                           BWD_DQ_BYTES // slot)))
+                                           BWD_DQ_BYTES // slot)), span=span)
 
 
 def _dq_ld(d: int) -> int:
@@ -392,20 +398,24 @@ def _plan_tensor(sched: BwdSchedule, device: torch.device) -> torch.Tensor:
 
 
 def _bwd_scratch(sched: BwdSchedule, b: int, h: int, kv: int, sq: int,
-                 sk: int, d: int, device) -> list:
+                 sk: int, d: int, device, bf16: bool = True) -> list:
     """[row stats, plan (set on the card), n_pat, blocks, slots, dq_acc,
-    dkv_acc, counters]: the bf16 kernel's scratch, the same on the meta
-    device (the dry-run's peak counts it).  dq_acc (slots, B·H, 64·n_qt,
-    ld) and dkv_acc are fp32 with rows of ld = 64 or 128 (D padded to the
-    kernel's boxes, Sq to its query tiles); dkv_acc is empty unless a
-    span's walk is split; a counter a (dQ tile, slot)."""
+    dkv_acc, counters]: the kernels' scratch, the same on the meta device
+    (the dry-run's peak counts it).  The row stats are bf16's tiles of
+    lse·log2(e) and delta, fp32's delta (B, H, Sq).  dq_acc (slots, B·H,
+    64·n_qt, ld) and dkv_acc are fp32 with rows of ld = 64 or 128 (D padded
+    to the kernel's boxes, Sq to its query tiles); dkv_acc is empty unless
+    a bf16 span's walk is split (the fp32 kernel sums split spans in dk and
+    dv themselves); a counter a (dQ tile, slot)."""
     n_qt = math.ceil(sq / BWD_TILE)
-    n_sp = math.ceil(sk / BWD_SPAN)
+    n_sp = math.ceil(sk / sched.span)
     ld = _dq_ld(d)
     f32 = dict(dtype=torch.float32, device=device)
-    return [torch.empty(b * h * n_qt * 2 * BWD_TILE, **f32), None,
+    split = bf16 and sched.split
+    return [torch.empty(b * h * n_qt * 2 * BWD_TILE if bf16 else b * h * sq,
+                        **f32), None,
             len(sched.units), sched.blocks, sched.slots,
             torch.empty((sched.slots, b * h, BWD_TILE * n_qt, ld), **f32),
-            torch.empty((2, b, kv, sk, ld) if sched.split else (0,), **f32),
+            torch.empty((2, b, kv, sk, ld) if split else (0,), **f32),
             torch.empty(1 + b * h * n_qt * sched.slots + 2 * b * kv * n_sp,
                         dtype=torch.int32, device=device)]

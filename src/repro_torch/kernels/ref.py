@@ -166,6 +166,13 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(b, h, sq, d).to(q.dtype)
 
 
+def _up(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in fp32, or as it is where it is float64: the plain versions
+    of K6's and K7's backwards run in float64 when handed float64 inputs
+    (chip_smoke.py phase 7's witness of the fp32 kernels' accuracy)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
             window: int) -> torch.Tensor:
     """Scaled scores (B, KV, G, Sq, Sk) fp32 of q (B, H, Sq, D) against k
@@ -173,8 +180,8 @@ def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
     ``_flash_fwd_core`` and ``_sdpa_chunked_bwd``)."""
     b, h, sq, d = q.shape
     kv, sk = k.shape[1], k.shape[2]
-    qg = q.float().reshape(b, kv, h // kv, sq, d)
-    s = torch.einsum("bkgqd,bkmd->bkgqm", qg, k.float()) * (1.0 / math.sqrt(d))
+    qg = _up(q).reshape(b, kv, h // kv, sq, d)
+    s = torch.einsum("bkgqd,bkmd->bkgqm", qg, _up(k)) * (1.0 / math.sqrt(d))
     if causal:
         mask = attention_mask(sq, sk, window, q.device)
         s = torch.where(mask, s, torch.full((), -1e30, device=q.device))
@@ -207,7 +214,8 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     delta = Σ o·dO, dV = pᵀ·dO with p and dO in fp32, dP = dO·vᵀ, dS =
     p·(dP − delta)·scale rounded to q's dtype for dQ = dS·k and dK =
     dSᵀ·q; every product accumulates in fp32, and the gradients are
-    rounded once to q's, k's and v's dtypes."""
+    rounded once to q's, k's and v's dtypes.  Handed float64 inputs it
+    computes in float64 (``_up``)."""
     b, h, sq, d = q.shape
     kv = k.shape[1]
     check_causal_lengths(sq, k.shape[2], causal, window)
@@ -215,16 +223,16 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     scale = 1.0 / math.sqrt(d)
 
     def grouped(t):
-        return t.float().reshape(b, kv, g, sq, d)
+        return _up(t).reshape(b, kv, g, sq, d)
 
     og = grouped(dout)
     delta = (grouped(o) * og).sum(-1)                          # (B, KV, G, Sq)
     p = torch.exp(_scores(q, k, causal, window)
-                  - lse.float().reshape(b, kv, g, sq)[..., None])
+                  - _up(lse).reshape(b, kv, g, sq)[..., None])
     dv = torch.einsum("bkgqm,bkgqd->bkmd", p, og)
-    dp = torch.einsum("bkgqd,bkmd->bkgqm", og.to(v.dtype).float(), v.float())
-    ds = (p * (dp - delta[..., None]) * scale).to(q.dtype).float()
-    dq = torch.einsum("bkgqm,bkmd->bkgqd", ds, k.float())
+    dp = torch.einsum("bkgqd,bkmd->bkgqm", _up(og.to(v.dtype)), _up(v))
+    ds = _up((p * (dp - delta[..., None]) * scale).to(q.dtype))
+    dq = torch.einsum("bkgqm,bkmd->bkgqd", ds, _up(k))
     dk = torch.einsum("bkgqm,bkgqd->bkmd", ds, grouped(q))
     return (dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
@@ -282,23 +290,24 @@ def ssd_chunk_bwd_ref(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
     Everything in fp32; db and dc are summed over each of ``groups``
     consecutive-head groups (None: one a head) into (BC, Q, G, N) in fp32,
     and each gradient is rounded once to its input's dtype (d(dt_a) fp32):
-    ordinary autograd through ``ssd_chunk_ref`` up to fp32 sum orders."""
+    ordinary autograd through ``ssd_chunk_ref`` up to fp32 sum orders.
+    Handed float64 inputs it computes in float64 (``_up``)."""
     bc, q, h, p = x.shape
     n = b.shape[-1]
     g = h if groups is None else groups
-    xf, bf, cf = x.float(), b.float(), c.float()
-    cs = torch.cumsum(dt_a.float(), dim=1)                     # (BC, Q, H)
+    xf, bf, cf = _up(x), _up(b), _up(c)
+    cs = torch.cumsum(_up(dt_a), dim=1)                        # (BC, Q, H)
     seg = cs[:, :, None, :] - cs[:, None, :, :]                # (BC, Q, Q, H)
     mask = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
     lmat = torch.exp(seg.masked_fill(~mask[None, :, :, None], float("-inf")))
     scores = torch.einsum("bthn,bshn->btsh", cf, bf)
     w = torch.exp(cs[:, -1:, :] - cs)                          # (BC, Q, H)
-    dx = torch.zeros((bc, q, h, p), dtype=torch.float32, device=x.device)
-    db = torch.zeros((bc, q, h, n), dtype=torch.float32, device=x.device)
+    dx = torch.zeros((bc, q, h, p), dtype=xf.dtype, device=x.device)
+    db = torch.zeros((bc, q, h, n), dtype=xf.dtype, device=x.device)
     dc = torch.zeros_like(db)
     dcs = torch.zeros_like(cs)
     if dy is not None:
-        dyf = dy.float()
+        dyf = _up(dy)
         ds = torch.einsum("bthp,bshp->btsh", dyf, xf) * lmat
         dx += torch.einsum("btsh,bthp->bshp", scores * lmat, dyf)
         dc += torch.einsum("btsh,bshn->bthn", ds, bf)
@@ -306,7 +315,7 @@ def ssd_chunk_bwd_ref(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
         r = ds * scores
         dcs += r.sum(2) - r.sum(1)
     if dstate is not None:
-        dst = dstate.float()
+        dst = _up(dstate)
         dx += w[..., None] * torch.einsum("bshn,bhpn->bshp", bf, dst)
         xdst = torch.einsum("bshp,bhpn->bshn", xf, dst)
         db += w[..., None] * xdst
@@ -314,7 +323,7 @@ def ssd_chunk_bwd_ref(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
         dcs -= dww
         dcs[:, -1] += dww.sum(1)
     if ddecay is not None:
-        dcs += ddecay.float() * torch.exp(cs)
+        dcs += _up(ddecay) * torch.exp(cs)
     ddt = torch.flip(torch.cumsum(torch.flip(dcs, (1,)), dim=1), (1,))
     if g != h:
         db = db.reshape(bc, q, g, h // g, n).sum(3)

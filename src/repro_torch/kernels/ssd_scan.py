@@ -30,13 +30,12 @@ each group, (BC, Q, groups, N).  It picks by device as the forward does:
 CPU, the plain ``ref.ssd_chunk_bwd_ref``; meta, empty gradients, the
 scratch the card would take and ``cost.ssd_chunk_bwd``; CUDA, the kernels
 of ``ssd_scan_bwd.cu`` with one count in ``ssd_chunk_bwd.launches``.  In
-bf16 a block walks ``ssd_bwd_plan``'s number of consecutive heads of one
-group: it sums their dS and w∘(x·dst) in fp32, takes dB's and dC's
-products over the sum once, and writes one fp32 part of its group (no
-scratch at all where a block is a whole group), which a second kernel
-adds in block order and rounds once; in fp32 the CUDA-core kernel writes
-each head's dB and dC and the same second kernel sums them in head
-order.  No atomics: repeats are bit-identical.  The gradients leave in
+either dtype a block walks ``ssd_bwd_plan``'s number of consecutive heads
+of one group (bf16 on wgmma, fp32 as 3xTF32 on mma.sync): it sums their
+dS and w∘(x·dst) in fp32, takes dB's and dC's products over the sum once,
+and writes one fp32 part of its group (no scratch at all where a block is
+a whole group), which a second kernel adds in block order and rounds
+once.  No atomics: repeats are bit-identical.  The gradients leave in
 x's, dt_a's (fp32), b's and c's dtypes, contiguous.
 """
 
@@ -93,21 +92,22 @@ def ssd_plan(bc: int, h: int, q: int, shared_bc: bool, n: int = 64) -> int:
     return 1
 
 
-# csrc/ssd_scan_bwd.cu, bf16: a block walks up to 16 heads of one B/C
-# group (227 KB of shared memory and up to 246 registers a thread: one
-# block an SM).  Its fixed work (B and C staged, S at N <= 64, the dB and
-# dC products over ΣdS, the part written) is taken as SSD_BWD_BLOCK_COST
-# heads' worth; the plan takes the heads that minimise waves x (heads +
-# that cost) on the H100's 132 SMs, the fewer heads on a tie.  chip_smoke.py
-# phase 7 sweeps the choices at both training shapes: the plan's 8 of
-# Zamba2-1.2B's 64 heads and 10 of mamba2-2.7b's 80 ran fastest (8 of 80
-# leave a second wave of 28 blocks).
+# csrc/ssd_scan_bwd.cu: a block walks up to 16 heads of one B/C group
+# (bf16: 227 KB of shared memory and up to 246 registers a thread; fp32:
+# 216,576-219,648 bytes; one block an SM either way).  Its fixed work (B and C
+# staged, S, the dB and dC products over ΣdS, the part written) is taken
+# as SSD_BWD_BLOCK_COST heads' worth; the plan takes the heads that
+# minimise waves x (heads + that cost) on the H100's 132 SMs, the fewer
+# heads on a tie.  chip_smoke.py phase 7 sweeps the choices at both
+# training shapes: the plan's 8 of Zamba2-1.2B's 64 heads and 10 of
+# mamba2-2.7b's 80 ran fastest in bf16 (8 of 80 leave a second wave of 28
+# blocks).
 SSD_BWD_HEADS = (1, 2, 4, 5, 8, 10, 16)
 SSD_BWD_BLOCK_COST = 1.5
 
 
 def ssd_bwd_plan(bc: int, h: int, q: int, groups: int, n: int = 64) -> int:
-    """Heads a block of the bf16 backward walks for ``bc`` chunks of ``q``
+    """Heads a block of the backward walks for ``bc`` chunks of ``q``
     rows, ``h`` heads in ``groups`` B/C groups and state size ``n``: a
     divisor of ``h // groups`` from SSD_BWD_HEADS (a block's heads share
     one group's B and C).  Per-head B and C (``groups == h``) give 1."""
@@ -128,12 +128,12 @@ def ssd_bwd_plan(bc: int, h: int, q: int, groups: int, n: int = 64) -> int:
 
 
 def bwd_parts_shape(bc: int, q: int, h: int, n: int, groups: int,
-                    bf16: bool, heads: int) -> tuple[int, ...]:
-    """The fp32 scratch ``ssd_chunk_bwd`` takes on the card: each block's
-    dB and dC (bf16, ``h // heads`` blocks a chunk; none where a block is a
-    whole group) or each head's (fp32), before the group sum."""
-    parts = h // heads if bf16 else h
-    return (0,) if bf16 and parts == groups else (2, bc, q, parts, n)
+                    heads: int) -> tuple[int, ...]:
+    """The fp32 scratch ``ssd_chunk_bwd`` takes on the card, in either
+    dtype: each block's dB and dC (``h // heads`` blocks a chunk) before
+    the group sum; none where a block is a whole group."""
+    parts = h // heads
+    return (0,) if parts == groups else (2, bc, q, parts, n)
 
 
 def _check(kernel: str, x: torch.Tensor, dt_a: torch.Tensor,
@@ -200,8 +200,8 @@ def ssd_chunk_bwd(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
     """(dx, d(dt_a), db, dc) of ``ssd_chunk(x, dt_a, b, c)`` for the
     cotangents of its three outputs (None: zero); db and dc (BC, Q, G, N)
     summed over each of ``groups`` = G groups of consecutive heads.
-    ``heads``: the bf16 kernel's heads a block (a divisor of H / G of
-    SSD_BWD_HEADS; None: ``ssd_bwd_plan``'s); fp32 takes one a block."""
+    ``heads``: the kernel's heads a block (a divisor of H / G of
+    SSD_BWD_HEADS; None: ``ssd_bwd_plan``'s)."""
     kernel = "ssd_chunk_bwd"
     bc, q, h, p, n = _check(kernel, x, dt_a, b, c)
     g = h if groups is None else int(groups)
@@ -226,15 +226,12 @@ def ssd_chunk_bwd(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
     ddt = torch.empty((bc, q, h), device=x.device, dtype=torch.float32)
     db = torch.empty((bc, q, g, n), device=x.device, dtype=b.dtype)
     dc = torch.empty((bc, q, g, n), device=x.device, dtype=c.dtype)
-    bf16 = x.dtype == torch.bfloat16
-    if not bf16:
-        heads = 1
-    elif heads is None:
+    if heads is None:
         heads = ssd_bwd_plan(bc, h, q, g, n)
     elif heads not in SSD_BWD_HEADS or (h // g) % heads:
         raise ValueError(f"{kernel}: {heads} heads a block: not one of "
                          f"{SSD_BWD_HEADS} dividing {h // g}")
-    parts = torch.empty(bwd_parts_shape(bc, q, h, n, g, bf16, heads),
+    parts = torch.empty(bwd_parts_shape(bc, q, h, n, g, heads),
                         device=x.device, dtype=torch.float32)
     if dev == "meta":
         cost.report(kernel, cost.ssd_chunk_bwd(bc, q, h, p, n, g,

@@ -429,28 +429,38 @@ class _Recorder:
 
 
 def test_meta_path_reports_both_kernels():
-    meta = dict(device="meta", dtype=torch.bfloat16)
-    q = torch.empty(2, 8, 300, 64, **meta).transpose(1, 2).contiguous() \
-        .transpose(1, 2)
-    k = torch.empty(2, 2, 300, 64, **meta)
-    leaves = [t.requires_grad_(True) for t in (q, k, k.clone())]
-    with cost.recording(_Recorder()) as rec:
-        out = ops.flash_attention(*leaves, True, window=50)
-        dq, dk, dv = torch.autograd.grad(out, leaves, torch.empty_like(out))
-    assert [n for n, _ in rec.calls] == ["flash_attention",
-                                         "flash_attention_bwd"]
-    assert rec.calls[1][1] == cost.flash_attention_bwd(2, 8, 2, 300, 300, 64,
-                                                       2, True, 50)
-    assert dq.is_meta and dq.shape == q.shape and dq.stride() == q.stride()
-    assert dk.shape == dv.shape == k.shape and ops.launch_counts()[
-        "flash_attention_bwd"] == 0
+    """One launch of K6 and one of its backward on meta, in bf16 and fp32,
+    each with its cost (fp32's backward priced as 3xTF32 products)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        meta = dict(device="meta", dtype=dtype)
+        q = torch.empty(2, 8, 300, 64, **meta).transpose(1, 2).contiguous() \
+            .transpose(1, 2)
+        k = torch.empty(2, 2, 300, 64, **meta)
+        leaves = [t.requires_grad_(True) for t in (q, k, k.clone())]
+        with cost.recording(_Recorder()) as rec:
+            out = ops.flash_attention(*leaves, True, window=50)
+            dq, dk, dv = torch.autograd.grad(out, leaves,
+                                             torch.empty_like(out))
+        assert [n for n, _ in rec.calls] == ["flash_attention",
+                                             "flash_attention_bwd"]
+        want = cost.flash_attention_bwd(2, 8, 2, 300, 300, 64,
+                                        q.element_size(), True, 50)
+        assert rec.calls[1][1] == want
+        assert set(want.flops) == {"bfloat16" if dtype == torch.bfloat16
+                                   else "tfloat32"}
+        assert dq.is_meta and dq.shape == q.shape and \
+            dq.stride() == q.stride()
+        assert dk.shape == dv.shape == k.shape and ops.launch_counts()[
+            "flash_attention_bwd"] == 0
 
 
 def test_bwd_cost_and_bound_at_granite():
     """Five products over the kept pairs (10·B·H·pairs·D), 2.5x the
     forward's operations; bytes: q, o, dO, dq at H heads, k, v, dk, dv at
     KV heads, lse and delta; bound by the bf16 operations at granite-3-2b's
-    (1, 32, 2048, 64) on 8 KV heads: 0.04345 ms."""
+    (1, 32, 2048, 64) on 8 KV heads: 0.04345 ms.  In fp32 the products run
+    as three TF32 products each (3xTF32), priced at the TF32 peak: 0.26043
+    ms, where the same products on the CUDA cores would take 0.64135."""
     c = cost.flash_attention_bwd(1, 32, 8, 2048, 2048, 64, 2, True)
     f = cost.flash_attention(1, 32, 8, 2048, 2048, 64, 2, True)
     pairs = cost.kept_pairs(2048, 0)
@@ -459,8 +469,15 @@ def test_bwd_cost_and_bound_at_granite():
     assert c.nbytes == 4 * (32 + 8) * 2048 * 64 * 2 + 2 * 32 * 2048 * 4
     ops_s, bytes_s = c.seconds(H100Target())
     assert ops_s > bytes_s and round(ops_s * 1e3, 5) == 0.04345
+    f32 = cost.flash_attention_bwd(1, 32, 8, 2048, 2048, 64, 4, True)
+    assert f32.flops == {"tfloat32": 3 * c.flops["bfloat16"]}
+    ops_s, bytes_s = f32.seconds(H100Target())
+    assert ops_s > bytes_s and round(ops_s * 1e3, 5) == 0.26043
+    assert round(c.flops["bfloat16"] / H100Target().flop_rate("float32")
+                 * 1e3, 5) == 0.64135
     w = cost.flash_attention_bwd(1, 32, 32, 4096, 4096, 64, 4, True, 1000)
-    assert w.flops["float32"] == 10 * 32 * cost.kept_pairs(4096, 1000) * 64
+    assert w.flops["tfloat32"] == 3 * 10 * 32 * cost.kept_pairs(4096, 1000) \
+        * 64
     x = cost.flash_attention_bwd(1, 16, 16, 512, 1024, 64, 2, False)
     assert x.flops["bfloat16"] == 10 * 16 * 512 * 1024 * 64
 

@@ -33,7 +33,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import cost, ref
-from repro_torch.kernels.flash_attention import (BWD_DQ_BYTES, BWD_SMS,
+from repro_torch.kernels.flash_attention import (BWD_DQ_BYTES,
+                                                 BWD_F32_SPAN, BWD_SMS,
                                                  BWD_SPAN, BWD_TILE,
                                                  BWD_UNITS_PER_SM,
                                                  _kept_spans, _pattern,
@@ -52,31 +53,43 @@ SHAPES = {**{name: shape for name, shape in SMOKE.K6_BWD_SHAPES},
 BALANCED = ("granite-3-2b train", "qwen3-14b", "zamba2-1.2b train")
 
 
-def _schedule(shape):
+def _schedule(shape, span=BWD_SPAN):
     b, h, kv, s, d, sk, causal, window = shape
-    return bwd_schedule(b, h, kv, s, sk, d, causal, window)
+    return bwd_schedule(b, h, kv, s, sk, d, causal, window, span)
 
 
-def _kept_pairs(shape) -> set[tuple[int, int]]:
+def _kept_pairs(shape, span=BWD_SPAN) -> set[tuple[int, int]]:
     """(query tile, key span) pairs holding a (row, key) the mask keeps."""
     _, _, _, s, _, sk, causal, window = shape
     mask = (ref.attention_mask(s, sk, window, "cpu") if causal
             else torch.ones(s, sk, dtype=torch.bool))
     return {(qt, n) for qt in range(math.ceil(s / BWD_TILE))
-            for n in range(math.ceil(sk / BWD_SPAN))
+            for n in range(math.ceil(sk / span))
             if mask[BWD_TILE * qt:BWD_TILE * qt + BWD_TILE,
-                    BWD_SPAN * n:BWD_SPAN * n + BWD_SPAN].any()}
+                    span * n:span * n + span].any()}
+
+
+def _check_cover(shape, span):
+    sched = _schedule(shape, span)
+    assert sched.span == span
+    walked = [(qt, n) for n, lo, hi, _, _ in sched.units
+              for qt in range(lo, hi)]
+    assert len(walked) == len(set(walked))
+    assert set(walked) == _kept_pairs(shape, span)
+    for n, lo, hi, _, _ in sched.units:     # one slice of `tiles` tiles
+        assert lo < hi and lo // sched.tiles == (hi - 1) // sched.tiles
 
 
 @pytest.mark.parametrize("name", sorted(SHAPES))
 def test_units_cover_every_kept_pair_once(name):
-    sched = _schedule(SHAPES[name])
-    walked = [(qt, n) for n, lo, hi, _, _ in sched.units
-              for qt in range(lo, hi)]
-    assert len(walked) == len(set(walked))
-    assert set(walked) == _kept_pairs(SHAPES[name])
-    for n, lo, hi, _, _ in sched.units:     # one slice of `tiles` tiles
-        assert lo < hi and lo // sched.tiles == (hi - 1) // sched.tiles
+    _check_cover(SHAPES[name], BWD_SPAN)
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_fp32_units_cover_every_kept_pair_once(name):
+    """The fp32 kernel's list, in 64-key spans (its fp32 tiles take twice
+    the shared memory of bf16's), holds every kept pair once too."""
+    _check_cover(SHAPES[name], BWD_F32_SPAN)
 
 
 @pytest.mark.parametrize("name", sorted(SHAPES))
@@ -87,7 +100,18 @@ def test_ordered_sums_wait_only_on_earlier_units(name):
     p·B·KV + x, and a tile's parts share x); a dQ part of rank r waits on
     rank r - slots, the one before it in its slot, so on an earlier unit
     too."""
-    sched = _schedule(SHAPES[name])
+    _check_order(SHAPES[name], BWD_SPAN)
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_fp32_ordered_sums_wait_only_on_earlier_units(name):
+    """The same for the fp32 kernel's list, whose whole block waits for a
+    part's turn: no part waits on a unit later in the list."""
+    _check_order(SHAPES[name], BWD_F32_SPAN)
+
+
+def _check_order(shape, span):
+    sched = _schedule(shape, span)
     where = {}
     for p, (n, lo, hi, _, _) in enumerate(sched.units):
         for qt in range(lo, hi):
@@ -155,14 +179,34 @@ def test_makespan_near_an_even_share(name):
         assert longest > 1.15 * share
 
 
+@pytest.mark.parametrize("name", BALANCED)
+def test_fp32_makespan_near_an_even_share(name):
+    """The fp32 list on 132 SMs (one block an SM): 64-key spans make twice
+    the units, so the busiest SM walks within 1.1x of an even share."""
+    sched = _schedule(SHAPES[name], BWD_F32_SPAN)
+    share = sched.pairs() / BWD_SMS
+    assert _makespan(sched) <= 1.1 * share, (_makespan(sched), share)
+    assert sched.blocks == min(BWD_SMS, sched.n_units)
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_fp32_plan_layout(name):
+    """The plan's layout in the fp32 kernel's 64-key spans."""
+    _check_plan(SHAPES[name], BWD_F32_SPAN)
+
+
 @pytest.mark.parametrize("name", sorted(SHAPES))
 def test_plan_layout(name):
     """4 ints a pattern unit (span, qt_lo, qt_hi, rank | count << 16), then
     dq_rank[qt][n], then dq_count[qt], as ``Plan`` reads them."""
-    sched = _schedule(SHAPES[name])
+    _check_plan(SHAPES[name], BWD_SPAN)
+
+
+def _check_plan(shape, span):
+    sched = _schedule(shape, span)
     plan = sched.plan()
-    _, _, _, s, _, sk, _, _ = SHAPES[name]
-    n_qt, n_sp, n_pat = math.ceil(s / BWD_TILE), math.ceil(sk / BWD_SPAN), \
+    _, _, _, s, _, sk, _, _ = shape
+    n_qt, n_sp, n_pat = math.ceil(s / BWD_TILE), math.ceil(sk / span), \
         len(sched.units)
     assert len(plan) == 4 * n_pat + n_qt * n_sp + n_qt
     for p, (n, lo, hi, rank, count) in enumerate(sched.units):
@@ -183,10 +227,12 @@ def _rounded(nbytes: int) -> int:
                                   "edge 1"])
 def test_meta_path_allocates_the_scratch(name, dtype):
     """Under the dry-run's counter a meta call's peak (its inputs made
-    before it) is the gradients plus the kernel's scratch: bf16 the row
-    stats, dQ's fp32 sum (rows padded to 64 or 128 columns and whole query
-    tiles) in each of its slots, dK/dV's where a span is split, and the
-    counters; fp32 the (B, H, Sq) delta alone."""
+    before it) is the gradients plus the kernel's scratch: the row stats
+    (bf16: lse·log2 e and delta in 64-row tiles; fp32: the (B, H, Sq)
+    delta), dQ's fp32 sum (rows padded to 64 or 128 columns and whole query
+    tiles) in each of its slots, bf16 dK/dV's where a span is split (the
+    fp32 kernel sums those in dk and dv), and the counters (spans of 128
+    keys in bf16, 64 in fp32)."""
     b, h, kv, s, d, sk, causal, window = SHAPES[name]
     meta = dict(device="meta", dtype=dtype)
     q, do, o = (torch.empty(b, h, s, d, **meta) for _ in range(3))
@@ -194,19 +240,17 @@ def test_meta_path_allocates_the_scratch(name, dtype):
     lse = torch.empty(b, h, s, device="meta")
     e = q.element_size()
     want = _rounded(b * h * s * d * e) + 2 * _rounded(b * kv * sk * d * e)
-    if dtype == torch.bfloat16:
-        sched = bwd_schedule(b, h, kv, s, sk, d, causal, window)
-        n_qt, n_sp, ld = (math.ceil(s / BWD_TILE), math.ceil(sk / BWD_SPAN),
-                          64 * math.ceil(d / 64))
-        slots = sched.slots
-        want += (_rounded(b * h * n_qt * 128 * 4)
-                 + _rounded(slots * b * h * n_qt * BWD_TILE * ld * 4)
-                 + _rounded(4 * (1 + b * h * n_qt * slots
-                                 + 2 * b * kv * n_sp)))
-        if sched.split:
-            want += _rounded(2 * b * kv * sk * ld * 4)
-    else:
-        want += _rounded(b * h * s * 4)
+    bf16 = dtype == torch.bfloat16
+    span = BWD_SPAN if bf16 else BWD_F32_SPAN
+    sched = bwd_schedule(b, h, kv, s, sk, d, causal, window, span)
+    n_qt, n_sp, ld = (math.ceil(s / BWD_TILE), math.ceil(sk / span),
+                      64 * math.ceil(d / 64))
+    slots = sched.slots
+    want += (_rounded(b * h * n_qt * 128 * 4 if bf16 else b * h * s * 4)
+             + _rounded(slots * b * h * n_qt * BWD_TILE * ld * 4)
+             + _rounded(4 * (1 + b * h * n_qt * slots + 2 * b * kv * n_sp)))
+    if bf16 and sched.split:
+        want += _rounded(2 * b * kv * sk * ld * 4)
     with CostCounter() as counter, cost.recording(counter):
         dq, dk, dv = flash_attention_bwd(q, k, v, o, do, lse, causal, window)
     assert counter.peak == want, (counter.peak, want)
@@ -237,3 +281,21 @@ def test_dq_slots_fit_the_budget(name):
         assert (sched.slots, most) == (2, 8)
     elif not name.startswith("edge"):
         assert sched.slots == 1
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_fp32_dq_slots_fit_the_budget(name):
+    """The fp32 list's slots: as many as a tile's parts (64-key spans: up
+    to 32 at 2048 keys) as far as ``BWD_DQ_BYTES`` holds them: one slot of
+    16 MiB at granite-3-2b's and Zamba2's shapes, whose tiles take up to
+    32 parts in one chain."""
+    b, h, _, s, d, _, _, _ = SHAPES[name]
+    sched = _schedule(SHAPES[name], BWD_F32_SPAN)
+    slot = b * h * math.ceil(s / BWD_TILE) * BWD_TILE * 64 * math.ceil(
+        d / 64) * 4
+    most = max(sched.dq_count)
+    assert 1 <= sched.slots <= most
+    assert sched.slots == most or (sched.slots + 1) * slot > BWD_DQ_BYTES
+    assert sched.slots == 1 or sched.slots * slot <= BWD_DQ_BYTES
+    if name in ("granite-3-2b train", "zamba2-1.2b train"):
+        assert (sched.slots, most) == (1, 32)

@@ -1046,6 +1046,54 @@ def test_flash_attention_bwd_repeats_bit_identical_on_card(cuda, shape):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", K6_BWD_TIMED, ids=str)
+def test_flash_attention_bwd_fp32_3xtf32_on_card(cuda, shape):
+    """The fp32 backward (``flash_bwd_tf32_kernel``, 3xTF32 on mma.sync)
+    at phase 7's timed shapes: within the bars of its plain version, each
+    gradient's distance to the plain version run in float64 at most
+    ``F64_WITNESS`` times the fp32 plain version's, 3 calls and 2 replays
+    of a captured CUDA graph bit-identical (its dQ and split-span sums run
+    in list order under counters the call zeroes)."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    b, h, kv, s, d, sk, causal, window = shape
+    gen = torch.Generator(device=cuda).manual_seed(29)
+    q, k, v, do, o, lse = SMOKE.k6_bwd_inputs(torch, cuda, gen, shape,
+                                              torch.float32)
+
+    def call():
+        return flash_attention_bwd(q, k, v, o, do, lse, causal, window)
+
+    got = [t.clone() for t in call()]
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal, window)
+    want64 = ref.flash_attention_bwd_ref(
+        *(t.double() for t in (q, k, v, o, do, lse)), causal, window)
+    for g, w, noise in zip(got, want, SMOKE.k6_bwd_noise(q, k, v, do)):
+        ok, _, crit = SMOKE.k6_bwd_close(torch, g, w, noise)
+        assert ok, crit
+    ok, note = SMOKE.f64_witness(("dq", "dk", "dv"), got, want, want64)
+    print(note)
+    assert ok, note
+    del want, want64
+    for _ in range(2):
+        assert all(torch.equal(a, b_) for a, b_ in zip(got, call()))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for _ in range(2):
+        for t in out:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b_) for a, b_ in zip(got, out))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_autograd_launches_the_kernels_on_card(cuda, dtype):
     """``ops.flash_attention`` under autograd: one K6 (with its lse) and
@@ -1138,6 +1186,117 @@ def test_ssd_chunk_bwd_every_heads_per_block_on_card(cuda, shape, heads):
     ok, _, crit = SMOKE.k7_bwd_close(torch, got, want,
                                      SMOKE.k7_bwd_noise(x, b, c, *cots))
     assert ok, crit
+
+
+# the fp32 kernel (ssd_bwd_tf32_kernel, 3xTF32 on mma.sync) at every
+# heads-per-block choice at phase 7's two training shapes
+K7_BWD_F32_SWEEP = [(shape, k) for name, shape, timed in SMOKE.K7_BWD_SHAPES
+                    if timed for k in SSD_BWD_HEADS
+                    if shape[2] // shape[5] % k == 0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,heads", K7_BWD_F32_SWEEP, ids=str)
+def test_ssd_chunk_bwd_fp32_3xtf32_on_card(cuda, shape, heads):
+    """The fp32 backward at each heads-a-block choice: within the bars of
+    its plain version, two calls bit-identical, and at the plan's choice
+    each gradient's distance to the plain version run in float64 at most
+    ``F64_WITNESS`` times the fp32 plain version's."""
+    from repro_torch.kernels.ssd_scan import ssd_bwd_plan, ssd_chunk_bwd
+
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    x, dt_a, b, c, *cots = SMOKE.k7_bwd_inputs(torch, cuda, gen, shape,
+                                               torch.float32)
+    bc, q, h, p, n, g = shape
+    got = ssd_chunk_bwd(x, dt_a, b, c, *cots, g, heads=heads)
+    again = ssd_chunk_bwd(x, dt_a, b, c, *cots, g, heads=heads)
+    want = ref.ssd_chunk_bwd_ref(x, dt_a, b, c, *cots, g)
+    torch.cuda.synchronize()
+    for t, t2 in zip(got, again):
+        assert torch.equal(t, t2)
+    ok, _, crit = SMOKE.k7_bwd_close(torch, got, want,
+                                     SMOKE.k7_bwd_noise(x, b, c, *cots))
+    assert ok, crit
+    if heads == ssd_bwd_plan(bc, h, q, g, n):
+        want64 = ref.ssd_chunk_bwd_ref(
+            *(t.double() for t in (x, dt_a, b, c, *cots)), g)
+        ok, note = SMOKE.f64_witness(("dx", "ddt", "db", "dc"), got, want,
+                                     want64)
+        print(note)
+        assert ok, note
+
+
+def nan_at(t: torch.Tensor, index: tuple, bits: int) -> None:
+    """Write the fp32 NaN with these bits at ``index`` of ``t``."""
+    t[index] = torch.tensor(bits - 2 ** 32 if bits >= 2 ** 31 else bits,
+                            dtype=torch.int32).view(torch.float32).item()
+
+
+def nan_needed(plain, args, poison) -> list[torch.Tensor]:
+    """For each gradient of ``plain(*args)``, the entries that depend on
+    the inputs at ``poison`` ((argument, index) pairs): those that the
+    float64 run changes when each of those inputs moves by 1.  A NaN there
+    must reach them; a dense product of the plain version also spreads it
+    as 0·NaN over masked pairs, which are no dependence."""
+    base = plain(*(t.double() for t in args))
+    moved = [t.double() for t in args]
+    for i, index in poison:
+        moved[i][index] += 1.0
+    return [a != b for a, b in zip(base, plain(*moved))]
+
+
+def assert_nan_kept(names, got, needed) -> None:
+    for name, g, need in zip(names, got, needed):
+        assert need.any(), name
+        lost = int((need & ~g.isnan()).sum())
+        assert not lost, (f"{name}: {lost} of the {int(need.sum())} entries "
+                          f"that depend on a NaN input are not NaN")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [0x7FFFFFFF, 0xFFFFFFFF])
+@pytest.mark.parametrize("shape", [(1, 4, 2, 300, 64, 300, True, 0),
+                                   (1, 8, 2, 77, 128, 203, False, 0)],
+                         ids=str)
+def test_flash_attention_bwd_fp32_keeps_nan_on_card(cuda, shape, bits):
+    """A NaN in q and one in dO reach every entry of the fp32 backward's
+    gradients that depends on them, as in the plain version (3xTF32's
+    split passes inf and NaN)."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    b, h, kv, s, d, sk, causal, window = shape
+    gen = torch.Generator(device=cuda).manual_seed(33)
+    q, k, v, do, o, lse = SMOKE.k6_bwd_inputs(torch, cuda, gen, shape,
+                                              torch.float32)
+    args = [q, k, v, o, do, lse]
+    poison = [(0, (0, 1, s // 2, 3)), (4, (0, h - 1, s // 3, 5))]
+    needed = nan_needed(lambda *a: ref.flash_attention_bwd_ref(
+        *a, causal, window), args, poison)
+    for i, index in poison:
+        nan_at(args[i], index, bits)
+    assert_nan_kept(("dq", "dk", "dv"),
+                    flash_attention_bwd(*args, causal, window), needed)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [0x7FFFFFFF, 0xFFFFFFFF])
+@pytest.mark.parametrize("shape", [(2, 100, 8, 64, 128, 8),
+                                   (2, 64, 4, 16, 16, 1)], ids=str)
+def test_ssd_chunk_bwd_fp32_keeps_nan_on_card(cuda, shape, bits):
+    """A NaN in x and one in dy reach every entry of the fp32 backward's
+    gradients that depends on them."""
+    from repro_torch.kernels.ssd_scan import ssd_chunk_bwd
+
+    bc, q, h, p, n, g = shape
+    gen = torch.Generator(device=cuda).manual_seed(35)
+    args = list(SMOKE.k7_bwd_inputs(torch, cuda, gen, shape, torch.float32))
+    poison = [(0, (0, q // 2, 1, 3)), (4, (1, q // 3, h - 1, 5))]
+    needed = nan_needed(lambda *a: ref.ssd_chunk_bwd_ref(*a, g), args,
+                        poison)
+    for i, index in poison:
+        nan_at(args[i], index, bits)
+    assert_nan_kept(("dx", "ddt", "db", "dc"), ssd_chunk_bwd(*args, g),
+                    needed)
 
 
 @pytest.mark.gpu

@@ -521,25 +521,29 @@ class _Recorder:
 
 def test_meta_path_reports_both_kernels():
     """On meta (the dry-run) ``ops.ssd_chunk`` under autograd reports K7
-    and its backward with their costs and returns group-shaped dB and dC;
-    nothing launches."""
-    meta = dict(device="meta", dtype=torch.bfloat16)
-    x = torch.empty(16, 128, 64, 64, **meta).requires_grad_(True)
-    dt_a = torch.empty(16, 128, 64, device="meta").requires_grad_(True)
-    b = torch.empty(16, 128, 1, 64, **meta).requires_grad_(True)
-    c = torch.empty(16, 128, 1, 64, **meta).requires_grad_(True)
-    with cost.recording(_Recorder()) as rec:
-        y, state, decay = ops.ssd_chunk(x, dt_a, b, c)
-        grads = torch.autograd.grad((y, state), (x, dt_a, b, c),
-                                    (torch.empty_like(y),
-                                     torch.empty_like(state)))
-    assert [n for n, _ in rec.calls] == ["ssd_chunk", "ssd_chunk_bwd"]
-    assert rec.calls[0][1] == cost.ssd_chunk(16, 128, 64, 64, 64, 1, 2)
-    assert rec.calls[1][1] == cost.ssd_chunk_bwd(16, 128, 64, 64, 64, 1, 2)
-    assert all(g.is_meta for g in grads)
-    assert [tuple(g.shape) for g in grads] == [
-        (16, 128, 64, 64), (16, 128, 64), (16, 128, 1, 64), (16, 128, 1, 64)]
-    assert ops.launch_counts()["ssd_chunk_bwd"] == 0
+    and its backward with their costs and returns group-shaped dB and dC,
+    in bf16 and fp32; nothing launches."""
+    for dtype in (torch.bfloat16, torch.float32):
+        meta = dict(device="meta", dtype=dtype)
+        e = torch.empty((), dtype=dtype).element_size()
+        x = torch.empty(16, 128, 64, 64, **meta).requires_grad_(True)
+        dt_a = torch.empty(16, 128, 64, device="meta").requires_grad_(True)
+        b = torch.empty(16, 128, 1, 64, **meta).requires_grad_(True)
+        c = torch.empty(16, 128, 1, 64, **meta).requires_grad_(True)
+        with cost.recording(_Recorder()) as rec:
+            y, state, decay = ops.ssd_chunk(x, dt_a, b, c)
+            grads = torch.autograd.grad((y, state), (x, dt_a, b, c),
+                                        (torch.empty_like(y),
+                                         torch.empty_like(state)))
+        assert [n for n, _ in rec.calls] == ["ssd_chunk", "ssd_chunk_bwd"]
+        assert rec.calls[0][1] == cost.ssd_chunk(16, 128, 64, 64, 64, 1, e)
+        assert rec.calls[1][1] == cost.ssd_chunk_bwd(16, 128, 64, 64, 64, 1,
+                                                     e)
+        assert all(g.is_meta for g in grads)
+        assert [tuple(g.shape) for g in grads] == [
+            (16, 128, 64, 64), (16, 128, 64), (16, 128, 1, 64),
+            (16, 128, 1, 64)]
+        assert ops.launch_counts()["ssd_chunk_bwd"] == 0
 
 
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "mamba2-2.7b"])
@@ -602,8 +606,8 @@ def test_bwd_plan_refuses_what_the_kernel_does_not_take():
 def test_meta_path_allocates_what_the_card_path_allocates(dtype, shape,
                                                           monkeypatch):
     """On meta (the dry-run) ``ssd_chunk_bwd`` allocates the tensors the
-    CUDA path allocates, scratch included (bf16: one fp32 part of dB and dC
-    a block, none where a block is a whole group; fp32: each head's), and
+    CUDA path allocates, scratch included (either dtype: one fp32 part of
+    dB and dC a block, none where a block is a whole group), and
     reports ``cost.ssd_chunk_bwd``; the CUDA path, run here against a
     stand-in extension, hands the kernel that scratch and the plan's
     heads."""
@@ -642,14 +646,13 @@ def test_meta_path_allocates_what_the_card_path_allocates(dtype, shape,
         ssd_chunk_bwd=lambda *a: seen.append(a)))
     run("cpu")
     assert allocs["meta"] == allocs["cuda"]
-    bf16 = dtype == "bfloat16"
-    heads = ssd_bwd_plan(bc, h, q, g, n) if bf16 else 1
-    want = bwd_parts_shape(bc, q, h, n, g, bf16, heads)
+    heads = ssd_bwd_plan(bc, h, q, g, n)
+    want = bwd_parts_shape(bc, q, h, n, g, heads)
     (args,) = seen
     assert args[-1] == heads and tuple(args[9].shape) == want
     parts = h // heads
-    assert want == ((0,) if bf16 and parts == g else (2, bc, q, parts, n))
-    if shape[:3] == (16, 128, 64) and bf16:     # Zamba2-1.2B: 8 parts of 64
+    assert want == ((0,) if parts == g else (2, bc, q, parts, n))
+    if shape[:3] == (16, 128, 64):     # Zamba2-1.2B: 8 parts of 64
         assert want == (2, 16, 128, 8, 64)
 
 
@@ -660,7 +663,9 @@ def test_bwd_cost_and_bound_at_zamba2():
     at G groups, dst, dt_a, ddecay and d(dt_a) in fp32: 69.7 MB and a
     0.02082 ms byte bound at Zamba2-1.2B's training shape (16 chunks of
     128, 64 heads of 64, N = 64, one group) in bf16 (7.6 GFLOP, 0.0076 ms
-    at the bf16 peak), 108.9 MB and 0.03251 ms at mamba2-2.7b's."""
+    at the bf16 peak), 108.9 MB and 0.03251 ms at mamba2-2.7b's.  In fp32
+    the products run as three TF32 products each (3xTF32): 0.04581 ms at
+    the TF32 peak against 0.03615 ms of bytes at Zamba2-1.2B's shape."""
     bc, q, h, p, n = 16, 128, 64, 64, 64
     c = cost.ssd_chunk_bwd(bc, q, h, p, n, 1, 2)
     pairs = q * (q + 1) // 2
@@ -672,8 +677,10 @@ def test_bwd_cost_and_bound_at_zamba2():
     assert bytes_s > ops_s and round(bytes_s * 1e3, 5) == 0.02082
     m = cost.ssd_chunk_bwd(16, 128, 80, 64, 128, 1, 2)
     assert round(m.seconds(H100Target())[1] * 1e3, 5) == 0.03251
-    f32 = cost.ssd_chunk_bwd(bc, q, h, p, n, h, 4)
-    assert set(f32.flops) == {"float32"}
+    f32 = cost.ssd_chunk_bwd(bc, q, h, p, n, 1, 4)
+    assert f32.flops == {"tfloat32": 3 * c.flops["bfloat16"]}
+    assert [round(t * 1e3, 5) for t in f32.seconds(H100Target())] == [
+        0.04581, 0.03615]
 
 
 @pytest.mark.parametrize("family", ["ssm", "hybrid"])

@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""The bf16 K6 backward's schedule choices, timed on one CUDA card: at
+"""The K6 backward's schedule choices, timed on one CUDA card: at
 chip_smoke.py phase 7's timed shapes (``K6_BWD_SHAPES``), the fused
-kernel run with the unit list ``bwd_schedule`` picks and with variants of
-it, each variant's gradients held to the plain version at phase 7's bars
-(``k6_bwd_close``) and its repeats bit for bit:
+kernel (bf16: 128-key spans on wgmma; ``--dtype float32``: 64-key spans,
+3xTF32 on mma.sync) run with the unit list ``bwd_schedule`` picks and
+with variants of it, each variant's gradients held to the plain version
+at phase 7's bars (``k6_bwd_close``) and its repeats bit for bit:
 
   * dQ's slots (``BwdSchedule.slots``, chosen within ``BWD_DQ_BYTES``):
-    1, 2, 4 and 8, as far as a tile has parts, at the chosen walk slices;
+    1, 2, 4, 8 (fp32 also 16 and 32), as far as a tile has parts, at the
+    chosen walk slices;
   * the walks cut at every slice height n_qt / k (k = 1..8), the heights
     among which causal walks are cut to ``BWD_UNITS_PER_SM`` units an SM,
     at the chosen slots.
 
-  python3 tools/k6_bwd_sched.py
+  python3 tools/k6_bwd_sched.py [--dtype float32] [--shapes NAME ...]
 
 Device time per call is chip_smoke.device_ms's CUDA-graph replay.  Prints
 one line per variant and the card's name and power limit; exits non-zero
@@ -37,13 +39,22 @@ def heights(fa, shape) -> list[int]:
 def cut(fa, base, shape, tiles: int):
     """``base`` with its walks cut at ``tiles`` query tiles instead."""
     b, h, kv, s, d, sk, causal, window = shape
-    lo, hi = fa._kept_spans(s, sk, causal, window)
-    n_sp = math.ceil(sk / fa.BWD_SPAN)
+    lo, hi = fa._kept_spans(s, sk, causal, window, base.span)
+    n_sp = math.ceil(sk / base.span)
     return fa._finish(fa._pattern(lo, hi, n_sp, tiles), len(lo), n_sp,
-                      b * kv, h // kv, tiles)._replace(slots=base.slots)
+                      b * kv, h // kv, tiles)._replace(slots=base.slots,
+                                                       span=base.span)
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=("bfloat16", "float32"))
+    ap.add_argument("--shapes", nargs="*", default=None,
+                    help="phase 7 shape names (default: all timed shapes)")
+    args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch
@@ -61,20 +72,26 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     chosen_schedule = fa.bwd_schedule
     ok_all = True
+    dtype = getattr(torch, args.dtype)
+    span = fa.BWD_SPAN if dtype == torch.bfloat16 else fa.BWD_F32_SPAN
+    slot_choices = (1, 2, 4, 8) if dtype == torch.bfloat16 else \
+        (1, 2, 4, 8, 16, 32)
     try:
         for i, (name, shape) in enumerate(K6_BWD_SHAPES):
+            if args.shapes and name not in args.shapes:
+                continue
             b, h, kv, s, d, sk, causal, window = shape
             gen = torch.Generator(device=dev).manual_seed(100 + i)
             q, k, v, do, o, lse = k6_bwd_inputs(torch, dev, gen, shape,
-                                                torch.bfloat16)
+                                                dtype)
             want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal,
                                                window)
             noise = k6_bwd_noise(q, k, v, do)
-            base = chosen_schedule(b, h, kv, s, sk, d, causal, window)
+            base = chosen_schedule(b, h, kv, s, sk, d, causal, window, span)
             most = max(base.dq_count)
             variants = [("chosen", base)]
             variants += [(f"slots {n}", base._replace(slots=n))
-                         for n in (1, 2, 4, 8) if n <= most
+                         for n in slot_choices if n <= most
                          and n != base.slots]
             variants += [(f"tiles {t}", cut(fa, base, shape, t))
                          for t in heights(fa, shape) if t != base.tiles]
@@ -92,7 +109,8 @@ def main() -> int:
                 ok = same and all(c[0] for c in crits)
                 ok_all = ok_all and ok
                 ms = device_ms(kern, iters=5)
-                print(f"K6 bwd {name:40s} {label:9s} tiles {sched.tiles:3d} "
+                print(f"K6 bwd {name:40s} {args.dtype} {label:9s} tiles "
+                      f"{sched.tiles:3d} "
                       f"slots {sched.slots} units {sched.n_units:5d} "
                       f"({sched.n_units / fa.BWD_SMS:5.2f} an SM): {ms:.5f} ms "
                       f"{'ok' if ok else 'FAIL'} (repeats "

@@ -143,7 +143,7 @@ def main() -> int:
         ddt = torch.empty_like(dt_a)
         db = torch.empty((bc, q, 1, n), device=dev, dtype=torch.bfloat16)
         dc = torch.empty_like(db)
-        parts = torch.empty(bwd_parts_shape(bc, q, h, n, 1, True, heads), device=dev)
+        parts = torch.empty(bwd_parts_shape(bc, q, h, n, 1, heads), device=dev)
         base = None
         for name, so in libs.items():
             lib = ctypes.CDLL(str(so))
