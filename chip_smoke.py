@@ -79,11 +79,16 @@ without a result line:
               2048, and at groups of 1, 4 and 5 with S = 1, 100, 300 and
               D = 64, 128; with kernel, plain, SDPA (``enable_gqa``) and
               bound times (K7's bound
-              by bytes and by bf16 operations apart); each K6 line names
-              the instantiation that ran (tensor-core bf16 or CUDA-core
-              fp32); each timed bf16 K7 row prints the heads per block its
-              plan picked and the device time of every other choice, each
-              held to the plain version and run twice bit-identical;
+              by bytes and by bf16 or TF32 operations apart; each fp32 row
+              also the bound its products would have on the CUDA cores);
+              each K6 line names the instantiation that ran (tensor-core
+              bf16 or 3xTF32 fp32); each timed K7 row, bf16 and fp32,
+              prints the heads per block its plan picked and the device
+              time of every other choice, each held to the plain version
+              and run twice bit-identical; every timed fp32 K6 and K7
+              output also against its plain version run in float64, the
+              kernel's distance at most 8x the fp32 plain version's
+              (``F64_WITNESS``);
               K6 with a sliding causal window at Zamba2's (1, 32, S, 64)
               and qwen3-14b's (1, 40, S, 128) on 8 KV heads, S = 2048 and
               4096, windows 1, 63, 64, 65, 127, 128, 129 and 1000, in bf16
@@ -500,6 +505,8 @@ NO_SPILL_KERNELS = ("fcnn_fwd_kernel", "dgrad_kernel", "fcnn_wgrad_kernel",
                     "fcnn_fwd_tc_kernel", "fcnn_dgrad_tc_kernel",
                     "fcnn_wgrad_tc_kernel", "flash_fwd_wgmma_kernel",
                     "ssd_chunk_wgmma_kernel",
+                    # the fp32 forwards of K6 and K7 (3xTF32)
+                    "flash_fwd_tf32_kernel", "ssd_chunk_tf32_kernel",
                     "flash_bwd_prep_kernel", "flash_bwd_wgmma_kernel",
                     "flash_bwd_dq_round_kernel", "flash_bwd_prep_f32_kernel",
                     "flash_bwd_tf32_kernel", "flash_bwd_dq_sum_kernel",
@@ -516,9 +523,11 @@ TC_KERNELS = ("fcnn_fwd_tc_kernel", "fcnn_dgrad_tc_kernel",
               "fcnn_wgrad_tc_kernel", "flash_fwd_wgmma_kernel",
               "ssd_chunk_wgmma_kernel", "flash_bwd_wgmma_kernel",
               "ssd_bwd_wgmma_kernel")
-# the fp32 backwards of K6 and K7, whose products run on the tensor cores
-# as 3xTF32 on mma.sync (HMMA in their SASS), held to no spills as well
-MMA_KERNELS = ("flash_bwd_tf32_kernel", "ssd_bwd_tf32_kernel")
+# the fp32 forwards and backwards of K6 and K7, whose products run on the
+# tensor cores as 3xTF32 on mma.sync (HMMA in their SASS), held to no
+# spills as well
+MMA_KERNELS = ("flash_fwd_tf32_kernel", "ssd_chunk_tf32_kernel",
+               "flash_bwd_tf32_kernel", "ssd_bwd_tf32_kernel")
 # the kernels whose consumer warpgroups take registers from the producer
 # warpgroup with setmaxnreg, and the count each must be launched with: 384
 # threads at 168, of which the producer's 128 x (168 − 24) pay for two
@@ -1279,13 +1288,16 @@ class LMCase(NamedTuple):
     (``kernels.cost``): each input read once (a stride-0 B/C once per
     chunk, K and V once per KV head) and each output written once; the
     operations these inputs need (kept pairs only, 2 per multiply-add), at
-    the peak of the inputs' type.
+    the peak their products run at (fp32: three TF32 products each).
     ``slack()`` is K6's bf16 slack, BF16_ULP·(softmax @ |v|) (None: K7's);
-    ``forced(heads)`` runs bf16 K7 at one of ssd_scan.SSD_HEADS heads per
-    block, ``plan`` being its wrapper's; ``on_path`` names the serving path
-    whose prefill runs this shape ("" for none); ``window`` is K6's sliding
+    ``forced(heads)`` runs K7 at one of ``choices`` heads per block
+    (ssd_scan.SSD_HEADS in bf16, SSD_BWD_HEADS dividing H in fp32),
+    ``plan`` being its wrapper's; ``on_path`` names the serving path whose
+    prefill runs this shape ("" for none); ``window`` is K6's sliding
     window (0: none), and ``exact()``, where given, the output the kernel
-    must return bit for bit (window 1: v itself)."""
+    must return bit for bit (window 1: v itself); ``plain64()``, for fp32
+    inputs, the plain version run in float64 on the same inputs (the
+    float64 witness)."""
     name: str
     label: str
     kern: Callable
@@ -1299,11 +1311,13 @@ class LMCase(NamedTuple):
     forced: Callable | None = None
     window: int = 0
     exact: Callable | None = None
+    plain64: Callable | None = None
+    choices: tuple = ()
 
 
 # K6 with a sliding causal window: Zamba2's shared attention (1, 32, S, 64)
 # and qwen3-14b's GQA (1, 40, S, 128) on 8 KV heads, windows inside one
-# tile, at the fp32 (64-row) and bf16 (128-row) tile edges, and wider
+# tile, at 64- and 128-row tile edges, and wider
 K6_WINDOW_SHAPES = ((1, 32, 32, 64), (1, 40, 8, 128))   # (B, H, KV, D)
 K6_WINDOW_SEQS = (2048, 4096)
 K6_WINDOWS = (1, 63, 64, 65, 127, 128, 129, 1000)
@@ -1314,7 +1328,9 @@ def lm_kernel_cases(torch, dev, gen):
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import cost as kcost
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_plan
+    from repro_torch.kernels.ssd_scan import (SSD_BWD_HEADS, SSD_HEADS,
+                                              ssd_bwd_plan, ssd_chunk,
+                                              ssd_plan)
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     def rand(*shape, dtype=torch.float32, scale=1.0):
@@ -1336,8 +1352,7 @@ def lm_kernel_cases(torch, dev, gen):
                  f"{str(dtype)[6:]} {'causal' if causal else 'full'}"
                  f"{f' window {window}' if window else ''}")
         path = [a for a, shape in K6_PATHS.items()
-                if (b, h, kv, s, d, sk, causal) == shape
-                and dtype == torch.bfloat16 and not window]
+                if (b, h, kv, s, d, sk, causal) == shape and not window]
         if window:      # SDPA with the same boolean mask
             mask = ref.attention_mask(s, s, window, dev)
             lib = lambda: sdpa(q, k, v, attn_mask=mask,  # noqa: E731
@@ -1347,6 +1362,9 @@ def lm_kernel_cases(torch, dev, gen):
                                enable_gqa=kv != h)
         exact = (lambda: v.repeat_interleave(h // kv, dim=1)) if window == 1 \
             else None
+        plain64 = (lambda: ref.flash_attention_ref(  # noqa: E731
+            q.double(), k.double(), v.double(), causal, window)) \
+            if dtype == torch.float32 else None
         yield LMCase(
             "flash_attention", label,
             lambda: flash_attention(q, k, v, causal, window),
@@ -1354,7 +1372,8 @@ def lm_kernel_cases(torch, dev, gen):
             lambda: BF16_ULP * ref.flash_attention_ref(
                 q.float(), k.float(), v.float().abs(), causal, window),
             lib, kcost.flash_attention(b, h, kv, s, sk, d, e, causal, window),
-            timed, path[0] if path else "", window=window, exact=exact)
+            timed, path[0] if path else "", window=window, exact=exact,
+            plain64=plain64)
 
     def ssd_case(bc, q, h, p, n, dtype, shared_bc, timed):
         x = rand(bc, q, h, p, dtype=dtype)
@@ -1375,15 +1394,21 @@ def lm_kernel_cases(torch, dev, gen):
             return y, state, decay
 
         path = [a for a, shape in K7_PATHS.items()
-                if (bc, q, h, p, n) == shape and bf16 and shared_bc]
+                if (bc, q, h, p, n) == shape and shared_bc]
+        plan = (ssd_plan(bc, h, q, shared_bc, n) if bf16
+                else ssd_bwd_plan(bc, h, q, 1 if shared_bc else h, n))
+        choices = (tuple(sorted(SSD_HEADS)) if bf16
+                   else tuple(k_ for k_ in SSD_BWD_HEADS if h % k_ == 0))
         yield LMCase(
             "ssd_chunk", label,
             lambda: ssd_chunk(x, dt_a, b, c),
             lambda: ref.ssd_chunk_ref(x, dt_a, b, c),
             None, None, kcost.ssd_chunk(bc, q, h, p, n, g, e), timed,
-            path[0] if path else "",
-            ssd_plan(bc, h, q, shared_bc, n) if bf16 else None,
-            forced if bf16 and timed else None)
+            path[0] if path else "", plan,
+            forced if timed and shared_bc else None,
+            plain64=None if bf16 else lambda: ref.ssd_chunk_ref(
+                x.double(), dt_a.double(), b.double(), c.double()),
+            choices=choices)
 
     for dtype in (torch.bfloat16, torch.float32):
         for causal in (True, False):
@@ -1462,13 +1487,11 @@ def lm_compare(torch, case: LMCase, outs, wants) -> tuple[bool, float, str]:
 
 
 def k7_sweep_line(torch, case: LMCase, wants) -> str:
-    """Device ms of bf16 K7 at every heads-per-block choice, each held to
-    the plain version's outputs ``wants`` and run twice bit-identical; the
-    plan's choice and the fastest are named."""
-    from repro_torch.kernels.ssd_scan import SSD_HEADS
-
+    """Device ms of K7 at every heads-per-block choice of ``case.choices``,
+    each held to the plain version's outputs ``wants`` and run twice
+    bit-identical; the plan's choice and the fastest are named."""
     times = {}
-    for heads in sorted(SSD_HEADS):
+    for heads in case.choices:
         out = case.forced(heads)
         torch.cuda.synchronize()
         ok, _, crit = lm_compare(torch, case, out, wants)
@@ -1484,6 +1507,8 @@ def k7_sweep_line(torch, case: LMCase, wants) -> str:
 
 
 def run_lm_kernel_phase(torch, dev) -> dict:
+    from repro_torch.kernels import cost as kcost
+
     gen = torch.Generator(device=dev).manual_seed(7)
     summary = {name: {"max_abs_err": 0.0, "ms": None, "plain_ms": None,
                       "library_ms": None, "bound_ms": None, "bound_by": None,
@@ -1498,9 +1523,22 @@ def run_lm_kernel_phase(torch, dev) -> dict:
         if case.exact is not None:
             same = torch.equal(outs, case.exact())
             ok, crit = ok and same, crit + (", = v" if same else ", != v")
+        fp32 = case.plain64 is not None
+        if fp32 and case.timed:
+            # the float64 witness (phase 7's backwards' F64_WITNESS): each
+            # output's distance to the plain version run in float64
+            outs_t = outs if isinstance(outs, tuple) else (outs,)
+            wants_t = wants if isinstance(wants, tuple) else (wants,)
+            want64 = case.plain64()
+            want64 = want64 if isinstance(want64, tuple) else (want64,)
+            names = (("o",) if name == "flash_attention"
+                     else ("y", "state", "decay"))
+            good, note = f64_witness(names, outs_t, wants_t, want64)
+            ok, crit = ok and good, f"{crit}; {note}"
+            del want64
         if name == "flash_attention":
             label += (" [tensor-core bf16]" if outs.dtype == torch.bfloat16
-                      else " [CUDA-core fp32]")
+                      else " [3xTF32 fp32]")
         line = (f"{name:15s} {label:58s} max_abs {worst:.3e} ({crit}) "
                 f"{'ok' if ok else 'FAIL'}")
         summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"], worst)
@@ -1514,13 +1552,22 @@ def run_lm_kernel_phase(torch, dev) -> dict:
                      f"library {'none' if lib_ms is None else f'{lib_ms:.5f}'}"
                      f" bound {b_ms:.5f} ({b_by}) = {100 * b_ms / ms:.1f}% | "
                      f"{flops / ms / 1e9:.2f} TFLOP/s, "
-                     f"{case.cost.nbytes / ms / 1e6:.1f} GB/s"
-                     f"{f' [{case.on_path} serving path]' if case.on_path else ''}")
+                     f"{case.cost.nbytes / ms / 1e6:.1f} GB/s")
+            if fp32:
+                # the CUDA-core bound the fp32 rows were held to before
+                # their 3xTF32 kernels: one fp32 product a product
+                cc_ms = max(flops / kcost.TF32_SPLIT
+                            / h100().flop_rate("float32") * 1e3,
+                            case.cost.nbytes / h100().hbm_bw * 1e3)
+                line += f" | CUDA-core bound {cc_ms:.5f}"
+            if case.on_path:
+                line += (f" [{case.on_path} "
+                         f"{'serving path' if not fp32 else 'shape, fp32'}]")
             if case.forced is not None:
                 ops_s, bytes_s = case.cost.seconds(h100())
-                line += (f" | bound by bytes {bytes_s * 1e3:.5f}, by bf16 "
-                         f"ops {ops_s * 1e3:.5f} | plan {case.plan} "
-                         f"heads/block")
+                line += (f" | bound by bytes {bytes_s * 1e3:.5f}, by "
+                         f"{'tf32' if fp32 else 'bf16'} ops "
+                         f"{ops_s * 1e3:.5f} | plan {case.plan} heads/block")
             if case.window:
                 summary[name]["windowed"].append(dict(
                     shape=label, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -1528,8 +1575,9 @@ def run_lm_kernel_phase(torch, dev) -> dict:
             if case.on_path:
                 row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                            bound_ms=b_ms, bound_by=b_by, shapes=[label])
-                summary[name]["paths"][case.on_path] = row
-                if case.on_path == ARCH:
+                key = f"{case.on_path} float32" if fp32 else case.on_path
+                summary[name]["paths"][key] = row
+                if case.on_path == ARCH and not fp32:
                     summary[name].update(row)
         print(line, flush=True)
         check(ok, f"{name} {label} disagrees with its plain version")
@@ -1780,11 +1828,18 @@ def run_k6_bwd_phase(torch, dev) -> dict:
                 # the forward with its lse, as a train step runs it: held
                 # to the plain version at phase 7's K6 bars, timed beside
                 # it, SDPA's forward and the bound
+                f_want = ref.flash_attention_ref(q, k, v, causal, window)
                 f_ok, f_err, f_crit = _close(
-                    torch, o, ref.flash_attention_ref(q, k, v, causal, window),
+                    torch, o, f_want,
                     K6_FP32_RTOL, lambda: BF16_ULP * ref.flash_attention_ref(
                         q.float(), k.float(), v.float().abs(), causal,
                         window))
+                if dtype == torch.float32:   # the forward's float64 witness
+                    good, note = f64_witness(("o",), (o,), (f_want,), (
+                        ref.flash_attention_ref(q.double(), k.double(),
+                                                v.double(), causal, window),))
+                    f_ok, f_crit = f_ok and good, f"{f_crit}; {note}"
+                del f_want
                 ok = ok and f_ok
                 f_ms = device_ms(lambda: flash_attention(
                     q, k, v, causal, window, lse=True), iters=5, replays=5)
@@ -3196,7 +3251,7 @@ K6_ROWS = (("K6", "flash_fwd"), ("K6 bwd prep", "flash_bwd_prep"),
 # K7 and its backward by profiler row: the bf16 backward's kernel (a block
 # the heads of a B/C group) and the sum of each group's parts (one fp32
 # part a block; no launch where a block is a whole group)
-K7_ROWS = (("K7", "ssd_chunk_wgmma"), ("K7 fp32", "ssd_chunk_kernel"),
+K7_ROWS = (("K7", "ssd_chunk_wgmma"), ("K7 fp32", "ssd_chunk_tf32"),
            ("K7 bwd", "ssd_bwd_wgmma"), ("K7 bwd fp32", "ssd_bwd_tf32"),
            ("K7 bwd group sum", "group_sum"))
 

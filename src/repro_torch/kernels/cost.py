@@ -20,7 +20,7 @@ and split into bf16 hi + lo (K1's x in case (b), K2's and K3's dZ
 always); on the CUDA cores in fp32.  K6, K7 and their backwards with
 bf16 inputs are bf16 products, counted once each (the hi/lo split K7 and
 its backward give an fp32 operand is the kernels' way of keeping it
-exact, not work the function needs).  The backwards of K6 and K7 with
+exact, not work the function needs).  K6, K7 and their backwards with
 fp32 inputs run every product on the tensor cores as three TF32 products
 (3xTF32: an fp32 operand's TF32 hi and lo), so each is counted three
 times as ``"tfloat32"``: the route's own work, as K1–K3's hi + lo
@@ -81,17 +81,14 @@ def report(name: str, cost: Cost) -> None:
         r.kernel(name, cost)
 
 
-def _dtype(element_size: int) -> str:
-    return "bfloat16" if element_size == 2 else "float32"
-
-
-# the fp32 backwards' products: three TF32 products each (3xTF32)
+# the fp32 products of K6, K7 and their backwards: three TF32 products
+# each (3xTF32)
 TF32_SPLIT = 3
 
 
 def _bwd_ops(element_size: int, products: int) -> dict[str, float]:
-    """Operations of a backward's products as its kernel runs them: bf16
-    once, fp32 as TF32_SPLIT TF32 products."""
+    """Operations of K6's, K7's or a backward's products as its kernel runs
+    them: bf16 once, fp32 as TF32_SPLIT TF32 products."""
     if element_size == 2:
         return {"bfloat16": products}
     return {"tfloat32": TF32_SPLIT * products}
@@ -192,9 +189,10 @@ def flash_attention(b: int, h: int, kv: int, s: int, sk: int, d: int,
                     element_size: int, causal: bool,
                     window: int = 0) -> Cost:
     """K6: q (B, H, S, D), k, v (B, KV, Sk, D) -> (B, H, S, D); K and V
-    read once per KV head, QKᵀ and PV over the kept pairs."""
+    read once per KV head, QKᵀ and PV over the kept pairs; fp32 as three
+    TF32 products each (``_bwd_ops``)."""
     pairs = kept_pairs(s, window) if causal else s * sk
-    return Cost({_dtype(element_size): 4 * b * h * pairs * d},
+    return Cost(_bwd_ops(element_size, 4 * b * h * pairs * d),
                 2 * b * (h * s + kv * sk) * d * element_size)
 
 
@@ -216,10 +214,14 @@ def ssd_chunk(bc: int, q: int, h: int, p: int, n: int, groups: int,
               element_size: int) -> Cost:
     """K7: x (BC, Q, H, P), dt_a (BC, Q, H) fp32, B and C (BC, Q, H, N)
     with ``groups`` distinct heads (1 where they are broadcast, stride 0)
-    -> y (BC, Q, H, P), state (BC, H, P, N) fp32, decay (BC, Q, H) fp32."""
+    -> y (BC, Q, H, P), state (BC, H, P, N) fp32, decay (BC, Q, H) fp32.
+    Per (chunk, head) S = C·Bᵀ and S∘L·x over the kept pairs and the state
+    over the chunk's rows: S is counted once a head, the function's work,
+    though a kernel whose block walks the heads of one B/C group forms it
+    once a block; fp32 as three TF32 products each (``_bwd_ops``)."""
     pairs = q * (q + 1) // 2
-    return Cost({_dtype(element_size):
-                 bc * h * (pairs * (2 * n + 2 * p) + 2 * q * p * n)},
+    return Cost(_bwd_ops(element_size,
+                         bc * h * (pairs * (2 * n + 2 * p) + 2 * q * p * n)),
                 2 * bc * q * h * p * element_size
                 + 2 * bc * q * groups * n * element_size
                 + bc * h * p * n * 4 + 2 * bc * q * h * 4)

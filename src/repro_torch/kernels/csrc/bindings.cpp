@@ -318,8 +318,9 @@ void flash_attention_bwd(const torch::Tensor& q, const torch::Tensor& k,
 }
 
 // x (BC, Q, H, P), dt_a (BC, Q, H), b, c (BC, Q, H, N) through their
-// strides -> y (BC, Q, H, P), state (BC, H, P, N), decay (BC, Q, H); bf16
-// blocks walk `heads` consecutive heads of a chunk (1 for fp32)
+// strides -> y (BC, Q, H, P), state (BC, H, P, N), decay (BC, Q, H); a
+// block walks `heads` consecutive heads of a chunk (fp32: more than one
+// only where B's and C's head strides are 0)
 void ssd_chunk(const torch::Tensor& x, const torch::Tensor& dt_a,
                const torch::Tensor& b, const torch::Tensor& c, torch::Tensor y,
                torch::Tensor state, torch::Tensor decay, int64_t heads) {

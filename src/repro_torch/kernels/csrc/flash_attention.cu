@@ -23,11 +23,12 @@
 //   bf16  flash_fwd_wgmma_kernel (namespace tc): both products on the
 //         tensor cores with wgmma, K/V fed by TMA through a shared-memory
 //         ring (design below, at the kernel).
-//   fp32  flash_fwd_kernel: fp32 FMAs on the CUDA cores.  fp32's parity
-//         bar (2e-5 of the largest output) rules out one TF32 pass and
-//         bf16 tensor cores; a split that keeps fp32's bits (3xTF32, as
-//         the fp32 backward runs, flash_attention_bwd.cu) is not ruled
-//         out, and is not done here yet.
+//   fp32  flash_fwd_tf32_kernel (namespace f32): both products on the
+//         tensor cores as 3xTF32 on mma.sync (each fp32 operand split into
+//         TF32 hi + lo, a product taken as lo·hi + hi·lo + hi·hi: ~22 of
+//         fp32's 24 bits, where one TF32 product keeps 11 and misses
+//         fp32's parity bar, 2e-5 of the largest output), K/V through a
+//         cp.async ring (design below, at the kernel).
 //
 // With an lse pointer (training: kLse, a template flag, so the serving
 // kernels are unchanged) both also write each row's log-sum-exp of its
@@ -55,14 +56,8 @@
 // What bounds it on an H100: at the serving shapes (1, 32, S, 64) causal
 // the work is 4·S²·D·H/2 operations over 4·S·D·H·2 bytes, ~S/4 operations
 // per byte, far above the ridge: the bound is the tensor cores' 989
-// TFLOP/s in bf16 and the CUDA cores' 67 TFLOP/s in fp32.
-//
-// fp32 kernel: one 256-thread block per 64 query rows; Q stays in shared
-// memory, each 64-row K and V tile is staged in shared memory, thread
-// (ty, tx) holds rows ty + 16i, i < 4, and columns 4tx + 64g .. +3 of the
-// accumulator; both products are register-tiled 4 x 4 per thread from
-// float4 shared loads.  Ragged tiles are masked in place and D is padded
-// with zeros to 64 or 128 in shared memory.
+// TFLOP/s in bf16 and, in fp32, their 495 TFLOP/s of TF32 for three TF32
+// products a product (kernels/cost.py).
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <stdint.h>
@@ -73,239 +68,319 @@
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockKV = 64;
-constexpr int kThreads = 256;
-constexpr int kPPitch = kBlockKV + 4;
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-
-// v rounded to T's precision and back (p.astype(v.dtype) in the reference)
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return to_f32(from_f32<T>(v));
-}
 
 struct Strides3 {
   long long b, h, s;  // in elements; the last (D) stride is 1
 };
 
-// Rows [row0, row0 + 64) of one (batch, head) slice into shared memory as
-// fp32 with row pitch kDPad + 4; rows >= S and columns >= D are zero.
-template <typename T, int kDPad>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          long long stride_s, int row0, int S,
-                                          int D) {
-  constexpr int kPitch = kDPad + 4;
-  for (int idx = threadIdx.x; idx < kBlockKV * kDPad; idx += kThreads) {
-    const int r = idx / kDPad;
-    const int d = idx % kDPad;
-    const int row = row0 + r;
-    float v = 0.f;
-    if (row < S && d < D) v = to_f32(src[row * stride_s + d]);
-    dst[r * kPitch + d] = v;
-  }
+// ---------------------------------------------------------------------------
+// fp32: both products on the tensor cores as 3xTF32 (hopper_tc.cuh).
+//
+// One block of 256 threads (8 warps) owns one (batch·head, 128-row query
+// tile); warp w owns its 16 rows q0 + 16w.., and per kv tile runs
+//   S = Q·Kᵀ   mma.sync m16n8k8 over D, Q as A fragments split into TF32
+//              hi + lo once a block (kept in shared memory in fragment
+//              order, two 16-byte loads a k-step), K as B fragments split
+//              as they are read;
+//   online softmax on the S fragment in registers (a row's max and sum
+//              over the 4 lanes that share it: shfl_xor 1, 2), p = exp(s −
+//              m) in fp32, each lane summing l over its own columns (the
+//              lanes' parts are added once, at the end);
+//   O += P·V   P from the accumulator to the A operand in registers
+//              (tc::acc_as_a, one k8 slice of keys at a time, split as it
+//              goes), V as B fragments whose rows follow that order, split
+//              in three (v = hi + lo + lo2 exactly: lo2 the two bits the
+//              truncated lo drops) and taken as hi_p·lo2 + lo_p·hi +
+//              hi_p·lo + hi_p·hi, so a p of exactly 1 (one kept key, a
+//              window of 1) gives v itself, as an fp32 product does; the
+//              tile's P·V is summed in a fresh accumulator and added to O
+//              by one fp32 FMA, o·alpha + pv, so the tensor cores' sums
+//              (which truncate) run over one tile's keys only.
+// K and V tiles (kKV keys, rows of D + 4 floats, so a warp's fragment
+// loads hit 32 distinct banks) go through a ring of kStages stages by
+// cp.async, the next kStages − 1 tiles in flight during a tile's products;
+// one barrier a tile.  D <= 64: 64-key tiles, three stages (169,984 bytes
+// with Q's fragments); D = 128: 32-key tiles, two stages (198,656 bytes:
+// Q's fragments take 128 KB).  A warp skips a tile in which none of its
+// rows keeps a key (above its last row's diagonal, below its first row's
+// window, or its rows all past Sq); a tile that crosses a mask reads each
+// element's.  The grid is (batch·head, query tile), the longest causal
+// rows first in launch order for every head.
+namespace f32 {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBlockQ = 16 * kWarps;
+
+// v = hi + lo + lo2 exactly: tc::split_tf32's hi and lo, and lo2 the bits
+// of v − hi that the truncated lo drops (at most 2 significant bits)
+__device__ __forceinline__ void split3_tf32(float v, uint32_t& hi, uint32_t& lo,
+                                            uint32_t& lo2) {
+  hi = tc::to_tf32(v);
+  const float r = v - __uint_as_float(hi);
+  lo = __float_as_uint(r) & 0xFFFFE000u;
+  lo2 = __float_as_uint(r - __uint_as_float(lo));
 }
 
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
+// shared memory in floats for D padded to kDPad: Q's hi and lo fragments
+// (each warp kDPad / 8 k-steps x 32 lanes x 4 values, hi then lo), then
+// the ring, each stage a K and a V tile of kKV rows of kDPad + 4 floats
+template <int kDPad>
+struct Layout {
+  static constexpr int kKV = kDPad == 128 ? 32 : 64;
+  static constexpr int kStages = kDPad == 128 ? 2 : 3;
+  static constexpr int kPitch = kDPad + 4;
+  static constexpr int kQFrag = kWarps * (kDPad / 8) * 32 * 4;
+  static constexpr int kRing = 2 * kQFrag;
+  static constexpr int kTile = kKV * kPitch;
+  static constexpr int kStage = 2 * kTile;
+  static constexpr int kBytes = 4 * (kRing + kStages * kStage);
+};
 
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <typename T, int kDPad, bool kLse>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, Strides3 sq,
-                 Strides3 sk, Strides3 sv, Strides3 so, int H, int G, int Sq,
-                 int Sk, int D, int causal, int window, float scale) {
-  constexpr int kPitch = kDPad + 4;
-  constexpr int kCols = kDPad / 16;  // accumulator columns per thread
+template <int kDPad, bool kLse>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      float* __restrict__ lse, Strides3 sq, Strides3 sk, Strides3 sv,
+                      Strides3 so, int H, int G, int Sq, int Sk, int D, int causal,
+                      int window, float scale, bool vec) {
+  using L = Layout<kDPad>;
+  constexpr int kKV = L::kKV, kPitch = L::kPitch, kStages = L::kStages;
+  constexpr int kKK = kDPad / 8;   // k-steps of S over D, n8 tiles of O
+  constexpr int kNS = kKV / 8;     // n8 tiles of S, k-steps of P·V
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // kBlockQ x kPitch
-  float* Ks = Qs + kBlockQ * kPitch;            // kBlockKV x kPitch
-  float* Vs = Ks + kBlockKV * kPitch;           // kBlockKV x kPitch
-  float* Ps = Vs + kBlockKV * kPitch;           // kBlockQ x kPPitch
+  float* const sm = reinterpret_cast<float*>(smem4);
+  const uint32_t sm_s = tc::smem_u32(sm);
 
   const int n_qt = (Sq + kBlockQ - 1) / kBlockQ;
-  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * kBlockQ;
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
-  const int hk = h / G;  // the KV head of query head h's group
-  const T* qp = q + b * sq.b + h * sq.h;
-  const T* kp = k + b * sk.b + hk * sk.h;
-  const T* vp = v + b * sv.b + hk * sv.h;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.y)) * kBlockQ;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H, hk = h / G;  // hk: the KV head of h's group
+  const int tid = threadIdx.x;
+  const int w = tid / 32, lane = tid % 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int r0 = q0 + 16 * w;  // the warp's rows r0 + g8 and r0 + g8 + 8
 
-  load_tile<T, kDPad>(Qs, qp, sq.s, q0, Sq, D);
-
-  float m[4], l[4], acc[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
-  }
-
+  const float* const kp = k + b * sk.b + hk * sk.h;
+  const float* const vp = v + b * sv.b + hk * sv.h;
   const int kv_end = causal ? min(Sk, q0 + kBlockQ) : Sk;
   // the first tile that holds a key in row q0's window
-  const int kv_begin = window > 0 ? max(0, q0 - window + 1) / kBlockKV * kBlockKV : 0;
-  for (int kv0 = kv_begin; kv0 < kv_end; kv0 += kBlockKV) {
-    __syncthreads();  // the previous tile's K, V and P are consumed
-    load_tile<T, kDPad>(Ks, kp, sk.s, kv0, Sk, D);
-    load_tile<T, kDPad>(Vs, vp, sv.s, kv0, Sk, D);
-    __syncthreads();
+  const int kv_begin = window > 0 ? max(0, q0 - window + 1) / kKV * kKV : 0;
+  const int n_kv = (kv_end - kv_begin + kKV - 1) / kKV;
 
-    // scores: rows ty + 16i, keys tx + 16j
-    float s[4][4];
+  auto load_kv = [&](int i) {
+    const int kv0 = kv_begin + i * kKV;
+    const uint32_t st = sm_s + 4 * (L::kRing + (i % kStages) * L::kStage);
+    tc::load_f32_tile<kKV, kDPad, kThreads>(st, kPitch, kp + kv0 * sk.s, sk.s, Sk - kv0, D,
+                                            vec);
+    tc::load_f32_tile<kKV, kDPad, kThreads>(st + 4 * L::kTile, kPitch, vp + kv0 * sv.s, sv.s,
+                                            Sk - kv0, D, vec);
+  };
+  // the first kStages − 1 tiles in flight while Q is split (one commit
+  // group a tile, empty past the last, so the waits below count tiles)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < kDPad; d += 4) {
-      float4 qf[4], kf[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qf[i] = *reinterpret_cast<const float4*>(&Qs[(ty + 16 * i) * kPitch + d]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kf[j] = *reinterpret_cast<const float4*>(&Ks[(tx + 16 * j) * kPitch + d]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qf[i].x, kf[j].x, s[i][j]);
-          s[i][j] = fmaf(qf[i].y, kf[j].y, s[i][j]);
-          s[i][j] = fmaf(qf[i].z, kf[j].z, s[i][j]);
-          s[i][j] = fmaf(qf[i].w, kf[j].w, s[i][j]);
-        }
-    }
-
-    // online softmax per row; the 16 threads of a row share one half-warp
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      float rmax = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = kv0 + tx + 16 * j;
-        const bool keep = col < Sk && (!causal || col <= row) &&
-                          (window == 0 || col > row - window);
-        s[i][j] = keep ? s[i][j] * scale : kNegInf;
-        rmax = fmaxf(rmax, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(rmax));
-      const float alpha = expf(m[i] - m_new);
-      float rsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rsum += p;
-        Ps[(ty + 16 * i) * kPPitch + tx + 16 * j] = round_to<T>(p);
-      }
-      l[i] = l[i] * alpha + half_warp_sum(rsum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-    // acc += P V: rows ty + 16i, columns 4tx + 64g + e
-    for (int c = 0; c < kBlockKV; c += 4) {
-      float4 pf[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pf[i] = *reinterpret_cast<const float4*>(&Ps[(ty + 16 * i) * kPPitch + c]);
-#pragma unroll
-      for (int g = 0; g < kDPad / 64; ++g) {
-        const int col = 4 * tx + 64 * g;
-        const float4 v0 = *reinterpret_cast<const float4*>(&Vs[(c + 0) * kPitch + col]);
-        const float4 v1 = *reinterpret_cast<const float4*>(&Vs[(c + 1) * kPitch + col]);
-        const float4 v2 = *reinterpret_cast<const float4*>(&Vs[(c + 2) * kPitch + col]);
-        const float4 v3 = *reinterpret_cast<const float4*>(&Vs[(c + 3) * kPitch + col]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float* a = &acc[i][4 * g];
-          a[0] = fmaf(pf[i].x, v0.x, fmaf(pf[i].y, v1.x, fmaf(pf[i].z, v2.x, fmaf(pf[i].w, v3.x, a[0]))));
-          a[1] = fmaf(pf[i].x, v0.y, fmaf(pf[i].y, v1.y, fmaf(pf[i].z, v2.y, fmaf(pf[i].w, v3.y, a[1]))));
-          a[2] = fmaf(pf[i].x, v0.z, fmaf(pf[i].y, v1.z, fmaf(pf[i].z, v2.z, fmaf(pf[i].w, v3.z, a[2]))));
-          a[3] = fmaf(pf[i].x, v0.w, fmaf(pf[i].y, v1.w, fmaf(pf[i].z, v2.w, fmaf(pf[i].w, v3.w, a[3]))));
-        }
-      }
-    }
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_kv) load_kv(i);
+    tc::cp_commit();
   }
 
-  if constexpr (kLse) {
-    // every thread of a row's half-warp holds its m and l
+  // Q: this warp's rows as A fragments, split once: a_i at row g8 + 8·(i %
+  // 2), column 8kk + t4 + 4·(i / 2); zero past Sq and D
+  float4* const qhi = reinterpret_cast<float4*>(sm) + w * kKK * 32 + lane;
+  float4* const qlo = qhi + L::kQFrag / 4;
+  {
+    const float* const qp = q + b * sq.b + h * sq.h;
+#pragma unroll 4
+    for (int kk = 0; kk < kKK; ++kk) {
+      uint32_t hi[4], lo[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      if (tx == 0 && row < Sq)
-        lse[static_cast<long long>(blockIdx.y) * Sq + row] = m[i] + logf(l[i]);
+      for (int i = 0; i < 4; ++i) {
+        const int row = r0 + g8 + 8 * (i % 2), col = 8 * kk + t4 + 4 * (i / 2);
+        tc::split_tf32(row < Sq && col < D ? qp[row * sq.s + col] : 0.f, hi[i], lo[i]);
+      }
+      qhi[kk * 32] = make_float4(__uint_as_float(hi[0]), __uint_as_float(hi[1]),
+                                 __uint_as_float(hi[2]), __uint_as_float(hi[3]));
+      qlo[kk * 32] = make_float4(__uint_as_float(lo[0]), __uint_as_float(lo[1]),
+                                 __uint_as_float(lo[2]), __uint_as_float(lo[3]));
     }
   }
-  T* op = o + b * so.b + h * so.h;
+  __syncwarp();
+
+  float acc[kKK][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= Sq) continue;
+  for (int c = 0; c < kKK; ++c)
 #pragma unroll
-    for (int g = 0; g < kDPad / 64; ++g)
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};  // this lane's part of each row's sum
+
+  for (int i = 0; i < n_kv; ++i) {
+    tc::cp_wait<kStages - 2>();
+    __syncthreads();  // tile i is in; every warp is done with tile i − 1
+    if (i + kStages - 1 < n_kv) load_kv(i + kStages - 1);
+    tc::cp_commit();
+    const int kv0 = kv_begin + i * kKV;
+    if (r0 >= Sq || (causal && kv0 > r0 + 15) ||
+        (window > 0 && kv0 + kKV - 1 <= r0 - window))
+      continue;  // no row of this warp keeps a key of the tile
+    const float* const Ks = sm + L::kRing + (i % kStages) * L::kStage;
+    const float* const Vs = Ks + L::kTile;
+
+    // S = Q Kᵀ: s[j][e] at row r0 + g8 + 8·(e / 2), key kv0 + 8j + 2·t4 + e % 2
+    float s[kNS][4];
+#pragma unroll
+    for (int j = 0; j < kNS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kKK; ++kk) {
+      const float4 h4 = qhi[kk * 32], l4 = qlo[kk * 32];
+      tc::Tf32Frag<4> qa;
+      qa.hi[0] = __float_as_uint(h4.x);
+      qa.hi[1] = __float_as_uint(h4.y);
+      qa.hi[2] = __float_as_uint(h4.z);
+      qa.hi[3] = __float_as_uint(h4.w);
+      qa.lo[0] = __float_as_uint(l4.x);
+      qa.lo[1] = __float_as_uint(l4.y);
+      qa.lo[2] = __float_as_uint(l4.z);
+      qa.lo[3] = __float_as_uint(l4.w);
+      const float* const kr = Ks + g8 * kPitch + 8 * kk + t4;
+#pragma unroll
+      for (int j = 0; j < kNS; ++j) {
+        tc::Tf32Frag<2> kb;
+        kb.set(0, kr[8 * j * kPitch]);
+        kb.set(1, kr[8 * j * kPitch + 4]);
+        tc::mma_3xtf32(s[j], qa, kb);
+      }
+    }
+
+    // mask (only where the tile runs past Sk, crosses the diagonal of the
+    // warp's first row or reaches below the window of its last), online
+    // softmax
+    const bool masked = kv0 + kKV > Sk || (causal && kv0 + kKV - 1 > r0) ||
+                        (window > 0 && kv0 <= r0 + 15 - window);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < kNS; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = 4 * tx + 64 * g + e;
-        if (col < D) op[row * so.s + col] = from_f32<T>(acc[i][4 * g + e] / l[i]);
+        float x = s[j][e] * scale;
+        if (masked) {
+          const int row = r0 + g8 + 8 * (e / 2);
+          const int col = kv0 + 8 * j + 2 * t4 + e % 2;
+          if (col >= Sk || (causal && col > row) || (window > 0 && col <= row - window))
+            x = kNegInf;
+        }
+        s[j][e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
       }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < kNS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[j][e] - m[e / 2]);
+        sum[e / 2] += p;
+        s[j][e] = p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+
+    // pv = P V, one k8 slice of keys at a time: A's column t4 (t4 + 4) is
+    // key 8j + 2·t4 (+1), so V's B fragment takes rows 8j + 2·t4 and + 1
+    float pv[kKK][4];
+#pragma unroll
+    for (int c = 0; c < kKK; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pv[c][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kNS; ++j) {
+      tc::Tf32Frag<4> pa;
+      tc::acc_as_a(pa, s[j]);
+      const float* const vr = Vs + (8 * j + 2 * t4) * kPitch + g8;
+#pragma unroll
+      for (int c = 0; c < kKK; ++c) {
+        tc::Tf32Frag<2> vb;
+        uint32_t lo2[2];
+        split3_tf32(vr[8 * c], vb.hi[0], vb.lo[0], lo2[0]);
+        split3_tf32(vr[kPitch + 8 * c], vb.hi[1], vb.lo[1], lo2[1]);
+        tc::mma_tf32(pv[c], pa.hi, lo2);
+        tc::mma_3xtf32(pv[c], pa, vb);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kKK; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][e] = fmaf(acc[c][e], alpha[e / 2], pv[c][e]);
   }
+  tc::cp_wait<0>();  // no copy outlives the block
+
+  // o = acc / l; the 4 lanes of a row hold parts of its sum
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  if constexpr (kLse) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + g8 + 8 * r;
+      if (t4 == 0 && row < Sq)
+        lse[static_cast<long long>(bh) * Sq + row] = m[r] + logf(l[r]);
+    }
+  }
+  float* const op = o + b * so.b + h * so.h;
+#pragma unroll
+  for (int c = 0; c < kKK; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + g8 + 8 * (e / 2), col = 8 * c + 2 * t4 + e % 2;
+      if (row < Sq && col < D) op[row * so.s + col] = acc[c][e] / l[e / 2];
+    }
 }
 
-template <typename T, int kDPad, bool kLse>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, const long long* st, int B, int H, int KV,
-                   int Sq, int Sk, int D, int causal, int window,
-                   cudaStream_t stream) {
-  constexpr int kPitch = kDPad + 4;
-  const int smem = static_cast<int>(sizeof(float)) *
-                   (kBlockQ * kPitch + 2 * kBlockKV * kPitch + kBlockQ * kPPitch);
-  auto kern = flash_fwd_kernel<T, kDPad, kLse>;
+template <int kDPad, bool kLse>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
+                   const long long* st, int B, int H, int KV, int Sq, int Sk, int D,
+                   int causal, int window, cudaStream_t stream) {
+  constexpr int smem = Layout<kDPad>::kBytes;
+  auto kern = flash_fwd_tf32_kernel<kDPad, kLse>;
   // opt in to the shared memory once per instantiation (outside any CUDA
   // graph capture that later launches record into)
   static bool opted_in = false;
   if (!opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
-  const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, B * H);
+  const int n_qt = (Sq + kBlockQ - 1) / kBlockQ;
+  if (n_qt > 65535) return cudaErrorInvalidValue;
+  // 16-byte copies of K and V where their rows start 16-byte aligned
+  bool vec = (reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16 == 0;
+  for (int i = 3; i < 9; ++i) vec = vec && st[i] % 4 == 0;
   const Strides3 sq{st[0], st[1], st[2]};
   const Strides3 sk{st[3], st[4], st[5]};
   const Strides3 sv{st[6], st[7], st[8]};
   const Strides3 so{st[9], st[10], st[11]};
-  const float scale = 1.0f / sqrtf(static_cast<float>(D));
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, sv, so, H, H / KV,
-      Sq, Sk, D, causal, window, scale);
+  kern<<<dim3(B * H, n_qt), kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, sq, sk, sv, so, H, H / KV,
+      Sq, Sk, D, causal, window, 1.0f / sqrtf(static_cast<float>(D)), vec);
   return cudaGetLastError();
 }
+
+}  // namespace f32
 
 }  // namespace
 
@@ -598,10 +673,10 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                                          causal, window, stream)
                    : tc::launch<2, kLse>(q, k, v, o, lse, st, B, H, KV, Sq, Sk, D,
                                          causal, window, stream);
-  return D <= 64 ? launch<float, 64, kLse>(q, k, v, o, lse, st, B, H, KV, Sq, Sk,
-                                           D, causal, window, stream)
-                 : launch<float, 128, kLse>(q, k, v, o, lse, st, B, H, KV, Sq, Sk,
-                                            D, causal, window, stream);
+  return D <= 64 ? f32::launch<64, kLse>(q, k, v, o, lse, st, B, H, KV, Sq, Sk, D,
+                                         causal, window, stream)
+                 : f32::launch<128, kLse>(q, k, v, o, lse, st, B, H, KV, Sq, Sk, D,
+                                          causal, window, stream);
 }
 
 }  // namespace

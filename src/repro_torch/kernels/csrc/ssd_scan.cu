@@ -18,17 +18,12 @@
 //
 //   bf16  ssd_chunk_wgmma_kernel: both products on the tensor cores
 //         (design below).
-//   fp32  ssd_chunk_kernel: fp32 FMAs on the CUDA cores.  fp32's 1e-5 bar
-//         rules out one TF32 pass and bf16 tensor cores; a split that keeps
-//         fp32's bits (3xTF32, as the fp32 backward runs, ssd_scan_bwd.cu)
-//         is not ruled out, and is not done here yet.  One 256-thread block per
-//         (head, chunk) stages x, B and C as fp32 in shared memory (120 KB
-//         at Q = 128 and N <= 64, 188 KB at N = 128, one block per SM) and
-//         forms, per 64-row output tile and 64-column source tile up to
-//         the diagonal, the weights
-//         (C_t·B_s)·exp(cs_t − cs_s) in 4 x 4 register tiles, parks them in
-//         shared memory and accumulates tile @ x; the state is a second
-//         register-tiled product, one 64-column half of N at a time.
+//   fp32  ssd_chunk_tf32_kernel: both products on the tensor cores as
+//         3xTF32 on mma.sync (each fp32 operand split into TF32 hi + lo, a
+//         product taken as lo·hi + hi·lo + hi·hi: ~22 of fp32's 24 bits,
+//         where one TF32 product keeps 11 and misses fp32's 1e-5 bar); a
+//         block walks the heads of one B/C group, S = C·Bᵀ once a block
+//         (design below, at the kernel).
 //
 // What bounds the bf16 kernel on an H100: bytes.  At the serving shape (16
 // chunks x 64 heads, Q = 128, P = N = 64, stride-0 B/C) it must move ~52 MB
@@ -94,217 +89,282 @@ using ssd::round_up;
 using ssd::Strides4;
 
 // ---------------------------------------------------------------------------
-// fp32: CUDA cores.
+// fp32: tensor cores, every product as 3xTF32 (hopper_tc.cuh).
+//
+// One block of 256 threads (8 warps) walks `heads` consecutive heads of
+// one chunk that share their B and C (the backward's host plan,
+// ssd_bwd_plan in kernels/ssd_scan.py: 8 of Zamba2's 64 heads and 10 of
+// mamba2-2.7b's 80, 128 blocks, one wave on 132 SMs; one head a block
+// where B and C are per head).
+//   once a block:  B and C staged by cp.async (rows of N + 4 floats, zero
+//            past Q and N) with the first head's x; cs, decay and w_s =
+//            exp(cs_{Q-1} − cs_s) of every head, a warp a head; S = C·Bᵀ
+//            over the 72 m16 x k8 tiles of its lower part (s <= t), kept in
+//            registers across a barrier and then stored as fragments (each
+//            lane's 4 values) in C's place;
+//   per head:  the next head's x in flight (cp.async, two buffers);
+//     y:     warp w owns rows t of row block rb = w (w < 4) or 11 − w, so
+//            the two warps of a scheduler partition share 18 of the 72
+//            tiles; per k8 slice of s, W = S∘exp(cs_t − cs_s) on s <= t on
+//            the fragment, which goes to the A operand in registers
+//            (tc::acc_as_a), and y += W·x over P in n8 tiles;
+//     state: warp w owns rows p 16·(w % 4).. and half of N; state = (w∘x)ᵀ·B
+//            over the chunk's rows, w∘x formed as A's fragment is read.
+// The k index of the products that read S's fragments or take w∘x as A
+// pairs A's columns t4 and t4 + 4 with rows 2·t4 and 2·t4 + 1 of the k8
+// slice, which puts every fragment read of x and B (rows of 68 and N + 4
+// floats) on 32 distinct banks.  Shared memory: B and C/S 34,816 and
+// 36,864 bytes at N <= 64 (S's fragments pass C), 67,584 each at N = 128,
+// x 69,632, each head's cs and w 16,384: 157,696 and 221,184 bytes, one
+// block an SM.
+namespace ssd_f32 {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 64;
-constexpr int kWPitch = kTile + 4;
-constexpr int kXPitch = kMaxP + 4;
+constexpr int kThreads = 256;     // 8 warps
+constexpr int kRows = 128;        // rows of a chunk's tiles, zero past Q
+constexpr int kTiles = 72;        // the m16 x k8 tiles of S's lower part
+constexpr int kMaxHeads = 16;     // heads a block walks, at most
+constexpr int kPX = kMaxP + 4;    // an x row
 
-// rows [0, rows) of an (rows, cols) slab into shared memory, pitch
-// `pitch`; rows in [n_rows, rows) and columns in [n_cols, cols) are zero.
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
-                                      long long stride_q, int n_rows,
-                                      int rows, int n_cols, int cols,
-                                      int pitch) {
-  for (int idx = threadIdx.x; idx < rows * cols; idx += kThreads) {
-    const int r = idx / cols;
-    const int c = idx % cols;
-    float v = 0.f;
-    if (r < n_rows && c < n_cols) v = src[r * stride_q + c];
-    dst[r * pitch + c] = v;
-  }
-}
+// shared memory in floats for N padded to kNP (64 or 128)
+template <int kNP>
+struct Layout {
+  static constexpr int kPB = kNP + 4;
+  static constexpr int kB = 0;
+  static constexpr int kC = kB + kRows * kPB;   // C, then S's fragments
+  static constexpr int kCS = kRows * kPB > kTiles * 128 ? kRows * kPB : kTiles * 128;
+  static constexpr int kX = kC + kCS;           // two buffers
+  static constexpr int kSmall = kX + 2 * kRows * kPX;   // cs, then w, of each head
+  static constexpr int kBytes = 4 * (kSmall + 2 * kMaxHeads * kRows);
+};
 
-// kN: N padded to 64 or 128 columns (B and C rows of pitch kN + 4)
-template <int kN>
-__global__ void __launch_bounds__(kThreads)
-ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dt_a,
-                 const float* __restrict__ b, const float* __restrict__ c,
-                 float* __restrict__ y, float* __restrict__ state,
-                 float* __restrict__ decay, Strides4 sx, Strides4 sa,
-                 Strides4 sb, Strides4 sc, int H, int Q, int P, int N) {
-  constexpr int kPitch = kN + 4;
-  const int QP = round_up(Q, kTile);
+// the first of row block rb's tiles (its k8 slices 0 .. 2·rb + 1)
+__device__ __forceinline__ int tile0(int rb) { return rb * (rb + 1); }
+
+template <int kNP>
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_chunk_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dt_a,
+                      const float* __restrict__ b, const float* __restrict__ c,
+                      float* __restrict__ y, float* __restrict__ state,
+                      float* __restrict__ decay, Strides4 sx, Strides4 sa, Strides4 sb,
+                      Strides4 sc, int H, int Q, int P, int N, int heads, bool vec_x,
+                      bool vec_bc) {
+  using L = Layout<kNP>;
+  constexpr int kPB = L::kPB;
+  constexpr int kNn = kNP / 8;    // k-steps of S over N
+  constexpr int kNh = kNn / 2;    // n8 tiles of a warp's half of the state
   extern __shared__ float4 smem4[];
-  float* Xs = reinterpret_cast<float*>(smem4);  // QP x kXPitch
-  float* Bs = Xs + QP * kXPitch;                // QP x kPitch
-  float* Cs = Bs + QP * kPitch;                 // QP x kPitch
-  float* Ws = Cs + QP * kPitch;                 // kTile x kWPitch
-  float* cs = Ws + kTile * kWPitch;             // QP
-  float* wst = cs + QP;                         // QP: exp(cs_{Q-1} − cs_s)
+  float* const sm = reinterpret_cast<float*>(smem4);
+  const uint32_t sm_s = tc::smem_u32(sm);
+  const float* const Bs = sm + L::kB;
+  float* const Sf = sm + L::kC;
+  float* const cs_all = sm + L::kSmall;
+  float* const w_all = cs_all + kMaxHeads * kRows;
 
-  const int h = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int rb = warp < 4 ? warp : 11 - warp;   // rows t0 .. t0 + 15 of y and S
+  const int t0 = 16 * rb;
   const int ch = blockIdx.y;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+  const int h0 = blockIdx.x * heads;
+  const int kend = (Q + 7) / 8;                 // k8 slices holding a row < Q
+  const int nsl = min(2 * rb + 2, kend);        // the warp's slices of S
+  const long long row0 = static_cast<long long>(ch) * Q;
 
-  stage(Xs, x + ch * sx.c + h * sx.h, sx.q, Q, QP, P, kMaxP, kXPitch);
-  stage(Bs, b + ch * sb.c + h * sb.h, sb.q, Q, QP, N, kN, kPitch);
-  stage(Cs, c + ch * sc.c + h * sc.h, sc.q, Q, QP, N, kN, kPitch);
+  auto load_x = [&](int i) {
+    tc::load_f32_tile<kRows, kMaxP, kThreads>(sm_s + 4 * (L::kX + (i % 2) * kRows * kPX), kPX,
+                                              x + ch * sx.c + (h0 + i) * sx.h, sx.q, Q, P,
+                                              vec_x);
+  };
+  tc::load_f32_tile<kRows, kNP, kThreads>(sm_s + 4 * L::kB, kPB, b + ch * sb.c + h0 * sb.h,
+                                          sb.q, Q, N, vec_bc);
+  tc::load_f32_tile<kRows, kNP, kThreads>(sm_s + 4 * L::kC, kPB, c + ch * sc.c + h0 * sc.h,
+                                          sc.q, Q, N, vec_bc);
+  load_x(0);
+  tc::cp_commit();
 
-  if (threadIdx.x < 32) chunk_cumsum(cs, dt_a + ch * sa.c + h * sa.h, sa.q, Q);
-  __syncthreads();
-  for (int t = threadIdx.x; t < QP; t += kThreads) {
-    if (t < Q) {
-      decay[(static_cast<long long>(ch) * Q + t) * H + h] = expf(cs[t]);
-      wst[t] = expf(cs[Q - 1] - cs[t]);
-    } else {
-      cs[t] = 0.f;
-      wst[t] = 0.f;
+  // cs, decay and w of every head of the block, warp i the heads i, i + 8
+  for (int i = warp; i < heads; i += kThreads / 32) {
+    float* const cs = cs_all + i * kRows;
+    float* const wv = w_all + i * kRows;
+    chunk_cumsum(cs, dt_a + ch * sa.c + (h0 + i) * sa.h, sa.q, Q);
+    __syncwarp();
+    const float last = cs[Q - 1];
+    __syncwarp();
+    for (int t = lane; t < kRows; t += 32) {
+      if (t < Q) {
+        decay[(row0 + t) * H + h0 + i] = expf(cs[t]);
+        wv[t] = expf(last - cs[t]);
+      } else {
+        cs[t] = 0.f;
+        wv[t] = 0.f;
+      }
     }
   }
-  __syncthreads();
+  tc::cp_wait<0>();
+  __syncthreads();  // B, C and the first x are in
 
-  // y_diag, one 64-row output tile at a time: rows t0 + ty + 16i,
-  // columns 4tx + e
-  for (int t0 = 0; t0 < Q; t0 += kTile) {
-    float acc[4][4];
+  // S = C·Bᵀ: tile (rb, kk), rows t0 + g8 (+8), columns s = 8kk + 2·t4 (+1)
+  {
+    float sacc[16][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int kk = 0; kk < 16; ++kk)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-
-    for (int s0 = 0; s0 <= t0; s0 += kTile) {
-      float w[4][4];
+      for (int e = 0; e < 4; ++e) sacc[kk][e] = 0.f;
+    const float* const Cs = sm + L::kC;
+    if (t0 < Q) {
+#pragma unroll 2
+      for (int ks = 0; ks < kNn; ++ks) {
+        tc::Tf32Frag<4> a;
+        const float* const cr = Cs + (t0 + g8) * kPB + 8 * ks + t4;
+        a.set(0, cr[0]);
+        a.set(1, cr[8 * kPB]);
+        a.set(2, cr[4]);
+        a.set(3, cr[8 * kPB + 4]);
+        const float* const br = Bs + g8 * kPB + 8 * ks + t4;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) w[i][j] = 0.f;
-      for (int n = 0; n < kN; n += 4) {
-        float4 cf[4], bf[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          cf[i] = *reinterpret_cast<const float4*>(&Cs[(t0 + ty + 16 * i) * kPitch + n]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          bf[j] = *reinterpret_cast<const float4*>(&Bs[(s0 + tx + 16 * j) * kPitch + n]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            w[i][j] = fmaf(cf[i].x, bf[j].x, w[i][j]);
-            w[i][j] = fmaf(cf[i].y, bf[j].y, w[i][j]);
-            w[i][j] = fmaf(cf[i].z, bf[j].z, w[i][j]);
-            w[i][j] = fmaf(cf[i].w, bf[j].w, w[i][j]);
+        for (int kk = 0; kk < 16; ++kk) {
+          if (kk < nsl) {
+            tc::Tf32Frag<2> bf;
+            bf.set(0, br[8 * kk * kPB]);
+            bf.set(1, br[8 * kk * kPB + 4]);
+            tc::mma_3xtf32(sacc[kk], a, bf);
           }
-      }
-      __syncthreads();  // the previous source tile's weights are consumed
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = t0 + ty + 16 * i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int s = s0 + tx + 16 * j;
-          const bool keep = s <= t && t < Q;
-          Ws[(ty + 16 * i) * kWPitch + tx + 16 * j] =
-              keep ? w[i][j] * expf(cs[t] - cs[s]) : 0.f;
-        }
-      }
-      __syncthreads();
-      for (int s = 0; s < kTile; s += 4) {
-        float4 wf[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          wf[i] = *reinterpret_cast<const float4*>(&Ws[(ty + 16 * i) * kWPitch + s]);
-        const float* xr = &Xs[(s0 + s) * kXPitch + 4 * tx];
-        const float4 x0 = *reinterpret_cast<const float4*>(xr);
-        const float4 x1 = *reinterpret_cast<const float4*>(xr + kXPitch);
-        const float4 x2 = *reinterpret_cast<const float4*>(xr + 2 * kXPitch);
-        const float4 x3 = *reinterpret_cast<const float4*>(xr + 3 * kXPitch);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float* a = acc[i];
-          a[0] = fmaf(wf[i].x, x0.x, fmaf(wf[i].y, x1.x, fmaf(wf[i].z, x2.x, fmaf(wf[i].w, x3.x, a[0]))));
-          a[1] = fmaf(wf[i].x, x0.y, fmaf(wf[i].y, x1.y, fmaf(wf[i].z, x2.y, fmaf(wf[i].w, x3.y, a[1]))));
-          a[2] = fmaf(wf[i].x, x0.z, fmaf(wf[i].y, x1.z, fmaf(wf[i].z, x2.z, fmaf(wf[i].w, x3.z, a[2]))));
-          a[3] = fmaf(wf[i].x, x0.w, fmaf(wf[i].y, x1.w, fmaf(wf[i].z, x2.w, fmaf(wf[i].w, x3.w, a[3]))));
         }
       }
     }
-    // y (BC, Q, H, P), contiguous
+    __syncthreads();  // C is consumed: S's fragments take its place
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = t0 + ty + 16 * i;
-      if (t >= Q) continue;
-      float* yr = y + ((static_cast<long long>(ch) * Q + t) * H + h) * P;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int p = 4 * tx + e;
-        if (p < P) yr[p] = acc[i][e];
-      }
-    }
+    for (int kk = 0; kk < 16; ++kk)
+      if (kk < nsl && t0 < Q)
+        *reinterpret_cast<float4*>(Sf + ((tile0(rb) + kk) * 32 + lane) * 4) =
+            make_float4(sacc[kk][0], sacc[kk][1], sacc[kk][2], sacc[kk][3]);
   }
 
-  // state[p][n] = Σ_s wst[s] x[s][p] B[s][n], one 64-column half of N at
-  // a time: p = 4ty + e, n = 64·half + 4tx + f; state (BC, H, P, N),
-  // contiguous
-  float* st = state + (static_cast<long long>(ch) * H + h) * P * N;
-#pragma unroll
-  for (int half = 0; half < kN / 64; ++half) {
-    float a[4][4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-#pragma unroll
-      for (int f = 0; f < 4; ++f) a[e][f] = 0.f;
-    for (int s = 0; s < Q; ++s) {
-      const float ws = wst[s];
-      const float4 xv = *reinterpret_cast<const float4*>(&Xs[s * kXPitch + 4 * ty]);
-      const float4 bv =
-          *reinterpret_cast<const float4*>(&Bs[s * kPitch + 64 * half + 4 * tx]);
-      const float xs[4] = {xv.x * ws, xv.y * ws, xv.z * ws, xv.w * ws};
-      const float bs[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-#pragma unroll
-        for (int f = 0; f < 4; ++f) a[e][f] = fmaf(xs[e], bs[f], a[e][f]);
+  const int pb = warp % 4, nh = warp / 4;   // the warp's state rows and half of N
+  for (int i = 0; i < heads; ++i) {
+    const int h = h0 + i;
+    tc::cp_wait<0>();
+    __syncthreads();  // head i's x (and S) in; every warp is done with head i − 1
+    if (i + 1 < heads) {  // the next head's x, under this head's products
+      load_x(i + 1);
+      tc::cp_commit();
     }
+    const float* const Xs = sm + L::kX + (i % 2) * kRows * kPX;
+    const float* const cs = cs_all + i * kRows;
+    const float* const wv = w_all + i * kRows;
+
+    // y over the warp's slices: W's fragment from S's, then W·x
+    if (t0 < Q) {
+      float ya[8][4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int p = 4 * ty + e;
-      if (p >= P) continue;
+      for (int p = 0; p < 8; ++p)
 #pragma unroll
-      for (int f = 0; f < 4; ++f) {
-        const int n = 64 * half + 4 * tx + f;
-        if (n < N) st[p * N + n] = a[e][f];
+        for (int e = 0; e < 4; ++e) ya[p][e] = 0.f;
+      const float ct[2] = {cs[t0 + g8], cs[t0 + g8 + 8]};
+      for (int kk = 0; kk < nsl; ++kk) {
+        const float4 sv = *reinterpret_cast<const float4*>(Sf + ((tile0(rb) + kk) * 32 + lane) * 4);
+        const float2 css = *reinterpret_cast<const float2*>(cs + 8 * kk + 2 * t4);
+        const float s4[4] = {sv.x, sv.y, sv.z, sv.w};
+        float wt[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = t0 + g8 + 8 * (e / 2), s = 8 * kk + 2 * t4 + e % 2;
+          wt[e] = s <= t ? s4[e] * expf(ct[e / 2] - (e % 2 ? css.y : css.x)) : 0.f;
+        }
+        tc::Tf32Frag<4> wa;
+        tc::acc_as_a(wa, wt);
+        const float* const xr = Xs + (8 * kk + 2 * t4) * kPX + g8;
+#pragma unroll
+        for (int p = 0; p < 8; ++p) {
+          tc::Tf32Frag<2> xb;
+          xb.set(0, xr[8 * p]);
+          xb.set(1, xr[kPX + 8 * p]);
+          tc::mma_3xtf32(ya[p], wa, xb);
+        }
       }
+      // y (BC, Q, H, P), contiguous
+#pragma unroll
+      for (int p = 0; p < 8; ++p)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = t0 + g8 + 8 * (e / 2), col = 8 * p + 2 * t4 + e % 2;
+          if (t < Q && col < P) y[((row0 + t) * H + h) * P + col] = ya[p][e];
+        }
+    }
+
+    // state = (w∘x)ᵀ·B: rows p = 16·pb + g8 (+8), columns n = 8·(kNh·nh + j)
+    // + 2·t4 (+1), over the chunk's rows in k8 steps
+    if (16 * pb < P) {
+      float sa_[kNh][4];
+#pragma unroll
+      for (int j = 0; j < kNh; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sa_[j][e] = 0.f;
+      for (int ks = 0; ks < kend; ++ks) {
+        const int s0 = 8 * ks + 2 * t4;
+        const float2 ww = *reinterpret_cast<const float2*>(wv + s0);
+        const float* const xr = Xs + s0 * kPX + 16 * pb + g8;
+        tc::Tf32Frag<4> a;
+        a.set(0, ww.x * xr[0]);
+        a.set(1, ww.x * xr[8]);
+        a.set(2, ww.y * xr[kPX]);
+        a.set(3, ww.y * xr[kPX + 8]);
+        const float* const br = Bs + s0 * kPB + 8 * kNh * nh + g8;
+#pragma unroll
+        for (int j = 0; j < kNh; ++j) {
+          tc::Tf32Frag<2> bf;
+          bf.set(0, br[8 * j]);
+          bf.set(1, br[kPB + 8 * j]);
+          tc::mma_3xtf32(sa_[j], a, bf);
+        }
+      }
+      // state (BC, H, P, N), contiguous
+      float* const sp = state + (static_cast<long long>(ch) * H + h) * P * N;
+#pragma unroll
+      for (int j = 0; j < kNh; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int p = 16 * pb + g8 + 8 * (e / 2);
+          const int n = 8 * (kNh * nh + j) + 2 * t4 + e % 2;
+          if (p < P && n < N) sp[p * N + n] = sa_[j][e];
+        }
     }
   }
 }
 
-// 120 KB at Q = 128, N <= 64; 188 KB at N = 128 (a block may opt into 227)
-template <int kN>
-int smem_bytes(int Q) {
-  const int QP = round_up(Q, kTile);
-  const int floats = QP * kXPitch + 2 * QP * (kN + 4) + kTile * kWPitch + 2 * QP;
-  return floats * static_cast<int>(sizeof(float));
-}
-
-template <int kN>
-cudaError_t launch_f32(const float* x, const float* dt_a, const float* b,
-                       const float* c, float* y, float* state, float* decay,
-                       const long long* st, int BC, int Q, int H, int P, int N,
-                       cudaStream_t stream) {
-  // opt in once per instantiation at the largest chunk the wrapper admits,
-  // so launches of smaller chunks need no further attribute call (the first
-  // launch must come outside any CUDA graph capture)
-  static bool opted_in = false;
-  if (!opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ssd_chunk_kernel<kN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes<kN>(kMaxQ));
-    if (err != cudaSuccess) return err;
-    opted_in = true;
-  }
+template <int kNP>
+cudaError_t launch(const float* x, const float* dt_a, const float* b, const float* c,
+                   float* y, float* state, float* decay, const long long* st, int BC, int Q,
+                   int H, int P, int N, int heads, cudaStream_t stream) {
   const Strides4 sx{st[0], st[1], st[2]};
   const Strides4 sa{st[3], st[4], st[5]};
   const Strides4 sb{st[6], st[7], st[8]};
   const Strides4 sc{st[9], st[10], st[11]};
-  const dim3 grid(H, BC);
-  ssd_chunk_kernel<kN><<<grid, kThreads, smem_bytes<kN>(Q), stream>>>(
-      x, dt_a, b, c, y, state, decay, sx, sa, sb, sc, H, Q, P, N);
+  // a block's heads share one B and C: stride-0 heads, or one head a block
+  if (heads < 1 || heads > kMaxHeads || H % heads || (heads > 1 && (sb.h != 0 || sc.h != 0)))
+    return cudaErrorInvalidValue;
+  // opt in once per instantiation (the first launch must come outside any
+  // CUDA graph capture)
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ssd_chunk_tf32_kernel<kNP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Layout<kNP>::kBytes);
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  using ssd::tile::aligned16;
+  // 16-byte copies where every row starts 16-byte aligned
+  const bool vec_x = aligned16(x) && sx.c % 4 == 0 && sx.q % 4 == 0 && sx.h % 4 == 0;
+  const bool vec_bc = aligned16(b) && aligned16(c) && sb.c % 4 == 0 && sb.q % 4 == 0 &&
+                      sb.h % 4 == 0 && sc.c % 4 == 0 && sc.q % 4 == 0 && sc.h % 4 == 0;
+  ssd_chunk_tf32_kernel<kNP><<<dim3(H / heads, BC), kThreads, Layout<kNP>::kBytes, stream>>>(
+      x, dt_a, b, c, y, state, decay, sx, sa, sb, sc, H, Q, P, N, heads, vec_x, vec_bc);
   return cudaGetLastError();
 }
+
+}  // namespace ssd_f32
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores.
@@ -590,9 +650,11 @@ cudaError_t launch(const void* x, const float* dt_a, const void* b, const void* 
 // stride; st: the (chunk, row, head) strides of x, dt_a, b and c in that
 // order, in elements (a head stride of 0 broadcasts one group to all
 // heads).  y (BC, Q, H, P) in x's dtype, state (BC, H, P, N) and decay
-// (BC, Q, H) fp32, all contiguous.  bf16 != 0 for bfloat16 x, b, c, which
-// run the tensor-core kernel with `heads` consecutive heads a block (a
-// divisor of H, at most 8); fp32 takes one head a block and heads = 1.
+// (BC, Q, H) fp32, all contiguous.  bf16 != 0 for bfloat16 x, b, c (the
+// wgmma kernel), else fp32 (the 3xTF32 kernel); either walks `heads`
+// consecutive heads of a chunk a block, a divisor of H (at most 8 in
+// bf16, 16 in fp32; fp32 takes more than one only where B's and C's head
+// strides are 0).
 cudaError_t launch_ssd_chunk(const void* x, const float* dt_a, const void* b,
                              const void* c, void* y, float* state,
                              float* decay, const long long* st, int BC, int Q,
@@ -606,13 +668,12 @@ cudaError_t launch_ssd_chunk(const void* x, const float* dt_a, const void* b,
                                        N, heads, stream)
                    : ssd_tc::launch<2>(x, dt_a, b, c, y, state, decay, st, BC, Q, H, P,
                                        N, heads, stream);
-  if (heads != 1) return cudaErrorInvalidValue;
   const auto* xf = static_cast<const float*>(x);
   const auto* bf = static_cast<const float*>(b);
   const auto* cf = static_cast<const float*>(c);
   auto* yf = static_cast<float*>(y);
-  return N <= 64 ? launch_f32<64>(xf, dt_a, bf, cf, yf, state, decay, st, BC, Q, H, P,
-                                  N, stream)
-                 : launch_f32<128>(xf, dt_a, bf, cf, yf, state, decay, st, BC, Q, H, P,
-                                   N, stream);
+  return N <= 64 ? ssd_f32::launch<64>(xf, dt_a, bf, cf, yf, state, decay, st, BC, Q, H, P,
+                                       N, heads, stream)
+                 : ssd_f32::launch<128>(xf, dt_a, bf, cf, yf, state, decay, st, BC, Q, H,
+                                        P, N, heads, stream);
 }

@@ -152,24 +152,26 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     h // (H // KV) (GQA by head grouping, K and V not repeated); softmax in
     fp32, probabilities rounded to v's dtype before the PV product.  Where
     causal, ``window`` > 0 keeps only the ``window`` most recent keys of
-    each query (``attention_mask``)."""
+    each query (``attention_mask``).  Handed float64 inputs it computes
+    in float64 (``_up``)."""
     b, h, sq, d = q.shape
     kv, sk = k.shape[1], k.shape[2]
     check_causal_lengths(sq, sk, causal, window)
-    qg = q.float().reshape(b, kv, h // kv, sq, d)
-    s = torch.einsum("bkgqd,bkmd->bkgqm", qg, k.float()) / math.sqrt(d)
+    qg = _up(q).reshape(b, kv, h // kv, sq, d)
+    s = torch.einsum("bkgqd,bkmd->bkgqm", qg, _up(k)) / math.sqrt(d)
     if causal:
         mask = attention_mask(sq, sk, window, q.device)
         s = s.masked_fill(~mask, float("-inf"))
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqm,bkmd->bkgqd", p.to(v.dtype).float(), v.float())
+    o = torch.einsum("bkgqm,bkmd->bkgqd", _up(p.to(v.dtype)), _up(v))
     return o.reshape(b, h, sq, d).to(q.dtype)
 
 
 def _up(t: torch.Tensor) -> torch.Tensor:
     """``t`` in fp32, or as it is where it is float64: the plain versions
-    of K6's and K7's backwards run in float64 when handed float64 inputs
-    (chip_smoke.py phase 7's witness of the fp32 kernels' accuracy)."""
+    of K6, K7 and their backwards run in float64 when handed float64
+    inputs (chip_smoke.py phase 7's witness of the fp32 kernels'
+    accuracy)."""
     return t if t.dtype == torch.float64 else t.float()
 
 
@@ -251,10 +253,11 @@ def ssd_chunk_ref(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
       y_diag[t]    = sum_{s<=t} C_t·B_s exp(cs_t − cs_s) x_s
       chunk_state  = sum_s exp(cs_{Q-1} − cs_s) B_s x_sᵀ
       decay_out[t] = exp(cs_t),   cs = cumsum(dt_a) in fp32
+    Handed float64 inputs it computes in float64 (``_up``).
     """
     q = x.shape[1]
-    xf, bf, cf = x.float(), b.float(), c.float()
-    cs = torch.cumsum(dt_a.float(), dim=1)                     # (BC, Q, H)
+    xf, bf, cf = _up(x), _up(b), _up(c)
+    cs = torch.cumsum(_up(dt_a), dim=1)                        # (BC, Q, H)
     seg = cs[:, :, None, :] - cs[:, None, :, :]                # (BC, Q, Q, H)
     # exp of the segment sums masked to -inf above the diagonal (0 there):
     # unmasked, exp(seg) there can overflow, and its gradient would be

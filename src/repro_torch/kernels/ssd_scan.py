@@ -13,9 +13,12 @@ the current stream (all chunks and heads in one launch) and adds one to
 the meta device it returns the empty outputs and reports the launch to
 the dry-run (``cost.report``).  b and c are read through their strides,
 so one group broadcast to every head is an ``expand``ed view with a head
-stride of 0 and is never copied.  bf16 runs the tensor-core kernel, whose
+stride of 0 and is never copied.  bf16 runs the wgmma kernel, whose
 blocks each walk ``ssd_plan``'s number of consecutive heads of one chunk;
-fp32 the CUDA-core kernel, one head a block.  Q <= 128, P <= 64 and N <=
+fp32 the 3xTF32 kernel on mma.sync, whose blocks walk ``ssd_bwd_plan``'s
+heads of one B/C group, as the backward's do: where B and C are one
+group broadcast to every head (one head a block where they are per
+head).  Q <= 128, P <= 64 and N <=
 128 on either device (Zamba2's N = 64 and Mamba2-2.7B's N = 128; the
 kernels take N as 64 or 128 columns).  The raw wrapper refuses inputs
 that require grad: ``ops.ssd_chunk`` is the differentiable op, an
@@ -94,7 +97,10 @@ def ssd_plan(bc: int, h: int, q: int, shared_bc: bool, n: int = 64) -> int:
 
 # csrc/ssd_scan_bwd.cu: a block walks up to 16 heads of one B/C group
 # (bf16: 227 KB of shared memory and up to 246 registers a thread; fp32:
-# 216,576-219,648 bytes; one block an SM either way).  Its fixed work (B and C
+# 216,576-219,648 bytes; one block an SM either way), and so does the fp32
+# forward's in csrc/ssd_scan.cu (157,696 bytes at N <= 64, 221,184 at N =
+# 128), which takes the same plan: its sweep in phase 7 found the plan
+# fastest at every timed shape.  Its fixed work (B and C
 # staged, S, the dB and dC products over ΣdS, the part written) is taken
 # as SSD_BWD_BLOCK_COST heads' worth; the plan takes the heads that
 # minimise waves x (heads + that cost) on the H100's 132 SMs, the fewer
@@ -181,8 +187,8 @@ def ssd_chunk(x: torch.Tensor, dt_a: torch.Tensor, b: torch.Tensor,
         cost.report("ssd_chunk", cost.ssd_chunk(
             bc, q, h, p, n, 1 if shared_bc else h, x.element_size()))
         return y, state, decay
-    heads = ssd_plan(bc, h, q, shared_bc, n) if x.dtype == torch.bfloat16 \
-        else 1
+    heads = (ssd_plan(bc, h, q, shared_bc, n) if x.dtype == torch.bfloat16
+             else ssd_bwd_plan(bc, h, q, 1 if shared_bc else h, n))
     _build.extension().ssd_chunk(x, dt_a, b, c, y, state, decay, heads)
     ssd_chunk.launches += 1
     return y, state, decay

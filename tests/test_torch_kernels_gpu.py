@@ -802,7 +802,7 @@ def test_flash_attention_bf16_serving_shapes_on_card(cuda, s):
 def test_flash_attention_window_matches_plain_on_card(cuda, b, h, kv, s, d,
                                                       window, dtype):
     """A causal sliding window (key k kept for query q where q - window <
-    k <= q): windows inside one tile, at the 64-row fp32 and 128-row bf16
+    k <= q): windows inside one tile, at the 64- and 128-row
     tile edges, and past the sequence; window 1 returns v itself."""
     from repro_torch.kernels.flash_attention import flash_attention
 
@@ -1337,3 +1337,160 @@ def test_ssd_chunk_autograd_launches_the_kernels_on_card(cuda, dtype,
                                      SMOKE.k7_bwd_noise(x, bh, ch, dy, dst,
                                                         dd))
     assert ok, crit
+
+
+# The fp32 forwards of K6 and K7 as 3xTF32 on mma.sync
+# (``flash_fwd_tf32_kernel``, ``ssd_chunk_tf32_kernel``): at the paths'
+# shapes (chip_smoke.K6_PATHS, K7_PATHS) and phase 7's edges, each output
+# within phase 7's fp32 bars of its plain version, the paths' shapes also
+# within the float64 witness (chip_smoke.f64_witness, 8x), repeats
+# bit-identical.
+K6_FP32_CASES = ([(*shape, 0) for shape in SMOKE.K6_PATHS.values()]
+                 + [(1, 32, 32, 8, 64, 8, True, 0),
+                    (2, 4, 4, 300, 128, 300, False, 0),
+                    (1, 2, 2, 128, 32, 128, True, 0),
+                    (1, 1, 1, 64, 128, 64, False, 0),
+                    (1, 10, 2, 1, 128, 1, True, 0),
+                    (1, 20, 4, 300, 64, 300, True, 0),
+                    (1, 8, 2, 77, 128, 203, False, 0),
+                    (2, 6, 3, 129, 32, 1, False, 0),
+                    (1, 40, 8, 520, 128, 520, True, 129),
+                    (1, 32, 32, 300, 64, 300, True, 1)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", K6_FP32_CASES, ids=str)
+def test_flash_attention_fp32_3xtf32_on_card(cuda, shape):
+    """fp32 K6 (B, H, KV, Sq, D, Sk, causal, window) against its plain
+    version: o within K6_FP32_RTOL of its largest, the lse within
+    K6_LSE_TOL·(1 + |ref|), o with the lse equal to o without, repeats
+    bit-identical, one launch a call; window 1 returns v itself; at the
+    paths' shapes the float64 witness."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    b, h, kv, s, d, sk, causal, window = shape
+    gen = torch.Generator(device=cuda).manual_seed(71)
+    q = torch.randn(b, s, h, d, generator=gen, device=cuda).transpose(1, 2)
+    k, v = (torch.randn(b, sk, kv, d, generator=gen, device=cuda)
+            .transpose(1, 2) for _ in range(2))
+    before = ops.launch_counts()["flash_attention"]
+    out = flash_attention(q, k, v, causal, window)
+    o2, lse = flash_attention(q, k, v, causal, window, lse=True)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 2
+    want, lse_r = ref.flash_attention_lse_ref(q, k, v, causal, window)
+    _assert_rel(out, want, SMOKE.K6_FP32_RTOL)
+    assert ((lse - lse_r).abs() / (1 + lse_r.abs())).max() <= SMOKE.K6_LSE_TOL
+    assert torch.equal(out, o2)
+    assert torch.equal(out, flash_attention(q, k, v, causal, window))
+    if window == 1:
+        assert torch.equal(out, v.repeat_interleave(h // kv, dim=1))
+    if shape[:7] in SMOKE.K6_PATHS.values():
+        want64 = ref.flash_attention_ref(q.double(), k.double(), v.double(),
+                                         causal, window)
+        ok, note = SMOKE.f64_witness(("o",), (out,), (want,), (want64,))
+        assert ok, note
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [0x7FFFFFFF, 0xFFFFFFFF])
+@pytest.mark.parametrize("shape", [(1, 4, 2, 300, 64, 300, True, 0),
+                                   (1, 8, 2, 77, 128, 203, False, 0)],
+                         ids=str)
+def test_flash_attention_fp32_3xtf32_keeps_nan_on_card(cuda, shape, bits):
+    """A NaN in q, one in k and one in v reach every entry of fp32 K6's
+    output that depends on them, as in the plain version (3xTF32's split
+    passes NaN)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    b, h, kv, s, d, sk, causal, window = shape
+    gen = torch.Generator(device=cuda).manual_seed(73)
+    args = [torch.randn(b, h, s, d, generator=gen, device=cuda),
+            *(torch.randn(b, kv, sk, d, generator=gen, device=cuda)
+              for _ in range(2))]
+    poison = [(0, (0, 1, s // 2, 3)), (1, (0, 1, sk // 3, 5)),
+              (2, (0, 0, sk // 4, 7))]
+    needed = nan_needed(lambda *a: (ref.flash_attention_ref(*a, causal),),
+                        args, poison)
+    for i, index in poison:
+        nan_at(args[i], index, bits)
+    assert_nan_kept(("o",), (flash_attention(*args, causal),), needed)
+
+
+K7_FP32_CASES = ([(*shape, True) for shape in SMOKE.K7_PATHS.values()]
+                 + [(1, 128, 64, 64, 64, True), (2, 100, 8, 64, 128, True),
+                    (2, 100, 8, 64, 128, False), (3, 128, 4, 64, 96, False),
+                    (2, 77, 6, 32, 128, True), (1, 128, 3, 64, 72, False),
+                    (1, 64, 2, 30, 90, True), (2, 16, 8, 8, 4, False)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", K7_FP32_CASES, ids=str)
+def test_ssd_chunk_fp32_3xtf32_on_card(cuda, shape):
+    """fp32 K7 (BC, Q, H, P, N, stride-0 B/C) against its plain version: y,
+    the state and the decay within K7_FP32_RTOL of their largest, one
+    launch a call; every heads a block the kernel takes (SSD_BWD_HEADS
+    dividing H where B/C are stride-0, else 1) gives the same bits (S is
+    formed once a block from the group's B and C); at the paths' shapes
+    the float64 witness."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd_scan import ssd_chunk
+
+    bc, q, h, p, n, shared = shape
+    rng = np.random.default_rng(75)
+    x, dt_a, b, c = _ssd_inputs_on_card(rng, cuda, bc, q, h, p, n,
+                                        torch.float32, shared)
+    before = ops.launch_counts()["ssd_chunk"]
+    got = ssd_chunk(x, dt_a, b, c)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_chunk"] == before + 1
+    want = ref.ssd_chunk_ref(x, dt_a, b, c)
+    for g_, w in zip(got, want):
+        _assert_rel(g_, w, SMOKE.K7_FP32_RTOL)
+
+    def run(heads):
+        y = torch.empty_like(x)
+        st = torch.empty((bc, h, p, n), device=cuda)
+        dec = torch.empty((bc, q, h), device=cuda)
+        _build.extension().ssd_chunk(x, dt_a, b, c, y, st, dec, heads)
+        return y, st, dec
+
+    for heads in (k_ for k_ in SSD_BWD_HEADS if h % k_ == 0 and
+                  (shared or k_ == 1)):
+        assert all(torch.equal(a, a2) for a, a2 in zip(got, run(heads)))
+    if shape[:5] in SMOKE.K7_PATHS.values():
+        want64 = ref.ssd_chunk_ref(x.double(), dt_a.double(), b.double(),
+                                   c.double())
+        ok, note = SMOKE.f64_witness(("y", "state", "decay"), got, want,
+                                     want64)
+        assert ok, note
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [0x7FFFFFFF, 0xFFFFFFFF])
+@pytest.mark.parametrize("shared", [True, False])
+def test_ssd_chunk_fp32_3xtf32_keeps_nan_on_card(cuda, shared, bits):
+    """A NaN in x, one in B and one in C (in the group's one row where B/C
+    are stride-0) reach every entry of fp32 K7's y and state that depends
+    on them."""
+    from repro_torch.kernels.ssd_scan import ssd_chunk
+
+    bc, q, h, p, n = 2, 128, 8, 64, 64
+    g = 1 if shared else h
+    gen = torch.Generator(device=cuda).manual_seed(77)
+    args = [torch.randn(bc, q, h, p, generator=gen, device=cuda),
+            -torch.randn(bc, q, h, generator=gen, device=cuda).abs() * 0.3,
+            *(torch.randn(bc, q, g, n, generator=gen, device=cuda)
+              for _ in range(2))]
+
+    def heads_of(x, dt_a, b, c):
+        return (x, dt_a, *(t.expand(bc, q, h, n) for t in (b, c)))
+
+    poison = [(0, (0, q // 2, 1, 3)), (2, (1, q // 3, 0, 5)),
+              (3, (1, q // 2, 0, 7))]
+    needed = nan_needed(lambda *a: ref.ssd_chunk_ref(*heads_of(*a)), args,
+                        poison)
+    for i, index in poison:
+        nan_at(args[i], index, bits)
+    assert_nan_kept(("y", "state"), ssd_chunk(*heads_of(*args))[:2],
+                    needed[:2])

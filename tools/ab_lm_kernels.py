@@ -7,10 +7,12 @@ A, B, B, A.  Where a backward's outputs differ (a changed order of
 summation), B's are held at phase 7's bars: K6's to A's
 (chip_smoke.k6_bwd_close with its noise floor), K7's to its plain
 version on the same inputs (chip_smoke.k7_bwd_close with k7_bwd_noise);
-the run fails if one misses.  Beside each fp32 backward's times the
-yardstick the rows are judged by, timed in every run the same way: SDPA's
-backward for K6 (chip_smoke.library_backward_ms), the plain version for
-K7.
+the run fails if one misses.  Where an fp32 forward's outputs differ,
+B's are held to the plain version on the same inputs at phase 7's bars
+(K6_FP32_RTOL, K7_FP32_RTOL); a bf16 row must be bit-identical.  Beside
+each fp32 row's times the yardstick the rows are judged by, timed in
+every run the same way: SDPA's fp32 forward, or its backward
+(chip_smoke.library_backward_ms), for K6, the plain version for K7.
 
   python3 tools/ab_lm_kernels.py --a OLD_CHECKOUT --b NEW_CHECKOUT
 
@@ -33,14 +35,20 @@ import sys
 import tempfile
 
 SHAPES = (
-    # (kernel, dtype, shape, flag): K6 (B, H, S, D) causal or not; K7
-    # (BC, Q, H, P, N) with stride-0 B/C
+    # (kernel, dtype, shape, flag): K6 (B, H, S, D), or (B, H, KV, S, D)
+    # with KV heads, causal or not, "lse" causal with the lse as a train
+    # step runs it; K7 (BC, Q, H, P, N) with stride-0 B/C
     *[("flash_attention", "bfloat16", (1, 32, s, 64), causal)
       for causal in (True, False) for s in (128, 512, 1024, 2048)],
     ("flash_attention", "float32", (1, 32, 2048, 64), True),
+    # qwen2-moe-a2.7b's prefill and granite-3-2b's training attention
+    ("flash_attention", "float32", (1, 16, 2048, 128), True),
+    ("flash_attention", "float32", (1, 32, 8, 2048, 64), "lse"),
     *[("ssd_chunk", "bfloat16", (bc, 128, 64, 64, 64), True)
       for bc in (1, 4, 8, 16)],
     ("ssd_chunk", "float32", (16, 128, 64, 64, 64), True),
+    # mamba2-2.7b's prefill
+    ("ssd_chunk", "float32", (16, 128, 80, 64, 128), True),
     # K6's backward: (B, H, KV, S, D, Sk, causal, window)
     *[("flash_attention_bwd", "bfloat16", shape, name)
       for name, shape in (
@@ -62,7 +70,8 @@ SHAPES = (
 
 def label(kernel: str, dtype: str, shape: tuple, flag) -> str:
     if kernel == "flash_attention":
-        return f"K6 {shape} {dtype} {'causal' if flag else 'full'}"
+        return (f"K6 {shape} {dtype} "
+                f"{'causal, lse' if flag == 'lse' else 'causal' if flag else 'full'}")
     if kernel == "flash_attention_bwd":
         return f"K6 bwd {flag} {dtype}"
     if kernel == "ssd_chunk_bwd":
@@ -110,9 +119,23 @@ def worker(root: str, save: str | None) -> None:
                 yard = device_ms(lambda: ref.ssd_chunk_bwd_ref(
                     x, dt_a, b_, c_, *cots, 1), iters=2, replays=3)
         elif kernel == "flash_attention":
-            b, h, s, d = shape
-            q, k, v = (rand(b, s, h, d).transpose(1, 2) for _ in range(3))
-            fn = lambda q=q, k=k, v=v: (flash_attention(q, k, v, flag),)  # noqa: E731
+            b, h, kv, s, d = shape if len(shape) == 5 else (*shape[:2],
+                                                           *shape[1:])
+            q = rand(b, s, h, d).transpose(1, 2)
+            k, v = (rand(b, s, kv, d).transpose(1, 2) for _ in range(2))
+            if flag == "lse":
+                fn = lambda q=q, k=k, v=v: flash_attention(  # noqa: E731
+                    q, k, v, True, lse=True)
+            else:
+                fn = lambda q=q, k=k, v=v: (flash_attention(  # noqa: E731
+                    q, k, v, flag),)
+            if dt == torch.float32:
+                plain = [t.cpu() for t in ref.flash_attention_lse_ref(
+                    q, k, v, bool(flag))][:len(fn())]
+                yard = device_ms(lambda: torch.nn.functional.
+                                 scaled_dot_product_attention(
+                                     q, k, v, is_causal=bool(flag),
+                                     enable_gqa=kv != h), iters=5)
         elif kernel == "flash_attention_bwd":
             q, k, v, do, o, lse = k6_bwd_inputs(torch, dev, gen, shape, dt)
             causal, window = shape[6], shape[7]
@@ -129,6 +152,10 @@ def worker(root: str, save: str | None) -> None:
             b_ = rand(bc, q, 1, n).expand(bc, q, h, n)
             c_ = rand(bc, q, 1, n).expand(bc, q, h, n)
             fn = lambda x=x, a=dt_a, b=b_, c=c_: ssd_chunk(x, a, b, c)  # noqa: E731
+            if dt == torch.float32:
+                plain = [t.cpu() for t in ref.ssd_chunk_ref(x, dt_a, b_, c_)]
+                yard = device_ms(lambda: ref.ssd_chunk_ref(x, dt_a, b_, c_),
+                                 iters=2, replays=3)
         outs = [t.cpu() for t in fn()]
         results.append((outs, device_ms(fn, iters=5), noise, plain, yard))
     torch.save(results, save)
@@ -164,7 +191,8 @@ def main(argv: list[str] | None = None) -> int:
                             "--save", save], check=True)
             runs[side].append(torch.load(save))
     sys.path.insert(0, os.path.dirname(os.path.dirname(me)))
-    from chip_smoke import k6_bwd_close, k7_bwd_close
+    from chip_smoke import (K6_FP32_RTOL, K6_LSE_TOL, K7_FP32_RTOL, errors,
+                            k6_bwd_close, k7_bwd_close)
 
     failed = False
     for i, spec in enumerate(SHAPES):
@@ -180,9 +208,30 @@ def main(argv: list[str] | None = None) -> int:
                 f"{'bit-identical' if same else f'differ, max abs {diff:.3e}'}")
         if yard is not None:
             yards = [r[i][4] for side in "AB" for r in runs[side]]
-            line += (f" | {'SDPA backward' if spec[0] == 'flash_attention_bwd' else 'plain'}"
-                     f" ms " + " ".join(f"{y:.5f}" for y in yards))
-        if spec[0] == "ssd_chunk_bwd" and not same:
+            what = {"flash_attention": "SDPA forward",
+                    "flash_attention_bwd": "SDPA backward"}.get(spec[0],
+                                                                "plain")
+            line += f" | {what} ms " + " ".join(f"{y:.5f}" for y in yards)
+        if spec[1] == "bfloat16" and not same:
+            line += " (a bf16 row must be bit-identical) FAIL"
+            failed = True
+        elif spec[0] in ("flash_attention", "ssd_chunk") and not same:
+            crits, ok = [], True
+            for j, (b, w) in enumerate(zip(outs_b, plain)):
+                if spec[0] == "flash_attention" and j == 1:   # the lse
+                    err = ((b - w).abs() / (1 + w.abs())).max().item()
+                    good, bar = err <= K6_LSE_TOL, K6_LSE_TOL
+                else:
+                    err = errors(b, w)[1]
+                    bar = (K6_FP32_RTOL if spec[0] == "flash_attention"
+                           else K7_FP32_RTOL)
+                    good = err <= bar
+                ok = ok and good
+                crits.append(f"{err:.2e} (<= {bar:g})")
+            line += (f" (B against the plain version: {', '.join(crits)}) "
+                     f"{'ok' if ok else 'FAIL'}")
+            failed = failed or not ok
+        elif spec[0] == "ssd_chunk_bwd" and not same:
             share = max((a != b).double().mean().item()
                         for a, b in zip(outs_a, outs_b))
             ok, _, crit = k7_bwd_close(torch, outs_b, plain, noise)

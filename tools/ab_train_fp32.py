@@ -30,12 +30,10 @@ def worker(root: str, build_only: bool) -> int:
     sys.path.insert(0, REPO)
     import chip_smoke as cs
 
-    # the fp32 backwards' kernels of a checkout from before their 3xTF32
-    # redesign (the CUDA cores), so that its step's shares count them too
-    cs.K6_ROWS += (("K6 bwd fp32 CUDA-core delta", "flash_bwd_delta"),
-                   ("K6 bwd fp32 CUDA-core dK/dV", "flash_bwd_dkdv"),
-                   ("K6 bwd fp32 CUDA-core dQ", "flash_bwd_dq_kernel"))
-    cs.K7_ROWS += (("K7 bwd fp32 CUDA-core", "ssd_bwd_f32_kernel"),)
+    # K7's fp32 forward of a checkout from before its 3xTF32 redesign (the
+    # CUDA cores), so that its step's shares count it too (K6's old fp32
+    # forward, flash_fwd_kernel, is a "flash_fwd" row already)
+    cs.K7_ROWS += (("K7 fp32 CUDA-core", "ssd_chunk_kernel"),)
 
     sys.path.insert(0, os.path.join(root, "src"))   # ahead of this repo's
     import torch
